@@ -1,0 +1,102 @@
+"""Operator base class and registry.
+
+PyTorch counterpart of ``flexflow_tpu/core/op.py``. An Op is a function
+over torch tensors plus metadata: a shape rule, declared weights and a
+forward. There is no mesh yet, so ``propagate`` only turns the shape rule
+into unpartitioned shapes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Type
+
+import torch
+
+from ..ffconst import DataType, OpType
+from .layer import Layer
+from .parallel_tensor import ParallelTensorShape
+
+
+@dataclasses.dataclass
+class WeightSpec:
+    """A trainable weight declared by an op."""
+
+    name: str
+    shape: Tuple[int, ...]
+    dtype: DataType = DataType.FLOAT
+    initializer: Optional[Any] = None  # Initializer instance or None => op default
+    weight_decay: bool = True          # dense kernels yes, biases/norm scales no
+
+
+@dataclasses.dataclass
+class LowerCtx:
+    """Context threaded through each op's forward (inference only so far,
+    so there is no training flag, rng or mesh yet)."""
+
+    # run every kernel's plain PyTorch version, on any device: the
+    # reference the card's kernels are held against
+    plain_kernels: bool = False
+
+
+class Op:
+    """Base operator. Subclasses set ``op_type`` and implement the hooks."""
+
+    op_type: OpType = OpType.NOOP
+
+    def __init__(self, layer: Layer, input_shapes: List[ParallelTensorShape]):
+        self.layer = layer
+        self.name = layer.name
+        self.attrs = layer.attrs
+        self.input_shapes = input_shapes
+        # filled by the compiler:
+        self.output_shapes: List[ParallelTensorShape] = []
+        self.weight_shapes: Dict[str, ParallelTensorShape] = {}
+
+    def infer_output_shapes(self) -> List[Tuple[Tuple[int, ...], DataType]]:
+        raise NotImplementedError
+
+    def weight_specs(self) -> List[WeightSpec]:
+        return []
+
+    def forward(
+        self,
+        ctx: LowerCtx,
+        inputs: Sequence[torch.Tensor],
+        weights: Dict[str, torch.Tensor],
+    ) -> List[torch.Tensor]:
+        raise NotImplementedError
+
+    def propagate(
+        self, input_shapes: List[ParallelTensorShape]
+    ) -> Tuple[List[ParallelTensorShape], Dict[str, ParallelTensorShape]]:
+        """Output and weight shapes on one device."""
+        out_shapes = [ParallelTensorShape.unpartitioned(sizes, dtype)
+                      for sizes, dtype in self.infer_output_shapes()]
+        weight_shapes = {
+            ws.name: ParallelTensorShape.unpartitioned(ws.shape, ws.dtype)
+            for ws in self.weight_specs()
+        }
+        return out_shapes, weight_shapes
+
+    def __repr__(self) -> str:
+        return f"{type(self).__name__}({self.name})"
+
+
+# registry: OpType -> Op subclass
+_OP_REGISTRY: Dict[OpType, Type[Op]] = {}
+
+
+def register_op(cls: Type[Op]) -> Type[Op]:
+    _OP_REGISTRY[cls.op_type] = cls
+    return cls
+
+
+def create_op(layer: Layer, input_shapes: List[ParallelTensorShape]) -> Op:
+    try:
+        cls = _OP_REGISTRY[layer.op_type]
+    except KeyError:
+        raise NotImplementedError(
+            f"no op registered for {layer.op_type} in the port") from None
+    return cls(layer, input_shapes)
+

@@ -1,0 +1,40 @@
+"""Hand-written Hopper kernels for the port.
+
+PyTorch counterpart of ``flexflow_tpu/kernels``: each Pallas TPU kernel
+becomes a CUDA C++ kernel for ``sm_90a`` under ``csrc/``, built at first
+use by :mod:`._build`. Dispatch goes by the tensor's device alone: a CUDA
+tensor launches the kernel (or raises), a CPU tensor runs the kernel's
+plain PyTorch version, which lives beside the wrapper.
+
+* :mod:`.flash_attention` — the flash-attention forward (``_fwd_kernel``).
+
+Each wrapper adds one to its launch count where it launches its kernel,
+and nowhere else, so a run can show that its main path went through the
+kernels.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Dict
+
+KERNELS = ("flash_attention_fwd",)
+
+_counts_lock = threading.Lock()
+_counts: Dict[str, int] = {name: 0 for name in KERNELS}
+
+
+def count_launch(name: str) -> None:
+    with _counts_lock:
+        _counts[name] += 1
+
+
+def launch_counts() -> Dict[str, int]:
+    with _counts_lock:
+        return dict(_counts)
+
+
+def reset_launch_counts() -> None:
+    with _counts_lock:
+        for name in _counts:
+            _counts[name] = 0

@@ -1,0 +1,109 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
+shared library with a plain C interface, loaded with ``ctypes``. The build
+runs at first use, on the machine with the card, into ``_build/`` beside
+this file (listed in ``.gitignore``); the library's name carries a hash of
+the sources and flags, so an unchanged tree loads the library it built
+before. There is no fallback: without ``nvcc`` the build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Optional, Tuple
+
+CSRC_DIR = Path(__file__).with_name("csrc")
+BUILD_DIR = Path(__file__).with_name("_build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# argtypes/restype of every exported C function: each pointer and the
+# stream is a c_void_p, or ctypes would pass it as a 32-bit int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    # q, k, v, o, lse, bh, sq, skv, d, scale, causal, dtype, stream
+    "ff_flash_attention_fwd": ([_P] * 5 + [_I] * 4 + [_F, _I, _I, _P], _I),
+    "ff_cuda_error_string": ([_I], ctypes.c_char_p),
+}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+def find_nvcc() -> str:
+    """``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on ``PATH``, else the CUDA
+    toolkit's standard prefix; raises when none exists."""
+    home = os.environ.get("CUDA_HOME")
+    candidates = [Path(home) / "bin" / "nvcc"] if home else []
+    on_path = shutil.which("nvcc")
+    if on_path:
+        candidates.append(Path(on_path))
+    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in candidates:
+        if c.is_file():
+            return str(c)
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME or put nvcc on PATH): the port's "
+        "CUDA kernels are built from flexflow_tpu_torch/kernels/csrc")
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC_DIR.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"libflexflow_tpu_torch_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Tuple[Path, float, str]:
+    """Compile the kernels unless this tree's library exists already.
+    Returns (library path, build seconds, compiler output); seconds is 0
+    and the output empty when nothing was built."""
+    out = library_path()
+    if out.exists():
+        return out, 0.0, ""
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC_DIR.glob("*.cu")))]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed with code {proc.returncode}:\n{' '.join(cmd)}\n"
+            f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)  # atomic: a concurrent build loads one or the other
+    return out, seconds, proc.stdout + proc.stderr
+
+
+def load_library() -> ctypes.CDLL:
+    """The kernels' library, built at first use and loaded once per
+    process."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            path, _, _ = build()
+            lib = ctypes.CDLL(str(path))
+            for name, (argtypes, restype) in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = restype
+            _lib = lib
+        return _lib
+
+
+def check_launch(err: int, kernel: str) -> None:
+    """Raise when a kernel's C entry returned a CUDA error."""
+    if err:
+        msg = load_library().ff_cuda_error_string(err).decode()
+        raise RuntimeError(f"{kernel}: CUDA error {err} ({msg})")

@@ -1,0 +1,92 @@
+"""MultiHeadAttention operator.
+
+PyTorch counterpart of ``MultiHeadAttention`` in
+``flexflow_tpu/ops/attention.py``: the same weights in the same layouts
+(``wq/wk/wv`` (E, H, D), ``wo`` (H, D, E), biases ``bq/bk/bv`` (H, D) and
+``bo`` (E,)) and the same math. The attention itself goes through
+:func:`~flexflow_tpu_torch.kernels.flash_attention.flash_attention`, which
+launches the Hopper kernel on CUDA tensors and runs its plain version on
+CPU tensors. Sequence-parallel attention and the sharded kernel wait for
+the parallelism slice.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List
+
+import torch
+
+from ..ffconst import OpType
+from ..core.op import Op, WeightSpec, register_op
+from ..kernels import flash_attention as fa
+from ..runtime.initializer import DefaultWeightInitializer, ZeroInitializer
+
+
+@register_op
+class MultiHeadAttention(Op):
+    op_type = OpType.MULTIHEAD_ATTENTION
+
+    def __init__(self, layer, input_shapes):
+        super().__init__(layer, input_shapes)
+        a = self.attrs
+        self.embed_dim = a["embed_dim"]
+        self.num_heads = a["num_heads"]
+        self.use_bias = bool(a.get("bias", True))
+        if self.embed_dim % self.num_heads:
+            raise ValueError(
+                f"embed_dim {self.embed_dim} not divisible by num_heads "
+                f"{self.num_heads}")
+        self.head_dim = self.embed_dim // self.num_heads
+        self.q_in = input_shapes[0].sizes[-1]
+        self.k_in = input_shapes[1].sizes[-1]
+        self.v_in = input_shapes[2].sizes[-1]
+        self.causal = bool(a.get("causal", False))
+
+    def infer_output_shapes(self):
+        q = self.input_shapes[0].sizes
+        return [(q[:-1] + (self.embed_dim,), self.input_shapes[0].dtype)]
+
+    def weight_specs(self) -> List[WeightSpec]:
+        dt = self.input_shapes[0].dtype
+        init = self.attrs.get("kernel_initializer") or DefaultWeightInitializer()
+        h, d = self.num_heads, self.head_dim
+        specs = [
+            WeightSpec("wq", (self.q_in, h, d), dt, init),
+            WeightSpec("wk", (self.k_in, h, d), dt, init),
+            WeightSpec("wv", (self.v_in, h, d), dt, init),
+            WeightSpec("wo", (h, d, self.embed_dim), dt, init),
+        ]
+        if self.use_bias:
+            specs += [
+                WeightSpec("bq", (h, d), dt, ZeroInitializer(), weight_decay=False),
+                WeightSpec("bk", (h, d), dt, ZeroInitializer(), weight_decay=False),
+                WeightSpec("bv", (h, d), dt, ZeroInitializer(), weight_decay=False),
+                WeightSpec("bo", (self.embed_dim,), dt, ZeroInitializer(),
+                           weight_decay=False),
+            ]
+        return specs
+
+    def _project(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        # (B, S, E) x (E, H, D) -> (B, S, H, D)
+        return torch.matmul(x, w.reshape(w.shape[0], -1)).unflatten(
+            -1, (self.num_heads, self.head_dim))
+
+    def forward(self, ctx, inputs, weights):
+        # inference only so far: attention dropout (training) is not applied
+        q, k, v = inputs
+        qh = self._project(q, weights["wq"])
+        kh = self._project(k, weights["wk"])
+        vh = self._project(v, weights["wv"])
+        if self.use_bias:
+            qh = qh + weights["bq"]
+            kh = kh + weights["bk"]
+            vh = vh + weights["bv"]
+        scale = 1.0 / math.sqrt(self.head_dim)
+        attend = fa.flash_attention_reference if ctx.plain_kernels else fa.flash_attention
+        ctxv = attend(qh, kh, vh, causal=self.causal, scale=scale)
+        # (B, S, H, D) x (H, D, E) -> (B, S, E)
+        out = torch.matmul(ctxv.flatten(-2), weights["wo"].flatten(0, 1))
+        if self.use_bias:
+            out = out + weights["bo"]
+        return [out]

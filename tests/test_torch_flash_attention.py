@@ -1,0 +1,125 @@
+"""The port's flash-attention forward against the JAX package's.
+
+The same inputs, made with numpy from a seed, go through the JAX
+``flash_attention`` in the Pallas interpreter (as tests/test_kernels.py
+runs it on the CPU) and through the port's ``flash_attention`` on CPU
+tensors, which is the kernel's plain version. The kernel itself is held
+against the plain version on the card by tests/test_torch_kernels_cuda.py.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from flexflow_tpu.kernels import flash_attention as jfa
+from flexflow_tpu.parallel.ring_attention import single_device_attention
+from flexflow_tpu_torch import kernels as tkernels
+from flexflow_tpu_torch.kernels import flash_attention as tfa
+
+# f32 on both sides, same algorithm, different summation order: a few
+# f32 ulps on outputs of magnitude ~1
+F32_TOL = dict(rtol=2e-5, atol=2e-5)
+# bf16 outputs: both sides round the same f32 result to bf16, so they may
+# differ by one bf16 ulp (2^-8 relative) where the f32 values straddle a
+# rounding boundary
+BF16_TOL = dict(rtol=2 ** -7, atol=2 ** -7)
+
+
+@pytest.fixture(autouse=True)
+def _interpret(monkeypatch):
+    monkeypatch.setenv("FLEXFLOW_TPU_PALLAS", "interpret")
+
+
+def _qkv(b=2, sq=64, skv=64, h=2, d=32, seed=0):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, sq, h, d)).astype(np.float32)
+    k = rng.normal(size=(b, skv, h, d)).astype(np.float32)
+    v = rng.normal(size=(b, skv, h, d)).astype(np.float32)
+    return q, k, v
+
+
+def _port(q, k, v, causal, dtype=torch.float32):
+    t = [torch.from_numpy(a).to(dtype) for a in (q, k, v)]
+    out = tfa.flash_attention(*t, causal=causal, scale=q.shape[-1] ** -0.5)
+    return out.float().numpy()
+
+
+@pytest.mark.parametrize("sq,skv,causal", [
+    (64, 64, False), (64, 64, True), (32, 64, True), (64, 32, True),
+    (32, 64, False)])
+def test_flash_attention_matches_jax_kernel(sq, skv, causal):
+    q, k, v = _qkv(sq=sq, skv=skv)
+    scale = q.shape[-1] ** -0.5
+    want = jfa.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                               causal=causal, scale=scale)
+    np.testing.assert_allclose(_port(q, k, v, causal), np.asarray(want),
+                               **F32_TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_matches_single_device_attention(causal):
+    q, k, v = _qkv(seed=1)
+    want = single_device_attention(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), causal, q.shape[-1] ** -0.5)
+    np.testing.assert_allclose(_port(q, k, v, causal), np.asarray(want),
+                               **F32_TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_fwd_out_and_lse_match_jax_flash_fwd(causal):
+    rng = np.random.default_rng(2)
+    bh, sq, skv, d = 4, 64, 48, 64
+    q = rng.normal(size=(bh, sq, d)).astype(np.float32)
+    k = rng.normal(size=(bh, skv, d)).astype(np.float32)
+    v = rng.normal(size=(bh, skv, d)).astype(np.float32)
+    scale = d ** -0.5
+    want_out, res = jfa._flash_fwd(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), causal, scale, 32, True)
+    want_lse = res[4]
+    out, lse = tkernels.flash_attention.flash_attention_fwd(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        causal, scale)
+    assert lse.shape == (bh, 1, sq) and lse.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), np.asarray(want_out), **F32_TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), **F32_TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_bf16_matches_jax_kernel(causal):
+    q, k, v = _qkv(seed=3)
+    # round the inputs to bf16 once, so both sides see the same values
+    q, k, v = (np.array(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
+               for a in (q, k, v))
+    want = jfa.flash_attention(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)),
+                               causal=causal, scale=q.shape[-1] ** -0.5)
+    got = _port(q, k, v, causal, dtype=torch.bfloat16)
+    np.testing.assert_allclose(got, np.asarray(want.astype(jnp.float32)),
+                               **BF16_TOL)
+
+
+@pytest.mark.parametrize("sq,skv", [(36, 64), (64, 20), (4, 4)])
+def test_lengths_jax_rejects_are_rejected(sq, skv):
+    q, k, v = _qkv(sq=sq, skv=skv)
+    with pytest.raises(ValueError):
+        jfa.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    with pytest.raises(ValueError):
+        _port(q, k, v, False)
+
+
+def test_unsupported_head_dim_is_rejected():
+    q, k, v = _qkv(d=16)
+    with pytest.raises(ValueError, match="head dim"):
+        _port(q, k, v, False)
+
+
+def test_cpu_tensors_run_the_plain_version_uncounted():
+    tkernels.reset_launch_counts()
+    q, k, v = _qkv()
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    got = tfa.flash_attention(*t)
+    want = tfa.flash_attention_reference(*t)
+    assert torch.equal(got, want)
+    assert tkernels.launch_counts()["flash_attention_fwd"] == 0
+
