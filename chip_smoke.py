@@ -11,15 +11,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
    for sm_90a, with the compiler's register/spill report;
 3. kernels: each kernel at the shapes the main path gives it, held against
    its plain PyTorch version, timed beside the plain version, the one
-   PyTorch call that computes the same function, and its bound;
+   PyTorch call that computes the same function, and its bound: the
+   flash-attention forward, then its two backward kernels (dq, dkv); then
+   the ragged and repaired cases (S = 200, D = 96, D = 256, B*H > 65535);
 4. serving: the reference Transformer (build_transformer at the
    TransformerConfig defaults: seq 512, hidden 1024, 16 heads, 12 layers)
    at batch 8, served through InferenceEngine.infer_async, in float32 and
    in bfloat16; every answer is held against the same rows run through the
    plain attention path on the card, and the kernel's launch count must be
    12 per forward dispatch;
-5. the kernels line, one JSON object;
-6. the last line: {"ok": true, "device": {...}}.
+5. training: the same model at the same width and batch, compiled with
+   SGDOptimizer(lr=0.01) and the MSE-avg loss, in float32 and in bfloat16:
+   one grad_step's gradients at the serving phase's random params, and
+   five train_steps' losses and params from the model's own init (as
+   bench.py trains it), held against the plain kernels' path;
+   FFModel.fit over 64 samples with exactly 12 launches of each flash
+   kernel per step; then the step time (median of 20), a profiled step's
+   breakdown and the peak memory;
+6. the kernels line, one JSON object;
+7. the last line: {"ok": true, "device": {...}}.
 
 Imports torch, numpy and flexflow_tpu_torch only.
 """
@@ -46,10 +56,33 @@ PEAK_BYTES = 3.35e12
 # bf16 ulp apart (2^-7 at magnitudes in [1, 2)); lse is f32 in both
 KERNEL_TOL = {torch.float32: {"out": 1e-4, "lse": 1e-4},
               torch.bfloat16: {"out": 1e-2, "lse": 1e-4}}
+# backward kernels vs plain, as a fraction of each gradient's largest
+# element: f32 sums of up to 512 products in another order; bf16 gradients
+# one bf16 ulp apart where both round nearly equal f32 results (2^-7 of
+# values in [1, 2))
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2 ** -7}
 # serving vs the plain attention path, as a fraction of the largest answer:
 # everything but attention runs the same code; the kernel's f32 rounding
 # differences (or its bf16 ulp flips) pass through 12 layers
 SERVE_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+TRAIN_SAMPLES = 64  # fit's epoch: 8 steps of batch 8
+TIMED_STEPS = 20
+# training vs the plain kernels' path. Gradients (and the params after
+# five steps): per weight, the max error as a fraction of the largest
+# gradient (update) of the weight's layer. f32: the kernels' f32 rounding
+# passes back through 12 layers, and a ReLU input that rounds to the other
+# side of 0 moves its unit's gradient by one row's share (1/4096 of a
+# batch). bf16: each bf16 path lands far from the f32 one (bf16 ulp flips
+# compound through 12 layers forward and back; the run prints how far);
+# two bf16 paths that round at different places may each be that far from
+# f32 in opposite directions, so the tolerance is twice the plain bf16
+# path's distance from the plain f32 path, measured in the same run.
+GRAD_TOL = 1e-3
+BF16_FLOOR_FACTOR = 2.0
+# losses of five SGD steps, relative: the forward's rounding differences
+# (the serving phase's answers show their size), averaged over 4096
+# squared errors, plus the small param drift the gradients above make
+LOSS_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
 
 class SmokeFailure(RuntimeError):
@@ -103,65 +136,193 @@ def phase_build() -> None:
     sys.stdout.flush()
 
 
-def flash_bound(dtype: torch.dtype, causal: bool) -> tuple:
-    """(bound_ms, bound_by) of one forward at the slice shape: the larger of
-    the bytes it must move (q, k, v read once, out and lse written once)
-    over HBM bandwidth and the matmul FLOPs these inputs need (causal:
-    only the q >= k pairs) over the peak for their type."""
-    bh = BATCH * HEADS
-    pairs = SEQ * (SEQ + 1) // 2 if causal else SEQ * SEQ
-    flops = 4.0 * bh * pairs * HEAD_DIM
+def attention_bound(dtype: torch.dtype, causal: bool, products: int, tensors: int,
+                    bh: int = BATCH * HEADS, s: int = SEQ, d: int = HEAD_DIM) -> tuple:
+    """(bound_ms, bound_by) of attention work at one shape: the larger of
+    the bytes it must move (``tensors`` (bh, s, d) tensors of the type, each
+    read or written once, plus the f32 lse) over HBM bandwidth and the
+    operations of ``products`` (s x d) by (d x s) matrix products over the
+    peak for the type (causal: only the q >= k pairs)."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    flops = 2.0 * products * bh * pairs * d
     elem = torch.tensor([], dtype=dtype).element_size()
-    nbytes = 4 * bh * SEQ * HEAD_DIM * elem + bh * SEQ * 4
+    nbytes = tensors * bh * s * d * elem + bh * s * 4
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def phase_kernels() -> list:
+# (products, tensors) of each function: the forward does S = QK^T and PV
+# over q, k, v, o; the gradient needs S, dP, dQ, dK, dV over q, k, v, o, g
+# read and dq, dk, dv written; as designed the dq kernel recomputes S and
+# dP (3 products; 5 tensors read, 1 written) and the dkv kernel too (4
+# products; 5 read, 2 written)
+WORK = {"fwd": (2, 4), "bwd": (5, 8), "dq": (3, 6), "dkv": (4, 7)}
+
+
+def _name(dtype: torch.dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def check_fwd(fa, q, k, v, causal: bool, scale: float, what: str) -> tuple:
+    """The forward kernel against its plain version: (out, lse, errors)."""
+    out, lse = fa.flash_attention_fwd(q, k, v, causal, scale)
+    ref_out, ref_lse = fa.flash_attention_fwd_reference(q, k, v, causal, scale)
+    torch.cuda.synchronize()
+    err_out = (out.float() - ref_out.float()).abs().max().item()
+    err_lse = (lse - ref_lse).abs().max().item()
+    tol = KERNEL_TOL[q.dtype]
+    check(torch.isfinite(out.float()).all().item() and torch.isfinite(lse).all().item(),
+          f"{what}: non-finite forward output")
+    check(err_out <= tol["out"] and err_lse <= tol["lse"],
+          f"{what}: forward vs plain out err {err_out} lse err {err_lse} over {tol}")
+    return out, lse, {"out": err_out, "lse": err_lse}
+
+
+def check_bwd(fa, q, k, v, o, g, lse, causal: bool, scale: float, what: str) -> dict:
+    """The backward kernels against their plain version: the max abs error
+    of dq, dk and dv, each within BWD_TOL of its largest element."""
+    got = fa.flash_attention_bwd(q, k, v, o, g, lse, causal, scale)
+    want = fa.flash_attention_bwd_reference(q, k, v, o, g, lse, causal, scale)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        a, b = a.float(), b.float()
+        err, big = (a - b).abs().max().item(), b.abs().max().item()
+        check(torch.isfinite(a).all().item(), f"{what}: non-finite {name}")
+        check(err <= BWD_TOL[q.dtype] * big,
+              f"{what}: {name} vs plain err {err:.3g} > {BWD_TOL[q.dtype]} of {big:.3g}")
+        errs[name] = err
+        errs[f"{name}_largest"] = big
+    return errs
+
+
+def as_bhsd(t: torch.Tensor, heads: int) -> torch.Tensor:
+    """A (B, H, S, D) view of a (B*H, S, D) tensor for
+    scaled_dot_product_attention."""
+    return t.view(t.shape[0] // heads, heads, *t.shape[1:])
+
+
+def sdpa_bwd_ms(F, q, k, v, g, causal: bool, scale: float, heads: int = HEADS) -> float:
+    """scaled_dot_product_attention's backward: the device time of its
+    forward+backward less that of its forward, on (B, H, S, D) views of the
+    same tensors (a loop of autograd calls is bound by the host, so CUDA
+    events around it would time the host)."""
+    leaves = [as_bhsd(t, heads).detach().requires_grad_(True) for t in (q, k, v)]
+    g4 = as_bhsd(g, heads)
+
+    def fwd():
+        return F.scaled_dot_product_attention(*leaves, is_causal=causal, scale=scale)
+
+    return (device_ms(lambda: torch.autograd.grad(fwd(), leaves, g4))
+            - device_ms(fwd))
+
+
+def phase_kernels() -> dict:
+    """Every kernel at the slice shape (B*H = 128, S = 512, D = 64), both
+    dtypes, causal and not; then the ragged and repaired cases. Returns
+    {"fwd": rows, "dq": rows, "dkv": rows, "cases": rows}."""
     import torch.nn.functional as F
 
     from flexflow_tpu_torch.kernels import flash_attention as fa
 
-    variants = []
+    rows = {"fwd": [], "dq": [], "dkv": [], "cases": []}
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     scale = HEAD_DIM ** -0.5
     shape = (BATCH * HEADS, SEQ, HEAD_DIM)
     for dtype in (torch.float32, torch.bfloat16):
-        q, k, v = (torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
-                   for _ in range(3))
-        q4, k4, v4 = (t.view(BATCH, HEADS, SEQ, HEAD_DIM) for t in (q, k, v))
+        q, k, v, g = (torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+                      for _ in range(4))
+        q4, k4, v4 = (as_bhsd(t, HEADS) for t in (q, k, v))
         for causal in (False, True):
-            out, lse = fa.flash_attention_fwd(q, k, v, causal, scale)
-            ref_out, ref_lse = fa.flash_attention_fwd_reference(q, k, v, causal, scale)
-            torch.cuda.synchronize()
-            err_out = (out.float() - ref_out.float()).abs().max().item()
-            err_lse = (lse - ref_lse).abs().max().item()
-            tol = KERNEL_TOL[dtype]
-            name = f"{str(dtype).removeprefix('torch.')} causal={causal}"
-            check(torch.isfinite(out.float()).all().item()
-                  and torch.isfinite(lse).all().item(), f"{name}: non-finite output")
-            check(err_out <= tol["out"] and err_lse <= tol["lse"],
-                  f"{name}: kernel vs plain out err {err_out} lse err {err_lse} "
-                  f"over tolerance {tol}")
+            name = f"{_name(dtype)} causal={causal}"
+            out, lse, ferr = check_fwd(fa, q, k, v, causal, scale, name)
             ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, causal, scale), 20)
             plain_ms = time_ms(
                 lambda: fa.flash_attention_fwd_reference(q, k, v, causal, scale), 10)
             library_ms = time_ms(lambda: F.scaled_dot_product_attention(
                 q4, k4, v4, is_causal=causal, scale=scale), 20)
-            bound_ms, bound_by = flash_bound(dtype, causal)
-            row = dict(dtype=str(dtype).removeprefix("torch."), causal=causal,
-                       max_abs_err=err_out, lse_max_abs_err=err_lse,
-                       tolerance=tol["out"], ms=ms, plain_ms=plain_ms,
-                       library_ms=library_ms, bound_ms=bound_ms,
-                       bound_by=bound_by)
+            bound_ms, bound_by = attention_bound(dtype, causal, *WORK["fwd"])
+            tol = KERNEL_TOL[dtype]
+            rows["fwd"].append(dict(
+                dtype=_name(dtype), causal=causal, max_abs_err=ferr["out"],
+                lse_max_abs_err=ferr["lse"], tolerance=tol["out"], ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                bound_by=bound_by))
             print(f"kernel flash_attention_fwd {name} shape {shape}: out err "
-                  f"{err_out:.3g} lse err {err_lse:.3g} (tol {tol}); kernel "
+                  f"{ferr['out']:.3g} lse err {ferr['lse']:.3g} (tol {tol}); kernel "
                   f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} "
                   f"ms, bound {bound_ms:.4f} ms ({bound_by}), "
                   f"{bound_ms / ms:.1%} of bound", flush=True)
-            variants.append(row)
-    return variants
+
+            berr = check_bwd(fa, q, k, v, out, g, lse, causal, scale, name)
+            bwd = lambda: fa.flash_attention_bwd(q, k, v, out, g, lse, causal, scale)  # noqa: E731
+            pair_ms = time_ms(bwd, 20)
+            split = kernel_ms_by_name(bwd, ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"))
+            pair_plain_ms = time_ms(lambda: fa.flash_attention_bwd_reference(
+                q, k, v, out, g, lse, causal, scale), 5)
+            pair_library_ms = sdpa_bwd_ms(F, q, k, v, g, causal, scale)
+            pair_bound_ms, pair_bound_by = attention_bound(dtype, causal, *WORK["bwd"])
+            for kern, cname, errs in (("dq", "flash_bwd_dq_kernel", ("dq",)),
+                                      ("dkv", "flash_bwd_dkv_kernel", ("dk", "dv"))):
+                kbound, kby = attention_bound(dtype, causal, *WORK[kern])
+                kms = split[cname]
+                rows[kern].append(dict(
+                    dtype=_name(dtype), causal=causal,
+                    max_abs_err=max(berr[e] for e in errs),
+                    largest_grad=max(berr[f"{e}_largest"] for e in errs),
+                    tolerance=BWD_TOL[dtype], ms=kms, bound_ms=kbound, bound_by=kby,
+                    pair_ms=pair_ms, plain_ms=pair_plain_ms, library_ms=pair_library_ms,
+                    pair_bound_ms=pair_bound_ms, pair_bound_by=pair_bound_by))
+                err_text = ", ".join(
+                    f"{e} {berr[e]:.3g} of {berr[e + '_largest']:.3g}" for e in errs)
+                print(f"kernel flash_attention_bwd_{kern} {name} shape {shape}: "
+                      f"err {err_text} (tol {BWD_TOL[dtype]:.3g} of the largest); "
+                      f"kernel {kms:.4f} ms, "
+                      f"bound {kbound:.4f} ms ({kby}), {kbound / kms:.1%} of bound",
+                      flush=True)
+            print(f"kernel flash_attention_bwd pair {name} shape {shape}: dq+dkv "
+                  f"{pair_ms:.4f} ms, plain {pair_plain_ms:.4f} ms, sdpa backward "
+                  f"{pair_library_ms:.4f} ms, bound {pair_bound_ms:.4f} ms "
+                  f"({pair_bound_by}), {pair_bound_ms / pair_ms:.1%} of bound",
+                  flush=True)
+
+    # ragged lengths and the repaired limits (any D <= 256, any B*H). SDPA
+    # gets (B*H / 8, 8, S, D) views: its kernels put B and H on grid
+    # dimensions that stop at 65535
+    for dtype in (torch.float32, torch.bfloat16):
+        for bh, s, d in ((BATCH * HEADS, 200, HEAD_DIM), (BATCH * HEADS, SEQ, 96),
+                         (BATCH * HEADS, SEQ, 256), (65536 + 8, 16, 32)):
+            q, k, v, g = (torch.randn((bh, s, d), generator=gen, device=DEVICE).to(dtype)
+                          for _ in range(4))
+            sc = d ** -0.5
+            name = f"{_name(dtype)} causal=True B*H={bh} S={s} D={d}"
+            out, lse, ferr = check_fwd(fa, q, k, v, True, sc, name)
+            berr = check_bwd(fa, q, k, v, out, g, lse, True, sc, name)
+            q4, k4, v4 = (as_bhsd(t, 8) for t in (q, k, v))
+            case = dict(
+                fwd_ms=time_ms(lambda: fa.flash_attention_fwd(q, k, v, True, sc), 10),
+                fwd_plain_ms=time_ms(
+                    lambda: fa.flash_attention_fwd_reference(q, k, v, True, sc), 3),
+                fwd_library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                    q4, k4, v4, is_causal=True, scale=sc), 10),
+                fwd_bound_ms=attention_bound(dtype, True, *WORK["fwd"], bh=bh, s=s, d=d)[0],
+                bwd_ms=time_ms(
+                    lambda: fa.flash_attention_bwd(q, k, v, out, g, lse, True, sc), 10),
+                bwd_plain_ms=time_ms(lambda: fa.flash_attention_bwd_reference(
+                    q, k, v, out, g, lse, True, sc), 3),
+                bwd_library_ms=sdpa_bwd_ms(F, q, k, v, g, True, sc, heads=8),
+                bwd_bound_ms=attention_bound(dtype, True, *WORK["bwd"], bh=bh, s=s, d=d)[0])
+            rows["cases"].append(dict(dtype=_name(dtype), bh=bh, s=s, d=d, causal=True,
+                                      fwd_err=ferr, bwd_err=berr, **case))
+            print(f"kernel case {name}: out err {ferr['out']:.3g}, dq/dk/dv err "
+                  f"{berr['dq']:.3g}/{berr['dk']:.3g}/{berr['dv']:.3g}; " + "; ".join(
+                      f"{p} {case[p + '_ms']:.4f} ms, plain {case[p + '_plain_ms']:.4f}, "
+                      f"sdpa {case[p + '_library_ms']:.4f}, bound "
+                      f"{case[p + '_bound_ms']:.4f} "
+                      f"({case[p + '_bound_ms'] / case[p + '_ms']:.1%} of bound)"
+                      for p in ("fwd", "bwd")), flush=True)
+    return rows
 
 
 def random_params(ff, seed: int) -> dict:
@@ -187,29 +348,43 @@ def random_params(ff, seed: int) -> dict:
     return tree
 
 
-def dispatch_breakdown(inst, x: np.ndarray) -> dict:
-    """Where one served dispatch's time goes: the host's wall time of
-    ModelInstance.infer on a full batch, the device's busy time in it by
-    kernel class (torch.profiler), and the device's idle share."""
+# kernel classes of a profiled window: (class, test on the kernel's name)
+SERVE_CLASSES = (
+    ("flash_attention_fwd", lambda n: "flash_fwd_kernel" in n),
+    ("gemm", lambda n: any(w in n.lower() for w in ("gemm", "xmma", "cutlass", "nvjet"))),
+    ("memcpy", lambda n: "memcpy" in n.lower()),
+)
+TRAIN_CLASSES = (
+    ("flash_attention_fwd", lambda n: "flash_fwd_kernel" in n),
+    ("flash_attention_bwd_dq", lambda n: "flash_bwd_dq_kernel" in n),
+    ("flash_attention_bwd_dkv", lambda n: "flash_bwd_dkv_kernel" in n),
+    ("gemm", lambda n: any(w in n.lower() for w in ("gemm", "xmma", "cutlass", "nvjet"))),
+    ("memcpy", lambda n: "memcpy" in n.lower()),
+)
+
+
+def profile_breakdown(fn, classes, other: str = "other") -> dict:
+    """Where the time of one call of ``fn`` goes: the host's wall time, the
+    device's busy time by kernel class (torch.profiler; a kernel no class
+    claims counts as ``other``) and the device's idle share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        inst.infer([x])
+        fn()
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     spans = [(e.name, e.time_range.start, e.time_range.end)
              for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not spans:
         return {"wall_ms": wall_ms, "device": "not measured"}
-    by_class = {"flash_attention_fwd": 0.0, "gemm": 0.0, "memcpy": 0.0, "other": 0.0}
+    by_class = {name: 0.0 for name, _ in classes}
+    by_class[other] = 0.0
     by_name: dict = {}
     for name, start, end in spans:
-        low = name.lower()
-        cls = ("flash_attention_fwd" if "flash_fwd_kernel" in name else
-               "gemm" if any(w in low for w in ("gemm", "xmma", "cutlass", "nvjet"))
-               else "memcpy" if "memcpy" in low else "other")
+        cls = next((c for c, test in classes if test(name)), other)
         by_class[cls] += (end - start) / 1e3
         by_name[name[:60]] = by_name.get(name[:60], 0.0) + (end - start) / 1e3
     busy_us, last_end = 0.0, float("-inf")
@@ -220,7 +395,39 @@ def dispatch_breakdown(inst, x: np.ndarray) -> dict:
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
             "device_ms_by_class": by_class,
-            "top_kernels_ms": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6])}
+            "top_kernels_ms": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])}
+
+
+def device_spans(fn, iters: int) -> list:
+    """(kernel name, device ms) of every kernel and copy that ``iters`` warm
+    calls of ``fn`` run, by torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    spans = [(e.name, (e.time_range.end - e.time_range.start) / 1e3)
+             for e in prof.events() if e.device_type == DeviceType.CUDA]
+    check(bool(spans), "profiler saw no device time")
+    return spans
+
+
+def kernel_ms_by_name(fn, names, iters: int = 10) -> dict:
+    """Mean device time per call of ``fn`` of each kernel whose name holds
+    one of ``names``."""
+    spans = device_spans(fn, iters)
+    total = {n: sum(ms for name, ms in spans if n in name) / iters for n in names}
+    check(all(v > 0 for v in total.values()), f"profiler saw none of {names}: {total}")
+    return total
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Mean device time per call of ``fn``, without the host's launch gaps."""
+    return sum(ms for _, ms in device_spans(fn, iters)) / iters
 
 
 def phase_serving(compute_dtype: str, params, card: str):
@@ -264,7 +471,8 @@ def phase_serving(compute_dtype: str, params, card: str):
                 lambda _f, i=i: t_done.__setitem__(i, time.perf_counter()))
             futs.append(f)
         answers = [f.result(600) for f in futs]
-        launches = kernels.launch_counts()["flash_attention_fwd"]
+        counts = kernels.launch_counts()
+        launches = counts["flash_attention_fwd"]
     finally:
         engine.stop()
     dispatches = inst.dispatches - d0
@@ -273,6 +481,8 @@ def phase_serving(compute_dtype: str, params, card: str):
     check(launches == n_attn * dispatches,
           f"flash kernel launched {launches} times for {dispatches} forward "
           f"dispatches (want {n_attn} per dispatch)")
+    check(counts["flash_attention_bwd_dq"] == counts["flash_attention_bwd_dkv"] == 0,
+          f"backward kernels launched while serving: {counts}")
 
     got = np.stack(answers)
     check(got.shape == (REQUESTS, cfg.sequence_length, 1),
@@ -280,7 +490,7 @@ def phase_serving(compute_dtype: str, params, card: str):
     check(bool(np.isfinite(got).all()), "non-finite answers")
     xdev = torch.from_numpy(xs[:BATCH]).to(cm.device)
     forward_ms = time_ms(lambda: cm.forward_fn(cm.params, xdev), 5)
-    breakdown = dispatch_breakdown(inst, xs[:BATCH])
+    breakdown = profile_breakdown(lambda: inst.infer([xs[:BATCH]]), SERVE_CLASSES)
     refs = []
     for lo in range(0, REQUESTS, BATCH):
         x = torch.from_numpy(xs[lo:lo + BATCH]).to(cm.device)
@@ -314,35 +524,248 @@ def phase_serving(compute_dtype: str, params, card: str):
     return row, params
 
 
+def layer_err(got: dict, want: dict, start: dict = None) -> tuple:
+    """(max error, weight) of two param-shaped trees, each weight's max abs
+    error as a fraction of the largest element of its layer in ``want``
+    (less ``start``, when given: then the layer's largest update). By
+    layer, not by weight: the key bias bk adds q.bk to every logit of a
+    row, which the softmax cancels, so its exact gradient is 0 and any two
+    paths give rounding noise that no scale of its own can measure."""
+    worst, where = 0.0, ""
+    for op, ws in want.items():
+        dev = next(iter(got[op].values())).device
+        ws = {w: t.to(dev) for w, t in ws.items()}
+        ref = {w: (t - start[op][w].to(dev) if start else t) for w, t in ws.items()}
+        big = max(r.abs().max().item() for r in ref.values())
+        for w, t in ws.items():
+            check(bool(torch.isfinite(got[op][w]).all()), f"non-finite {op}.{w}")
+            err = (got[op][w] - t).abs().max().item() / (big if big > 0 else 1.0)
+            if err >= worst:
+                worst, where = err, f"{op}.{w}"
+    return worst, where
+
+
+def phase_training(compute_dtype: str, params: dict, card: str, ref: dict = None) -> tuple:
+    """Train the reference Transformer at full width through FFModel.compile
+    -> grad_step/train_step/fit, against the plain kernels' path. ``ref``:
+    the float32 run's plain-path gradients and params, which set the
+    bfloat16 run's tolerances. Returns (row, this run's ``ref``)."""
+    from flexflow_tpu_torch import (FFConfig, FFModel, LossType, MetricsType,
+                                    SGDOptimizer, kernels, load_numpy_params)
+    from flexflow_tpu_torch.models.transformer import TransformerConfig, build_transformer
+
+    cfg = TransformerConfig()
+    ff = FFModel(FFConfig(batch_size=BATCH, compute_dtype=compute_dtype, seed=SEED,
+                          device=DEVICE))
+    build_transformer(ff, BATCH, cfg)
+    ff.compile(optimizer=SGDOptimizer(lr=0.01),
+               loss_type=LossType.MEAN_SQUARED_ERROR_AVG_REDUCE,
+               metrics=[MetricsType.MEAN_SQUARED_ERROR])
+    cm = ff.compiled
+    n_attn = sum(op.op_type.name == "MULTIHEAD_ATTENTION" for op in cm.ops)
+    check(n_attn == cfg.num_layers, f"{n_attn} attention ops, want {cfg.num_layers}")
+    # the model's own init (Glorot, zero biases), as bench.py trains it
+    own_init = {op: {w: t.detach().cpu().numpy().copy() for w, t in ws.items()}
+                for op, ws in cm.params.items()}
+    own_dev = {op: {w: t.detach().clone() for w, t in ws.items()}
+               for op, ws in cm.params.items()}
+    rng = np.random.default_rng(SEED + 2)
+    x = rng.standard_normal(size=(TRAIN_SAMPLES, cfg.sequence_length, cfg.hidden_size),
+                            dtype=np.float32)
+    y = rng.standard_normal(size=(TRAIN_SAMPLES, cfg.sequence_length, 1), dtype=np.float32)
+    batches = [tuple(torch.from_numpy(a[i * BATCH:(i + 1) * BATCH]).to(cm.device)
+                     for a in (x, y)) for i in range(5)]
+
+    def reset(tree):
+        load_numpy_params(ff, tree)
+        cm.opt_state = cm.optimizer.init_state(cm.params)
+
+    # (a) one grad_step's gradients, kernels vs plain versions, at the
+    # variance-preserving random params, where every layer's attention
+    # sees inputs of unit scale
+    reset(params)
+    g_kern = cm.grad_step(cm.params, None, *batches[0])
+    g_plain = cm.grad_step(cm.params, None, *batches[0], plain_kernels=True)
+    grad_err, grad_worst = layer_err(g_kern, g_plain)
+    if ref is None:
+        grad_floor, grad_tol = None, GRAD_TOL
+    else:
+        grad_floor = layer_err(g_plain, ref["grads"])[0]
+        grad_tol = BF16_FLOOR_FACTOR * grad_floor
+    check(grad_err <= grad_tol,
+          f"{compute_dtype}: grads vs plain path: {grad_err:.3g} of the largest "
+          f"gradient of {grad_worst}'s layer > {grad_tol:.3g}")
+    del g_kern
+
+    # (b) five train_steps on each path from the model's own init. At lr
+    # 0.01 the random params above diverge (two steps from them are
+    # recorded here), and scaled down far enough to stay finite they lose
+    # the stack's output to the first update, as the Glorot init does
+    # from the start
+    random_losses = []
+    for xb, yb in batches[:2]:
+        cm.params, cm.opt_state, loss, _ = cm.train_step(cm.params, cm.opt_state,
+                                                         None, xb, yb)
+        random_losses.append(loss.item())
+    losses, final = {}, {}
+    for plain in (False, True):
+        reset(own_init)
+        losses[plain] = []
+        for xb, yb in batches:
+            cm.params, cm.opt_state, loss, _ = cm.train_step(
+                cm.params, cm.opt_state, None, xb, yb, plain_kernels=plain)
+            losses[plain].append(loss.item())
+        final[plain] = {op: {w: t.clone() for w, t in ws.items()}
+                        for op, ws in cm.params.items()}
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses[False], losses[True]))
+    check(all(np.isfinite(losses[False] + losses[True])),
+          f"{compute_dtype}: non-finite losses {losses}")
+    check(loss_err <= LOSS_TOL[compute_dtype],
+          f"{compute_dtype}: losses {losses[False]} vs plain path {losses[True]}: "
+          f"{loss_err:.3g} > {LOSS_TOL[compute_dtype]}")
+    # the params the two paths reached, against the layer's largest update:
+    # the loss barely sees the deep layers' attention from this init, the
+    # f32 updates do. In bf16 rounding outweighs the deep layers' tiny
+    # updates from this init (the plain bf16 path lands more than a whole
+    # update from the plain f32 one), so there it is recorded, not held.
+    update_err, update_worst = layer_err(final[False], final[True], own_dev)
+    if ref is None:
+        update_floor = None
+        check(update_err <= GRAD_TOL,
+              f"{compute_dtype}: params after 5 steps vs plain path: {update_err:.3g} "
+              f"of the largest update of {update_worst}'s layer > {GRAD_TOL}")
+    else:
+        update_floor = layer_err(final[True], ref["final"], own_dev)[0]
+    # the plain path's results leave the card, so they do not count in the
+    # peak memory below
+    host = lambda tree: {op: {w: t.cpu() for w, t in ws.items()}  # noqa: E731
+                         for op, ws in tree.items()}
+    this_ref = {"grads": host(g_plain), "final": host(final[True])}
+    del g_plain, final, own_dev
+
+    # (c) fit through the entry point, launch counts read just around it
+    reset(own_init)
+    steps = TRAIN_SAMPLES // BATCH
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    hist = ff.fit(x, y, batch_size=BATCH, epochs=1, shuffle=False, verbose=False)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    check(launches == {name: n_attn * steps for name in kernels.KERNELS},
+          f"{compute_dtype}: fit's {steps} steps launched {launches}, want "
+          f"{n_attn} of each kernel per step")
+    pm = hist[0]
+    check(len(hist) == 1 and pm.train_all == TRAIN_SAMPLES and np.isfinite(pm.mse_loss),
+          f"{compute_dtype}: fit's PerfMetrics {pm}")
+
+    # (d) step time, a profiled step, peak memory
+    xb, yb = batches[0]
+
+    def step():
+        cm.train_step(cm.params, cm.opt_state, None, xb, yb)
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for _ in range(TIMED_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step()
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    median_ms = float(np.median(step_ms))
+    breakdown = profile_breakdown(step, TRAIN_CLASSES, other="optimizer/elementwise")
+    row = dict(compute_dtype=compute_dtype, card=card, batch=BATCH,
+               grad_rel_err_vs_plain=grad_err, grad_worst_weight=grad_worst,
+               grad_tolerance=grad_tol, grad_bf16_floor=grad_floor,
+               random_params_losses=random_losses,
+               losses=losses[False], plain_losses=losses[True],
+               loss_rel_err_vs_plain=loss_err, loss_tolerance=LOSS_TOL[compute_dtype],
+               update_rel_err_vs_plain=update_err, update_worst_weight=update_worst,
+               update_tolerance=GRAD_TOL if ref is None else None,
+               update_bf16_floor=update_floor,
+               fit_steps=steps, fit_launches=launches, fit_mse=pm.mse_loss / pm.train_all,
+               step_ms_median=median_ms, step_ms_min=min(step_ms),
+               step_ms_max=max(step_ms), samples_per_s=BATCH * 1e3 / median_ms,
+               peak_memory_gib=peak_gib, breakdown=breakdown)
+    held = f"tol {GRAD_TOL}" if ref is None else f"bf16 floor {update_floor:.3g}"
+    print(f"training {compute_dtype}: grads vs plain path {grad_err:.3g} of the "
+          f"layer's largest gradient (worst {grad_worst}; tol {grad_tol:.3g}); "
+          f"two steps from those params: losses "
+          f"{[f'{v:.6g}' for v in random_losses]}; 5 steps from the model's own "
+          f"init: losses {[f'{v:.6f}' for v in losses[False]]} vs plain "
+          f"{[f'{v:.6f}' for v in losses[True]]} (max rel err {loss_err:.3g}, tol "
+          f"{LOSS_TOL[compute_dtype]}), params after them {update_err:.3g} of the "
+          f"layer's largest update (worst {update_worst}; {held}); fit {steps} "
+          f"steps, launches {launches}; step {median_ms:.2f} ms median of "
+          f"{TIMED_STEPS}, {row['samples_per_s']:.1f} samples/s, peak "
+          f"{peak_gib:.2f} GiB [{card}]", flush=True)
+    print(f"training breakdown {compute_dtype}: {json.dumps(breakdown)}", flush=True)
+    print("training_json " + json.dumps(row), flush=True)
+    return row, this_ref
+
+
+def _kernel_entry(name: str, source: str, replaces: str, rows: list, launches: int,
+                  **extra) -> dict:
+    """One entry of the kernels line, its numbers from the f32 non-causal
+    row at the slice shape (the training and serving paths' variant)."""
+    main_row = next(r for r in rows if r["dtype"] == "float32" and not r["causal"])
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": main_row["max_abs_err"],
+            "max_err": main_row["max_abs_err"], "ms": main_row["ms"],
+            "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
+            "bound_by": main_row["bound_by"], "library_ms": main_row["library_ms"],
+            "shape": [BATCH * HEADS, SEQ, HEAD_DIM], "variants": rows, **extra}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
+    t0 = time.perf_counter()
     card = phase_device()
     phase_build()
-    variants = phase_kernels()
-    rows, params = [], None
+    kern = phase_kernels()
+    print(f"phases: kernels done at {time.perf_counter() - t0:.0f} s", flush=True)
+    serve, params = [], None
     for compute_dtype in ("float32", "bfloat16"):
         row, params = phase_serving(compute_dtype, params, card)
-        rows.append(row)
-    main_row = next(r for r in variants if r["dtype"] == "float32" and not r["causal"])
-    kernel = {
-        "name": "flash_attention_fwd",
-        "route": "cuda",
-        "source": "flexflow_tpu_torch/kernels/csrc/flash_attention_fwd.cu",
-        "replaces": "flexflow_tpu/kernels/flash_attention.py:43",
-        "launches": sum(r["launches"] for r in rows),
-        "max_abs_err": main_row["max_abs_err"],
-        "max_err": main_row["max_abs_err"],
-        "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
-        "shape": [BATCH * HEADS, SEQ, HEAD_DIM],
-        "variants": variants,
-    }
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+        serve.append(row)
+    print(f"phases: serving done at {time.perf_counter() - t0:.0f} s", flush=True)
+    row32, ref = phase_training("float32", params, card)
+    row16, _ = phase_training("bfloat16", params, card, ref)
+    train = [row32, row16]
+    del ref
+    print(f"phases: training done at {time.perf_counter() - t0:.0f} s", flush=True)
+    train_launches = {name: sum(r["fit_launches"][name] for r in train)
+                      for name in train[0]["fit_launches"]}
+    bwd_src = "flexflow_tpu_torch/kernels/csrc/flash_attention_bwd.cu"
+    entries = [
+        _kernel_entry("flash_attention_fwd",
+                      "flexflow_tpu_torch/kernels/csrc/flash_attention_fwd.cu",
+                      "flexflow_tpu/kernels/flash_attention.py:43", kern["fwd"],
+                      sum(r["launches"] for r in serve)
+                      + train_launches["flash_attention_fwd"],
+                      serving_launches=sum(r["launches"] for r in serve),
+                      training_launches=train_launches["flash_attention_fwd"],
+                      cases=kern["cases"]),
+        _kernel_entry("flash_attention_bwd_dq", bwd_src,
+                      "flexflow_tpu/kernels/flash_attention.py:59", kern["dq"],
+                      train_launches["flash_attention_bwd_dq"],
+                      plain_and_library_cover="dq, dk and dv (the whole gradient)"),
+        _kernel_entry("flash_attention_bwd_dkv", bwd_src,
+                      "flexflow_tpu/kernels/flash_attention.py:79", kern["dkv"],
+                      train_launches["flash_attention_bwd_dkv"],
+                      plain_and_library_cover="dq, dk and dv (the whole gradient)"),
+    ]
+    check(all(e["launches"] > 0 for e in entries),
+          f"a kernel never launched on its path: {[(e['name'], e['launches']) for e in entries]}")
+    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

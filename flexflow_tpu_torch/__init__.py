@@ -5,14 +5,18 @@ layout and names module by module, in PyTorch's idiom, and imports neither
 JAX nor ``flexflow_tpu``. Its Pallas TPU kernels become hand-written CUDA
 kernels for ``sm_90a`` under ``kernels/csrc``, built at first use.
 
-Ported so far: classic one-shot inference of the reference Transformer
-(``models.transformer.build_transformer``) through
-``serving.engine.InferenceEngine``, with the flash-attention forward kernel.
+Ported so far, for the reference Transformer
+(``models.transformer.build_transformer``): classic one-shot inference
+through ``serving.engine.InferenceEngine`` with the flash-attention forward
+kernel, and training through ``FFModel.compile`` -> ``fit``/``eval`` (SGD or
+Adam, the five losses) with the flash-attention backward kernels.
 """
 
 from .config import FFConfig
-from .ffconst import ActiMode, CompMode, DataType, OpType
+from .ffconst import ActiMode, CompMode, DataType, LossType, MetricsType, OpType
 from .runtime.model import FFModel, load_numpy_params
+from .runtime.optimizer import AdamOptimizer, SGDOptimizer
 
-__all__ = ["ActiMode", "CompMode", "DataType", "FFConfig", "FFModel",
-           "OpType", "load_numpy_params"]
+__all__ = ["ActiMode", "AdamOptimizer", "CompMode", "DataType", "FFConfig",
+           "FFModel", "LossType", "MetricsType", "OpType", "SGDOptimizer",
+           "load_numpy_params"]

@@ -19,9 +19,10 @@ from .ffconst import CompMode
 @dataclasses.dataclass
 class FFConfig:
     """Global runtime config (the subset of ``flexflow_tpu.FFConfig`` that
-    the inference path reads)."""
+    the port reads so far)."""
 
     batch_size: int = 64
+    epochs: int = 1  # fit()'s default epoch count
     # the strategy search is not ported; 0 (no search) is the only value
     search_budget: int = 0
     computation_mode: CompMode = CompMode.TRAINING

@@ -31,12 +31,13 @@ class WeightSpec:
 
 @dataclasses.dataclass
 class LowerCtx:
-    """Context threaded through each op's forward (inference only so far,
-    so there is no training flag, rng or mesh yet)."""
+    """Context threaded through each op's forward (no rng or mesh yet)."""
 
     # run every kernel's plain PyTorch version, on any device: the
     # reference the card's kernels are held against
     plain_kernels: bool = False
+    # the training forward (train/grad steps) rather than eval/inference
+    training: bool = True
 
 
 class Op:

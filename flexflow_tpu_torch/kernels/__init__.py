@@ -6,7 +6,9 @@ use by :mod:`._build`. Dispatch goes by the tensor's device alone: a CUDA
 tensor launches the kernel (or raises), a CPU tensor runs the kernel's
 plain PyTorch version, which lives beside the wrapper.
 
-* :mod:`.flash_attention` — the flash-attention forward (``_fwd_kernel``).
+* :mod:`.flash_attention` — the flash-attention forward (``_fwd_kernel``)
+  and its two backward kernels (``_dq_kernel``, ``_dkv_kernel``), joined by
+  a ``torch.autograd.Function``.
 
 Each wrapper adds one to its launch count where it launches its kernel,
 and nowhere else, so a run can show that its main path went through the
@@ -18,7 +20,8 @@ from __future__ import annotations
 import threading
 from typing import Dict
 
-KERNELS = ("flash_attention_fwd",)
+KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
+           "flash_attention_bwd_dkv")
 
 _counts_lock = threading.Lock()
 _counts: Dict[str, int] = {name: 0 for name in KERNELS}

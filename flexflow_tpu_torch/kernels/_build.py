@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ``ctypes``. The build
-runs at first use, on the machine with the card, into ``_build/`` beside
-this file (listed in ``.gitignore``); the library's name carries a hash of
-the sources and flags, so an unchanged tree loads the library it built
-before. There is no fallback: without ``nvcc`` the build raises.
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` (one
+``nvcc`` per source, all started together) and linked into one shared
+library with a plain C interface, loaded with ``ctypes``. The build runs
+at first use, on the machine with the card, into ``_build/`` beside this
+file (listed in ``.gitignore``); the library's name carries a hash of the
+sources, headers and flags, so an unchanged tree loads the library it
+built before. There is no fallback: without ``nvcc`` the build raises.
 """
 
 from __future__ import annotations
@@ -18,12 +19,12 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 CSRC_DIR = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # argtypes/restype of every exported C function: each pointer and the
 # stream is a c_void_p, or ctypes would pass it as a 32-bit int
@@ -31,6 +32,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # q, k, v, o, lse, bh, sq, skv, d, scale, causal, dtype, stream
     "ff_flash_attention_fwd": ([_P] * 5 + [_I] * 4 + [_F, _I, _I, _P], _I),
+    # q, k, v, o, g, lse, dq, bh, sq, skv, d, scale, causal, dtype, stream
+    "ff_flash_attention_bwd_dq": ([_P] * 7 + [_I] * 4 + [_F, _I, _I, _P], _I),
+    # q, k, v, o, g, lse, dk, dv, bh, sq, skv, d, scale, causal, dtype, stream
+    "ff_flash_attention_bwd_dkv": ([_P] * 8 + [_I] * 4 + [_F, _I, _I, _P], _I),
     "ff_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -63,6 +68,19 @@ def library_path() -> Path:
     return BUILD_DIR / f"libflexflow_tpu_torch_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: List[List[str]]) -> str:
+    """Run the commands concurrently; raise with the output of the first
+    that fails. Returns their joined output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed with code {proc.returncode}:\n{' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
 def build() -> Tuple[Path, float, str]:
     """Compile the kernels unless this tree's library exists already.
     Returns (library path, build seconds, compiler output); seconds is 0
@@ -72,18 +90,25 @@ def build() -> Tuple[Path, float, str]:
         return out, 0.0, ""
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    sources = sorted(CSRC_DIR.glob("*.cu"))
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC_DIR.glob("*.cu")))]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
+    try:
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                        for src, obj in zip(sources, objs)])
+        log += _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                          *map(str, objs)]])
+    except RuntimeError:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with code {proc.returncode}:\n{' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}")
+        raise
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    seconds = time.perf_counter() - t0
     os.replace(tmp, out)  # atomic: a concurrent build loads one or the other
-    return out, seconds, proc.stdout + proc.stderr
+    return out, seconds, log
 
 
 def load_library() -> ctypes.CDLL:

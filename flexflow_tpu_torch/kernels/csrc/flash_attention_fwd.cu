@@ -9,13 +9,16 @@
 // written in the input type.
 //
 // Layout: q (BH, Sq, D), k/v (BH, Skv, D), o (BH, Sq, D), lse (BH, 1, Sq), all
-// contiguous. D is 32, 64 or 128.
+// contiguous. Any D up to 256 and any B*H: the kernel is built for a padded
+// width of 32, 64, 128 or 256 with the columns past D zero, and blocks are
+// numbered along the grid's x dimension only (flash_attention_common.cuh).
 //
 // Design. The TPU kernel holds a whole (Skv, D) K/V panel in 16 MB of VMEM and
 // materialises a (block_q, Skv) logits tile. A Hopper block has at most 227 KB
 // of shared memory, so this kernel streams K/V instead: one block of 256
 // threads per (bh, 64-query tile), a loop over 64-key tiles staged in shared
-// memory as f32, and an online softmax (running max m, sum l and the output
+// memory as f32 (209 KB of shared memory at the padded width 256, one block
+// per SM there), and an online softmax (running max m, sum l and the output
 // accumulator in f32 registers). Each thread owns 4 query rows x 4 key columns
 // of the score tile and 4 rows x D/16 columns of the output; a row's 16 owners
 // sit in one half-warp, so row max/sum reductions are 4 shuffles. Q/K/V rows
@@ -35,68 +38,53 @@
 // This kernel does its bf16 math on the CUDA cores too, so in bf16 it sits far
 // above that bound; chip_smoke.py measures how far.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stddef.h>
+
+#include "flash_attention_common.cuh"
 
 namespace {
 
+using namespace ff_flash;
+
 constexpr int kBlockQ = 64;    // query rows per block
 constexpr int kBlockK = 64;    // keys per shared-memory tile
-constexpr int kThreads = 256;  // a 16 x 16 grid of threads
 constexpr int kRows = kBlockQ / 16;  // query rows per thread
 constexpr int kCols = kBlockK / 16;  // score columns per thread
 constexpr float kMaskValue = -1e30f;  // the TPU kernel's NEG_INF
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-template <int D>
+template <int DP>
 constexpr size_t smem_bytes() {
   return sizeof(float) *
-         (size_t)(kBlockQ * (D + 1) + 2 * kBlockK * (D + 1) + kBlockQ * (kBlockK + 1));
+         (size_t)(kBlockQ * (DP + 1) + 2 * kBlockK * (DP + 1) + kBlockQ * (kBlockK + 1));
 }
 
-template <typename T, int D>
+template <typename T, int DP>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int sq, int skv, float scale,
+                 float* __restrict__ lse, int sq, int skv, int d, float scale,
                  int causal) {
-  constexpr int LD = D + 1;         // padded row stride of the q/k/v tiles
+  constexpr int LD = DP + 1;        // padded row stride of the q/k/v tiles
   constexpr int LDP = kBlockK + 1;  // padded row stride of the p tile
-  constexpr int DC = D / 16;        // output columns per thread
+  constexpr int DC = DP / 16;       // output columns per thread
   extern __shared__ float smem[];
   float* qs = smem;                  // [kBlockQ][LD]
   float* ks = qs + kBlockQ * LD;     // [kBlockK][LD]
   float* vs = ks + kBlockK * LD;     // [kBlockK][LD]
   float* ps = vs + kBlockK * LD;     // [kBlockQ][LDP]
 
-  const int bh = blockIdx.y;
+  const int nq = (sq + kBlockQ - 1) / kBlockQ;
+  const int bh = blockIdx.x / nq;
   // the last query tiles carry the most causal work: start them first
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockQ;
+  const int q0 = (nq - 1 - (int)(blockIdx.x % nq)) * kBlockQ;
   const int tid = threadIdx.x;
   const int ty = tid / 16;
   const int tx = tid % 16;
-  const T* qb = q + (size_t)bh * sq * D;
-  const T* kb = k + (size_t)bh * skv * D;
-  const T* vb = v + (size_t)bh * skv * D;
+  const T* qb = q + (size_t)bh * sq * d;
+  const T* kb = k + (size_t)bh * skv * d;
+  const T* vb = v + (size_t)bh * skv * d;
 
-  for (int i = tid; i < kBlockQ * D; i += kThreads) {
-    const int r = i / D, c = i % D;
-    qs[r * LD + c] =
-        (q0 + r < sq) ? to_f32(qb[(size_t)(q0 + r) * D + c]) * scale : 0.f;
-  }
+  load_tile<T, DP, kBlockQ>(qs, qb, q0, sq, d, scale);
 
   float m[kRows], l[kRows], acc[kRows][DC];
 #pragma unroll
@@ -110,13 +98,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kv_end = causal ? min(skv, q0 + kBlockQ) : skv;
   for (int k0 = 0; k0 < kv_end; k0 += kBlockK) {
     __syncthreads();  // the previous tile's ks/vs/ps reads are done
-    for (int i = tid; i < kBlockK * D; i += kThreads) {
-      const int r = i / D, c = i % D;
-      const bool in = k0 + r < skv;
-      const size_t g = (size_t)(k0 + r) * D + c;
-      ks[r * LD + c] = in ? to_f32(kb[g]) : 0.f;
-      vs[r * LD + c] = in ? to_f32(vb[g]) : 0.f;
-    }
+    load_tile<T, DP, kBlockK>(ks, kb, k0, skv, d, 1.f);
+    load_tile<T, DP, kBlockK>(vs, vb, k0, skv, d, 1.f);
     __syncthreads();
 
     float s[kRows][kCols];
@@ -125,12 +108,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < kCols; ++j) s[i][j] = 0.f;
 #pragma unroll 16
-    for (int d = 0; d < D; ++d) {
+    for (int c = 0; c < DP; ++c) {
       float qv[kRows], kv[kCols];
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) qv[i] = qs[(ty + 16 * i) * LD + d];
+      for (int i = 0; i < kRows; ++i) qv[i] = qs[(ty + 16 * i) * LD + c];
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) kv[j] = ks[(tx + 16 * j) * LD + d];
+      for (int j = 0; j < kCols; ++j) kv[j] = ks[(tx + 16 * j) * LD + c];
 #pragma unroll
       for (int i = 0; i < kRows; ++i)
 #pragma unroll
@@ -192,27 +175,31 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < kRows; ++i) {
     const int r = q0 + ty + 16 * i;
     if (r >= sq) continue;
-    T* orow = o + ((size_t)bh * sq + r) * D;
+    T* orow = o + ((size_t)bh * sq + r) * d;
 #pragma unroll
-    for (int j = 0; j < DC; ++j) orow[tx + 16 * j] = from_f32<T>(acc[i][j] / l[i]);
+    for (int j = 0; j < DC; ++j) {
+      const int c = tx + 16 * j;
+      if (c < d) orow[c] = from_f32<T>(acc[i][j] / l[i]);
+    }
     if (tx == 0) lse[(size_t)bh * sq + r] = m[i] + logf(l[i]);
   }
 }
 
-template <typename T, int D>
+template <typename T, int DP>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   void* lse, int bh, int sq, int skv, float scale, int causal,
-                   cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>();
+                   void* lse, int bh, int sq, int skv, int d, float scale,
+                   int causal, cudaStream_t stream) {
+  const unsigned blocks = grid_blocks(bh, sq, kBlockQ);
+  if (blocks == 0) return cudaErrorInvalidValue;
+  const size_t smem = smem_bytes<DP>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((sq + kBlockQ - 1) / kBlockQ, bh);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_kernel<T, DP><<<blocks, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      sq, skv, scale, causal);
+      sq, skv, d, scale, causal);
   return cudaGetLastError();
 }
 
@@ -221,10 +208,11 @@ cudaError_t dispatch_head_dim(const void* q, const void* k, const void* v,
                               void* o, void* lse, int bh, int sq, int skv,
                               int d, float scale, int causal,
                               cudaStream_t stream) {
-  switch (d) {
-    case 32: return launch<T, 32>(q, k, v, o, lse, bh, sq, skv, scale, causal, stream);
-    case 64: return launch<T, 64>(q, k, v, o, lse, bh, sq, skv, scale, causal, stream);
-    case 128: return launch<T, 128>(q, k, v, o, lse, bh, sq, skv, scale, causal, stream);
+  switch (padded_head_dim(d)) {
+    case 32: return launch<T, 32>(q, k, v, o, lse, bh, sq, skv, d, scale, causal, stream);
+    case 64: return launch<T, 64>(q, k, v, o, lse, bh, sq, skv, d, scale, causal, stream);
+    case 128: return launch<T, 128>(q, k, v, o, lse, bh, sq, skv, d, scale, causal, stream);
+    case 256: return launch<T, 256>(q, k, v, o, lse, bh, sq, skv, d, scale, causal, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -237,7 +225,7 @@ extern "C" {
 int ff_flash_attention_fwd(const void* q, const void* k, const void* v,
                            void* o, void* lse, int bh, int sq, int skv, int d,
                            float scale, int causal, int dtype, void* stream) {
-  if (bh <= 0 || sq <= 0 || skv <= 0 || bh > 65535) return (int)cudaErrorInvalidValue;
+  if (bh <= 0 || sq <= 0 || skv <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return (int)dispatch_head_dim<float>(q, k, v, o, lse, bh, sq, skv, d, scale, causal, s);

@@ -1,17 +1,20 @@
-"""Flash-attention forward: the Hopper kernel's wrapper and its plain version.
+"""Flash attention: the Hopper kernels' wrappers and their plain versions.
 
 PyTorch counterpart of ``flexflow_tpu/kernels/flash_attention.py``. The
-TPU's ``_fwd_kernel`` becomes ``csrc/flash_attention_fwd.cu`` (the source
-note there gives its design and its bound on an H100). This module holds:
+TPU's ``_fwd_kernel`` becomes ``csrc/flash_attention_fwd.cu`` and its
+``_dq_kernel``/``_dkv_kernel`` become ``csrc/flash_attention_bwd.cu`` (the
+source notes there give the designs and the bounds on an H100). This module
+holds:
 
 * :func:`flash_attention` — the public entry on (B, S, H, D) tensors, with
-  the JAX package's layout glue and its length contract (``_pick_block``);
-* :func:`flash_attention_fwd` — the wrapper on (B*H, S, D) tensors: the
-  kernel for CUDA tensors, the plain version for CPU tensors;
-* :func:`flash_attention_fwd_reference` — the plain version, in f32.
-
-The backward kernels (``_dq_kernel``, ``_dkv_kernel``) come with the
-training slice.
+  the JAX package's layout glue and its length contract (``_pick_block``),
+  differentiable through :class:`_FlashAttention`, the counterpart of the
+  ``_flash`` custom VJP;
+* :func:`flash_attention_fwd` / :func:`flash_attention_bwd` — the wrappers
+  on (B*H, S, D) tensors: the kernels for CUDA tensors, the plain versions
+  for CPU tensors;
+* :func:`flash_attention_fwd_reference` /
+  :func:`flash_attention_bwd_reference` — the plain versions, in f32.
 """
 
 from __future__ import annotations
@@ -24,7 +27,8 @@ import torch
 from . import count_launch
 
 NEG_INF = -1e30  # large-negative instead of -inf: keeps exp()/max() NaN-free
-HEAD_DIMS = (32, 64, 128)  # the head dims the CUDA kernel is built for
+# the kernels are built for padded head dims up to this one (any D <= it)
+MAX_HEAD_DIM = 256
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -36,24 +40,29 @@ def _pick_block(s: int, pref: int) -> Optional[int]:
 
 
 def _check_head_dim(d: int) -> None:
-    if d not in HEAD_DIMS:
+    if not 1 <= d <= MAX_HEAD_DIM:
         raise ValueError(
-            f"flash_attention: head dim {d} is not one the kernel takes "
-            f"{HEAD_DIMS}")
+            f"flash_attention: head dim {d} is above {MAX_HEAD_DIM}, the "
+            f"largest the kernels take")
+
+
+def _causal_keep(sq: int, skv: int, device) -> torch.Tensor:
+    """(Sq, Skv) bool, True where qpos >= kpos (``_causal_mask``)."""
+    qpos = torch.arange(sq, device=device)[:, None]
+    kpos = torch.arange(skv, device=device)[None, :]
+    return qpos >= kpos
 
 
 def flash_attention_fwd_reference(q: torch.Tensor, k: torch.Tensor,
                                   v: torch.Tensor, causal: bool,
                                   scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the kernel: q (BH, Sq, D), k/v (BH, Skv, D)
-    -> out (BH, Sq, D) in q's dtype and lse (BH, 1, Sq) in f32. The math
-    of the TPU kernel, in f32, with the same -1e30 causal mask."""
+    """Plain PyTorch version of the forward kernel: q (BH, Sq, D), k/v
+    (BH, Skv, D) -> out (BH, Sq, D) in q's dtype and lse (BH, 1, Sq) in
+    f32. The math of ``_fwd_kernel``, in f32, with the same -1e30 mask."""
     qf = q.float() * scale
     s = torch.matmul(qf, k.float().transpose(-1, -2))  # (BH, Sq, Skv)
     if causal:
-        qpos = torch.arange(s.shape[-2], device=s.device)[:, None]
-        kpos = torch.arange(s.shape[-1], device=s.device)[None, :]
-        s = s.masked_fill(qpos < kpos, NEG_INF)
+        s = s.masked_fill(~_causal_keep(s.shape[-2], s.shape[-1], s.device), NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
@@ -62,51 +71,146 @@ def flash_attention_fwd_reference(q: torch.Tensor, k: torch.Tensor,
     return out.to(q.dtype), lse
 
 
+def flash_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, o: torch.Tensor,
+                                  g: torch.Tensor, lse: torch.Tensor,
+                                  causal: bool, scale: float
+                                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the backward kernels: the forward's inputs,
+    its output ``o`` and log-sum-exp ``lse`` (BH, 1, Sq), and the output's
+    cotangent ``g`` -> (dq, dk, dv) in the inputs' dtype. The math of
+    ``_dq_kernel`` and ``_dkv_kernel`` line by line, in f32: P comes from
+    the saved lse, not from a fresh softmax."""
+    qf = q.float() * scale
+    kf, vf, gf, of = k.float(), v.float(), g.float(), o.float()
+    s = torch.matmul(qf, kf.transpose(-1, -2))
+    if causal:
+        s = s.masked_fill(~_causal_keep(s.shape[-2], s.shape[-1], s.device), NEG_INF)
+    p = torch.exp(s - lse.transpose(-1, -2))            # softmax probabilities
+    dp = torch.matmul(gf, vf.transpose(-1, -2))
+    delta = torch.sum(gf * of, dim=-1, keepdim=True)   # rowsum(dO * O)
+    ds = p * (dp - delta)
+    dq = torch.matmul(ds, kf) * scale
+    dv = torch.matmul(p.transpose(-1, -2), gf)
+    dk = torch.matmul(ds.transpose(-1, -2), qf)        # qf already carries scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_kernel_args(name: str, q: torch.Tensor, k: torch.Tensor,
+                       v: torch.Tensor, *rest: torch.Tensor) -> bool:
+    """Shape, device and dtype checks shared by the wrappers; ``rest`` are
+    further (B*H, Sq, D) tensors of q's dtype. Returns True for CUDA
+    tensors that the kernels take, False for CPU tensors; raises on what
+    neither path takes."""
+    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
+        raise ValueError(f"{name} takes (B*H, S, D) tensors")
+    bh, _, d = q.shape
+    skv = k.shape[1]
+    if (k.shape != (bh, skv, d) or v.shape != k.shape
+            or any(t.shape != q.shape for t in rest)):
+        raise ValueError(
+            f"{name}: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+            f"{tuple(v.shape)}, {[tuple(t.shape) for t in rest]} do not match")
+    tensors = (q, k, v) + rest
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError(f"{name}: tensors on different devices")
+    if len({t.dtype for t in tensors}) != 1:
+        raise ValueError(f"{name}: tensors of different dtypes")
+    if q.device.type == "cpu":
+        return False
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {q.device}")
+    if q.dtype not in _DTYPE_CODES:
+        raise ValueError(f"{name}: dtype {q.dtype} (kernel takes float32, bfloat16)")
+    _check_head_dim(d)
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: tensors must be contiguous")
+    return True
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's wrapper: q (BH, Sq, D), k/v (BH, Skv, D) -> (out, lse)
-    as :func:`flash_attention_fwd_reference` returns them. A CUDA tensor
-    launches ``csrc/flash_attention_fwd.cu`` on the current stream; a CPU
-    tensor runs the plain version."""
-    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
-        raise ValueError("flash_attention_fwd takes (B*H, S, D) tensors")
-    bh, sq, d = q.shape
-    skv = k.shape[1]
-    if k.shape != (bh, skv, d) or v.shape != k.shape:
-        raise ValueError(
-            f"flash_attention_fwd: shapes q {tuple(q.shape)}, k "
-            f"{tuple(k.shape)}, v {tuple(v.shape)} do not match")
-    if not (q.device == k.device == v.device):
-        raise ValueError("flash_attention_fwd: q, k, v on different devices")
-    if not (q.dtype == k.dtype == v.dtype):
-        raise ValueError("flash_attention_fwd: q, k, v of different dtypes")
-    if q.device.type == "cpu":
+    """The forward kernel's wrapper: q (BH, Sq, D), k/v (BH, Skv, D) ->
+    (out, lse) as :func:`flash_attention_fwd_reference` returns them. A
+    CUDA tensor launches ``csrc/flash_attention_fwd.cu`` on the current
+    stream; a CPU tensor runs the plain version."""
+    if not _check_kernel_args("flash_attention_fwd", q, k, v):
         return flash_attention_fwd_reference(q, k, v, causal, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_fwd: no kernel for {q.device}")
-    if q.dtype not in _DTYPE_CODES:
-        raise ValueError(
-            f"flash_attention_fwd: dtype {q.dtype} (kernel takes float32, "
-            f"bfloat16)")
-    _check_head_dim(d)
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention_fwd: q, k, v must be contiguous")
-    if bh > 65535:
-        raise ValueError(f"flash_attention_fwd: B*H = {bh} > 65535")
     from ._build import check_launch, load_library
 
     lib = load_library()
+    bh, sq, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((bh, 1, sq), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = lib.ff_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), bh, sq, skv, d, float(scale), int(bool(causal)),
-            _DTYPE_CODES[q.dtype], stream)
+            lse.data_ptr(), bh, sq, k.shape[1], d, float(scale),
+            int(bool(causal)), _DTYPE_CODES[q.dtype], stream)
     check_launch(err, "flash_attention_fwd")
     count_launch("flash_attention_fwd")
     return out, lse
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, g: torch.Tensor, lse: torch.Tensor,
+                        causal: bool, scale: float
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernels' wrapper, with the signature of
+    :func:`flash_attention_bwd_reference`. A CUDA tensor launches the dq
+    kernel and then the dkv kernel of ``csrc/flash_attention_bwd.cu`` on
+    the current stream; a CPU tensor runs the plain version."""
+    on_card = _check_kernel_args("flash_attention_bwd", q, k, v, o, g)
+    bh, sq, d = q.shape
+    if lse.shape != (bh, 1, sq) or lse.dtype != torch.float32 or lse.device != q.device:
+        raise ValueError(
+            f"flash_attention_bwd: lse {tuple(lse.shape)} {lse.dtype} on "
+            f"{lse.device}, want ({bh}, 1, {sq}) float32 on {q.device}")
+    if not on_card:
+        return flash_attention_bwd_reference(q, k, v, o, g, lse, causal, scale)
+    if not lse.is_contiguous():
+        raise ValueError("flash_attention_bwd: lse must be contiguous")
+    from ._build import check_launch, load_library
+
+    lib = load_library()
+    skv = k.shape[1]
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    args = (bh, sq, skv, d, float(scale), int(bool(causal)), _DTYPE_CODES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
+    ptrs = [t.data_ptr() for t in (q, k, v, o, g, lse)]
+    with torch.cuda.device(q.device):
+        err = lib.ff_flash_attention_bwd_dq(*ptrs, dq.data_ptr(), *args)
+        check_launch(err, "flash_attention_bwd_dq")
+        count_launch("flash_attention_bwd_dq")
+        err = lib.ff_flash_attention_bwd_dkv(*ptrs, dk.data_ptr(), dv.data_ptr(), *args)
+        check_launch(err, "flash_attention_bwd_dkv")
+        count_launch("flash_attention_bwd_dkv")
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Differentiable attention on (B*H, S, D) tensors: the counterpart of
+    ``_flash.defvjp(_flash_fwd, _flash_bwd)``. ``plain`` picks the plain
+    versions instead of the wrappers; the rest of the path is the same."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float, plain: bool):
+        fwd = flash_attention_fwd_reference if plain else flash_attention_fwd
+        out, lse = fwd(q, k, v, causal, scale)
+        if any(ctx.needs_input_grad[:3]):  # nothing is kept for inference
+            ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale, ctx.plain = causal, scale, plain
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        bwd = flash_attention_bwd_reference if ctx.plain else flash_attention_bwd
+        dq, dk, dv = bwd(q, k, v, out, g.contiguous(), lse, ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None, None
 
 
 def _to_bh(x: torch.Tensor) -> torch.Tensor:
@@ -114,8 +218,8 @@ def _to_bh(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b * h, s, d).contiguous()
 
 
-def _attend(fwd, q, k, v, causal, scale) -> torch.Tensor:
-    """(B, S, H, D) layout glue around a (B*H, S, D) forward."""
+def _attend(q, k, v, causal, scale, plain: bool) -> torch.Tensor:
+    """(B, S, H, D) layout glue around :class:`_FlashAttention`."""
     b, sq, h, d = q.shape
     skv = k.shape[1]
     if _pick_block(sq, 128) is None or _pick_block(skv, 128) is None:
@@ -124,22 +228,23 @@ def _attend(fwd, q, k, v, causal, scale) -> torch.Tensor:
             f"block size (must be divisible by 8)")
     _check_head_dim(d)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    out, _ = fwd(_to_bh(q), _to_bh(k), _to_bh(v), causal, scale)
+    out = _FlashAttention.apply(_to_bh(q), _to_bh(k), _to_bh(v), causal, scale, plain)
     return out.reshape(b, h, sq, d).transpose(1, 2)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """Fused attention. q/k/v: (B, S, H, D), the framework's layout.
-    Raises ``ValueError`` on sequence lengths not divisible by 8 (the JAX
-    package's contract) and on head dims the kernel does not take."""
-    return _attend(flash_attention_fwd, q, k, v, causal, scale)
+    """Fused, differentiable attention. q/k/v: (B, S, H, D), the
+    framework's layout. Raises ``ValueError`` on sequence lengths not
+    divisible by 8 (the JAX package's contract) and on head dims above
+    :data:`MAX_HEAD_DIM`."""
+    return _attend(q, k, v, causal, scale, plain=False)
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, causal: bool = False,
                               scale: Optional[float] = None) -> torch.Tensor:
-    """:func:`flash_attention` through the plain version on any device:
-    the path the card's kernel is held against."""
-    return _attend(flash_attention_fwd_reference, q, k, v, causal, scale)
+    """:func:`flash_attention` through the plain versions on any device:
+    the path the card's kernels are held against."""
+    return _attend(q, k, v, causal, scale, plain=True)

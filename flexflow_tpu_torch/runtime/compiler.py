@@ -1,18 +1,22 @@
-"""Compilation: lazy layer graph -> ops, params and an inference forward.
+"""Compilation: lazy layer graph -> ops, params and the step functions.
 
-PyTorch counterpart of ``flexflow_tpu/runtime/compiler.py``, inference
-only so far. The JAX package traces one jitted program per step; PyTorch
-runs eagerly, so :func:`compile_model` builds the ops, draws the params on
-the configured device and returns a forward that runs the op graph under
-``torch.inference_mode()``. The training step arrives with the training
-slice; sharding arrives with the parallelism slice.
+PyTorch counterpart of ``flexflow_tpu/runtime/compiler.py``. The JAX
+package traces one jitted program per step; PyTorch runs eagerly, so
+:func:`compile_model` builds the ops, draws the params on the configured
+device and returns plain functions over the op graph: ``forward_fn``
+(under ``torch.inference_mode()``), and with an optimizer and a loss
+``train_step``, ``eval_step`` and ``grad_step``, on the JAX package's
+signatures without ``seq_length``. Gradients come from autograd through
+the op graph (and through the flash-attention kernels'
+``torch.autograd.Function``). Gradient accumulation, multi-step dispatch,
+ZeRO, regularizers and sharding arrive with later slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import zlib
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -21,14 +25,17 @@ from ..core.layer import Layer
 from ..core.op import LowerCtx, Op, create_op
 from ..core.parallel_tensor import ParallelTensorShape
 from ..core.tensor import Tensor
-from ..ffconst import CompMode, OpType
+from ..ffconst import CompMode, DataType, LossType, MetricsType, OpType
+from .loss import compute_loss
+from .metrics import compute_batch_metrics
+from .optimizer import Optimizer
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 
 
 @dataclasses.dataclass
 class CompiledModel:
-    """Result of compile: everything needed to run inference."""
+    """Result of compile: the ops, the params and the step functions."""
 
     config: FFConfig
     device: torch.device
@@ -37,8 +44,27 @@ class CompiledModel:
     logits_tensor: Tensor
     params: Params
     # forward_fn(params, *xs, plain_kernels=False) -> f32 logits;
-    # plain_kernels=True runs every kernel's plain version instead
+    # plain_kernels=True runs every kernel's plain version instead. Every
+    # step function below takes the same keyword.
     forward_fn: Callable[..., torch.Tensor]
+    label_tensor: Optional[Tensor] = None
+    loss_type: Optional[LossType] = None
+    metrics: List[MetricsType] = dataclasses.field(default_factory=list)
+    optimizer: Optional[Optimizer] = None
+    opt_state: Any = None
+    # {op: {weight: bool}}: which weights get weight decay
+    wd_mask: Dict[str, Dict[str, bool]] = dataclasses.field(default_factory=dict)
+    # train_step(params, opt_state, rng, *xs, y) -> (params, opt_state,
+    # loss, batch metrics), the params and state updated in place;
+    # ``rng`` is the JAX package's dropout key, unused until dropout is
+    # ported (queue A3)
+    train_step: Optional[Callable[..., tuple]] = None
+    # eval_step(params, *xs, y) -> (loss, logits, batch metrics)
+    eval_step: Optional[Callable[..., tuple]] = None
+    # grad_step(params, rng, *xs, y) -> grads, a tree like params
+    grad_step: Optional[Callable[..., Params]] = None
+    # the graph has no trailing softmax: CE losses take log-softmax
+    from_logits: bool = True
 
 
 def toposort_layers(layers: List[Layer]) -> List[Layer]:
@@ -86,21 +112,26 @@ def _weight_seed(seed: int, op_name: str, index: int) -> int:
     return (seed * 1_000_003 + zlib.crc32(op_name.encode()) * 131 + index) % (1 << 63)
 
 
-def init_params(ops: List[Op], seed: int, device: torch.device) -> Params:
+def init_params(ops: List[Op], seed: int,
+                device: torch.device) -> Tuple[Params, Dict[str, Dict[str, bool]]]:
     """Draw every weight on ``device`` from a ``torch.Generator`` seeded
-    per (seed, op name, weight index)."""
+    per (seed, op name, weight index). Returns (params, wd_mask), the mask
+    from each ``WeightSpec.weight_decay``."""
     params: Params = {}
+    wd_mask: Dict[str, Dict[str, bool]] = {}
     for op in ops:
         specs = op.weight_specs()
         if not specs:
             continue
         params[op.name] = {}
+        wd_mask[op.name] = {}
         for wi, ws in enumerate(specs):
             gen = torch.Generator(device=device)
             gen.manual_seed(_weight_seed(seed, op.name, wi))
             params[op.name][ws.name] = ws.initializer(
                 gen, ws.shape, ws.dtype.to_torch(), device)
-    return params
+            wd_mask[op.name][ws.name] = ws.weight_decay
+    return params, wd_mask
 
 
 # mixed precision: ops whose weights must stay full-precision in the
@@ -143,11 +174,13 @@ def cast_op_params(cast, op: Op, params: Dict[str, torch.Tensor],
 def _forward_graph(ops: List[Op], params: Params,
                    inputs: Dict[int, torch.Tensor],
                    compute_dtype: Optional[torch.dtype] = None,
-                   plain_kernels: bool = False) -> Dict[int, torch.Tensor]:
+                   plain_kernels: bool = False,
+                   training: bool = False) -> Dict[int, torch.Tensor]:
     """Run the op graph; returns every activation by tensor id. With a
     ``compute_dtype`` (bf16) activations and op weights are cast on entry
-    to each op and outputs cast back, while ``params`` stay f32."""
-    ctx = LowerCtx(plain_kernels=plain_kernels)
+    to each op and outputs cast back, while ``params`` stay f32: autograd
+    through the casts gives f32 gradients against the f32 master params."""
+    ctx = LowerCtx(plain_kernels=plain_kernels, training=training)
     cast = make_caster(compute_dtype)
     acts = {k: cast(v) for k, v in inputs.items()}
     for op in ops:
@@ -158,38 +191,122 @@ def _forward_graph(ops: List[Op], params: Params,
     return acts
 
 
+# value-preserving tail ops walked through when deciding whether the graph
+# ends in a softmax
+_PASSTHROUGH = frozenset({OpType.IDENTITY, OpType.RESHAPE, OpType.TRANSPOSE,
+                          OpType.DROPOUT})
+
+
+def _ends_without_softmax(ops: List[Op], logits_id: int) -> bool:
+    """CE losses: a graph without a trailing Softmax gives raw logits (a
+    fused log-softmax in the loss); a softmax-terminated one gives
+    probabilities, as in the reference's Loss::backward."""
+    producer = {t.tensor_id: op for op in ops for t in op.layer.outputs}
+    op = producer.get(logits_id)
+    while op is not None and op.op_type in _PASSTHROUGH:
+        op = producer.get(op.layer.inputs[0].tensor_id)
+    return op is None or op.op_type is not OpType.SOFTMAX
+
+
+def _label_tensor(loss_type: LossType, logits_tensor: Tensor) -> Tensor:
+    """The label the loss takes: (batch, 1) int32 for sparse CE, else the
+    logits' dims and dtype."""
+    if loss_type is LossType.SPARSE_CATEGORICAL_CROSSENTROPY:
+        return Tensor((logits_tensor.dims[0], 1), DataType.INT32, name="label")
+    return Tensor(tuple(logits_tensor.dims), logits_tensor.dtype, name="label")
+
+
 def compile_model(
     config: FFConfig,
     layers: List[Layer],
     input_tensors: List[Tensor],
     logits_tensor: Tensor,
-    comp_mode: CompMode = CompMode.INFERENCE,
+    optimizer: Optional[Optimizer] = None,
+    loss_type: Optional[LossType] = None,
+    metrics: Optional[List[MetricsType]] = None,
+    comp_mode: CompMode = CompMode.TRAINING,
 ) -> CompiledModel:
-    """The compile entry point, for inference."""
-    if comp_mode is not CompMode.INFERENCE:
-        raise NotImplementedError(
-            "the port compiles for inference only so far; use "
-            "FFConfig(computation_mode=CompMode.INFERENCE)")
+    """The compile entry point. ``eval_step`` exists when a loss is given,
+    ``train_step``/``grad_step`` when an optimizer and a loss are given and
+    ``comp_mode`` is TRAINING (an inference model never gets them)."""
     if config.search_budget != 0:
         raise NotImplementedError(
             "the strategy search is not ported; search_budget must be 0")
+    metrics = list(metrics or [])
     device = config.torch_device()
     input_pshapes = {t.tensor_id: ParallelTensorShape.unpartitioned(t.dims, t.dtype)
                      for t in input_tensors}
     ops, _ = build_ops(layers, input_pshapes)
-    params = init_params(ops, config.seed, device)
+    params, wd_mask = init_params(ops, config.seed, device)
     cdt = _resolve_compute_dtype(config.compute_dtype)
+    n_inputs = len(input_tensors)
     input_ids = [t.tensor_id for t in input_tensors]
     logits_id = logits_tensor.tensor_id
+    from_logits = _ends_without_softmax(ops, logits_id)
+
+    def run(params: Params, xs, plain_kernels: bool, training: bool) -> torch.Tensor:
+        # loss and metrics are f32 whatever the compute dtype
+        acts = _forward_graph(ops, params, dict(zip(input_ids, xs)), cdt,
+                              plain_kernels, training)
+        return acts[logits_id].float()
 
     def forward_fn(params: Params, *xs: torch.Tensor,
                    plain_kernels: bool = False) -> torch.Tensor:
         with torch.inference_mode():
-            acts = _forward_graph(ops, params, dict(zip(input_ids, xs)), cdt,
-                                  plain_kernels)
-            return acts[logits_id].float()
+            return run(params, xs, plain_kernels, training=False)
 
-    return CompiledModel(config=config, device=device, ops=ops,
-                         input_tensors=list(input_tensors),
-                         logits_tensor=logits_tensor, params=params,
-                         forward_fn=forward_fn)
+    def value_and_grad(params: Params, batch, plain_kernels: bool):
+        """(loss, logits, grads) of one batch; the grads are f32 trees
+        like ``params``."""
+        xs, y = batch[:n_inputs], batch[n_inputs]
+        leaves = {op: {w: t.detach().requires_grad_(True) for w, t in ws.items()}
+                  for op, ws in params.items()}
+        flat = [t for ws in leaves.values() for t in ws.values()]
+        with torch.enable_grad():
+            logits = run(leaves, xs, plain_kernels, training=True)
+            loss = compute_loss(loss_type, logits, y, from_logits)
+        gs = iter(torch.autograd.grad(loss, flat, allow_unused=True))
+        grads = {op: {w: _or_zeros(next(gs), t) for w, t in ws.items()}
+                 for op, ws in leaves.items()}
+        return loss.detach(), logits.detach(), grads
+
+    def grad_step(params: Params, rng, *batch: torch.Tensor,
+                  plain_kernels: bool = False) -> Params:
+        return value_and_grad(params, batch, plain_kernels)[2]
+
+    def train_step(params: Params, opt_state, rng, *batch: torch.Tensor,
+                   plain_kernels: bool = False):
+        loss, logits, grads = value_and_grad(params, batch, plain_kernels)
+        bm = compute_batch_metrics(metrics, loss_type, logits, batch[n_inputs],
+                                   from_logits)
+        params, opt_state = optimizer.update(params, grads, opt_state, wd_mask,
+                                             optimizer.hyperparams())
+        return params, opt_state, loss, bm
+
+    def eval_step(params: Params, *batch: torch.Tensor,
+                  plain_kernels: bool = False):
+        y = batch[n_inputs]
+        with torch.inference_mode():
+            logits = run(params, batch[:n_inputs], plain_kernels, training=False)
+            loss = compute_loss(loss_type, logits, y, from_logits)
+            return loss, logits, compute_batch_metrics(metrics, loss_type, logits,
+                                                       y, from_logits)
+
+    training = (comp_mode is CompMode.TRAINING and optimizer is not None
+                and loss_type is not None)
+    return CompiledModel(
+        config=config, device=device, ops=ops, input_tensors=list(input_tensors),
+        logits_tensor=logits_tensor, params=params, forward_fn=forward_fn,
+        label_tensor=_label_tensor(loss_type, logits_tensor) if loss_type else None,
+        loss_type=loss_type, metrics=metrics, optimizer=optimizer,
+        opt_state=optimizer.init_state(params) if training else None,
+        wd_mask=wd_mask,
+        train_step=train_step if training else None,
+        eval_step=eval_step if loss_type is not None else None,
+        grad_step=grad_step if training else None,
+        from_logits=from_logits)
+
+
+def _or_zeros(grad: Optional[torch.Tensor], like: torch.Tensor) -> torch.Tensor:
+    # a weight the loss does not reach gets a zero gradient, as jax.grad gives
+    return torch.zeros_like(like) if grad is None else grad

@@ -1,10 +1,13 @@
 """FFModel: the user-facing model API.
 
-PyTorch counterpart of ``flexflow_tpu/runtime/model.py``, inference only
-so far: the graph calls the slice needs (``create_tensor``, ``dense``,
-``multihead_attention``), ``compile`` for inference, the manual
-``set_batch``/``forward`` verbs, and :func:`load_numpy_params` to carry
-the JAX package's params across.
+PyTorch counterpart of ``flexflow_tpu/runtime/model.py``: the graph calls
+the port's slices need (``create_tensor``, ``dense``,
+``multihead_attention``), ``compile`` with an optimizer, a loss and
+metrics, ``fit``/``eval`` over the numpy data loader, the manual
+``set_batch``/``forward``/``zero_gradients``/``backward``/``update``
+verbs, and :func:`load_numpy_params` to carry the JAX package's params
+across. Training guards, resume, checkpoints, prefetching, multi-step
+dispatch and the observability hooks wait for later slices.
 """
 
 from __future__ import annotations
@@ -20,8 +23,21 @@ from ..core.layer import Layer
 from ..core.op import create_op
 from ..core.parallel_tensor import ParallelTensorShape
 from ..core.tensor import Tensor
-from ..ffconst import ActiMode, CompMode, DataType, OpType
-from .compiler import CompiledModel, compile_model
+from ..ffconst import ActiMode, CompMode, DataType, LossType, MetricsType, OpType
+from .compiler import CompiledModel, Params, compile_model
+from .dataloader import DataLoaderGroup, SingleDataLoader
+from .loss import loss_from_string
+from .metrics import PerfMetrics
+from .optimizer import Optimizer, SGDOptimizer
+
+_METRICS_FROM_STRING = {
+    "accuracy": MetricsType.ACCURACY,
+    "categorical_crossentropy": MetricsType.CATEGORICAL_CROSSENTROPY,
+    "sparse_categorical_crossentropy": MetricsType.SPARSE_CATEGORICAL_CROSSENTROPY,
+    "mean_squared_error": MetricsType.MEAN_SQUARED_ERROR,
+    "root_mean_squared_error": MetricsType.ROOT_MEAN_SQUARED_ERROR,
+    "mean_absolute_error": MetricsType.MEAN_ABSOLUTE_ERROR,
+}
 
 
 class FFModel:
@@ -33,7 +49,9 @@ class FFModel:
         self.layers: List[Layer] = []
         self.input_tensors: List[Tensor] = []
         self.compiled: Optional[CompiledModel] = None
+        self.optimizer: Optional[Optimizer] = None
         self._cur_batch: Optional[List[torch.Tensor]] = None
+        self._cur_grads: Optional[Params] = None
 
     # ---- graph construction ---------------------------------------------
     def create_tensor(self, dims: Sequence[int],
@@ -88,20 +106,30 @@ class FFModel:
                                    [query, key, value], attrs, name)
 
     # ---- compile ----------------------------------------------------------
-    def compile(self, optimizer=None, loss_type=None, metrics=None,
+    def compile(self, optimizer: Optional[Optimizer] = None,
+                loss_type: Optional[Union[LossType, str]] = None,
+                metrics: Optional[Sequence[Union[MetricsType, str]]] = None,
                 comp_mode: Optional[CompMode] = None,
                 logits_tensor: Optional[Tensor] = None) -> None:
-        """Compile for inference. Training (optimizer, loss, metrics)
-        arrives with the training slice."""
-        if optimizer is not None or loss_type is not None or metrics:
-            raise NotImplementedError(
-                "the port compiles for inference only so far: no optimizer, "
-                "loss or metrics")
+        """Compile the graph. With a loss and TRAINING mode (the config's
+        ``computation_mode`` unless ``comp_mode`` says otherwise) the model
+        gets its training steps; without an optimizer it trains with the
+        JAX package's default, SGD at lr 0.01 and weight decay 1e-4 (its
+        ``FFConfig.learning_rate``/``weight_decay`` defaults)."""
         if comp_mode is None:
             comp_mode = self.config.computation_mode
+        if isinstance(loss_type, str):
+            loss_type = loss_from_string(loss_type)
+        if optimizer is not None:
+            self.optimizer = optimizer
+        elif self.optimizer is None and loss_type is not None:
+            self.optimizer = SGDOptimizer(lr=0.01, weight_decay=1e-4)
+        mtypes = [_METRICS_FROM_STRING[m] if isinstance(m, str) else m
+                  for m in metrics or []]
         logits = logits_tensor if logits_tensor is not None else self._final_output()
-        self.compiled = compile_model(self.config, self.layers,
-                                      self._used_inputs(), logits, comp_mode)
+        self.compiled = compile_model(self.config, self.layers, self._used_inputs(),
+                                      logits, self.optimizer, loss_type, mtypes,
+                                      comp_mode)
 
     def _used_inputs(self) -> List[Tensor]:
         used = {t.tensor_id for layer in self.layers for t in layer.inputs
@@ -122,12 +150,80 @@ class FFModel:
             raise ValueError("empty model")
         return leaves[-1]
 
+    # ---- fit / eval ---------------------------------------------------------
+    def _training_model(self) -> CompiledModel:
+        cm = self.compiled
+        if cm is None or cm.train_step is None:
+            raise RuntimeError(
+                "compile() with an optimizer and a loss (in TRAINING mode) "
+                "before training")
+        return cm
+
+    def _loader_group(self, xs, y, batch_size: int, shuffle: bool) -> DataLoaderGroup:
+        """One loader per input plus the label loader (sparse-CE labels
+        reshaped to (N, -1) int32 once, on the host)."""
+        cm = self.compiled
+        loaders = [SingleDataLoader(np.asarray(a), batch_size, cm.device) for a in xs]
+        y_arr = np.asarray(y)
+        _check_label(cm, y_arr.shape)
+        if cm.loss_type is LossType.SPARSE_CATEGORICAL_CROSSENTROPY:
+            y_arr = y_arr.reshape(y_arr.shape[0], -1).astype(np.int32)
+        loaders.append(SingleDataLoader(y_arr, batch_size, cm.device))
+        return DataLoaderGroup(loaders, seed=self.config.seed, shuffle=shuffle)
+
+    def fit(self, x: Union[np.ndarray, List[np.ndarray]], y: np.ndarray,
+            batch_size: Optional[int] = None, epochs: Optional[int] = None,
+            shuffle: bool = True, verbose: bool = True) -> List[PerfMetrics]:
+        """Train ``epochs`` epochs (default ``config.epochs``) over whole
+        batches of ``x``/``y``; returns one :class:`PerfMetrics` per epoch.
+        Metrics stay on the device until each epoch's end."""
+        cm = self._training_model()
+        xs = x if isinstance(x, (list, tuple)) else [x]
+        group = self._loader_group(xs, y, batch_size or self.config.batch_size, shuffle)
+        history: List[PerfMetrics] = []
+        for epoch in range(epochs or self.config.epochs):
+            group.reset(reshuffle=True)
+            pm = PerfMetrics()
+            loss = None
+            for _ in range(group.num_batches):
+                cm.params, cm.opt_state, loss, bm = cm.train_step(
+                    cm.params, cm.opt_state, None, *group.next_batch())
+                pm.accumulate(bm)
+            pm.flush()
+            if verbose:
+                lv = loss.item() if loss is not None else float("nan")
+                print(f"epoch {epoch}: loss {lv:.4f}  {pm.report(cm.metrics)}", flush=True)
+            history.append(pm)
+        return history
+
+    def eval(self, x, y, batch_size: Optional[int] = None,
+             verbose: bool = True) -> PerfMetrics:
+        """One pass over whole batches without updates; returns the
+        accumulated :class:`PerfMetrics`."""
+        cm = self.compiled
+        if cm is None or cm.eval_step is None:
+            raise RuntimeError("compile() with a loss before eval()")
+        xs = x if isinstance(x, (list, tuple)) else [x]
+        group = self._loader_group(xs, y, batch_size or self.config.batch_size, False)
+        group.reset(reshuffle=False)
+        pm = PerfMetrics()
+        for _ in range(group.num_batches):
+            _, _, bm = cm.eval_step(cm.params, *group.next_batch())
+            pm.accumulate(bm)
+        pm.flush()
+        if verbose:
+            print(f"eval: {pm.report(cm.metrics)}", flush=True)
+        return pm
+
     # ---- manual-loop verbs ------------------------------------------------
-    def set_batch(self, xs: Sequence[np.ndarray]) -> None:
+    def set_batch(self, xs: Sequence[np.ndarray], y: Optional[np.ndarray] = None) -> None:
         if not isinstance(xs, (list, tuple)):  # single-input convenience
             xs = [xs]
+        if y is not None and self.compiled is not None:
+            _check_label(self.compiled, np.shape(y))
+        batch = list(xs) + ([y] if y is not None else [])
         self._cur_batch = [torch.as_tensor(np.asarray(a), device=self.device)
-                           for a in xs]
+                           for a in batch]
 
     def forward(self) -> torch.Tensor:
         cm = self.compiled
@@ -135,13 +231,65 @@ class FFModel:
             raise RuntimeError("compile() and set_batch() before forward()")
         return cm.forward_fn(cm.params, *self._cur_batch[: len(cm.input_tensors)])
 
+    def zero_gradients(self) -> None:
+        """Gradients are computed afresh by each backward(); this drops any
+        that update() has not consumed."""
+        self._cur_grads = None
+
+    def backward(self) -> None:
+        """The current batch's gradients (set_batch with a label first)."""
+        cm = self._training_model()
+        if self._cur_batch is None or len(self._cur_batch) != len(cm.input_tensors) + 1:
+            raise RuntimeError("set_batch(xs, y) with a label before backward()")
+        self._cur_grads = cm.grad_step(cm.params, None, *self._cur_batch)
+
+    def update(self) -> None:
+        """One optimizer step with the gradients of the last backward()."""
+        cm = self._training_model()
+        if self._cur_grads is None:
+            raise RuntimeError("backward() before update()")
+        cm.params, cm.opt_state = cm.optimizer.update(
+            cm.params, self._cur_grads, cm.opt_state, cm.wd_mask)
+        self._cur_grads = None
+
+    def set_learning_rate(self, lr: float) -> None:
+        """Change the optimizer's learning rate (``alpha`` for Adam); the
+        next step reads it."""
+        opt = self.optimizer
+        if hasattr(opt, "lr"):
+            opt.lr = float(lr)
+        elif hasattr(opt, "alpha"):
+            opt.alpha = float(lr)
+        else:
+            raise ValueError("optimizer has no learning-rate attribute")
+
+    def get_perf_metrics(self) -> PerfMetrics:
+        """An empty PerfMetrics, as the JAX package returns: fit() and
+        eval() return the accumulated ones."""
+        return PerfMetrics()
+
+
+def _check_label(cm: CompiledModel, shape: Tuple[int, ...]) -> None:
+    """Dense losses take labels of the logits' per-sample shape; another
+    shape would broadcast against the logits and train on the wrong loss.
+    Sparse cross-entropy labels are class indices, one per sample or per
+    position, and are reshaped by the loss."""
+    if cm.label_tensor is None or cm.loss_type is LossType.SPARSE_CATEGORICAL_CROSSENTROPY:
+        return
+    want = tuple(cm.label_tensor.dims[1:])
+    if tuple(shape[1:]) != want:
+        raise ValueError(f"labels of per-sample shape {tuple(shape[1:])}; the "
+                         f"{cm.loss_type.name} loss takes {want}")
+
 
 def load_numpy_params(ff: FFModel,
                       tree: Mapping[str, Mapping[str, np.ndarray]]) -> None:
     """Copy a JAX-package params tree (``{op_name: {weight_name: array}}``,
     as ``np.asarray`` gives it from ``ff.compiled.params``) into a compiled
     port model. Op names, weight names, shapes and dtypes must match; the
-    layouts are the same in both packages, so this is a checked copy."""
+    layouts are the same in both packages, so this is a checked copy. It
+    copies into the existing tensors, so an optimizer state built for them
+    stays valid."""
     cm = ff.compiled
     if cm is None:
         raise RuntimeError("compile() the port model before loading params")
@@ -163,7 +311,7 @@ def load_numpy_params(ff: FFModel,
             if DataType(arr.dtype.name).to_torch() != cur.dtype:
                 raise ValueError(
                     f"{op_name}.{w_name}: dtype {arr.dtype} vs {cur.dtype}")
-    for op_name, weights in cm.params.items():
-        for w_name in weights:
-            weights[w_name] = torch.tensor(np.asarray(tree[op_name][w_name]),
-                                           device=cm.device)
+    with torch.no_grad():
+        for op_name, weights in cm.params.items():
+            for w_name, cur in weights.items():
+                cur.copy_(torch.tensor(np.asarray(tree[op_name][w_name])))

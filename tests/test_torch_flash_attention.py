@@ -108,8 +108,21 @@ def test_lengths_jax_rejects_are_rejected(sq, skv):
         _port(q, k, v, False)
 
 
+@pytest.mark.parametrize("d", [16, 48, 80, 96, 256])
+def test_any_head_dim_up_to_256_matches_jax_kernel(d):
+    """The kernels are built for padded head dims 32/64/128/256 and take
+    any D up to 256, as the JAX kernel takes any D."""
+    q, k, v = _qkv(b=1, sq=32, skv=32, d=d, seed=d)
+    scale = d ** -0.5
+    want = jfa.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                               causal=True, scale=scale)
+    np.testing.assert_allclose(_port(q, k, v, True), np.asarray(want), **F32_TOL)
+
+
 def test_unsupported_head_dim_is_rejected():
-    q, k, v = _qkv(d=16)
+    """Above 256 the kernels' tiles no longer fit in a block's shared
+    memory; the public entry refuses such a D on every device."""
+    q, k, v = _qkv(b=1, sq=8, skv=8, d=264)
     with pytest.raises(ValueError, match="head dim"):
         _port(q, k, v, False)
 

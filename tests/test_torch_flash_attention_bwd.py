@@ -1,0 +1,130 @@
+"""The port's flash-attention backward against the JAX package's.
+
+The same inputs, made with numpy from a seed, go through the JAX
+``_flash_bwd`` (its two Pallas kernels in the interpreter, fed the
+residuals of ``_flash_fwd``) and through the port's
+``flash_attention_bwd`` on CPU tensors, which is the kernels' plain
+version; and through autograd of both packages' ``flash_attention``. The
+kernels themselves are held against the plain version on the card by
+tests/test_torch_kernels_cuda.py.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from flexflow_tpu.kernels import flash_attention as jfa
+from flexflow_tpu.parallel.ring_attention import single_device_attention
+from flexflow_tpu_torch import kernels as tkernels
+from flexflow_tpu_torch.kernels import flash_attention as tfa
+
+# f32 on both sides, the same products summed in another order: gradients
+# of magnitude ~1 agree to a few f32 ulps
+F32_TOL = dict(rtol=1e-4, atol=1e-5)
+# bf16 gradients: both sides compute in f32 from the same bf16 inputs and
+# round to bf16 at the end; nearly equal f32 results may round one bf16
+# ulp apart (2^-8 relative)
+BF16_TOL = dict(rtol=2 ** -7, atol=2 ** -7)
+
+
+@pytest.fixture(autouse=True)
+def _interpret(monkeypatch):
+    monkeypatch.setenv("FLEXFLOW_TPU_PALLAS", "interpret")
+
+
+def _arrays(shapes, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=s).astype(np.float32) for s in shapes]
+
+
+def _bf16_round(arrays):
+    """Round to bf16 once, so both packages see the same values."""
+    return [np.asarray(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32)) for a in arrays]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sq,skv,d,causal", [
+    (64, 64, 32, False), (64, 64, 64, True), (32, 64, 48, True),
+    (64, 32, 32, True), (32, 64, 64, False)])
+def test_plain_bwd_matches_jax_flash_bwd(sq, skv, d, causal, dtype):
+    bh = 3
+    q, k, v, g = _arrays([(bh, sq, d), (bh, skv, d), (bh, skv, d), (bh, sq, d)],
+                         seed=sq + skv + d)
+    if dtype == "bfloat16":
+        q, k, v, g = _bf16_round([q, k, v, g])
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    scale = d ** -0.5
+    block_q = 32
+    out, res = jfa._flash_fwd(*(jnp.asarray(a, jdt) for a in (q, k, v)),
+                              causal, scale, block_q, True)
+    want = jfa._flash_bwd(causal, scale, block_q, True, res, jnp.asarray(g, jdt))
+    # the port gets the JAX forward's residuals, so only the backward differs
+    _, _, _, jo, jlse = res
+    tdt = getattr(torch, dtype)
+    to_t = lambda a: torch.tensor(np.asarray(jnp.asarray(a, jnp.float32))).to(tdt)  # noqa: E731
+    got = tfa.flash_attention_bwd(to_t(q), to_t(k), to_t(v), to_t(jo), to_t(g),
+                                  torch.from_numpy(np.array(jlse)), causal, scale)
+    tol = BF16_TOL if dtype == "bfloat16" else F32_TOL
+    for name, gt, w in zip(("dq", "dk", "dv"), got, want):
+        assert gt.dtype == tdt
+        np.testing.assert_allclose(gt.float().numpy(),
+                                   np.asarray(w.astype(jnp.float32)), **tol,
+                                   err_msg=name)
+
+
+def _grads_port(q, k, v, g, causal):
+    t = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    out = tfa.flash_attention(*t, causal=causal, scale=q.shape[-1] ** -0.5)
+    out.backward(torch.from_numpy(g))
+    return [x.grad.numpy() for x in t]
+
+
+def _grads_jax(fn, q, k, v, g, causal):
+    scale = q.shape[-1] ** -0.5
+    _, vjp = jax.vjp(lambda a, b, c: fn(a, b, c, causal, scale),
+                     *(jnp.asarray(a) for a in (q, k, v)))
+    return [np.asarray(x) for x in vjp(jnp.asarray(g))]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_autograd_matches_jax_grad_of_flash_attention(causal):
+    q, k, v, g = _arrays([(2, 64, 2, 32)] * 4, seed=7)
+    want = _grads_jax(lambda a, b, c, cz, s: jfa.flash_attention(a, b, c, causal=cz, scale=s),
+                      q, k, v, g, causal)
+    for name, got, w in zip(("dq", "dk", "dv"), _grads_port(q, k, v, g, causal), want):
+        np.testing.assert_allclose(got, w, **F32_TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_autograd_matches_jax_grad_of_single_device_attention(causal):
+    q, k, v, g = _arrays([(2, 32, 2, 48)] * 4, seed=8)
+    want = _grads_jax(single_device_attention, q, k, v, g, causal)
+    for name, got, w in zip(("dq", "dk", "dv"), _grads_port(q, k, v, g, causal), want):
+        np.testing.assert_allclose(got, w, **F32_TOL, err_msg=name)
+
+
+def test_plain_path_and_cpu_tensors_launch_nothing():
+    tkernels.reset_launch_counts()
+    q, k, v, g = _arrays([(1, 32, 2, 32)] * 4, seed=9)
+    a = _grads_port(q, k, v, g, True)
+    t = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    tfa.flash_attention_reference(*t, causal=True).backward(torch.from_numpy(g))
+    for x, y in zip(a, t):
+        np.testing.assert_array_equal(x, y.grad.numpy())
+    assert set(tkernels.launch_counts().values()) == {0}
+
+
+def test_inference_mode_keeps_no_residuals():
+    q = torch.randn(1, 16, 2, 32, requires_grad=True)
+    with torch.inference_mode():
+        out = tfa.flash_attention(q, q, q)
+    assert not out.requires_grad and out.grad_fn is None
+
+
+def test_bwd_wrapper_checks_lse():
+    q = torch.zeros(2, 16, 32)
+    with pytest.raises(ValueError, match="lse"):
+        tfa.flash_attention_bwd(q, q, q, q, q, torch.zeros(2, 16), False, 1.0)

@@ -90,3 +90,60 @@ def test_plain_kernels_ctx_gives_the_same_attention_on_cpu():
     a = op.forward(LowerCtx(), [x, x, x], w)[0]
     b = op.forward(LowerCtx(plain_kernels=True), [x, x, x], w)[0]
     assert torch.equal(a, b)
+
+
+def _grads_both(op_type, attrs, jattrs, inputs, seed):
+    """The op's vjp in both packages for one numpy cotangent: gradients of
+    every input and weight, as numpy (JAX first)."""
+    import jax
+
+    jop = jcreate_op(JLayer(JOpType(op_type.value), name="t", attrs=jattrs),
+                     [JPShape.unpartitioned(a.shape) for a in inputs])
+    op = create_op(Layer(op_type, name="t", attrs=attrs),
+                   [ParallelTensorShape.unpartitioned(a.shape) for a in inputs])
+    rng = np.random.default_rng(seed)
+    weights = {s.name: (rng.normal(size=s.shape) * 0.2).astype(np.float32)
+               for s in op.weight_specs()}
+    out_shape = op.infer_output_shapes()[0][0]
+    g = rng.normal(size=out_shape).astype(np.float32)
+
+    def jfwd(xs, ws):
+        return jop.forward(JLowerCtx(mesh=None, training=True), xs, ws)[0]
+
+    _, vjp = jax.vjp(jfwd, [jnp.asarray(a) for a in inputs],
+                     {k: jnp.asarray(v) for k, v in weights.items()})
+    jxs, jws = vjp(jnp.asarray(g))
+    txs = [torch.from_numpy(a).requires_grad_(True) for a in inputs]
+    tws = {k: torch.from_numpy(v).requires_grad_(True) for k, v in weights.items()}
+    op.forward(LowerCtx(training=True), txs, tws)[0].backward(torch.from_numpy(g))
+    want = [np.asarray(a) for a in jxs] + [np.asarray(jws[k]) for k in weights]
+    got = [t.grad.numpy() for t in txs] + [tws[k].grad.numpy() for k in weights]
+    return want, got, ["x%d" % i for i in range(len(inputs))] + list(weights)
+
+
+@pytest.mark.parametrize("acti", [ActiMode.NONE, ActiMode.RELU, ActiMode.GELU],
+                         ids=lambda a: a.name)
+def test_dense_gradients_match_jax(acti):
+    x = np.random.default_rng(5).normal(size=(2, 8, 24)).astype(np.float32)
+    attrs = dict(out_dim=16, activation=acti, use_bias=True)
+    want, got, names = _grads_both(OpType.LINEAR, attrs,
+                                   dict(attrs, activation=JActiMode(acti.value)), [x], 6)
+    for n, a, b in zip(names, got, want):
+        np.testing.assert_allclose(a, b, **TOL, err_msg=n)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_multihead_attention_gradients_match_jax(causal):
+    """Through the flash-attention backward: the port's plain version on
+    CPU tensors, the JAX package's Pallas kernels in the interpreter."""
+    rng = np.random.default_rng(7)
+    q, k, v = (rng.normal(size=(2, 32, 64)).astype(np.float32) for _ in range(3))
+    attrs = dict(embed_dim=64, num_heads=2, kdim=64, vdim=64, dropout=0.0,
+                 bias=True, causal=causal)
+    want, got, names = _grads_both(OpType.MULTIHEAD_ATTENTION, attrs, attrs, [q, k, v], 8)
+    for n, a, b in zip(names, got, want):
+        # bk's exact gradient is 0 (the softmax cancels q.bk): rounding noise
+        # on both sides, held against the scale of the other gradients
+        np.testing.assert_allclose(a, b, rtol=TOL["rtol"],
+                                   atol=TOL["atol"] * max(1.0, np.abs(want[0]).max()),
+                                   err_msg=n)
