@@ -13,29 +13,50 @@ Phases, each of which fails the run (non-zero exit, no result line):
    its plain PyTorch version, timed beside the plain version, the one
    PyTorch call that computes the same function, and its bound: the
    flash-attention forward, then its two backward kernels (dq, dkv); then
-   the ragged and repaired cases (S = 200, D = 96, D = 256, B*H > 65535);
+   the ragged and repaired cases (S = 200, D = 96, D = 256, B*H > 65535,
+   and D = 264 and 512, causal and not, through the kernels chunked over
+   the head dim);
 4. serving: the reference Transformer (build_transformer at the
    TransformerConfig defaults: seq 512, hidden 1024, 16 heads, 12 layers)
    at batch 8, served through InferenceEngine.infer_async, in float32 and
    in bfloat16; every answer is held against the same rows run through the
    plain attention path on the card, and the kernel's launch count must be
-   12 per forward dispatch;
+   12 per forward dispatch (and 0 for the MoE kernels);
 5. training: the same model at the same width and batch, compiled with
    SGDOptimizer(lr=0.01) and the MSE-avg loss, in float32 and in bfloat16:
    one grad_step's gradients at the serving phase's random params, and
    five train_steps' losses and params from the model's own init (as
    bench.py trains it), held against the plain kernels' path;
    FFModel.fit over 64 samples with exactly 12 launches of each flash
-   kernel per step; then the step time (median of 20), a profiled step's
-   breakdown and the peak memory;
-6. the kernels line, one JSON object;
-7. the last line: {"ok": true, "device": {...}}.
+   kernel per step (and none of the MoE kernels); then the step time
+   (median of 20), a profiled step's breakdown and the peak memory;
+6. MoE kernels: row_gather and row_gather_sum, float32 and bfloat16, at
+   the MoE model's shape (batch 64, d 784, 5 experts, top-2, capacity 52)
+   and at Mixtral-8x7B's widths (hidden 4096, 8 experts, top-2, 4096
+   tokens), each held against its plain version and timed beside it,
+   F.embedding_bag and its bound; the dispatch's backward (row_gather_sum)
+   with x requiring a gradient, against the plain path;
+7. MoE serving: build_moe_mnist at the MoeConfig defaults, batch 64,
+   served through InferenceEngine.infer_async in float32 and bfloat16;
+   every dispatch's exact batch (padding and order included) is replayed
+   through the plain path and must give the same answers, with exactly
+   one launch of each MoE kernel (and no flash launch) per dispatch;
+8. MoE training: the same model with AdamOptimizer(alpha=0.003), sparse
+   categorical cross-entropy and accuracy, in float32 and bfloat16: one
+   grad_step, five train_steps' losses (the balance term included), a
+   FFModel.fit of 8 steps (3 launches of row_gather and 1 of
+   row_gather_sum a step) and FFModel.eval, each held against the plain
+   path; the step time (median of 20), a profiled step's breakdown and the
+   peak memory; then the stacked form once in float32 through fit;
+9. the kernels line, one JSON object;
+10. the last line: {"ok": true, "device": {...}}.
 
 Imports torch, numpy and flexflow_tpu_torch only.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -83,6 +104,20 @@ BF16_FLOOR_FACTOR = 2.0
 # (the serving phase's answers show their size), averaged over 4096
 # squared errors, plus the small param drift the gradients above make
 LOSS_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# the MoE model (MoeConfig defaults) at the JAX FFConfig's default batch
+MOE_BATCH = 64
+MOE_REQUESTS = 200  # per MoE serving run: 3 full dispatches and a padded one at least
+MOE_TRAIN_SAMPLES = 512  # fit's epoch: 8 steps of batch 64
+ADAM_ALPHA = 0.003  # as examples/python/native/moe.py trains the model
+# Mixtral-8x7B's config.json: hidden_size 4096, num_local_experts 8,
+# num_experts_per_tok 2; 4096 tokens at capacity factor 2.0
+MIXTRAL = dict(tokens=4096, d=4096, n=8, k=2, alpha=2.0)
+# The MoE kernels round each product, and each sum of products in the
+# order j = 0..k-1, as their plain versions do (csrc/moe_kernels.cu), so
+# they are held to exact agreement. The MoE model's paths then differ in
+# nothing else (the same cuBLAS calls on the same inputs), so answers,
+# gradients, losses, metrics and params are held exactly too.
+MOE_TOL = 0.0
 
 
 class SmokeFailure(RuntimeError):
@@ -287,41 +322,54 @@ def phase_kernels() -> dict:
                   f"({pair_bound_by}), {pair_bound_ms / pair_ms:.1%} of bound",
                   flush=True)
 
-    # ragged lengths and the repaired limits (any D <= 256, any B*H). SDPA
-    # gets (B*H / 8, 8, S, D) views: its kernels put B and H on grid
-    # dimensions that stop at 65535
-    for dtype in (torch.float32, torch.bfloat16):
+    # ragged lengths and the repaired limits: any D <= 256 and any B*H
+    # (causal), then D above 256 through the kernels chunked over D
+    rows["cases"] = kernel_cases(F, fa, gen, [
+        (dtype, bh, s, d, True) for dtype in (torch.float32, torch.bfloat16)
         for bh, s, d in ((BATCH * HEADS, 200, HEAD_DIM), (BATCH * HEADS, SEQ, 96),
-                         (BATCH * HEADS, SEQ, 256), (65536 + 8, 16, 32)):
-            q, k, v, g = (torch.randn((bh, s, d), generator=gen, device=DEVICE).to(dtype)
-                          for _ in range(4))
-            sc = d ** -0.5
-            name = f"{_name(dtype)} causal=True B*H={bh} S={s} D={d}"
-            out, lse, ferr = check_fwd(fa, q, k, v, True, sc, name)
-            berr = check_bwd(fa, q, k, v, out, g, lse, True, sc, name)
-            q4, k4, v4 = (as_bhsd(t, 8) for t in (q, k, v))
-            case = dict(
-                fwd_ms=time_ms(lambda: fa.flash_attention_fwd(q, k, v, True, sc), 10),
-                fwd_plain_ms=time_ms(
-                    lambda: fa.flash_attention_fwd_reference(q, k, v, True, sc), 3),
-                fwd_library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                    q4, k4, v4, is_causal=True, scale=sc), 10),
-                fwd_bound_ms=attention_bound(dtype, True, *WORK["fwd"], bh=bh, s=s, d=d)[0],
-                bwd_ms=time_ms(
-                    lambda: fa.flash_attention_bwd(q, k, v, out, g, lse, True, sc), 10),
-                bwd_plain_ms=time_ms(lambda: fa.flash_attention_bwd_reference(
-                    q, k, v, out, g, lse, True, sc), 3),
-                bwd_library_ms=sdpa_bwd_ms(F, q, k, v, g, True, sc, heads=8),
-                bwd_bound_ms=attention_bound(dtype, True, *WORK["bwd"], bh=bh, s=s, d=d)[0])
-            rows["cases"].append(dict(dtype=_name(dtype), bh=bh, s=s, d=d, causal=True,
-                                      fwd_err=ferr, bwd_err=berr, **case))
-            print(f"kernel case {name}: out err {ferr['out']:.3g}, dq/dk/dv err "
-                  f"{berr['dq']:.3g}/{berr['dk']:.3g}/{berr['dv']:.3g}; " + "; ".join(
-                      f"{p} {case[p + '_ms']:.4f} ms, plain {case[p + '_plain_ms']:.4f}, "
-                      f"sdpa {case[p + '_library_ms']:.4f}, bound "
-                      f"{case[p + '_bound_ms']:.4f} "
-                      f"({case[p + '_bound_ms'] / case[p + '_ms']:.1%} of bound)"
-                      for p in ("fwd", "bwd")), flush=True)
+                         (BATCH * HEADS, SEQ, 256), (65536 + 8, 16, 32))])
+    rows["cases"] += kernel_cases(F, fa, gen, [
+        (dtype, BATCH * HEADS, SEQ, d, causal) for dtype in (torch.float32, torch.bfloat16)
+        for d in (264, 512) for causal in (False, True)])
+    return rows
+
+
+def kernel_cases(F, fa, gen, cases) -> list:
+    """One ``kernel case`` line per (dtype, B*H, S, D, causal): forward and
+    backward against the plain version, each timed beside the plain
+    version, SDPA and the bound. SDPA gets (B*H / 8, 8, S, D) views: its
+    kernels put B and H on grid dimensions that stop at 65535."""
+    rows = []
+    for dtype, bh, s, d, causal in cases:
+        q, k, v, g = (torch.randn((bh, s, d), generator=gen, device=DEVICE).to(dtype)
+                      for _ in range(4))
+        sc = d ** -0.5
+        name = f"{_name(dtype)} causal={causal} B*H={bh} S={s} D={d}"
+        out, lse, ferr = check_fwd(fa, q, k, v, causal, sc, name)
+        berr = check_bwd(fa, q, k, v, out, g, lse, causal, sc, name)
+        q4, k4, v4 = (as_bhsd(t, 8) for t in (q, k, v))
+        case = dict(
+            fwd_ms=time_ms(lambda: fa.flash_attention_fwd(q, k, v, causal, sc), 10),
+            fwd_plain_ms=time_ms(
+                lambda: fa.flash_attention_fwd_reference(q, k, v, causal, sc), 3),
+            fwd_library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=causal, scale=sc), 10),
+            fwd_bound_ms=attention_bound(dtype, causal, *WORK["fwd"], bh=bh, s=s, d=d)[0],
+            bwd_ms=time_ms(
+                lambda: fa.flash_attention_bwd(q, k, v, out, g, lse, causal, sc), 10),
+            bwd_plain_ms=time_ms(lambda: fa.flash_attention_bwd_reference(
+                q, k, v, out, g, lse, causal, sc), 3),
+            bwd_library_ms=sdpa_bwd_ms(F, q, k, v, g, causal, sc, heads=8),
+            bwd_bound_ms=attention_bound(dtype, causal, *WORK["bwd"], bh=bh, s=s, d=d)[0])
+        rows.append(dict(dtype=_name(dtype), bh=bh, s=s, d=d, causal=causal,
+                         fwd_err=ferr, bwd_err=berr, **case))
+        print(f"kernel case {name}: out err {ferr['out']:.3g}, dq/dk/dv err "
+              f"{berr['dq']:.3g}/{berr['dk']:.3g}/{berr['dv']:.3g}; " + "; ".join(
+                  f"{p} {case[p + '_ms']:.4f} ms, plain {case[p + '_plain_ms']:.4f}, "
+                  f"sdpa {case[p + '_library_ms']:.4f}, bound "
+                  f"{case[p + '_bound_ms']:.4f} "
+                  f"({case[p + '_bound_ms'] / case[p + '_ms']:.1%} of bound)"
+                  for p in ("fwd", "bwd")), flush=True)
     return rows
 
 
@@ -394,6 +442,7 @@ def profile_breakdown(fn, classes, other: str = "other") -> dict:
     busy_ms = busy_us / 1e3
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+            "device_ops": len(spans),
             "device_ms_by_class": by_class,
             "top_kernels_ms": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])}
 
@@ -481,8 +530,9 @@ def phase_serving(compute_dtype: str, params, card: str):
     check(launches == n_attn * dispatches,
           f"flash kernel launched {launches} times for {dispatches} forward "
           f"dispatches (want {n_attn} per dispatch)")
-    check(counts["flash_attention_bwd_dq"] == counts["flash_attention_bwd_dkv"] == 0,
-          f"backward kernels launched while serving: {counts}")
+    check(all(counts[name] == 0 for name in kernels.KERNELS
+              if name != "flash_attention_fwd"),
+          f"backward or MoE kernels launched while serving: {counts}")
 
     got = np.stack(answers)
     check(got.shape == (REQUESTS, cfg.sequence_length, 1),
@@ -651,9 +701,11 @@ def phase_training(compute_dtype: str, params: dict, card: str, ref: dict = None
     hist = ff.fit(x, y, batch_size=BATCH, epochs=1, shuffle=False, verbose=False)
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
-    check(launches == {name: n_attn * steps for name in kernels.KERNELS},
+    want = {name: n_attn * steps if name in kernels.FLASH_KERNELS else 0
+            for name in kernels.KERNELS}
+    check(launches == want,
           f"{compute_dtype}: fit's {steps} steps launched {launches}, want "
-          f"{n_attn} of each kernel per step")
+          f"{n_attn} of each flash kernel per step and no MoE kernel")
     pm = hist[0]
     check(len(hist) == 1 and pm.train_all == TRAIN_SAMPLES and np.isfinite(pm.mse_loss),
           f"{compute_dtype}: fit's PerfMetrics {pm}")
@@ -667,6 +719,9 @@ def phase_training(compute_dtype: str, params: dict, card: str, ref: dict = None
     for _ in range(3):
         step()
     torch.cuda.synchronize()
+    # earlier phases' models may wait on reference cycles; collect them so
+    # the peak counts only what this model's steps hold
+    gc.collect()
     torch.cuda.reset_peak_memory_stats()
     step_ms = []
     for _ in range(TIMED_STEPS):
@@ -710,6 +765,417 @@ def phase_training(compute_dtype: str, params: dict, card: str, ref: dict = None
     return row, this_ref
 
 
+# ---- the MoE slice -------------------------------------------------------
+
+
+def moe_routing(tokens: int, n: int, k: int, alpha: float, gen):
+    """A top-k routing of ``tokens`` tokens over n experts from a random
+    gate, as the MoE ops compute it: (assign, gate weights (tokens, k) f32,
+    capacity, slot, keep, src, valid)."""
+    from flexflow_tpu_torch.kernels import moe_kernels as mk
+    from flexflow_tpu_torch.ops.moe_ops import expert_capacity
+
+    gate = torch.randn((tokens, n), generator=gen, device=DEVICE)
+    vals, assign = torch.sort(gate, dim=-1, descending=True, stable=True)
+    assign = assign[:, :k].to(torch.int32).contiguous()
+    w = torch.softmax(vals[:, :k], dim=-1).contiguous()
+    capacity = expert_capacity(tokens, k, n, alpha)
+    return (assign, w, capacity) + mk.compute_routing(assign, n, capacity)
+
+
+def rows_bound_ms(x: torch.Tensor, idx: torch.Tensor, weights: torch.Tensor,
+                  out: torch.Tensor) -> float:
+    """The least time of a row gather: the distinct source rows this run's
+    indices read, the indices, the weights and the output, each moved once
+    at the card's memory rate (the work does no arithmetic to speak of)."""
+    rows = torch.unique(idx).numel()
+    nbytes = (rows * x.shape[1] * x.element_size() + idx.numel() * 4
+              + weights.numel() * 4 + out.numel() * out.element_size())
+    return nbytes / PEAK_BYTES * 1e3
+
+
+def moe_kernel_row(name: str, what: str, fn, plain, library, bound_ms: float,
+                   dtype: torch.dtype, shape: str) -> dict:
+    """One MoE kernel at one shape: the kernel against its plain version
+    (held to MOE_TOL), timed beside it, F.embedding_bag and its bound.
+    ``ms``, ``plain_ms`` and ``library_ms`` are device time per call by the
+    profiler (every kernel the call runs): at the model's shape a call's
+    host work (checks, allocation, the ctypes call) outlasts its kernel, so
+    CUDA events around a loop would time the host. ``call_ms`` is that
+    loop's time per call of the wrapper, host included."""
+    got, want = fn(), plain()
+    torch.cuda.synchronize()
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          f"{name} {what}: {got.dtype} {tuple(got.shape)} vs {want.dtype} {tuple(want.shape)}")
+    check(bool(torch.isfinite(got.float()).all()), f"{name} {what}: non-finite output")
+    err = (got.float() - want.float()).abs().max().item()
+    check(err <= MOE_TOL, f"{name} {what}: kernel vs plain err {err:.3g} > {MOE_TOL}")
+    kname = f"{name}_kernel"
+    row = dict(dtype=_name(dtype), shape=shape, max_abs_err=err, tolerance=MOE_TOL,
+               ms=kernel_ms_by_name(fn, (kname,), iters=20)[kname],
+               call_ms=time_ms(fn, 50), plain_ms=device_ms(plain),
+               library_ms=device_ms(library), bound_ms=bound_ms, bound_by="bytes")
+    print(f"kernel {name} {what}: err {err:.3g} (tol {MOE_TOL}); kernel {row['ms']:.4f} "
+          f"ms on the device ({row['call_ms']:.4f} ms a call, host included), plain "
+          f"{row['plain_ms']:.4f} ms, embedding_bag {row['library_ms']:.4f} ms, bound "
+          f"{bound_ms:.4f} ms (bytes), {bound_ms / row['ms']:.1%} of bound", flush=True)
+    return row
+
+
+def phase_moe_kernels() -> dict:
+    """row_gather and row_gather_sum at the MoE model's shape and at
+    Mixtral-8x7B's widths, in both dtypes; then the dispatch's backward.
+    Returns {"row_gather": rows, "row_gather_sum": rows}."""
+    import torch.nn.functional as F
+
+    from flexflow_tpu_torch import kernels
+    from flexflow_tpu_torch.kernels import moe_kernels as mk
+    from flexflow_tpu_torch.models.moe import MoeConfig
+
+    cfg = MoeConfig()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
+    rows = {"row_gather": [], "row_gather_sum": []}
+    shapes = (("main", MOE_BATCH, cfg.input_dim, cfg.num_exp, cfg.num_select, cfg.alpha),
+              ("mixtral", MIXTRAL["tokens"], MIXTRAL["d"], MIXTRAL["n"], MIXTRAL["k"],
+               MIXTRAL["alpha"]))
+    for label, tokens, d, n, k, alpha in shapes:
+        assign, w, cap, slot, keep, src, valid = moe_routing(tokens, n, k, alpha, gen)
+        wk = w * keep
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn((tokens, d), generator=gen, device=DEVICE).to(dtype)
+            disp = mk.row_gather(x, src, valid)
+            shape = (f"{label}: x ({tokens}, {d}) -> ({n * cap}, {d}) slots, "
+                     f"capacity {cap}")
+            src_l, slot_l = src.long()[:, None], slot.long()
+            valid_x, wk_x = valid[:, None].to(dtype), wk.to(dtype)
+            rows["row_gather"].append(moe_kernel_row(
+                "row_gather", f"{_name(dtype)} {shape}",
+                lambda: mk.row_gather(x, src, valid),
+                lambda: mk.row_gather_reference(x, src, valid),
+                lambda: F.embedding_bag(src_l, x, per_sample_weights=valid_x, mode="sum"),
+                rows_bound_ms(x, src, valid, disp), dtype, shape))
+            shape = (f"{label}: ({tokens}, {k}) picks of ({n * cap}, {d}) slot rows")
+            rows["row_gather_sum"].append(moe_kernel_row(
+                "row_gather_sum", f"{_name(dtype)} {shape}",
+                lambda: mk.row_gather_sum(disp, slot, wk),
+                lambda: mk.row_gather_sum_reference(disp, slot, wk),
+                lambda: F.embedding_bag(slot_l, disp, per_sample_weights=wk_x, mode="sum"),
+                rows_bound_ms(disp, slot, wk, x), dtype, shape))
+            del x, disp
+
+    # the dispatch's backward (row_gather_sum over the slot rows' gradient),
+    # which the model's main path never runs: its dispatched input needs
+    # no gradient
+    assign, w, cap, *_ = moe_routing(MOE_BATCH, cfg.num_exp, cfg.num_select, cfg.alpha, gen)
+    for dtype in (torch.float32, torch.bfloat16):
+        x0 = torch.randn((MOE_BATCH, cfg.input_dim), generator=gen, device=DEVICE).to(dtype)
+        g = torch.randn((cfg.num_exp, cap, cfg.input_dim), generator=gen,
+                        device=DEVICE).to(dtype)
+        grads = []
+        for plain in (False, True):
+            x = x0.clone().requires_grad_(True)
+            before = kernels.launch_counts()["row_gather_sum"]
+            mk.moe_dispatch(x, assign, cfg.num_exp, cap, plain=plain).backward(g)
+            torch.cuda.synchronize()
+            launched = kernels.launch_counts()["row_gather_sum"] - before
+            check(launched == (0 if plain else 1),
+                  f"dispatch backward (plain={plain}) launched row_gather_sum {launched} times")
+            grads.append(x.grad)
+        err = (grads[0].float() - grads[1].float()).abs().max().item()
+        check(err <= MOE_TOL and bool(torch.isfinite(grads[0].float()).all()),
+              f"dispatch backward {_name(dtype)}: dx vs plain err {err:.3g}")
+        print(f"kernel row_gather_sum dispatch backward {_name(dtype)}: dx ({MOE_BATCH}, "
+              f"{cfg.input_dim}) from ({cfg.num_exp}, {cap}, {cfg.input_dim}), err vs "
+              f"plain {err:.3g} (tol {MOE_TOL})", flush=True)
+    return rows
+
+
+def check_moe_launches(counts: dict, calls: int, gathers: int, what: str) -> None:
+    """``calls`` forward passes, ``gathers`` row_gather launches each
+    (1 serving, 3 a training step): one row_gather_sum each, no flash."""
+    from flexflow_tpu_torch import kernels
+
+    want = {name: 0 for name in kernels.FLASH_KERNELS}
+    want.update(row_gather=gathers * calls, row_gather_sum=calls)
+    check(counts == want, f"{what}: launched {counts}, want {want}")
+
+
+def moe_model(compute_dtype: str, training: bool, stacked: bool = False):
+    from flexflow_tpu_torch import (AdamOptimizer, CompMode, FFConfig, FFModel,
+                                    LossType, MetricsType)
+    from flexflow_tpu_torch.models.moe import build_moe_mnist
+
+    mode = CompMode.TRAINING if training else CompMode.INFERENCE
+    ff = FFModel(FFConfig(batch_size=MOE_BATCH, computation_mode=mode,
+                          compute_dtype=compute_dtype, seed=SEED, device=DEVICE))
+    build_moe_mnist(ff, MOE_BATCH, stacked=stacked)
+    if training:
+        ff.compile(optimizer=AdamOptimizer(alpha=ADAM_ALPHA),
+                   loss_type=LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
+                   metrics=[MetricsType.ACCURACY,
+                            MetricsType.SPARSE_CATEGORICAL_CROSSENTROPY])
+    else:
+        ff.compile()
+    return ff
+
+
+def phase_moe_serving(compute_dtype: str, card: str) -> dict:
+    """Serve MOE_REQUESTS single-sample requests through InferenceEngine at
+    the model's own init; record each dispatch's batch as the instance
+    runs it, and replay every one, padded as the instance pads it, through
+    the plain path."""
+    from flexflow_tpu_torch import kernels
+    from flexflow_tpu_torch.models.moe import MoeConfig
+    from flexflow_tpu_torch.serving.engine import InferenceEngine
+
+    cfg = MoeConfig()
+    ff = moe_model(compute_dtype, training=False)
+    cm = ff.compiled
+    xs = np.random.default_rng(SEED + 4).standard_normal(
+        size=(MOE_REQUESTS, cfg.input_dim), dtype=np.float32)
+    engine = InferenceEngine()
+    inst = engine.register_ffmodel(ff, "moe")
+    served = []  # (the dispatch's rows, their answers), in dispatch order
+    infer = inst.infer
+
+    def recording_infer(inputs):
+        out = infer(inputs)
+        served.append((np.array(inputs[0]), np.array(out[0])))
+        return out
+
+    inst.infer = recording_infer
+    try:
+        engine.infer("moe", [xs[0]], timeout=600)  # warm-up
+        torch.cuda.synchronize()
+        served.clear()
+        d0 = inst.dispatches
+        t_done = [0.0] * MOE_REQUESTS
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        t_submit, futs = [], []
+        for i in range(MOE_REQUESTS):
+            t_submit.append(time.perf_counter())
+            f = engine.infer_async("moe", [xs[i]])
+            f.add_done_callback(lambda _f, i=i: t_done.__setitem__(i, time.perf_counter()))
+            futs.append(f)
+        answers = [f.result(600) for f in futs]
+        counts = kernels.launch_counts()
+    finally:
+        engine.stop()
+    dispatches = inst.dispatches - d0
+    wall = max(t_done) - t0
+    lat_ms = np.array([(t_done[i] - t_submit[i]) * 1e3 for i in range(MOE_REQUESTS)])
+    check_moe_launches(counts, dispatches, 1, f"MoE serving {compute_dtype}")
+    got = np.stack(answers)
+    check(got.shape == (MOE_REQUESTS, cfg.num_classes) and bool(np.isfinite(got).all()),
+          f"MoE answers of shape {got.shape}, finite {np.isfinite(got).all()}")
+    check(len(served) == dispatches
+          and np.array_equal(np.concatenate([b for b, _ in served]), xs)
+          and np.array_equal(np.concatenate([a for _, a in served]), got),
+          f"MoE serving {compute_dtype}: the recorded dispatches do not cover the "
+          f"requests in order")
+    # replay each dispatch's exact batch, padded with zero rows as
+    # ModelInstance pads it: routing ranks picks over the whole batch
+    err, sizes = 0.0, []
+    for batch, out in served:
+        padded = np.zeros((MOE_BATCH, cfg.input_dim), np.float32)
+        padded[:len(batch)] = batch
+        ref = cm.forward_fn(cm.params, torch.from_numpy(padded).to(cm.device),
+                            plain_kernels=True)[:len(batch)].cpu().numpy()
+        err = max(err, float(np.abs(out - ref).max()))
+        sizes.append(len(batch))
+    check(err <= MOE_TOL, f"MoE serving {compute_dtype}: answers vs the plain path "
+          f"replaying each dispatch: err {err:.3g} > {MOE_TOL}")
+    sums = got.sum(axis=1)
+    check(bool(np.all(np.abs(sums - 1) < 1e-2)), f"MoE answers are no softmax: {sums[:4]}")
+    row = dict(compute_dtype=compute_dtype, requests=MOE_REQUESTS, dispatches=dispatches,
+               dispatch_sizes=sizes, launches=counts, requests_per_s=MOE_REQUESTS / wall,
+               p50_ms=float(np.percentile(lat_ms, 50)),
+               p99_ms=float(np.percentile(lat_ms, 99)), max_abs_err_vs_plain=err,
+               served_ms_per_dispatch=wall * 1e3 / dispatches)
+    print(f"moe serving {compute_dtype}: {MOE_REQUESTS} requests in {dispatches} "
+          f"dispatches of {sizes}, launches row_gather {counts['row_gather']} "
+          f"row_gather_sum {counts['row_gather_sum']}; {row['requests_per_s']:.2f} req/s, "
+          f"p50 {row['p50_ms']:.2f} ms, p99 {row['p99_ms']:.2f} ms; max err vs the "
+          f"plain path replaying each dispatch {err:.3g} [{card}]", flush=True)
+    print("moe_serving_json " + json.dumps(row), flush=True)
+    return row
+
+
+def tree_err(got: dict, want: dict) -> float:
+    """The largest absolute difference of two param-shaped trees."""
+    return max((got[op][w].float() - t.float()).abs().max().item()
+               for op, ws in want.items() for w, t in ws.items())
+
+
+def plain_epoch(ff, x: np.ndarray, y: np.ndarray, train: bool):
+    """One epoch of FFModel.fit (no shuffle) or FFModel.eval through the
+    plain path: the same whole batches through train_step or eval_step
+    with plain_kernels=True. Returns the accumulated PerfMetrics."""
+    from flexflow_tpu_torch.runtime.metrics import PerfMetrics
+
+    cm = ff.compiled
+    pm = PerfMetrics()
+    for lo in range(0, len(x) - MOE_BATCH + 1, MOE_BATCH):
+        xb = torch.from_numpy(x[lo:lo + MOE_BATCH]).to(cm.device)
+        yb = torch.from_numpy(y[lo:lo + MOE_BATCH]).to(cm.device)
+        if train:
+            cm.params, cm.opt_state, _, bm = cm.train_step(
+                cm.params, cm.opt_state, None, xb, yb, plain_kernels=True)
+        else:
+            bm = cm.eval_step(cm.params, xb, yb, plain_kernels=True)[2]
+        pm.accumulate(bm)
+    pm.flush()
+    return pm
+
+
+def same_metrics(got, want) -> bool:
+    return (got.train_all == want.train_all and got.train_correct == want.train_correct
+            and abs(got.sparse_cce_loss - want.sparse_cce_loss) <= MOE_TOL)
+
+
+MOE_CLASSES = (
+    ("row_gather_sum", lambda n: "row_gather_sum_kernel" in n),
+    ("row_gather", lambda n: "row_gather_kernel" in n),
+    ("gemm", lambda n: any(w in n.lower() for w in ("gemm", "xmma", "cutlass", "nvjet"))),
+    ("memcpy", lambda n: "memcpy" in n.lower()),
+)
+
+
+def moe_data(seed: int, n: int):
+    """Inputs and labels that a linear map of the inputs decides."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(size=(n, 784), dtype=np.float32)
+    w = rng.standard_normal(size=(784, 10), dtype=np.float32)
+    return x, np.argmax(x @ w, axis=1).astype(np.int32).reshape(-1, 1)
+
+
+def phase_moe_training(compute_dtype: str, card: str, stacked: bool = False) -> dict:
+    """Train the MoE model through compile -> grad_step/train_step/fit/eval,
+    each against the plain path; the stacked form runs fit only."""
+    from flexflow_tpu_torch import kernels, load_numpy_params
+
+    ff = moe_model(compute_dtype, training=True, stacked=stacked)
+    cm = ff.compiled
+    init = {op: {w: t.detach().cpu().numpy().copy() for w, t in ws.items()}
+            for op, ws in cm.params.items()}
+    x, y = moe_data(SEED + 5, MOE_TRAIN_SAMPLES)
+    xe, ye = moe_data(SEED + 6, 2 * MOE_BATCH)
+    batches = [tuple(torch.from_numpy(a[i * MOE_BATCH:(i + 1) * MOE_BATCH]).to(cm.device)
+                     for a in (x, y)) for i in range(5)]
+    steps = MOE_TRAIN_SAMPLES // MOE_BATCH
+    form = "stacked" if stacked else "n-branch"
+    what = f"MoE training {form} {compute_dtype}"
+
+    def reset():
+        load_numpy_params(ff, init)
+        cm.opt_state = cm.optimizer.init_state(cm.params)
+
+    row = dict(compute_dtype=compute_dtype, form=form, card=card, batch=MOE_BATCH)
+    if not stacked:
+        # (a) one grad_step, (b) five train_steps, on each path
+        g_kern = cm.grad_step(cm.params, None, *batches[0])
+        g_plain = cm.grad_step(cm.params, None, *batches[0], plain_kernels=True)
+        grad_err = tree_err(g_kern, g_plain)
+        check(grad_err <= MOE_TOL, f"{what}: grads vs plain path err {grad_err:.3g}")
+        losses, final = {}, {}
+        for plain in (False, True):
+            reset()
+            losses[plain] = []
+            for xb, yb in batches:
+                cm.params, cm.opt_state, loss, _ = cm.train_step(
+                    cm.params, cm.opt_state, None, xb, yb, plain_kernels=plain)
+                losses[plain].append(loss.item())
+            final[plain] = {op: {w: t.clone() for w, t in ws.items()}
+                            for op, ws in cm.params.items()}
+        loss_err = max(abs(a - b) for a, b in zip(losses[False], losses[True]))
+        param_err = tree_err(final[False], final[True])
+        check(all(np.isfinite(losses[False])) and loss_err <= MOE_TOL
+              and param_err <= MOE_TOL,
+              f"{what}: losses {losses[False]} vs plain {losses[True]}, params err "
+              f"{param_err:.3g}")
+        row.update(grad_err_vs_plain=grad_err, losses=losses[False],
+                   plain_losses=losses[True], loss_err_vs_plain=loss_err,
+                   param_err_vs_plain=param_err)
+        del g_kern, g_plain, final
+
+    # (c) fit through the entry point, launch counts read just around it,
+    # against the same steps through the plain path
+    reset()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    hist = ff.fit(x, y, batch_size=MOE_BATCH, epochs=1, shuffle=False, verbose=False)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    check_moe_launches(launches, steps, 3, f"{what}: fit's {steps} steps")
+    fitted = {op: {w: t.clone() for w, t in ws.items()} for op, ws in cm.params.items()}
+    reset()
+    pm, pm_plain = hist[0], plain_epoch(ff, x, y, train=True)
+    fit_err = tree_err(fitted, cm.params)
+    check(pm.train_all == MOE_TRAIN_SAMPLES and np.isfinite(pm.sparse_cce_loss)
+          and same_metrics(pm, pm_plain) and fit_err <= MOE_TOL,
+          f"{what}: fit {pm} vs plain {pm_plain}, params err {fit_err:.3g}")
+    row.update(fit_steps=steps, fit_launches=launches, fit_accuracy=pm.accuracy,
+               fit_sparse_cce=pm.sparse_cce_loss / pm.train_all,
+               fit_param_err_vs_plain=fit_err)
+    if stacked:
+        print(f"moe training {form} {compute_dtype}: fit {steps} steps, launches "
+              f"{launches}, accuracy {pm.accuracy:.4f}, sparse CE "
+              f"{row['fit_sparse_cce']:.6f}, equal to the plain path's (params err "
+              f"{fit_err:.3g}) [{card}]", flush=True)
+        print("moe_training_json " + json.dumps(row), flush=True)
+        return row
+
+    # (d) eval through the entry point against the plain path
+    kernels.reset_launch_counts()
+    pe = ff.eval(xe, ye, batch_size=MOE_BATCH, verbose=False)
+    torch.cuda.synchronize()
+    check_moe_launches(kernels.launch_counts(), len(xe) // MOE_BATCH, 1, f"{what}: eval")
+    pe_plain = plain_epoch(ff, xe, ye, train=False)
+    check(same_metrics(pe, pe_plain), f"{what}: eval {pe} vs plain {pe_plain}")
+
+    # (e) step time, a profiled step, peak memory
+    xb, yb = batches[0]
+
+    def step():
+        cm.train_step(cm.params, cm.opt_state, None, xb, yb)
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    # earlier phases' models may wait on reference cycles; collect them so
+    # the peak counts only what this model's steps hold
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for _ in range(TIMED_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step()
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    median_ms = float(np.median(step_ms))
+    breakdown = profile_breakdown(step, MOE_CLASSES, other="optimizer/elementwise")
+    row.update(eval_accuracy=pe.accuracy, eval_sparse_cce=pe.sparse_cce_loss / pe.train_all,
+               step_ms_median=median_ms, step_ms_min=min(step_ms),
+               step_ms_max=max(step_ms), samples_per_s=MOE_BATCH * 1e3 / median_ms,
+               peak_memory_gib=peak_gib, breakdown=breakdown)
+    print(f"moe training {form} {compute_dtype}: grads vs plain path err "
+          f"{row['grad_err_vs_plain']:.3g}; 5 steps: losses "
+          f"{[f'{v:.6f}' for v in losses[False]]} (balance term included) vs plain err "
+          f"{loss_err:.3g}, params err {param_err:.3g}; fit {steps} steps, launches "
+          f"{launches}, accuracy {pm.accuracy:.4f} as the plain path's; eval accuracy "
+          f"{pe.accuracy:.4f} as the plain path's; step {median_ms:.3f} ms median of "
+          f"{TIMED_STEPS}, {row['samples_per_s']:.1f} samples/s, peak {peak_gib:.3f} "
+          f"GiB [{card}]", flush=True)
+    print(f"moe training breakdown {compute_dtype}: {json.dumps(breakdown)}", flush=True)
+    print("moe_training_json " + json.dumps(row), flush=True)
+    return row
+
+
 def _kernel_entry(name: str, source: str, replaces: str, rows: list, launches: int,
                   **extra) -> dict:
     """One entry of the kernels line, its numbers from the f32 non-causal
@@ -721,6 +1187,21 @@ def _kernel_entry(name: str, source: str, replaces: str, rows: list, launches: i
             "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"], "library_ms": main_row["library_ms"],
             "shape": [BATCH * HEADS, SEQ, HEAD_DIM], "variants": rows, **extra}
+
+
+def _moe_entry(name: str, source: str, replaces: str, rows: list, serving: int,
+               training: int) -> dict:
+    """One MoE kernel's entry of the kernels line, its numbers from the
+    float32 row at the MoE model's shape (the serving and training paths'
+    variant); ``launches`` counts the MoE serving and fit runs."""
+    main_row = next(r for r in rows if r["dtype"] == "float32" and r["shape"].startswith("main"))
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": serving + training, "serving_launches": serving,
+            "training_launches": training, "max_abs_err": main_row["max_abs_err"],
+            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+            "library_ms": main_row["library_ms"], "library": "F.embedding_bag",
+            "shape": main_row["shape"], "variants": rows}
 
 
 def main() -> int:
@@ -742,6 +1223,13 @@ def main() -> int:
     train = [row32, row16]
     del ref
     print(f"phases: training done at {time.perf_counter() - t0:.0f} s", flush=True)
+    moe_kern = phase_moe_kernels()
+    print(f"phases: MoE kernels done at {time.perf_counter() - t0:.0f} s", flush=True)
+    moe_serve = [phase_moe_serving(dt, card) for dt in ("float32", "bfloat16")]
+    moe_train = [phase_moe_training(dt, card) for dt in ("float32", "bfloat16")]
+    moe_train.append(phase_moe_training("float32", card, stacked=True))
+    print(f"phases: MoE serving and training done at {time.perf_counter() - t0:.0f} s",
+          flush=True)
     train_launches = {name: sum(r["fit_launches"][name] for r in train)
                       for name in train[0]["fit_launches"]}
     bwd_src = "flexflow_tpu_torch/kernels/csrc/flash_attention_bwd.cu"
@@ -763,6 +1251,12 @@ def main() -> int:
                       train_launches["flash_attention_bwd_dkv"],
                       plain_and_library_cover="dq, dk and dv (the whole gradient)"),
     ]
+    moe_src = "flexflow_tpu_torch/kernels/csrc/moe_kernels.cu"
+    for name, line in (("row_gather", 41), ("row_gather_sum", 74)):
+        serving = sum(r["launches"][name] for r in moe_serve)
+        training = sum(r["fit_launches"][name] for r in moe_train)
+        entries.append(_moe_entry(name, moe_src, f"flexflow_tpu/kernels/moe_kernels.py:{line}",
+                                  moe_kern[name], serving, training))
     check(all(e["launches"] > 0 for e in entries),
           f"a kernel never launched on its path: {[(e['name'], e['launches']) for e in entries]}")
     print(json.dumps({"kernels": entries}), flush=True)

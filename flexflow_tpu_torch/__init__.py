@@ -9,7 +9,9 @@ Ported so far, for the reference Transformer
 (``models.transformer.build_transformer``): classic one-shot inference
 through ``serving.engine.InferenceEngine`` with the flash-attention forward
 kernel, and training through ``FFModel.compile`` -> ``fit``/``eval`` (SGD or
-Adam, the five losses) with the flash-attention backward kernels.
+Adam, the five losses) with the flash-attention backward kernels; and for
+the mixture-of-experts model (``models.moe.build_moe_mnist``), serving and
+training through the same entry points with the MoE row-gather kernels.
 """
 
 from .config import FFConfig

@@ -38,6 +38,10 @@ class LowerCtx:
     plain_kernels: bool = False
     # the training forward (train/grad steps) rather than eval/inference
     training: bool = True
+    # auxiliary losses the ops append during the forward (the MoE
+    # load-balancing term); the compiler passes a list and adds them to
+    # the training loss. None: the caller does not collect them
+    aux_losses: Optional[list] = None
 
 
 class Op:

@@ -9,6 +9,10 @@ plain PyTorch version, which lives beside the wrapper.
 * :mod:`.flash_attention` — the flash-attention forward (``_fwd_kernel``)
   and its two backward kernels (``_dq_kernel``, ``_dkv_kernel``), joined by
   a ``torch.autograd.Function``.
+* :mod:`.moe_kernels` — the MoE row movement (``_row_gather_kernel``,
+  ``_row_gather_sum_kernel``), the capacity routing, and the dispatch and
+  combine ``torch.autograd.Function`` classes whose backward passes run the same
+  two kernels.
 
 Each wrapper adds one to its launch count where it launches its kernel,
 and nowhere else, so a run can show that its main path went through the
@@ -20,8 +24,10 @@ from __future__ import annotations
 import threading
 from typing import Dict
 
-KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
-           "flash_attention_bwd_dkv")
+FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv")
+MOE_KERNELS = ("row_gather", "row_gather_sum")
+KERNELS = FLASH_KERNELS + MOE_KERNELS
 
 _counts_lock = threading.Lock()
 _counts: Dict[str, int] = {name: 0 for name in KERNELS}

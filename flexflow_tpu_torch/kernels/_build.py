@@ -36,11 +36,40 @@ _SIGNATURES = {
     "ff_flash_attention_bwd_dq": ([_P] * 7 + [_I] * 4 + [_F, _I, _I, _P], _I),
     # q, k, v, o, g, lse, dk, dv, bh, sq, skv, d, scale, causal, dtype, stream
     "ff_flash_attention_bwd_dkv": ([_P] * 8 + [_I] * 4 + [_F, _I, _I, _P], _I),
+    # the same three for head dims above 256 (flash_attention_wide.cu)
+    "ff_flash_attention_fwd_wide": ([_P] * 5 + [_I] * 4 + [_F, _I, _I, _P], _I),
+    "ff_flash_attention_bwd_dq_wide": ([_P] * 7 + [_I] * 4 + [_F, _I, _I, _P], _I),
+    "ff_flash_attention_bwd_dkv_wide": ([_P] * 8 + [_I] * 4 + [_F, _I, _I, _P], _I),
+    # x, idx, scale, out, r_in, r_out, d, dtype, stream (moe_kernels.cu)
+    "ff_row_gather": ([_P] * 4 + [_I] * 4 + [_P], _I),
+    # x, idx, w, out, r_in, b, k, d, dtype, stream (moe_kernels.cu)
+    "ff_row_gather_sum": ([_P] * 4 + [_I] * 5 + [_P], _I),
     "ff_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 
 _lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
+_lib: Optional["_Library"] = None
+
+
+class _Library:
+    """The loaded library's entries, each checked for its argument count:
+    ctypes passes arguments past ``argtypes`` as C ints, which would cut a
+    pointer or a stream handle."""
+
+    def __init__(self, lib: ctypes.CDLL):
+        for name, (argtypes, restype) in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = restype
+            setattr(self, name, _checked(name, fn, len(argtypes)))
+
+
+def _checked(name: str, fn, nargs: int):
+    def call(*args):
+        if len(args) != nargs:
+            raise TypeError(f"{name} takes {nargs} arguments, got {len(args)}")
+        return fn(*args)
+    return call
 
 
 def find_nvcc() -> str:
@@ -111,19 +140,14 @@ def build() -> Tuple[Path, float, str]:
     return out, seconds, log
 
 
-def load_library() -> ctypes.CDLL:
+def load_library() -> _Library:
     """The kernels' library, built at first use and loaded once per
     process."""
     global _lib
     with _lock:
         if _lib is None:
             path, _, _ = build()
-            lib = ctypes.CDLL(str(path))
-            for name, (argtypes, restype) in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = restype
-            _lib = lib
+            _lib = _Library(ctypes.CDLL(str(path)))
         return _lib
 
 

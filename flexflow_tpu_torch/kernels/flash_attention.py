@@ -2,9 +2,10 @@
 
 PyTorch counterpart of ``flexflow_tpu/kernels/flash_attention.py``. The
 TPU's ``_fwd_kernel`` becomes ``csrc/flash_attention_fwd.cu`` and its
-``_dq_kernel``/``_dkv_kernel`` become ``csrc/flash_attention_bwd.cu`` (the
-source notes there give the designs and the bounds on an H100). This module
-holds:
+``_dq_kernel``/``_dkv_kernel`` become ``csrc/flash_attention_bwd.cu``; head
+dims above 256 go to the chunked kernels of ``csrc/flash_attention_wide.cu``
+(the source notes give the designs and the bounds on an H100). Like the JAX
+kernel, every function here takes any head dim. This module holds:
 
 * :func:`flash_attention` — the public entry on (B, S, H, D) tensors, with
   the JAX package's layout glue and its length contract (``_pick_block``),
@@ -27,7 +28,8 @@ import torch
 from . import count_launch
 
 NEG_INF = -1e30  # large-negative instead of -inf: keeps exp()/max() NaN-free
-# the kernels are built for padded head dims up to this one (any D <= it)
+# the one-pass kernels are built for padded head dims up to this one (any
+# D <= it); above it the wrappers launch the kernels chunked over D
 MAX_HEAD_DIM = 256
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -40,10 +42,14 @@ def _pick_block(s: int, pref: int) -> Optional[int]:
 
 
 def _check_head_dim(d: int) -> None:
-    if not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError(
-            f"flash_attention: head dim {d} is above {MAX_HEAD_DIM}, the "
-            f"largest the kernels take")
+    if d < 1:
+        raise ValueError(f"flash_attention: head dim {d} (must be at least 1)")
+
+
+def _entry(lib, name: str, d: int):
+    """The C entry of a kernel for head dim ``d``: the one-pass kernels up to
+    :data:`MAX_HEAD_DIM`, the chunked ones (``..._wide``) above it."""
+    return getattr(lib, name if d <= MAX_HEAD_DIM else f"{name}_wide")
 
 
 def _causal_keep(sq: int, skv: int, device) -> torch.Tensor:
@@ -132,8 +138,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """The forward kernel's wrapper: q (BH, Sq, D), k/v (BH, Skv, D) ->
     (out, lse) as :func:`flash_attention_fwd_reference` returns them. A
-    CUDA tensor launches ``csrc/flash_attention_fwd.cu`` on the current
-    stream; a CPU tensor runs the plain version."""
+    CUDA tensor launches ``csrc/flash_attention_fwd.cu`` (``_wide.cu`` for
+    D > 256) on the current stream; a CPU tensor runs the plain version."""
     if not _check_kernel_args("flash_attention_fwd", q, k, v):
         return flash_attention_fwd_reference(q, k, v, causal, scale)
     from ._build import check_launch, load_library
@@ -144,7 +150,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = torch.empty((bh, 1, sq), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        err = lib.ff_flash_attention_fwd(
+        err = _entry(lib, "ff_flash_attention_fwd", d)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), bh, sq, k.shape[1], d, float(scale),
             int(bool(causal)), _DTYPE_CODES[q.dtype], stream)
@@ -159,8 +165,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward kernels' wrapper, with the signature of
     :func:`flash_attention_bwd_reference`. A CUDA tensor launches the dq
-    kernel and then the dkv kernel of ``csrc/flash_attention_bwd.cu`` on
-    the current stream; a CPU tensor runs the plain version."""
+    kernel and then the dkv kernel of ``csrc/flash_attention_bwd.cu``
+    (``_wide.cu`` for D > 256) on the current stream; a CPU tensor runs the
+    plain version."""
     on_card = _check_kernel_args("flash_attention_bwd", q, k, v, o, g)
     bh, sq, d = q.shape
     if lse.shape != (bh, 1, sq) or lse.dtype != torch.float32 or lse.device != q.device:
@@ -182,10 +189,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             torch.cuda.current_stream(q.device).cuda_stream)
     ptrs = [t.data_ptr() for t in (q, k, v, o, g, lse)]
     with torch.cuda.device(q.device):
-        err = lib.ff_flash_attention_bwd_dq(*ptrs, dq.data_ptr(), *args)
+        err = _entry(lib, "ff_flash_attention_bwd_dq", d)(*ptrs, dq.data_ptr(), *args)
         check_launch(err, "flash_attention_bwd_dq")
         count_launch("flash_attention_bwd_dq")
-        err = lib.ff_flash_attention_bwd_dkv(*ptrs, dk.data_ptr(), dv.data_ptr(), *args)
+        err = _entry(lib, "ff_flash_attention_bwd_dkv", d)(*ptrs, dk.data_ptr(),
+                                                          dv.data_ptr(), *args)
         check_launch(err, "flash_attention_bwd_dkv")
         count_launch("flash_attention_bwd_dkv")
     return dq, dk, dv
@@ -236,9 +244,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False,
                     scale: Optional[float] = None) -> torch.Tensor:
     """Fused, differentiable attention. q/k/v: (B, S, H, D), the
-    framework's layout. Raises ``ValueError`` on sequence lengths not
-    divisible by 8 (the JAX package's contract) and on head dims above
-    :data:`MAX_HEAD_DIM`."""
+    framework's layout; any head dim. Raises ``ValueError`` on sequence
+    lengths not divisible by 8 (the JAX package's contract)."""
     return _attend(q, k, v, causal, scale, plain=False)
 
 

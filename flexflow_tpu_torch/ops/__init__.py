@@ -1,3 +1,3 @@
 """Operator library. Importing this package registers every ported op."""
 
-from . import attention, linear  # noqa: F401
+from . import attention, linear, moe_ops, softmax  # noqa: F401

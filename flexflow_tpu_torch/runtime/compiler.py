@@ -7,9 +7,11 @@ device and returns plain functions over the op graph: ``forward_fn``
 (under ``torch.inference_mode()``), and with an optimizer and a loss
 ``train_step``, ``eval_step`` and ``grad_step``, on the JAX package's
 signatures without ``seq_length``. Gradients come from autograd through
-the op graph (and through the flash-attention kernels'
-``torch.autograd.Function``). Gradient accumulation, multi-step dispatch,
-ZeRO, regularizers and sharding arrive with later slices.
+the op graph (and through the kernels' ``torch.autograd.Function`` classes);
+the auxiliary losses that ops append to ``LowerCtx.aux_losses`` (the MoE
+balance term) join the training loss only. Gradient accumulation,
+multi-step dispatch, ZeRO, regularizers and sharding arrive with later
+slices.
 """
 
 from __future__ import annotations
@@ -175,12 +177,14 @@ def _forward_graph(ops: List[Op], params: Params,
                    inputs: Dict[int, torch.Tensor],
                    compute_dtype: Optional[torch.dtype] = None,
                    plain_kernels: bool = False,
-                   training: bool = False) -> Dict[int, torch.Tensor]:
-    """Run the op graph; returns every activation by tensor id. With a
-    ``compute_dtype`` (bf16) activations and op weights are cast on entry
-    to each op and outputs cast back, while ``params`` stay f32: autograd
-    through the casts gives f32 gradients against the f32 master params."""
-    ctx = LowerCtx(plain_kernels=plain_kernels, training=training)
+                   training: bool = False
+                   ) -> Tuple[Dict[int, torch.Tensor], List[torch.Tensor]]:
+    """Run the op graph; returns (every activation by tensor id, the
+    auxiliary losses the ops appended). With a ``compute_dtype`` (bf16)
+    activations and op weights are cast on entry to each op and outputs
+    cast back, while ``params`` stay f32: autograd through the casts gives
+    f32 gradients against the f32 master params."""
+    ctx = LowerCtx(plain_kernels=plain_kernels, training=training, aux_losses=[])
     cast = make_caster(compute_dtype)
     acts = {k: cast(v) for k, v in inputs.items()}
     for op in ops:
@@ -188,7 +192,7 @@ def _forward_graph(ops: List[Op], params: Params,
         p = cast_op_params(cast, op, params.get(op.name, {}), compute_dtype)
         for out, t in zip(op.forward(ctx, ins, p), op.layer.outputs):
             acts[t.tensor_id] = cast(out)
-    return acts
+    return acts, ctx.aux_losses
 
 
 # value-preserving tail ops walked through when deciding whether the graph
@@ -244,27 +248,33 @@ def compile_model(
     logits_id = logits_tensor.tensor_id
     from_logits = _ends_without_softmax(ops, logits_id)
 
-    def run(params: Params, xs, plain_kernels: bool, training: bool) -> torch.Tensor:
-        # loss and metrics are f32 whatever the compute dtype
-        acts = _forward_graph(ops, params, dict(zip(input_ids, xs)), cdt,
-                              plain_kernels, training)
-        return acts[logits_id].float()
+    def run(params: Params, xs, plain_kernels: bool,
+            training: bool) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """(f32 logits, the auxiliary losses in f32): loss and metrics are
+        f32 whatever the compute dtype."""
+        acts, aux = _forward_graph(ops, params, dict(zip(input_ids, xs)), cdt,
+                                   plain_kernels, training)
+        return acts[logits_id].float(), [a.float() for a in aux]
 
     def forward_fn(params: Params, *xs: torch.Tensor,
                    plain_kernels: bool = False) -> torch.Tensor:
         with torch.inference_mode():
-            return run(params, xs, plain_kernels, training=False)
+            return run(params, xs, plain_kernels, training=False)[0]
 
     def value_and_grad(params: Params, batch, plain_kernels: bool):
-        """(loss, logits, grads) of one batch; the grads are f32 trees
-        like ``params``."""
+        """(loss, logits, grads) of one batch; the loss includes the
+        auxiliary losses (the training loss only, as in the JAX package's
+        train and grad steps), and the grads are f32 trees like
+        ``params``."""
         xs, y = batch[:n_inputs], batch[n_inputs]
         leaves = {op: {w: t.detach().requires_grad_(True) for w, t in ws.items()}
                   for op, ws in params.items()}
         flat = [t for ws in leaves.values() for t in ws.values()]
         with torch.enable_grad():
-            logits = run(leaves, xs, plain_kernels, training=True)
+            logits, aux = run(leaves, xs, plain_kernels, training=True)
             loss = compute_loss(loss_type, logits, y, from_logits)
+            for a in aux:
+                loss = loss + a
         gs = iter(torch.autograd.grad(loss, flat, allow_unused=True))
         grads = {op: {w: _or_zeros(next(gs), t) for w, t in ws.items()}
                  for op, ws in leaves.items()}
@@ -287,7 +297,8 @@ def compile_model(
                   plain_kernels: bool = False):
         y = batch[n_inputs]
         with torch.inference_mode():
-            logits = run(params, batch[:n_inputs], plain_kernels, training=False)
+            # the auxiliary losses are dropped: eval reports the model's loss
+            logits = run(params, batch[:n_inputs], plain_kernels, training=False)[0]
             loss = compute_loss(loss_type, logits, y, from_logits)
             return loss, logits, compute_batch_metrics(metrics, loss_type, logits,
                                                        y, from_logits)

@@ -2,7 +2,8 @@
 
 PyTorch counterpart of ``flexflow_tpu/runtime/model.py``: the graph calls
 the port's slices need (``create_tensor``, ``dense``,
-``multihead_attention``), ``compile`` with an optimizer, a loss and
+``multihead_attention``, ``softmax`` and the MoE family up to ``moe``),
+``compile`` with an optimizer, a loss and
 metrics, ``fit``/``eval`` over the numpy data loader, the manual
 ``set_batch``/``forward``/``zero_gradients``/``backward``/``update``
 verbs, and :func:`load_numpy_params` to carry the JAX package's params
@@ -104,6 +105,98 @@ class FFModel:
                      kernel_initializer=kernel_initializer, causal=causal)
         return self._infer_and_add(OpType.MULTIHEAD_ATTENTION,
                                    [query, key, value], attrs, name)
+
+    def softmax(self, input: Tensor, axis: int = -1, name=None) -> Tensor:
+        return self._infer_and_add(OpType.SOFTMAX, [input], dict(dim=axis), name)
+
+    # ---- MoE family ------------------------------------------------------
+    def top_k(self, input: Tensor, k: int, sorted: bool = True,
+              name=None) -> List[Tensor]:
+        """[values, int32 indices] of the k largest entries of the last
+        dim, always sorted (as in the JAX package)."""
+        out = self._infer_and_add(OpType.TOPK, [input], dict(k=k, sorted=sorted), name)
+        return out if isinstance(out, list) else [out]
+
+    def group_by(self, input: Tensor, assign: Tensor, n: int, alpha: float,
+                 name=None) -> List[Tensor]:
+        """Scatter ``input`` rows into n fixed-capacity expert tensors."""
+        out = self._infer_and_add(OpType.GROUP_BY, [input, assign],
+                                  dict(n=n, alpha=alpha), name)
+        return out if isinstance(out, list) else [out]
+
+    def aggregate(self, inputs: List[Tensor], n: int, lambda_bal: float,
+                  name=None) -> Tensor:
+        """inputs = [gate_preds, gate_assign, true_gate_assign,
+        full_gate_grads, exp_pred_1, ..., exp_pred_n]."""
+        return self._infer_and_add(OpType.AGGREGATE, list(inputs),
+                                   dict(n=n, lambda_bal=lambda_bal), name)
+
+    def aggregate_spec(self, inputs: List[Tensor], n: int, lambda_bal: float,
+                       name=None) -> Tensor:
+        return self._infer_and_add(OpType.AGGREGATE_SPEC, list(inputs),
+                                   dict(n=n, lambda_bal=lambda_bal), name)
+
+    def group_by_stacked(self, input: Tensor, assign: Tensor, n: int,
+                         alpha: float, name=None,
+                         strategy: Optional[Dict[str, str]] = None) -> Tensor:
+        """GroupBy emitting one stacked (n, capacity, d) tensor. A pinned
+        ``strategy={"expert": axis}`` raises: the expert-parallel path
+        needs a mesh (queue A7)."""
+        attrs = dict(n=n, alpha=alpha)
+        if strategy:
+            attrs["strategy"] = strategy
+        return self._infer_and_add(OpType.GROUP_BY_STACKED, [input, assign],
+                                   attrs, name)
+
+    def expert_linear(self, input: Tensor, out_dim: int,
+                      activation: ActiMode = ActiMode.NONE,
+                      use_bias: bool = True, kernel_initializer=None,
+                      name=None) -> Tensor:
+        """Per-expert dense over a stacked (n, capacity, d) tensor."""
+        attrs = dict(out_dim=out_dim, activation=activation, use_bias=use_bias)
+        if kernel_initializer is not None:
+            attrs["kernel_initializer"] = kernel_initializer
+        return self._infer_and_add(OpType.EXPERT_LINEAR, [input], attrs, name)
+
+    def aggregate_stacked(self, gate_preds: Tensor, assign: Tensor,
+                          full_gate: Tensor, exp_stacked: Tensor, n: int,
+                          lambda_bal: float, name=None) -> Tensor:
+        return self._infer_and_add(
+            OpType.AGGREGATE_STACKED, [gate_preds, assign, full_gate, exp_stacked],
+            dict(n=n, lambda_bal=lambda_bal), name)
+
+    def moe(self, input: Tensor, num_exp: int, num_select: int,
+            expert_hidden_size: int, alpha: float = 2.0, lambda_bal: float = 0.04,
+            stacked: bool = False, expert_axis: Optional[str] = None,
+            name=None) -> Tensor:
+        """The composite MoE layer: gate = dense(input, num_exp, RELU);
+        top-k of the gate; group_by; per expert softmax(dense(rows,
+        hidden, RELU)); aggregate with softmax(top-k values) as the gate
+        weights. ``stacked=True`` builds the same math as one
+        group_by_stacked -> expert_linear -> aggregate_stacked chain.
+        Layer names follow the JAX package's (``{name}_gate``,
+        ``{name}_exp{i}`` or ``{name}_experts``, ``{name}_agg``)."""
+        if expert_axis is not None and not stacked:
+            raise ValueError("expert_axis requires stacked=True (the "
+                             "n-branch formulation cannot shard experts)")
+        nm = name or "moe"
+        gate = self.dense(input, num_exp, ActiMode.RELU, name=f"{nm}_gate")
+        topk_out, topk_idx = self.top_k(gate, num_select, sorted=False)
+        gate_sm = self.softmax(topk_out)
+        if stacked:
+            grouped = self.group_by_stacked(
+                input, topk_idx, num_exp, alpha, name=f"{nm}_group",
+                strategy={"expert": expert_axis} if expert_axis else None)
+            h = self.expert_linear(grouped, expert_hidden_size, ActiMode.RELU,
+                                   name=f"{nm}_experts")
+            h = self.softmax(h)
+            return self.aggregate_stacked(gate_sm, topk_idx, gate, h, num_exp,
+                                          lambda_bal, name=f"{nm}_agg")
+        agg_inputs = [gate_sm, topk_idx, topk_idx, gate]
+        for i, g in enumerate(self.group_by(input, topk_idx, num_exp, alpha)):
+            h = self.dense(g, expert_hidden_size, ActiMode.RELU, name=f"{nm}_exp{i}")
+            agg_inputs.append(self.softmax(h))
+        return self.aggregate(agg_inputs, num_exp, lambda_bal, name=f"{nm}_agg")
 
     # ---- compile ----------------------------------------------------------
     def compile(self, optimizer: Optional[Optimizer] = None,

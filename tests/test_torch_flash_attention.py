@@ -120,11 +120,40 @@ def test_any_head_dim_up_to_256_matches_jax_kernel(d):
 
 
 def test_unsupported_head_dim_is_rejected():
-    """Above 256 the kernels' tiles no longer fit in a block's shared
-    memory; the public entry refuses such a D on every device."""
+    """Head dims above 256 were once refused; now, as the JAX kernel does,
+    the port takes them (on the card through the kernels chunked over D):
+    D = 264 against the JAX kernel, and only D < 1 is rejected."""
     q, k, v = _qkv(b=1, sq=8, skv=8, d=264)
+    want = jfa.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                               scale=264 ** -0.5)
+    np.testing.assert_allclose(_port(q, k, v, False), np.asarray(want), **F32_TOL)
+    empty = [torch.from_numpy(np.ascontiguousarray(a[..., :0])) for a in (q, k, v)]
     with pytest.raises(ValueError, match="head dim"):
-        _port(q, k, v, False)
+        tfa.flash_attention(*empty, scale=1.0)
+
+
+@pytest.mark.parametrize("d", [264, 512])
+@pytest.mark.parametrize("causal", [False, True])
+def test_head_dims_above_256_match_jax_forward_and_grads(d, causal):
+    """Forward and autograd gradients at head dims past the one-pass
+    kernels' widths, against the JAX kernel and jax.vjp of it."""
+    import jax
+
+    q, k, v = _qkv(b=1, sq=16, skv=16, h=2, d=d, seed=d)
+    g = np.random.default_rng(d + 1).normal(size=q.shape).astype(np.float32)
+    scale = d ** -0.5
+    want, vjp = jax.vjp(lambda a, b, c: jfa.flash_attention(a, b, c, causal=causal,
+                                                            scale=scale),
+                        *(jnp.asarray(a) for a in (q, k, v)))
+    t = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    out = tfa.flash_attention(*t, causal=causal, scale=scale)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want), **F32_TOL)
+    out.backward(torch.from_numpy(g))
+    # gradients: the same products summed in another order (as
+    # tests/test_torch_flash_attention_bwd.py holds them)
+    for name, got, w in zip(("dq", "dk", "dv"), t, vjp(jnp.asarray(g))):
+        np.testing.assert_allclose(got.grad.numpy(), np.asarray(w), rtol=1e-4, atol=1e-5,
+                                   err_msg=name)
 
 
 def test_cpu_tensors_run_the_plain_version_uncounted():

@@ -13,6 +13,7 @@ import torch
 
 from flexflow_tpu_torch import kernels as tkernels
 from flexflow_tpu_torch.kernels import flash_attention as tfa
+from flexflow_tpu_torch.kernels import moe_kernels as tmk
 
 # f32: the same f32 math in another summation order
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
@@ -133,7 +134,7 @@ def test_flash_fwd_rejects_what_the_kernel_does_not_take(card):
     q = torch.zeros((2, 64, 64), device=card, dtype=torch.float16)
     with pytest.raises(ValueError, match="dtype"):
         tfa.flash_attention_fwd(q, q, q, False, 0.125)
-    q = torch.zeros((2, 64, 264), device=card)
+    q = torch.zeros((2, 64, 0), device=card)
     with pytest.raises(ValueError, match="head dim"):
         tfa.flash_attention_fwd(q, q, q, False, 0.125)
     q = torch.zeros((2, 64, 128), device=card)[..., ::2]
@@ -144,3 +145,134 @@ def test_flash_fwd_rejects_what_the_kernel_does_not_take(card):
     with pytest.raises(ValueError, match="contiguous"):
         tfa.flash_attention_bwd(q, q, q, q, q.transpose(1, 2).contiguous()
                                 .transpose(1, 2), lse, False, 0.125)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,skv,causal", [(128, 128, False), (72, 200, True),
+                                           (200, 72, False), (200, 72, True)])
+def test_flash_kernels_above_head_dim_256_match_plain(card, sq, skv, causal, dtype):
+    """The kernels chunked over the head dim (csrc/flash_attention_wide.cu):
+    forward and both backward kernels, ragged lengths, D not a multiple of
+    the 128-column chunk, both dtypes; one launch of each."""
+    rng = np.random.default_rng(8)
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    for d in (264, 512, 520):
+        q, g = (_randn(rng, (3, sq, d), card, dtype) for _ in range(2))
+        k, v = (_randn(rng, (3, skv, d), card, dtype) for _ in range(2))
+        before = tkernels.launch_counts()
+        out, lse = tfa.flash_attention_fwd(q, k, v, causal, d ** -0.5)
+        got = tfa.flash_attention_bwd(q, k, v, out, g, lse, causal, d ** -0.5)
+        torch.cuda.synchronize()
+        after = tkernels.launch_counts()
+        for name in tkernels.FLASH_KERNELS:
+            assert after[name] == before[name] + 1, name
+        want_out, want_lse = tfa.flash_attention_fwd_reference(q, k, v, causal, d ** -0.5)
+        np.testing.assert_allclose(out.float().cpu().numpy(),
+                                   want_out.float().cpu().numpy(), **tol,
+                                   err_msg=f"head dim {d}")
+        np.testing.assert_allclose(lse.cpu().numpy(), want_lse.cpu().numpy(),
+                                   **F32_TOL, err_msg=f"head dim {d}")
+        want = tfa.flash_attention_bwd_reference(q, k, v, out, g, lse, causal, d ** -0.5)
+        _check_grads(got, want, dtype, f"head dim {d}")
+
+
+# ---- MoE row movement -------------------------------------------------------
+# Both kernels round each product, and each sum of products in the order
+# j = 0..k-1, as their plain versions do: they agree bit for bit.
+
+
+def _moe_inputs(rng, card, dtype, r_in, d):
+    x = _randn(rng, (r_in, d), card, dtype)
+    x[1] = float("inf")  # a non-finite row: a 0 scale must still give NaN
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [1, 13, 784, 4096])  # ragged, scalar and vector paths
+def test_row_gather_kernel_matches_plain(card, d, dtype):
+    rng = np.random.default_rng(d)
+    x = _moe_inputs(rng, card, dtype, 37, d)
+    idx = torch.from_numpy(rng.integers(0, 37, size=300).astype(np.int32)).to(card)
+    scale = torch.from_numpy(rng.normal(size=300).astype(np.float32)).to(card)
+    scale[::7] = 0.0  # scale-0 rows keep the multiply
+    idx[:3] = 1
+    before = tkernels.launch_counts()["row_gather"]
+    got = tmk.row_gather(x, idx, scale)
+    torch.cuda.synchronize()
+    assert tkernels.launch_counts()["row_gather"] == before + 1
+    want = tmk.row_gather_reference(x, idx, scale)
+    assert got.dtype == dtype and got.shape == (300, d)
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+    # a strided source row view takes the scalar path
+    xs = x[:, :d - 1] if d > 1 else x
+    torch.testing.assert_close(tmk.row_gather(xs, idx, scale),
+                               tmk.row_gather_reference(xs, idx, scale),
+                               rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,k", [(13, 1), (784, 1), (784, 2), (4096, 2), (40, 5)])
+def test_row_gather_sum_kernel_matches_plain(card, d, k, dtype):
+    rng = np.random.default_rng(d + k)
+    x = _moe_inputs(rng, card, dtype, 50, d)
+    idx = torch.from_numpy(rng.integers(0, 50, size=(64, k)).astype(np.int32)).to(card)
+    w = torch.from_numpy(rng.normal(size=(64, k)).astype(np.float32)).to(card)
+    w[5] = 0.0
+    before = tkernels.launch_counts()["row_gather_sum"]
+    got = tmk.row_gather_sum(x, idx, w)
+    torch.cuda.synchronize()
+    assert tkernels.launch_counts()["row_gather_sum"] == before + 1
+    assert got.dtype == dtype and got.shape == (64, d)
+    torch.testing.assert_close(got, tmk.row_gather_sum_reference(x, idx, w),
+                               rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.cuda
+def test_moe_kernels_out_of_range_contract(card):
+    """The plain versions raise on an index outside [0, R_in) (checked on
+    CPU copies: on the card an index_select would assert on the device);
+    the kernels read nothing there and give a zero row."""
+    x = torch.ones((4, 32), device=card)
+    bad = torch.tensor([0, 4, -1], dtype=torch.int32, device=card)
+    with pytest.raises(IndexError):
+        tmk.row_gather_reference(x.cpu(), bad.cpu(), torch.ones(3))
+    with pytest.raises(IndexError):
+        tmk.row_gather_sum_reference(x.cpu(), bad.cpu()[None], torch.ones(1, 3))
+    got = tmk.row_gather(x, bad, torch.ones(3, device=card))
+    torch.cuda.synchronize()
+    assert got[0].eq(1).all() and not got[1:].any()
+    got = tmk.row_gather_sum(x, bad[None], torch.ones(1, 3, device=card))
+    assert got.eq(1).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dispatch_and_combine_backward_through_the_kernels(card, dtype):
+    """moe_dispatch -> moe_combine with x and the gate weights requiring
+    gradients: the dispatch's backward (row_gather_sum) and the combine's
+    (two row_gather) against the plain path, with drops."""
+    rng = np.random.default_rng(11)
+    b, d, n, k, cap = 64, 784, 5, 2, 20
+    assign = torch.from_numpy(np.stack([rng.permutation(n)[:k] for _ in range(b)])
+                              .astype(np.int32)).to(card)
+    x0 = _randn(rng, (b, d), card, dtype)
+    g0 = torch.from_numpy(rng.uniform(0.1, 1, size=(b, k)).astype(np.float32)).to(card)
+    cot = _randn(rng, (b, d), card, dtype)
+    grads = []
+    for plain in (False, True):
+        x, gw = x0.clone().requires_grad_(True), g0.clone().requires_grad_(True)
+        rows = tmk.moe_dispatch(x, assign, n, cap, plain=plain)
+        out = tmk.moe_combine(rows * 2, assign, gw, plain=plain)
+        before = tkernels.launch_counts()
+        out.backward(cot)
+        torch.cuda.synchronize()
+        after = tkernels.launch_counts()
+        if not plain:
+            assert after["row_gather_sum"] - before["row_gather_sum"] == 1
+            assert after["row_gather"] - before["row_gather"] == 2
+        grads.append((out.detach(), x.grad, gw.grad))
+    for name, a, w in zip(("out", "dx", "dgate"), *grads):
+        torch.testing.assert_close(a, w, rtol=0, atol=0, msg=name)
