@@ -8,11 +8,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
 1. device: the card's name and power limit (as nvidia-smi gives them),
    the torch/CUDA versions; TF32 is switched off for matmuls and cuDNN;
 2. build: every kernel under flexflow_tpu_torch/kernels/csrc, built by nvcc
-   for sm_90a, with the compiler's register/spill report;
+   for sm_90a, with each kernel instance's registers and stack frame as
+   cuobjdump reads them from the loaded library; the tensor-core backward
+   kernels must have no stack frame (no spill) up to the padded head dim
+   128;
 3. kernels: each kernel at the shapes the main path gives it, held against
    its plain PyTorch version, timed beside the plain version, the one
    PyTorch call that computes the same function, and its bound: the
-   flash-attention forward, then its two backward kernels (dq, dkv); then
+   flash-attention forward, then its two backward kernels (dq, dkv; in
+   bf16 on the tensor cores), two runs of them held bitwise equal; then
    the ragged and repaired cases (S = 200, D = 96, D = 256, B*H > 65535,
    and D = 264 and 512, causal and not, through the kernels chunked over
    the head dim);
@@ -29,7 +33,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    bench.py trains it), held against the plain kernels' path;
    FFModel.fit over 64 samples with exactly 12 launches of each flash
    kernel per step (and none of the MoE kernels); then the step time
-   (median of 20), a profiled step's breakdown and the peak memory;
+   (3 rounds of 20 steps, each round's median and the median of all), a
+   profiled step's breakdown and the peak memory;
 6. MoE kernels: row_gather and row_gather_sum, float32 and bfloat16, at
    the MoE model's shape (batch 64, d 784, 5 experts, top-2, capacity 52)
    and at Mixtral-8x7B's widths (hidden 4096, 8 experts, top-2, 4096
@@ -58,6 +63,8 @@ from __future__ import annotations
 
 import gc
 import json
+import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -80,7 +87,9 @@ KERNEL_TOL = {torch.float32: {"out": 1e-4, "lse": 1e-4},
 # backward kernels vs plain, as a fraction of each gradient's largest
 # element: f32 sums of up to 512 products in another order; bf16 gradients
 # one bf16 ulp apart where both round nearly equal f32 results (2^-7 of
-# values in [1, 2))
+# values in [1, 2)), the bf16 kernels also rounding P and dS to bf16 before
+# the second products (that rounding alone stays within 2^-7 of the JAX
+# kernels: tests/test_torch_flash_attention_bwd.py)
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2 ** -7}
 # serving vs the plain attention path, as a fraction of the largest answer:
 # everything but attention runs the same code; the kernel's f32 rounding
@@ -88,6 +97,9 @@ BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2 ** -7}
 SERVE_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 TRAIN_SAMPLES = 64  # fit's epoch: 8 steps of batch 8
 TIMED_STEPS = 20
+# the Transformer step is timed in rounds of TIMED_STEPS, each round's median
+# printed: the bf16 step is host-bound, and one median spreads by several ms
+STEP_ROUNDS = 3
 # training vs the plain kernels' path. Gradients (and the params after
 # five steps): per weight, the max error as a fraction of the largest
 # gradient (update) of the weight's layer. f32: the kernels' f32 rounding
@@ -162,37 +174,79 @@ def phase_device() -> str:
 def phase_build() -> None:
     from flexflow_tpu_torch.kernels import _build
 
-    path, seconds, log = _build.build()
+    path, seconds = _build.build()
     _build.load_library()
-    print(f"build: {path.name} in {seconds:.1f} s (nvcc {_build.find_nvcc()})")
-    for line in log.splitlines():
-        if "Used" in line or "spill" in line or "error" in line.lower():
-            print(f"  ptxas: {line.strip()}")
+    nvcc = pathlib.Path(_build.find_nvcc())
+    print(f"build: {path.name} in {seconds:.1f} s (nvcc {nvcc})")
+    # every kernel instance's registers and stack frame (where spills go),
+    # read from the loaded library on every run, whether built now or before
+    dump = subprocess.run([str(nvcc.with_name("cuobjdump")), "--dump-resource-usage",
+                           str(path)], capture_output=True, text=True, timeout=120, check=True)
+    usage, name = {}, None
+    for line in dump.stdout.splitlines():
+        m = re.match(r"\s*Function (\S+):", line)
+        if m:
+            name = m.group(1)
+        elif name and "REG:" in line:
+            usage[name] = {k: int(v) for k, v in re.findall(r"(\w+):(\d+)", line)}
+            name = None
+    check(bool(usage), f"cuobjdump listed no kernel of {path.name}")
+    names = list(usage)
+    cufilt = nvcc.with_name("cu++filt")
+    if cufilt.is_file():  # names for the reader; the checks below use the mangled ones
+        shown = subprocess.run([str(cufilt), *names], capture_output=True, text=True,
+                               timeout=60, check=True).stdout.splitlines()
+        names = shown if len(shown) == len(names) else names
+    for label, u in zip(names, usage.values()):
+        label = label.split(">(")[0] + ">" if ">(" in label else label  # no argument list
+        print(f"  resources: {label}: {u.get('REG')} registers, stack {u.get('STACK')} "
+              f"bytes, local {u.get('LOCAL')} bytes")
+    # the tensor-core backward kernels have no stack frame, so no spill, up
+    # to the padded width 128
+    mma = {(m.group(1), int(m.group(2))): u for mangled, u in usage.items()
+           for m in [re.search(r"(flash_bwd_(?:dq|dkv)_kernel_mma)ILi(\d+)E", mangled)] if m}
+    check(len(mma) == 8, f"cuobjdump listed {sorted(mma)} of the 8 tensor-core instances")
+    spills = {k: u for k, u in mma.items()
+              if k[1] <= 128 and (u.get("STACK", 1) or u.get("LOCAL", 1))}
+    check(not spills, f"tensor-core backward kernels spill at width <= 128: {spills}")
     sys.stdout.flush()
 
 
-def attention_bound(dtype: torch.dtype, causal: bool, products: int, tensors: int,
-                    bh: int = BATCH * HEADS, s: int = SEQ, d: int = HEAD_DIM) -> tuple:
-    """(bound_ms, bound_by) of attention work at one shape: the larger of
-    the bytes it must move (``tensors`` (bh, s, d) tensors of the type, each
-    read or written once, plus the f32 lse) over HBM bandwidth and the
-    operations of ``products`` (s x d) by (d x s) matrix products over the
-    peak for the type (causal: only the q >= k pairs)."""
+def attention_flops(causal: bool, products: int, bh: int = BATCH * HEADS, s: int = SEQ,
+                    d: int = HEAD_DIM) -> float:
+    """Operations of ``products`` (s x d) by (d x s) matrix products at one
+    shape (causal: only the q >= k pairs)."""
     pairs = s * (s + 1) // 2 if causal else s * s
-    flops = 2.0 * products * bh * pairs * d
+    return 2.0 * products * bh * pairs * d
+
+
+def attention_bound(dtype: torch.dtype, causal: bool, products: int, tensors: int,
+                    vectors: int = 1, bh: int = BATCH * HEADS, s: int = SEQ,
+                    d: int = HEAD_DIM) -> tuple:
+    """(bound_ms, bound_by) of attention work at one shape: the larger of
+    the bytes it must move (``tensors`` (bh, s, d) tensors of the type and
+    ``vectors`` (bh, s) f32 vectors such as lse, each read or written once)
+    over HBM bandwidth and the operations of ``products`` products over the
+    peak for the type."""
     elem = torch.tensor([], dtype=dtype).element_size()
-    nbytes = tensors * bh * s * d * elem + bh * s * 4
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    nbytes = tensors * bh * s * d * elem + vectors * bh * s * 4
+    t_ops = attention_flops(causal, products, bh, s, d) / PEAK_FLOPS[dtype] * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-# (products, tensors) of each function: the forward does S = QK^T and PV
-# over q, k, v, o; the gradient needs S, dP, dQ, dK, dV over q, k, v, o, g
-# read and dq, dk, dv written; as designed the dq kernel recomputes S and
-# dP (3 products; 5 tensors read, 1 written) and the dkv kernel too (4
-# products; 5 read, 2 written)
-WORK = {"fwd": (2, 4), "bwd": (5, 8), "dq": (3, 6), "dkv": (4, 7)}
+# (products, tensors, f32 vectors) of each function: the forward does
+# S = QK^T and PV over q, k, v, o and lse; the gradient needs S, dP, dQ, dK,
+# dV over q, k, v, o, g and lse read and dq, dk, dv written. As designed the
+# dq kernel recomputes S and dP (3 products; 5 tensors and lse read, 1
+# written) and the dkv kernel too (4 products; 5 read, 2 written). In bf16
+# the dq kernel also writes delta, which the dkv kernel reads in place of O.
+WORK = {"fwd": (2, 4, 1), "bwd": (5, 8, 1), "dq": (3, 6, 1), "dkv": (4, 7, 1)}
+WORK_BF16 = {**WORK, "dq": (3, 6, 2), "dkv": (4, 6, 2)}
+
+
+def work(kind: str, dtype: torch.dtype) -> tuple:
+    return (WORK_BF16 if dtype == torch.bfloat16 else WORK)[kind]
 
 
 def _name(dtype: torch.dtype) -> str:
@@ -277,7 +331,7 @@ def phase_kernels() -> dict:
                 lambda: fa.flash_attention_fwd_reference(q, k, v, causal, scale), 10)
             library_ms = time_ms(lambda: F.scaled_dot_product_attention(
                 q4, k4, v4, is_causal=causal, scale=scale), 20)
-            bound_ms, bound_by = attention_bound(dtype, causal, *WORK["fwd"])
+            bound_ms, bound_by = attention_bound(dtype, causal, *work("fwd", dtype))
             tol = KERNEL_TOL[dtype]
             rows["fwd"].append(dict(
                 dtype=_name(dtype), causal=causal, max_abs_err=ferr["out"],
@@ -292,35 +346,47 @@ def phase_kernels() -> dict:
 
             berr = check_bwd(fa, q, k, v, out, g, lse, causal, scale, name)
             bwd = lambda: fa.flash_attention_bwd(q, k, v, out, g, lse, causal, scale)  # noqa: E731
+            # each kernel owns its output tiles: two runs agree bit for bit
+            first, second = bwd(), bwd()
+            bitwise = all(torch.equal(a, b) for a, b in zip(first, second))
+            check(bitwise, f"{name}: two runs of the backward pair differ")
+            del first, second
             pair_ms = time_ms(bwd, 20)
             split = kernel_ms_by_name(bwd, ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"))
             pair_plain_ms = time_ms(lambda: fa.flash_attention_bwd_reference(
                 q, k, v, out, g, lse, causal, scale), 5)
             pair_library_ms = sdpa_bwd_ms(F, q, k, v, g, causal, scale)
-            pair_bound_ms, pair_bound_by = attention_bound(dtype, causal, *WORK["bwd"])
+            pair_bound_ms, pair_bound_by = attention_bound(dtype, causal, *work("bwd", dtype))
             for kern, cname, errs in (("dq", "flash_bwd_dq_kernel", ("dq",)),
                                       ("dkv", "flash_bwd_dkv_kernel", ("dk", "dv"))):
-                kbound, kby = attention_bound(dtype, causal, *WORK[kern])
+                products = work(kern, dtype)[0]
+                kbound, kby = attention_bound(dtype, causal, *work(kern, dtype))
                 kms = split[cname]
+                ktflops = attention_flops(causal, products) / kms / 1e9
                 rows[kern].append(dict(
                     dtype=_name(dtype), causal=causal,
                     max_abs_err=max(berr[e] for e in errs),
                     largest_grad=max(berr[f"{e}_largest"] for e in errs),
                     tolerance=BWD_TOL[dtype], ms=kms, bound_ms=kbound, bound_by=kby,
-                    pair_ms=pair_ms, plain_ms=pair_plain_ms, library_ms=pair_library_ms,
-                    pair_bound_ms=pair_bound_ms, pair_bound_by=pair_bound_by))
+                    tflops=ktflops, pair_ms=pair_ms, plain_ms=pair_plain_ms,
+                    library_ms=pair_library_ms, pair_bound_ms=pair_bound_ms,
+                    pair_bound_by=pair_bound_by, bitwise_equal_runs=bitwise))
                 err_text = ", ".join(
                     f"{e} {berr[e]:.3g} of {berr[e + '_largest']:.3g}" for e in errs)
                 print(f"kernel flash_attention_bwd_{kern} {name} shape {shape}: "
                       f"err {err_text} (tol {BWD_TOL[dtype]:.3g} of the largest); "
-                      f"kernel {kms:.4f} ms, "
-                      f"bound {kbound:.4f} ms ({kby}), {kbound / kms:.1%} of bound",
-                      flush=True)
+                      f"kernel {kms:.4f} ms, {ktflops:.1f} TFLOP/s on its {products} "
+                      f"products, bound {kbound:.4f} ms ({kby}), {kbound / kms:.1%} of "
+                      f"bound", flush=True)
+            tf7 = attention_flops(causal, work("dq", dtype)[0] + work("dkv", dtype)[0])
+            tf5 = attention_flops(causal, work("bwd", dtype)[0])
             print(f"kernel flash_attention_bwd pair {name} shape {shape}: dq+dkv "
-                  f"{pair_ms:.4f} ms, plain {pair_plain_ms:.4f} ms, sdpa backward "
-                  f"{pair_library_ms:.4f} ms, bound {pair_bound_ms:.4f} ms "
-                  f"({pair_bound_by}), {pair_bound_ms / pair_ms:.1%} of bound",
-                  flush=True)
+                  f"{pair_ms:.4f} ms ({tf7 / pair_ms / 1e9:.1f} TFLOP/s on the 7 products "
+                  f"as designed, {tf5 / pair_ms / 1e9:.1f} on the function's 5), plain "
+                  f"{pair_plain_ms:.4f} ms, sdpa backward {pair_library_ms:.4f} ms "
+                  f"({pair_ms / pair_library_ms:.2f}x), bound {pair_bound_ms:.4f} ms "
+                  f"({pair_bound_by}), {pair_bound_ms / pair_ms:.1%} of bound; two runs "
+                  f"bitwise equal", flush=True)
 
     # ragged lengths and the repaired limits: any D <= 256 and any B*H
     # (causal), then D above 256 through the kernels chunked over D
@@ -354,13 +420,13 @@ def kernel_cases(F, fa, gen, cases) -> list:
                 lambda: fa.flash_attention_fwd_reference(q, k, v, causal, sc), 3),
             fwd_library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                 q4, k4, v4, is_causal=causal, scale=sc), 10),
-            fwd_bound_ms=attention_bound(dtype, causal, *WORK["fwd"], bh=bh, s=s, d=d)[0],
+            fwd_bound_ms=attention_bound(dtype, causal, *work("fwd", dtype), bh=bh, s=s, d=d)[0],
             bwd_ms=time_ms(
                 lambda: fa.flash_attention_bwd(q, k, v, out, g, lse, causal, sc), 10),
             bwd_plain_ms=time_ms(lambda: fa.flash_attention_bwd_reference(
                 q, k, v, out, g, lse, causal, sc), 3),
             bwd_library_ms=sdpa_bwd_ms(F, q, k, v, g, causal, sc, heads=8),
-            bwd_bound_ms=attention_bound(dtype, causal, *WORK["bwd"], bh=bh, s=s, d=d)[0])
+            bwd_bound_ms=attention_bound(dtype, causal, *work("bwd", dtype), bh=bh, s=s, d=d)[0])
         rows.append(dict(dtype=_name(dtype), bh=bh, s=s, d=d, causal=causal,
                          fwd_err=ferr, bwd_err=berr, **case))
         print(f"kernel case {name}: out err {ferr['out']:.3g}, dq/dk/dv err "
@@ -415,19 +481,10 @@ def profile_breakdown(fn, classes, other: str = "other") -> dict:
     """Where the time of one call of ``fn`` goes: the host's wall time, the
     device's busy time by kernel class (torch.profiler; a kernel no class
     claims counts as ``other``) and the device's idle share."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    spans = [(e.name, e.time_range.start, e.time_range.end)
-             for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not spans:
-        return {"wall_ms": wall_ms, "device": "not measured"}
+    events, wall_ms = device_events(fn, 1, (ProfilerActivity.CPU, ProfilerActivity.CUDA))
+    spans = [(e.name, e.time_range.start, e.time_range.end) for e in events]
     by_class = {name: 0.0 for name, _ in classes}
     by_class[other] = 0.0
     by_name: dict = {}
@@ -447,22 +504,35 @@ def profile_breakdown(fn, classes, other: str = "other") -> dict:
             "top_kernels_ms": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])}
 
 
+def device_events(fn, iters: int, activities) -> tuple:
+    """(the device's events, host ms) of ``iters`` calls of ``fn`` under
+    torch.profiler. A session now and then records no device event at all,
+    so up to three are tried before the run fails."""
+    from torch.autograd import DeviceType
+    from torch.profiler import profile
+
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=list(activities)) as prof:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if events:
+            return events, wall_ms
+    raise SmokeFailure("profiler saw no device time in three sessions")
+
+
 def device_spans(fn, iters: int) -> list:
     """(kernel name, device ms) of every kernel and copy that ``iters`` warm
     calls of ``fn`` run, by torch.profiler."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    spans = [(e.name, (e.time_range.end - e.time_range.start) / 1e3)
-             for e in prof.events() if e.device_type == DeviceType.CUDA]
-    check(bool(spans), "profiler saw no device time")
-    return spans
+    events, _ = device_events(fn, iters, (ProfilerActivity.CUDA,))
+    return [(e.name, (e.time_range.end - e.time_range.start) / 1e3) for e in events]
 
 
 def kernel_ms_by_name(fn, names, iters: int = 10) -> dict:
@@ -595,6 +665,33 @@ def layer_err(got: dict, want: dict, start: dict = None) -> tuple:
     return worst, where
 
 
+def timed_steps(step, rounds: int) -> tuple:
+    """(each step's ms, each round's median ms, peak GiB) of ``rounds``
+    rounds of TIMED_STEPS calls of ``step``, each timed by CUDA events
+    around it (host gaps included: they are part of the step)."""
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    # earlier phases' models may wait on reference cycles; collect them so
+    # the peak counts only what this model's steps hold
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, round_medians = [], []
+    for _ in range(rounds):
+        ms = []
+        for _ in range(TIMED_STEPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            step()
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+        round_medians.append(float(np.median(ms)))
+        step_ms += ms
+    return step_ms, round_medians, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
 def phase_training(compute_dtype: str, params: dict, card: str, ref: dict = None) -> tuple:
     """Train the reference Transformer at full width through FFModel.compile
     -> grad_step/train_step/fit, against the plain kernels' path. ``ref``:
@@ -716,23 +813,7 @@ def phase_training(compute_dtype: str, params: dict, card: str, ref: dict = None
     def step():
         cm.train_step(cm.params, cm.opt_state, None, xb, yb)
 
-    for _ in range(3):
-        step()
-    torch.cuda.synchronize()
-    # earlier phases' models may wait on reference cycles; collect them so
-    # the peak counts only what this model's steps hold
-    gc.collect()
-    torch.cuda.reset_peak_memory_stats()
-    step_ms = []
-    for _ in range(TIMED_STEPS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        step()
-        end.record()
-        end.synchronize()
-        step_ms.append(start.elapsed_time(end))
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_ms, round_medians, peak_gib = timed_steps(step, STEP_ROUNDS)
     median_ms = float(np.median(step_ms))
     breakdown = profile_breakdown(step, TRAIN_CLASSES, other="optimizer/elementwise")
     row = dict(compute_dtype=compute_dtype, card=card, batch=BATCH,
@@ -745,8 +826,9 @@ def phase_training(compute_dtype: str, params: dict, card: str, ref: dict = None
                update_tolerance=GRAD_TOL if ref is None else None,
                update_bf16_floor=update_floor,
                fit_steps=steps, fit_launches=launches, fit_mse=pm.mse_loss / pm.train_all,
-               step_ms_median=median_ms, step_ms_min=min(step_ms),
-               step_ms_max=max(step_ms), samples_per_s=BATCH * 1e3 / median_ms,
+               step_ms_median=median_ms, step_ms_round_medians=round_medians,
+               step_ms_min=min(step_ms), step_ms_max=max(step_ms),
+               samples_per_s=BATCH * 1e3 / median_ms,
                peak_memory_gib=peak_gib, breakdown=breakdown)
     held = f"tol {GRAD_TOL}" if ref is None else f"bf16 floor {update_floor:.3g}"
     print(f"training {compute_dtype}: grads vs plain path {grad_err:.3g} of the "
@@ -758,7 +840,8 @@ def phase_training(compute_dtype: str, params: dict, card: str, ref: dict = None
           f"{LOSS_TOL[compute_dtype]}), params after them {update_err:.3g} of the "
           f"layer's largest update (worst {update_worst}; {held}); fit {steps} "
           f"steps, launches {launches}; step {median_ms:.2f} ms median of "
-          f"{TIMED_STEPS}, {row['samples_per_s']:.1f} samples/s, peak "
+          f"{STEP_ROUNDS}x{TIMED_STEPS} (rounds {', '.join(f'{v:.2f}' for v in round_medians)}"
+          f"), {row['samples_per_s']:.1f} samples/s, peak "
           f"{peak_gib:.2f} GiB [{card}]", flush=True)
     print(f"training breakdown {compute_dtype}: {json.dumps(breakdown)}", flush=True)
     print("training_json " + json.dumps(row), flush=True)
@@ -1140,23 +1223,7 @@ def phase_moe_training(compute_dtype: str, card: str, stacked: bool = False) -> 
     def step():
         cm.train_step(cm.params, cm.opt_state, None, xb, yb)
 
-    for _ in range(3):
-        step()
-    torch.cuda.synchronize()
-    # earlier phases' models may wait on reference cycles; collect them so
-    # the peak counts only what this model's steps hold
-    gc.collect()
-    torch.cuda.reset_peak_memory_stats()
-    step_ms = []
-    for _ in range(TIMED_STEPS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        step()
-        end.record()
-        end.synchronize()
-        step_ms.append(start.elapsed_time(end))
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_ms, _, peak_gib = timed_steps(step, 1)
     median_ms = float(np.median(step_ms))
     breakdown = profile_breakdown(step, MOE_CLASSES, other="optimizer/elementwise")
     row.update(eval_accuracy=pe.accuracy, eval_sparse_cce=pe.sparse_cce_loss / pe.train_all,
@@ -1179,13 +1246,18 @@ def phase_moe_training(compute_dtype: str, card: str, stacked: bool = False) -> 
 def _kernel_entry(name: str, source: str, replaces: str, rows: list, launches: int,
                   **extra) -> dict:
     """One entry of the kernels line, its numbers from the f32 non-causal
-    row at the slice shape (the training and serving paths' variant)."""
+    row at the slice shape (the training and serving paths' variant);
+    ``bfloat16`` repeats them from the bf16 non-causal row, which the bf16
+    paths run (for the backward, the tensor-core kernels)."""
     main_row = next(r for r in rows if r["dtype"] == "float32" and not r["causal"])
+    bf16_row = next(r for r in rows if r["dtype"] == "bfloat16" and not r["causal"])
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": main_row["max_abs_err"],
             "max_err": main_row["max_abs_err"], "ms": main_row["ms"],
             "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"], "library_ms": main_row["library_ms"],
+            "bfloat16": {k: bf16_row[k] for k in keys},
             "shape": [BATCH * HEADS, SEQ, HEAD_DIM], "variants": rows, **extra}
 
 

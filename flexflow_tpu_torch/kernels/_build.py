@@ -24,7 +24,7 @@ from typing import List, Optional, Tuple
 CSRC_DIR = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC")
 
 # argtypes/restype of every exported C function: each pointer and the
 # stream is a c_void_p, or ctypes would pass it as a 32-bit int
@@ -32,11 +32,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # q, k, v, o, lse, bh, sq, skv, d, scale, causal, dtype, stream
     "ff_flash_attention_fwd": ([_P] * 5 + [_I] * 4 + [_F, _I, _I, _P], _I),
-    # q, k, v, o, g, lse, dq, bh, sq, skv, d, scale, causal, dtype, stream
-    "ff_flash_attention_bwd_dq": ([_P] * 7 + [_I] * 4 + [_F, _I, _I, _P], _I),
-    # q, k, v, o, g, lse, dk, dv, bh, sq, skv, d, scale, causal, dtype, stream
-    "ff_flash_attention_bwd_dkv": ([_P] * 8 + [_I] * 4 + [_F, _I, _I, _P], _I),
-    # the same three for head dims above 256 (flash_attention_wide.cu)
+    # q, k, v, o, g, lse, delta, dq, bh, sq, skv, d, scale, causal, dtype, stream
+    "ff_flash_attention_bwd_dq": ([_P] * 8 + [_I] * 4 + [_F, _I, _I, _P], _I),
+    # q, k, v, o, g, lse, delta, dk, dv, bh, sq, skv, d, scale, causal, dtype, stream
+    "ff_flash_attention_bwd_dkv": ([_P] * 9 + [_I] * 4 + [_F, _I, _I, _P], _I),
+    # the same three for head dims above 256 (flash_attention_wide.cu), the
+    # backward ones without delta
     "ff_flash_attention_fwd_wide": ([_P] * 5 + [_I] * 4 + [_F, _I, _I, _P], _I),
     "ff_flash_attention_bwd_dq_wide": ([_P] * 7 + [_I] * 4 + [_F, _I, _I, _P], _I),
     "ff_flash_attention_bwd_dkv_wide": ([_P] * 8 + [_I] * 4 + [_F, _I, _I, _P], _I),
@@ -97,9 +98,9 @@ def library_path() -> Path:
     return BUILD_DIR / f"libflexflow_tpu_torch_kernels_{h.hexdigest()[:16]}.so"
 
 
-def _run_all(cmds: List[List[str]]) -> str:
+def _run_all(cmds: List[List[str]]) -> None:
     """Run the commands concurrently; raise with the output of the first
-    that fails. Returns their joined output."""
+    that fails."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                               text=True) for c in cmds]
     outs = [p.communicate()[0] for p in procs]
@@ -107,16 +108,15 @@ def _run_all(cmds: List[List[str]]) -> str:
         if proc.returncode != 0:
             raise RuntimeError(
                 f"nvcc failed with code {proc.returncode}:\n{' '.join(cmd)}\n{out}")
-    return "".join(outs)
 
 
-def build() -> Tuple[Path, float, str]:
+def build() -> Tuple[Path, float]:
     """Compile the kernels unless this tree's library exists already.
-    Returns (library path, build seconds, compiler output); seconds is 0
-    and the output empty when nothing was built."""
+    Returns (library path, build seconds); seconds is 0 when nothing was
+    built."""
     out = library_path()
     if out.exists():
-        return out, 0.0, ""
+        return out, 0.0
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{out.stem}.{os.getpid()}"
@@ -125,10 +125,9 @@ def build() -> Tuple[Path, float, str]:
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     t0 = time.perf_counter()
     try:
-        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-                        for src, obj in zip(sources, objs)])
-        log += _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
-                          *map(str, objs)]])
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                  for src, obj in zip(sources, objs)])
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
     except RuntimeError:
         tmp.unlink(missing_ok=True)
         raise
@@ -137,7 +136,7 @@ def build() -> Tuple[Path, float, str]:
             obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
     os.replace(tmp, out)  # atomic: a concurrent build loads one or the other
-    return out, seconds, log
+    return out, seconds
 
 
 def load_library() -> _Library:
@@ -146,7 +145,7 @@ def load_library() -> _Library:
     global _lib
     with _lock:
         if _lib is None:
-            path, _, _ = build()
+            path, _ = build()
             _lib = _Library(ctypes.CDLL(str(path)))
         return _lib
 

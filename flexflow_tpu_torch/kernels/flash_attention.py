@@ -166,8 +166,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The backward kernels' wrapper, with the signature of
     :func:`flash_attention_bwd_reference`. A CUDA tensor launches the dq
     kernel and then the dkv kernel of ``csrc/flash_attention_bwd.cu``
-    (``_wide.cu`` for D > 256) on the current stream; a CPU tensor runs the
-    plain version."""
+    (``_wide.cu`` for D > 256) on the current stream: in bf16 the
+    tensor-core kernels, which pass delta = rowsum(dO * O) from the first to
+    the second through a (B*H, Sq) f32 buffer; in f32 the CUDA-core ones. A
+    CPU tensor runs the plain version."""
     on_card = _check_kernel_args("flash_attention_bwd", q, k, v, o, g)
     bh, sq, d = q.shape
     if lse.shape != (bh, 1, sq) or lse.dtype != torch.float32 or lse.device != q.device:
@@ -188,6 +190,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     args = (bh, sq, skv, d, float(scale), int(bool(causal)), _DTYPE_CODES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     ptrs = [t.data_ptr() for t in (q, k, v, o, g, lse)]
+    if d <= MAX_HEAD_DIM:  # the one-pass kernels take the delta buffer
+        delta = (torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+                 if q.dtype == torch.bfloat16 else None)
+        ptrs.append(None if delta is None else delta.data_ptr())
     with torch.cuda.device(q.device):
         err = _entry(lib, "ff_flash_attention_bwd_dq", d)(*ptrs, dq.data_ptr(), *args)
         check_launch(err, "flash_attention_bwd_dq")

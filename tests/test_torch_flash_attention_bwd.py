@@ -4,8 +4,10 @@ The same inputs, made with numpy from a seed, go through the JAX
 ``_flash_bwd`` (its two Pallas kernels in the interpreter, fed the
 residuals of ``_flash_fwd``) and through the port's
 ``flash_attention_bwd`` on CPU tensors, which is the kernels' plain
-version; and through autograd of both packages' ``flash_attention``. The
-kernels themselves are held against the plain version on the card by
+version; and through autograd of both packages' ``flash_attention``. A
+plain computation that rounds where the card's bf16 kernels round is held
+against the JAX kernels too, within the card's bf16 tolerance. The kernels
+themselves are held against the plain version on the card by
 tests/test_torch_kernels_cuda.py.
 """
 
@@ -73,6 +75,51 @@ def test_plain_bwd_matches_jax_flash_bwd(sq, skv, d, causal, dtype):
         np.testing.assert_allclose(gt.float().numpy(),
                                    np.asarray(w.astype(jnp.float32)), **tol,
                                    err_msg=name)
+
+
+def _bwd_as_the_bf16_kernels_round(q, k, v, o, g, lse, causal, scale):
+    """The backward rounded where the bf16 tensor-core kernels round it
+    (csrc/flash_attention_bwd.cu): bf16 inputs, S and dP in f32 with scale
+    on S, P and dS rounded to bf16 before the products that consume them,
+    scale on dQ and dK at the end, the gradients rounded to bf16."""
+    bf16 = lambda t: t.to(torch.bfloat16).float()  # noqa: E731
+    qf, kf, vf, of, gf = (t.float() for t in (q, k, v, o, g))
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    p = torch.exp(s - lse.transpose(-1, -2))
+    if causal:
+        p = torch.where(tfa._causal_keep(s.shape[-2], s.shape[-1], s.device), p, 0.0)
+    dp = torch.matmul(gf, vf.transpose(-1, -2))
+    ds = p * (dp - torch.sum(gf * of, dim=-1, keepdim=True))
+    dq = torch.matmul(bf16(ds), kf) * scale
+    dk = torch.matmul(bf16(ds).transpose(-1, -2), qf) * scale
+    dv = torch.matmul(bf16(p).transpose(-1, -2), gf)
+    return tuple(t.to(torch.bfloat16) for t in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("d", [32, 64, 100])
+@pytest.mark.parametrize("causal", [False, True])
+def test_bf16_kernels_rounding_is_within_the_card_tolerance(causal, d):
+    """Rounding P and dS to bf16 before the second products, as the card's
+    bf16 kernels do, keeps every gradient within chip_smoke.py's bf16
+    tolerance (2^-7 of the gradient's largest element) of the JAX kernels;
+    Skv 72 is not a multiple of the kernels' 64-row tiles."""
+    bh, sq, skv = 2, 64, 72
+    q, k, v, g = _bf16_round(_arrays([(bh, sq, d), (bh, skv, d), (bh, skv, d), (bh, sq, d)],
+                                     seed=d + causal))
+    scale = d ** -0.5
+    _, res = jfa._flash_fwd(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)),
+                            causal, scale, 32, True)
+    want = jfa._flash_bwd(causal, scale, 32, True, res, jnp.asarray(g, jnp.bfloat16))
+    _, _, _, jo, jlse = res
+    to_t = lambda a: torch.tensor(np.asarray(jnp.asarray(a, jnp.float32))).to(torch.bfloat16)  # noqa: E731
+    got = _bwd_as_the_bf16_kernels_round(to_t(q), to_t(k), to_t(v), to_t(jo), to_t(g),
+                                         torch.from_numpy(np.array(jlse)), causal, scale)
+    for name, gt, w in zip(("dq", "dk", "dv"), got, want):
+        w = np.asarray(w.astype(jnp.float32))
+        err = np.abs(gt.float().numpy() - w).max()
+        assert err <= 2 ** -7 * np.abs(w).max(), f"{name}: {err:.3g} of {np.abs(w).max():.3g}"
+    if causal:  # keys no query sees get exactly 0
+        assert not got[1][:, sq:].any() and not got[2][:, sq:].any()
 
 
 def _grads_port(q, k, v, g, causal):

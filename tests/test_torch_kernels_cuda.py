@@ -22,10 +22,14 @@ F32_TOL = dict(rtol=2e-5, atol=2e-5)
 BF16_TOL = dict(rtol=2 ** -7, atol=2 ** -7)
 # gradients, as a fraction of the largest gradient of the tensor: f32 sums
 # of up to Skv (dq) or Sq (dk, dv) products in another order; bf16 one ulp
-# of the rounded output
+# of the rounded output, the tensor-core kernels also rounding P and dS to
+# bf16 before the second products
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2 ** -7}
 # every padded width the kernels are built for, and widths between them
 HEAD_DIMS = (32, 48, 64, 96, 128, 256)
+# the backward's too, and rows whose stride is not a multiple of 8 elements
+# (the bf16 kernels' element-wise load path)
+BWD_HEAD_DIMS = HEAD_DIMS + (20, 100)
 
 
 @pytest.fixture
@@ -86,7 +90,7 @@ def test_flash_bwd_kernels_match_plain(card, sq, skv, causal, dtype):
     """dq and dkv against the plain backward: ragged tiles, Sq != Skv under
     causal, every head dim, both dtypes; one launch each."""
     rng = np.random.default_rng(5)
-    for d in HEAD_DIMS:
+    for d in BWD_HEAD_DIMS:
         q, g = (_randn(rng, (6, sq, d), card, dtype) for _ in range(2))
         k, v = (_randn(rng, (6, skv, d), card, dtype) for _ in range(2))
         o, lse = tfa.flash_attention_fwd_reference(q, k, v, causal, d ** -0.5)
@@ -100,6 +104,22 @@ def test_flash_bwd_kernels_match_plain(card, sq, skv, causal, dtype):
         _check_grads(got, want, dtype, f"head dim {d}")
         if causal and skv > sq:  # keys no query sees get exactly 0
             assert not got[1][:, sq:].any() and not got[2][:, sq:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_bf16_bwd_kernels_are_deterministic(card, causal):
+    """Each kernel owns its output tiles (no atomics): two launches on the
+    same inputs agree bit for bit, ragged and unaligned widths included."""
+    rng = np.random.default_rng(9)
+    for sq, skv, d in ((512, 512, 64), (200, 72, 100), (72, 200, 256)):
+        q, g = (_randn(rng, (4, sq, d), card, torch.bfloat16) for _ in range(2))
+        k, v = (_randn(rng, (4, skv, d), card, torch.bfloat16) for _ in range(2))
+        o, lse = tfa.flash_attention_fwd(q, k, v, causal, d ** -0.5)
+        first = tfa.flash_attention_bwd(q, k, v, o, g, lse, causal, d ** -0.5)
+        second = tfa.flash_attention_bwd(q, k, v, o, g, lse, causal, d ** -0.5)
+        for name, a, b in zip(("dq", "dk", "dv"), first, second):
+            assert torch.equal(a, b), (sq, skv, d, name)
 
 
 @pytest.mark.cuda
