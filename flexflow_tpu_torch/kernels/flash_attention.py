@@ -139,7 +139,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The forward kernel's wrapper: q (BH, Sq, D), k/v (BH, Skv, D) ->
     (out, lse) as :func:`flash_attention_fwd_reference` returns them. A
     CUDA tensor launches ``csrc/flash_attention_fwd.cu`` (``_wide.cu`` for
-    D > 256) on the current stream; a CPU tensor runs the plain version."""
+    D > 256) on the current stream: in bf16 the tensor-core kernel, which
+    rounds P to bf16 before P V as FlashAttention does, in f32 the
+    CUDA-core one. A CPU tensor runs the plain version."""
     if not _check_kernel_args("flash_attention_fwd", q, k, v):
         return flash_attention_fwd_reference(q, k, v, causal, scale)
     from ._build import check_launch, load_library

@@ -3,8 +3,10 @@
 The same inputs, made with numpy from a seed, go through the JAX
 ``flash_attention`` in the Pallas interpreter (as tests/test_kernels.py
 runs it on the CPU) and through the port's ``flash_attention`` on CPU
-tensors, which is the kernel's plain version. The kernel itself is held
-against the plain version on the card by tests/test_torch_kernels_cuda.py.
+tensors, which is the kernel's plain version. A plain computation that
+rounds where the card's bf16 kernel rounds is held against the JAX kernel
+too, within the card's bf16 tolerance. The kernel itself is held against
+the plain version on the card by tests/test_torch_kernels_cuda.py.
 """
 
 import numpy as np
@@ -97,6 +99,47 @@ def test_flash_attention_bf16_matches_jax_kernel(causal):
     got = _port(q, k, v, causal, dtype=torch.bfloat16)
     np.testing.assert_allclose(got, np.asarray(want.astype(jnp.float32)),
                                **BF16_TOL)
+
+
+def _fwd_as_the_bf16_kernel_rounds(q, k, v, causal, scale):
+    """The forward rounded where the bf16 tensor-core kernel rounds it
+    (csrc/flash_attention_fwd.cu): S in f32 from the bf16 Q and K with
+    scale on S, masked p exactly 0, l summed over the f32 p, P rounded to
+    bf16 before P V, O / l in f32 rounded to bf16; lse in f32."""
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    keep = (tfa._causal_keep(s.shape[-2], s.shape[-1], s.device) if causal
+            else torch.ones(s.shape[-2:], dtype=torch.bool))
+    m = s.masked_fill(~keep, float("-inf")).amax(dim=-1, keepdim=True)
+    p = torch.where(keep, torch.exp(s - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.matmul(p.to(torch.bfloat16).float(), vf) / l
+    return out.to(torch.bfloat16), (m + torch.log(l)).transpose(-1, -2)
+
+
+@pytest.mark.parametrize("d", [32, 64, 100])
+@pytest.mark.parametrize("causal", [False, True])
+def test_bf16_kernel_rounding_is_within_the_card_tolerance(causal, d):
+    """Rounding P to bf16 before P V, as the card's bf16 kernel does, keeps
+    the output within chip_smoke.py's bf16 tolerance of the JAX kernel: 2^-7
+    of the largest output element, one bf16 ulp at the largest magnitude
+    (an absolute bound fails here: under causal the first rows are single
+    values of V, |O| in [2, 4), where one ulp is 2^-6). lse within 1e-4.
+    Skv 72 is not a multiple of the kernel's 64-key tiles."""
+    bh, sq, skv = 2, 64, 72
+    rng = np.random.default_rng(d + causal)
+    q, k, v = (np.array(jnp.asarray(rng.normal(size=(bh, s, d)).astype(np.float32),
+                                    jnp.bfloat16).astype(jnp.float32))
+               for s in (sq, skv, skv))
+    scale = d ** -0.5
+    want, res = jfa._flash_fwd(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)),
+                               causal, scale, 32, True)
+    want = np.asarray(want.astype(jnp.float32))
+    got, lse = _fwd_as_the_bf16_kernel_rounds(
+        *(torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)), causal, scale)
+    err = np.abs(got.float().numpy() - want).max()
+    assert err <= 2 ** -7 * np.abs(want).max(), f"{err:.3g} of {np.abs(want).max():.3g}"
+    np.testing.assert_allclose(lse.numpy(), np.asarray(res[4]), rtol=0, atol=1e-4)
 
 
 @pytest.mark.parametrize("sq,skv", [(36, 64), (64, 20), (4, 4)])

@@ -18,18 +18,19 @@ from flexflow_tpu_torch.kernels import moe_kernels as tmk
 # f32: the same f32 math in another summation order
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
 # bf16 outputs: both sides round nearly equal f32 results to bf16 and may
-# land one bf16 ulp apart (2^-8 relative)
+# land one bf16 ulp apart (2^-8 relative); the tensor-core forward also
+# rounds P to bf16 before P V, which stays within this too (the CPU rounding
+# model in tests/test_torch_flash_attention.py)
 BF16_TOL = dict(rtol=2 ** -7, atol=2 ** -7)
 # gradients, as a fraction of the largest gradient of the tensor: f32 sums
 # of up to Skv (dq) or Sq (dk, dv) products in another order; bf16 one ulp
 # of the rounded output, the tensor-core kernels also rounding P and dS to
 # bf16 before the second products
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2 ** -7}
-# every padded width the kernels are built for, and widths between them
-HEAD_DIMS = (32, 48, 64, 96, 128, 256)
-# the backward's too, and rows whose stride is not a multiple of 8 elements
-# (the bf16 kernels' element-wise load path)
-BWD_HEAD_DIMS = HEAD_DIMS + (20, 100)
+# every padded width the kernels are built for, widths between them, and
+# rows whose stride is not a multiple of 8 elements (the bf16 kernels'
+# element-wise load path)
+HEAD_DIMS = (32, 48, 64, 96, 128, 256, 20, 100)
 
 
 @pytest.fixture
@@ -47,11 +48,12 @@ def _randn(rng, shape, device, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("sq,skv,causal", [
-    (128, 128, False), (128, 128, True), (72, 200, True), (200, 72, False),
-    (200, 72, True)])
+    (128, 128, False), (128, 128, True), (200, 200, True), (72, 200, True),
+    (200, 72, False), (200, 72, True)])
 def test_flash_fwd_kernel_matches_plain(card, sq, skv, causal, dtype):
     """Ragged tiles (lengths not multiples of the kernel's 64-row tiles),
-    every head dim, both dtypes, out and lse."""
+    Sq != Skv under causal, every head dim, both dtypes (bf16 on the tensor
+    cores), out and lse; one launch a call."""
     rng = np.random.default_rng(4)
     tol = F32_TOL if dtype == torch.float32 else BF16_TOL
     for d in HEAD_DIMS:
@@ -90,7 +92,7 @@ def test_flash_bwd_kernels_match_plain(card, sq, skv, causal, dtype):
     """dq and dkv against the plain backward: ragged tiles, Sq != Skv under
     causal, every head dim, both dtypes; one launch each."""
     rng = np.random.default_rng(5)
-    for d in BWD_HEAD_DIMS:
+    for d in HEAD_DIMS:
         q, g = (_randn(rng, (6, sq, d), card, dtype) for _ in range(2))
         k, v = (_randn(rng, (6, skv, d), card, dtype) for _ in range(2))
         o, lse = tfa.flash_attention_fwd_reference(q, k, v, causal, d ** -0.5)
@@ -123,6 +125,21 @@ def test_bf16_bwd_kernels_are_deterministic(card, causal):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_bf16_fwd_kernel_is_deterministic(card, causal):
+    """The tensor-core forward owns its output tiles: two launches on the
+    same inputs agree bit for bit, ragged and unaligned widths included."""
+    rng = np.random.default_rng(10)
+    for sq, skv, d in ((512, 512, 64), (200, 72, 100), (72, 200, 256), (200, 200, 20)):
+        q = _randn(rng, (4, sq, d), card, torch.bfloat16)
+        k, v = (_randn(rng, (4, skv, d), card, torch.bfloat16) for _ in range(2))
+        first = tfa.flash_attention_fwd(q, k, v, causal, d ** -0.5)
+        second = tfa.flash_attention_fwd(q, k, v, causal, d ** -0.5)
+        for name, a, b in zip(("out", "lse"), first, second):
+            assert torch.equal(a, b), (sq, skv, d, name)
+
+
+@pytest.mark.cuda
 def test_autograd_through_the_kernels_matches_plain_path(card):
     rng = np.random.default_rng(6)
     q, k, v, g = (_randn(rng, (2, 128, 4, 64), card, torch.float32) for _ in range(4))
@@ -135,18 +152,20 @@ def test_autograd_through_the_kernels_matches_plain_path(card):
 
 
 @pytest.mark.cuda
-def test_batch_heads_above_65535(card):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batch_heads_above_65535(card, dtype):
     """B*H folds into the grid's x dimension: no 65535 limit."""
     rng = np.random.default_rng(7)
     bh, s, d = 65536 + 8, 16, 32
-    q, k, v, g = (_randn(rng, (bh, s, d), card, torch.float32) for _ in range(4))
+    q, k, v, g = (_randn(rng, (bh, s, d), card, dtype) for _ in range(4))
     out, lse = tfa.flash_attention_fwd(q, k, v, True, d ** -0.5)
     want_out, want_lse = tfa.flash_attention_fwd_reference(q, k, v, True, d ** -0.5)
-    torch.testing.assert_close(out, want_out, **F32_TOL)
+    torch.testing.assert_close(out, want_out,
+                               **(F32_TOL if dtype == torch.float32 else BF16_TOL))
     torch.testing.assert_close(lse, want_lse, **F32_TOL)
     got = tfa.flash_attention_bwd(q, k, v, out, g, lse, True, d ** -0.5)
     want = tfa.flash_attention_bwd_reference(q, k, v, out, g, lse, True, d ** -0.5)
-    _check_grads(got, want, torch.float32, "B*H > 65535")
+    _check_grads(got, want, dtype, "B*H > 65535")
 
 
 @pytest.mark.cuda
