@@ -9,18 +9,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the torch/CUDA versions; TF32 is switched off for matmuls and cuDNN;
 2. build: every kernel under flexflow_tpu_torch/kernels/csrc, built by nvcc
    for sm_90a, with each kernel instance's registers and stack frame as
-   cuobjdump reads them from the loaded library; the twelve tensor-core
-   instances (forward, dq and dkv at padded head dims 32/64/128/256) must
-   be there, with no stack frame (no spill) up to the padded head dim 128;
+   cuobjdump reads them from the loaded library; the twenty tensor-core
+   instances (the bf16 forward, dq and dkv and the split-TF32 f32 dq and
+   dkv at padded head dims 32/64/128/256) must be there, with no stack
+   frame (no spill) up to the padded head dim 128;
 3. kernels: each kernel at the shapes the main path gives it, held against
    its plain PyTorch version, timed beside the plain version, the one
    PyTorch call that computes the same function, and its bound: the
    flash-attention forward and then its two backward kernels (dq, dkv),
-   each in bf16 on the tensor cores and each held bitwise equal over two
-   runs, the profiler showing which forward kernel ran; then
-   the ragged and repaired cases (S = 200, D = 96, D = 256, B*H > 65535,
-   and D = 264 and 512, causal and not, through the kernels chunked over
-   the head dim);
+   both dtypes, the backward on the tensor cores in both (f32 with split
+   TF32 products), each held bitwise equal over two runs, the profiler
+   showing which forward and backward kernels ran; then the ragged and
+   repaired cases (S = 200, Sq != Skv at 10 and 37, D = 96, D = 256,
+   B*H > 65535, and D = 264 and 512, causal and not, through the kernels
+   chunked over the head dim);
 4. serving: the reference Transformer (build_transformer at the
    TransformerConfig defaults: seq 512, hidden 1024, 16 heads, 12 layers)
    at batch 8, served through InferenceEngine.infer_async, in float32 and
@@ -77,9 +79,13 @@ SEED = 0
 DEVICE = "cuda"
 BATCH, SEQ, HEADS, HEAD_DIM = 8, 512, 16, 64  # the slice's attention shape
 REQUESTS = 64  # per serving run
-# H100 SXM data-sheet peaks (dense): f32 on the CUDA cores, bf16 on the
-# tensor cores, HBM3 bandwidth
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# H100 SXM data-sheet peaks (dense): bf16 on the tensor cores; f32 at
+# f32 accuracy on the tensor cores, as three TF32 products (494.7 TFLOP/s)
+# for each f32 one, which the f32 backward kernels do and which is the
+# least time the card can take for f32 work; the CUDA cores' f32 peak,
+# the bound of earlier runs, printed beside it; HBM3 bandwidth
+PEAK_FLOPS = {torch.float32: 494.7e12 / 3, torch.bfloat16: 989e12}
+CUDA_CORE_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 # forward kernel vs plain: f32 sums in another order, absolute; lse is f32
 # in both. bf16 out as a fraction of the largest |out|: the tensor-core
@@ -208,53 +214,65 @@ def phase_build() -> None:
         label = label.split(">(")[0] + ">" if ">(" in label else label  # no argument list
         print(f"  resources: {label}: {u.get('REG')} registers, stack {u.get('STACK')} "
               f"bytes, local {u.get('LOCAL')} bytes")
-    # the tensor-core kernels (forward, dq, dkv at each padded width) have
-    # no stack frame, so no spill, up to the padded width 128
+    # the tensor-core kernels (bf16 forward, dq, dkv and split-TF32 dq, dkv
+    # at each padded width) have no stack frame, so no spill, up to the
+    # padded width 128
     mma = {(m.group(1), int(m.group(2))): u for mangled, u in usage.items()
-           for m in [re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel_mma)ILi(\d+)E",
-                               mangled)] if m}
-    check(len(mma) == 12, f"cuobjdump listed {sorted(mma)} of the 12 tensor-core instances")
+           for m in [re.search(r"(flash_(?:fwd_kernel_mma|bwd_(?:dq|dkv)_kernel_"
+                               r"(?:mma|tf32x3)))ILi(\d+)E", mangled)] if m}
+    check(len(mma) == 20, f"cuobjdump listed {sorted(mma)} of the 20 tensor-core instances")
     spills = {k: u for k, u in mma.items()
               if k[1] <= 128 and (u.get("STACK", 1) or u.get("LOCAL", 1))}
     check(not spills, f"tensor-core kernels spill at width <= 128: {spills}")
     sys.stdout.flush()
 
 
+def attention_pairs(causal: bool, sq: int, skv: int) -> int:
+    """(query, key) pairs attention computes: all of them, or under the
+    top-left causal mask the pairs with key <= query."""
+    if not causal:
+        return sq * skv
+    full = min(sq, skv)  # rows 0..full-1 see row + 1 keys, later rows all skv
+    return full * (full + 1) // 2 + (sq - full) * skv
+
+
 def attention_flops(causal: bool, products: int, bh: int = BATCH * HEADS, s: int = SEQ,
-                    d: int = HEAD_DIM) -> float:
-    """Operations of ``products`` (s x d) by (d x s) matrix products at one
-    shape (causal: only the q >= k pairs)."""
-    pairs = s * (s + 1) // 2 if causal else s * s
-    return 2.0 * products * bh * pairs * d
+                    d: int = HEAD_DIM, skv: int = None) -> float:
+    """Operations of ``products`` (sq x d) by (d x skv) matrix products at
+    one shape (causal: only the pairs the mask keeps); skv defaults to s."""
+    return 2.0 * products * bh * attention_pairs(causal, s, s if skv is None else skv) * d
 
 
-def attention_bound(dtype: torch.dtype, causal: bool, products: int, tensors: int,
-                    vectors: int = 1, bh: int = BATCH * HEADS, s: int = SEQ,
-                    d: int = HEAD_DIM) -> tuple:
+def attention_bound(dtype: torch.dtype, causal: bool, products: int, q_tensors: int,
+                    kv_tensors: int, vectors: int, bh: int = BATCH * HEADS, s: int = SEQ,
+                    d: int = HEAD_DIM, skv: int = None) -> tuple:
     """(bound_ms, bound_by) of attention work at one shape: the larger of
-    the bytes it must move (``tensors`` (bh, s, d) tensors of the type and
-    ``vectors`` (bh, s) f32 vectors such as lse, each read or written once)
-    over HBM bandwidth and the operations of ``products`` products over the
-    peak for the type."""
+    the bytes it must move (``q_tensors`` (bh, s, d) and ``kv_tensors``
+    (bh, skv, d) tensors of the type and ``vectors`` (bh, s) f32 vectors
+    such as lse, each read or written once) over HBM bandwidth and the
+    operations of ``products`` products over the peak for the type."""
+    skv = s if skv is None else skv
     elem = torch.tensor([], dtype=dtype).element_size()
-    nbytes = tensors * bh * s * d * elem + vectors * bh * s * 4
-    t_ops = attention_flops(causal, products, bh, s, d) / PEAK_FLOPS[dtype] * 1e3
+    nbytes = (q_tensors * s + kv_tensors * skv) * bh * d * elem + vectors * bh * s * 4
+    t_ops = attention_flops(causal, products, bh, s, d, skv) / PEAK_FLOPS[dtype] * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-# (products, tensors, f32 vectors) of each function: the forward does
-# S = QK^T and PV over q, k, v, o and lse; the gradient needs S, dP, dQ, dK,
-# dV over q, k, v, o, g and lse read and dq, dk, dv written. As designed the
-# dq kernel recomputes S and dP (3 products; 5 tensors and lse read, 1
-# written) and the dkv kernel too (4 products; 5 read, 2 written). In bf16
-# the dq kernel also writes delta, which the dkv kernel reads in place of O.
-WORK = {"fwd": (2, 4, 1), "bwd": (5, 8, 1), "dq": (3, 6, 1), "dkv": (4, 7, 1)}
-WORK_BF16 = {**WORK, "dq": (3, 6, 2), "dkv": (4, 6, 2)}
+def cuda_core_ms(causal: bool, products: int) -> float:
+    """The operations bound of ``products`` f32 products at the slice shape
+    at the CUDA cores' peak, the f32 bound of earlier runs."""
+    return attention_flops(causal, products) / CUDA_CORE_F32_FLOPS * 1e3
 
 
-def work(kind: str, dtype: torch.dtype) -> tuple:
-    return (WORK_BF16 if dtype == torch.bfloat16 else WORK)[kind]
+# (products, (bh, sq, d) tensors, (bh, skv, d) tensors, (bh, sq) f32
+# vectors) of each function: the forward does S = QK^T and PV over q, o, k,
+# v and lse; the gradient needs S, dP, dQ, dK, dV over q, o, g, dq, k, v,
+# dk, dv and lse. As designed the dq kernel recomputes S and dP (3
+# products; reads q, o, g, k, v, lse, writes dq and delta) and the dkv
+# kernel too (4 products; reads q, g, k, v, lse and delta in place of O,
+# writes dk and dv), in both dtypes.
+WORK = {"fwd": (2, 2, 2, 1), "bwd": (5, 4, 4, 1), "dq": (3, 4, 2, 2), "dkv": (4, 2, 4, 2)}
 
 
 def _name(dtype: torch.dtype) -> str:
@@ -300,6 +318,28 @@ def check_fwd_route(breakdown: dict, compute_dtype: str, what: str) -> None:
     ok = (mma > 0 and cuda_cores == 0) if compute_dtype == "bfloat16" else (
         cuda_cores > 0 and mma == 0)
     check(ok, f"{what}: forward device ms, tensor-core {mma}, CUDA-core {cuda_cores}")
+
+
+def bwd_kernel_ms(fn, dtype: torch.dtype, what: str, iters: int = 10) -> dict:
+    """Device ms a call of ``fn`` spends in the dq and the dkv kernel, by
+    the profiler's kernel names; fails unless both ran on the tensor cores,
+    bf16 products in bf16 (flash_bwd_*_kernel_mma) and split TF32 products
+    in f32 (flash_bwd_*_kernel_tf32x3), and no other backward kernel."""
+    spans = [(n, ms) for n, ms in device_spans(fn, iters) if "flash_bwd" in n]
+    check_bwd_route({n for n, _ in spans}, dtype, what)
+    total = {kern: sum(ms for n, ms in spans if f"flash_bwd_{kern}_kernel" in n) / iters
+             for kern in ("dq", "dkv")}
+    check(all(v > 0 for v in total.values()), f"{what}: profiler saw {total}")
+    return total
+
+
+def check_bwd_route(names: set, dtype: torch.dtype, what: str) -> None:
+    """The backward kernels that ran are the tensor-core ones of the dtype:
+    ``_mma`` in bf16, the split-TF32 ``_tf32x3`` in f32; no CUDA-core
+    backward kernel."""
+    want = "_kernel_mma" if dtype == torch.bfloat16 else "_kernel_tf32x3"
+    check(bool(names) and all(want in n for n in names),
+          f"{what}: the backward ran {names}, want only *{want}")
 
 
 def check_bwd(fa, q, k, v, o, g, lse, causal: bool, scale: float, what: str) -> dict:
@@ -371,13 +411,13 @@ def phase_kernels() -> dict:
             # around a loop of calls time the host; they are printed beside it
             ms = fwd_kernel_ms(fwd, dtype, name, 20)
             event_ms = time_ms(fwd, 20)
-            tflops = attention_flops(causal, work("fwd", dtype)[0]) / ms / 1e9
+            tflops = attention_flops(causal, WORK["fwd"][0]) / ms / 1e9
             plain_ms = time_ms(
                 lambda: fa.flash_attention_fwd_reference(q, k, v, causal, scale), 10)
             sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 q4, k4, v4, is_causal=causal, scale=scale)
             library_ms, library_event_ms = device_ms(sdpa), time_ms(sdpa, 20)
-            bound_ms, bound_by = attention_bound(dtype, causal, *work("fwd", dtype))
+            bound_ms, bound_by = attention_bound(dtype, causal, *WORK["fwd"])
             tol = KERNEL_TOL[dtype]
             rows["fwd"].append(dict(
                 dtype=_name(dtype), causal=causal, max_abs_err=ferr["out"],
@@ -392,7 +432,10 @@ def phase_kernels() -> dict:
                   f"ms a call by events), {tflops:.1f} TFLOP/s, plain {plain_ms:.4f} ms, "
                   f"sdpa {library_ms:.4f} ms on the device ({library_event_ms:.4f} by "
                   f"events; kernel {ms / library_ms:.2f}x), bound {bound_ms:.4f} ms "
-                  f"({bound_by}), {bound_ms / ms:.1%} of bound; two runs bitwise equal",
+                  f"({bound_by}"
+                  + (f"; CUDA cores {cuda_core_ms(causal, WORK['fwd'][0]):.4f} ms"
+                     if dtype == torch.float32 else "")
+                  + f"), {bound_ms / ms:.1%} of bound; two runs bitwise equal",
                   flush=True)
 
             berr = check_bwd(fa, q, k, v, out, g, lse, causal, scale, name)
@@ -403,16 +446,16 @@ def phase_kernels() -> dict:
             check(bitwise, f"{name}: two runs of the backward pair differ")
             del first, second
             pair_ms = time_ms(bwd, 20)
-            split = kernel_ms_by_name(bwd, ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"))
+            split = bwd_kernel_ms(bwd, dtype, name)
             pair_plain_ms = time_ms(lambda: fa.flash_attention_bwd_reference(
                 q, k, v, out, g, lse, causal, scale), 5)
             pair_library_ms = sdpa_bwd_ms(F, q, k, v, g, causal, scale)
-            pair_bound_ms, pair_bound_by = attention_bound(dtype, causal, *work("bwd", dtype))
-            for kern, cname, errs in (("dq", "flash_bwd_dq_kernel", ("dq",)),
-                                      ("dkv", "flash_bwd_dkv_kernel", ("dk", "dv"))):
-                products = work(kern, dtype)[0]
-                kbound, kby = attention_bound(dtype, causal, *work(kern, dtype))
-                kms = split[cname]
+            pair_bound_ms, pair_bound_by = attention_bound(dtype, causal, *WORK["bwd"])
+            f32 = dtype == torch.float32
+            for kern, errs in (("dq", ("dq",)), ("dkv", ("dk", "dv"))):
+                products = WORK[kern][0]
+                kbound, kby = attention_bound(dtype, causal, *WORK[kern])
+                kms = split[kern]
                 ktflops = attention_flops(causal, products) / kms / 1e9
                 rows[kern].append(dict(
                     dtype=_name(dtype), causal=causal,
@@ -421,70 +464,87 @@ def phase_kernels() -> dict:
                     tolerance=BWD_TOL[dtype], ms=kms, bound_ms=kbound, bound_by=kby,
                     tflops=ktflops, pair_ms=pair_ms, plain_ms=pair_plain_ms,
                     library_ms=pair_library_ms, pair_bound_ms=pair_bound_ms,
-                    pair_bound_by=pair_bound_by, bitwise_equal_runs=bitwise))
+                    pair_bound_by=pair_bound_by, bitwise_equal_runs=bitwise,
+                    cuda_core_bound_ms=cuda_core_ms(causal, products) if f32 else None))
                 err_text = ", ".join(
                     f"{e} {berr[e]:.3g} of {berr[e + '_largest']:.3g}" for e in errs)
+                old_bound = (f" (CUDA cores {cuda_core_ms(causal, products):.4f} ms)"
+                             if f32 else "")
                 print(f"kernel flash_attention_bwd_{kern} {name} shape {shape}: "
                       f"err {err_text} (tol {BWD_TOL[dtype]:.3g} of the largest); "
-                      f"kernel {kms:.4f} ms, {ktflops:.1f} TFLOP/s on its {products} "
-                      f"products, bound {kbound:.4f} ms ({kby}), {kbound / kms:.1%} of "
-                      f"bound", flush=True)
-            tf7 = attention_flops(causal, work("dq", dtype)[0] + work("dkv", dtype)[0])
-            tf5 = attention_flops(causal, work("bwd", dtype)[0])
+                      f"kernel {kms:.4f} ms ({'split TF32' if f32 else 'bf16'} on the tensor "
+                      f"cores), {ktflops:.1f} TFLOP/s on its {products} products, bound "
+                      f"{kbound:.4f} ms ({kby}){old_bound}, {kbound / kms:.1%} of bound",
+                      flush=True)
+            tf7 = attention_flops(causal, WORK["dq"][0] + WORK["dkv"][0])
+            tf5 = attention_flops(causal, WORK["bwd"][0])
             print(f"kernel flash_attention_bwd pair {name} shape {shape}: dq+dkv "
                   f"{pair_ms:.4f} ms ({tf7 / pair_ms / 1e9:.1f} TFLOP/s on the 7 products "
                   f"as designed, {tf5 / pair_ms / 1e9:.1f} on the function's 5), plain "
                   f"{pair_plain_ms:.4f} ms, sdpa backward {pair_library_ms:.4f} ms "
                   f"({pair_ms / pair_library_ms:.2f}x), bound {pair_bound_ms:.4f} ms "
-                  f"({pair_bound_by}), {pair_bound_ms / pair_ms:.1%} of bound; two runs "
+                  f"({pair_bound_by}"
+                  + (f"; CUDA cores {cuda_core_ms(causal, WORK['bwd'][0]):.4f} ms"
+                     if dtype == torch.float32 else "")
+                  + f"), {pair_bound_ms / pair_ms:.1%} of bound; two runs "
                   f"bitwise equal", flush=True)
 
-    # ragged lengths and the repaired limits: any D <= 256 and any B*H
-    # (causal), then D above 256 through the kernels chunked over D
+    # ragged lengths (S 200; Sq != Skv at 10 and 37, lengths no multiple
+    # of 8, which the attention op takes) and the repaired limits: any D <=
+    # 256 and any B*H (causal), then D above 256 through the kernels chunked
+    # over D, once at the ragged lengths
     rows["cases"] = kernel_cases(F, fa, gen, [
         (dtype, bh, s, d, True) for dtype in (torch.float32, torch.bfloat16)
-        for bh, s, d in ((BATCH * HEADS, 200, HEAD_DIM), (BATCH * HEADS, SEQ, 96),
+        for bh, s, d in ((BATCH * HEADS, 200, HEAD_DIM), (BATCH * HEADS, (10, 37), HEAD_DIM),
+                         (BATCH * HEADS, (37, 10), HEAD_DIM), (BATCH * HEADS, SEQ, 96),
                          (BATCH * HEADS, SEQ, 256), (65536 + 8, 16, 32))])
     rows["cases"] += kernel_cases(F, fa, gen, [
-        (dtype, BATCH * HEADS, SEQ, d, causal) for dtype in (torch.float32, torch.bfloat16)
-        for d in (264, 512) for causal in (False, True)])
+        (dtype, BATCH * HEADS, s, d, causal) for dtype in (torch.float32, torch.bfloat16)
+        for s, d, causal in ((SEQ, 264, False), (SEQ, 264, True), (SEQ, 512, False),
+                             (SEQ, 512, True), ((37, 10), 264, True))])
     return rows
 
 
 def kernel_cases(F, fa, gen, cases) -> list:
-    """One ``kernel case`` line per (dtype, B*H, S, D, causal): forward and
-    backward against the plain version, each timed beside the plain
-    version, SDPA and the bound. Kernel and SDPA times are device time by
-    the profiler (at the smaller cases a call's host work outlasts its
-    kernels); the plain versions' by CUDA events. SDPA gets (B*H / 8, 8, S,
-    D) views: its kernels put B and H on grid dimensions that stop at
-    65535."""
+    """One ``kernel case`` line per (dtype, B*H, S, D, causal), S a length
+    or (Sq, Skv): forward and backward against the plain version, each
+    timed beside the plain version, SDPA (top-left causal, as the kernels)
+    and the bound. Kernel and SDPA times are device time by the profiler
+    (at the smaller cases a call's host work outlasts its kernels), which
+    up to D 256 also shows which kernels ran; the plain versions' by CUDA
+    events. SDPA gets (B*H / 8, 8, S, D) views: its kernels put B and H on
+    grid dimensions that stop at 65535."""
     rows = []
     for dtype, bh, s, d, causal in cases:
-        q, k, v, g = (torch.randn((bh, s, d), generator=gen, device=DEVICE).to(dtype)
-                      for _ in range(4))
+        sq, skv = s if isinstance(s, tuple) else (s, s)
+        q, g = (torch.randn((bh, sq, d), generator=gen, device=DEVICE).to(dtype)
+                for _ in range(2))
+        k, v = (torch.randn((bh, skv, d), generator=gen, device=DEVICE).to(dtype)
+                for _ in range(2))
         sc = d ** -0.5
-        name = f"{_name(dtype)} causal={causal} B*H={bh} S={s} D={d}"
+        shown = s if sq == skv else f"{sq}x{skv}"
+        name = f"{_name(dtype)} causal={causal} B*H={bh} S={shown} D={d}"
         out, lse, ferr, _ = check_fwd(fa, q, k, v, causal, sc, name)
         berr = check_bwd(fa, q, k, v, out, g, lse, causal, sc, name)
         q4, k4, v4 = (as_bhsd(t, 8) for t in (q, k, v))
         fwd = lambda: fa.flash_attention_fwd(q, k, v, causal, sc)  # noqa: E731
+        bwd = lambda: fa.flash_attention_bwd(q, k, v, out, g, lse, causal, sc)  # noqa: E731
+        one_pass = d <= fa.MAX_HEAD_DIM
+        shape = dict(bh=bh, s=sq, d=d, skv=skv)
         case = dict(
-            # up to D 256 the profiler also shows which forward kernel ran
-            fwd_ms=(fwd_kernel_ms(fwd, dtype, name) if d <= fa.MAX_HEAD_DIM
-                    else device_ms(fwd, 10)),
+            fwd_ms=fwd_kernel_ms(fwd, dtype, name) if one_pass else device_ms(fwd, 10),
             fwd_plain_ms=time_ms(
                 lambda: fa.flash_attention_fwd_reference(q, k, v, causal, sc), 3),
             fwd_library_ms=device_ms(lambda: F.scaled_dot_product_attention(
                 q4, k4, v4, is_causal=causal, scale=sc), 10),
-            fwd_bound_ms=attention_bound(dtype, causal, *work("fwd", dtype), bh=bh, s=s, d=d)[0],
-            bwd_ms=device_ms(
-                lambda: fa.flash_attention_bwd(q, k, v, out, g, lse, causal, sc), 10),
+            fwd_bound_ms=attention_bound(dtype, causal, *WORK["fwd"], **shape)[0],
+            bwd_ms=(sum(bwd_kernel_ms(bwd, dtype, name).values()) if one_pass
+                    else device_ms(bwd, 10)),
             bwd_plain_ms=time_ms(lambda: fa.flash_attention_bwd_reference(
                 q, k, v, out, g, lse, causal, sc), 3),
             bwd_library_ms=sdpa_bwd_ms(F, q, k, v, g, causal, sc, heads=8),
-            bwd_bound_ms=attention_bound(dtype, causal, *work("bwd", dtype), bh=bh, s=s, d=d)[0])
-        rows.append(dict(dtype=_name(dtype), bh=bh, s=s, d=d, causal=causal,
+            bwd_bound_ms=attention_bound(dtype, causal, *WORK["bwd"], **shape)[0])
+        rows.append(dict(dtype=_name(dtype), bh=bh, s=sq, skv=skv, d=d, causal=causal,
                          fwd_err=ferr, bwd_err=berr, **case))
         print(f"kernel case {name}: out err {ferr['out']:.3g}, dq/dk/dv err "
               f"{berr['dq']:.3g}/{berr['dk']:.3g}/{berr['dv']:.3g}; " + "; ".join(
@@ -884,6 +944,10 @@ def phase_training(compute_dtype: str, params: dict, card: str, ref: dict = None
     median_ms = float(np.median(step_ms))
     breakdown = profile_breakdown(step, TRAIN_CLASSES, other="optimizer/elementwise")
     check_fwd_route(breakdown, compute_dtype, f"training {compute_dtype}")
+    # the step's backward ran the tensor-core kernels of its dtype (f32:
+    # split TF32) and no other backward kernel
+    check_bwd_route({n for n, _ in device_spans(step, 1) if "flash_bwd" in n},
+                    getattr(torch, compute_dtype), f"training {compute_dtype}")
     row = dict(compute_dtype=compute_dtype, card=card, batch=BATCH,
                grad_rel_err_vs_plain=grad_err, grad_worst_weight=grad_worst,
                grad_tolerance=grad_tol, grad_bf16_floor=grad_floor,

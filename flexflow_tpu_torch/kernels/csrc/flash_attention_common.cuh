@@ -1,6 +1,7 @@
-// Helpers shared by the flash-attention kernels (flash_attention_fwd.cu,
-// flash_attention_bwd.cu): element conversion, the tile loader, the padded
-// head-dim dispatch and the grid fold.
+// Helpers shared by the flash-attention kernels: element conversion and the
+// tile loader of the CUDA-core kernels (flash_attention_fwd.cu,
+// flash_attention_wide.cu), the padded head-dim dispatch and the grid fold
+// (all of them).
 //
 // Head dims. A kernel is instantiated for a padded width DP of 32, 64, 128
 // or 256 and takes any head dim d <= DP at run time: columns d..DP-1 of every

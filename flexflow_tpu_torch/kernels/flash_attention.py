@@ -2,7 +2,9 @@
 
 PyTorch counterpart of ``flexflow_tpu/kernels/flash_attention.py``. The
 TPU's ``_fwd_kernel`` becomes ``csrc/flash_attention_fwd.cu`` and its
-``_dq_kernel``/``_dkv_kernel`` become ``csrc/flash_attention_bwd.cu``; head
+``_dq_kernel``/``_dkv_kernel`` become ``csrc/flash_attention_bwd.cu`` (f32
+gradients on the tensor cores with split TF32 products, never single-pass
+TF32); head
 dims above 256 go to the chunked kernels of ``csrc/flash_attention_wide.cu``
 (the source notes give the designs and the bounds on an H100). Like the JAX
 kernel, every function here takes any head dim. This module holds:
@@ -10,7 +12,8 @@ kernel, every function here takes any head dim. This module holds:
 * :func:`flash_attention` — the public entry on (B, S, H, D) tensors, with
   the JAX package's layout glue and its length contract (``_pick_block``),
   differentiable through :class:`_FlashAttention`, the counterpart of the
-  ``_flash`` custom VJP;
+  ``_flash`` custom VJP; :func:`attend`, the same without the length
+  contract, which the attention op calls at any sequence length;
 * :func:`flash_attention_fwd` / :func:`flash_attention_bwd` — the wrappers
   on (B*H, S, D) tensors: the kernels for CUDA tensors, the plain versions
   for CPU tensors;
@@ -168,10 +171,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The backward kernels' wrapper, with the signature of
     :func:`flash_attention_bwd_reference`. A CUDA tensor launches the dq
     kernel and then the dkv kernel of ``csrc/flash_attention_bwd.cu``
-    (``_wide.cu`` for D > 256) on the current stream: in bf16 the
-    tensor-core kernels, which pass delta = rowsum(dO * O) from the first to
-    the second through a (B*H, Sq) f32 buffer; in f32 the CUDA-core ones. A
-    CPU tensor runs the plain version."""
+    (``_wide.cu`` for D > 256) on the current stream: the tensor-core
+    kernels, bf16 products in bf16 and split TF32 products (three TF32
+    products for each f32 one, f32-accurate) in f32, which pass delta =
+    rowsum(dO * O) from the first to the second through a (B*H, Sq) f32
+    buffer. A CPU tensor runs the plain version."""
     on_card = _check_kernel_args("flash_attention_bwd", q, k, v, o, g)
     bh, sq, d = q.shape
     if lse.shape != (bh, 1, sq) or lse.dtype != torch.float32 or lse.device != q.device:
@@ -192,10 +196,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     args = (bh, sq, skv, d, float(scale), int(bool(causal)), _DTYPE_CODES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     ptrs = [t.data_ptr() for t in (q, k, v, o, g, lse)]
-    if d <= MAX_HEAD_DIM:  # the one-pass kernels take the delta buffer
-        delta = (torch.empty((bh, sq), dtype=torch.float32, device=q.device)
-                 if q.dtype == torch.bfloat16 else None)
-        ptrs.append(None if delta is None else delta.data_ptr())
+    if d <= MAX_HEAD_DIM:  # the one-pass kernels pass delta through a buffer
+        delta = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+        ptrs.append(delta.data_ptr())
     with torch.cuda.device(q.device):
         err = _entry(lib, "ff_flash_attention_bwd_dq", d)(*ptrs, dq.data_ptr(), *args)
         check_launch(err, "flash_attention_bwd_dq")
@@ -234,18 +237,31 @@ def _to_bh(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b * h, s, d).contiguous()
 
 
-def _attend(q, k, v, causal, scale, plain: bool) -> torch.Tensor:
-    """(B, S, H, D) layout glue around :class:`_FlashAttention`."""
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+           scale: Optional[float], plain: bool) -> torch.Tensor:
+    """Differentiable attention on (B, S, H, D) tensors at any Sq, Skv >= 1
+    and any head dim: layout glue around :class:`_FlashAttention`, the
+    plain versions when ``plain``. The entry of the attention op, which
+    the reference's op serves at every length (its kernel where a block
+    fits, ``single_device_attention`` elsewhere; the same top-left causal
+    mask either way): the kernels zero-fill ragged tiles, so they need no
+    block contract."""
     b, sq, h, d = q.shape
     skv = k.shape[1]
-    if _pick_block(sq, 128) is None or _pick_block(skv, 128) is None:
-        raise ValueError(
-            f"flash_attention: seq lengths ({sq}, {skv}) have no valid "
-            f"block size (must be divisible by 8)")
+    if sq < 1 or skv < 1:
+        raise ValueError(f"attend: seq lengths ({sq}, {skv}) (must be at least 1)")
     _check_head_dim(d)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     out = _FlashAttention.apply(_to_bh(q), _to_bh(k), _to_bh(v), causal, scale, plain)
     return out.reshape(b, h, sq, d).transpose(1, 2)
+
+
+def _check_lengths(sq: int, skv: int) -> None:
+    """The JAX function's block contract (``_pick_block``)."""
+    if _pick_block(sq, 128) is None or _pick_block(skv, 128) is None:
+        raise ValueError(
+            f"flash_attention: seq lengths ({sq}, {skv}) have no valid "
+            f"block size (must be divisible by 8)")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -253,8 +269,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: Optional[float] = None) -> torch.Tensor:
     """Fused, differentiable attention. q/k/v: (B, S, H, D), the
     framework's layout; any head dim. Raises ``ValueError`` on sequence
-    lengths not divisible by 8 (the JAX package's contract)."""
-    return _attend(q, k, v, causal, scale, plain=False)
+    lengths not divisible by 8 (the JAX package's contract); :func:`attend`
+    takes any length."""
+    _check_lengths(q.shape[1], k.shape[1])
+    return attend(q, k, v, causal, scale, plain=False)
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -262,4 +280,5 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
                               scale: Optional[float] = None) -> torch.Tensor:
     """:func:`flash_attention` through the plain versions on any device:
     the path the card's kernels are held against."""
-    return _attend(q, k, v, causal, scale, plain=True)
+    _check_lengths(q.shape[1], k.shape[1])
+    return attend(q, k, v, causal, scale, plain=True)

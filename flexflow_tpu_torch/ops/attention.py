@@ -4,7 +4,8 @@ PyTorch counterpart of ``MultiHeadAttention`` in
 ``flexflow_tpu/ops/attention.py``: the same weights in the same layouts
 (``wq/wk/wv`` (E, H, D), ``wo`` (H, D, E), biases ``bq/bk/bv`` (H, D) and
 ``bo`` (E,)) and the same math. The attention itself goes through
-:func:`~flexflow_tpu_torch.kernels.flash_attention.flash_attention`, which
+:func:`~flexflow_tpu_torch.kernels.flash_attention.attend` at any sequence
+length, which
 launches the Hopper kernels on CUDA tensors (the forward, and under autograd
 the two backward kernels) and runs their plain versions on CPU tensors.
 Attention dropout, sequence-parallel attention and the sharded kernel wait
@@ -89,8 +90,10 @@ class MultiHeadAttention(Op):
             kh = kh + weights["bk"]
             vh = vh + weights["bv"]
         scale = 1.0 / math.sqrt(self.head_dim)
-        attend = fa.flash_attention_reference if ctx.plain_kernels else fa.flash_attention
-        ctxv = attend(qh, kh, vh, causal=self.causal, scale=scale)
+        # any sequence length: the kernels (their plain versions under
+        # plain_kernels or on CPU tensors) take ragged tiles, where the
+        # reference's op leaves its kernel for single_device_attention
+        ctxv = fa.attend(qh, kh, vh, self.causal, scale, plain=ctx.plain_kernels)
         # (B, S, H, D) x (H, D, E) -> (B, S, E)
         out = torch.matmul(ctxv.flatten(-2), weights["wo"].flatten(0, 1))
         if self.use_bias:

@@ -4,9 +4,10 @@ The same inputs, made with numpy from a seed, go through the JAX
 ``_flash_bwd`` (its two Pallas kernels in the interpreter, fed the
 residuals of ``_flash_fwd``) and through the port's
 ``flash_attention_bwd`` on CPU tensors, which is the kernels' plain
-version; and through autograd of both packages' ``flash_attention``. A
-plain computation that rounds where the card's bf16 kernels round is held
-against the JAX kernels too, within the card's bf16 tolerance. The kernels
+version; and through autograd of both packages' ``flash_attention``. Plain
+computations that round where the card's bf16 kernels round, and where its
+f32 kernels' split TF32 products round, are held against the JAX kernels
+too, within the card's bf16 and f32 tolerances. The kernels
 themselves are held against the plain version on the card by
 tests/test_torch_kernels_cuda.py.
 """
@@ -120,6 +121,71 @@ def test_bf16_kernels_rounding_is_within_the_card_tolerance(causal, d):
         assert err <= 2 ** -7 * np.abs(w).max(), f"{name}: {err:.3g} of {np.abs(w).max():.3g}"
     if causal:  # keys no query sees get exactly 0
         assert not got[1][:, sq:].any() and not got[2][:, sq:].any()
+
+
+def _tf32(t, half_ulp=0x1000):
+    """f32 to TF32 (10 mantissa bits): to nearest with ties away from zero,
+    as ``cvt.rna.tf32.f32`` rounds; with ``half_ulp=0``, truncated, as the
+    tensor core reads an f32 operand."""
+    i = t.contiguous().view(torch.int32)
+    return ((i + half_ulp) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_matmul(a, b, passes):
+    """a @ b on TF32 operands with f32 sums: one product (single-pass
+    TF32, rounded) or the split kernels' three, small(a) big(b) + big(a)
+    small(b) + big(a) big(b), with big rounded and small = x - big, which
+    the tensor core truncates (flash_attention_tf32.cuh)."""
+    ab, bb = _tf32(a), _tf32(b)
+    if passes == 1:
+        return ab @ bb
+    return _tf32(a - ab, 0) @ bb + ab @ _tf32(b - bb, 0) + ab @ bb
+
+
+def _bwd_as_the_f32_kernels_round(q, k, v, o, g, lse, causal, scale, passes):
+    """The backward as the f32 tensor-core kernels compute it
+    (csrc/flash_attention_bwd.cu, flash_attention_tf32.cuh): every product
+    on TF32 operands, ``passes`` products for each f32 one (three: split
+    TF32), scale on S and at the end on dQ and dK, delta and the softmax in
+    f32."""
+    def mm(a, b):
+        return _tf32_matmul(a, b, passes)
+
+    s = mm(q, k.transpose(-1, -2)) * scale
+    p = torch.exp(s - lse.transpose(-1, -2))
+    if causal:
+        p = torch.where(tfa._causal_keep(s.shape[-2], s.shape[-1], s.device), p, 0.0)
+    dp = mm(g, v.transpose(-1, -2))
+    ds = p * (dp - torch.sum(g * o, dim=-1, keepdim=True))
+    return (mm(ds, k) * scale, mm(ds.transpose(-1, -2), q) * scale,
+            mm(p.transpose(-1, -2), g))
+
+
+@pytest.mark.parametrize("sq,skv,d,causal", [
+    (64, 72, 32, False), (64, 72, 64, True), (32, 72, 64, False), (64, 72, 100, True)])
+def test_f32_split_tf32_rounding_is_within_the_card_tolerance(sq, skv, d, causal):
+    """Split TF32 products (three TF32 products for each f32 one, as the
+    card's f32 kernels do them) keep every gradient within chip_smoke.py's
+    f32 tolerance (1e-4 of the gradient's largest element) of the JAX
+    kernels; one TF32 product each does not, so the tolerance catches a
+    kernel that drops the correction products. Skv 72 is not a multiple
+    of the kernels' tiles."""
+    bh = 2
+    q, k, v, g = _arrays([(bh, sq, d), (bh, skv, d), (bh, skv, d), (bh, sq, d)],
+                         seed=d + skv + causal)
+    scale = d ** -0.5
+    _, res = jfa._flash_fwd(*(jnp.asarray(a) for a in (q, k, v)), causal, scale, 32, True)
+    want = [np.asarray(w) for w in jfa._flash_bwd(causal, scale, 32, True, res,
+                                                  jnp.asarray(g))]
+    _, _, _, jo, jlse = res
+    args = [torch.from_numpy(np.array(a)) for a in (q, k, v, jo, g, jlse)]
+    errs = {}
+    for passes in (3, 1):
+        got = _bwd_as_the_f32_kernels_round(*args, causal, scale, passes)
+        errs[passes] = [np.abs(gt.numpy() - w).max() / np.abs(w).max()
+                        for gt, w in zip(got, want)]
+    assert max(errs[3]) <= 1e-4, errs[3]
+    assert max(errs[1]) > 1e-4, errs[1]
 
 
 def _grads_port(q, k, v, g, causal):

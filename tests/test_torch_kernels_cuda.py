@@ -72,14 +72,16 @@ def test_flash_fwd_kernel_matches_plain(card, sq, skv, causal, dtype):
                                    **F32_TOL, err_msg=f"head dim {d}")
 
 
-def _check_grads(got, want, dtype, what):
+def _check_grads(got, want, dtype, what, floor=1e-30):
+    """Each gradient within BWD_TOL of its largest element, or of ``floor``
+    where that is larger (a gradient whose exact value is 0)."""
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.dtype == dtype and g.shape == w.shape, (what, name)
         g, w = g.float(), w.float()
         assert torch.isfinite(g).all(), (what, name)
         err = (g - w).abs().max().item()
         scale = w.abs().max().item()
-        assert err <= BWD_TOL[dtype] * max(scale, 1e-30), \
+        assert err <= BWD_TOL[dtype] * max(scale, floor), \
             f"{what} {name}: max err {err:.3g} of largest {scale:.3g}"
 
 
@@ -109,19 +111,42 @@ def test_flash_bwd_kernels_match_plain(card, sq, skv, causal, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [False, True])
-def test_bf16_bwd_kernels_are_deterministic(card, causal):
+def test_bf16_bwd_kernels_are_deterministic(card, causal, dtype):
     """Each kernel owns its output tiles (no atomics): two launches on the
-    same inputs agree bit for bit, ragged and unaligned widths included."""
+    same inputs agree bit for bit, ragged and unaligned widths included, in
+    both dtypes (f32: the split-TF32 kernels)."""
     rng = np.random.default_rng(9)
-    for sq, skv, d in ((512, 512, 64), (200, 72, 100), (72, 200, 256)):
-        q, g = (_randn(rng, (4, sq, d), card, torch.bfloat16) for _ in range(2))
-        k, v = (_randn(rng, (4, skv, d), card, torch.bfloat16) for _ in range(2))
+    for sq, skv, d in ((512, 512, 64), (200, 72, 100), (72, 200, 256), (37, 10, 20)):
+        q, g = (_randn(rng, (4, sq, d), card, dtype) for _ in range(2))
+        k, v = (_randn(rng, (4, skv, d), card, dtype) for _ in range(2))
         o, lse = tfa.flash_attention_fwd(q, k, v, causal, d ** -0.5)
         first = tfa.flash_attention_bwd(q, k, v, o, g, lse, causal, d ** -0.5)
         second = tfa.flash_attention_bwd(q, k, v, o, g, lse, causal, d ** -0.5)
         for name, a, b in zip(("dq", "dk", "dv"), first, second):
             assert torch.equal(a, b), (sq, skv, d, name)
+
+
+@pytest.mark.cuda
+def test_f32_bwd_kernels_carry_a_nan_as_the_plain_version(card):
+    """A NaN in q reaches the same gradient entries as in the plain
+    version (its row of dq, every row of dk and dv of its B*H), and the
+    rest stay within tolerance: the split-TF32 kernels keep a NaN's bits
+    when they split it. Not causal: there the plain version's masked
+    entries of a NaN row are NaN too, where the kernels set masked p to 0."""
+    rng = np.random.default_rng(14)
+    q, k, v, g = (_randn(rng, (2, 72, 64), card, torch.float32) for _ in range(4))
+    q[1, 9, 5] = float("nan")
+    o, lse = tfa.flash_attention_fwd_reference(q, k, v, False, 0.125)
+    got = tfa.flash_attention_bwd(q, k, v, o, g, lse, False, 0.125)
+    want = tfa.flash_attention_bwd_reference(q, k, v, o, g, lse, False, 0.125)
+    torch.cuda.synchronize()
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        nan = torch.isnan(w)
+        assert nan.any() and torch.equal(torch.isnan(a), nan), name
+        err = (a[~nan] - w[~nan]).abs().max().item()
+        assert err <= BWD_TOL[torch.float32] * w[~nan].abs().max().item(), name
 
 
 @pytest.mark.cuda
@@ -214,6 +239,89 @@ def test_flash_kernels_above_head_dim_256_match_plain(card, sq, skv, causal, dty
                                    **F32_TOL, err_msg=f"head dim {d}")
         want = tfa.flash_attention_bwd_reference(q, k, v, out, g, lse, causal, d ** -0.5)
         _check_grads(got, want, dtype, f"head dim {d}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,skv,causal", [
+    (1, 1, False), (1, 1, True), (10, 10, False), (10, 10, True), (37, 37, True),
+    (10, 37, False), (10, 37, True), (37, 10, False), (37, 10, True)])
+def test_flash_kernels_at_any_length_match_plain(card, sq, skv, causal, dtype):
+    """Lengths no multiple of 8, which the attention op takes: forward and
+    both backward kernels against their plain versions, Sq != Skv under the
+    top-left causal mask, widths 32 to 256 and one of the kernels chunked
+    over D (264); one launch of each. A wrong relabelling of the split-TF32
+    kernels' accumulator fragments shows here, where tiles are ragged."""
+    rng = np.random.default_rng(12)
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    for d in (32, 64, 100, 128, 256, 264):
+        q, g = (_randn(rng, (5, sq, d), card, dtype) for _ in range(2))
+        k, v = (_randn(rng, (5, skv, d), card, dtype) for _ in range(2))
+        before = tkernels.launch_counts()
+        out, lse = tfa.flash_attention_fwd(q, k, v, causal, d ** -0.5)
+        got = tfa.flash_attention_bwd(q, k, v, out, g, lse, causal, d ** -0.5)
+        torch.cuda.synchronize()
+        after = tkernels.launch_counts()
+        for name in tkernels.FLASH_KERNELS:
+            assert after[name] == before[name] + 1, name
+        want_out, want_lse = tfa.flash_attention_fwd_reference(q, k, v, causal, d ** -0.5)
+        np.testing.assert_allclose(out.float().cpu().numpy(),
+                                   want_out.float().cpu().numpy(), **tol,
+                                   err_msg=f"head dim {d}")
+        np.testing.assert_allclose(lse.cpu().numpy(), want_lse.cpu().numpy(),
+                                   **F32_TOL, err_msg=f"head dim {d}")
+        want = tfa.flash_attention_bwd_reference(q, k, v, out, g, lse, causal, d ** -0.5)
+        # one key: P = 1 and dP = delta, so dS, dq and dk are exactly 0 and
+        # both sides give rounding noise, held against dv's scale
+        floor = want[2].float().abs().max().item() if skv == 1 else 1e-30
+        _check_grads(got, want, dtype, f"head dim {d}", floor)
+        if causal and skv > sq:  # keys no query sees get exactly 0
+            assert not got[1][:, sq:].any() and not got[2][:, sq:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_multihead_attention_op_at_length_10_matches_plain_path(card, causal):
+    """The attention op at S = 10 (no multiple of 8) on the card, in f32:
+    the kernels against the plain versions' path, forward (within 1e-4 of
+    its largest element) and every gradient (within 1e-4 of the op's
+    largest gradient): the kernels' f32 sums in another order; each kernel
+    launched once a step."""
+    from flexflow_tpu_torch.core.layer import Layer
+    from flexflow_tpu_torch.core.op import LowerCtx, create_op
+    from flexflow_tpu_torch.core.parallel_tensor import ParallelTensorShape
+    from flexflow_tpu_torch.ffconst import OpType
+    import flexflow_tpu_torch.ops  # noqa: F401  (registers the port's ops)
+
+    rng = np.random.default_rng(13)
+    x = _randn(rng, (2, 10, 64), card, torch.float32)
+    op = create_op(Layer(OpType.MULTIHEAD_ATTENTION, name="t",
+                         attrs=dict(embed_dim=64, num_heads=2, causal=causal)),
+                   [ParallelTensorShape.unpartitioned(tuple(x.shape))] * 3)
+    w = {s.name: _randn(rng, s.shape, card, torch.float32) * 0.2 for s in op.weight_specs()}
+    cot = _randn(rng, (2, 10, 64), card, torch.float32)
+    runs = []
+    for plain in (False, True):
+        xs = [x.clone().requires_grad_(True) for _ in range(3)]
+        ws = {n: t.clone().requires_grad_(True) for n, t in w.items()}
+        before = tkernels.launch_counts()
+        out = op.forward(LowerCtx(training=True, plain_kernels=plain), xs, ws)[0]
+        out.backward(cot)
+        torch.cuda.synchronize()
+        after = tkernels.launch_counts()
+        for name in tkernels.FLASH_KERNELS:
+            assert after[name] - before[name] == (0 if plain else 1), (plain, name)
+        runs.append([out.detach()] + [t.grad for t in xs] + [ws[n].grad for n in w])
+    names = ["out", "x0", "x1", "x2"] + list(w)
+    # gradients against the largest gradient of the op: bk's exact
+    # gradient is 0 (the softmax cancels q.bk), so both paths give rounding
+    # noise that no scale of its own can measure
+    grad_scale = max(t.abs().max().item() for t in runs[1][1:])
+    for name, a, b in zip(names, *runs):
+        a, b = a.float(), b.float()
+        assert torch.isfinite(a).all(), name
+        scale = b.abs().max().item() if name == "out" else grad_scale
+        assert (a - b).abs().max().item() <= 1e-4 * scale, name
 
 
 # ---- MoE row movement -------------------------------------------------------

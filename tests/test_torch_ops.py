@@ -66,16 +66,28 @@ def test_dense_matches_jax(acti, use_bias):
     np.testing.assert_allclose(tout[0], jout[0], **TOL)
 
 
+# (Sq, Skv): a length the JAX kernel takes, then lengths that are no
+# multiple of 8, where the reference's op computes single_device_attention
+# (self-attention, and 10 queries over 37 keys and 37 over 10)
+SEQ_LENGTHS = [(32, 32), (1, 1), (10, 10), (37, 37), (10, 37), (37, 10)]
+
+
+def _attention_inputs(rng, sq, skv):
+    q = rng.normal(size=(2, sq, 64)).astype(np.float32)
+    k, v = (rng.normal(size=(2, skv, 64)).astype(np.float32) for _ in range(2))
+    return q, k, v
+
+
+@pytest.mark.parametrize("sq,skv", SEQ_LENGTHS)
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("bias", [True, False])
-def test_multihead_attention_matches_jax(bias, causal):
-    rng = np.random.default_rng(2)
-    q, k, v = (rng.normal(size=(2, 32, 64)).astype(np.float32) for _ in range(3))
+def test_multihead_attention_matches_jax(bias, causal, sq, skv):
+    q, k, v = _attention_inputs(np.random.default_rng(2), sq, skv)
     attrs = dict(embed_dim=64, num_heads=2, kdim=64, vdim=64, dropout=0.0,
                  bias=bias, causal=causal)
     jout, tout = _run_both(OpType.MULTIHEAD_ATTENTION, attrs, attrs,
                            [q, k, v], seed=3)
-    assert tout[0].shape == (2, 32, 64)
+    assert tout[0].shape == (2, sq, 64)
     np.testing.assert_allclose(tout[0], jout[0], **TOL)
 
 
@@ -132,12 +144,13 @@ def test_dense_gradients_match_jax(acti):
         np.testing.assert_allclose(a, b, **TOL, err_msg=n)
 
 
+@pytest.mark.parametrize("sq,skv", SEQ_LENGTHS)
 @pytest.mark.parametrize("causal", [False, True])
-def test_multihead_attention_gradients_match_jax(causal):
+def test_multihead_attention_gradients_match_jax(causal, sq, skv):
     """Through the flash-attention backward: the port's plain version on
-    CPU tensors, the JAX package's Pallas kernels in the interpreter."""
-    rng = np.random.default_rng(7)
-    q, k, v = (rng.normal(size=(2, 32, 64)).astype(np.float32) for _ in range(3))
+    CPU tensors, the JAX package's Pallas kernels in the interpreter (or,
+    at lengths no multiple of 8, jax.grad of single_device_attention)."""
+    q, k, v = _attention_inputs(np.random.default_rng(7), sq, skv)
     attrs = dict(embed_dim=64, num_heads=2, kdim=64, vdim=64, dropout=0.0,
                  bias=True, causal=causal)
     want, got, names = _grads_both(OpType.MULTIHEAD_ATTENTION, attrs, attrs, [q, k, v], 8)
