@@ -9,17 +9,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the torch/CUDA versions; TF32 is switched off for matmuls and cuDNN;
 2. build: every kernel under flexflow_tpu_torch/kernels/csrc, built by nvcc
    for sm_90a, with each kernel instance's registers and stack frame as
-   cuobjdump reads them from the loaded library; the twenty tensor-core
-   instances (the bf16 forward, dq and dkv and the split-TF32 f32 dq and
-   dkv at padded head dims 32/64/128/256) must be there, with no stack
-   frame (no spill) up to the padded head dim 128;
+   cuobjdump reads them from the loaded library; the 24 tensor-core
+   instances (the bf16 forward, dq and dkv and the split-TF32 f32
+   forward, dq and dkv at padded head dims 32/64/128/256) must be there,
+   with no stack frame (no spill) up to the padded head dim 128;
 3. kernels: each kernel at the shapes the main path gives it, held against
    its plain PyTorch version, timed beside the plain version, the one
    PyTorch call that computes the same function, and its bound: the
    flash-attention forward and then its two backward kernels (dq, dkv),
-   both dtypes, the backward on the tensor cores in both (f32 with split
-   TF32 products), each held bitwise equal over two runs, the profiler
-   showing which forward and backward kernels ran; then the ragged and
+   both dtypes, all on the tensor cores (f32 with split TF32 products),
+   each held bitwise equal over two runs, the profiler showing which
+   forward and backward kernels ran; then the ragged and
    repaired cases (S = 200, Sq != Skv at 10 and 37, D = 96, D = 256,
    B*H > 65535, and D = 264 and 512, causal and not, through the kernels
    chunked over the head dim);
@@ -81,14 +81,15 @@ BATCH, SEQ, HEADS, HEAD_DIM = 8, 512, 16, 64  # the slice's attention shape
 REQUESTS = 64  # per serving run
 # H100 SXM data-sheet peaks (dense): bf16 on the tensor cores; f32 at
 # f32 accuracy on the tensor cores, as three TF32 products (494.7 TFLOP/s)
-# for each f32 one, which the f32 backward kernels do and which is the
+# for each f32 one, which the f32 kernels do and which is the
 # least time the card can take for f32 work; the CUDA cores' f32 peak,
 # the bound of earlier runs, printed beside it; HBM3 bandwidth
 PEAK_FLOPS = {torch.float32: 494.7e12 / 3, torch.bfloat16: 989e12}
 CUDA_CORE_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
-# forward kernel vs plain: f32 sums in another order, absolute; lse is f32
-# in both. bf16 out as a fraction of the largest |out|: the tensor-core
+# forward kernel vs plain: f32 sums in another order (the f32 kernel's
+# split TF32 products land within a few f32 ulps of f32 ones), absolute;
+# lse is f32 in both. bf16 out as a fraction of the largest |out|: the bf16
 # kernel rounds P to bf16 before P V where the plain version keeps f32, and
 # both round O to bf16, so they may land one bf16 ulp apart, which is at
 # most 2^-7 of the largest output. A CPU model that rounds where the kernel
@@ -214,13 +215,13 @@ def phase_build() -> None:
         label = label.split(">(")[0] + ">" if ">(" in label else label  # no argument list
         print(f"  resources: {label}: {u.get('REG')} registers, stack {u.get('STACK')} "
               f"bytes, local {u.get('LOCAL')} bytes")
-    # the tensor-core kernels (bf16 forward, dq, dkv and split-TF32 dq, dkv
-    # at each padded width) have no stack frame, so no spill, up to the
-    # padded width 128
+    # the tensor-core kernels (bf16 and split-TF32 forward, dq and dkv at
+    # each padded width) have no stack frame, so no spill, up to the padded
+    # width 128
     mma = {(m.group(1), int(m.group(2))): u for mangled, u in usage.items()
-           for m in [re.search(r"(flash_(?:fwd_kernel_mma|bwd_(?:dq|dkv)_kernel_"
-                               r"(?:mma|tf32x3)))ILi(\d+)E", mangled)] if m}
-    check(len(mma) == 20, f"cuobjdump listed {sorted(mma)} of the 20 tensor-core instances")
+           for m in [re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel_(?:mma|tf32x3))"
+                               r"ILi(\d+)E", mangled)] if m}
+    check(len(mma) == 24, f"cuobjdump listed {sorted(mma)} of the 24 tensor-core instances")
     spills = {k: u for k, u in mma.items()
               if k[1] <= 128 and (u.get("STACK", 1) or u.get("LOCAL", 1))}
     check(not spills, f"tensor-core kernels spill at width <= 128: {spills}")
@@ -298,26 +299,31 @@ def check_fwd(fa, q, k, v, causal: bool, scale: float, what: str) -> tuple:
     return out, lse, {"out": err_out, "lse": err_lse}, out_tol
 
 
+# the forward kernel of each dtype: bf16 products in bf16, split TF32
+# products in f32, both on the tensor cores
+FWD_KERNEL = {torch.float32: "flash_fwd_kernel_tf32x3", torch.bfloat16: "flash_fwd_kernel_mma"}
+
+
 def fwd_kernel_ms(fn, dtype: torch.dtype, what: str, iters: int = 10) -> float:
     """Device ms a call of ``fn`` spends in the forward kernel, by the
-    profiler's kernel names; fails unless bf16 ran the tensor-core kernel
-    (flash_fwd_kernel_mma) and f32 the CUDA-core one, and nothing else."""
-    spans = [(n, ms) for n, ms in device_spans(fn, iters) if "flash_fwd_kernel" in n]
+    profiler's kernel names; fails unless the dtype's tensor-core kernel
+    ran (FWD_KERNEL) and no other forward kernel."""
+    spans = [(n, ms) for n, ms in device_spans(fn, iters) if "flash_fwd" in n]
     names = {n for n, _ in spans}
-    tensor_cores = dtype == torch.bfloat16
-    check(bool(names) and all(("flash_fwd_kernel_mma" in n) == tensor_cores for n in names),
-          f"{what}: the forward ran {names}")
+    check(bool(names) and all(FWD_KERNEL[dtype] in n for n in names),
+          f"{what}: the forward ran {names}, want only {FWD_KERNEL[dtype]}")
     return sum(ms for _, ms in spans) / iters
 
 
 def check_fwd_route(breakdown: dict, compute_dtype: str, what: str) -> None:
-    """A profiled window ran the tensor-core forward in bf16 and the
-    CUDA-core one in f32, and not the other."""
+    """A profiled window ran the dtype's tensor-core forward (bf16 products
+    in bf16, split TF32 ones in f32) and no other forward kernel."""
     by_class = breakdown["device_ms_by_class"]
-    mma, cuda_cores = by_class["flash_attention_fwd_mma"], by_class["flash_attention_fwd"]
-    ok = (mma > 0 and cuda_cores == 0) if compute_dtype == "bfloat16" else (
-        cuda_cores > 0 and mma == 0)
-    check(ok, f"{what}: forward device ms, tensor-core {mma}, CUDA-core {cuda_cores}")
+    want = {"bfloat16": "flash_attention_fwd_mma",
+            "float32": "flash_attention_fwd_tf32x3"}[compute_dtype]
+    fwd = {c: by_class[c] for c, _ in FWD_CLASSES}
+    check(fwd[want] > 0 and all(ms == 0 for c, ms in fwd.items() if c != want),
+          f"{what}: forward device ms by kernel {fwd}, want only {want}")
 
 
 def bwd_kernel_ms(fn, dtype: torch.dtype, what: str, iters: int = 10) -> dict:
@@ -428,8 +434,9 @@ def phase_kernels() -> dict:
             print(f"kernel flash_attention_fwd {name} shape {shape}: out err "
                   f"{ferr['out']:.3g} (tol {out_tol:.3g}) lse err {ferr['lse']:.3g} (tol "
                   f"{tol['lse']}); kernel {ms:.4f} ms on the device "
-                  f"({'tensor' if dtype == torch.bfloat16 else 'CUDA'} cores; {event_ms:.4f} "
-                  f"ms a call by events), {tflops:.1f} TFLOP/s, plain {plain_ms:.4f} ms, "
+                  f"({'bf16' if dtype == torch.bfloat16 else 'split TF32'} on the tensor cores; "
+                  f"{event_ms:.4f} ms a call by events), {tflops:.1f} TFLOP/s, plain "
+                  f"{plain_ms:.4f} ms, "
                   f"sdpa {library_ms:.4f} ms on the device ({library_event_ms:.4f} by "
                   f"events; kernel {ms / library_ms:.2f}x), bound {bound_ms:.4f} ms "
                   f"({bound_by}"
@@ -579,16 +586,18 @@ def random_params(ff, seed: int) -> dict:
     return tree
 
 
-# kernel classes of a profiled window: (class, test on the kernel's name)
-SERVE_CLASSES = (
+# kernel classes of a profiled window: (class, test on the kernel's name);
+# the forward by kernel: split TF32 (f32), bf16, any other
+FWD_CLASSES = (
+    ("flash_attention_fwd_tf32x3", lambda n: "flash_fwd_kernel_tf32x3" in n),
     ("flash_attention_fwd_mma", lambda n: "flash_fwd_kernel_mma" in n),
-    ("flash_attention_fwd", lambda n: "flash_fwd_kernel" in n),
+    ("flash_attention_fwd", lambda n: "flash_fwd" in n),
+)
+SERVE_CLASSES = FWD_CLASSES + (
     ("gemm", lambda n: any(w in n.lower() for w in ("gemm", "xmma", "cutlass", "nvjet"))),
     ("memcpy", lambda n: "memcpy" in n.lower()),
 )
-TRAIN_CLASSES = (
-    ("flash_attention_fwd_mma", lambda n: "flash_fwd_kernel_mma" in n),
-    ("flash_attention_fwd", lambda n: "flash_fwd_kernel" in n),
+TRAIN_CLASSES = FWD_CLASSES + (
     ("flash_attention_bwd_dq", lambda n: "flash_bwd_dq_kernel" in n),
     ("flash_attention_bwd_dkv", lambda n: "flash_bwd_dkv_kernel" in n),
     ("gemm", lambda n: any(w in n.lower() for w in ("gemm", "xmma", "cutlass", "nvjet"))),

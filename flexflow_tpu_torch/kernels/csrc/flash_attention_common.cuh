@@ -1,7 +1,6 @@
 // Helpers shared by the flash-attention kernels: element conversion and the
-// tile loader of the CUDA-core kernels (flash_attention_fwd.cu,
-// flash_attention_wide.cu), the padded head-dim dispatch and the grid fold
-// (all of them).
+// thread count of the CUDA-core kernels (flash_attention_wide.cu), the
+// padded head-dim dispatch and the grid fold (all of them).
 //
 // Head dims. A kernel is instantiated for a padded width DP of 32, 64, 128
 // or 256 and takes any head dim d <= DP at run time: columns d..DP-1 of every
@@ -34,19 +33,6 @@ __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
-}
-
-// Stage rows [r0, r0 + ROWS) of a (rows, d) matrix into a [ROWS][DP + 1] f32
-// tile, times `mul`; rows past `rows` and columns past d are 0. The +1 pad
-// keeps column reads (one row per thread) free of bank conflicts.
-template <typename T, int DP, int ROWS>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
-                                          int r0, int rows, int d, float mul) {
-  for (int i = threadIdx.x; i < ROWS * DP; i += kThreads) {
-    const int r = i / DP, c = i % DP;
-    dst[r * (DP + 1) + c] =
-        (r0 + r < rows && c < d) ? to_f32(src[(size_t)(r0 + r) * d + c]) * mul : 0.f;
-  }
 }
 
 // Smallest padded width that holds d, or 0 when d is out of range.

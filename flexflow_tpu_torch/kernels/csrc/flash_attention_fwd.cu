@@ -12,48 +12,62 @@
 // width of 32, 64, 128 or 256 with the columns past D zero, and blocks are
 // numbered along the grid's x dimension only (flash_attention_common.cuh).
 //
-// Two kernels, one per input type.
+// Two kernels, one per input type, both on the tensor cores.
 //
-// f32: `flash_fwd_kernel` on the CUDA cores (TF32 stays off). The TPU kernel
-// holds a whole (Skv, D) K/V panel in 16 MB of VMEM and materialises a
-// (block_q, Skv) logits tile. A Hopper block has at most 227 KB of shared
-// memory, so this kernel streams K/V instead: one block of 256 threads per
-// (bh, 64-query tile), a loop over 64-key tiles staged in shared memory as
-// f32 (209 KB at the padded width 256, one block per SM there), and an online
-// softmax (running max m, sum l and the output accumulator in f32 registers).
-// Each thread owns 4 query rows x 4 key columns of the score tile and 4 rows x
-// D/16 columns of the output; a row's 16 owners sit in one half-warp, so row
-// max/sum reductions are 4 shuffles. Q/K/V rows are padded by one float so
-// the column reads are free of bank conflicts; Q is scaled in f32 as it is
-// staged. Keys past Skv are masked to -inf (their p is exactly 0).
+// f32: `flash_fwd_kernel_tf32x3`, the FlashAttention-2 forward with split
+// TF32 products (flash_attention_tf32.cuh): each f32 product is three TF32
+// `mma.sync` m16n8k8 products, small(a) big(b) + big(a) small(b) + big(a)
+// big(b), which lands within a few f32 ulps of an f32 product; never one
+// TF32 product, which misses the f32 tolerance. 4 warps a block, each
+// owning 32 query rows (two m16 tiles, so that each K or V fragment a warp
+// splits feeds two products) at widths 32 and 64, 16 rows at 128 and 256
+// (warp_tiles). Q lands once by cp.async and is scaled in f32 and split
+// into big and small TF32 tiles in shared memory, as the TPU kernel scales
+// it (`q * scale`); its fragments are re-read at every key tile (held
+// split in registers they would take 64 a thread at width 64). K and V
+// come in by 16-byte cp.async, two stages deep, in tiles of block_k keys
+// padded to kTileLd (conflict-free fragment reads), and are split as their
+// fragments are read (splitting them once as each tile lands ran 1.2-1.7x
+// slower on an H100, its tiles twice the bytes). Under
+// causal a warp skips the key tiles past its last row. S = (scale Q) K^T
+// has K's B fragments n-major (frag_b_nrows); the online softmax runs
+// in f32 registers as in the bf16 kernel below (a row's max over its 4
+// lanes by two shuffles, l summed over the f32 p, dead entries p = 0 by a
+// select only in tiles that have them, 2^x by the SFU); P = exp(S - m)
+// becomes the split A fragment of O += P V straight from the accumulators
+// through the m16n8k8 relabelling (acc_a), V's B fragments k-major at rows
+// 2 tig and 2 tig + 1 (frag_b_krows): P never touches shared memory. O / l
+// leaves through the Q tile in 16-byte stores. Where d % 4 != 0 or a base
+// is not 16-byte aligned, the same tiles are loaded and stored element by
+// element.
 //
-// bf16: `flash_fwd_kernel_mma` on the tensor cores, the FlashAttention-2
-// forward built from flash_attention_mma.cuh. 4 warps a block, 16 query rows
-// a warp (64 a block). Q is staged once by cp.async; its A fragments are held
-// in registers (DP/4 a thread) at widths 32 and 128 and re-read from its tile
-// by ldmatrix at 64 and 256, where registers are short (q_in_registers). K
-// and V come in 64-key tiles (32 at width 256) by 16-byte cp.async, two
-// stages deep, so the next tile's copy overlaps this tile's products.
-// S = Q K^T by mma.sync m16n8k16 with f32 sums, K's B fragments by ldmatrix;
-// scale is applied to S in f32 (to the running max and the exponent: scale *
-// log2e folded into one fmaf and the SFU's 2^x). The online softmax runs in
-// f32 registers, a row's max over its 4 lanes by two shuffles; l sums the
-// f32 p before any rounding; dead entries (keys past Skv, under causal keys
-// past the row) get p = 0 by a select. P is rounded to bf16 and becomes the
-// A fragment of O += P V straight from the accumulators (acc_a2), V's B
-// fragments by ldmatrix.trans: P never touches shared memory. O / l is
+// bf16: `flash_fwd_kernel_mma`, the same forward on bf16 `mma.sync`
+// m16n8k16 (flash_attention_mma.cuh). Q is staged once by cp.async; its A
+// fragments are held in registers (DP/4 a thread) at widths 32 and 128 and
+// re-read from its tile by ldmatrix at 64 and 256, where registers are
+// short (q_in_registers). K and V come in 64-key tiles (32 at width 256)
+// by 16-byte cp.async, two stages deep. S = Q K^T with f32 sums, K's B
+// fragments by ldmatrix; scale is applied to S in f32 (to the running max
+// and the exponent: scale * log2e folded into one fmaf and the SFU's 2^x).
+// P is rounded to bf16 and becomes the A fragment of O += P V straight from
+// the accumulators (acc_a2), V's B fragments by ldmatrix.trans. O / l is
 // rounded to bf16 and leaves through the Q tile in 16-byte stores.
 //
-// Both kernels: causal blocks stop at the last key tile their rows can see,
-// which skips only tiles whose every logit would be -1e30 and so contribute
-// exactly 0; blocks with the most causal work start first; rows past Sq
-// write nothing.
+// Both kernels: LSE = m + log(l) in f32 with the natural log (the backward
+// kernels read it); causal blocks stop at the last key tile their rows can
+// see, which skips only tiles whose every logit would be -1e30 and so
+// contribute exactly 0; blocks with the most causal work start first; each
+// block owns its output tile (no atomics: two runs agree bit for bit);
+// rows past Sq write nothing.
 //
-// Bound at the slice shape (B*H = 128, Sq = Skv = 512, D = 64, H100 SXM):
+// Bound at the slice shape (B*H = 128, Sq = Skv = 512, D = 64, H100 SXM;
+// 3.35 TB/s):
 //   operations: 4 * 128 * 512 * 512 * 64 = 8.59 GFLOP (half under causal)
 //   bytes:      q, k, v, o = 4 * 128 * 512 * 64 elements + lse (128 * 512 f32)
-//   f32  (67 TFLOP/s CUDA cores; 3.35 TB/s): 8.59e9 / 67e12 = 0.128 ms vs
-//        67.4 MB / 3.35e12 = 0.020 ms -> bound by operations, 0.128 ms
+//   f32  (494.7 TFLOP/s TF32, so 164.9 TFLOP/s for f32-accurate products at
+//        three TF32 products each): 8.59e9 / 164.9e12 = 0.0521 ms vs
+//        67.4 MB / 3.35e12 = 0.020 ms -> bound by operations, 0.0521 ms
+//        (25.8 GFLOP of TF32 work as designed)
 //   bf16 (989 TFLOP/s tensor cores): 8.59e9 / 989e12 = 0.0087 ms vs
 //        33.8 MB / 3.35e12 = 0.0101 ms -> bound by bytes, 0.0101 ms
 // mma.sync reaches a fraction of the tensor cores' peak (wgmma, TMA and warp
@@ -64,181 +78,295 @@
 
 #include "flash_attention_common.cuh"
 #include "flash_attention_mma.cuh"
+#include "flash_attention_tf32.cuh"
 
 namespace {
 
 using namespace ff_flash;
 
-constexpr int kBlockQ = 64;    // query rows per block
-constexpr int kBlockK = 64;    // keys per shared-memory tile
-constexpr int kRows = kBlockQ / 16;  // query rows per thread
-constexpr int kCols = kBlockK / 16;  // score columns per thread
-constexpr float kMaskValue = -1e30f;  // the TPU kernel's NEG_INF
+constexpr float kLog2e = 1.4426950408889634f;
 
+// 2^x by the SFU's approximation (relative error about 2^-22, denormal
+// results flushed to 0): one instruction where exp2f takes four, for each
+// p of a warp's key tile.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// ---- f32 on the tensor cores, split TF32 ------------------------------------
+
+namespace tf32 {
+
+using ff_tf32::Split;
+using ff_tf32::mma3;
+
+constexpr int kThreads = 128;  // 4 warps
+constexpr size_t kSmemPerSm = 233472;  // an H100 SM's 228 KB, 1 KB of it reserved a block
+
+// Tiles at padded width DP, chosen among variants timed on the H100
+// (tools/torch_fwd_tf32_variants.py):
+//  * block_k: keys a K/V tile; 64 at width 32, 32 at 64, 16 at 128 and 256,
+//    so that the split Q tile and two stages of K and V fit two or more
+//    blocks an SM up to width 128 (one at 256, where the split Q tile alone
+//    takes 130 KB);
+//  * warp_tiles: m16 tiles of query rows a warp, 2 at widths 32 and 64 (each
+//    split K/V fragment then feeds two products), 1 at 128 and 256, where
+//    O's accumulators (DP / 2 a tile) leave no room for two.
 template <int DP>
+__host__ __device__ constexpr int block_k() { return DP == 32 ? 64 : DP == 64 ? 32 : 16; }
+template <int DP>
+__host__ __device__ constexpr int warp_tiles() { return DP <= 64 ? 2 : 1; }
+
+template <int MT>
+__host__ __device__ constexpr int block_q() { return 4 * 16 * MT; }
+
+template <int DP, int BK, int MT>
 constexpr size_t smem_bytes() {
-  return sizeof(float) *
-         (size_t)(kBlockQ * (DP + 1) + 2 * kBlockK * (DP + 1) + kBlockQ * (kBlockK + 1));
+  // split Q (big, small); two stages of K, V
+  return sizeof(float) * (size_t)(2 * block_q<MT>() + 4 * BK) * ff_tf32::kTileLd<DP>;
+}
+// Blocks an SM holds by shared memory, at most four: the register budget
+// __launch_bounds__ gives the compiler (65536 / (128 * blocks) a thread).
+template <int DP, int BK, int MT>
+constexpr int min_blocks() {
+  const size_t n = kSmemPerSm / (smem_bytes<DP, BK, MT>() + 1024);
+  return n < 1 ? 1 : n > 4 ? 4 : (int)n;
 }
 
-template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int sq, int skv, int d, float scale,
-                 int causal) {
-  constexpr int LD = DP + 1;        // padded row stride of the q/k/v tiles
-  constexpr int LDP = kBlockK + 1;  // padded row stride of the p tile
-  constexpr int DC = DP / 16;       // output columns per thread
-  extern __shared__ float smem[];
-  float* qs = smem;                  // [kBlockQ][LD]
-  float* ks = qs + kBlockQ * LD;     // [kBlockK][LD]
-  float* vs = ks + kBlockK * LD;     // [kBlockK][LD]
-  float* ps = vs + kBlockK * LD;     // [kBlockQ][LDP]
+template <int DP, int BK = block_k<DP>(), int MT = warp_tiles<DP>()>
+__global__ void __launch_bounds__(kThreads, (min_blocks<DP, BK, MT>()))
+flash_fwd_kernel_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, float* __restrict__ o,
+                        float* __restrict__ lse, int sq, int skv, int d, float scale,
+                        int causal, int vec) {
+  constexpr int BQ = block_q<MT>(), WR = 16 * MT, LD = ff_tf32::kTileLd<DP>;
+  constexpr int NK = BK / 8, ND = DP / 8;  // n8 tiles of S, of O
+  constexpr int STAGE = 2 * BK * LD;  // floats of a K/V stage
+  extern __shared__ __align__(16) unsigned char tf32_smem[];
+  float* qs = reinterpret_cast<float*>(tf32_smem);  // [BQ][LD], big(scale Q)
+  float* qsm = qs + BQ * LD;                         // [BQ][LD], small(scale Q)
+  float* kvs = qsm + BQ * LD;  // [2 stages][K, V][BK][LD]
 
-  const int nq = (sq + kBlockQ - 1) / kBlockQ;
-  const int bh = blockIdx.x / nq;
-  // the last query tiles carry the most causal work: start them first
-  const int q0 = (nq - 1 - (int)(blockIdx.x % nq)) * kBlockQ;
-  const int tid = threadIdx.x;
-  const int ty = tid / 16;
-  const int tx = tid % 16;
-  const T* qb = q + (size_t)bh * sq * d;
-  const T* kb = k + (size_t)bh * skv * d;
-  const T* vb = v + (size_t)bh * skv * d;
+  // blocks go tile-major: the last query tiles of every bh, which carry the
+  // most causal work, start first
+  const int nq = (sq + BQ - 1) / BQ;
+  const int nbh = gridDim.x / nq;
+  const int bh = blockIdx.x % nbh;
+  const int q0 = (nq - 1 - (int)(blockIdx.x / nbh)) * BQ;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int group = lane >> 2, tig = lane & 3, rw = warp * WR;
+  const size_t qoff = (size_t)bh * sq * d, koff = (size_t)bh * skv * d;
+  const int kv_end = causal ? min(skv, q0 + BQ) : skv;
+  const int ntiles = (kv_end + BK - 1) / BK;
 
-  load_tile<T, DP, kBlockQ>(qs, qb, q0, sq, d, scale);
+  // Q in a group of its own, so that it is split while the first K/V stage
+  // is still in flight
+  ff_tf32::load_tile<BQ, DP, kThreads>(qs, q + qoff, q0, sq, d, vec);
+  ff_mma::cp_async_commit();
+  ff_tf32::load_tile<BK, DP, kThreads>(kvs, k + koff, 0, skv, d, vec);
+  ff_tf32::load_tile<BK, DP, kThreads>(kvs + BK * LD, v + koff, 0, skv, d, vec);
+  ff_mma::cp_async_commit();
+  ff_mma::cp_async_wait<1>();  // this thread's part of Q has landed
+  ff_tf32::split_tile<BQ, DP, kThreads>(qs, qsm, scale, vec);
 
-  float m[kRows], l[kRows], acc[kRows][DC];
+  // Row state of the thread's rows: h = 0 is row group, h = 1 row group + 8
+  // of each of the warp's m16 tiles mt. m is the running max of the scaled
+  // logits, l the thread's part of the row sum (its 4 parts are added at
+  // the end).
+  auto row = [&](int mt, int h) { return q0 + rw + mt * 16 + group + 8 * h; };
+  float m[MT][2], l[MT][2], acc[MT][ND][4];
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
+  for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
-    for (int j = 0; j < DC; ++j) acc[i][j] = 0.f;
+    for (int h = 0; h < 2; ++h) {
+      m[mt][h] = -INFINITY;
+      l[mt][h] = 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < ND; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][i][e] = 0.f;
   }
 
-  const int kv_end = causal ? min(skv, q0 + kBlockQ) : skv;
-  for (int k0 = 0; k0 < kv_end; k0 += kBlockK) {
-    __syncthreads();  // the previous tile's ks/vs/ps reads are done
-    load_tile<T, DP, kBlockK>(ks, kb, k0, skv, d, 1.f);
-    load_tile<T, DP, kBlockK>(vs, vb, k0, skv, d, 1.f);
-    __syncthreads();
-
-    float s[kRows][kCols];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) s[i][j] = 0.f;
-#pragma unroll 16
-    for (int c = 0; c < DP; ++c) {
-      float qv[kRows], kv[kCols];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) qv[i] = qs[(ty + 16 * i) * LD + c];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) kv[j] = ks[(tx + 16 * j) * LD + c];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+  for (int j = 0; j < ntiles; ++j) {
+    const int k0 = j * BK;
+    if (j + 1 < ntiles) {
+      float* next = kvs + ((j + 1) & 1) * STAGE;
+      ff_tf32::load_tile<BK, DP, kThreads>(next, k + koff, k0 + BK, skv, d, vec);
+      ff_tf32::load_tile<BK, DP, kThreads>(next + BK * LD, v + koff, k0 + BK, skv, d, vec);
     }
+    ff_mma::cp_async_commit();
+    ff_mma::cp_async_wait<1>();  // this thread's part of this tile has landed
+    const float* ks = kvs + (j & 1) * STAGE;
+    const float* vs = ks + BK * LD;
+    __syncthreads();  // every thread's part of the tile (and of Q) is there
 
+    // Under causal, a tile whose first key lies past the warp's last row
+    // holds only dead entries for the warp: it would leave m, l and O as
+    // they are, so the warp skips it.
+    if (!causal || k0 <= q0 + rw + WR - 1) {
+      // S = (scale Q) K^T for the warp's WR rows x BK keys
+      float s[MT][NK][4];
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int qpos = q0 + ty + 16 * i;
-      float mx = -INFINITY;
+      for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        if (kpos >= skv) {
-          s[i][j] = -INFINITY;
-        } else if (causal && qpos < kpos) {
-          s[i][j] = kMaskValue;
+        for (int i = 0; i < NK; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[mt][i][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < ND; ++kk) {
+        Split<4> aq[MT];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          aq[mt] = ff_tf32::frag_a<LD>(qs, qsm, rw + mt * 16, kk * 8);
+#pragma unroll
+        for (int nt = 0; nt < NK; ++nt) {
+          const Split<2> b = ff_tf32::frag_b_nrows<LD>(ks, nt * 8, kk * 8);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) mma3(s[mt][nt], aq[mt], b);
         }
-        mx = fmaxf(mx, s[i][j]);
       }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      // key k0 is in range, so mx is finite and so is m_new
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        sum += p;
-        ps[(ty + 16 * i) * LDP + tx + 16 * j] = p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[i] = l[i] * alpha + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < DC; ++j) acc[i][j] *= alpha;
-    }
-    __syncthreads();
 
-#pragma unroll 8
-    for (int c = 0; c < kBlockK; ++c) {
-      float pv[kRows], vv[DC];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) pv[i] = ps[(ty + 16 * i) * LDP + c];
-#pragma unroll
-      for (int j = 0; j < DC; ++j) vv[j] = vs[c * LD + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < DC; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
-    }
-  }
+      // A tile that reaches past Skv or past the warp's first row (the
+      // causal diagonal) has dead entries: keys past Skv, which the
+      // zero-filled tile would give s = 0, and, under causal, keys past the
+      // row. They leave the row max as -inf and get p = 0 by a select.
+      const bool masked = k0 + BK > skv || (causal && k0 + BK - 1 > q0 + rw);
+      auto dead = [&](int mt, int nt, int e) {
+        const int key = k0 + nt * 8 + 2 * tig + (e & 1);
+        return key >= skv || (causal && row(mt, e >> 1) < key);
+      };
 
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int r = q0 + ty + 16 * i;
-    if (r >= sq) continue;
-    T* orow = o + ((size_t)bh * sq + r) * d;
+      for (int mt = 0; mt < MT; ++mt) {
+        if (masked) {
 #pragma unroll
-    for (int j = 0; j < DC; ++j) {
-      const int c = tx + 16 * j;
-      if (c < d) orow[c] = from_f32<T>(acc[i][j] / l[i]);
+          for (int nt = 0; nt < NK; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (dead(mt, nt, e)) s[mt][nt][e] = -INFINITY;
+        }
+        // online softmax in f32: the new row max over the row's 4 lanes,
+        // the old sums and accumulators rescaled by exp(m_old - m_new)
+        float mx[2] = {m[mt][0], m[mt][1]};
+#pragma unroll
+        for (int nt = 0; nt < NK; ++nt) {
+          mx[0] = fmaxf(mx[0], fmaxf(s[mt][nt][0], s[mt][nt][1]));
+          mx[1] = fmaxf(mx[1], fmaxf(s[mt][nt][2], s[mt][nt][3]));
+        }
+        float ms[2], alpha[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+          for (int off = 1; off <= 2; off <<= 1)
+            mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], off));
+          // a row that has seen no live key keeps -inf; 0 in its place
+          // keeps alpha and p free of inf - inf (key 0 is live for every
+          // row, so no row stays there past its first tile)
+          ms[h] = mx[h] == -INFINITY ? 0.f : mx[h] * kLog2e;
+          alpha[h] = exp2_approx(m[mt][h] * kLog2e - ms[h]);
+          m[mt][h] = mx[h];
+        }
+#pragma unroll
+        for (int nt = 0; nt < NK; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[mt][nt][e] = exp2_approx(fmaf(s[mt][nt][e], kLog2e, -ms[e >> 1]));
+        if (masked) {
+#pragma unroll
+          for (int nt = 0; nt < NK; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (dead(mt, nt, e)) s[mt][nt][e] = 0.f;
+        }
+        l[mt][0] *= alpha[0];
+        l[mt][1] *= alpha[1];
+#pragma unroll
+        for (int nt = 0; nt < NK; ++nt) {
+          l[mt][0] += s[mt][nt][0] + s[mt][nt][1];
+          l[mt][1] += s[mt][nt][2] + s[mt][nt][3];
+        }
+#pragma unroll
+        for (int i = 0; i < ND; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][i][e] *= alpha[e >> 1];
+      }
+
+      // O += P V: each n8 tile of P is the split A fragment of one k8 step,
+      // relabelled, and V's B fragment is read at the matching key rows
+#pragma unroll
+      for (int kk = 0; kk < NK; ++kk) {
+        Split<4> ap[MT];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) ap[mt] = ff_tf32::acc_a(s[mt][kk]);
+#pragma unroll
+        for (int dt = 0; dt < ND; ++dt) {
+          const Split<2> b = ff_tf32::frag_b_krows<LD>(vs, kk * 8, dt * 8);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) mma3(acc[mt][dt], ap[mt], b);
+        }
+      }
     }
-    if (tx == 0) lse[(size_t)bh * sq + r] = m[i] + logf(l[i]);
+    __syncthreads();  // this stage's reads are done before it is refilled
   }
+  ff_mma::cp_async_wait<0>();
+
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    float inv[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1)
+        l[mt][h] += __shfl_xor_sync(0xffffffffu, l[mt][h], off);
+      inv[h] = l[mt][h] > 0.f ? 1.f / l[mt][h] : 0.f;
+      if (tig == 0 && row(mt, h) < sq)
+        lse[(size_t)bh * sq + row(mt, h)] = m[mt][h] + logf(l[mt][h]);
+    }
+#pragma unroll
+    for (int i = 0; i < ND; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][i][e] *= inv[e >> 1];
+    // O / l through the Q tile (each warp rewrites only its own rows)
+    ff_tf32::stage_acc<DP>(qs, acc[mt], rw + mt * 16, 0, 1.f);
+  }
+  __syncthreads();
+  ff_tf32::store_tile<BQ, DP, kThreads>(o + qoff, qs, q0, sq, d, vec);
 }
 
-template <typename T, int DP>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   void* lse, int bh, int sq, int skv, int d, float scale,
-                   int causal, cudaStream_t stream) {
-  const unsigned blocks = grid_blocks(bh, sq, kBlockQ);
+template <int DP, int BK = block_k<DP>(), int MT = warp_tiles<DP>()>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
+                   int sq, int skv, int d, float scale, int causal, cudaStream_t stream) {
+  const unsigned blocks = grid_blocks(bh, sq, block_q<MT>());
   if (blocks == 0) return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes<DP>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  constexpr size_t smem = smem_bytes<DP, BK, MT>();
+  auto kernel = flash_fwd_kernel_tf32x3<DP, BK, MT>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  flash_fwd_kernel<T, DP><<<blocks, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      sq, skv, d, scale, causal);
+  const int vec = d % 4 == 0 && ff_mma::aligned16(q) && ff_mma::aligned16(k) &&
+                  ff_mma::aligned16(v) && ff_mma::aligned16(o);
+  kernel<<<blocks, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), static_cast<float*>(lse), sq, skv, d, scale, causal, vec);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_head_dim(const void* q, const void* k, const void* v,
-                              void* o, void* lse, int bh, int sq, int skv,
-                              int d, float scale, int causal,
-                              cudaStream_t stream) {
+cudaError_t dispatch_head_dim(const void* q, const void* k, const void* v, void* o, void* lse,
+                              int bh, int sq, int skv, int d, float scale, int causal,
+                              cudaStream_t s) {
   switch (padded_head_dim(d)) {
-    case 32: return launch<T, 32>(q, k, v, o, lse, bh, sq, skv, d, scale, causal, stream);
-    case 64: return launch<T, 64>(q, k, v, o, lse, bh, sq, skv, d, scale, causal, stream);
-    case 128: return launch<T, 128>(q, k, v, o, lse, bh, sq, skv, d, scale, causal, stream);
-    case 256: return launch<T, 256>(q, k, v, o, lse, bh, sq, skv, d, scale, causal, stream);
+    case 32: return launch<32>(q, k, v, o, lse, bh, sq, skv, d, scale, causal, s);
+    case 64: return launch<64>(q, k, v, o, lse, bh, sq, skv, d, scale, causal, s);
+    case 128: return launch<128>(q, k, v, o, lse, bh, sq, skv, d, scale, causal, s);
+    case 256: return launch<256>(q, k, v, o, lse, bh, sq, skv, d, scale, causal, s);
     default: return cudaErrorInvalidValue;
   }
 }
+
+}  // namespace tf32
 
 // ---- bf16 on the tensor cores ----------------------------------------------
 
@@ -249,7 +377,6 @@ using ff_mma::bf16;
 constexpr int kBlockQ = 64;    // query rows a block: 4 warps x 16
 constexpr int kThreads = 128;
 constexpr int kWarpRows = 16;  // rows of a warp's m16 tiles
-constexpr float kLog2e = 1.4426950408889634f;
 
 // Key tile: 64, 32 at width 256 (O's 128 f32 accumulators a thread leave
 // room for S of 32 keys only), as the dq kernel's (flash_attention_bwd.cu).
@@ -266,15 +393,6 @@ __host__ __device__ constexpr bool q_in_registers() { return DP == 32 || DP == 1
 // at widths 32/64 (<= 128 registers), two at 128 (<= 255), one at 256.
 template <int DP>
 __host__ __device__ constexpr int min_blocks() { return DP <= 64 ? 4 : DP == 128 ? 2 : 1; }
-
-// 2^x by the SFU's approximation (relative error about 2^-22, denormal
-// results flushed to 0): one instruction where exp2f takes four, for each
-// of the 1024 p of a warp's 64-key tile.
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 template <int DP>
 constexpr size_t smem_bytes() {
@@ -520,15 +638,15 @@ cudaError_t dispatch_head_dim(const void* q, const void* k, const void* v, void*
 
 extern "C" {
 
-// dtype: 0 = float32 (the CUDA-core kernel), 1 = bfloat16 (the tensor-core
-// kernel). Returns the cudaError_t of the launch.
+// dtype: 0 = float32 (the split-TF32 tensor-core kernel), 1 = bfloat16 (the
+// bf16 tensor-core kernel). Returns the cudaError_t of the launch.
 int ff_flash_attention_fwd(const void* q, const void* k, const void* v,
                            void* o, void* lse, int bh, int sq, int skv, int d,
                            float scale, int causal, int dtype, void* stream) {
   if (bh <= 0 || sq <= 0 || skv <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)dispatch_head_dim<float>(q, k, v, o, lse, bh, sq, skv, d, scale, causal, s);
+    return (int)tf32::dispatch_head_dim(q, k, v, o, lse, bh, sq, skv, d, scale, causal, s);
   if (dtype == 1)
     return (int)mma::dispatch_head_dim(q, k, v, o, lse, bh, sq, skv, d, scale, causal, s);
   return (int)cudaErrorInvalidValue;

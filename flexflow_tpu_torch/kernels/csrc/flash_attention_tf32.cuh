@@ -137,6 +137,25 @@ __device__ __forceinline__ Split<2> frag_b_krows(const float* tile, int k0, int 
   return f;
 }
 
+// The A fragment of a tile that was split as it was staged (split_tile):
+// big's bits in `big`, small's in `small`, at the same offsets. Two 32-bit
+// loads for each value in place of one load and the split's three
+// instructions.
+template <int LD>
+__device__ __forceinline__ Split<4> frag_a(const float* big, const float* small, int row0,
+                                           int col0) {
+  const int lane = threadIdx.x & 31, group = lane >> 2, tig = lane & 3;
+  const int i = (row0 + group) * LD + col0 + tig;
+  const int off[4] = {0, 8 * LD, 4, 8 * LD + 4};
+  Split<4> f;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    f.big[r] = __float_as_uint(big[i + off[r]]);
+    f.small[r] = __float_as_uint(small[i + off[r]]);
+  }
+  return f;
+}
+
 // An n8 accumulator tile as the split A fragment of one k8 step, relabelled
 // (see the top of this file): a0 = c0, a1 = c2, a2 = c1, a3 = c3.
 __device__ __forceinline__ Split<4> acc_a(const float (&c)[4]) {
@@ -169,6 +188,38 @@ __device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ 
     for (int i = threadIdx.x; i < ROWS * DP; i += THREADS) {
       const int r = i / DP, c = i % DP;
       dst[r * LD + c] = (r0 + r < rows && c < d) ? src[(size_t)(r0 + r) * d + c] : 0.f;
+    }
+  }
+}
+
+// Split, times `mul`, the elements of a staged [ROWS][LD] tile that this
+// thread staged (load_tile's walk over chunks under `vec`, else elements),
+// once its own copies have landed (cp_async_wait): big in place of x, small
+// into the same offsets of `small`. A thread reads only what it copied, so
+// no barrier is needed before; one is needed before other warps read.
+template <int ROWS, int DP, int THREADS>
+__device__ __forceinline__ void split_tile(float* tile, float* small, float mul, bool vec) {
+  constexpr int LD = kTileLd<DP>;
+  if (vec) {
+    constexpr int CH = DP / 4;
+    for (int i = threadIdx.x; i < ROWS * CH; i += THREADS) {
+      const int o = (i / CH) * LD + (i % CH) * 4;
+      float4 x = *reinterpret_cast<const float4*>(tile + o);
+      uint4 b, s;
+      split(x.x * mul, b.x, s.x);
+      split(x.y * mul, b.y, s.y);
+      split(x.z * mul, b.z, s.z);
+      split(x.w * mul, b.w, s.w);
+      *reinterpret_cast<uint4*>(tile + o) = b;
+      *reinterpret_cast<uint4*>(small + o) = s;
+    }
+  } else {
+    for (int i = threadIdx.x; i < ROWS * DP; i += THREADS) {
+      const int o = (i / DP) * LD + i % DP;
+      uint32_t b, s;
+      split(tile[o] * mul, b, s);
+      tile[o] = __uint_as_float(b);
+      small[o] = __uint_as_float(s);
     }
   }
 }

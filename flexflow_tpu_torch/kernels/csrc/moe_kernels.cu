@@ -16,14 +16,22 @@
 //
 // Design. The TPU kernels stage one row per sequential grid step through
 // VMEM with scalar-prefetched indices, and row_gather_sum carries its sum in
-// VMEM scratch across the grid's inner dimension. Here each warp owns one
-// output row (8 rows to a 256-thread block), reads its own index and scale
-// (or its k indices and weights), and walks the row's columns with 16-byte
-// vector loads and stores (4 f32 or 8 bf16 a lane) where the row pitch and
+// VMEM scratch across the grid's inner dimension. Here nothing is carried
+// between blocks, and each output element is written once by one thread: no
+// atomics, no scatter, and the result does not depend on the schedule.
+// Rows move in 16-byte vectors (4 f32 or 8 bf16) where the row pitch and
 // the base pointers allow (d = 784: 3136 B in f32, 1568 B in bf16), one
-// element a lane otherwise. row_gather_sum keeps each lane's columns' sums in
-// f32 registers across its k source rows and writes once: no atomics, no
-// scatter, and the result does not depend on the schedule.
+// element at a time otherwise.
+//  * row_gather: each warp owns one output row (8 rows to a 256-thread
+//    block), reads its index and scale once and walks the row's columns.
+//  * row_gather_sum: each thread owns one (output row, vector) pair, so a
+//    warp covers 32 neighbouring vectors of a row and the grid has as many
+//    threads as the output has vectors: 64 rows x 196 f32 vectors at the
+//    MoE model's shape is 49 blocks, where a warp a row filled 8 blocks on
+//    132 SMs and each lane walked 7 vectors in turn. A thread reads its
+//    row's k indices and weights and starts all k row loads (unrolled for
+//    k = 2, the top-2 of every configuration here; in groups of four for
+//    any other k) before it sums them in order.
 //
 // Bound: both kernels only move bytes. At the MoE model's main shape (batch
 // 64, d 784, 5 experts, top-2, capacity 52) row_gather writes 260 rows of
@@ -104,31 +112,42 @@ row_gather_kernel(const T* __restrict__ x, const int* __restrict__ idx,
   }
 }
 
-template <typename T, int VEC>
+// K = 2: exactly two picks a row, loaded together; K = 0: any k, loaded in
+// groups of four. The sum runs over j = 0..k-1 in order either way.
+template <typename T, int VEC, int K>
 __global__ void __launch_bounds__(kThreads)
 row_gather_sum_kernel(const T* __restrict__ x, const int* __restrict__ idx,
                       const float* __restrict__ w, T* __restrict__ out, int r_in, int nb,
                       int k, int d) {
-  const int b = blockIdx.x * kRowsPerBlock + threadIdx.x / 32;
-  if (b >= nb) return;
-  const int lane = threadIdx.x % 32;
+  constexpr int G = K > 0 ? K : 4;  // rows loaded before they are summed
+  const int vecs = (d + VEC - 1) / VEC;  // vectors a row (VEC divides d when VEC > 1)
+  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (t >= (long long)nb * vecs) return;
+  const int b = (int)(t / vecs), c = (int)(t % vecs) * VEC;
+  if constexpr (K > 0) k = K;
   const int* ib = idx + (size_t)b * k;
   const float* wb = w + (size_t)b * k;
-  T* orow = out + (size_t)b * d;
-#pragma unroll 2
-  for (int c = lane * VEC; c < d; c += 32 * VEC) {
-    float acc[VEC];
+  float acc[VEC];
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
-    for (int j = 0; j < k; ++j) {
-      const float wj = wb[j];
-      float f[VEC];
-      load_row_vec<T, VEC>(x, ib[j], r_in, d, c, f);
+  for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
+  for (int j0 = 0; j0 < k; j0 += G) {
+    float wj[G], f[G][VEC];
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) acc[i] = __fadd_rn(acc[i], __fmul_rn(wj, f[i]));
+    for (int u = 0; u < G; ++u) {
+      if (K > 0 || j0 + u < k) {
+        wj[u] = wb[j0 + u];
+        load_row_vec<T, VEC>(x, ib[j0 + u], r_in, d, c, f[u]);
+      }
     }
-    store_vec<T, VEC>(orow + c, acc);
+#pragma unroll
+    for (int u = 0; u < G; ++u) {
+      if (K > 0 || j0 + u < k) {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) acc[i] = __fadd_rn(acc[i], __fmul_rn(wj[u], f[u][i]));
+      }
+    }
   }
+  store_vec<T, VEC>(out + (size_t)b * d + c, acc);
 }
 
 // 16-byte vectors when every row starts on a 16-byte boundary.
@@ -155,6 +174,20 @@ cudaError_t launch_gather(const void* x, const int* idx, const float* scale, voi
   return cudaGetLastError();
 }
 
+template <typename T, int VEC>
+cudaError_t launch_gather_sum_vec(const T* x, const int* idx, const float* w, T* out, int r_in,
+                                  int nb, int k, int d, cudaStream_t stream) {
+  const long long threads = (long long)nb * ((d + VEC - 1) / VEC);
+  const unsigned blocks = (unsigned)((threads + kThreads - 1) / kThreads);
+  if (k == 2)
+    row_gather_sum_kernel<T, VEC, 2><<<blocks, kThreads, 0, stream>>>(x, idx, w, out, r_in, nb,
+                                                                      k, d);
+  else
+    row_gather_sum_kernel<T, VEC, 0><<<blocks, kThreads, 0, stream>>>(x, idx, w, out, r_in, nb,
+                                                                      k, d);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_gather_sum(const void* x, const int* idx, const float* w, void* out,
                               int r_in, int nb, int k, int d, cudaStream_t stream) {
@@ -162,12 +195,8 @@ cudaError_t launch_gather_sum(const void* x, const int* idx, const float* w, voi
   const T* xt = static_cast<const T*>(x);
   T* ot = static_cast<T*>(out);
   if (vectorizable<T>(x, out, d))
-    row_gather_sum_kernel<T, V><<<row_blocks(nb), kThreads, 0, stream>>>(
-        xt, idx, w, ot, r_in, nb, k, d);
-  else
-    row_gather_sum_kernel<T, 1><<<row_blocks(nb), kThreads, 0, stream>>>(
-        xt, idx, w, ot, r_in, nb, k, d);
-  return cudaGetLastError();
+    return launch_gather_sum_vec<T, V>(xt, idx, w, ot, r_in, nb, k, d, stream);
+  return launch_gather_sum_vec<T, 1>(xt, idx, w, ot, r_in, nb, k, d, stream);
 }
 
 }  // namespace

@@ -2,11 +2,11 @@
 
 PyTorch counterpart of ``flexflow_tpu/kernels/flash_attention.py``. The
 TPU's ``_fwd_kernel`` becomes ``csrc/flash_attention_fwd.cu`` and its
-``_dq_kernel``/``_dkv_kernel`` become ``csrc/flash_attention_bwd.cu`` (f32
-gradients on the tensor cores with split TF32 products, never single-pass
-TF32); head
-dims above 256 go to the chunked kernels of ``csrc/flash_attention_wide.cu``
-(the source notes give the designs and the bounds on an H100). Like the JAX
+``_dq_kernel``/``_dkv_kernel`` become ``csrc/flash_attention_bwd.cu``, all
+on the tensor cores up to head dim 256 (f32 with split TF32 products, never
+single-pass TF32); head dims above 256 go to the chunked kernels of
+``csrc/flash_attention_wide.cu`` (the source notes give the designs and
+the bounds on an H100). Like the JAX
 kernel, every function here takes any head dim. This module holds:
 
 * :func:`flash_attention` — the public entry on (B, S, H, D) tensors, with
@@ -142,9 +142,10 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The forward kernel's wrapper: q (BH, Sq, D), k/v (BH, Skv, D) ->
     (out, lse) as :func:`flash_attention_fwd_reference` returns them. A
     CUDA tensor launches ``csrc/flash_attention_fwd.cu`` (``_wide.cu`` for
-    D > 256) on the current stream: in bf16 the tensor-core kernel, which
-    rounds P to bf16 before P V as FlashAttention does, in f32 the
-    CUDA-core one. A CPU tensor runs the plain version."""
+    D > 256) on the current stream, a tensor-core kernel in both dtypes: in
+    bf16 bf16 products, with P rounded to bf16 before P V as FlashAttention
+    does; in f32 split TF32 products (three TF32 products for each f32 one,
+    f32-accurate). A CPU tensor runs the plain version."""
     if not _check_kernel_args("flash_attention_fwd", q, k, v):
         return flash_attention_fwd_reference(q, k, v, causal, scale)
     from ._build import check_launch, load_library

@@ -5,7 +5,9 @@ The same inputs, made with numpy from a seed, go through the JAX
 runs it on the CPU) and through the port's ``flash_attention`` on CPU
 tensors, which is the kernel's plain version. A plain computation that
 rounds where the card's bf16 kernel rounds is held against the JAX kernel
-too, within the card's bf16 tolerance. The kernel itself is held against
+too, within the card's bf16 tolerance, and one that computes the products
+as the card's f32 kernel does (split TF32) within the card's f32
+tolerance. The kernel itself is held against
 the plain version on the card by tests/test_torch_kernels_cuda.py.
 """
 
@@ -19,6 +21,7 @@ from flexflow_tpu.kernels import flash_attention as jfa
 from flexflow_tpu.parallel.ring_attention import single_device_attention
 from flexflow_tpu_torch import kernels as tkernels
 from flexflow_tpu_torch.kernels import flash_attention as tfa
+from test_torch_flash_attention_bwd import _tf32_matmul
 
 # f32 on both sides, same algorithm, different summation order: a few
 # f32 ulps on outputs of magnitude ~1
@@ -140,6 +143,48 @@ def test_bf16_kernel_rounding_is_within_the_card_tolerance(causal, d):
     err = np.abs(got.float().numpy() - want).max()
     assert err <= 2 ** -7 * np.abs(want).max(), f"{err:.3g} of {np.abs(want).max():.3g}"
     np.testing.assert_allclose(lse.numpy(), np.asarray(res[4]), rtol=0, atol=1e-4)
+
+
+def _fwd_as_the_f32_kernel_rounds(q, k, v, causal, scale, passes):
+    """The forward as the f32 tensor-core kernel computes it
+    (csrc/flash_attention_fwd.cu, flash_attention_tf32.cuh): Q scaled in
+    f32 before its products, as ``_fwd_kernel`` scales it; S = (scale Q)
+    K^T and P V on TF32 operands, ``passes`` products for each f32 one
+    (three: split TF32); masked p exactly 0, l summed over the f32 p, the
+    softmax in f32; lse = m + log l."""
+    s = _tf32_matmul(q * scale, k.transpose(-1, -2), passes)
+    keep = (tfa._causal_keep(s.shape[-2], s.shape[-1], s.device) if causal
+            else torch.ones(s.shape[-2:], dtype=torch.bool))
+    m = s.masked_fill(~keep, float("-inf")).amax(dim=-1, keepdim=True)
+    p = torch.where(keep, torch.exp(s - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    return _tf32_matmul(p, v, passes) / l, (m + torch.log(l)).transpose(-1, -2)
+
+
+@pytest.mark.parametrize("sq,skv,d,causal", [
+    (64, 72, 32, False), (64, 72, 32, True), (32, 72, 64, False), (32, 72, 64, True),
+    (96, 40, 64, True), (64, 40, 64, False)])
+def test_f32_split_tf32_forward_is_within_the_card_tolerance(sq, skv, d, causal):
+    """Split TF32 products (three TF32 products for each f32 one, as the
+    card's f32 forward does them) keep the output within 1e-4 of its
+    largest element, and lse within 1e-4, of the JAX kernel; one TF32
+    product each does not, so the tolerance catches a kernel that drops the
+    correction products. Skv 72 and 40 are not multiples of the kernel's
+    key tiles, and Sq != Skv under the top-left causal mask."""
+    bh = 2
+    rng = np.random.default_rng(d + skv + causal)
+    q, k, v = (rng.normal(size=(bh, s, d)).astype(np.float32) for s in (sq, skv, skv))
+    scale = d ** -0.5
+    want, res = jfa._flash_fwd(*(jnp.asarray(a) for a in (q, k, v)), causal, scale, 32, True)
+    want, want_lse = np.asarray(want), np.asarray(res[4])
+    errs = {}
+    for passes in (3, 1):
+        out, lse = _fwd_as_the_f32_kernel_rounds(
+            *(torch.from_numpy(a) for a in (q, k, v)), causal, scale, passes)
+        errs[passes] = (np.abs(out.numpy() - want).max() / np.abs(want).max(),
+                        np.abs(lse.numpy() - want_lse).max())
+    assert errs[3][0] <= 1e-4 and errs[3][1] <= 1e-4, errs[3]
+    assert errs[1][0] > 1e-4, errs[1]
 
 
 @pytest.mark.parametrize("sq,skv", [(36, 64), (64, 20), (4, 4)])

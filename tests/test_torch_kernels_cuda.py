@@ -150,18 +150,67 @@ def test_f32_bwd_kernels_carry_a_nan_as_the_plain_version(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [False, True])
-def test_bf16_fwd_kernel_is_deterministic(card, causal):
+def test_bf16_fwd_kernel_is_deterministic(card, causal, dtype):
     """The tensor-core forward owns its output tiles: two launches on the
-    same inputs agree bit for bit, ragged and unaligned widths included."""
+    same inputs agree bit for bit, ragged and unaligned widths included, in
+    both dtypes (f32: the split-TF32 kernel)."""
     rng = np.random.default_rng(10)
-    for sq, skv, d in ((512, 512, 64), (200, 72, 100), (72, 200, 256), (200, 200, 20)):
-        q = _randn(rng, (4, sq, d), card, torch.bfloat16)
-        k, v = (_randn(rng, (4, skv, d), card, torch.bfloat16) for _ in range(2))
+    for sq, skv, d in ((512, 512, 64), (200, 72, 100), (72, 200, 256), (200, 200, 20),
+                       (37, 10, 30)):
+        q = _randn(rng, (4, sq, d), card, dtype)
+        k, v = (_randn(rng, (4, skv, d), card, dtype) for _ in range(2))
         first = tfa.flash_attention_fwd(q, k, v, causal, d ** -0.5)
         second = tfa.flash_attention_fwd(q, k, v, causal, d ** -0.5)
         for name, a, b in zip(("out", "lse"), first, second):
             assert torch.equal(a, b), (sq, skv, d, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [32, 64, 128, 256])
+@pytest.mark.parametrize("bh,sq,skv,causal", [
+    (3, 1, 1, False), (3, 1, 1, True), (3, 10, 10, True), (3, 37, 37, False),
+    (3, 37, 37, True), (3, 10, 37, True), (3, 37, 10, True), (3, 37, 10, False),
+    (3, 512, 200, True), (3, 200, 512, False), (65536 + 8, 16, 16, True)])
+def test_f32_fwd_kernel_at_every_width_matches_plain(card, width, bh, sq, skv, causal):
+    """The split-TF32 forward at each padded width it is built for, and at
+    D = width - 3 (columns past D zero; rows of a stride no multiple of 4,
+    loaded element by element): out within 1e-4 of its largest element and
+    lse within 1e-4 of the plain version's, at lengths
+    no multiple of 8 or of the key tiles, Sq != Skv under the top-left
+    causal mask, and B*H above 65535; one launch a call."""
+    rng = np.random.default_rng(width + sq + skv + causal)
+    for d in (width, width - 3):
+        q = _randn(rng, (bh, sq, d), card, torch.float32)
+        k, v = (_randn(rng, (bh, skv, d), card, torch.float32) for _ in range(2))
+        before = tkernels.launch_counts()["flash_attention_fwd"]
+        out, lse = tfa.flash_attention_fwd(q, k, v, causal, d ** -0.5)
+        torch.cuda.synchronize()
+        assert tkernels.launch_counts()["flash_attention_fwd"] == before + 1
+        want_out, want_lse = tfa.flash_attention_fwd_reference(q, k, v, causal, d ** -0.5)
+        err = (out - want_out).abs().max().item()
+        assert err <= 1e-4 * want_out.abs().max().item(), (d, err)
+        assert (lse - want_lse).abs().max().item() <= 1e-4, d
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_f32_fwd_kernel_carries_a_nan_as_the_plain_version(card, causal):
+    """A NaN in q makes its row of the output and its lse NaN, as in the
+    plain version, and leaves every other row within tolerance: the
+    split-TF32 kernel's split of a NaN stays NaN."""
+    rng = np.random.default_rng(15)
+    q, k, v = (_randn(rng, (2, 72, 64), card, torch.float32) for _ in range(3))
+    q[1, 9, 5] = float("nan")
+    out, lse = tfa.flash_attention_fwd(q, k, v, causal, 0.125)
+    want_out, want_lse = tfa.flash_attention_fwd_reference(q, k, v, causal, 0.125)
+    torch.cuda.synchronize()
+    for name, a, w in (("out", out, want_out), ("lse", lse, want_lse)):
+        nan = torch.isnan(w)
+        assert nan.any() and torch.equal(torch.isnan(a), nan), name
+        assert (a[~nan] - w[~nan]).abs().max().item() <= 1e-4 * max(
+            1.0, w[~nan].abs().max().item()), name
 
 
 @pytest.mark.cuda
@@ -373,6 +422,30 @@ def test_row_gather_sum_kernel_matches_plain(card, d, k, dtype):
     torch.cuda.synchronize()
     assert tkernels.launch_counts()["row_gather_sum"] == before + 1
     assert got.dtype == dtype and got.shape == (64, d)
+    torch.testing.assert_close(got, tmk.row_gather_sum_reference(x, idx, w),
+                               rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nb,d,k", [(65, 784, 2), (1, 784, 2), (33, 1000, 3), (65, 13, 2),
+                                    (129, 4096, 1), (7, 100, 9)])
+def test_row_gather_sum_kernel_across_block_edges(card, nb, d, k, dtype):
+    """One thread a (row, vector) pair: output rows and vectors that end
+    inside a block (nb 65 at d 784 is 65 x 196 f32 vectors, 49.8 blocks of
+    256), one row, k of 1 to 9 (unrolled for 1 and 2, in groups of four
+    beyond) and the scalar path (d 13, and d 100 in bf16), bit for bit."""
+    rng = np.random.default_rng(nb + d + k)
+    x = _moe_inputs(rng, card, dtype, 70, d)
+    idx = torch.from_numpy(rng.integers(0, 70, size=(nb, k)).astype(np.int32)).to(card)
+    w = torch.from_numpy(rng.normal(size=(nb, k)).astype(np.float32)).to(card)
+    w[0, 0] = 0.0
+    idx[-1, -1] = 1  # the non-finite row, in the last output row
+    before = tkernels.launch_counts()["row_gather_sum"]
+    got = tmk.row_gather_sum(x, idx, w)
+    torch.cuda.synchronize()
+    assert tkernels.launch_counts()["row_gather_sum"] == before + 1
+    assert got.dtype == dtype and got.shape == (nb, d)
     torch.testing.assert_close(got, tmk.row_gather_sum_reference(x, idx, w),
                                rtol=0, atol=0, equal_nan=True)
 
