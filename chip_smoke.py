@@ -12,7 +12,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    cuobjdump reads them from the loaded library; the 24 tensor-core
    instances (the bf16 forward, dq and dkv and the split-TF32 f32
    forward, dq and dkv at padded head dims 32/64/128/256) must be there,
-   with no stack frame (no spill) up to the padded head dim 128;
+   with no stack frame (no spill) up to the padded head dim 128, and the
+   12 instances of the tensor-core forward above head dim 256 (bf16 and
+   split TF32 at group widths 144/192/256, Q resident in shared memory or
+   streamed with K);
 3. kernels: each kernel at the shapes the main path gives it, held against
    its plain PyTorch version, timed beside the plain version, the one
    PyTorch call that computes the same function, and its bound: the
@@ -21,8 +24,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    each held bitwise equal over two runs, the profiler showing which
    forward and backward kernels ran; then the ragged and
    repaired cases (S = 200, Sq != Skv at 10 and 37, D = 96, D = 256,
-   B*H > 65535, and D = 264 and 512, causal and not, through the kernels
-   chunked over the head dim);
+   B*H > 65535, and D = 264 and 512, causal and not: the tensor-core
+   forward above head dim 256, which the profiler must show ran, and the
+   backward kernels chunked over the head dim);
 4. serving: the reference Transformer (build_transformer at the
    TransformerConfig defaults: seq 512, hidden 1024, 16 heads, 12 layers)
    at batch 8, served through InferenceEngine.infer_async, in float32 and
@@ -225,6 +229,17 @@ def phase_build() -> None:
     spills = {k: u for k, u in mma.items()
               if k[1] <= 128 and (u.get("STACK", 1) or u.get("LOCAL", 1))}
     check(not spills, f"tensor-core kernels spill at width <= 128: {spills}")
+    # the tensor-core forward above head dim 256, bf16 and split TF32, at
+    # each group width (its first template argument), Q resident (the last)
+    # or streamed
+    wide = {(m.group(1), tuple(int(a) for a in re.findall(r"L[ib](\d+)E", m.group(2)))): u
+            for mangled, u in usage.items()
+            for m in [re.search(r"(flash_fwd_kernel_wide_(?:mma|tf32x3))I((?:L[ib]\d+E)+)",
+                                mangled)] if m}
+    check(len(wide) == 12, f"cuobjdump listed {sorted(wide)} of the 12 wide forward instances")
+    for (kern, args), u in sorted(wide.items()):
+        print(f"  wide forward {kern}<{', '.join(map(str, args))}>: {u.get('REG')} registers, "
+              f"stack {u.get('STACK')} bytes, local {u.get('LOCAL')} bytes")
     sys.stdout.flush()
 
 
@@ -300,18 +315,24 @@ def check_fwd(fa, q, k, v, causal: bool, scale: float, what: str) -> tuple:
 
 
 # the forward kernel of each dtype: bf16 products in bf16, split TF32
-# products in f32, both on the tensor cores
+# products in f32, both on the tensor cores; above head dim 256 the wide
+# forward (csrc/flash_attention_fwd_wide.cu)
 FWD_KERNEL = {torch.float32: "flash_fwd_kernel_tf32x3", torch.bfloat16: "flash_fwd_kernel_mma"}
+WIDE_FWD_KERNEL = {torch.float32: "flash_fwd_kernel_wide_tf32x3",
+                   torch.bfloat16: "flash_fwd_kernel_wide_mma"}
 
 
-def fwd_kernel_ms(fn, dtype: torch.dtype, what: str, iters: int = 10) -> float:
+def fwd_kernel_ms(fn, dtype: torch.dtype, what: str, iters: int = 10,
+                  d: int = HEAD_DIM) -> float:
     """Device ms a call of ``fn`` spends in the forward kernel, by the
     profiler's kernel names; fails unless the dtype's tensor-core kernel
-    ran (FWD_KERNEL) and no other forward kernel."""
+    for head dim ``d`` ran (FWD_KERNEL, WIDE_FWD_KERNEL above 256) and no
+    other forward kernel."""
+    want = (FWD_KERNEL if d <= 256 else WIDE_FWD_KERNEL)[dtype]
     spans = [(n, ms) for n, ms in device_spans(fn, iters) if "flash_fwd" in n]
     names = {n for n, _ in spans}
-    check(bool(names) and all(FWD_KERNEL[dtype] in n for n in names),
-          f"{what}: the forward ran {names}, want only {FWD_KERNEL[dtype]}")
+    check(bool(names) and all(want in n for n in names),
+          f"{what}: the forward ran {names}, want only {want}")
     return sum(ms for _, ms in spans) / iters
 
 
@@ -518,9 +539,10 @@ def kernel_cases(F, fa, gen, cases) -> list:
     timed beside the plain version, SDPA (top-left causal, as the kernels)
     and the bound. Kernel and SDPA times are device time by the profiler
     (at the smaller cases a call's host work outlasts its kernels), which
-    up to D 256 also shows which kernels ran; the plain versions' by CUDA
-    events. SDPA gets (B*H / 8, 8, S, D) views: its kernels put B and H on
-    grid dimensions that stop at 65535."""
+    shows which forward ran at every D and which backward up to D 256;
+    the plain versions' by CUDA events. SDPA gets (B*H / 8, 8, S, D)
+    views: its kernels put B and H on grid dimensions that stop at
+    65535."""
     rows = []
     for dtype, bh, s, d, causal in cases:
         sq, skv = s if isinstance(s, tuple) else (s, s)
@@ -536,17 +558,22 @@ def kernel_cases(F, fa, gen, cases) -> list:
         q4, k4, v4 = (as_bhsd(t, 8) for t in (q, k, v))
         fwd = lambda: fa.flash_attention_fwd(q, k, v, causal, sc)  # noqa: E731
         bwd = lambda: fa.flash_attention_bwd(q, k, v, out, g, lse, causal, sc)  # noqa: E731
-        one_pass = d <= fa.MAX_HEAD_DIM
         shape = dict(bh=bh, s=sq, d=d, skv=skv)
+        # dq and dkv device ms; above head dim 256 by the chunked kernels' names
+        split = (bwd_kernel_ms(bwd, dtype, name) if d <= fa.MAX_HEAD_DIM else
+                 dict(zip(("dq", "dkv"), kernel_ms_by_name(
+                     bwd, ("flash_bwd_dq_wide_kernel", "flash_bwd_dkv_wide_kernel")).values())))
         case = dict(
-            fwd_ms=fwd_kernel_ms(fwd, dtype, name) if one_pass else device_ms(fwd, 10),
+            fwd_ms=fwd_kernel_ms(fwd, dtype, name, d=d),
             fwd_plain_ms=time_ms(
                 lambda: fa.flash_attention_fwd_reference(q, k, v, causal, sc), 3),
             fwd_library_ms=device_ms(lambda: F.scaled_dot_product_attention(
                 q4, k4, v4, is_causal=causal, scale=sc), 10),
             fwd_bound_ms=attention_bound(dtype, causal, *WORK["fwd"], **shape)[0],
-            bwd_ms=(sum(bwd_kernel_ms(bwd, dtype, name).values()) if one_pass
-                    else device_ms(bwd, 10)),
+            bwd_ms=split["dq"] + split["dkv"],
+            dq_ms=split["dq"], dkv_ms=split["dkv"],
+            dq_bound_ms=attention_bound(dtype, causal, *WORK["dq"], **shape)[0],
+            dkv_bound_ms=attention_bound(dtype, causal, *WORK["dkv"], **shape)[0],
             bwd_plain_ms=time_ms(lambda: fa.flash_attention_bwd_reference(
                 q, k, v, out, g, lse, causal, sc), 3),
             bwd_library_ms=sdpa_bwd_ms(F, q, k, v, g, causal, sc, heads=8),
@@ -556,10 +583,13 @@ def kernel_cases(F, fa, gen, cases) -> list:
         print(f"kernel case {name}: out err {ferr['out']:.3g}, dq/dk/dv err "
               f"{berr['dq']:.3g}/{berr['dk']:.3g}/{berr['dv']:.3g}; " + "; ".join(
                   f"{p} {case[p + '_ms']:.4f} ms, plain {case[p + '_plain_ms']:.4f}, "
-                  f"sdpa {case[p + '_library_ms']:.4f}, bound "
+                  f"sdpa {case[p + '_library_ms']:.4f} "
+                  f"({case[p + '_ms'] / case[p + '_library_ms']:.2f}x sdpa), bound "
                   f"{case[p + '_bound_ms']:.4f} "
                   f"({case[p + '_bound_ms'] / case[p + '_ms']:.1%} of bound)"
-                  for p in ("fwd", "bwd")), flush=True)
+                  for p in ("fwd", "bwd"))
+              + f"; dq {case['dq_ms']:.4f} ms (bound {case['dq_bound_ms']:.4f}), dkv "
+              f"{case['dkv_ms']:.4f} ms (bound {case['dkv_bound_ms']:.4f})", flush=True)
     return rows
 
 
@@ -587,10 +617,13 @@ def random_params(ff, seed: int) -> dict:
 
 
 # kernel classes of a profiled window: (class, test on the kernel's name);
-# the forward by kernel: split TF32 (f32), bf16, any other
+# the forward by kernel: split TF32 (f32), bf16, each above head dim 256,
+# any other
 FWD_CLASSES = (
     ("flash_attention_fwd_tf32x3", lambda n: "flash_fwd_kernel_tf32x3" in n),
     ("flash_attention_fwd_mma", lambda n: "flash_fwd_kernel_mma" in n),
+    ("flash_attention_fwd_wide_tf32x3", lambda n: "flash_fwd_kernel_wide_tf32x3" in n),
+    ("flash_attention_fwd_wide_mma", lambda n: "flash_fwd_kernel_wide_mma" in n),
     ("flash_attention_fwd", lambda n: "flash_fwd" in n),
 )
 SERVE_CLASSES = FWD_CLASSES + (
@@ -1454,6 +1487,10 @@ def main() -> int:
                       + train_launches["flash_attention_fwd"],
                       serving_launches=sum(r["launches"] for r in serve),
                       training_launches=train_launches["flash_attention_fwd"],
+                      wide_source="flexflow_tpu_torch/kernels/csrc/flash_attention_fwd_wide.cu",
+                      wide_route="D > 256: flash_fwd_kernel_wide_mma (bf16) and "
+                                 "flash_fwd_kernel_wide_tf32x3 (f32, split TF32), on the "
+                                 "tensor cores; no main path launches them",
                       cases=kern["cases"]),
         _kernel_entry("flash_attention_bwd_dq", bwd_src,
                       "flexflow_tpu/kernels/flash_attention.py:59", kern["dq"],

@@ -36,8 +36,8 @@ _SIGNATURES = {
     "ff_flash_attention_bwd_dq": ([_P] * 8 + [_I] * 4 + [_F, _I, _I, _P], _I),
     # q, k, v, o, g, lse, delta, dk, dv, bh, sq, skv, d, scale, causal, dtype, stream
     "ff_flash_attention_bwd_dkv": ([_P] * 9 + [_I] * 4 + [_F, _I, _I, _P], _I),
-    # the same three for head dims above 256 (flash_attention_wide.cu), the
-    # backward ones without delta
+    # the same three for head dims above 256 (flash_attention_fwd_wide.cu,
+    # flash_attention_wide.cu), the backward ones without delta
     "ff_flash_attention_fwd_wide": ([_P] * 5 + [_I] * 4 + [_F, _I, _I, _P], _I),
     "ff_flash_attention_bwd_dq_wide": ([_P] * 7 + [_I] * 4 + [_F, _I, _I, _P], _I),
     "ff_flash_attention_bwd_dkv_wide": ([_P] * 8 + [_I] * 4 + [_F, _I, _I, _P], _I),

@@ -1,33 +1,34 @@
-// Flash attention for head dims above 256 on NVIDIA Hopper (sm_90a): the
-// forward and both backward kernels, chunked over the head dim.
+// Flash-attention backward for head dims above 256 on NVIDIA Hopper
+// (sm_90a): the dq and dkv kernels, chunked over the head dim, on the CUDA
+// cores. The forward for D > 256 runs on the tensor cores in
+// flash_attention_fwd_wide.cu.
 //
-// Replaces, for D > 256, the same TPU kernels as flash_attention_fwd.cu and
-// flash_attention_bwd.cu: `_fwd_kernel`, `_dq_kernel` and `_dkv_kernel`
-// (flexflow_tpu/kernels/flash_attention.py:43, :59, :79), which take any D.
-// The math is theirs, line for line (see those files' notes): S = (scale * Q)
-// K^T with the -1e30 causal mask, an online softmax in the forward, and
-// P = exp(S - lse), dP = dO V^T, delta = rowsum(dO * O), dS = P * (dP - delta)
-// in the backward; f32 arithmetic, outputs in the input type.
+// Replaces, for D > 256, the same TPU kernels as flash_attention_bwd.cu:
+// `_dq_kernel` and `_dkv_kernel` (flexflow_tpu/kernels/flash_attention.py:59,
+// :79), which take any D. The math is theirs, line for line (see that file's
+// notes): S = (scale * Q) K^T with the -1e30 causal mask, P = exp(S - lse),
+// dP = dO V^T, delta = rowsum(dO * O), dS = P * (dP - delta); f32
+// arithmetic, outputs in the input type. They read the forward's lse and
+// compute delta from O themselves.
 //
 // Why separate kernels. The D <= 256 kernels stage whole (rows, D) tiles in
-// f32 shared memory; at a padded width of 512 even 32-row K/V tiles with a
+// shared memory; at a padded width of 512 even 32-row K/V tiles with a
 // 64-row Q tile pass a block's 227 KB. Here every block owns one chunk of
-// kChunk = 128 output columns (O, dQ, or dK and dV) and loops over the head
-// dim in chunks of kChunk for the products that reduce over it: S (and dP in
-// the backward) accumulate in registers across the chunks, then the block's
-// own column chunk of V (forward), K (dq) or Q and dO (dkv) is staged and the
-// output chunk accumulates. Blocks of the same rows recompute S and dP once
-// per output chunk (ceil(D / 128) times), so at D = 512 these kernels do
-// about 4x the products of one pass: a simple, right kernel first. The tiles
-// take 81 KB (forward), 146 KB (dq) and 162 KB (dkv) of shared memory, and
-// the head dim loop has no upper limit.
+// kChunk = 128 output columns (dQ, or dK and dV) and loops over the head dim
+// in chunks of kChunk for the products that reduce over it: S and dP
+// accumulate in registers across the chunks, then the block's own column
+// chunk of K (dq) or Q and dO (dkv) is staged and the output chunk
+// accumulates. Blocks of the same rows recompute S and dP once per output
+// chunk (ceil(D / 128) times), so at D = 512 these kernels do about 4x the
+// products of one pass: a simple, right kernel first. The tiles take 146 KB
+// (dq) and 162 KB (dkv) of shared memory, and the head dim loop has no upper
+// limit.
 //
 // Blocks are numbered along x only: ((bh * tiles) + tile) * chunks + chunk.
 // Bound at B*H = 128, S = 512, D = 512 (H100 SXM, 67 TFLOP/s f32 CUDA cores,
-// 989 TFLOP/s bf16, 3.35 TB/s): the forward's 2 products are 68.7 GFLOP,
-// 1.03 ms in f32 (bound by operations) and 0.069 ms in bf16, where its 268 MB
-// of q, k, v and o bound it at 0.080 ms; the backward's 5 products take 2.5x
-// those operations. chip_smoke.py prints each case's bound beside its time.
+// 989 TFLOP/s bf16, 3.35 TB/s): the backward's 5 products are 172 GFLOP,
+// 2.6 ms in f32 on the CUDA cores (bound by operations) and 0.17 ms in bf16.
+// chip_smoke.py prints each case's bound beside its time.
 
 #include <math.h>
 
@@ -45,7 +46,6 @@ constexpr int LDT = 65;         // padded row stride of the 64 x 64 p/dS tiles
 constexpr int kRows = 4;        // rows of a 64-row tile per thread
 constexpr int kCols = 4;        // columns of a 64-column score tile per thread
 constexpr int DC = kChunk / 16;  // output columns of a chunk per thread
-constexpr float kMaskValue = -1e30f;
 
 // Stage rows [r0, r0 + 64) and columns [c0, c0 + kChunk) of a (rows, d)
 // matrix into a [64][LD] f32 tile, times `mul`; rows past `rows` and columns
@@ -122,105 +122,9 @@ __device__ __forceinline__ void tile_times_chunk(float (&acc)[kRows][DC], const 
   }
 }
 
-constexpr size_t kFwdSmem = sizeof(float) * (size_t)(2 * 64 * LD + 64 * LDT);
 constexpr size_t kDqSmem = sizeof(float) * (size_t)(4 * 64 * LD + 64 * LDT + 2 * kBlockQ);
 constexpr size_t kDkvSmem =
     sizeof(float) * (size_t)(4 * 64 * LD + 2 * 64 * LDT + 2 * kBlockQ);
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
-                      int sq, int skv, int d, float scale, int causal) {
-  extern __shared__ float smem[];
-  float* qs = smem;           // [64][LD], a chunk of scale * Q
-  float* ks = qs + 64 * LD;   // [64][LD], a chunk of K, then the block's chunk of V
-  float* ps = ks + 64 * LD;   // [64][LDT]
-
-  const int nchunk = (d + kChunk - 1) / kChunk;
-  const int nq = (sq + kBlockQ - 1) / kBlockQ;
-  const int chunk = blockIdx.x % nchunk;
-  const int tile = blockIdx.x / nchunk;
-  const int bh = tile / nq;
-  const int q0 = (nq - 1 - tile % nq) * kBlockQ;  // the most causal work first
-  const int c0 = chunk * kChunk;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const T* qb = q + (size_t)bh * sq * d;
-  const T* kb = k + (size_t)bh * skv * d;
-  const T* vb = v + (size_t)bh * skv * d;
-
-  float m[kRows], l[kRows], acc[kRows][DC];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DC; ++j) acc[i][j] = 0.f;
-  }
-
-  const int kv_end = causal ? min(skv, q0 + kBlockQ) : skv;
-  for (int k0 = 0; k0 < kv_end; k0 += kBlockK) {
-    float s[kRows][kCols] = {};
-    for (int dc = 0; dc < d; dc += kChunk) {
-      __syncthreads();  // the previous chunk's (or tile's) reads are done
-      load_chunk<T>(qs, qb, q0, sq, dc, d, scale);
-      load_chunk<T>(ks, kb, k0, skv, dc, d, 1.f);
-      __syncthreads();
-      chunk_dot(s, qs, ks);
-    }
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int qpos = q0 + ty + 16 * i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        if (kpos >= skv) {
-          s[i][j] = -INFINITY;
-        } else if (causal && qpos < kpos) {
-          s[i][j] = kMaskValue;
-        }
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        sum += p;
-        ps[(ty + 16 * i) * LDT + tx + 16 * j] = p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[i] = l[i] * alpha + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < DC; ++j) acc[i][j] *= alpha;
-    }
-    __syncthreads();  // S's reads of ks are done; ps is written
-    load_chunk<T>(ks, vb, k0, skv, c0, d, 1.f);
-    __syncthreads();
-    tile_times_chunk(acc, ps, ks);
-  }
-
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int r = q0 + ty + 16 * i;
-    if (r >= sq) continue;
-    T* orow = o + ((size_t)bh * sq + r) * d;
-#pragma unroll
-    for (int j = 0; j < DC; ++j) {
-      const int c = c0 + tx + 16 * j;
-      if (c < d) orow[c] = from_f32<T>(acc[i][j] / l[i]);
-    }
-    if (chunk == 0 && tx == 0) lse[(size_t)bh * sq + r] = m[i] + logf(l[i]);
-  }
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -391,21 +295,6 @@ unsigned wide_blocks(int bh, int s, int tile, int d) {
 }
 
 template <typename T>
-cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-                       int bh, int sq, int skv, int d, float scale, int causal,
-                       cudaStream_t stream) {
-  const unsigned blocks = wide_blocks(bh, sq, kBlockQ, d);
-  if (blocks == 0) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kFwdSmem);
-  if (err != cudaSuccess) return err;
-  flash_fwd_wide_kernel<T><<<blocks, kThreads, kFwdSmem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), static_cast<float*>(lse), sq, skv, d, scale, causal);
-  return cudaGetLastError();
-}
-
-template <typename T>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* o,
                       const void* g, const void* lse, void* dq, int bh, int sq, int skv,
                       int d, float scale, int causal, cudaStream_t stream) {
@@ -442,21 +331,9 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
 
 extern "C" {
 
-// The entries of flash_attention_fwd.cu and flash_attention_bwd.cu, for any
-// head dim d >= 1 (the wrappers call these above 256). dtype: 0 = float32,
-// 1 = bfloat16. Each returns the cudaError_t of its launch.
-int ff_flash_attention_fwd_wide(const void* q, const void* k, const void* v, void* o,
-                                void* lse, int bh, int sq, int skv, int d, float scale,
-                                int causal, int dtype, void* stream) {
-  if (bh <= 0 || sq <= 0 || skv <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)launch_fwd<float>(q, k, v, o, lse, bh, sq, skv, d, scale, causal, s);
-  if (dtype == 1)
-    return (int)launch_fwd<__nv_bfloat16>(q, k, v, o, lse, bh, sq, skv, d, scale, causal, s);
-  return (int)cudaErrorInvalidValue;
-}
-
+// The entries of flash_attention_bwd.cu for any head dim d >= 1 (the
+// wrapper calls these above 256). dtype: 0 = float32, 1 = bfloat16. Each
+// returns the cudaError_t of its launch.
 int ff_flash_attention_bwd_dq_wide(const void* q, const void* k, const void* v,
                                    const void* o, const void* g, const void* lse, void* dq,
                                    int bh, int sq, int skv, int d, float scale, int causal,

@@ -4,9 +4,11 @@ PyTorch counterpart of ``flexflow_tpu/kernels/flash_attention.py``. The
 TPU's ``_fwd_kernel`` becomes ``csrc/flash_attention_fwd.cu`` and its
 ``_dq_kernel``/``_dkv_kernel`` become ``csrc/flash_attention_bwd.cu``, all
 on the tensor cores up to head dim 256 (f32 with split TF32 products, never
-single-pass TF32); head dims above 256 go to the chunked kernels of
-``csrc/flash_attention_wide.cu`` (the source notes give the designs and
-the bounds on an H100). Like the JAX
+single-pass TF32). Above 256 the forward runs on the tensor cores too, in
+``csrc/flash_attention_fwd_wide.cu`` (the head dim cut across warp groups
+that swap their partial scores), and the backward in the kernels of
+``csrc/flash_attention_wide.cu``, chunked over the head dim (the source
+notes give the designs and the bounds on an H100). Like the JAX
 kernel, every function here takes any head dim. This module holds:
 
 * :func:`flash_attention` — the public entry on (B, S, H, D) tensors, with
@@ -51,7 +53,7 @@ def _check_head_dim(d: int) -> None:
 
 def _entry(lib, name: str, d: int):
     """The C entry of a kernel for head dim ``d``: the one-pass kernels up to
-    :data:`MAX_HEAD_DIM`, the chunked ones (``..._wide``) above it."""
+    :data:`MAX_HEAD_DIM`, the ``..._wide`` ones above it."""
     return getattr(lib, name if d <= MAX_HEAD_DIM else f"{name}_wide")
 
 
@@ -141,8 +143,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """The forward kernel's wrapper: q (BH, Sq, D), k/v (BH, Skv, D) ->
     (out, lse) as :func:`flash_attention_fwd_reference` returns them. A
-    CUDA tensor launches ``csrc/flash_attention_fwd.cu`` (``_wide.cu`` for
-    D > 256) on the current stream, a tensor-core kernel in both dtypes: in
+    CUDA tensor launches ``csrc/flash_attention_fwd.cu``
+    (``flash_attention_fwd_wide.cu`` for D > 256) on the current stream, a
+    tensor-core kernel in both dtypes at every D: in
     bf16 bf16 products, with P rounded to bf16 before P V as FlashAttention
     does; in f32 split TF32 products (three TF32 products for each f32 one,
     f32-accurate). A CPU tensor runs the plain version."""

@@ -104,13 +104,36 @@ def test_flash_attention_bf16_matches_jax_kernel(causal):
                                **BF16_TOL)
 
 
+# groups of warps a block of the forward above head dim 256, each summing S
+# over its own slice of D (csrc/flash_attention_fwd_wide.cu)
+WIDE_GROUPS = 2
+
+
+def _scores(a, b, mm):
+    """S = a b^T as the card's forward sums it: over all of D up to head dim
+    256; above it, one partial S a group of warps over its slice of D (D / 2
+    rounded up to 16 columns), the partials summed group 0 first."""
+    d = a.shape[-1]
+    if d <= tfa.MAX_HEAD_DIM:
+        return mm(a, b.transpose(-1, -2))
+    width = -(-d // (16 * WIDE_GROUPS)) * 16
+    parts = [mm(a[..., g * width:(g + 1) * width], b[..., g * width:(g + 1) * width]
+                .transpose(-1, -2)) for g in range(WIDE_GROUPS)]
+    s = parts[0]
+    for part in parts[1:]:
+        s = s + part
+    return s
+
+
 def _fwd_as_the_bf16_kernel_rounds(q, k, v, causal, scale):
-    """The forward rounded where the bf16 tensor-core kernel rounds it
-    (csrc/flash_attention_fwd.cu): S in f32 from the bf16 Q and K with
-    scale on S, masked p exactly 0, l summed over the f32 p, P rounded to
-    bf16 before P V, O / l in f32 rounded to bf16; lse in f32."""
+    """The forward rounded where the bf16 tensor-core kernels round it
+    (csrc/flash_attention_fwd.cu, and flash_attention_fwd_wide.cu above
+    head dim 256): S in f32 from the bf16 Q and K (above 256 as the sum of
+    two partial S) with scale on S, masked p exactly 0, l summed over the
+    f32 p, P rounded to bf16 before P V, O / l in f32 rounded to bf16; lse
+    in f32."""
     qf, kf, vf = (t.float() for t in (q, k, v))
-    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    s = _scores(qf, kf, torch.matmul) * scale
     keep = (tfa._causal_keep(s.shape[-2], s.shape[-1], s.device) if causal
             else torch.ones(s.shape[-2:], dtype=torch.bool))
     m = s.masked_fill(~keep, float("-inf")).amax(dim=-1, keepdim=True)
@@ -120,15 +143,16 @@ def _fwd_as_the_bf16_kernel_rounds(q, k, v, causal, scale):
     return out.to(torch.bfloat16), (m + torch.log(l)).transpose(-1, -2)
 
 
-@pytest.mark.parametrize("d", [32, 64, 100])
+@pytest.mark.parametrize("d", [32, 64, 100, 264, 512])
 @pytest.mark.parametrize("causal", [False, True])
 def test_bf16_kernel_rounding_is_within_the_card_tolerance(causal, d):
-    """Rounding P to bf16 before P V, as the card's bf16 kernel does, keeps
+    """Rounding P to bf16 before P V, as the card's bf16 kernels do, keeps
     the output within chip_smoke.py's bf16 tolerance of the JAX kernel: 2^-7
     of the largest output element, one bf16 ulp at the largest magnitude
     (an absolute bound fails here: under causal the first rows are single
     values of V, |O| in [2, 4), where one ulp is 2^-6). lse within 1e-4.
-    Skv 72 is not a multiple of the kernel's 64-key tiles."""
+    Skv 72 is not a multiple of the kernels' 64-key tiles; D 264 and 512
+    sum S from two partials, as the forward above head dim 256 does."""
     bh, sq, skv = 2, 64, 72
     rng = np.random.default_rng(d + causal)
     q, k, v = (np.array(jnp.asarray(rng.normal(size=(bh, s, d)).astype(np.float32),
@@ -146,13 +170,14 @@ def test_bf16_kernel_rounding_is_within_the_card_tolerance(causal, d):
 
 
 def _fwd_as_the_f32_kernel_rounds(q, k, v, causal, scale, passes):
-    """The forward as the f32 tensor-core kernel computes it
-    (csrc/flash_attention_fwd.cu, flash_attention_tf32.cuh): Q scaled in
-    f32 before its products, as ``_fwd_kernel`` scales it; S = (scale Q)
-    K^T and P V on TF32 operands, ``passes`` products for each f32 one
-    (three: split TF32); masked p exactly 0, l summed over the f32 p, the
-    softmax in f32; lse = m + log l."""
-    s = _tf32_matmul(q * scale, k.transpose(-1, -2), passes)
+    """The forward as the f32 tensor-core kernels compute it
+    (csrc/flash_attention_fwd.cu, and flash_attention_fwd_wide.cu above
+    head dim 256; flash_attention_tf32.cuh): Q scaled in f32 before its products, as
+    ``_fwd_kernel`` scales it; S = (scale Q) K^T (above 256 the sum of two
+    partial S) and P V on TF32 operands, ``passes`` products for each f32
+    one (three: split TF32); masked p exactly 0, l summed over the f32 p,
+    the softmax in f32; lse = m + log l."""
+    s = _scores(q * scale, k, lambda a, b: _tf32_matmul(a, b, passes))
     keep = (tfa._causal_keep(s.shape[-2], s.shape[-1], s.device) if causal
             else torch.ones(s.shape[-2:], dtype=torch.bool))
     m = s.masked_fill(~keep, float("-inf")).amax(dim=-1, keepdim=True)
@@ -163,14 +188,16 @@ def _fwd_as_the_f32_kernel_rounds(q, k, v, causal, scale, passes):
 
 @pytest.mark.parametrize("sq,skv,d,causal", [
     (64, 72, 32, False), (64, 72, 32, True), (32, 72, 64, False), (32, 72, 64, True),
-    (96, 40, 64, True), (64, 40, 64, False)])
+    (96, 40, 64, True), (64, 40, 64, False), (64, 64, 264, False), (64, 64, 264, True),
+    (64, 72, 512, False), (96, 40, 512, True)])
 def test_f32_split_tf32_forward_is_within_the_card_tolerance(sq, skv, d, causal):
     """Split TF32 products (three TF32 products for each f32 one, as the
     card's f32 forward does them) keep the output within 1e-4 of its
     largest element, and lse within 1e-4, of the JAX kernel; one TF32
     product each does not, so the tolerance catches a kernel that drops the
-    correction products. Skv 72 and 40 are not multiples of the kernel's
-    key tiles, and Sq != Skv under the top-left causal mask."""
+    correction products. Skv 72 and 40 are not multiples of the kernels'
+    key tiles, and Sq != Skv under the top-left causal mask; D 264 and 512
+    sum S from two partials, as the forward above head dim 256 does."""
     bh = 2
     rng = np.random.default_rng(d + skv + causal)
     q, k, v = (rng.normal(size=(bh, s, d)).astype(np.float32) for s in (sq, skv, skv))
@@ -209,7 +236,8 @@ def test_any_head_dim_up_to_256_matches_jax_kernel(d):
 
 def test_unsupported_head_dim_is_rejected():
     """Head dims above 256 were once refused; now, as the JAX kernel does,
-    the port takes them (on the card through the kernels chunked over D):
+    the port takes them (on the card through flash_attention_fwd_wide.cu
+    and flash_attention_wide.cu):
     D = 264 against the JAX kernel, and only D < 1 is rejected."""
     q, k, v = _qkv(b=1, sq=8, skv=8, d=264)
     want = jfa.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),

@@ -290,6 +290,105 @@ def test_flash_kernels_above_head_dim_256_match_plain(card, sq, skv, causal, dty
         _check_grads(got, want, dtype, f"head dim {d}")
 
 
+# the forward above head dim 256 (csrc/flash_attention_fwd_wide.cu) by
+# dtype: bf16 products in bf16, split TF32 products in f32
+WIDE_FWD_KERNEL = {torch.float32: "flash_fwd_kernel_wide_tf32x3",
+                   torch.bfloat16: "flash_fwd_kernel_wide_mma"}
+
+
+def _check_fwd(out, lse, want_out, want_lse, dtype, what):
+    """out within chip_smoke.py's forward tolerance of the plain version (f32
+    1e-4 absolute, bf16 2^-7 of the largest |out|) and lse within 1e-4."""
+    assert out.dtype == dtype and out.shape == want_out.shape, what
+    out, want_out = out.float(), want_out.float()
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all(), what
+    tol = 1e-4 if dtype == torch.float32 else 2 ** -7 * want_out.abs().max().item()
+    err = (out - want_out).abs().max().item()
+    assert err <= tol, f"{what}: out err {err:.3g} (tol {tol:.3g})"
+    err = (lse - want_lse).abs().max().item()
+    assert err <= 1e-4, f"{what}: lse err {err:.3g}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,skv,causal", [
+    (128, 128, False), (72, 200, True), (200, 72, False), (200, 72, True), (37, 10, True)])
+def test_wide_fwd_kernel_matches_plain(card, sq, skv, causal, dtype):
+    """The tensor-core forward above head dim 256: D 263 and 300 (rows of
+    a stride no multiple of 8 or 4, loaded element by element; 300 takes
+    the 192-column groups), 264 and 512 (two groups of 144 and of 256
+    columns) and 1032 (past one block's 512 columns: three column chunks,
+    each computing S again), ragged Sq != Skv, causal and not; one launch a
+    call."""
+    rng = np.random.default_rng(16)
+    for d in (263, 264, 300, 512, 1032):
+        q = _randn(rng, (3, sq, d), card, dtype)
+        k, v = (_randn(rng, (3, skv, d), card, dtype) for _ in range(2))
+        before = tkernels.launch_counts()["flash_attention_fwd"]
+        out, lse = tfa.flash_attention_fwd(q, k, v, causal, d ** -0.5)
+        torch.cuda.synchronize()
+        assert tkernels.launch_counts()["flash_attention_fwd"] == before + 1
+        want_out, want_lse = tfa.flash_attention_fwd_reference(q, k, v, causal, d ** -0.5)
+        _check_fwd(out, lse, want_out, want_lse, dtype, f"head dim {d}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+def test_wide_fwd_kernel_is_deterministic(card, causal, dtype):
+    """Each block owns its output tile and its groups sum their partial S in
+    one fixed order: two launches agree bit for bit, out and lse."""
+    rng = np.random.default_rng(17)
+    for sq, skv, d in ((512, 512, 264), (512, 512, 512), (37, 10, 264), (200, 72, 1032)):
+        q = _randn(rng, (4, sq, d), card, dtype)
+        k, v = (_randn(rng, (4, skv, d), card, dtype) for _ in range(2))
+        first = tfa.flash_attention_fwd(q, k, v, causal, d ** -0.5)
+        second = tfa.flash_attention_fwd(q, k, v, causal, d ** -0.5)
+        for name, a, b in zip(("out", "lse"), first, second):
+            assert torch.equal(a, b), (sq, skv, d, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+def test_wide_fwd_kernel_carries_a_nan_as_the_plain_version(card, causal, dtype):
+    """A NaN in one row of q makes that row of the output and its lse NaN,
+    as in the plain version (the partial S of one group carries it into the
+    sum every group takes), and leaves every other row within tolerance."""
+    rng = np.random.default_rng(18)
+    q, k, v = (_randn(rng, (2, 72, 264), card, dtype) for _ in range(3))
+    q[1, 9, 200] = float("nan")
+    out, lse = tfa.flash_attention_fwd(q, k, v, causal, 264 ** -0.5)
+    want_out, want_lse = tfa.flash_attention_fwd_reference(q, k, v, causal, 264 ** -0.5)
+    torch.cuda.synchronize()
+    for name, a, w in (("out", out, want_out), ("lse", lse, want_lse)):
+        a, w = a.float(), w.float()
+        nan = torch.isnan(w)
+        assert nan.any() and torch.equal(torch.isnan(a), nan), name
+    keep = ~torch.isnan(want_lse)[..., 0, :, None].expand_as(want_out)
+    tol = 1e-4 if dtype == torch.float32 else 2 ** -7 * want_out[keep].float().abs().max()
+    assert (out[keep].float() - want_out[keep].float()).abs().max() <= tol
+    assert (lse - want_lse)[~torch.isnan(want_lse)].abs().max() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_fwd_runs_the_dtype_tensor_core_kernel(card, dtype):
+    """The profiler's kernel names show that a forward at D 264 ran the
+    dtype's tensor-core wide forward and no other forward kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(19)
+    q, k, v = (_randn(rng, (2, 64, 264), card, dtype) for _ in range(3))
+    tfa.flash_attention_fwd(q, k, v, True, 264 ** -0.5)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tfa.flash_attention_fwd(q, k, v, True, 264 ** -0.5)
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages() if "flash_fwd" in e.key}
+    assert names and all(WIDE_FWD_KERNEL[dtype] in n for n in names), names
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("sq,skv,causal", [
