@@ -12,10 +12,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    cuobjdump reads them from the loaded library; the 24 tensor-core
    instances (the bf16 forward, dq and dkv and the split-TF32 f32
    forward, dq and dkv at padded head dims 32/64/128/256) must be there,
-   with no stack frame (no spill) up to the padded head dim 128, and the
-   12 instances of the tensor-core forward above head dim 256 (bf16 and
-   split TF32 at group widths 144/192/256, Q resident in shared memory or
-   streamed with K);
+   with no stack frame (no spill) up to the padded head dim 128, the 12
+   instances of the tensor-core forward above head dim 256 (bf16 and split
+   TF32 at group widths 144/192/256, Q resident in shared memory or
+   streamed with K) and the 14 of the tensor-core backward above it (dq
+   and dkv, bf16 and split TF32, by design, group width and residency);
 3. kernels: each kernel at the shapes the main path gives it, held against
    its plain PyTorch version, timed beside the plain version, the one
    PyTorch call that computes the same function, and its bound: the
@@ -25,8 +26,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    forward and backward kernels ran; then the ragged and
    repaired cases (S = 200, Sq != Skv at 10 and 37, D = 96, D = 256,
    B*H > 65535, and D = 264 and 512, causal and not: the tensor-core
-   forward above head dim 256, which the profiler must show ran, and the
-   backward kernels chunked over the head dim);
+   forward and backward kernels above head dim 256, which the profiler
+   must show ran);
 4. serving: the reference Transformer (build_transformer at the
    TransformerConfig defaults: seq 512, hidden 1024, 16 heads, 12 layers)
    at batch 8, served through InferenceEngine.infer_async, in float32 and
@@ -148,6 +149,11 @@ MIXTRAL = dict(tokens=4096, d=4096, n=8, k=2, alpha=2.0)
 # nothing else (the same cuBLAS calls on the same inputs), so answers,
 # gradients, losses, metrics and params are held exactly too.
 MOE_TOL = 0.0
+# kernel instances of the backward above head dim 256: dq bf16 at W 144,
+# 192, 256 with Q and dO resident and at 256 streamed, f32 at 144, 192,
+# 256 streamed; dkv bf16 design (b) at 144 and design (a) at 80 and 128
+# resident and 128 streamed, f32 (b) at 144 and (a) at 80 and 128 streamed
+WIDE_BWD_INSTANCES = 14
 
 
 class SmokeFailure(RuntimeError):
@@ -240,6 +246,20 @@ def phase_build() -> None:
     for (kern, args), u in sorted(wide.items()):
         print(f"  wide forward {kern}<{', '.join(map(str, args))}>: {u.get('REG')} registers, "
               f"stack {u.get('STACK')} bytes, local {u.get('LOCAL')} bytes")
+    # the tensor-core backward above head dim 256 (csrc/flash_attention_bwd_wide.cu),
+    # bf16 and split TF32: dq at group widths 144/192/256 (bf16: Q and dO
+    # resident, and streamed past 512 columns), dkv by design, width and
+    # residency (WIDE_BWD_INSTANCES)
+    wide_bwd = {(m.group(1), tuple(int(a) for a in re.findall(r"L[ib](\d+)E", m.group(2)))): u
+                for mangled, u in usage.items()
+                for m in [re.search(r"(flash_bwd_(?:dq|dkv)_kernel_wide_(?:mma|tf32x3))"
+                                    r"I((?:L[ib]\d+E)+)", mangled)] if m}
+    check(len(wide_bwd) == WIDE_BWD_INSTANCES,
+          f"cuobjdump listed {sorted(wide_bwd)} of the {WIDE_BWD_INSTANCES} wide backward "
+          f"instances")
+    for (kern, args), u in sorted(wide_bwd.items()):
+        print(f"  wide backward {kern}<{', '.join(map(str, args))}>: {u.get('REG')} "
+              f"registers, stack {u.get('STACK')} bytes, local {u.get('LOCAL')} bytes")
     sys.stdout.flush()
 
 
@@ -347,26 +367,32 @@ def check_fwd_route(breakdown: dict, compute_dtype: str, what: str) -> None:
           f"{what}: forward device ms by kernel {fwd}, want only {want}")
 
 
-def bwd_kernel_ms(fn, dtype: torch.dtype, what: str, iters: int = 10) -> dict:
+def bwd_kernel_ms(fn, dtype: torch.dtype, what: str, iters: int = 10,
+                  d: int = HEAD_DIM) -> dict:
     """Device ms a call of ``fn`` spends in the dq and the dkv kernel, by
     the profiler's kernel names; fails unless both ran on the tensor cores,
-    bf16 products in bf16 (flash_bwd_*_kernel_mma) and split TF32 products
-    in f32 (flash_bwd_*_kernel_tf32x3), and no other backward kernel."""
+    bf16 products in bf16 (flash_bwd_*_kernel_mma, above head dim 256
+    flash_bwd_*_kernel_wide_mma) and split TF32 products in f32
+    (flash_bwd_*_kernel_tf32x3, flash_bwd_*_kernel_wide_tf32x3), and no
+    other backward kernel."""
     spans = [(n, ms) for n, ms in device_spans(fn, iters) if "flash_bwd" in n]
-    check_bwd_route({n for n, _ in spans}, dtype, what)
+    check_bwd_route({n for n, _ in spans}, dtype, what, d)
     total = {kern: sum(ms for n, ms in spans if f"flash_bwd_{kern}_kernel" in n) / iters
              for kern in ("dq", "dkv")}
     check(all(v > 0 for v in total.values()), f"{what}: profiler saw {total}")
     return total
 
 
-def check_bwd_route(names: set, dtype: torch.dtype, what: str) -> None:
-    """The backward kernels that ran are the tensor-core ones of the dtype:
-    ``_mma`` in bf16, the split-TF32 ``_tf32x3`` in f32; no CUDA-core
-    backward kernel."""
-    want = "_kernel_mma" if dtype == torch.bfloat16 else "_kernel_tf32x3"
-    check(bool(names) and all(want in n for n in names),
-          f"{what}: the backward ran {names}, want only *{want}")
+def check_bwd_route(names: set, dtype: torch.dtype, what: str, d: int = HEAD_DIM) -> None:
+    """The backward kernels that ran are the tensor-core ones of the dtype
+    and head dim: ``_mma`` in bf16, the split-TF32 ``_tf32x3`` in f32,
+    ``_wide_`` above head dim 256 (csrc/flash_attention_bwd_wide.cu); both
+    dq and dkv ran, and no other backward kernel."""
+    kind = "_kernel_wide_" if d > 256 else "_kernel_"
+    want = kind + ("mma" if dtype == torch.bfloat16 else "tf32x3")
+    check(bool(names) and all(want in n for n in names)
+          and all(any(f"flash_bwd_{kern}{want}" in n for n in names) for kern in ("dq", "dkv")),
+          f"{what}: the backward ran {names}, want only flash_bwd_{{dq,dkv}}{want}")
 
 
 def check_bwd(fa, q, k, v, o, g, lse, causal: bool, scale: float, what: str) -> dict:
@@ -519,8 +545,8 @@ def phase_kernels() -> dict:
 
     # ragged lengths (S 200; Sq != Skv at 10 and 37, lengths no multiple
     # of 8, which the attention op takes) and the repaired limits: any D <=
-    # 256 and any B*H (causal), then D above 256 through the kernels chunked
-    # over D, once at the ragged lengths
+    # 256 and any B*H (causal), then D above 256 through the wide kernels,
+    # once at the ragged lengths
     rows["cases"] = kernel_cases(F, fa, gen, [
         (dtype, bh, s, d, True) for dtype in (torch.float32, torch.bfloat16)
         for bh, s, d in ((BATCH * HEADS, 200, HEAD_DIM), (BATCH * HEADS, (10, 37), HEAD_DIM),
@@ -539,8 +565,8 @@ def kernel_cases(F, fa, gen, cases) -> list:
     timed beside the plain version, SDPA (top-left causal, as the kernels)
     and the bound. Kernel and SDPA times are device time by the profiler
     (at the smaller cases a call's host work outlasts its kernels), which
-    shows which forward ran at every D and which backward up to D 256;
-    the plain versions' by CUDA events. SDPA gets (B*H / 8, 8, S, D)
+    shows which forward and which backward kernels ran at every D; the
+    plain versions' by CUDA events. SDPA gets (B*H / 8, 8, S, D)
     views: its kernels put B and H on grid dimensions that stop at
     65535."""
     rows = []
@@ -559,10 +585,9 @@ def kernel_cases(F, fa, gen, cases) -> list:
         fwd = lambda: fa.flash_attention_fwd(q, k, v, causal, sc)  # noqa: E731
         bwd = lambda: fa.flash_attention_bwd(q, k, v, out, g, lse, causal, sc)  # noqa: E731
         shape = dict(bh=bh, s=sq, d=d, skv=skv)
-        # dq and dkv device ms; above head dim 256 by the chunked kernels' names
-        split = (bwd_kernel_ms(bwd, dtype, name) if d <= fa.MAX_HEAD_DIM else
-                 dict(zip(("dq", "dkv"), kernel_ms_by_name(
-                     bwd, ("flash_bwd_dq_wide_kernel", "flash_bwd_dkv_wide_kernel")).values())))
+        # dq and dkv device ms, the profiler showing the dtype's tensor-core
+        # kernels for the head dim ran
+        split = bwd_kernel_ms(bwd, dtype, name, d=d)
         case = dict(
             fwd_ms=fwd_kernel_ms(fwd, dtype, name, d=d),
             fwd_plain_ms=time_ms(
@@ -1479,6 +1504,7 @@ def main() -> int:
     train_launches = {name: sum(r["fit_launches"][name] for r in train)
                       for name in train[0]["fit_launches"]}
     bwd_src = "flexflow_tpu_torch/kernels/csrc/flash_attention_bwd.cu"
+    wide_bwd_src = "flexflow_tpu_torch/kernels/csrc/flash_attention_bwd_wide.cu"
     entries = [
         _kernel_entry("flash_attention_fwd",
                       "flexflow_tpu_torch/kernels/csrc/flash_attention_fwd.cu",
@@ -1495,11 +1521,19 @@ def main() -> int:
         _kernel_entry("flash_attention_bwd_dq", bwd_src,
                       "flexflow_tpu/kernels/flash_attention.py:59", kern["dq"],
                       train_launches["flash_attention_bwd_dq"],
-                      plain_and_library_cover="dq, dk and dv (the whole gradient)"),
+                      plain_and_library_cover="dq, dk and dv (the whole gradient)",
+                      wide_source=wide_bwd_src,
+                      wide_route="D > 256: flash_bwd_dq_kernel_wide_mma (bf16) and "
+                                 "flash_bwd_dq_kernel_wide_tf32x3 (f32, split TF32), on the "
+                                 "tensor cores; no main path launches them"),
         _kernel_entry("flash_attention_bwd_dkv", bwd_src,
                       "flexflow_tpu/kernels/flash_attention.py:79", kern["dkv"],
                       train_launches["flash_attention_bwd_dkv"],
-                      plain_and_library_cover="dq, dk and dv (the whole gradient)"),
+                      plain_and_library_cover="dq, dk and dv (the whole gradient)",
+                      wide_source=wide_bwd_src,
+                      wide_route="D > 256: flash_bwd_dkv_kernel_wide_mma (bf16) and "
+                                 "flash_bwd_dkv_kernel_wide_tf32x3 (f32, split TF32), on the "
+                                 "tensor cores; no main path launches them"),
     ]
     moe_src = "flexflow_tpu_torch/kernels/csrc/moe_kernels.cu"
     for name, line in (("row_gather", 41), ("row_gather_sum", 74)):

@@ -37,10 +37,10 @@ _SIGNATURES = {
     # q, k, v, o, g, lse, delta, dk, dv, bh, sq, skv, d, scale, causal, dtype, stream
     "ff_flash_attention_bwd_dkv": ([_P] * 9 + [_I] * 4 + [_F, _I, _I, _P], _I),
     # the same three for head dims above 256 (flash_attention_fwd_wide.cu,
-    # flash_attention_wide.cu), the backward ones without delta
+    # flash_attention_bwd_wide.cu)
     "ff_flash_attention_fwd_wide": ([_P] * 5 + [_I] * 4 + [_F, _I, _I, _P], _I),
-    "ff_flash_attention_bwd_dq_wide": ([_P] * 7 + [_I] * 4 + [_F, _I, _I, _P], _I),
-    "ff_flash_attention_bwd_dkv_wide": ([_P] * 8 + [_I] * 4 + [_F, _I, _I, _P], _I),
+    "ff_flash_attention_bwd_dq_wide": ([_P] * 8 + [_I] * 4 + [_F, _I, _I, _P], _I),
+    "ff_flash_attention_bwd_dkv_wide": ([_P] * 9 + [_I] * 4 + [_F, _I, _I, _P], _I),
     # x, idx, scale, out, r_in, r_out, d, dtype, stream (moe_kernels.cu)
     "ff_row_gather": ([_P] * 4 + [_I] * 4 + [_P], _I),
     # x, idx, w, out, r_in, b, k, d, dtype, stream (moe_kernels.cu)

@@ -1,6 +1,5 @@
-// Helpers shared by the flash-attention kernels: element conversion and the
-// thread count of the CUDA-core kernels (flash_attention_wide.cu), the
-// padded head-dim dispatch and the grid fold (all of them).
+// Helpers shared by the flash-attention kernels: element conversion, the
+// padded head-dim dispatch of the one-pass kernels and the grid fold.
 //
 // Head dims. A kernel is instantiated for a padded width DP of 32, 64, 128
 // or 256 and takes any head dim d <= DP at run time: columns d..DP-1 of every
@@ -19,8 +18,6 @@
 
 namespace ff_flash {
 
-constexpr int kThreads = 256;  // a 16 x 16 grid of threads
-constexpr int kWarps = kThreads / 32;
 constexpr int kMaxHeadDim = 256;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }

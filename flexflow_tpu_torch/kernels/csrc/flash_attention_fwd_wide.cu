@@ -88,11 +88,16 @@
 #include "flash_attention_common.cuh"
 #include "flash_attention_mma.cuh"
 #include "flash_attention_tf32.cuh"
+#include "flash_attention_wide.cuh"
 
 namespace {
 
 using ff_mma::bf16;
 using ff_tf32::Split;
+using ff_wide::load_tile;
+using ff_wide::named_barrier;
+using ff_wide::Pad;
+using ff_wide::store_pair;
 
 constexpr int kGroups = 2;                   // G: groups of warps a block
 constexpr int kStrips = 4;                   // 16-row strips of query rows a block
@@ -101,21 +106,6 @@ constexpr int kGroupThreads = 32 * kStrips;  // a group: one warp a strip
 constexpr int kThreads = kGroups * kGroupThreads;
 constexpr int kMaxGroupCols = 256;           // the widest W, and the widest resident Q slice
 constexpr float kLog2e = 1.4426950408889634f;
-
-// Row padding of a staged tile and the elements of a 16-byte copy: 8 bf16
-// (a row stride of 2 KC + 16 bytes puts the eight rows an ldmatrix reads in
-// eight different groups of four banks) or 4 f32 (a stride of 4 banks mod
-// 32: fragment reads on 32 different banks, flash_attention_tf32.cuh).
-template <typename T>
-struct Pad;
-template <>
-struct Pad<bf16> {
-  static constexpr int kPad = 8, kVec = 8;
-};
-template <>
-struct Pad<float> {
-  static constexpr int kPad = 4, kVec = 4;
-};
 
 // The tiles of each dtype, chosen among the variants
 // tools/torch_fwd_wide_variants.py times on an H100: key tile BK, columns
@@ -139,42 +129,6 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
-// Wait until `threads` threads (the calling warp's included) arrive at
-// barrier `id` (1..15; 0 is __syncthreads'); orders their shared-memory
-// accesses.
-__device__ __forceinline__ void named_barrier(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-// Stage rows [r0, r0 + ROWS) and columns [c0, c0 + ncols) of a (rows, d)
-// matrix into columns [0, ncols) of a [ROWS][LD] tile, by a group's threads
-// (tid its index in the group); ncols <= COLS, a multiple of 16. Rows past
-// `rows` and columns past d are zero. `vec` takes 16-byte cp.async copies,
-// zero-filled past the ends; otherwise the same tile is written element by
-// element, visible after the group's next barrier.
-template <typename T, int ROWS, int COLS, int LD>
-__device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src, int r0, int rows,
-                                          int c0, int ncols, int d, bool vec, int tid) {
-  constexpr int V = Pad<T>::kVec;
-  if (vec) {
-    constexpr int CH = COLS / V;  // 16-byte copies a row
-    for (int i = tid; i < ROWS * CH; i += kGroupThreads) {
-      const int r = i / CH, c = (i % CH) * V;
-      if (c >= ncols) continue;
-      const bool live = r0 + r < rows && c0 + c < d;
-      ff_mma::cp_async_16(dst + r * LD + c, live ? src + (size_t)(r0 + r) * d + c0 + c : src,
-                          live ? 16 : 0);
-    }
-  } else {
-    for (int i = tid; i < ROWS * COLS; i += kGroupThreads) {
-      const int r = i / COLS, c = i % COLS;
-      if (c >= ncols) continue;
-      dst[r * LD + c] = (r0 + r < rows && c0 + c < d) ? src[(size_t)(r0 + r) * d + c0 + c]
-                                                       : ff_flash::from_f32<T>(0.f);
-    }
-  }
-}
-
 // The split A fragment of rows [row0, row0 + 16) and columns [col0, col0 + 8)
 // of a staged f32 tile, each value times `mul` in f32 before its split.
 template <int LD>
@@ -188,13 +142,6 @@ __device__ __forceinline__ Split<4> frag_a_scaled(const float* tile, int row0, i
   ff_tf32::split(p[4] * mul, f.big[2], f.small[2]);
   ff_tf32::split(p[8 * LD + 4] * mul, f.big[3], f.small[3]);
   return f;
-}
-
-__device__ __forceinline__ void store_pair(bf16* p, float x0, float x1) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);
-}
-__device__ __forceinline__ void store_pair(float* p, float x0, float x1) {
-  *reinterpret_cast<float2*>(p) = make_float2(x0, x1);
 }
 
 // Shared memory of a block: per group a ring of NST slots of BK rows of K
@@ -254,9 +201,8 @@ __device__ __forceinline__ void fwd_wide(const T* __restrict__ q, const T* __res
 
   // the group's slice of D for S (s_cols columns from s_lo, in steps of 16,
   // zero past d) and its first output column
-  const int slice = (d + 16 * G - 1) / (16 * G) * 16;
-  const int s_lo = grp * slice;
-  const int s_cols = (max(0, min(d - s_lo, slice)) + 15) / 16 * 16;
+  int s_lo, s_cols;
+  ff_wide::group_slice(d, G, grp, s_lo, s_cols);
   const int n_s = (s_cols + KC - 1) / KC;  // S chunks a key tile
   const int o_lo = (chunk * G + grp) * W;
   const int per_tile = n_s + NV;
@@ -273,12 +219,14 @@ __device__ __forceinline__ void fwd_wide(const T* __restrict__ q, const T* __res
       const int k0 = (t / per_tile) * BK, r = t % per_tile;
       if (r < n_s) {
         const int c0 = s_lo + r * KC, nc = min(KC, s_cols - r * KC);
-        if constexpr (!QRES) load_tile<T, kBlockQ, KC, LD>(slot, qb, q0, sq, c0, nc, d, vec, tid);
-        load_tile<T, BK, KC, LD>(slot + KROW * LD, kb, k0, skv, c0, nc, d, vec, tid);
+        if constexpr (!QRES)
+          load_tile<T, kBlockQ, KC, LD, kGroupThreads>(slot, qb, q0, sq, c0, nc, d, vec, tid);
+        load_tile<T, BK, KC, LD, kGroupThreads>(slot + KROW * LD, kb, k0, skv, c0, nc, d, vec,
+                                                tid);
       } else {
         const int u = r - n_s;
-        load_tile<T, BK, KC, LD>(slot, vb, k0, skv, o_lo + u * KC, min(KC, W - u * KC), d, vec,
-                                 tid);
+        load_tile<T, BK, KC, LD, kGroupThreads>(slot, vb, k0, skv, o_lo + u * KC,
+                                                min(KC, W - u * KC), d, vec, tid);
       }
     }
     ff_mma::cp_async_commit();
@@ -307,7 +255,8 @@ __device__ __forceinline__ void fwd_wide(const T* __restrict__ q, const T* __res
     for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
 
   if constexpr (QRES) {  // the group's slice of Q, in a cp.async group of its own
-    load_tile<T, kBlockQ, kMaxGroupCols, LDQ>(qres, qb, q0, sq, s_lo, s_cols, d, vec, tid);
+    load_tile<T, kBlockQ, kMaxGroupCols, LDQ, kGroupThreads>(qres, qb, q0, sq, s_lo, s_cols, d,
+                                                             vec, tid);
     ff_mma::cp_async_commit();
   }
 #pragma unroll

@@ -4,11 +4,10 @@ PyTorch counterpart of ``flexflow_tpu/kernels/flash_attention.py``. The
 TPU's ``_fwd_kernel`` becomes ``csrc/flash_attention_fwd.cu`` and its
 ``_dq_kernel``/``_dkv_kernel`` become ``csrc/flash_attention_bwd.cu``, all
 on the tensor cores up to head dim 256 (f32 with split TF32 products, never
-single-pass TF32). Above 256 the forward runs on the tensor cores too, in
-``csrc/flash_attention_fwd_wide.cu`` (the head dim cut across warp groups
-that swap their partial scores), and the backward in the kernels of
-``csrc/flash_attention_wide.cu``, chunked over the head dim (the source
-notes give the designs and the bounds on an H100). Like the JAX
+single-pass TF32). Above 256 they run on the tensor cores too, in
+``csrc/flash_attention_fwd_wide.cu`` and ``csrc/flash_attention_bwd_wide.cu``
+(the head dim cut across warp groups that swap their partial products; the
+source notes give the designs and the bounds on an H100). Like the JAX
 kernel, every function here takes any head dim. This module holds:
 
 * :func:`flash_attention` — the public entry on (B, S, H, D) tensors, with
@@ -34,7 +33,7 @@ from . import count_launch
 
 NEG_INF = -1e30  # large-negative instead of -inf: keeps exp()/max() NaN-free
 # the one-pass kernels are built for padded head dims up to this one (any
-# D <= it); above it the wrappers launch the kernels chunked over D
+# D <= it); above it the wrappers launch the ``_wide`` kernels
 MAX_HEAD_DIM = 256
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -175,11 +174,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The backward kernels' wrapper, with the signature of
     :func:`flash_attention_bwd_reference`. A CUDA tensor launches the dq
     kernel and then the dkv kernel of ``csrc/flash_attention_bwd.cu``
-    (``_wide.cu`` for D > 256) on the current stream: the tensor-core
-    kernels, bf16 products in bf16 and split TF32 products (three TF32
-    products for each f32 one, f32-accurate) in f32, which pass delta =
-    rowsum(dO * O) from the first to the second through a (B*H, Sq) f32
-    buffer. A CPU tensor runs the plain version."""
+    (``flash_attention_bwd_wide.cu`` for D > 256) on the current stream:
+    the tensor-core kernels, bf16 products in bf16 and split TF32 products
+    (three TF32 products for each f32 one, f32-accurate) in f32, which pass
+    delta = rowsum(dO * O) from the first to the second through a (B*H, Sq)
+    f32 buffer. A CPU tensor runs the plain version."""
     on_card = _check_kernel_args("flash_attention_bwd", q, k, v, o, g)
     bh, sq, d = q.shape
     if lse.shape != (bh, 1, sq) or lse.dtype != torch.float32 or lse.device != q.device:
@@ -199,10 +198,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dv = torch.empty_like(v)
     args = (bh, sq, skv, d, float(scale), int(bool(causal)), _DTYPE_CODES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
-    ptrs = [t.data_ptr() for t in (q, k, v, o, g, lse)]
-    if d <= MAX_HEAD_DIM:  # the one-pass kernels pass delta through a buffer
-        delta = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
-        ptrs.append(delta.data_ptr())
+    delta = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+    ptrs = [t.data_ptr() for t in (q, k, v, o, g, lse, delta)]
     with torch.cuda.device(q.device):
         err = _entry(lib, "ff_flash_attention_bwd_dq", d)(*ptrs, dq.data_ptr(), *args)
         check_launch(err, "flash_attention_bwd_dq")

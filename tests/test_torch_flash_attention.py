@@ -21,7 +21,7 @@ from flexflow_tpu.kernels import flash_attention as jfa
 from flexflow_tpu.parallel.ring_attention import single_device_attention
 from flexflow_tpu_torch import kernels as tkernels
 from flexflow_tpu_torch.kernels import flash_attention as tfa
-from test_torch_flash_attention_bwd import _tf32_matmul
+from test_torch_flash_attention_bwd import _scores, _tf32_matmul
 
 # f32 on both sides, same algorithm, different summation order: a few
 # f32 ulps on outputs of magnitude ~1
@@ -102,27 +102,6 @@ def test_flash_attention_bf16_matches_jax_kernel(causal):
     got = _port(q, k, v, causal, dtype=torch.bfloat16)
     np.testing.assert_allclose(got, np.asarray(want.astype(jnp.float32)),
                                **BF16_TOL)
-
-
-# groups of warps a block of the forward above head dim 256, each summing S
-# over its own slice of D (csrc/flash_attention_fwd_wide.cu)
-WIDE_GROUPS = 2
-
-
-def _scores(a, b, mm):
-    """S = a b^T as the card's forward sums it: over all of D up to head dim
-    256; above it, one partial S a group of warps over its slice of D (D / 2
-    rounded up to 16 columns), the partials summed group 0 first."""
-    d = a.shape[-1]
-    if d <= tfa.MAX_HEAD_DIM:
-        return mm(a, b.transpose(-1, -2))
-    width = -(-d // (16 * WIDE_GROUPS)) * 16
-    parts = [mm(a[..., g * width:(g + 1) * width], b[..., g * width:(g + 1) * width]
-                .transpose(-1, -2)) for g in range(WIDE_GROUPS)]
-    s = parts[0]
-    for part in parts[1:]:
-        s = s + part
-    return s
 
 
 def _fwd_as_the_bf16_kernel_rounds(q, k, v, causal, scale):
@@ -237,7 +216,7 @@ def test_any_head_dim_up_to_256_matches_jax_kernel(d):
 def test_unsupported_head_dim_is_rejected():
     """Head dims above 256 were once refused; now, as the JAX kernel does,
     the port takes them (on the card through flash_attention_fwd_wide.cu
-    and flash_attention_wide.cu):
+    and flash_attention_bwd_wide.cu):
     D = 264 against the JAX kernel, and only D < 1 is rejected."""
     q, k, v = _qkv(b=1, sq=8, skv=8, d=264)
     want = jfa.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),

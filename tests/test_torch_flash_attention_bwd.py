@@ -78,32 +78,78 @@ def test_plain_bwd_matches_jax_flash_bwd(sq, skv, d, causal, dtype):
                                    err_msg=name)
 
 
-def _bwd_as_the_bf16_kernels_round(q, k, v, o, g, lse, causal, scale):
-    """The backward rounded where the bf16 tensor-core kernels round it
-    (csrc/flash_attention_bwd.cu): bf16 inputs, S and dP in f32 with scale
-    on S, P and dS rounded to bf16 before the products that consume them,
-    scale on dQ and dK at the end, the gradients rounded to bf16."""
-    bf16 = lambda t: t.to(torch.bfloat16).float()  # noqa: E731
-    qf, kf, vf, of, gf = (t.float() for t in (q, k, v, o, g))
-    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+# Above head dim 256 the kernels cut the reductions over D across groups of
+# warps (csrc/flash_attention_fwd_wide.cu, flash_attention_bwd_wide.cu): the
+# forward and the dq kernel in two groups over balanced slices of D
+WIDE_GROUPS = 2
+
+
+def _dkv_slices(d):
+    """(groups, slice width) of the dkv kernel above head dim 256: each
+    group sums over its own output columns, two groups of 144 up to 288
+    columns (design b), four of 80 or 128 up to 512 (design a); past 512
+    four balanced slices (width None)."""
+    if d <= 288:
+        return 2, 144
+    return 4, (80 if d <= 320 else 128 if d <= 512 else None)
+
+
+def _scores(a, b, mm, groups=WIDE_GROUPS, width=None):
+    """a b^T as the card's kernels sum it: over all of D up to head dim 256;
+    above it, one partial a group of warps over its slice of D (``width``
+    columns, by default D / groups rounded up to 16, the last group taking
+    what is left), the partials summed group 0 first."""
+    d = a.shape[-1]
+    if d <= tfa.MAX_HEAD_DIM:
+        return mm(a, b.transpose(-1, -2))
+    width = width or -(-d // (16 * groups)) * 16
+    parts = [mm(a[..., g * width:(g + 1) * width], b[..., g * width:(g + 1) * width]
+                .transpose(-1, -2)) for g in range(groups) if g * width < d]
+    s = parts[0]
+    for part in parts[1:]:
+        s = s + part
+    return s
+
+
+def _p_ds(q, k, v, o, g, lse, causal, scale, mm, groups, width=None):
+    """P and dS of one backward kernel: S = Q K^T and dP = dO V^T summed as
+    that kernel sums them, scale on S in f32, masked p exactly 0, delta =
+    rowsum(dO * O) in f32."""
+    s = _scores(q, k, mm, groups, width) * scale
     p = torch.exp(s - lse.transpose(-1, -2))
     if causal:
         p = torch.where(tfa._causal_keep(s.shape[-2], s.shape[-1], s.device), p, 0.0)
-    dp = torch.matmul(gf, vf.transpose(-1, -2))
-    ds = p * (dp - torch.sum(gf * of, dim=-1, keepdim=True))
+    dp = _scores(g, v, mm, groups, width)
+    return p, p * (dp - torch.sum(g * o, dim=-1, keepdim=True))
+
+
+def _bwd_as_the_bf16_kernels_round(q, k, v, o, g, lse, causal, scale):
+    """The backward rounded where the bf16 tensor-core kernels round it
+    (csrc/flash_attention_bwd.cu, and flash_attention_bwd_wide.cu above head
+    dim 256, where each kernel sums S and dP from its groups' partials):
+    bf16 inputs, S and dP in f32 with scale on S, P and dS rounded to bf16
+    before the products that consume them, scale on dQ and dK at the end,
+    the gradients rounded to bf16."""
+    bf16 = lambda t: t.to(torch.bfloat16).float()  # noqa: E731
+    qf, kf, vf, of, gf = (t.float() for t in (q, k, v, o, g))
+    args = (qf, kf, vf, of, gf, lse, causal, scale, torch.matmul)
+    _, ds = _p_ds(*args, WIDE_GROUPS)
     dq = torch.matmul(bf16(ds), kf) * scale
+    p, ds = _p_ds(*args, *_dkv_slices(q.shape[-1]))
     dk = torch.matmul(bf16(ds).transpose(-1, -2), qf) * scale
     dv = torch.matmul(bf16(p).transpose(-1, -2), gf)
     return tuple(t.to(torch.bfloat16) for t in (dq, dk, dv))
 
 
-@pytest.mark.parametrize("d", [32, 64, 100])
+@pytest.mark.parametrize("d", [32, 64, 100, 264, 512])
 @pytest.mark.parametrize("causal", [False, True])
 def test_bf16_kernels_rounding_is_within_the_card_tolerance(causal, d):
     """Rounding P and dS to bf16 before the second products, as the card's
     bf16 kernels do, keeps every gradient within chip_smoke.py's bf16
     tolerance (2^-7 of the gradient's largest element) of the JAX kernels;
-    Skv 72 is not a multiple of the kernels' 64-row tiles."""
+    Skv 72 is not a multiple of the kernels' 64-row tiles. D 264 and 512
+    sum S and dP from the groups' partials, as the kernels above head dim
+    256 do."""
     bh, sq, skv = 2, 64, 72
     q, k, v, g = _bf16_round(_arrays([(bh, sq, d), (bh, skv, d), (bh, skv, d), (bh, sq, d)],
                                      seed=d + causal))
@@ -144,32 +190,32 @@ def _tf32_matmul(a, b, passes):
 
 def _bwd_as_the_f32_kernels_round(q, k, v, o, g, lse, causal, scale, passes):
     """The backward as the f32 tensor-core kernels compute it
-    (csrc/flash_attention_bwd.cu, flash_attention_tf32.cuh): every product
-    on TF32 operands, ``passes`` products for each f32 one (three: split
-    TF32), scale on S and at the end on dQ and dK, delta and the softmax in
-    f32."""
+    (csrc/flash_attention_bwd.cu, and flash_attention_bwd_wide.cu above head
+    dim 256, where each kernel sums S and dP from its groups' partials;
+    flash_attention_tf32.cuh): every product on TF32 operands, ``passes``
+    products for each f32 one (three: split TF32), scale on S and at the
+    end on dQ and dK, delta and the softmax in f32."""
     def mm(a, b):
         return _tf32_matmul(a, b, passes)
 
-    s = mm(q, k.transpose(-1, -2)) * scale
-    p = torch.exp(s - lse.transpose(-1, -2))
-    if causal:
-        p = torch.where(tfa._causal_keep(s.shape[-2], s.shape[-1], s.device), p, 0.0)
-    dp = mm(g, v.transpose(-1, -2))
-    ds = p * (dp - torch.sum(g * o, dim=-1, keepdim=True))
-    return (mm(ds, k) * scale, mm(ds.transpose(-1, -2), q) * scale,
-            mm(p.transpose(-1, -2), g))
+    args = (q, k, v, o, g, lse, causal, scale, mm)
+    _, ds = _p_ds(*args, WIDE_GROUPS)
+    dq = mm(ds, k) * scale
+    p, ds = _p_ds(*args, *_dkv_slices(q.shape[-1]))
+    return dq, mm(ds.transpose(-1, -2), q) * scale, mm(p.transpose(-1, -2), g)
 
 
 @pytest.mark.parametrize("sq,skv,d,causal", [
-    (64, 72, 32, False), (64, 72, 64, True), (32, 72, 64, False), (64, 72, 100, True)])
+    (64, 72, 32, False), (64, 72, 64, True), (32, 72, 64, False), (64, 72, 100, True),
+    (64, 72, 264, False), (64, 72, 264, True), (64, 72, 512, False), (64, 72, 512, True)])
 def test_f32_split_tf32_rounding_is_within_the_card_tolerance(sq, skv, d, causal):
     """Split TF32 products (three TF32 products for each f32 one, as the
     card's f32 kernels do them) keep every gradient within chip_smoke.py's
     f32 tolerance (1e-4 of the gradient's largest element) of the JAX
     kernels; one TF32 product each does not, so the tolerance catches a
     kernel that drops the correction products. Skv 72 is not a multiple
-    of the kernels' tiles."""
+    of the kernels' tiles; D 264 and 512 sum S and dP from the groups'
+    partials, as the kernels above head dim 256 do."""
     bh = 2
     q, k, v, g = _arrays([(bh, sq, d), (bh, skv, d), (bh, skv, d), (bh, sq, d)],
                          seed=d + skv + causal)

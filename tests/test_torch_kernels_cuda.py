@@ -265,12 +265,17 @@ def test_flash_fwd_rejects_what_the_kernel_does_not_take(card):
 @pytest.mark.parametrize("sq,skv,causal", [(128, 128, False), (72, 200, True),
                                            (200, 72, False), (200, 72, True)])
 def test_flash_kernels_above_head_dim_256_match_plain(card, sq, skv, causal, dtype):
-    """The kernels chunked over the head dim (csrc/flash_attention_wide.cu):
-    forward and both backward kernels, ragged lengths, D not a multiple of
-    the 128-column chunk, both dtypes; one launch of each."""
+    """The tensor-core kernels above head dim 256 (csrc/flash_attention_fwd_wide.cu,
+    csrc/flash_attention_bwd_wide.cu): forward and both backward kernels at
+    D 263 and 300 (rows of a stride no multiple of 8 or 4, loaded element by
+    element), 264 and 512 (one column chunk: the dq kernel's two groups of
+    144 and 256 columns, the dkv kernel's four of 80 and 128), 520 and 1032
+    (several column chunks, each computing S and dP again), ragged lengths,
+    Sq != Skv under causal, both dtypes; one launch of each, and under
+    causal with Skv > Sq the keys no query sees get exactly 0."""
     rng = np.random.default_rng(8)
     tol = F32_TOL if dtype == torch.float32 else BF16_TOL
-    for d in (264, 512, 520):
+    for d in (263, 264, 300, 512, 520, 1032):
         q, g = (_randn(rng, (3, sq, d), card, dtype) for _ in range(2))
         k, v = (_randn(rng, (3, skv, d), card, dtype) for _ in range(2))
         before = tkernels.launch_counts()
@@ -288,6 +293,108 @@ def test_flash_kernels_above_head_dim_256_match_plain(card, sq, skv, causal, dty
                                    **F32_TOL, err_msg=f"head dim {d}")
         want = tfa.flash_attention_bwd_reference(q, k, v, out, g, lse, causal, d ** -0.5)
         _check_grads(got, want, dtype, f"head dim {d}")
+        if causal and skv > sq:  # keys no query sees get exactly 0
+            assert not got[1][:, sq:].any() and not got[2][:, sq:].any(), d
+
+
+# the backward above head dim 256 (csrc/flash_attention_bwd_wide.cu) by
+# dtype: bf16 products in bf16, split TF32 products in f32
+WIDE_BWD_KERNELS = {torch.float32: ("flash_bwd_dq_kernel_wide_tf32x3",
+                                    "flash_bwd_dkv_kernel_wide_tf32x3"),
+                    torch.bfloat16: ("flash_bwd_dq_kernel_wide_mma",
+                                     "flash_bwd_dkv_kernel_wide_mma")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+def test_wide_bwd_kernels_are_deterministic(card, causal, dtype):
+    """Each block owns its output tile and the groups of a strip sum their
+    partial S and dP in one fixed order: two launches agree bit for bit."""
+    rng = np.random.default_rng(20)
+    for sq, skv, d in ((512, 512, 264), (512, 512, 512), (37, 10, 264), (200, 72, 1032)):
+        q, g = (_randn(rng, (4, sq, d), card, dtype) for _ in range(2))
+        k, v = (_randn(rng, (4, skv, d), card, dtype) for _ in range(2))
+        o, lse = tfa.flash_attention_fwd(q, k, v, causal, d ** -0.5)
+        first = tfa.flash_attention_bwd(q, k, v, o, g, lse, causal, d ** -0.5)
+        second = tfa.flash_attention_bwd(q, k, v, o, g, lse, causal, d ** -0.5)
+        for name, a, b in zip(("dq", "dk", "dv"), first, second):
+            assert torch.equal(a, b), (sq, skv, d, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_bwd_kernels_carry_a_nan_as_the_plain_version(card, dtype):
+    """A NaN in one row of q reaches the same gradient entries as in the
+    plain version (its row of dq, every row of dk and dv of its B*H: one
+    group's partial S carries it into the sum every group takes), and the
+    rest stay within tolerance. Not causal: there the plain version's masked
+    entries of a NaN row are NaN too, where the kernels set masked p to 0."""
+    rng = np.random.default_rng(21)
+    q, k, v, g = (_randn(rng, (2, 72, 264), card, dtype) for _ in range(4))
+    q[1, 9, 200] = float("nan")
+    o, lse = tfa.flash_attention_fwd_reference(q, k, v, False, 264 ** -0.5)
+    got = tfa.flash_attention_bwd(q, k, v, o, g, lse, False, 264 ** -0.5)
+    want = tfa.flash_attention_bwd_reference(q, k, v, o, g, lse, False, 264 ** -0.5)
+    torch.cuda.synchronize()
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        a, w = a.float(), w.float()
+        nan = torch.isnan(w)
+        assert nan.any() and torch.equal(torch.isnan(a), nan), name
+        err = (a[~nan] - w[~nan]).abs().max().item()
+        assert err <= BWD_TOL[dtype] * w[~nan].abs().max().item(), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_bwd_at_batch_heads_above_65535(card, dtype):
+    """B*H folds into the grid's x dimension above head dim 256 too."""
+    rng = np.random.default_rng(22)
+    bh, s, d = 65536 + 8, 8, 264
+    q, k, v, g = (_randn(rng, (bh, s, d), card, dtype) for _ in range(4))
+    o, lse = tfa.flash_attention_fwd(q, k, v, True, d ** -0.5)
+    got = tfa.flash_attention_bwd(q, k, v, o, g, lse, True, d ** -0.5)
+    want = tfa.flash_attention_bwd_reference(q, k, v, o, g, lse, True, d ** -0.5)
+    _check_grads(got, want, dtype, "B*H > 65535, D 264")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_bwd_runs_the_dtype_tensor_core_kernels(card, dtype):
+    """The profiler's kernel names show that a backward at D 264 and at D
+    1032 ran the dtype's tensor-core dq and dkv kernels above head dim 256
+    and no other backward kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(23)
+    for d in (264, 1032):
+        q, k, v, g = (_randn(rng, (2, 64, d), card, dtype) for _ in range(4))
+        o, lse = tfa.flash_attention_fwd(q, k, v, True, d ** -0.5)
+        tfa.flash_attention_bwd(q, k, v, o, g, lse, True, d ** -0.5)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            tfa.flash_attention_bwd(q, k, v, o, g, lse, True, d ** -0.5)
+            torch.cuda.synchronize()
+        names = {e.key for e in prof.key_averages() if "flash_bwd" in e.key}
+        want = WIDE_BWD_KERNELS[dtype]
+        assert all(any(w in n for n in names) for w in want), (d, names)
+        assert all(any(w in n for w in want) for n in names), (d, names)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_autograd_through_attend_above_head_dim_256_matches_plain_path(card, dtype):
+    """Gradients of the attention op's entry at D 264 (Sq 40, Skv 72,
+    causal) through the kernels against the plain versions' path."""
+    rng = np.random.default_rng(24)
+    q, g = (_randn(rng, (2, 40, 2, 264), card, dtype) for _ in range(2))
+    k, v = (_randn(rng, (2, 72, 2, 264), card, dtype) for _ in range(2))
+    grads = []
+    for plain in (False, True):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        tfa.attend(*leaves, causal=True, scale=None, plain=plain).backward(g)
+        grads.append([t.grad for t in leaves])
+    _check_grads(*grads, dtype, "attend, D 264")
 
 
 # the forward above head dim 256 (csrc/flash_attention_fwd_wide.cu) by

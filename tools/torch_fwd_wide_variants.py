@@ -100,7 +100,7 @@ def build(parent: Path = None) -> dict:
     if parent is not None:
         csrc = parent / "flexflow_tpu_torch" / "kernels" / "csrc"
         lib = OUT_DIR / "parent_wide.so"
-        jobs["parent"] = (lib, _nvcc(csrc / "flash_attention_wide.cu", lib, csrc))
+        jobs["parent"] = (lib, _nvcc(csrc / "flash_attention_fwd_wide.cu", lib, csrc))
     with ThreadPoolExecutor(len(jobs)) as pool:
         done = {key: pool.submit(subprocess.run, cmd, capture_output=True, text=True,
                                  timeout=900) for key, (_, cmd) in jobs.items()}
@@ -111,8 +111,9 @@ def build(parent: Path = None) -> dict:
     return {key: lib for key, (lib, _) in jobs.items()}
 
 
-def resources(lib: Path) -> dict:
-    """{kernel instance: (registers, stack bytes)} by cuobjdump."""
+def resources(lib: Path, prefix: str = "flash_fwd") -> dict:
+    """{kernel instance whose name starts with ``prefix``: (registers, stack
+    bytes)} by cuobjdump."""
     cuobjdump = Path(_build.find_nvcc()).with_name("cuobjdump")
     out = subprocess.run([str(cuobjdump), "--dump-resource-usage", str(lib)],
                          capture_output=True, text=True, timeout=120, check=True).stdout
@@ -122,7 +123,7 @@ def resources(lib: Path) -> dict:
         if m:
             name = m.group(1)
         elif name and "REG:" in line:
-            m = re.search(r"(flash_fwd\w*?kernel\w*?)I((?:L[ib]\d+E)*)", name)
+            m = re.search("(" + prefix + r"\w*?kernel\w*?)I((?:L[ib]\d+E)*)", name)
             if m:
                 u = dict(re.findall(r"(\w+):(\d+)", line))
                 label = m.group(1) + "<" + ",".join(re.findall(r"L[ib](\d+)E", m.group(2))) + ">"
