@@ -27,7 +27,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    repaired cases (S = 200, Sq != Skv at 10 and 37, D = 96, D = 256,
    B*H > 65535, and D = 264 and 512, causal and not: the tensor-core
    forward and backward kernels above head dim 256, which the profiler
-   must show ran);
+   must show ran), then GPT's shape (causal, B*H 64, S 1024, D 64);
 4. serving: the reference Transformer (build_transformer at the
    TransformerConfig defaults: seq 512, hidden 1024, 16 heads, 12 layers)
    at batch 8, served through InferenceEngine.infer_async, in float32 and
@@ -43,26 +43,41 @@ Phases, each of which fails the run (non-zero exit, no result line):
    kernel per step (and none of the MoE kernels); then the step time
    (3 rounds of 20 steps, each round's median and the median of all), a
    profiled step's breakdown and the peak memory;
-6. MoE kernels: row_gather and row_gather_sum, float32 and bfloat16, at
+6. GPT: build_gpt at GPTConfig's defaults (vocab 32000, 1024 positions,
+   hidden 512, 8 heads, 6 layers), batch 8 at 1024 tokens, in float32 and
+   bfloat16. Training with SGDOptimizer(lr=0.01) and sparse categorical
+   cross-entropy: one grad_step, five train_steps' losses and params, and
+   FFModel.fit of 8 steps (6 launches of each flash kernel a step) replayed
+   through the plain path; the step time (median of 20), tokens/s, a
+   profiled step's breakdown and device-busy share, the peak memory.
+   Generation: Generator(max_length=1024).generate of 128 greedy tokens
+   for 8 prompts of 128, every block step's logits held against one full
+   causal forward of the generated tokens (6 flash launches), and the
+   greedy tokens against its argmax where its top-2 margin exceeds the
+   bound; prefill ms, decode ms a token (p50, p99), tokens/s;
+7. the BERT proxy (build_bert_proxy at its defaults: hidden 768, 12
+   heads, 12 layers, seq 128): a FFModel.fit of 2 steps at batch 8 in
+   float32, launches counted, against the plain path;
+8. MoE kernels: row_gather and row_gather_sum, float32 and bfloat16, at
    the MoE model's shape (batch 64, d 784, 5 experts, top-2, capacity 52)
    and at Mixtral-8x7B's widths (hidden 4096, 8 experts, top-2, 4096
    tokens), each held against its plain version and timed beside it,
    F.embedding_bag and its bound; the dispatch's backward (row_gather_sum)
    with x requiring a gradient, against the plain path;
-7. MoE serving: build_moe_mnist at the MoeConfig defaults, batch 64,
+9. MoE serving: build_moe_mnist at the MoeConfig defaults, batch 64,
    served through InferenceEngine.infer_async in float32 and bfloat16;
    every dispatch's exact batch (padding and order included) is replayed
    through the plain path and must give the same answers, with exactly
    one launch of each MoE kernel (and no flash launch) per dispatch;
-8. MoE training: the same model with AdamOptimizer(alpha=0.003), sparse
+10. MoE training: the same model with AdamOptimizer(alpha=0.003), sparse
    categorical cross-entropy and accuracy, in float32 and bfloat16: one
    grad_step, five train_steps' losses (the balance term included), a
    FFModel.fit of 8 steps (3 launches of row_gather and 1 of
    row_gather_sum a step) and FFModel.eval, each held against the plain
    path; the step time (median of 20), a profiled step's breakdown and the
    peak memory; then the stacked form once in float32 through fit;
-9. the kernels line, one JSON object;
-10. the last line: {"ok": true, "device": {...}}.
+11. the kernels line, one JSON object;
+12. the last line: {"ok": true, "device": {...}}.
 
 Imports torch, numpy and flexflow_tpu_torch only.
 """
@@ -149,6 +164,21 @@ MIXTRAL = dict(tokens=4096, d=4096, n=8, k=2, alpha=2.0)
 # nothing else (the same cuBLAS calls on the same inputs), so answers,
 # gradients, losses, metrics and params are held exactly too.
 MOE_TOL = 0.0
+# the GPT causal LM at GPTConfig's defaults (vocab 32000, 1024 positions,
+# hidden 512, 8 heads: head dim 64, 6 layers), batch 8 at the full 1024
+# positions: its causal attention runs the flash kernels at B*H 64, S 1024
+GPT_BATCH, GPT_SEQ = 8, 1024
+GPT_TRAIN_SAMPLES = 64  # fit's epoch: 8 steps of batch 8
+GPT_LR = 0.01
+# generation: Generator(max_length=1024), 8 prompts of 128 tokens, 128 new
+# greedy tokens; every step's logits against the full causal forward of
+# the generated tokens, as a fraction of its largest |logit|: f32 sums in
+# another order (1e-4, as serving), bf16 the serving bf16 rule (SERVE_TOL)
+GEN_PROMPT, GEN_NEW, GEN_MAX_LENGTH = 128, 128, 1024
+GEN_TOL = {"float32": 1e-4, "bfloat16": SERVE_TOL["bfloat16"]}
+# the BERT proxy at its defaults (hidden 768, 12 heads, 12 layers, seq 128):
+# one short fit of 2 steps at batch 8, in f32
+BERT_BATCH, BERT_STEPS, BERT_LAYERS = 8, 2, 12
 # kernel instances of the backward above head dim 256: dq bf16 at W 144,
 # 192, 256 with Q and dO resident and at 256 streamed, f32 at 144, 192,
 # 256 streamed; dkv bf16 design (b) at 144 and design (a) at 80 and 128
@@ -556,6 +586,11 @@ def phase_kernels() -> dict:
         (dtype, BATCH * HEADS, s, d, causal) for dtype in (torch.float32, torch.bfloat16)
         for s, d, causal in ((SEQ, 264, False), (SEQ, 264, True), (SEQ, 512, False),
                              (SEQ, 512, True), ((37, 10), 264, True))])
+    # GPT's attention shape: causal, B*H 64, S 1024, D 64 (GPTConfig's
+    # defaults at batch 8), the shape its training and full-sequence
+    # forward give the kernels
+    rows["gpt_cases"] = kernel_cases(F, fa, gen, [
+        (dtype, GPT_BATCH * 8, GPT_SEQ, 64, True) for dtype in (torch.float32, torch.bfloat16)])
     return rows
 
 
@@ -838,13 +873,18 @@ def phase_serving(compute_dtype: str, params, card: str, plain_f32: np.ndarray =
     return row, params, ref
 
 
-def layer_err(got: dict, want: dict, start: dict = None) -> tuple:
+def layer_err(got: dict, want: dict, start: dict = None, ulps: int = 0) -> tuple:
     """(max error, weight) of two param-shaped trees, each weight's max abs
     error as a fraction of the largest element of its layer in ``want``
     (less ``start``, when given: then the layer's largest update). By
     layer, not by weight: the key bias bk adds q.bk to every logit of a
     row, which the softmax cancels, so its exact gradient is 0 and any two
-    paths give rounding noise that no scale of its own can measure."""
+    paths give rounding noise that no scale of its own can measure.
+    ``ulps``: for params after that many updates, each element's error
+    counts past that many f32 ulps of its value. Each update rounds the
+    param once, and two paths whose updates differ at all may round it
+    apart; a LayerNorm scale sits near 1, where one ulp (1.2e-7) can be a
+    large share of a few small updates."""
     worst, where = 0.0, ""
     for op, ws in want.items():
         dev = next(iter(got[op].values())).device
@@ -853,7 +893,10 @@ def layer_err(got: dict, want: dict, start: dict = None) -> tuple:
         big = max(r.abs().max().item() for r in ref.values())
         for w, t in ws.items():
             check(bool(torch.isfinite(got[op][w]).all()), f"non-finite {op}.{w}")
-            err = (got[op][w] - t).abs().max().item() / (big if big > 0 else 1.0)
+            diff = (got[op][w] - t).abs()
+            if ulps:
+                diff = (diff - ulps * torch.finfo(torch.float32).eps * t.abs()).clamp_min(0)
+            err = diff.max().item() / (big if big > 0 else 1.0)
             if err >= worst:
                 worst, where = err, f"{op}.{w}"
     return worst, where
@@ -1045,6 +1088,384 @@ def phase_training(compute_dtype: str, params: dict, card: str, ref: dict = None
     print(f"training breakdown {compute_dtype}: {json.dumps(breakdown)}", flush=True)
     print("training_json " + json.dumps(row), flush=True)
     return row, this_ref
+
+
+# ---- the GPT causal LM and the BERT proxy --------------------------------
+
+
+def gpt_config():
+    from flexflow_tpu_torch.models import GPTConfig
+
+    return GPTConfig()
+
+
+def gpt_model(compute_dtype: str, training: bool):
+    from flexflow_tpu_torch import (CompMode, FFConfig, FFModel, LossType, MetricsType,
+                                    SGDOptimizer)
+    from flexflow_tpu_torch.models import build_gpt
+
+    cfg = gpt_config()
+    mode = CompMode.TRAINING if training else CompMode.INFERENCE
+    ff = FFModel(FFConfig(batch_size=GPT_BATCH, computation_mode=mode,
+                          compute_dtype=compute_dtype, seed=SEED, device=DEVICE))
+    build_gpt(ff, GPT_BATCH, GPT_SEQ, cfg)
+    if training:
+        ff.compile(optimizer=SGDOptimizer(lr=GPT_LR),
+                   loss_type=LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
+                   metrics=[MetricsType.ACCURACY, MetricsType.SPARSE_CATEGORICAL_CROSSENTROPY])
+    else:
+        ff.compile()
+    n_attn = sum(op.op_type.name == "MULTIHEAD_ATTENTION" for op in ff.compiled.ops)
+    check(n_attn == cfg.num_layers, f"GPT has {n_attn} attention ops, want {cfg.num_layers}")
+    return ff, n_attn
+
+
+def gpt_data(seed: int, n: int):
+    """Tokens from a seeded numpy generator, positions 0..GPT_SEQ-1 and
+    labels, the tokens shifted by one."""
+    seq = GPT_SEQ
+    rng = np.random.default_rng(seed)
+    tok = rng.integers(0, gpt_config().vocab_size, size=(n, seq + 1), dtype=np.int32)
+    pos = np.broadcast_to(np.arange(seq, dtype=np.int32), (n, seq)).copy()
+    return tok[:, :-1].copy(), pos, tok[:, 1:].copy()
+
+
+def gpt_params(ff, seed: int) -> dict:
+    """Random GPT params: unit-scale embeddings, LayerNorm scales near 1,
+    small biases, the other weights variance-preserving (std 1/sqrt(fan
+    in)), so the logits spread over a few units and most top-2 margins
+    are far above the comparison's bound."""
+    rng = np.random.default_rng(seed)
+    tree = {}
+    for op, ws in ff.compiled.params.items():
+        tree[op] = {}
+        for w, cur in ws.items():
+            shape = tuple(cur.shape)
+            if op in ("wte", "wpe"):
+                mean, std = 0.0, 1.0
+            elif w == "scale":
+                mean, std = 1.0, 0.1
+            elif len(shape) == 1 or w.startswith("b"):
+                mean, std = 0.0, 0.1
+            else:
+                fan_in = shape[0] if w in ("wq", "wk", "wv") else int(np.prod(shape[:-1]))
+                mean, std = 0.0, 1.0 / np.sqrt(fan_in)
+            tree[op][w] = (rng.standard_normal(size=shape, dtype=np.float32)
+                           * np.float32(std) + np.float32(mean))
+    return tree
+
+
+def check_flash_launches(counts: dict, fwd: int, bwd: int, what: str) -> None:
+    """``fwd`` forward and ``bwd`` launches of each backward kernel, and no
+    MoE kernel."""
+    want = {name: 0 for name in counts}
+    want.update(flash_attention_fwd=fwd, flash_attention_bwd_dq=bwd,
+                flash_attention_bwd_dkv=bwd)
+    check(counts == want, f"{what}: launched {counts}, want {want}")
+
+
+def phase_gpt_training(compute_dtype: str, card: str, ref: dict = None) -> tuple:
+    """Train GPT at GPTConfig's width through compile -> grad_step /
+    train_step / fit, each against the plain kernels' path, under the
+    Transformer phase's rules; the step time, a profiled step and the peak
+    memory. ``ref``: the float32 run's plain-path gradients and params,
+    which set the bfloat16 run's bounds. Returns (row, this run's ref)."""
+    from flexflow_tpu_torch import kernels, load_numpy_params
+
+    ff, n_attn = gpt_model(compute_dtype, training=True)
+    cm = ff.compiled
+    own_init = {op: {w: t.detach().cpu().numpy().copy() for w, t in ws.items()}
+                for op, ws in cm.params.items()}
+    own_dev = {op: {w: t.detach().clone() for w, t in ws.items()}
+               for op, ws in cm.params.items()}
+    tok, pos, lab = gpt_data(SEED + 7, GPT_TRAIN_SAMPLES)
+    batches = [tuple(torch.from_numpy(a[i * GPT_BATCH:(i + 1) * GPT_BATCH]).to(cm.device)
+                     for a in (tok, pos, lab)) for i in range(GPT_TRAIN_SAMPLES // GPT_BATCH)]
+    what = f"GPT training {compute_dtype}"
+
+    def reset():
+        load_numpy_params(ff, own_init)
+        cm.opt_state = cm.optimizer.init_state(cm.params)
+
+    def run_steps(chosen, plain: bool) -> list:
+        losses = []
+        for batch in chosen:
+            cm.params, cm.opt_state, loss, _ = cm.train_step(
+                cm.params, cm.opt_state, None, *batch, plain_kernels=plain)
+            losses.append(loss.item())
+        return losses
+
+    # (a) one grad_step on each path, at the model's own init
+    g_kern = cm.grad_step(cm.params, None, *batches[0])
+    g_plain = cm.grad_step(cm.params, None, *batches[0], plain_kernels=True)
+    grad_err, grad_worst = layer_err(g_kern, g_plain)
+    grad_floor = None if ref is None else layer_err(g_plain, ref["grads"])[0]
+    grad_tol = GRAD_TOL if ref is None else BF16_FLOOR_FACTOR * grad_floor
+    check(grad_err <= grad_tol, f"{what}: grads vs plain path {grad_err:.3g} of the largest "
+          f"gradient of {grad_worst}'s layer > {grad_tol:.3g}")
+    del g_kern
+
+    # (b) five train_steps on each path from the model's own init
+    losses, final = {}, {}
+    for plain in (False, True):
+        reset()
+        losses[plain] = run_steps(batches[:5], plain)
+        final[plain] = {op: {w: t.clone() for w, t in ws.items()}
+                        for op, ws in cm.params.items()}
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses[False], losses[True]))
+    check(all(np.isfinite(losses[False] + losses[True]))
+          and loss_err <= LOSS_TOL[compute_dtype],
+          f"{what}: losses {losses[False]} vs plain path {losses[True]}: {loss_err:.3g} > "
+          f"{LOSS_TOL[compute_dtype]}")
+    # params against each layer's largest update: held in f32; in bf16
+    # recorded beside the plain bf16 path's distance from the plain f32
+    # one, as the Transformer phase records them
+    update_err, update_worst = layer_err(final[False], final[True], own_dev, ulps=5)
+    update_floor = (None if ref is None else
+                    layer_err(final[True], ref["final"], own_dev, ulps=5)[0])
+    check(ref is not None or update_err <= GRAD_TOL,
+          f"{what}: params after 5 steps vs plain path {update_err:.3g} of the largest "
+          f"update of {update_worst}'s layer > {GRAD_TOL}")
+    host = lambda tree: {op: {w: t.cpu() for w, t in ws.items()}  # noqa: E731
+                         for op, ws in tree.items()}
+    this_ref = {"grads": host(g_plain), "final": host(final[True])}
+    del g_plain, final
+
+    # (c) fit through the entry point, launch counts read just around it;
+    # then the same 8 steps through the plain path
+    reset()
+    steps = len(batches)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    hist = ff.fit([tok, pos], lab, batch_size=GPT_BATCH, epochs=1, shuffle=False,
+                  verbose=False)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    check_flash_launches(launches, n_attn * steps, n_attn * steps, f"{what}: fit's {steps} steps")
+    fitted = {op: {w: t.clone() for w, t in ws.items()} for op, ws in cm.params.items()}
+    reset()
+    plain_fit_losses = run_steps(batches, plain=True)
+    pm = hist[0]
+    fit_ce = pm.sparse_cce_loss / pm.train_all
+    plain_ce = float(np.mean(plain_fit_losses))
+    fit_err = abs(fit_ce - plain_ce) / plain_ce
+    fit_update_err, fit_worst = layer_err(fitted, cm.params, own_dev, ulps=steps)
+    check(pm.train_all == GPT_TRAIN_SAMPLES * GPT_SEQ and np.isfinite(fit_ce)
+          and fit_err <= LOSS_TOL[compute_dtype]
+          and (ref is not None or fit_update_err <= GRAD_TOL),
+          f"{what}: fit sparse CE {fit_ce} vs plain {plain_ce} ({fit_err:.3g}), params "
+          f"{fit_update_err:.3g} of the largest update of {fit_worst}'s layer")
+    del fitted
+
+    # (d) step time, a profiled step, peak memory
+    batch = batches[0]
+
+    def step():
+        cm.train_step(cm.params, cm.opt_state, None, *batch)
+
+    step_ms, _, peak_gib = timed_steps(step, 1)
+    median_ms = float(np.median(step_ms))
+    breakdown = profile_breakdown(step, TRAIN_CLASSES, other="optimizer/elementwise")
+    check_fwd_route(breakdown, compute_dtype, what)
+    check_bwd_route({n for n, _ in device_spans(step, 1) if "flash_bwd" in n},
+                    getattr(torch, compute_dtype), what)
+    row = dict(compute_dtype=compute_dtype, card=card, batch=GPT_BATCH, seq=GPT_SEQ,
+               grad_rel_err_vs_plain=grad_err, grad_worst_weight=grad_worst,
+               grad_tolerance=grad_tol, grad_bf16_floor=grad_floor,
+               losses=losses[False], plain_losses=losses[True],
+               loss_rel_err_vs_plain=loss_err, loss_tolerance=LOSS_TOL[compute_dtype],
+               update_rel_err_vs_plain=update_err, update_worst_weight=update_worst,
+               update_bf16_floor=update_floor, fit_steps=steps, fit_launches=launches,
+               fit_sparse_cce=fit_ce, fit_plain_sparse_cce=plain_ce,
+               fit_update_rel_err_vs_plain=fit_update_err, fit_accuracy=pm.accuracy,
+               step_ms_median=median_ms, step_ms_min=min(step_ms), step_ms_max=max(step_ms),
+               tokens_per_s=GPT_BATCH * GPT_SEQ * 1e3 / median_ms,
+               device_busy_share=1.0 - breakdown["device_idle_share"],
+               peak_memory_gib=peak_gib, breakdown=breakdown)
+    held = f"tol {GRAD_TOL}" if ref is None else f"bf16 floor {update_floor:.3g}"
+    print(f"gpt training {compute_dtype}: grads vs plain path {grad_err:.3g} of the layer's "
+          f"largest gradient (worst {grad_worst}; tol {grad_tol:.3g}); 5 steps: losses "
+          f"{[f'{v:.6f}' for v in losses[False]]} vs plain {[f'{v:.6f}' for v in losses[True]]}"
+          f" (max rel err {loss_err:.3g}, tol {LOSS_TOL[compute_dtype]}), params after them "
+          f"{update_err:.3g} of the layer's largest update (worst {update_worst}; {held}); fit "
+          f"{steps} steps, launches {launches}, sparse CE {fit_ce:.6f} vs plain {plain_ce:.6f}, "
+          f"params {fit_update_err:.3g}; step {median_ms:.2f} ms median of {TIMED_STEPS} "
+          f"(min {min(step_ms):.2f}, max {max(step_ms):.2f}), "
+          f"{row['tokens_per_s']:.0f} tokens/s, device busy "
+          f"{row['device_busy_share']:.1%} of a profiled step, peak {peak_gib:.2f} GiB "
+          f"[{card}]", flush=True)
+    print(f"gpt training breakdown {compute_dtype}: {json.dumps(breakdown)}", flush=True)
+    print("gpt_training_json " + json.dumps(row), flush=True)
+    return row, this_ref
+
+
+def phase_gpt_generation(compute_dtype: str, card: str, full_f32: np.ndarray = None) -> tuple:
+    """Generate GEN_NEW greedy tokens for GPT_BATCH prompts of GEN_PROMPT
+    through Generator(max_length=GEN_MAX_LENGTH).generate, recording each
+    block step's logits and time; then one full causal forward of the
+    generated tokens (the flash forward, causal) holds every step's logits
+    and the greedy tokens. ``full_f32``: the float32 run's full-forward
+    logits, from which the bfloat16 run records its distance. Returns (row,
+    this run's full-forward logits)."""
+    from flexflow_tpu_torch import kernels, load_numpy_params
+    from flexflow_tpu_torch.serving import Generator
+
+    ff, n_attn = gpt_model(compute_dtype, training=False)
+    load_numpy_params(ff, gpt_params(ff, SEED + 8))
+    cm = ff.compiled
+    gen = Generator(ff, max_length=GEN_MAX_LENGTH)
+    vocab = gpt_config().vocab_size
+    prompts = np.random.default_rng(SEED + 9).integers(
+        0, vocab, size=(GPT_BATCH, GEN_PROMPT), dtype=np.int32)
+    what = f"GPT generation {compute_dtype}"
+    step = gen._step
+    records = []  # (offset, block length, ms, last position's logits on the host)
+
+    def recording_step(params, tokens, cache, offset):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(params, tokens, cache, offset)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        records.append((offset, tokens.shape[1], ms, out[:, -1].cpu().numpy()))
+        return out
+
+    gen.generate(prompts, 4)  # warm-up
+    gen._step = recording_step
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = gen.generate(prompts, GEN_NEW)
+    wall = time.perf_counter() - t0
+    gen_launches = kernels.launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(out.shape == (GPT_BATCH, GEN_PROMPT + GEN_NEW) and np.array_equal(
+        out[:, :GEN_PROMPT], prompts), f"{what}: tokens of shape {out.shape}")
+    # the cached attention is torch ops, as the reference's is XLA
+    check(all(v == 0 for v in gen_launches.values()),
+          f"{what}: generate launched {gen_launches}")
+    check(len(records) == GEN_NEW and records[0][:2] == (0, GEN_PROMPT)
+          and all(r[:2] == (GEN_PROMPT + i, 1) for i, r in enumerate(records[1:])),
+          f"{what}: block steps {[r[:2] for r in records]}")
+
+    # the full causal forward of the generated tokens through the kernel
+    seq = GEN_PROMPT + GEN_NEW
+    tokens = torch.from_numpy(out).to(cm.device)
+    positions = torch.arange(seq, dtype=torch.int32, device=cm.device).expand(GPT_BATCH, seq)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    full_dev = cm.forward_fn(cm.params, tokens, positions)
+    torch.cuda.synchronize()
+    fwd_launches = kernels.launch_counts()
+    check_flash_launches(fwd_launches, n_attn, 0, f"{what}: the full forward")
+    full = full_dev.cpu().numpy()
+    del full_dev
+    check(full.shape == (GPT_BATCH, seq, vocab) and bool(np.isfinite(full).all()),
+          f"{what}: full-forward logits {full.shape}")
+    # step k's logits are those of position GEN_PROMPT - 1 + k
+    want = full[:, GEN_PROMPT - 1:seq - 1]
+    got = np.stack([r[3] for r in records], axis=1)
+    scale = float(np.abs(want).max())
+    err = float(np.abs(got - want).max()) / scale
+    check(err <= GEN_TOL[compute_dtype], f"{what}: step logits vs the full forward {err:.3g} "
+          f"of the largest |logit| ({scale:.3g}) > {GEN_TOL[compute_dtype]}")
+    # the bf16 path's distance from the f32 one where both read the same
+    # tokens (the prompt's positions: the greedy continuations may part)
+    floor = (None if full_f32 is None else
+             float(np.abs(full[:, :GEN_PROMPT] - full_f32[:, :GEN_PROMPT]).max()
+                   / np.abs(full_f32[:, :GEN_PROMPT]).max()))
+    # greedy tokens: the full forward's argmax wherever its top-2 margin
+    # exceeds the bound
+    top2 = np.sort(want, axis=-1)[..., -2:]
+    decided = (top2[..., 1] - top2[..., 0]) > GEN_TOL[compute_dtype] * scale
+    agree = out[:, GEN_PROMPT:] == want.argmax(-1)
+    check(bool(agree[decided].all()), f"{what}: greedy tokens differ from the full "
+          f"forward's argmax at {int((~agree & decided).sum())} decided positions")
+    decode_ms = np.array([r[2] for r in records[1:]])
+    row = dict(compute_dtype=compute_dtype, card=card, batch=GPT_BATCH, prompt=GEN_PROMPT,
+               new_tokens=GEN_NEW, max_length=GEN_MAX_LENGTH, prefill_ms=records[0][2],
+               decode_ms_p50=float(np.percentile(decode_ms, 50)),
+               decode_ms_p99=float(np.percentile(decode_ms, 99)),
+               tokens_per_s=GPT_BATCH * GEN_NEW / wall, generate_s=wall,
+               generate_launches=gen_launches, full_forward_launches=fwd_launches,
+               rel_err_vs_full_forward=err, logit_scale=scale,
+               tolerance=GEN_TOL[compute_dtype], bf16_vs_f32_full_forward=floor,
+               greedy_checked=int(decided.sum()), greedy_positions=int(decided.size),
+               peak_memory_gib=peak_gib)
+    print(f"gpt generation {compute_dtype}: {GPT_BATCH} prompts of {GEN_PROMPT} + {GEN_NEW} "
+          f"greedy tokens in {wall:.3f} s, {row['tokens_per_s']:.1f} tokens/s; prefill "
+          f"{row['prefill_ms']:.2f} ms, decode {row['decode_ms_p50']:.3f} ms p50, "
+          f"{row['decode_ms_p99']:.3f} ms p99 a token; step logits vs the full causal forward "
+          f"(flash launches {fwd_launches['flash_attention_fwd']}) {err:.3g} of the largest "
+          f"|logit| {scale:.3g} (tol {GEN_TOL[compute_dtype]})"
+          + ("" if floor is None else f", full forward vs f32's at the prompt {floor:.3g}")
+          + f"; greedy tokens equal its argmax at all {row['greedy_checked']} of "
+          f"{row['greedy_positions']} positions whose top-2 margin exceeds the bound; peak "
+          f"{peak_gib:.2f} GiB [{card}]", flush=True)
+    print("gpt_generation_json " + json.dumps(row), flush=True)
+    return row, full
+
+
+def phase_bert_fit(card: str) -> dict:
+    """One short fit of the BERT proxy at its defaults in float32, launches
+    counted, against the same steps through the plain path."""
+    from flexflow_tpu_torch import (FFConfig, FFModel, LossType, MetricsType, SGDOptimizer,
+                                    kernels, load_numpy_params)
+    from flexflow_tpu_torch.models import build_bert_proxy
+
+    ff = FFModel(FFConfig(batch_size=BERT_BATCH, seed=SEED, device=DEVICE))
+    x_t, _ = build_bert_proxy(ff, BERT_BATCH)
+    ff.compile(optimizer=SGDOptimizer(lr=0.01),
+               loss_type=LossType.MEAN_SQUARED_ERROR_AVG_REDUCE,
+               metrics=[MetricsType.MEAN_SQUARED_ERROR])
+    cm = ff.compiled
+    n_attn = sum(op.op_type.name == "MULTIHEAD_ATTENTION" for op in cm.ops)
+    check(n_attn == BERT_LAYERS, f"BERT proxy has {n_attn} attention ops, want {BERT_LAYERS}")
+    init = {op: {w: t.detach().cpu().numpy().copy() for w, t in ws.items()}
+            for op, ws in cm.params.items()}
+    own_dev = {op: {w: t.detach().clone() for w, t in ws.items()}
+               for op, ws in cm.params.items()}
+    rng = np.random.default_rng(SEED + 10)
+    x = rng.standard_normal(size=(BERT_BATCH * BERT_STEPS,) + x_t.dims[1:], dtype=np.float32)
+    y = rng.standard_normal(size=x.shape, dtype=np.float32)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    hist = ff.fit(x, y, batch_size=BERT_BATCH, epochs=1, shuffle=False, verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    check_flash_launches(launches, n_attn * BERT_STEPS, n_attn * BERT_STEPS, "BERT fit")
+    fitted = {op: {w: t.clone() for w, t in ws.items()} for op, ws in cm.params.items()}
+    load_numpy_params(ff, init)
+    cm.opt_state = cm.optimizer.init_state(cm.params)
+    plain_losses = []
+    for i in range(BERT_STEPS):
+        xb, yb = (torch.from_numpy(a[i * BERT_BATCH:(i + 1) * BERT_BATCH]).to(cm.device)
+                  for a in (x, y))
+        cm.params, cm.opt_state, loss, _ = cm.train_step(cm.params, cm.opt_state, None, xb, yb,
+                                                         plain_kernels=True)
+        plain_losses.append(loss.item())
+    pm = hist[0]
+    fit_mse = pm.mse_loss / (pm.train_all * x.shape[1] * x.shape[2])
+    plain_mse = float(np.mean(plain_losses))
+    loss_err = abs(fit_mse - plain_mse) / plain_mse
+    update_err, worst = layer_err(fitted, cm.params, own_dev, ulps=BERT_STEPS)
+    check(np.isfinite(fit_mse) and loss_err <= LOSS_TOL["float32"] and update_err <= GRAD_TOL,
+          f"BERT fit: mse {fit_mse} vs plain {plain_mse} ({loss_err:.3g}), params "
+          f"{update_err:.3g} of the largest update of {worst}'s layer")
+    row = dict(card=card, batch=BERT_BATCH, steps=BERT_STEPS, launches=launches,
+               fit_mse=fit_mse, plain_mse=plain_mse, loss_rel_err_vs_plain=loss_err,
+               update_rel_err_vs_plain=update_err, fit_s=wall)
+    print(f"bert fit float32: {BERT_STEPS} steps of batch {BERT_BATCH} at seq {x.shape[1]}, "
+          f"hidden {x.shape[2]}, {n_attn} layers in {wall:.2f} s, launches {launches}; mse "
+          f"{fit_mse:.6f} vs plain {plain_mse:.6f} (rel err {loss_err:.3g}), params "
+          f"{update_err:.3g} of the "
+          f"layer's largest update (worst {worst}) [{card}]", flush=True)
+    print("bert_json " + json.dumps(row), flush=True)
+    return row
 
 
 # ---- the MoE slice -------------------------------------------------------
@@ -1494,6 +1915,16 @@ def main() -> int:
     train = [row32, row16]
     del ref
     print(f"phases: training done at {time.perf_counter() - t0:.0f} s", flush=True)
+    gpt32, ref = phase_gpt_training("float32", card)
+    gpt16, _ = phase_gpt_training("bfloat16", card, ref)
+    gpt_train = [gpt32, gpt16]
+    del ref
+    gen32, full32 = phase_gpt_generation("float32", card)
+    gen16, _ = phase_gpt_generation("bfloat16", card, full32)
+    gpt_gen = [gen32, gen16]
+    del full32
+    bert = phase_bert_fit(card)
+    print(f"phases: GPT and BERT done at {time.perf_counter() - t0:.0f} s", flush=True)
     moe_kern = phase_moe_kernels()
     print(f"phases: MoE kernels done at {time.perf_counter() - t0:.0f} s", flush=True)
     moe_serve = [phase_moe_serving(dt, card) for dt in ("float32", "bfloat16")]
@@ -1503,6 +1934,12 @@ def main() -> int:
           flush=True)
     train_launches = {name: sum(r["fit_launches"][name] for r in train)
                       for name in train[0]["fit_launches"]}
+    # GPT's path: its fits and the full-sequence forwards of its generation
+    # checks; the BERT proxy's fit
+    gpt_launches = {name: sum(r["fit_launches"][name] for r in gpt_train)
+                    + sum(r["full_forward_launches"][name] for r in gpt_gen)
+                    for name in train[0]["fit_launches"]}
+    bert_launches = bert["launches"]
     bwd_src = "flexflow_tpu_torch/kernels/csrc/flash_attention_bwd.cu"
     wide_bwd_src = "flexflow_tpu_torch/kernels/csrc/flash_attention_bwd_wide.cu"
     entries = [
@@ -1510,17 +1947,28 @@ def main() -> int:
                       "flexflow_tpu_torch/kernels/csrc/flash_attention_fwd.cu",
                       "flexflow_tpu/kernels/flash_attention.py:43", kern["fwd"],
                       sum(r["launches"] for r in serve)
-                      + train_launches["flash_attention_fwd"],
+                      + train_launches["flash_attention_fwd"]
+                      + gpt_launches["flash_attention_fwd"]
+                      + bert_launches["flash_attention_fwd"],
                       serving_launches=sum(r["launches"] for r in serve),
                       training_launches=train_launches["flash_attention_fwd"],
+                      gpt_launches=gpt_launches["flash_attention_fwd"],
+                      gpt_full_forward_launches=sum(
+                          r["full_forward_launches"]["flash_attention_fwd"] for r in gpt_gen),
+                      bert_launches=bert_launches["flash_attention_fwd"],
                       wide_source="flexflow_tpu_torch/kernels/csrc/flash_attention_fwd_wide.cu",
                       wide_route="D > 256: flash_fwd_kernel_wide_mma (bf16) and "
                                  "flash_fwd_kernel_wide_tf32x3 (f32, split TF32), on the "
                                  "tensor cores; no main path launches them",
-                      cases=kern["cases"]),
+                      cases=kern["cases"], gpt_cases=kern["gpt_cases"]),
         _kernel_entry("flash_attention_bwd_dq", bwd_src,
                       "flexflow_tpu/kernels/flash_attention.py:59", kern["dq"],
-                      train_launches["flash_attention_bwd_dq"],
+                      train_launches["flash_attention_bwd_dq"]
+                      + gpt_launches["flash_attention_bwd_dq"]
+                      + bert_launches["flash_attention_bwd_dq"],
+                      training_launches=train_launches["flash_attention_bwd_dq"],
+                      gpt_launches=gpt_launches["flash_attention_bwd_dq"],
+                      bert_launches=bert_launches["flash_attention_bwd_dq"],
                       plain_and_library_cover="dq, dk and dv (the whole gradient)",
                       wide_source=wide_bwd_src,
                       wide_route="D > 256: flash_bwd_dq_kernel_wide_mma (bf16) and "
@@ -1528,7 +1976,12 @@ def main() -> int:
                                  "tensor cores; no main path launches them"),
         _kernel_entry("flash_attention_bwd_dkv", bwd_src,
                       "flexflow_tpu/kernels/flash_attention.py:79", kern["dkv"],
-                      train_launches["flash_attention_bwd_dkv"],
+                      train_launches["flash_attention_bwd_dkv"]
+                      + gpt_launches["flash_attention_bwd_dkv"]
+                      + bert_launches["flash_attention_bwd_dkv"],
+                      training_launches=train_launches["flash_attention_bwd_dkv"],
+                      gpt_launches=gpt_launches["flash_attention_bwd_dkv"],
+                      bert_launches=bert_launches["flash_attention_bwd_dkv"],
                       plain_and_library_cover="dq, dk and dv (the whole gradient)",
                       wide_source=wide_bwd_src,
                       wide_route="D > 256: flash_bwd_dkv_kernel_wide_mma (bf16) and "

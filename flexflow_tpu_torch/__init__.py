@@ -9,16 +9,22 @@ Ported so far, for the reference Transformer
 (``models.transformer.build_transformer``): classic one-shot inference
 through ``serving.engine.InferenceEngine`` with the flash-attention forward
 kernel, and training through ``FFModel.compile`` -> ``fit``/``eval`` (SGD or
-Adam, the five losses) with the flash-attention backward kernels; and for
+Adam, the five losses) with the flash-attention backward kernels; for
 the mixture-of-experts model (``models.moe.build_moe_mnist``), serving and
-training through the same entry points with the MoE row-gather kernels.
+training through the same entry points with the MoE row-gather kernels;
+and for the GPT causal LM (``models.gpt.build_gpt``) and the BERT proxy
+(``models.transformer.build_bert_proxy``), built on the LayerNorm,
+embedding, elementwise and dropout ops, training through the same entry
+points and, for GPT, generation through the dense KV-cache
+``serving.generation.Generator``.
 """
 
 from .config import FFConfig
-from .ffconst import ActiMode, CompMode, DataType, LossType, MetricsType, OpType
+from .ffconst import (ActiMode, AggrMode, CompMode, DataType, LossType, MetricsType,
+                      OpType)
 from .runtime.model import FFModel, load_numpy_params
 from .runtime.optimizer import AdamOptimizer, SGDOptimizer
 
-__all__ = ["ActiMode", "AdamOptimizer", "CompMode", "DataType", "FFConfig",
+__all__ = ["ActiMode", "AdamOptimizer", "AggrMode", "CompMode", "DataType", "FFConfig",
            "FFModel", "LossType", "MetricsType", "OpType", "SGDOptimizer",
            "load_numpy_params"]

@@ -3,12 +3,15 @@
 PyTorch counterpart of ``flexflow_tpu/core/op.py``. An Op is a function
 over torch tensors plus metadata: a shape rule, declared weights and a
 forward. There is no mesh yet, so ``propagate`` only turns the shape rule
-into unpartitioned shapes.
+into unpartitioned shapes. Random draws (dropout) come from an explicit
+``torch.Generator`` per op and step (:meth:`LowerCtx.generator`), where
+the JAX package folds the op's index into the step's PRNG key.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import zlib
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Type
 
 import torch
@@ -31,7 +34,7 @@ class WeightSpec:
 
 @dataclasses.dataclass
 class LowerCtx:
-    """Context threaded through each op's forward (no rng or mesh yet)."""
+    """Context threaded through each op's forward (no mesh yet)."""
 
     # run every kernel's plain PyTorch version, on any device: the
     # reference the card's kernels are held against
@@ -42,6 +45,22 @@ class LowerCtx:
     # load-balancing term); the compiler passes a list and adds them to
     # the training loss. None: the caller does not collect them
     aux_losses: Optional[list] = None
+    # the step's random key (``train_step``'s ``rng``, an int) and the
+    # config's seed. Without a key the attention op drops nothing, as the
+    # JAX package's does, and a training Dropout op raises
+    rng: Optional[int] = None
+    seed: int = 0
+
+    def generator(self, op_name: str, device: torch.device) -> torch.Generator:
+        """A fresh ``torch.Generator`` on ``device`` for one op's draws in
+        this step, seeded from the config's seed, the step's key and the
+        op's name: the same (seed, step, op) always draws the same mask."""
+        if self.rng is None:
+            raise ValueError(f"{op_name}: a random draw needs the step's rng key")
+        gen = torch.Generator(device=device)
+        gen.manual_seed((self.seed * 1_000_003 + int(self.rng) * 7919
+                         + zlib.crc32(op_name.encode())) % (1 << 63))
+        return gen
 
 
 class Op:

@@ -47,6 +47,14 @@ class ActiMode(enum.Enum):
     GELU = 14
 
 
+class AggrMode(enum.Enum):
+    """Embedding aggregation (reference: ffconst.h AGGR_MODE_*)."""
+
+    NONE = 20
+    SUM = 21
+    AVG = 22
+
+
 class LossType(enum.Enum):
     """Loss functions (reference: ffconst.h LOSS_*)."""
 

@@ -1,5 +1,9 @@
-"""Model zoo (the slices port the Transformer and the MoE model)."""
+"""Model zoo (the slices port the Transformer, BERT proxy, MoE model and
+GPT)."""
 
+from .gpt import GPTConfig, build_gpt
 from .moe import MoeConfig, build_moe_mnist
+from .transformer import TransformerConfig, build_bert_proxy, build_transformer
 
-__all__ = ["MoeConfig", "build_moe_mnist"]
+__all__ = ["GPTConfig", "MoeConfig", "TransformerConfig", "build_bert_proxy",
+           "build_gpt", "build_moe_mnist", "build_transformer"]

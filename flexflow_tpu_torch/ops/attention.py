@@ -8,8 +8,12 @@ PyTorch counterpart of ``MultiHeadAttention`` in
 length, which
 launches the Hopper kernels on CUDA tensors (the forward, and under autograd
 the two backward kernels) and runs their plain versions on CPU tensors.
-Attention dropout, sequence-parallel attention and the sharded kernel wait
-for later slices.
+With attention dropout while training the op takes the reference's own
+route for it: neither package's kernel drops, so the JAX op leaves its
+kernel for ``single_device_attention``, which drops the softmax
+probabilities, and this op runs the same math in torch ops
+(:func:`dropout_attention`). Sequence-parallel attention and the sharded
+kernel wait for later slices.
 """
 
 from __future__ import annotations
@@ -22,7 +26,22 @@ import torch
 from ..ffconst import OpType
 from ..core.op import Op, WeightSpec, register_op
 from ..kernels import flash_attention as fa
+from .dropout import drop
 from ..runtime.initializer import DefaultWeightInitializer, ZeroInitializer
+
+
+def dropout_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool, scale: float, rate: float, ctx,
+                      op_name: str) -> torch.Tensor:
+    """Attention on (B, S, H, D) tensors with dropout on the probabilities:
+    the reference's ``single_device_attention`` (top-left causal mask to
+    -inf, softmax, drop, PV) in torch ops."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q * scale, k)
+    if causal:
+        keep = torch.ones(s.shape[-2:], dtype=torch.bool, device=s.device).tril()
+        s = s.masked_fill(~keep, float("-inf"))
+    p = drop(torch.softmax(s, dim=-1), rate, ctx, op_name)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v)
 
 
 @register_op
@@ -75,12 +94,6 @@ class MultiHeadAttention(Op):
             -1, (self.num_heads, self.head_dim))
 
     def forward(self, ctx, inputs, weights):
-        if ctx.training and self.attrs.get("dropout", 0.0) > 0.0:
-            # the JAX package leaves the kernel for its einsum path here,
-            # and its dropout mask cannot be matched across frameworks
-            raise NotImplementedError(
-                f"{self.name}: attention dropout while training is not ported "
-                f"yet (ROADMAP queue A3); build with dropout=0.0")
         q, k, v = inputs
         qh = self._project(q, weights["wq"])
         kh = self._project(k, weights["wk"])
@@ -90,10 +103,14 @@ class MultiHeadAttention(Op):
             kh = kh + weights["bk"]
             vh = vh + weights["bv"]
         scale = 1.0 / math.sqrt(self.head_dim)
-        # any sequence length: the kernels (their plain versions under
-        # plain_kernels or on CPU tensors) take ragged tiles, where the
-        # reference's op leaves its kernel for single_device_attention
-        ctxv = fa.attend(qh, kh, vh, self.causal, scale, plain=ctx.plain_kernels)
+        rate = self.attrs.get("dropout", 0.0)
+        if rate > 0.0 and ctx.training and ctx.rng is not None:
+            ctxv = dropout_attention(qh, kh, vh, self.causal, scale, rate, ctx, self.name)
+        else:
+            # any sequence length: the kernels (their plain versions under
+            # plain_kernels or on CPU tensors) take ragged tiles, where the
+            # reference's op leaves its kernel for single_device_attention
+            ctxv = fa.attend(qh, kh, vh, self.causal, scale, plain=ctx.plain_kernels)
         # (B, S, H, D) x (H, D, E) -> (B, S, E)
         out = torch.matmul(ctxv.flatten(-2), weights["wo"].flatten(0, 1))
         if self.use_bias:

@@ -1,0 +1,52 @@
+"""Elementwise binary operators with numpy broadcasting.
+
+PyTorch counterpart of ``flexflow_tpu/ops/element_binary.py``: add,
+subtract, multiply, divide, max and min, one op class per type, each a
+stock torch op (XLA's fused elementwise ops in the JAX package, outside
+any Pallas kernel).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+import numpy as np
+import torch
+
+from ..core.op import Op, register_op
+from ..ffconst import OpType
+
+_BINARY_FNS: Dict[OpType, Callable] = {
+    OpType.EW_ADD: torch.add,
+    OpType.EW_SUB: torch.subtract,
+    OpType.EW_MUL: torch.multiply,
+    OpType.EW_DIV: torch.true_divide,
+    OpType.EW_MAX: torch.maximum,
+    OpType.EW_MIN: torch.minimum,
+}
+
+
+class _ElementBinaryBase(Op):
+    def infer_output_shapes(self):
+        a, b = self.input_shapes
+        out = np.broadcast_shapes(a.sizes, b.sizes)
+        return [(tuple(int(s) for s in out), a.dtype)]
+
+
+def _make_binary(op_type: OpType):
+    fn = _BINARY_FNS[op_type]
+    cls = type(
+        f"ElementBinary_{op_type.value}",
+        (_ElementBinaryBase,),
+        {
+            "op_type": op_type,
+            "forward": lambda self, ctx, inputs, weights, _fn=fn: [
+                _fn(inputs[0], inputs[1])
+            ],
+        },
+    )
+    return register_op(cls)
+
+
+for _t in _BINARY_FNS:
+    _make_binary(_t)

@@ -9,7 +9,10 @@ device and returns plain functions over the op graph: ``forward_fn``
 signatures without ``seq_length``. Gradients come from autograd through
 the op graph (and through the kernels' ``torch.autograd.Function`` classes);
 the auxiliary losses that ops append to ``LowerCtx.aux_losses`` (the MoE
-balance term) join the training loss only. Gradient accumulation,
+balance term) join the training loss only. A training step's ``rng`` is an
+int key (``FFModel`` passes a counter, as the JAX package folds one into
+its root key); each op's random draws come from a generator seeded by the
+config's seed, that key and the op's name. Gradient accumulation,
 multi-step dispatch, ZeRO, regularizers and sharding arrive with later
 slices.
 """
@@ -57,9 +60,8 @@ class CompiledModel:
     # {op: {weight: bool}}: which weights get weight decay
     wd_mask: Dict[str, Dict[str, bool]] = dataclasses.field(default_factory=dict)
     # train_step(params, opt_state, rng, *xs, y) -> (params, opt_state,
-    # loss, batch metrics), the params and state updated in place;
-    # ``rng`` is the JAX package's dropout key, unused until dropout is
-    # ported (queue A3)
+    # loss, batch metrics), the params and state updated in place; ``rng``:
+    # the step's int key for dropout (None: no draws, see LowerCtx)
     train_step: Optional[Callable[..., tuple]] = None
     # eval_step(params, *xs, y) -> (loss, logits, batch metrics)
     eval_step: Optional[Callable[..., tuple]] = None
@@ -177,14 +179,19 @@ def _forward_graph(ops: List[Op], params: Params,
                    inputs: Dict[int, torch.Tensor],
                    compute_dtype: Optional[torch.dtype] = None,
                    plain_kernels: bool = False,
-                   training: bool = False
+                   training: bool = False,
+                   rng: Optional[int] = None,
+                   seed: int = 0
                    ) -> Tuple[Dict[int, torch.Tensor], List[torch.Tensor]]:
     """Run the op graph; returns (every activation by tensor id, the
     auxiliary losses the ops appended). With a ``compute_dtype`` (bf16)
     activations and op weights are cast on entry to each op and outputs
     cast back, while ``params`` stay f32: autograd through the casts gives
-    f32 gradients against the f32 master params."""
-    ctx = LowerCtx(plain_kernels=plain_kernels, training=training, aux_losses=[])
+    f32 gradients against the f32 master params. Integer inputs (token
+    ids) are never cast. ``rng``/``seed``: the step's key and the config's
+    seed, from which each op draws (``LowerCtx.generator``)."""
+    ctx = LowerCtx(plain_kernels=plain_kernels, training=training, aux_losses=[],
+                   rng=rng, seed=seed)
     cast = make_caster(compute_dtype)
     acts = {k: cast(v) for k, v in inputs.items()}
     for op in ops:
@@ -248,12 +255,12 @@ def compile_model(
     logits_id = logits_tensor.tensor_id
     from_logits = _ends_without_softmax(ops, logits_id)
 
-    def run(params: Params, xs, plain_kernels: bool,
-            training: bool) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    def run(params: Params, xs, plain_kernels: bool, training: bool,
+            rng: Optional[int] = None) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         """(f32 logits, the auxiliary losses in f32): loss and metrics are
         f32 whatever the compute dtype."""
         acts, aux = _forward_graph(ops, params, dict(zip(input_ids, xs)), cdt,
-                                   plain_kernels, training)
+                                   plain_kernels, training, rng, config.seed)
         return acts[logits_id].float(), [a.float() for a in aux]
 
     def forward_fn(params: Params, *xs: torch.Tensor,
@@ -261,7 +268,7 @@ def compile_model(
         with torch.inference_mode():
             return run(params, xs, plain_kernels, training=False)[0]
 
-    def value_and_grad(params: Params, batch, plain_kernels: bool):
+    def value_and_grad(params: Params, batch, plain_kernels: bool, rng):
         """(loss, logits, grads) of one batch; the loss includes the
         auxiliary losses (the training loss only, as in the JAX package's
         train and grad steps), and the grads are f32 trees like
@@ -271,7 +278,7 @@ def compile_model(
                   for op, ws in params.items()}
         flat = [t for ws in leaves.values() for t in ws.values()]
         with torch.enable_grad():
-            logits, aux = run(leaves, xs, plain_kernels, training=True)
+            logits, aux = run(leaves, xs, plain_kernels, training=True, rng=rng)
             loss = compute_loss(loss_type, logits, y, from_logits)
             for a in aux:
                 loss = loss + a
@@ -282,11 +289,11 @@ def compile_model(
 
     def grad_step(params: Params, rng, *batch: torch.Tensor,
                   plain_kernels: bool = False) -> Params:
-        return value_and_grad(params, batch, plain_kernels)[2]
+        return value_and_grad(params, batch, plain_kernels, rng)[2]
 
     def train_step(params: Params, opt_state, rng, *batch: torch.Tensor,
                    plain_kernels: bool = False):
-        loss, logits, grads = value_and_grad(params, batch, plain_kernels)
+        loss, logits, grads = value_and_grad(params, batch, plain_kernels, rng)
         bm = compute_batch_metrics(metrics, loss_type, logits, batch[n_inputs],
                                    from_logits)
         params, opt_state = optimizer.update(params, grads, opt_state, wd_mask,

@@ -44,5 +44,13 @@ class ZeroInitializer(Initializer):
         return torch.zeros(shape, dtype=dtype, device=device)
 
 
+class ConstantInitializer(Initializer):
+    def __init__(self, value: float):
+        self.value = value
+
+    def __call__(self, gen, shape, dtype, device):
+        return torch.full(shape, self.value, dtype=dtype, device=device)
+
+
 DefaultWeightInitializer = GlorotUniformInitializer
 DefaultBiasInitializer = ZeroInitializer

@@ -2,13 +2,16 @@
 
 PyTorch counterpart of ``flexflow_tpu/runtime/model.py``: the graph calls
 the port's slices need (``create_tensor``, ``dense``,
-``multihead_attention``, ``softmax`` and the MoE family up to ``moe``),
-``compile`` with an optimizer, a loss and
+``multihead_attention``, ``softmax``, ``layer_norm``, the elementwise
+binary and unary verbs, ``dropout``, ``embedding``, ``gather`` and the MoE
+family up to ``moe``), ``compile`` with an optimizer, a loss and
 metrics, ``fit``/``eval`` over the numpy data loader, the manual
 ``set_batch``/``forward``/``zero_gradients``/``backward``/``update``
 verbs, and :func:`load_numpy_params` to carry the JAX package's params
-across. Training guards, resume, checkpoints, prefetching, multi-step
-dispatch and the observability hooks wait for later slices.
+across. Each training step gets the next value of a counter as its
+dropout key, as the JAX package folds its counter into its root key.
+Training guards, resume, checkpoints, prefetching, multi-step dispatch
+and the observability hooks wait for later slices.
 """
 
 from __future__ import annotations
@@ -24,7 +27,8 @@ from ..core.layer import Layer
 from ..core.op import create_op
 from ..core.parallel_tensor import ParallelTensorShape
 from ..core.tensor import Tensor
-from ..ffconst import ActiMode, CompMode, DataType, LossType, MetricsType, OpType
+from ..ffconst import (ActiMode, AggrMode, CompMode, DataType, LossType, MetricsType,
+                       OpType)
 from .compiler import CompiledModel, Params, compile_model
 from .dataloader import DataLoaderGroup, SingleDataLoader
 from .loss import loss_from_string
@@ -53,6 +57,7 @@ class FFModel:
         self.optimizer: Optional[Optimizer] = None
         self._cur_batch: Optional[List[torch.Tensor]] = None
         self._cur_grads: Optional[Params] = None
+        self._rng_counter = 0
 
     # ---- graph construction ---------------------------------------------
     def create_tensor(self, dims: Sequence[int],
@@ -108,6 +113,110 @@ class FFModel:
 
     def softmax(self, input: Tensor, axis: int = -1, name=None) -> Tensor:
         return self._infer_and_add(OpType.SOFTMAX, [input], dict(dim=axis), name)
+
+    def layer_norm(self, input: Tensor, axes: Sequence[int],
+                   elementwise_affine: bool = True, eps: float = 1e-5,
+                   name: Optional[str] = None) -> Tensor:
+        """Normalise over ``axes`` (any dims, not only trailing ones)."""
+        attrs = dict(axes=tuple(axes), elementwise_affine=elementwise_affine, eps=eps)
+        return self._infer_and_add(OpType.LAYERNORM, [input], attrs, name)
+
+    def dropout(self, input: Tensor, rate: float = 0.5, seed: int = 0,
+                name=None) -> Tensor:
+        """Drop elements at ``rate`` while training. ``seed`` is kept as an
+        attribute, as in the JAX package, whose draws do not read it either:
+        the masks come from the config's seed, the step and the op's name."""
+        return self._infer_and_add(OpType.DROPOUT, [input], dict(rate=rate, seed=seed),
+                                   name)
+
+    def embedding(self, input: Tensor, num_entries: int, out_dim: int,
+                  aggr: AggrMode = AggrMode.NONE, dtype: DataType = DataType.FLOAT,
+                  kernel_initializer=None, name=None,
+                  strategy: Optional[Dict[str, str]] = None) -> Tensor:
+        """Rows of a (num_entries, out_dim) table; SUM/AVG reduce the
+        trailing multi-hot dim. A ``strategy`` raises: sharding the table
+        needs a mesh (queue A7)."""
+        attrs = dict(num_entries=num_entries, out_dim=out_dim, aggr=aggr, dtype=dtype,
+                     kernel_initializer=kernel_initializer)
+        if strategy:
+            attrs["strategy"] = strategy
+        return self._infer_and_add(OpType.EMBEDDING, [input], attrs, name)
+
+    def gather(self, input: Tensor, index: Tensor, dim: int, name=None) -> Tensor:
+        """``torch.gather`` along ``dim``."""
+        return self._infer_and_add(OpType.GATHER, [input, index], dict(dim=dim), name)
+
+    # ---- elementwise -----------------------------------------------------
+    # ``inplace``/``inplace_a`` are accepted for the JAX package's
+    # signatures and ignored there too
+    def _binary(self, op_type: OpType, x: Tensor, y: Tensor, name=None) -> Tensor:
+        return self._infer_and_add(op_type, [x, y], {}, name)
+
+    def add(self, x, y, name=None, inplace_a=False):
+        return self._binary(OpType.EW_ADD, x, y, name)
+
+    def subtract(self, x, y, name=None, inplace_a=False):
+        return self._binary(OpType.EW_SUB, x, y, name)
+
+    def multiply(self, x, y, name=None, inplace_a=False):
+        return self._binary(OpType.EW_MUL, x, y, name)
+
+    def divide(self, x, y, name=None, inplace_a=False):
+        return self._binary(OpType.EW_DIV, x, y, name)
+
+    def max(self, x, y, name=None, inplace_a=False):
+        return self._binary(OpType.EW_MAX, x, y, name)
+
+    def min(self, x, y, name=None, inplace_a=False):
+        return self._binary(OpType.EW_MIN, x, y, name)
+
+    def _unary(self, op_type: OpType, x: Tensor, name=None, **attrs) -> Tensor:
+        return self._infer_and_add(op_type, [x], attrs, name)
+
+    def exp(self, x, name=None):
+        return self._unary(OpType.EXP, x, name)
+
+    def relu(self, x, name=None, inplace=True):
+        return self._unary(OpType.RELU, x, name)
+
+    def identity(self, x, name=None):
+        return self._unary(OpType.IDENTITY, x, name)
+
+    def sigmoid(self, x, name=None):
+        return self._unary(OpType.SIGMOID, x, name)
+
+    def tanh(self, x, name=None):
+        return self._unary(OpType.TANH, x, name)
+
+    def elu(self, x, name=None, inplace=True):
+        return self._unary(OpType.ELU, x, name)
+
+    def gelu(self, x, name=None):
+        return self._unary(OpType.GELU, x, name)
+
+    def rsqrt(self, x, name=None):
+        return self._unary(OpType.RSQRT, x, name)
+
+    def sin(self, x, name=None):
+        return self._unary(OpType.SIN, x, name)
+
+    def cos(self, x, name=None):
+        return self._unary(OpType.COS, x, name)
+
+    def pow(self, x, exponent: float, name=None):
+        return self._unary(OpType.POW, x, name, scalar=exponent)
+
+    def scalar_multiply(self, x, scalar: float, name=None, inplace=True):
+        return self._unary(OpType.SCALAR_MULTIPLY, x, name, scalar=scalar)
+
+    def scalar_add(self, x, scalar: float, name=None, inplace=True):
+        return self._unary(OpType.SCALAR_ADD, x, name, scalar=scalar)
+
+    def scalar_sub(self, x, scalar: float, name=None, inplace=True):
+        return self._unary(OpType.SCALAR_SUB, x, name, scalar=scalar)
+
+    def scalar_true_divide(self, x, scalar: float, name=None, inplace=True):
+        return self._unary(OpType.SCALAR_TRUE_DIV, x, name, scalar=scalar)
 
     # ---- MoE family ------------------------------------------------------
     def top_k(self, input: Tensor, k: int, sorted: bool = True,
@@ -280,7 +389,7 @@ class FFModel:
             loss = None
             for _ in range(group.num_batches):
                 cm.params, cm.opt_state, loss, bm = cm.train_step(
-                    cm.params, cm.opt_state, None, *group.next_batch())
+                    cm.params, cm.opt_state, self._next_rng(), *group.next_batch())
                 pm.accumulate(bm)
             pm.flush()
             if verbose:
@@ -334,7 +443,7 @@ class FFModel:
         cm = self._training_model()
         if self._cur_batch is None or len(self._cur_batch) != len(cm.input_tensors) + 1:
             raise RuntimeError("set_batch(xs, y) with a label before backward()")
-        self._cur_grads = cm.grad_step(cm.params, None, *self._cur_batch)
+        self._cur_grads = cm.grad_step(cm.params, self._next_rng(), *self._cur_batch)
 
     def update(self) -> None:
         """One optimizer step with the gradients of the last backward()."""
@@ -355,6 +464,11 @@ class FFModel:
             opt.alpha = float(lr)
         else:
             raise ValueError("optimizer has no learning-rate attribute")
+
+    def _next_rng(self) -> int:
+        """The next training step's dropout key."""
+        self._rng_counter += 1
+        return self._rng_counter
 
     def get_perf_metrics(self) -> PerfMetrics:
         """An empty PerfMetrics, as the JAX package returns: fit() and

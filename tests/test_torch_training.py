@@ -272,15 +272,34 @@ def test_grads_reach_every_param_and_params_stay_leaves():
 
 
 def test_attention_dropout_raises_while_training():
+    """Attention dropout trains: a step with a key drops (the same key the
+    same gradients), a step without one drops nothing, as the reference's
+    op; what still raises while training is a Dropout op's draw without
+    the step's key. Inference and eval run without dropout, as the JAX
+    package's do."""
     tff = FFModel(FFConfig(batch_size=BATCH, device="cpu"))
     x = tff.create_tensor((BATCH, 16, 32))
     tff.dense(tff.multihead_attention(x, x, x, 32, 2, dropout=0.1), 1)
     tff.compile(optimizer=SGDOptimizer(), loss_type="mse")
     xb, yb = _data(BATCH)[0][:, :16, :32], np.zeros((BATCH, 16, 1), np.float32)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        tff.compiled.train_step(tff.compiled.params, tff.compiled.opt_state, None,
-                                torch.from_numpy(np.ascontiguousarray(xb)),
-                                torch.from_numpy(yb))
-    # inference and eval run without dropout, as the JAX package's do
-    tff.set_batch([np.ascontiguousarray(xb)], yb)
+    xb = np.ascontiguousarray(xb)
+    cm = tff.compiled
+    batch = (torch.from_numpy(xb), torch.from_numpy(yb))
+    g_none, g1, g1b, g2 = (cm.grad_step(cm.params, key, *batch) for key in (None, 1, 1, 2))
+
+    def same(a, b):
+        return all(torch.equal(a[op][w], b[op][w]) for op in a for w in a[op])
+
+    assert same(g1, g1b) and not same(g1, g_none) and not same(g1, g2)
+    assert torch.equal(cm.eval_step(cm.params, *batch)[0], cm.eval_step(cm.params, *batch)[0])
+    tff.set_batch([xb], yb)
     assert tff.forward().shape == (BATCH, 16, 1)
+    drop = FFModel(FFConfig(batch_size=BATCH, device="cpu"))
+    xd = drop.create_tensor((BATCH, 16, 32))
+    drop.dense(drop.dropout(xd, 0.5), 1)
+    drop.compile(optimizer=SGDOptimizer(), loss_type="mse")
+    with pytest.raises(ValueError, match="rng"):
+        drop.compiled.train_step(drop.compiled.params, drop.compiled.opt_state, None, *batch)
+    drop.set_batch([xb], yb)
+    drop.backward()  # the verbs pass the model's step key
+    drop.update()
