@@ -54,7 +54,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
    for 8 prompts of 128, every block step's logits held against one full
    causal forward of the generated tokens (6 flash launches), and the
    greedy tokens against its argmax where its top-2 margin exceeds the
-   bound; prefill ms, decode ms a token (p50, p99), tokens/s;
+   bound; prefill ms, decode ms a token (p50, p99), tokens/s.
+   Continuous batching: 4 requests teacher-forced through a PagedDecoder
+   (prefill and 8 decode steps) against the dense Generator; then 32
+   greedy requests (prompts of 16-512 tokens, 16-128 new) submitted in
+   waves through InferenceEngine.register_generator (8 decode slots,
+   16-token blocks, max_length 1024), with no kernel launched while
+   serving, one decode dispatch a step, and every answer's greedy tokens
+   held against its full causal forward (6 flash launches each) by the
+   margin rule; the same traffic speculatively (spec_k 3, draft "self:2")
+   and with an int8 pool, each held to the plain run's tokens up to a
+   first parting where the plain run's margin is within the bound;
+   tokens/s, TTFT and decode step ms (p50, p99), prefill dispatches, pool
+   high water and bytes, peak memory;
 7. the BERT proxy (build_bert_proxy at its defaults: hidden 768, 12
    heads, 12 layers, seq 128): a FFModel.fit of 2 steps at batch 8 in
    float32, launches counted, against the plain path;
@@ -176,6 +188,18 @@ GPT_LR = 0.01
 # another order (1e-4, as serving), bf16 the serving bf16 rule (SERVE_TOL)
 GEN_PROMPT, GEN_NEW, GEN_MAX_LENGTH = 128, 128, 1024
 GEN_TOL = {"float32": 1e-4, "bfloat16": SERVE_TOL["bfloat16"]}
+# continuous-batching generation: InferenceEngine.register_generator with
+# 8 decode slots, 16-token blocks and max_length 1024 (64 blocks a request,
+# 513 in the pool); 32 greedy requests of seeded prompts of 16-512 tokens
+# and 16-128 new tokens, submitted in waves of 4 (the wave's first request
+# joined before the next wave); 4 of them teacher-forced through the
+# PagedDecoder for 8 decode steps against the dense Generator; the
+# speculative run drafts 3 tokens a round with the target's first 2 blocks
+PAGED_REQUESTS, PAGED_WAVE = 32, 4
+PAGED_PROMPT, PAGED_NEW = (16, 512), (16, 128)
+PAGED_SLOTS, PAGED_BLOCK = 8, 16
+PAGED_TF_REQUESTS, PAGED_TF_STEPS = 4, 8
+PAGED_SPEC_K, PAGED_DRAFT = 3, "self:2"
 # the BERT proxy at its defaults (hidden 768, 12 heads, 12 layers, seq 128):
 # one short fit of 2 steps at batch 8, in f32
 BERT_BATCH, BERT_STEPS, BERT_LAYERS = 8, 2, 12
@@ -727,12 +751,15 @@ def profile_breakdown(fn, classes, other: str = "other") -> dict:
 
 def device_events(fn, iters: int, activities) -> tuple:
     """(the device's events, host ms) of ``iters`` calls of ``fn`` under
-    torch.profiler. A session now and then records no device event at all,
-    so up to three are tried before the run fails."""
+    torch.profiler. A session now and then records no device event at all
+    (three in a row once, in the kernel cases), so up to five are tried,
+    half a second apart, before the run fails."""
     from torch.autograd import DeviceType
     from torch.profiler import profile
 
-    for _ in range(3):
+    for attempt in range(5):
+        if attempt:
+            time.sleep(0.5)
         torch.cuda.synchronize()
         with profile(activities=list(activities)) as prof:
             t0 = time.perf_counter()
@@ -743,7 +770,7 @@ def device_events(fn, iters: int, activities) -> tuple:
         events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         if events:
             return events, wall_ms
-    raise SmokeFailure("profiler saw no device time in three sessions")
+    raise SmokeFailure("profiler saw no device time in five sessions")
 
 
 def device_spans(fn, iters: int) -> list:
@@ -1408,6 +1435,264 @@ def phase_gpt_generation(compute_dtype: str, card: str, full_f32: np.ndarray = N
     return row, full
 
 
+def paged_traffic(seed: int) -> list:
+    """PAGED_REQUESTS (prompt, max_new_tokens) pairs from a seeded numpy
+    generator."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(PAGED_PROMPT[0], PAGED_PROMPT[1] + 1, size=PAGED_REQUESTS)
+    news = rng.integers(PAGED_NEW[0], PAGED_NEW[1] + 1, size=PAGED_REQUESTS)
+    vocab = gpt_config().vocab_size
+    return [(rng.integers(0, vocab, size=int(n), dtype=np.int32), int(m))
+            for n, m in zip(lens, news)]
+
+
+def serve_paged(ff, traffic: list, **kw) -> dict:
+    """Serve ``traffic`` through InferenceEngine.register_generator (the
+    scheduler's knobs ``kw`` over the phase's geometry), submitted in
+    waves; returns the outputs, the scheduler's stats and its decoder, the
+    wall time, the kernel launches while serving and the peak memory."""
+    from flexflow_tpu_torch import kernels
+    from flexflow_tpu_torch.serving import InferenceEngine
+
+    eng = InferenceEngine()
+    inst = eng.register_generator(ff, "lm", decode_slots=PAGED_SLOTS, block_size=PAGED_BLOCK,
+                                  max_length=GEN_MAX_LENGTH, **kw)
+    calibration_steps = inst.decoder.decode_steps  # an int8 pool's calibration
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    futs, outs = [], [None] * len(traffic)
+    for i, (prompt, new) in enumerate(traffic):
+        futs.append(eng.generate_async("lm", prompt, new))
+        if i % PAGED_WAVE == PAGED_WAVE - 1:
+            outs[i - PAGED_WAVE + 1] = futs[i - PAGED_WAVE + 1].result(timeout=600)
+    outs = [o if o is not None else f.result(timeout=600) for o, f in zip(outs, futs)]
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    stats = inst.stats()
+    decoder = inst.decoder
+    eng.stop()
+    for (prompt, new), out in zip(traffic, outs):
+        check(out.shape == (prompt.size + new,) and np.array_equal(out[:prompt.size], prompt),
+              f"paged serving: an answer of shape {out.shape} for a prompt of {prompt.size} "
+              f"and {new} new tokens")
+    check(all(v == 0 for v in launches.values()),
+          f"paged serving launched {launches}: its attention is torch ops")
+    check(stats["decode_steps"] == stats["decode_dispatches"]
+          == stats["phases"]["decode_step"]["count"] + calibration_steps
+          and stats["completed"] == len(traffic)
+          and stats["kv"]["in_use"] == 0,
+          f"paged serving: {stats['decode_steps']} decode steps, {stats['decode_dispatches']} "
+          f"dispatches, {stats['phases']['decode_step']['count']} timed, "
+          f"({calibration_steps} calibrating), {stats['completed']} completed, "
+          f"{stats['kv']['in_use']} blocks in use")
+    generated = sum(new for _, new in traffic)
+    phases = stats["phases"]
+    return dict(outs=outs, stats=stats, decoder=decoder, wall_s=wall, launches=launches,
+                peak_gib=peak_gib, generated=generated, tokens_per_s=generated / wall,
+                ttft_ms_p50=phases["ttft"]["p50"] * 1e3, ttft_ms_p99=phases["ttft"]["p99"] * 1e3,
+                step_ms_p50=phases["decode_step"]["p50"] * 1e3,
+                step_ms_p99=phases["decode_step"]["p99"] * 1e3)
+
+
+def paged_teacher_forced(ff, traffic: list) -> float:
+    """PAGED_TF_REQUESTS requests through the dense Generator, one at a
+    time, prefill and PAGED_TF_STEPS greedy steps; then the same tokens
+    through one PagedDecoder with those requests in its slots at once.
+    Returns the largest |paged - dense| logit as a share of the largest
+    dense |logit|."""
+    from flexflow_tpu_torch.serving import Generator, PagedDecoder
+
+    gen = Generator(ff, max_length=GEN_MAX_LENGTH, batch_size=1)
+    reqs = [p for p, _ in traffic[:PAGED_TF_REQUESTS]]
+    dense, fed = [], []
+    for prompt in reqs:
+        logits, cache, pos = gen.prefill(prompt[None, :])
+        rows, toks = [logits[0].cpu().numpy()], []
+        for step in range(PAGED_TF_STEPS):
+            toks.append(int(rows[-1].argmax()))
+            step_tokens = gen._tokens(np.array([[toks[-1]]], np.int32))
+            rows.append(gen._step(gen._exec_params(), step_tokens, cache, pos + step)[0, -1]
+                        .cpu().numpy())
+        dense.append(np.stack(rows))
+        fed.append(toks)
+    del gen, cache
+    dec = PagedDecoder(ff, GEN_MAX_LENGTH, decode_slots=PAGED_SLOTS, block_size=PAGED_BLOCK)
+    tables = np.zeros((PAGED_SLOTS, dec.max_blocks_per_request), np.int32)
+    seq_lens = np.zeros(PAGED_SLOTS, np.int32)
+    paged = [[] for _ in reqs]
+    for i, prompt in enumerate(reqs):
+        tables[i] = dec.pool.try_admit(prompt.size + PAGED_TF_STEPS + 1)
+        paged[i].append(dec.prefill(prompt, tables[i]))
+        seq_lens[i] = prompt.size
+    for step in range(PAGED_TF_STEPS):
+        toks = np.zeros(PAGED_SLOTS, np.int32)
+        toks[:len(reqs)] = [f[step] for f in fed]
+        logits = dec.decode(toks, tables, seq_lens + step)
+        for i in range(len(reqs)):
+            paged[i].append(logits[i])
+    want = np.stack(dense)
+    got = np.stack([np.stack(r) for r in paged])
+    check(dec.decode_steps == dec.decode_dispatches == PAGED_TF_STEPS,
+          f"teacher-forced PagedDecoder: {dec.decode_steps} steps, "
+          f"{dec.decode_dispatches} dispatches")
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def full_forward_margins(cm, traffic: list, outs: list) -> list:
+    """Each answer once through the full causal forward (the flash kernel,
+    causal): per request (argmax, top-2 margin, largest |logit|) at the
+    positions that predicted its generated tokens."""
+    res = []
+    for (prompt, _), out in zip(traffic, outs):
+        seq = out.size
+        tokens = torch.from_numpy(out[None, :]).to(cm.device)
+        positions = torch.arange(seq, dtype=torch.int32, device=cm.device)[None, :]
+        want = cm.forward_fn(cm.params, tokens, positions)[0, prompt.size - 1:seq - 1]
+        check(bool(torch.isfinite(want).all()), "paged serving: full-forward logits not finite")
+        top2 = torch.topk(want, 2, dim=-1).values
+        res.append((want.argmax(-1).cpu().numpy(), (top2[:, 0] - top2[:, 1]).cpu().numpy(),
+                    float(want.abs().max())))
+    return res
+
+
+def first_divergences(outs: list, ref_outs: list, margins: list, bounds: list) -> tuple:
+    """Greedy chains part where a token is undecided: each answer must equal
+    the reference answer up to its first differing token, where the
+    reference's full-forward top-2 margin must be at most the request's
+    bound. Returns (requests that part, the largest margin where one
+    parts, as a share of its bound)."""
+    parted, worst = 0, 0.0
+    for i, (out, ref) in enumerate(zip(outs, ref_outs)):
+        diff = np.nonzero(out != ref)[0]
+        if diff.size == 0:
+            continue
+        j = int(diff[0]) - (ref.size - margins[i][1].size)
+        margin = float(margins[i][1][j])
+        check(margin <= bounds[i], f"request {i} parts from the reference at generated token "
+              f"{j}, where the reference's top-2 margin {margin:.4g} > the bound "
+              f"{bounds[i]:.4g}")
+        parted += 1
+        worst = max(worst, margin / bounds[i])
+    return parted, worst
+
+
+def phase_gpt_paged_serving(compute_dtype: str, card: str) -> dict:
+    """GPT at GPTConfig's defaults served through InferenceEngine.register_generator
+    -> GenerationInstance -> ContinuousBatchingScheduler -> PagedDecoder ->
+    PagedKVPool: the teacher-forced check against the dense Generator, the
+    traffic with every answer's greedy tokens held to one full causal
+    forward (the flash kernel), then the same traffic speculatively and
+    with an int8 pool, each held to the plain run's tokens by the margin
+    rule. Returns the phase's row."""
+    from flexflow_tpu_torch import kernels, load_numpy_params
+
+    ff, n_attn = gpt_model(compute_dtype, training=False)
+    load_numpy_params(ff, gpt_params(ff, SEED + 8))
+    cm = ff.compiled
+    what = f"GPT paged serving {compute_dtype}"
+    tol = GEN_TOL[compute_dtype]
+    traffic = paged_traffic(SEED + 11)
+    tf_err = paged_teacher_forced(ff, traffic)
+    check(tf_err <= tol, f"{what}: teacher-forced paged logits vs the dense Generator "
+          f"{tf_err:.3g} of the largest |logit| > {tol}")
+    torch.cuda.empty_cache()
+
+    plain = serve_paged(ff, traffic)
+    kernels.reset_launch_counts()
+    margins = full_forward_margins(cm, traffic, plain["outs"])
+    torch.cuda.synchronize()
+    fwd_launches = kernels.launch_counts()
+    check_flash_launches(fwd_launches, n_attn * len(traffic), 0, f"{what}: the full forwards")
+    decided_n = checked = 0
+    for i, ((prompt, _), out) in enumerate(zip(traffic, plain["outs"])):
+        argmax, margin, scale = margins[i]
+        decided = margin > tol * scale
+        agree = out[prompt.size:] == argmax
+        check(bool(agree[decided].all()), f"{what}: request {i}'s greedy tokens differ from "
+              f"the full forward's argmax at {int((~agree & decided).sum())} decided positions")
+        decided_n += int(decided.sum())
+        checked += decided.size
+    bounds = [tol * m[2] for m in margins]
+
+    spec = serve_paged(ff, traffic, spec_k=PAGED_SPEC_K, draft_ff=PAGED_DRAFT)
+    sp = spec["stats"]["spec"]
+    check(sp["rounds"] == spec["stats"]["decode_dispatches"] and sp["k"] == PAGED_SPEC_K
+          and sp["emitted"] == spec["generated"] - len(traffic),
+          f"{what}: spec rounds {sp['rounds']}, decode dispatches "
+          f"{spec['stats']['decode_dispatches']}, emitted {sp['emitted']}")
+    spec_parted, spec_worst = first_divergences(spec["outs"], plain["outs"], margins, bounds)
+
+    q = serve_paged(ff, traffic, kv_dtype="int8")
+    q_dtype, q_div = q["decoder"].kv_dtype, q["decoder"].kv_divergence
+    check(q_div is not None and np.isfinite(q_div), f"{what}: int8 kv_divergence {q_div}")
+    # int8: tokens decided by more than twice the calibration divergence
+    # must agree; after a KVQ001 fallback the pool is the plain run's and
+    # the margin rule's bound stands
+    q_bounds = [2 * q_div] * len(bounds) if q_dtype == "int8" else bounds
+    q_parted, q_worst = first_divergences(q["outs"], plain["outs"], margins, q_bounds)
+
+    def run_row(r):
+        st = r["stats"]
+        return dict(tokens_per_s=r["tokens_per_s"], wall_s=r["wall_s"],
+                    generated=r["generated"], ttft_ms_p50=r["ttft_ms_p50"],
+                    ttft_ms_p99=r["ttft_ms_p99"], decode_step_ms_p50=r["step_ms_p50"],
+                    decode_step_ms_p99=r["step_ms_p99"], decode_steps=st["decode_steps"],
+                    decode_dispatches=st["decode_dispatches"],
+                    prefill_dispatches=st["prefill_dispatches"],
+                    prefill_prompts=st["prefill_prompts"], high_water=st["kv"]["high_water"],
+                    memory_bytes=st["kv"]["memory_bytes"], kv_dtype=st["kv"]["kv_dtype"],
+                    peak_memory_gib=r["peak_gib"], launches=r["launches"])
+
+    row = dict(compute_dtype=compute_dtype, card=card, requests=len(traffic),
+               prompt_range=list(PAGED_PROMPT), new_range=list(PAGED_NEW),
+               decode_slots=PAGED_SLOTS, block_size=PAGED_BLOCK, max_length=GEN_MAX_LENGTH,
+               num_blocks=plain["stats"]["kv"]["num_blocks"], tolerance=tol,
+               teacher_forced_rel_err=tf_err, full_forward_launches=fwd_launches,
+               greedy_checked=decided_n, greedy_positions=checked,
+               plain=run_row(plain),
+               spec=dict(run_row(spec), k=PAGED_SPEC_K, draft=PAGED_DRAFT,
+                         accept_rate=sp["accept_rate"],
+                         tokens_per_dispatch=sp["tokens_per_dispatch"], rounds=sp["rounds"],
+                         draft_dispatches=sp["draft_dispatches"], parted=spec_parted,
+                         worst_parting_margin_share=spec_worst),
+               int8=dict(run_row(q), kv_dtype_after_calibration=q_dtype, kv_divergence=q_div,
+                         kv_divergence_budget=q["decoder"].kv_divergence_budget,
+                         parted=q_parted, worst_parting_margin_share=q_worst))
+    p, s, r8 = row["plain"], row["spec"], row["int8"]
+    print(f"gpt paged serving {compute_dtype}: {len(traffic)} requests (prompts "
+          f"{PAGED_PROMPT[0]}-{PAGED_PROMPT[1]}, {plain['generated']} new greedy tokens) through "
+          f"register_generator, {PAGED_SLOTS} slots, {row['num_blocks']} blocks of "
+          f"{PAGED_BLOCK}: {p['tokens_per_s']:.1f} tokens/s, TTFT {p['ttft_ms_p50']:.2f} ms p50, "
+          f"{p['ttft_ms_p99']:.2f} ms p99, decode step {p['decode_step_ms_p50']:.3f} ms p50, "
+          f"{p['decode_step_ms_p99']:.3f} ms p99, {p['decode_steps']} steps = dispatches, "
+          f"{p['prefill_dispatches']} prefill dispatches for {p['prefill_prompts']} prompts, "
+          f"high water {p['high_water']} blocks, pool {p['memory_bytes'] / 2 ** 30:.3f} GiB, "
+          f"peak {p['peak_memory_gib']:.2f} GiB; teacher-forced logits vs the dense Generator "
+          f"{tf_err:.3g} of the largest |logit| (tol {tol}); greedy tokens equal the full "
+          f"forward's argmax (flash launches {fwd_launches['flash_attention_fwd']}) at all "
+          f"{decided_n} of {checked} decided positions [{card}]", flush=True)
+    print(f"gpt paged serving {compute_dtype} speculative (k {PAGED_SPEC_K}, draft "
+          f"{PAGED_DRAFT}): {s['tokens_per_s']:.1f} tokens/s, acceptance {s['accept_rate']:.4f}, "
+          f"{s['tokens_per_dispatch']:.3f} tokens a slot a verify, {s['rounds']} rounds = "
+          f"decode dispatches, {s['draft_dispatches']} draft dispatches, decode round "
+          f"{s['decode_step_ms_p50']:.3f} ms p50, {s['decode_step_ms_p99']:.3f} ms p99; "
+          f"{spec_parted} answers part from the plain run, each where undecided [{card}]",
+          flush=True)
+    print(f"gpt paged serving {compute_dtype} int8: kv_dtype {q_dtype} after calibration, "
+          f"kv_divergence {q_div:.4g} (budget {r8['kv_divergence_budget']}), "
+          f"{r8['tokens_per_s']:.1f} tokens/s, decode step {r8['decode_step_ms_p50']:.3f} ms "
+          f"p50, {r8['decode_step_ms_p99']:.3f} ms p99, pool "
+          f"{r8['memory_bytes'] / 2 ** 30:.3f} GiB (plain {p['memory_bytes'] / 2 ** 30:.3f}); "
+          f"{q_parted} answers part from the plain run, each where undecided "
+          f"(worst {q_worst:.3g} of its bound) [{card}]", flush=True)
+    print("gpt_paged_json " + json.dumps(row), flush=True)
+    return row
+
+
 def phase_bert_fit(card: str) -> dict:
     """One short fit of the BERT proxy at its defaults in float32, launches
     counted, against the same steps through the plain path."""
@@ -1923,6 +2208,7 @@ def main() -> int:
     gen16, _ = phase_gpt_generation("bfloat16", card, full32)
     gpt_gen = [gen32, gen16]
     del full32
+    gpt_paged = [phase_gpt_paged_serving(dt, card) for dt in ("float32", "bfloat16")]
     bert = phase_bert_fit(card)
     print(f"phases: GPT and BERT done at {time.perf_counter() - t0:.0f} s", flush=True)
     moe_kern = phase_moe_kernels()
@@ -1934,10 +2220,10 @@ def main() -> int:
           flush=True)
     train_launches = {name: sum(r["fit_launches"][name] for r in train)
                       for name in train[0]["fit_launches"]}
-    # GPT's path: its fits and the full-sequence forwards of its generation
-    # checks; the BERT proxy's fit
+    # GPT's path: its fits and the full-sequence forwards of its dense and
+    # paged generation checks; the BERT proxy's fit
     gpt_launches = {name: sum(r["fit_launches"][name] for r in gpt_train)
-                    + sum(r["full_forward_launches"][name] for r in gpt_gen)
+                    + sum(r["full_forward_launches"][name] for r in gpt_gen + gpt_paged)
                     for name in train[0]["fit_launches"]}
     bert_launches = bert["launches"]
     bwd_src = "flexflow_tpu_torch/kernels/csrc/flash_attention_bwd.cu"
@@ -1955,6 +2241,8 @@ def main() -> int:
                       gpt_launches=gpt_launches["flash_attention_fwd"],
                       gpt_full_forward_launches=sum(
                           r["full_forward_launches"]["flash_attention_fwd"] for r in gpt_gen),
+                      gpt_paged_full_forward_launches=sum(
+                          r["full_forward_launches"]["flash_attention_fwd"] for r in gpt_paged),
                       bert_launches=bert_launches["flash_attention_fwd"],
                       wide_source="flexflow_tpu_torch/kernels/csrc/flash_attention_fwd_wide.cu",
                       wide_route="D > 256: flash_fwd_kernel_wide_mma (bf16) and "

@@ -32,6 +32,35 @@ class FFConfig:
     seed: int = 0
     # "cuda" (default) or "cpu"; "cuda:N" picks a card
     device: str = "cuda"
+    # --- continuous-batching generation (serving/scheduler.py): the
+    # defaults of a GenerationInstance, each overridable per instance ---
+    # decode slots: the fixed batch width of the one decode step
+    serving_decode_slots: int = 4
+    # paged KV pool: tokens a block, and blocks (0 = auto: one worst-case
+    # request a decode slot, plus the null block)
+    serving_block_size: int = 16
+    serving_num_blocks: int = 0
+    # longest sequence served (prompt + generated); 0 = the position
+    # embedding's capacity
+    serving_max_length: int = 0
+    # prefill bucket lengths, comma-separated ("16,64,256"); None = powers
+    # of two from 8 up to max_length
+    serving_prefill_buckets: Optional[str] = None
+    # prompts prefilled between two decode steps while requests are active
+    serving_max_prefills_per_step: int = 1
+    # > 0: group admitted prompts by bucket, up to budget // bucket a
+    # prefill dispatch; 0 = one prompt a dispatch
+    serving_prefill_token_budget: int = 0
+    # speculative decoding: the draft ("self:N" = the target's first N
+    # blocks with its weights, "gpt:layers=..,hidden=..,heads=.." = a fresh
+    # GPT) and the proposals a round; "" / 0 = off
+    serving_draft_model: str = ""
+    serving_spec_k: int = 0
+    # arena storage: "float32" (the compute dtype), "bfloat16" or "int8";
+    # int8 is held to the divergence budget at construction (0.0 = the
+    # default budget, 0.05) and falls back to float32 loudly past it
+    serving_kv_dtype: str = "float32"
+    serving_kv_divergence_budget: float = 0.0
 
     def torch_device(self) -> torch.device:
         """The device the model lives on; raises when it asks for a card

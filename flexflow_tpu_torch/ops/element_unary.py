@@ -15,10 +15,11 @@ import torch.nn.functional as F
 
 from ..core.op import Op, register_op
 from ..ffconst import OpType
+from .linear import relu
 
 _UNARY_FNS: Dict[OpType, Callable] = {
     OpType.EXP: torch.exp,
-    OpType.RELU: torch.relu,
+    OpType.RELU: relu,
     OpType.IDENTITY: lambda x: x,
     OpType.SIGMOID: torch.sigmoid,
     OpType.TANH: torch.tanh,

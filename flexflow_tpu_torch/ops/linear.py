@@ -17,11 +17,18 @@ from ..core.op import LowerCtx, Op, WeightSpec, register_op
 from ..runtime.initializer import DefaultBiasInitializer, DefaultWeightInitializer
 
 
+def relu(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.maximum(x, 0)``, the reference's ReLU: at an exact 0 the
+    gradient is 0.5 (a tie's gradient is split), where ``torch.relu``'s is
+    0."""
+    return torch.maximum(x, torch.zeros_like(x))
+
+
 def apply_activation(x: torch.Tensor, mode: ActiMode) -> torch.Tensor:
     if mode is ActiMode.NONE:
         return x
     if mode is ActiMode.RELU:
-        return torch.relu(x)
+        return relu(x)
     if mode is ActiMode.SIGMOID:
         return torch.sigmoid(x)
     if mode is ActiMode.TANH:

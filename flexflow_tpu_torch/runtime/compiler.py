@@ -143,6 +143,22 @@ def init_params(ops: List[Op], seed: int,
 _FULL_PRECISION_PARAM_OPS = frozenset({OpType.BATCHNORM})
 
 
+def causal_lm_signature(cm: CompiledModel) -> Dict[str, Optional[int]]:
+    """The vocab and position contract of a compiled causal LM: the vocab
+    size (the logits' trailing dim) and the position capacity (the position
+    embedding's ``num_entries``, None without one). A speculative draft
+    must share the target's vocab and cover its serving ``max_length``."""
+    vocab = int(cm.logits_tensor.dims[-1])
+    max_positions: Optional[int] = None
+    if len(cm.input_tensors) >= 2:
+        pos_tid = cm.input_tensors[1].tensor_id
+        for op in cm.ops:
+            if (op.op_type is OpType.EMBEDDING
+                    and op.layer.inputs[0].tensor_id == pos_tid):
+                max_positions = int(op.attrs["num_entries"])
+    return {"vocab_size": vocab, "max_positions": max_positions}
+
+
 def _resolve_compute_dtype(name: Optional[str]) -> Optional[torch.dtype]:
     if name in (None, "float32", "fp32", "f32"):
         return None

@@ -12,6 +12,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ffconst import LossType
+from ..ops.embedding import _take_index
 
 
 def log_probs(logits: torch.Tensor, from_logits: bool) -> torch.Tensor:
@@ -21,6 +22,16 @@ def log_probs(logits: torch.Tensor, from_logits: bool) -> torch.Tensor:
     if from_logits:
         return F.log_softmax(logits, dim=-1)
     return torch.log(torch.clamp(logits, 1e-10, 1.0))
+
+
+def pick_log_prob(logp: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``logp[i, labels[i]]`` for (N, V) ``logp`` and (N,) ``labels``, as
+    the reference's ``jnp.take_along_axis`` gives it: a label in [-V, 0)
+    wraps from the end, one outside [-V, V) gives NaN. Nothing raises and
+    no device-side assert fires; the invalid entries get no gradient."""
+    idx, valid = _take_index(labels, logp.shape[-1])
+    ll = logp.gather(-1, idx[:, None])[:, 0]
+    return torch.where(valid, ll, torch.nan)
 
 
 def compute_loss(loss_type: LossType, logits: torch.Tensor,
@@ -35,8 +46,7 @@ def compute_loss(loss_type: LossType, logits: torch.Tensor,
             labels = labels.reshape(-1)
         else:
             labels = labels.reshape(labels.shape[0], -1)[:, 0]
-        ll = log_probs(logits, from_logits).gather(-1, labels.long()[:, None])
-        return -ll.mean()
+        return -pick_log_prob(log_probs(logits, from_logits), labels).mean()
     if loss_type is LossType.CATEGORICAL_CROSSENTROPY:
         return -torch.mean(torch.sum(labels * log_probs(logits, from_logits), dim=-1))
     if loss_type is LossType.MEAN_SQUARED_ERROR_AVG_REDUCE:

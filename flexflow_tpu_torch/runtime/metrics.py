@@ -15,7 +15,7 @@ from typing import Dict, List, Optional
 import torch
 
 from ..ffconst import LossType, MetricsType
-from .loss import log_probs
+from .loss import log_probs, pick_log_prob
 
 _SUMS = ("cce_loss", "sparse_cce_loss", "mse_loss", "rmse_loss", "mae_loss")
 
@@ -100,9 +100,9 @@ def compute_batch_metrics(metrics: List[MetricsType], loss_type: LossType,
             true = torch.argmax(labels, dim=-1)
         out["correct"] = torch.sum(pred == true)
     if MetricsType.SPARSE_CATEGORICAL_CROSSENTROPY in metrics and sparse:
-        lab = labels.reshape(labels.shape[0], -1)[:, 0].long()
+        lab = labels.reshape(labels.shape[0], -1)[:, 0]
         out["sparse_cce_loss"] = -torch.sum(
-            log_probs(logits, from_logits).gather(-1, lab[:, None]))
+            pick_log_prob(log_probs(logits, from_logits), lab))
     if MetricsType.CATEGORICAL_CROSSENTROPY in metrics and not sparse:
         out["cce_loss"] = -torch.sum(labels * log_probs(logits, from_logits))
     if MetricsType.MEAN_SQUARED_ERROR in metrics:

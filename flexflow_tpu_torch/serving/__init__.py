@@ -1,7 +1,17 @@
-"""Serving: the classic one-shot inference engine and the dense KV-cache
-generator."""
+"""Serving: the classic one-shot inference engine, the dense KV-cache
+generator, and continuous-batching generation over a paged KV pool
+(``InferenceEngine.register_generator`` -> :class:`GenerationInstance` ->
+:class:`ContinuousBatchingScheduler` -> :class:`PagedDecoder` ->
+:class:`PagedKVPool`), with speculative decoding and int8 KV arenas."""
 
-from .engine import InferenceEngine, ModelInstance
-from .generation import Generator, sample_next_token
+from .engine import (DeadlineExceeded, GenerationInstance, InferenceEngine,
+                     InferenceRequest, ModelInstance, ShedError)
+from .errors import KVPoolExhausted
+from .generation import Generator, PagedDecoder, build_draft_model, sample_next_token
+from .kv_cache import KV_DTYPES, PagedKVPool
+from .scheduler import ContinuousBatchingScheduler, GenerationRequest
 
-__all__ = ["Generator", "InferenceEngine", "ModelInstance", "sample_next_token"]
+__all__ = ["ContinuousBatchingScheduler", "DeadlineExceeded", "GenerationInstance",
+           "GenerationRequest", "Generator", "InferenceEngine", "InferenceRequest",
+           "KVPoolExhausted", "KV_DTYPES", "ModelInstance", "PagedDecoder", "PagedKVPool",
+           "ShedError", "build_draft_model", "sample_next_token"]

@@ -1,16 +1,19 @@
-"""Inference engine: model instances + dynamic micro-batching.
+"""Inference engine: model instances, dynamic micro-batching, and
+continuous-batching generation instances.
 
-PyTorch counterpart of the classic one-shot serving path in
-``flexflow_tpu/serving/engine.py``: a :class:`ModelInstance` wraps one
-compiled model and pads each gathered batch up to its compiled batch size;
-an :class:`InferenceEngine` owns one dynamic batcher and one worker thread
-per registered instance. The batcher is the pure-Python one
-(``_PyBatcher``) with the native batcher's semantics: a batch leaves when
-it is full or when its oldest request has waited ``batch_timeout_s``.
+PyTorch counterpart of ``flexflow_tpu/serving/engine.py``: a
+:class:`ModelInstance` wraps one compiled model and pads each gathered
+batch up to its compiled batch size; an :class:`InferenceEngine` owns one
+dynamic batcher and one worker thread per registered instance. The batcher
+is the pure-Python one (``_PyBatcher``) with the native batcher's
+semantics: a batch leaves when it is full or when its oldest request has
+waited ``batch_timeout_s``. A :class:`GenerationInstance`
+(``InferenceEngine.register_generator``) serves a causal LM through the
+continuous-batching scheduler (``serving/scheduler.py``).
 
-Not ported yet: the native batcher, admission bounds, deadlines, the
-failure breaker, worker respawn, fault sites, placement, ONNX and the
-observability spans.
+Not ported yet: the native batcher, the classic path's admission bounds,
+deadlines, failure breaker and worker respawn (the generation path has
+its own), fault sites, placement, ONNX and the observability spans.
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+
+from .errors import DeadlineExceeded, KVPoolExhausted, ShedError
 
 
 class _PyBatcher:
@@ -106,6 +111,69 @@ class ModelInstance:
         return [logits[:n].cpu().numpy()]
 
 
+class GenerationInstance:
+    """One continuous-batching generation instance: a compiled causal LM
+    behind a :class:`~flexflow_tpu_torch.serving.scheduler.ContinuousBatchingScheduler`
+    (paged KV pool, prefill and decode steps, in-flight batching). Its knobs
+    default to the model config's ``serving_*`` fields; keyword arguments
+    override them. ``draft_ff`` may be a compiled draft model or a spec
+    string (``"self:N"``, ``"gpt:..."``) for
+    :func:`~flexflow_tpu_torch.serving.generation.build_draft_model`; with
+    ``spec_k`` and no ``draft_ff``, a non-empty ``serving_draft_model``
+    names it."""
+
+    def __init__(self, ff, name: str = "lm", **scheduler_kw):
+        if ff.compiled is None:
+            raise ValueError("compile() the FFModel before serving it")
+        from .generation import build_draft_model
+        from .scheduler import ContinuousBatchingScheduler
+
+        cfg = ff.config
+        defaults = {
+            "decode_slots": cfg.serving_decode_slots,
+            "block_size": cfg.serving_block_size,
+            "max_prefills_per_step": cfg.serving_max_prefills_per_step,
+            "prefill_token_budget": cfg.serving_prefill_token_budget,
+            "spec_k": cfg.serving_spec_k,
+            "kv_dtype": cfg.serving_kv_dtype or "float32",
+        }
+        if cfg.serving_kv_divergence_budget:
+            defaults["kv_divergence_budget"] = float(cfg.serving_kv_divergence_budget)
+        if cfg.serving_num_blocks:
+            defaults["num_blocks"] = int(cfg.serving_num_blocks)
+        if cfg.serving_max_length:
+            defaults["max_length"] = int(cfg.serving_max_length)
+        if cfg.serving_prefill_buckets:
+            defaults["prefill_buckets"] = [
+                int(x) for x in str(cfg.serving_prefill_buckets).split(",") if x.strip()]
+        defaults.update(scheduler_kw)
+        if (defaults.get("spec_k", 0) and "draft_ff" not in defaults
+                and cfg.serving_draft_model):
+            defaults["draft_ff"] = str(cfg.serving_draft_model)
+        if isinstance(defaults.get("draft_ff"), str):
+            defaults["draft_ff"] = build_draft_model(ff, defaults["draft_ff"])
+        self.name = name
+        self._ff = ff
+        self.scheduler = ContinuousBatchingScheduler(ff, name=name, **defaults)
+
+    @property
+    def decoder(self):
+        return self.scheduler.decoder
+
+    def generate_async(self, prompt, max_new_tokens: int, **kw) -> Future:
+        return self.scheduler.submit(prompt, max_new_tokens, **kw)
+
+    def generate(self, prompt, max_new_tokens: int, timeout: Optional[float] = 120.0,
+                 **kw) -> np.ndarray:
+        return self.scheduler.generate(prompt, max_new_tokens, timeout=timeout, **kw)
+
+    def stats(self) -> Dict:
+        return self.scheduler.stats()
+
+    def stop(self) -> None:
+        self.scheduler.stop()
+
+
 class InferenceRequest:
     """A queued request: per-input rows + a Future for the result."""
 
@@ -128,6 +196,9 @@ class InferenceEngine:
         self._batchers: Dict[str, _PyBatcher] = {}
         self._requests: Dict[str, Dict[int, InferenceRequest]] = {}
         self._workers: Dict[str, threading.Thread] = {}
+        # continuous-batching generation instances by name, each with its
+        # own scheduler thread
+        self._generators: Dict[str, GenerationInstance] = {}
         self._ids = itertools.count()
         # guards the registry dicts and _started; batcher close/submit and
         # worker joins happen outside it so a blocked thread never stalls
@@ -138,6 +209,10 @@ class InferenceEngine:
     # ---- model repository -------------------------------------------------
     def register(self, instance: ModelInstance) -> None:
         with self._mu:
+            if instance.name in self._generators:
+                raise ValueError(
+                    f"{instance.name!r} already names a generation instance: one "
+                    f"name, one model")
             if instance.name in self._models:
                 raise ValueError(
                     f"{instance.name!r} is already registered (instance "
@@ -153,6 +228,43 @@ class InferenceEngine:
         inst = ModelInstance(ff, name=name)
         self.register(inst)
         return inst
+
+    def _check_generator_name(self, name: str) -> None:
+        """Caller holds ``self._mu``."""
+        if name in self._models or name in self._generators:
+            raise ValueError(f"{name!r} already registered (generation instances "
+                             f"do not form groups: one scheduler owns the pool)")
+
+    def register_generator(self, ff, name: str = "lm", **kw) -> GenerationInstance:
+        """Register a continuous-batching generation instance under ``name``
+        (a name no model or generator holds). ``kw`` are the scheduler's
+        knobs, over the config's ``serving_*`` defaults."""
+        with self._mu:
+            self._check_generator_name(name)
+        inst = GenerationInstance(ff, name=name, **kw)
+        with self._mu:
+            self._check_generator_name(name)
+            self._generators[name] = inst
+        return inst
+
+    def generate_async(self, model: str, prompt, max_new_tokens: int, **kw) -> Future:
+        """Submit one generation request to a registered generator:
+        :class:`ShedError` at admission (queue bound, open breaker, a worst
+        case the pool can never hold), :class:`DeadlineExceeded` on the
+        future when the deadline passes first."""
+        return self.generator(model).generate_async(prompt, max_new_tokens, **kw)
+
+    def generate(self, model: str, prompt, max_new_tokens: int,
+                 timeout: Optional[float] = 120.0, **kw) -> np.ndarray:
+        return self.generate_async(model, prompt, max_new_tokens, **kw).result(timeout)
+
+    def generators(self) -> List[str]:
+        with self._mu:
+            return list(self._generators)
+
+    def generator(self, name: str) -> GenerationInstance:
+        with self._mu:
+            return self._generators[name]
 
     # ---- lifecycle ----------------------------------------------------------
     def _spawn(self, name: str) -> None:
@@ -175,11 +287,17 @@ class InferenceEngine:
         """Serve every request already queued, stop the workers, and re-arm
         each model with a fresh batcher so a later request starts them
         again. Call it when no ``infer_async`` is in flight: a request
-        submitted while it runs may find its batcher closed and raise."""
+        submitted while it runs may find its batcher closed and raise.
+        Generation instances stop first (their queued requests fail, their
+        active ones finish) and are dropped: register again to serve."""
         with self._mu:
             workers = dict(self._workers)
             batchers = dict(self._batchers)
+            generators = dict(self._generators)
+            self._generators = {}
             self._started = False
+        for g in generators.values():
+            g.stop()
         for b in batchers.values():
             b.close()
         for t in workers.values():
@@ -244,3 +362,7 @@ class InferenceEngine:
                 continue
             for row, r in enumerate(reqs):
                 r.future.set_result(outs[row])
+
+
+__all__ = ["DeadlineExceeded", "GenerationInstance", "InferenceEngine", "InferenceRequest",
+           "KVPoolExhausted", "ModelInstance", "ShedError"]
