@@ -88,8 +88,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
    row_gather_sum a step) and FFModel.eval, each held against the plain
    path; the step time (median of 20), a profiled step's breakdown and the
    peak memory; then the stacked form once in float32 through fit;
-11. the kernels line, one JSON object;
-12. the last line: {"ok": true, "device": {...}}.
+11. serving breadth: (a) the Transformer of phase 4 loaded through
+   InferenceEngine.load_repository in float32 and bfloat16, served by
+   the native batcher (native/src/batcher.cc) and by the Python one
+   (FLEXFLOW_TPU_NATIVE=off), the 64-request burst through each held to
+   phase 4's plain-path answers, 12 flash launches a dispatch; (b) 256
+   requests at once with an admission bound of 16 and a deadline of two
+   dispatches: the shed and deadline-rejected counts beside their
+   counters, every served answer right; (c) under the fault plan (the
+   worker crashes at its third batch, two transient dispatch failures):
+   respawns and retries observed, every answer right; then the failure
+   breaker opens, sheds and closes; (d) GPT at GPTConfig's defaults
+   through a "generator": true repository entry under the worker plan: 16
+   requests all resolve, their greedy tokens held to full causal forwards
+   by the margin rule; (e) the span tracer's cost on (a)'s float32 burst
+   and every request's five nested spans;
+12. the kernels line, one JSON object;
+13. the last line: {"ok": true, "device": {...}}.
 
 Imports torch, numpy and flexflow_tpu_torch only.
 """
@@ -2148,6 +2163,411 @@ def phase_moe_training(compute_dtype: str, card: str, stacked: bool = False) -> 
     return row
 
 
+# ---- serving breadth: repository, batchers, degradation, faults, tracer -
+
+
+def breadth_burst(engine, xs: np.ndarray, name: str = "transformer") -> dict:
+    """Submit every row of ``xs`` at once through ``engine.infer_async``,
+    the flash launch count reset just before and read just after; returns
+    the answers, req/s, latency percentiles, dispatches and launches."""
+    from flexflow_tpu_torch import kernels
+
+    (inst,) = engine.instances(name)
+    torch.cuda.synchronize()
+    d0 = inst.dispatches
+    n = len(xs)
+    t_done = [0.0] * n
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    t_submit, futs = [], []
+    for i in range(n):
+        t_submit.append(time.perf_counter())
+        f = engine.infer_async(name, [xs[i]])
+        f.add_done_callback(lambda _f, i=i: t_done.__setitem__(i, time.perf_counter()))
+        futs.append(f)
+    answers = np.stack([f.result(600) for f in futs])
+    counts = kernels.launch_counts()
+    wall = max(t_done) - t0
+    lat_ms = np.array([(t_done[i] - t_submit[i]) * 1e3 for i in range(n)])
+    return dict(answers=answers, requests_per_s=n / wall, wall_s=wall,
+                p50_ms=float(np.percentile(lat_ms, 50)), p99_ms=float(np.percentile(lat_ms, 99)),
+                dispatches=inst.dispatches - d0, counts=counts,
+                launches=counts["flash_attention_fwd"])
+
+
+def check_served(got: np.ndarray, ref: np.ndarray, tol: float, what: str,
+                 scale: float = None) -> float:
+    """Answers against the plain path's rows, as a share of the largest
+    plain answer (``scale``, by default the largest of ``ref``); returns
+    that error."""
+    check(got.shape == ref.shape and bool(np.isfinite(got).all()),
+          f"{what}: answers of shape {got.shape}, want {ref.shape}, finite")
+    scale = float(np.abs(ref).max()) if scale is None else scale
+    err = float(np.abs(got - ref).max()) / scale
+    check(err <= tol, f"{what}: answers vs plain path {err:.3g} of the largest > {tol}")
+    return err
+
+
+def check_breadth_launches(run: dict, n_attn: int, what: str) -> None:
+    check(run["launches"] == n_attn * run["dispatches"]
+          and all(v == 0 for k, v in run["counts"].items() if k != "flash_attention_fwd"),
+          f"{what}: launched {run['counts']} for {run['dispatches']} dispatches "
+          f"(want {n_attn} flash launches a dispatch and nothing else)")
+
+
+def counter(name: str) -> float:
+    from flexflow_tpu_torch.obs import metrics_registry
+
+    m = metrics_registry().get(name)
+    return m.value if m is not None else 0.0
+
+
+def transformer_repository(tmp: pathlib.Path, compute_dtype: str):
+    """An engine (the native batcher, or the Python one under
+    FLEXFLOW_TPU_NATIVE=off) that load_repository filled with the
+    Transformer at the TransformerConfig defaults, batch 8, carrying
+    phase_serving's random params (drawn by op order from the same seed).
+    The builder sets the compute dtype: compile reads it after the build."""
+    from flexflow_tpu_torch import load_numpy_params
+    from flexflow_tpu_torch.models.transformer import TransformerConfig, build_transformer
+    from flexflow_tpu_torch.serving import InferenceEngine
+
+    def build(ff, bs):
+        ff.config.compute_dtype = compute_dtype
+        build_transformer(ff, bs, TransformerConfig())
+
+    path = tmp / "repository.json"
+    path.write_text(json.dumps({"models": {"transformer": {"instances": 1,
+                                                           "batch_size": BATCH}}}))
+    engine = InferenceEngine()
+    placed = engine.load_repository(str(path), builders={"transformer": build})
+    check(placed == {"transformer": 1}, f"repository placed {placed}")
+    (inst,) = engine.instances("transformer")
+    load_numpy_params(inst._ff, random_params(inst._ff, SEED))
+    cfg = TransformerConfig()
+    engine.infer("transformer", [np.zeros((cfg.sequence_length, cfg.hidden_size), np.float32)],
+                 timeout=600)  # warm-up
+    return engine, inst
+
+
+def phase_serving_breadth(card: str, plain: dict) -> dict:
+    """The classic engine's breadth on the reference Transformer (the
+    serving phase's weights, requests and SERVE_TOL; ``plain``: that
+    phase's plain-path answers by dtype) and GPT: (a) load_repository,
+    the native batcher against FLEXFLOW_TPU_NATIVE=off, f32 and bf16;
+    (b) admission bound and deadlines; (c) the fault plan: worker respawn,
+    dispatch retry, then the breaker; (d) a generator entry under the
+    worker plan, tokens held to full forwards by the margin rule; (e) the
+    tracer's cost and span trees. Returns the phase's row."""
+    import os
+    import tempfile
+
+    from flexflow_tpu_torch import FFConfig, kernels, load_numpy_params, native_bridge
+    from flexflow_tpu_torch.models import TransformerConfig, build_gpt
+    from flexflow_tpu_torch.obs import configure_tracer, tracer, validate_chrome_trace
+    from flexflow_tpu_torch.runtime import faults
+    from flexflow_tpu_torch.serving import (DeadlineExceeded, InferenceEngine, ShedError)
+    from flexflow_tpu_torch.serving.engine import _PyBatcher
+
+    cfg = TransformerConfig()
+    rng = np.random.default_rng(SEED + 1)  # phase_serving's requests
+    xs = rng.standard_normal(size=(REQUESTS, cfg.sequence_length, cfg.hidden_size),
+                             dtype=np.float32)
+    n_attn = cfg.num_layers
+    row = dict(card=card, requests=REQUESTS)
+    launches = 0
+    tmpdir = tempfile.TemporaryDirectory()
+    tmp = pathlib.Path(tmpdir.name)
+
+    # (a) repository and batchers: both engines loaded, their bursts in
+    # turns (native, python, python, native) so drift hits both alike
+    f32_engines = None
+    for compute_dtype in ("float32", "bfloat16"):
+        engines = {}
+        for batcher in ("native", "python"):
+            if batcher == "python":
+                os.environ["FLEXFLOW_TPU_NATIVE"] = "off"
+            try:
+                engines[batcher] = transformer_repository(tmp, compute_dtype)
+            finally:
+                os.environ.pop("FLEXFLOW_TPU_NATIVE", None)
+            kind = type(engines[batcher][0]._batchers["transformer"])
+            want = native_bridge.NativeBatcher if batcher == "native" else _PyBatcher
+            check(kind is want, f"{batcher} engine serves through {kind.__name__}")
+        runs = {"native": [], "python": []}
+        for batcher in ("native", "python", "python", "native"):
+            run = breadth_burst(engines[batcher][0], xs)
+            what = f"serving breadth {compute_dtype} {batcher}"
+            check_breadth_launches(run, n_attn, what)
+            run["rel_err_vs_plain"] = check_served(
+                run["answers"], plain[compute_dtype], SERVE_TOL[compute_dtype], what)
+            launches += run["launches"]
+            runs[batcher].append({k: v for k, v in run.items()
+                                  if k not in ("answers", "counts")})
+        row[compute_dtype] = runs
+        for batcher, rs in runs.items():
+            print(f"serving breadth (a) {compute_dtype} {batcher} batcher "
+                  f"({type(engines[batcher][0]._batchers['transformer']).__name__}), two "
+                  f"bursts in turns: {REQUESTS} requests in {[r['dispatches'] for r in rs]} "
+                  f"dispatches, {[r['launches'] for r in rs]} flash launches, req/s "
+                  f"{[round(r['requests_per_s'], 2) for r in rs]}, p50 ms "
+                  f"{[round(r['p50_ms'], 1) for r in rs]}, p99 ms "
+                  f"{[round(r['p99_ms'], 1) for r in rs]}; err vs plain "
+                  f"{max(r['rel_err_vs_plain'] for r in rs):.3g} [{card}]", flush=True)
+        if compute_dtype == "float32":
+            f32_engines = engines
+        else:
+            for engine, _ in engines.values():
+                engine.stop()
+        del engines
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (e) the tracer on (a)'s f32 native burst, in turns: off, on, on, off
+    engine, inst = f32_engines["native"]
+    tr = tracer()
+    trace_runs = {"off": [], "on": []}
+    for on in (False, True, True, False):
+        configure_tracer(enabled=on)
+        tr.clear()
+        r = breadth_burst(engine, xs)
+        configure_tracer(enabled=False)
+        check_breadth_launches(r, n_attn, f"serving breadth float32 trace={on}")
+        check_served(r["answers"], plain["float32"], SERVE_TOL["float32"],
+                     f"serving breadth float32 trace={on}")
+        launches += r["launches"]
+        if on:
+            check_spans(tr.events(), REQUESTS, validate_chrome_trace)
+        trace_runs["on" if on else "off"].append((r["requests_per_s"], tr.event_count()))
+    off = [rps for rps, _ in trace_runs["off"]]
+    on_rps = [rps for rps, _ in trace_runs["on"]]
+    row["tracer"] = dict(requests_per_s_off=off, requests_per_s_on=on_rps,
+                         events_per_burst=trace_runs["on"][0][1],
+                         events_off=trace_runs["off"][0][1],
+                         cost_share=1 - sum(on_rps) / sum(off))
+    t = row["tracer"]
+    print(f"serving breadth (e) tracer float32: req/s off {t['requests_per_s_off']}, "
+          f"on {t['requests_per_s_on']}, {t['events_per_burst']} events a burst "
+          f"({t['events_off']} with the tracer off), cost {t['cost_share']:.3g} of req/s; "
+          f"every request's five spans nested [{card}]", flush=True)
+    for eng, _ in f32_engines.values():
+        eng.stop()
+    ff32 = inst._ff
+    del f32_engines, engine, inst
+    f32_native = row["float32"]["native"]
+    served_ms = (sum(r["wall_s"] for r in f32_native) * 1e3
+                 / sum(r["dispatches"] for r in f32_native))
+    ref32 = plain["float32"]
+    scale32 = float(np.abs(ref32).max())
+
+    # (b) admission bound and deadlines: 256 requests at once
+    deadline_s = 2 * served_ms / 1e3
+    eng = InferenceEngine(admission_limit=16, default_deadline_s=deadline_s)
+    binst = eng.register_ffmodel(ff32, "transformer")
+    shed0, rej0 = counter("serving.shed"), counter("serving.deadline_rejects")
+    kernels.reset_launch_counts()
+    d0 = binst.dispatches
+    accepted, shed = [], 0
+    for i in range(256):
+        try:
+            accepted.append((i % REQUESTS, eng.infer_async("transformer", [xs[i % REQUESTS]])))
+        except ShedError:
+            shed += 1
+    rejected = 0
+    got, want = [], []
+    for j, f in accepted:
+        try:
+            got.append(f.result(600))
+        except DeadlineExceeded:
+            rejected += 1
+            continue
+        want.append(ref32[j])
+    served = len(got)
+    counts = kernels.launch_counts()
+    if got:
+        check_served(np.stack(got), np.stack(want), SERVE_TOL["float32"],
+                     "serving breadth (b)", scale32)
+    eng.stop()
+    b = dict(submitted=256, accepted=len(accepted), shed=shed, deadline_rejected=rejected,
+             served=served, deadline_s=deadline_s, dispatches=binst.dispatches - d0,
+             shed_counter=counter("serving.shed") - shed0,
+             deadline_counter=counter("serving.deadline_rejects") - rej0,
+             launches=counts["flash_attention_fwd"], counts=counts)
+    check(served + rejected == len(accepted) and shed + len(accepted) == 256
+          and 0 < shed and served > 0,
+          f"serving breadth (b): {b}")
+    check(b["shed_counter"] == shed and b["deadline_counter"] == rejected,
+          f"serving breadth (b): counters {b['shed_counter']} shed, "
+          f"{b['deadline_counter']} rejected; counted {shed}, {rejected}")
+    check_breadth_launches(b, n_attn, "serving breadth (b)")
+    launches += b["launches"]
+    del b["counts"]
+    row["degradation"] = b
+    print(f"serving breadth (b) float32: 256 at once, admission 16, deadline "
+          f"{deadline_s * 1e3:.1f} ms: {len(accepted)} accepted, {shed} shed "
+          f"(serving.shed +{b['shed_counter']:g}), {rejected} deadline-rejected "
+          f"(serving.deadline_rejects +{b['deadline_counter']:g}), {served} served right in "
+          f"{b['dispatches']} dispatches [{card}]", flush=True)
+
+    # (c) the fault plan: a worker crash at the third batch, two transient
+    # dispatch failures, both below the budgets; then the breaker
+    plan = {"schema": 1, "seed": 0, "sites": {"serving.worker": {"at_step": 3},
+                                              "device_put.transient": {"p": 0.2,
+                                                                       "max_fires": 2}}}
+    before = {k: counter(k) for k in ("serving.worker_respawns", "retry.serving_dispatch.retries",
+                                       "retry.serving_dispatch.giveups", "faults.fired")}
+    ff32.config.fault_plan = plan
+    eng = InferenceEngine(worker_retry_budget=2)
+    cinst = eng.register_ffmodel(ff32, "transformer")  # arms the plan
+    ff32.config.fault_plan = None
+    check(faults.active(), "serving breadth (c): the plan is not armed")
+    run = breadth_burst(eng, xs)
+    eng.stop()
+    faults.configure_faults(None)
+    c = {k.split(".", 1)[1]: counter(k) - v for k, v in before.items()}
+    c.update(dispatches=run["dispatches"], launches=run["launches"])
+    check(c["worker_respawns"] >= 1 and c["serving_dispatch.retries"] >= 1
+          and c["serving_dispatch.giveups"] == 0,
+          f"serving breadth (c): {c}")
+    check_breadth_launches(run, n_attn, "serving breadth (c)")
+    c["rel_err_vs_plain"] = check_served(run["answers"], ref32, SERVE_TOL["float32"],
+                                         "serving breadth (c)")
+    launches += run["launches"]
+    # the breaker: two failing batches open it, it sheds, the cooldown
+    # closes it and traffic resumes
+    eng = InferenceEngine(breaker_threshold=2, breaker_cooldown_s=0.5)
+    inst = eng.register_ffmodel(ff32, "transformer")
+    real = inst.infer
+    inst.infer = lambda *a, **k: (_ for _ in ()).throw(RuntimeError("dead backend"))
+    opens = counter("serving.breaker_opens")
+    failed = 0
+    for _ in range(2):
+        try:
+            eng.infer_async("transformer", [xs[0]]).result(600)
+        except RuntimeError as e:
+            failed += str(e) == "dead backend"
+    try:
+        eng.infer_async("transformer", [xs[0]])
+        shed_fast = False
+    except ShedError:
+        shed_fast = True
+    check(failed == 2 and shed_fast,
+          f"serving breadth (c): {failed} of 2 batches failed, shed at once: {shed_fast}")
+    inst.infer = real
+    time.sleep(0.55)
+    kernels.reset_launch_counts()
+    got = eng.infer_async("transformer", [xs[0]]).result(600)
+    counts = kernels.launch_counts()
+    eng.stop()
+    launches += counts["flash_attention_fwd"]
+    check_breadth_launches(dict(launches=counts["flash_attention_fwd"], dispatches=1,
+                                counts=counts), n_attn, "serving breadth (c) breaker")
+    check(counter("serving.breaker_opens") - opens == 1,
+          f"serving breadth (c): the breaker opened {counter('serving.breaker_opens') - opens}x")
+    check_served(got[None], ref32[:1], SERVE_TOL["float32"], "serving breadth (c) breaker",
+                 scale32)
+    c["breaker"] = "opened after 2 failures, shed, closed after 0.5 s, served"
+    row["faults"] = c
+    print(f"serving breadth (c) float32 under {json.dumps(plan['sites'])}: {REQUESTS} "
+          f"requests all answered right in {c['dispatches']} dispatches, "
+          f"{c['worker_respawns']:g} respawns, {c['serving_dispatch.retries']:g} dispatch "
+          f"retries, {c['fired']:g} faults fired, err vs plain {c['rel_err_vs_plain']:.3g}; "
+          f"breaker {c['breaker']} [{card}]", flush=True)
+    del ff32, inst, cinst, binst
+
+    # (d) a generator entry under the worker plan
+    path = tmp / "repository_gpt.json"
+    path.write_text(json.dumps({"models": {"gpt": {
+        "generator": True, "decode_slots": PAGED_SLOTS, "block_size": PAGED_BLOCK,
+        "max_length": GEN_MAX_LENGTH}}}))
+    eng = InferenceEngine()
+    placed = eng.load_repository(str(path), builders={
+        "gpt": lambda ff, bs: build_gpt(ff, bs, GPT_SEQ, gpt_config())})
+    check(placed == {"gpt": 1}, f"repository placed {placed}")
+    ginst = eng.generator("gpt")
+    gff = ginst._ff
+    load_numpy_params(gff, gpt_params(gff, SEED + 8))
+    ginst.decoder.invalidate_params_cache()
+    gplan = {"schema": 1, "seed": 0, "sites": {"serving.worker": {"at_step": 5}}}
+    faults.configure_faults(FFConfig(device=DEVICE, fault_plan=gplan))
+    traffic = paged_traffic(SEED + 11)[:16]
+    respawns = counter("serving.worker_respawns")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    futs = [eng.generate_async("gpt", p, n) for p, n in traffic]
+    outs = [f.result(timeout=600) for f in futs]
+    wall = time.perf_counter() - t0
+    serve_counts = kernels.launch_counts()
+    stats = ginst.stats()
+    eng.stop()
+    faults.configure_faults(None)
+    d = dict(requests=len(traffic), generated=sum(n for _, n in traffic), wall_s=wall,
+             tokens_per_s=sum(n for _, n in traffic) / wall,
+             respawns=counter("serving.worker_respawns") - respawns,
+             completed=stats["completed"], decode_steps=stats["decode_steps"])
+    check(d["respawns"] >= 1 and d["completed"] == len(traffic)
+          and stats["kv"]["in_use"] == 0 and all(v == 0 for v in serve_counts.values()),
+          f"serving breadth (d): {d}, pool in use {stats['kv']['in_use']}, "
+          f"launches while serving {serve_counts}")
+    for (prompt, n), out in zip(traffic, outs):
+        check(out.shape == (prompt.size + n,) and np.array_equal(out[:prompt.size], prompt),
+              f"serving breadth (d): an answer of shape {out.shape}")
+    cm = gff.compiled
+    kernels.reset_launch_counts()
+    margins = full_forward_margins(cm, traffic, outs)
+    torch.cuda.synchronize()
+    fwd_counts = kernels.launch_counts()
+    check_flash_launches(fwd_counts, 6 * len(traffic), 0, "serving breadth (d) full forwards")
+    launches += fwd_counts["flash_attention_fwd"]
+    tol = GEN_TOL["float32"]
+    decided_n = checked = 0
+    for i, ((prompt, _), out) in enumerate(zip(traffic, outs)):
+        argmax, margin, scale = margins[i]
+        decided = margin > tol * scale
+        agree = out[prompt.size:] == argmax
+        check(bool(agree[decided].all()), f"serving breadth (d): request {i}'s greedy tokens "
+              f"differ from the full forward's argmax at {int((~agree & decided).sum())} "
+              f"decided positions")
+        decided_n += int(decided.sum())
+        checked += decided.size
+    argmax_outs = [np.concatenate([p, m[0].astype(np.int32)]) for (p, _), m in zip(traffic, margins)]
+    parted, worst = first_divergences(outs, argmax_outs, margins, [tol * m[2] for m in margins])
+    d.update(full_forward_launches=fwd_counts["flash_attention_fwd"], greedy_checked=decided_n,
+             greedy_positions=checked, parted_from_argmax=parted)
+    row["generator"] = d
+    print(f"serving breadth (d) GPT float32 generator entry under serving.worker at_step 5: "
+          f"{len(traffic)} requests all resolved, {d['respawns']:g} respawns, "
+          f"{d['generated']} tokens at {d['tokens_per_s']:.1f} tokens/s; greedy tokens equal "
+          f"the full forward's argmax (flash launches {d['full_forward_launches']}) at all "
+          f"{decided_n} of {checked} decided positions [{card}]", flush=True)
+    del eng, ginst, gff, cm
+    tmpdir.cleanup()
+    gc.collect()
+    torch.cuda.empty_cache()
+    row["launches"] = launches
+    print("serving_breadth_json " + json.dumps(row), flush=True)
+    return row
+
+
+def check_spans(events: list, n: int, validate) -> None:
+    """Every served request has the reference's five spans on its own
+    track, nested in its serving.request span."""
+    problems = validate({"traceEvents": events})
+    check(not problems, f"tracer: {problems[:3]}")
+    tracks = {}
+    for ev in events:
+        if ev.get("cat") == "serving" and ev.get("ph") == "X":
+            tracks.setdefault(ev["tid"], []).append(ev)
+    want = ["serving.batch_assembly", "serving.infer", "serving.queue_wait", "serving.reply"]
+    for evs in tracks.values():
+        root = next((e for e in evs if e["name"] == "serving.request"), None)
+        check(root is not None and sorted(e["name"] for e in evs if e is not root) == want
+              and all(root["ts"] - 0.05 <= e["ts"] and e["ts"] + e["dur"]
+                      <= root["ts"] + root["dur"] + 0.05 for e in evs),
+              f"tracer: a request's spans {[(e['name'], e['ts'], e['dur']) for e in evs]}")
+    check(len(tracks) == n, f"tracer: {len(tracks)} request span trees for {n} requests")
+
+
 def _kernel_entry(name: str, source: str, replaces: str, rows: list, launches: int,
                   **extra) -> dict:
     """One entry of the kernels line, its numbers from the f32 non-causal
@@ -2190,10 +2610,11 @@ def main() -> int:
     phase_build()
     kern = phase_kernels()
     print(f"phases: kernels done at {time.perf_counter() - t0:.0f} s", flush=True)
-    serve, params, plain = [], None, None
+    serve, params, plain, plains = [], None, None, {}
     for compute_dtype in ("float32", "bfloat16"):
         row, params, plain = phase_serving(compute_dtype, params, card, plain)
         serve.append(row)
+        plains[compute_dtype] = plain
     print(f"phases: serving done at {time.perf_counter() - t0:.0f} s", flush=True)
     row32, ref = phase_training("float32", params, card)
     row16, _ = phase_training("bfloat16", params, card, ref)
@@ -2218,6 +2639,10 @@ def main() -> int:
     moe_train.append(phase_moe_training("float32", card, stacked=True))
     print(f"phases: MoE serving and training done at {time.perf_counter() - t0:.0f} s",
           flush=True)
+    del params
+    breadth = phase_serving_breadth(card, plains)
+    del plains
+    print(f"phases: serving breadth done at {time.perf_counter() - t0:.0f} s", flush=True)
     train_launches = {name: sum(r["fit_launches"][name] for r in train)
                       for name in train[0]["fit_launches"]}
     # GPT's path: its fits and the full-sequence forwards of its dense and
@@ -2235,8 +2660,10 @@ def main() -> int:
                       sum(r["launches"] for r in serve)
                       + train_launches["flash_attention_fwd"]
                       + gpt_launches["flash_attention_fwd"]
-                      + bert_launches["flash_attention_fwd"],
+                      + bert_launches["flash_attention_fwd"]
+                      + breadth["launches"],
                       serving_launches=sum(r["launches"] for r in serve),
+                      serving_breadth_launches=breadth["launches"],
                       training_launches=train_launches["flash_attention_fwd"],
                       gpt_launches=gpt_launches["flash_attention_fwd"],
                       gpt_full_forward_launches=sum(

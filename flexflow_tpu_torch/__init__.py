@@ -16,7 +16,13 @@ and for the GPT causal LM (``models.gpt.build_gpt``) and the BERT proxy
 (``models.transformer.build_bert_proxy``), built on the LayerNorm,
 embedding, elementwise and dropout ops, training through the same entry
 points and, for GPT, generation through the dense KV-cache
-``serving.generation.Generator``.
+``serving.generation.Generator`` and continuous batching over a paged KV
+pool. Serving also has the reference's breadth: instance groups, the
+model repository (``serving.placement.load_repository``), the native
+batcher (``native_bridge``), admission bounds, deadlines, the failure
+breaker and worker respawn, driven by the fault plan
+(``runtime.faults``, ``FFConfig.fault_plan``) and observed through the
+metrics registry and the span tracer (``obs``, ``FFConfig.trace``).
 """
 
 from .config import FFConfig

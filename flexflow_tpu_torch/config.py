@@ -61,6 +61,12 @@ class FFConfig:
     # default budget, 0.05) and falls back to float32 loudly past it
     serving_kv_dtype: str = "float32"
     serving_kv_divergence_budget: float = 0.0
+    # span tracer (obs/trace.py): "on" arms the process-wide recorder at
+    # compile/fit/eval; "off" keeps the hot loops span-free
+    trace: str = "off"
+    # deterministic fault plan (runtime/faults.py), armed at compile, fit
+    # and serving-instance construction; None = no chaos
+    fault_plan: Optional[dict] = None
 
     def torch_device(self) -> torch.device:
         """The device the model lives on; raises when it asks for a card

@@ -3,8 +3,10 @@
 PyTorch counterpart of the numpy path of ``flexflow_tpu/runtime/
 dataloader.py``: the whole dataset stays in host numpy, and each batch is
 sliced (through the epoch's shuffle permutation, if any) and copied to the
-model's device. The native loader, token packing and the ``Prefetcher``
-are not ported yet.
+model's device. The copy is the ``device_put.transient`` fault site and,
+while a fault plan is armed, runs behind a seeded retry policy, as the
+reference's ``device_put`` does. The native loader, token packing and the
+``Prefetcher`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -13,6 +15,30 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+
+from .faults import TransientFault
+from .faults import active as _faults_active
+from .faults import inject as _fault_inject
+from .retry import RetryPolicy
+
+# transient copy failures (and the device_put.transient fault site) back
+# off briefly and retry; a persistent failure surfaces after the budget.
+# Seeded: a replayed plan backs off identically.
+_PUT_RETRY = RetryPolicy(max_attempts=3, base_delay_s=0.002, max_delay_s=0.02,
+                         retry_on=(TransientFault,), label="device_put", seed=0)
+
+
+def _put_once(batch: np.ndarray, device: torch.device) -> torch.Tensor:
+    _fault_inject("device_put.transient", TransientFault)
+    return torch.from_numpy(np.ascontiguousarray(batch)).to(device)
+
+
+def _put(batch: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Copy a host batch to ``device``, behind the retry policy only while a
+    fault plan is armed (the off path is one global read)."""
+    if _faults_active():
+        return _PUT_RETRY.call(_put_once, batch, device)
+    return _put_once(batch, device)
 
 
 class SingleDataLoader:
@@ -46,7 +72,7 @@ class SingleDataLoader:
         return self.data[self.perm[rows]] if self.perm is not None else self.data[rows]
 
     def next_batch(self) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(self.next_batch_host())).to(self.device)
+        return _put(self.next_batch_host(), self.device)
 
 
 class DataLoaderGroup:

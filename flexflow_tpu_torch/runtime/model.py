@@ -10,8 +10,10 @@ metrics, ``fit``/``eval`` over the numpy data loader, the manual
 verbs, and :func:`load_numpy_params` to carry the JAX package's params
 across. Each training step gets the next value of a counter as its
 dropout key, as the JAX package folds its counter into its root key.
+``compile()`` and ``fit()`` arm the config's span tracer and fault plan
+(``FFConfig.trace``, ``FFConfig.fault_plan``), ``eval()`` its tracer.
 Training guards, resume, checkpoints, prefetching, multi-step dispatch
-and the observability hooks wait for later slices.
+and the rest of the observability hooks wait for later slices.
 """
 
 from __future__ import annotations
@@ -29,8 +31,10 @@ from ..core.parallel_tensor import ParallelTensorShape
 from ..core.tensor import Tensor
 from ..ffconst import (ActiMode, AggrMode, CompMode, DataType, LossType, MetricsType,
                        OpType)
+from ..obs.trace import configure_tracer
 from .compiler import CompiledModel, Params, compile_model
 from .dataloader import DataLoaderGroup, SingleDataLoader
+from .faults import configure_faults
 from .loss import loss_from_string
 from .metrics import PerfMetrics
 from .optimizer import Optimizer, SGDOptimizer
@@ -318,6 +322,8 @@ class FFModel:
         gets its training steps; without an optimizer it trains with the
         JAX package's default, SGD at lr 0.01 and weight decay 1e-4 (its
         ``FFConfig.learning_rate``/``weight_decay`` defaults)."""
+        configure_tracer(self.config)
+        configure_faults(self.config)  # a malformed plan fails before any work
         if comp_mode is None:
             comp_mode = self.config.computation_mode
         if isinstance(loss_type, str):
@@ -380,6 +386,8 @@ class FFModel:
         batches of ``x``/``y``; returns one :class:`PerfMetrics` per epoch.
         Metrics stay on the device until each epoch's end."""
         cm = self._training_model()
+        configure_tracer(self.config)
+        configure_faults(self.config)
         xs = x if isinstance(x, (list, tuple)) else [x]
         group = self._loader_group(xs, y, batch_size or self.config.batch_size, shuffle)
         history: List[PerfMetrics] = []
@@ -405,6 +413,7 @@ class FFModel:
         cm = self.compiled
         if cm is None or cm.eval_step is None:
             raise RuntimeError("compile() with a loss before eval()")
+        configure_tracer(self.config)
         xs = x if isinstance(x, (list, tuple)) else [x]
         group = self._loader_group(xs, y, batch_size or self.config.batch_size, False)
         group.reset(reshuffle=False)

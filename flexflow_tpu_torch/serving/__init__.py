@@ -1,7 +1,9 @@
-"""Serving: the classic one-shot inference engine, the dense KV-cache
-generator, and continuous-batching generation over a paged KV pool
-(``InferenceEngine.register_generator`` -> :class:`GenerationInstance` ->
-:class:`ContinuousBatchingScheduler` -> :class:`PagedDecoder` ->
+"""Serving: the classic one-shot inference engine (dynamic batching over
+the native batcher, instance groups, the model repository and the
+degradation bounds: admission, deadlines, breaker, worker respawn), the
+dense KV-cache generator, and continuous-batching generation over a paged
+KV pool (``InferenceEngine.register_generator`` -> :class:`GenerationInstance`
+-> :class:`ContinuousBatchingScheduler` -> :class:`PagedDecoder` ->
 :class:`PagedKVPool`), with speculative decoding and int8 KV arenas."""
 
 from .engine import (DeadlineExceeded, GenerationInstance, InferenceEngine,
@@ -9,9 +11,11 @@ from .engine import (DeadlineExceeded, GenerationInstance, InferenceEngine,
 from .errors import KVPoolExhausted
 from .generation import Generator, PagedDecoder, build_draft_model, sample_next_token
 from .kv_cache import KV_DTYPES, PagedKVPool
+from .placement import instance_meshes, load_repository
 from .scheduler import ContinuousBatchingScheduler, GenerationRequest
 
 __all__ = ["ContinuousBatchingScheduler", "DeadlineExceeded", "GenerationInstance",
            "GenerationRequest", "Generator", "InferenceEngine", "InferenceRequest",
            "KVPoolExhausted", "KV_DTYPES", "ModelInstance", "PagedDecoder", "PagedKVPool",
-           "ShedError", "build_draft_model", "sample_next_token"]
+           "ShedError", "build_draft_model", "instance_meshes", "load_repository",
+           "sample_next_token"]

@@ -41,6 +41,7 @@ import torch
 from ..core.op import LowerCtx
 from ..ffconst import OpType
 from ..kernels.flash_attention import NEG_INF
+from ..obs.metrics import metrics_registry
 from ..runtime.compiler import _resolve_compute_dtype
 from .kv_cache import NULL_BLOCK, PagedKVPool
 
@@ -499,6 +500,9 @@ class PagedDecoder(_DecodeGraph):
         self.prefill_buckets = sorted({min(int(b), self.max_length) for b in prefill_buckets})
         if self.prefill_buckets[-1] < self.max_length:
             self.prefill_buckets.append(self.max_length)
+        # (bucket, rows) prefill shapes dispatched so far: the reference
+        # compiles one executable each (serving.prefill_bucket_compiles)
+        self._prefill_shapes: set = set()
         # one a decode or verify step: a verify IS its step's decode
         self.decode_dispatches = 0
         self.decode_steps = 0
@@ -620,6 +624,9 @@ class PagedDecoder(_DecodeGraph):
             t = np.asarray(t, np.int64).ravel()
             tabs[i, :t.shape[0]] = t
             lengths[i] = lens[i]
+        if (bucket, width) not in self._prefill_shapes:
+            self._prefill_shapes.add((bucket, width))
+            metrics_registry().counter("serving.prefill_bucket_compiles").inc()
         logits = self._prefill_step(self._exec_params(), self._ids(toks), self._ids(tabs),
                                     self._ids(lengths))
         rows = torch.arange(len(arrs), device=self.device)
@@ -703,6 +710,7 @@ class PagedDecoder(_DecodeGraph):
             f"{self.kv_divergence:.3e} exceeds serving_kv_divergence_budget "
             f"{budget:.3e}; falling back to float32 arenas (admission headroom "
             f"reverts to the f32 pool size)")
+        metrics_registry().counter("serving.kv_dtype_fallbacks").inc()
         print(f"[serving] KVQ001: {self.kv_quant_report.message}", file=sys.stderr)
         self.kv_dtype = "float32"
         self.pool = self._new_pool(self.pool.num_blocks)

@@ -22,9 +22,8 @@ zero-point sidecars of shape ``(num_blocks, block_size, H)``
 (``"int8"``): ``head_dim + 8`` bytes a token and head against f32's
 ``4 * head_dim``. The arenas live on the model's device and are updated in
 place by the decoder (index-put on their flattened views); their shapes
-never change. The ``serving.kv_blocks_in_use`` gauge of the reference
-waits for the port's metrics registry; :meth:`PagedKVPool.stats` carries
-the same count.
+never change. Every admission and free sets the registry's
+``serving.kv_blocks_in_use`` gauge, as in the reference.
 """
 
 from __future__ import annotations
@@ -36,6 +35,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..obs.metrics import metrics_registry
 from .errors import KVPoolExhausted
 
 NULL_BLOCK = 0  # reserved write/read sink; never allocated
@@ -100,6 +100,7 @@ class PagedKVPool:
         self._free: List[int] = list(range(self.num_blocks - 1, 0, -1))
         self._mu = threading.Lock()
         self._high_water = 0
+        self._gauge()
 
     # ---- geometry ----------------------------------------------------------
     @property
@@ -155,6 +156,7 @@ class PagedKVPool:
             blocks = [self._free.pop() for _ in range(need)]
             self._high_water = max(self._high_water,
                                    self.capacity_blocks - len(self._free))
+        self._gauge()
         table = np.full(self.max_blocks_per_request, NULL_BLOCK, np.int32)
         table[:need] = blocks
         return table
@@ -169,6 +171,10 @@ class PagedKVPool:
                 raise RuntimeError(
                     f"double free: {len(self._free)} free blocks > capacity "
                     f"{self.capacity_blocks}")
+        self._gauge()
+
+    def _gauge(self) -> None:
+        metrics_registry().gauge("serving.kv_blocks_in_use").set(self.in_use())
 
     def stats(self) -> Dict:
         """Occupancy snapshot."""

@@ -26,10 +26,17 @@ for its longest member:
 
 Each request samples from its own ``np.random.default_rng(seed)`` through
 :func:`~flexflow_tpu_torch.serving.generation.sample_next_token`, so equal
-logits give equal tokens whatever the batching. Not ported yet: the
-reference's tracer spans, metrics registry, watchdog, ledger record and
-attribution and advisor publishing (ROADMAP A10), and its fault injection
-sites (A9).
+logits give equal tokens whatever the batching.
+
+As in the reference, the loop is the ``serving.worker`` fault site (a
+crash there respawns the worker, which resumes every request), each
+prefill, decode, draft and verify dispatch retries a ``TransientFault``
+through ``_DECODE_RETRY``, every admission, shed, reject, step and token
+is counted in the metrics registry under the reference's ``serving.*``
+names, and with the tracer on each retired request records its span tree
+(``serving.request`` over ``queue_wait``, ``prefill``, ``decode`` and
+``reply``). Not ported yet: the watchdog, the ledger record and the
+attribution and advisor publishing (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -44,8 +51,22 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from ..obs.metrics import metrics_registry, nearest_rank_percentile
+from ..obs.trace import VIRTUAL_TID_BASE, tracer
+from ..runtime.faults import InjectedFault, TransientFault
+from ..runtime.faults import fire as _fault_fire
+from ..runtime.retry import RetryPolicy
 from .errors import DeadlineExceeded, ShedError
 from .generation import PagedDecoder, sample_next_token
+
+# generation request tracks sit above the classic engine's, so the two
+# engines' per-request trace tracks never collide
+_GEN_TID_BASE = VIRTUAL_TID_BASE + (1 << 19)
+
+# transient prefill, decode, draft and verify failures back off briefly
+# before the step fails (the classic engine's dispatch retry)
+_DECODE_RETRY = RetryPolicy(max_attempts=3, base_delay_s=0.002, max_delay_s=0.02,
+                            retry_on=(TransientFault,), label="serving_decode", seed=0)
 
 # per-phase latency windows kept for stats() (a long session keeps the
 # most recent ones)
@@ -61,17 +82,13 @@ def _temp_softmax(row_logits: np.ndarray, temperature: float) -> np.ndarray:
     return p / p.sum()
 
 
-def _nearest_rank(xs: Sequence[float], q: float) -> float:
-    """The reference's nearest-rank quantile of sorted, non-empty ``xs``."""
-    return xs[min(len(xs) - 1, max(0, int(round(q * (len(xs) - 1)))))]
-
-
 def _percentiles(xs) -> Optional[Dict]:
     xs = sorted(xs)
     if not xs:
         return None
     return {"count": len(xs), "mean": sum(xs) / len(xs),
-            "p50": _nearest_rank(xs, 0.5), "p99": _nearest_rank(xs, 0.99)}
+            "p50": nearest_rank_percentile(xs, 0.5),
+            "p99": nearest_rank_percentile(xs, 0.99)}
 
 
 class GenerationRequest:
@@ -191,8 +208,12 @@ class ContinuousBatchingScheduler:
         self._breaker_open_until = 0.0
         self._tokens_total = 0
         self._t_first_activity: Optional[float] = None
-        # per-phase latency windows (seconds); "decode_step" stands in for
-        # the reference's serving.decode_step_s histogram
+        # per-phase latency windows (seconds) and the shed and deadline
+        # counts behind this scheduler's stats(): the registry's
+        # serving.decode_step_s, serving.shed and serving.deadline_rejects
+        # are process-global, summed over every scheduler and engine.
+        # _step_served, _count_shed and _count_deadline_reject record each
+        # event in both places
         self._lat: Dict[str, collections.deque] = {
             k: collections.deque(maxlen=_PHASE_WINDOW)
             for k in ("queue_wait", "prefill", "decode", "decode_step", "ttft",
@@ -217,10 +238,10 @@ class ContinuousBatchingScheduler:
         if total > self.decoder.max_length:
             raise ValueError(f"{prompt.size} prompt + {max_new_tokens} new > "
                              f"max_length {self.decoder.max_length}")
+        reg = metrics_registry()
         # a request that can never fit must not hold the queue's head forever
         if self.decoder.pool.blocks_for(total) > self.decoder.pool.capacity_blocks:
-            with self._mu:
-                self._shed += 1
+            self._count_shed()
             self.decoder.pool.try_admit(total)  # raises with the details
         req = GenerationRequest(
             next(self._ids), prompt, max_new_tokens, temperature, seed, eos_id,
@@ -230,7 +251,8 @@ class ContinuousBatchingScheduler:
                 raise RuntimeError(f"{self.name!r}: generation scheduler is stopped")
             now = time.monotonic()
             if self._breaker_open_until and now < self._breaker_open_until:
-                self._shed += 1
+                self._count_shed()
+                reg.counter("serving.breaker_shed").inc()
                 raise ShedError(
                     f"{self.name!r}: decode failure breaker is open "
                     f"({self.breaker_threshold} consecutive step failures); "
@@ -241,14 +263,18 @@ class ContinuousBatchingScheduler:
                 self._consec_failures = 0
             if (self.admission_limit is not None
                     and len(self._queue) >= self.admission_limit):
-                self._shed += 1
+                self._count_shed()
                 raise ShedError(f"{self.name!r}: admission queue at its bound "
                                 f"({self.admission_limit}); shedding")
             self._queue.append(req)
+            depth = len(self._queue)
             if self._t_first_activity is None:
                 self._t_first_activity = time.perf_counter()
             self._start_locked()
             self._mu.notify_all()
+        reg.counter("serving.requests").inc()
+        reg.counter("serving.gen_requests").inc()
+        reg.histogram("serving.queue_depth").observe(depth)
         return req.future
 
     def generate(self, prompt: np.ndarray, max_new_tokens: int,
@@ -279,17 +305,21 @@ class ContinuousBatchingScheduler:
     def _worker_main(self) -> None:
         """Respawn supervisor: the loop's state lives on the scheduler, so a
         respawned loop resumes every in-flight request."""
+        reg = metrics_registry()
         for crashes in range(self.worker_retry_budget + 1):
             try:
                 self._loop()
                 return  # clean shutdown
             except Exception as e:  # noqa: BLE001 — the decode loop died
+                reg.counter("serving.worker_crashes").inc()
                 if crashes >= self.worker_retry_budget:
+                    reg.counter("serving.worker_abandoned").inc()
                     print(f"[serving] generation worker {self.name} crashed "
                           f"{crashes + 1}x ({type(e).__name__}: {e}); respawn "
                           f"budget exhausted, abandoning", file=sys.stderr, flush=True)
                     self._abandon(e)
                     return
+                reg.counter("serving.worker_respawns").inc()
                 print(f"[serving] generation worker {self.name} crashed "
                       f"({type(e).__name__}: {e}); respawning "
                       f"({crashes + 1}/{self.worker_retry_budget})",
@@ -305,6 +335,7 @@ class ContinuousBatchingScheduler:
             self._queue.clear()
             active = [r for r in self._slots if r is not None]
             self._slots = [None] * len(self._slots)
+        metrics_registry().counter("serving.abandoned_failed").inc(len(pending) + len(active))
         wrapped = RuntimeError(
             f"{self.name!r}: generation worker exhausted its respawn budget "
             f"({type(err).__name__}: {err}); request failed")
@@ -324,6 +355,11 @@ class ContinuousBatchingScheduler:
                         and not any(r is not None for r in self._slots)):
                     return
                 closed = self._closed
+            # fault site: a worker crash; the state stays on the scheduler,
+            # so the respawned worker resumes every request
+            rule = _fault_fire("serving.worker")
+            if rule is not None:
+                raise InjectedFault(f"injected fault at site 'serving.worker' ({rule})")
             self._admit(closed)
             with self._mu:
                 active = any(r is not None for r in self._slots)
@@ -335,8 +371,7 @@ class ContinuousBatchingScheduler:
         """Fail a queued request whose deadline passed; True if it did."""
         if not req.expired(now):
             return False
-        with self._mu:
-            self._deadline_rejects += 1
+        self._count_deadline_reject()
         if not req.future.done():
             req.future.set_exception(DeadlineExceeded(
                 f"request {req.request_id} waited {now - req.t_enqueue:.3f}s > "
@@ -398,6 +433,8 @@ class ContinuousBatchingScheduler:
                 req.table = table
                 req.t_admit = now
                 self._lat["queue_wait"].append(now - req.t_enqueue)
+            metrics_registry().histogram("serving.gen_queue_wait_s").observe(
+                now - req.t_enqueue)
             reserved.add(slot)
             spent += bucket
             batch.append((slot, req, bucket))
@@ -420,14 +457,16 @@ class ContinuousBatchingScheduler:
         are unused, the first token comes from the target); each request
         then samples its first token and takes its slot. A failed dispatch
         fails exactly the group's requests (their blocks are freed)."""
+        reg = metrics_registry()
         reqs = [r for _, r in members]
         prompts, tables = [r.prompt for r in reqs], [r.table for r in reqs]
         t0 = time.perf_counter()
         try:
-            logits = self.decoder.prefill_many(prompts, tables)
+            logits = _DECODE_RETRY.call(self.decoder.prefill_many, prompts, tables)
             if self.draft is not None:
-                self.draft.prefill_many(prompts, tables)
+                _DECODE_RETRY.call(self.draft.prefill_many, prompts, tables)
         except Exception as e:  # noqa: BLE001 — fail the group only
+            reg.counter("serving.errors").inc()
             for req in reqs:
                 self.decoder.pool.free(req.table)
                 if not req.future.done():
@@ -442,6 +481,7 @@ class ContinuousBatchingScheduler:
                 req.seq_len = req.prompt.size
                 req.rng = np.random.default_rng(req.seed)
                 self._lat["prefill"].append(t_done - t0)
+        reg.histogram("serving.prefill_s").observe(t_done - t0)
         for i, (slot, req) in enumerate(members):
             self._append_token(req, logits[i])
             if req.future.done():  # a one-token request retires here
@@ -467,7 +507,7 @@ class ContinuousBatchingScheduler:
                 continue
             with self._mu:
                 self._slots[i] = None
-                self._deadline_rejects += 1
+            self._count_deadline_reject()
             self.decoder.pool.free(req.table)
             if not req.future.done():
                 req.future.set_exception(DeadlineExceeded(
@@ -490,6 +530,8 @@ class ContinuousBatchingScheduler:
     def _step_failed(self, active: List, err: Exception) -> None:
         """A failed step fails its requests (their blocks are freed) and
         counts toward the breaker."""
+        reg = metrics_registry()
+        reg.counter("serving.errors").inc()
         for i, req in active:
             with self._mu:
                 self._slots[i] = None
@@ -501,10 +543,24 @@ class ContinuousBatchingScheduler:
                 self._consec_failures += 1
                 # on the transition only: failures behind an open breaker
                 # must not extend its cooldown
-                if self._consec_failures == self.breaker_threshold:
+                opened = self._consec_failures == self.breaker_threshold
+                if opened:
                     self._breaker_open_until = time.monotonic() + self.breaker_cooldown_s
+            if opened:
+                reg.counter("serving.breaker_opens").inc()
+
+    def _count_shed(self) -> None:
+        metrics_registry().counter("serving.shed").inc()
+        with self._mu:
+            self._shed += 1
+
+    def _count_deadline_reject(self) -> None:
+        metrics_registry().counter("serving.deadline_rejects").inc()
+        with self._mu:
+            self._deadline_rejects += 1
 
     def _step_served(self, dt: float) -> None:
+        metrics_registry().histogram("serving.decode_step_s").observe(dt)
         with self._mu:
             self._lat["decode_step"].append(dt)
             if self.breaker_threshold:  # a served step ends the failure streak
@@ -518,7 +574,7 @@ class ContinuousBatchingScheduler:
             return
         t0 = time.perf_counter()
         try:
-            logits = self.decoder.decode(tokens, tables, seq_lens)
+            logits = _DECODE_RETRY.call(self.decoder.decode, tokens, tables, seq_lens)
         except Exception as e:  # noqa: BLE001 — fail the step's requests
             self._step_failed(active, e)
             return
@@ -563,7 +619,7 @@ class ContinuousBatchingScheduler:
             cur = base_tokens.copy()
             lens = seq_lens.copy()
             for j in range(k + 1):
-                dlogits = self.draft.decode(cur, tables, lens)
+                dlogits = _DECODE_RETRY.call(self.draft.decode, cur, tables, lens)
                 lens = lens + 1
                 if j == k:
                     break  # the cache-completing dispatch: its logits are unused
@@ -580,11 +636,12 @@ class ContinuousBatchingScheduler:
                 proposals[:, j] = nxt
                 cur = nxt
             window = np.concatenate([base_tokens[:, None], proposals], axis=1)
-            vlogits = self.decoder.verify(window, tables, seq_lens)
+            vlogits = _DECODE_RETRY.call(self.decoder.verify, window, tables, seq_lens)
         except Exception as e:  # noqa: BLE001 — fail the step's requests
             self._step_failed(active, e)
             return
         self._step_served(time.perf_counter() - t0)
+        reg = metrics_registry()
         for i, req in active:
             matched = 0
             emitted = 0
@@ -625,6 +682,8 @@ class ContinuousBatchingScheduler:
                 self._spec_proposed += k
                 self._spec_matched += matched
                 self._spec_emitted += emitted
+            reg.histogram("serving.spec_accept_rate").observe(matched / k)
+            reg.histogram("serving.spec_tokens_per_dispatch").observe(emitted)
         with self._mu:  # one verify dispatch served the round
             self._spec_rounds += 1
 
@@ -641,14 +700,24 @@ class ContinuousBatchingScheduler:
         cached); the plain decode advances it a dispatch. Returns True when
         the request retired."""
         now = time.perf_counter()
+        ttft = None
         with self._mu:
             if advance_seq:
                 req.seq_len += 1
             req.tokens.append(int(tok))
             if req.t_first_token is None:
                 req.t_first_token = now
-                self._lat["ttft"].append(now - req.t_enqueue)
+                ttft = now - req.t_enqueue
+                self._lat["ttft"].append(ttft)
             self._tokens_total += 1
+            total = self._tokens_total
+            t_start = self._t_first_activity
+        reg = metrics_registry()
+        if ttft is not None:
+            reg.histogram("serving.ttft_s").observe(ttft)
+        reg.counter("serving.gen_tokens").inc()
+        if t_start is not None and now > t_start:
+            reg.gauge("serving.tokens_per_s").set(total / (now - t_start))
         done = (len(req.tokens) >= req.max_new_tokens
                 or (req.eos_id is not None and tok == req.eos_id))
         if done:
@@ -668,7 +737,34 @@ class ContinuousBatchingScheduler:
             self._lat["per_token"].append(e2e / n)
             if req.decode_t0 is not None:
                 self._lat["decode"].append(now - req.decode_t0)
+        reg = metrics_registry()
+        reg.histogram("serving.gen_e2e_s").observe(e2e)
+        reg.histogram("serving.per_token_s").observe(e2e / n)
+        reg.counter("serving.batches").inc()
+        self._record_request_spans(req, now)
         req.future.set_result(np.concatenate([req.prompt, np.asarray(req.tokens, np.int32)]))
+
+    def _record_request_spans(self, req: GenerationRequest, t_end: float) -> None:
+        """``serving.request`` over ``queue_wait`` -> ``prefill`` ->
+        ``decode`` (its step count in the args) -> ``reply``, each request
+        on its own virtual track."""
+        tr = tracer()
+        if not tr.enabled:
+            return
+        tid = _GEN_TID_BASE + req.request_id
+        tr.complete("serving.request", req.t_enqueue, t_end - req.t_enqueue,
+                    cat="serving", tid=tid,
+                    args={"model": self.name, "request_id": req.request_id,
+                          "tokens": len(req.tokens)})
+        tr.complete("serving.queue_wait", req.t_enqueue, req.t_admit - req.t_enqueue,
+                    cat="serving", tid=tid)
+        if req.t_prefill_done is not None:
+            tr.complete("serving.prefill", req.t_admit, req.t_prefill_done - req.t_admit,
+                        cat="serving", tid=tid)
+        if req.decode_t0 is not None:
+            tr.complete("serving.decode", req.decode_t0, t_end - req.decode_t0,
+                        cat="serving", tid=tid, args={"steps": req.decode_steps})
+        tr.complete("serving.reply", t_end, 0.0, cat="serving", tid=tid)
 
     # ---- stats -------------------------------------------------------------
     def stats(self) -> Dict:

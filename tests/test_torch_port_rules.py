@@ -24,6 +24,19 @@ def _is_forbidden(name: str) -> bool:
     return top in ("jax", "jaxlib", "flexflow_tpu")
 
 
+# modules the rules must cover by name (each slice adds its own)
+REQUIRED = ("flexflow_tpu_torch.obs", "flexflow_tpu_torch.obs.metrics",
+            "flexflow_tpu_torch.obs.trace", "flexflow_tpu_torch.runtime.faults",
+            "flexflow_tpu_torch.runtime.retry", "flexflow_tpu_torch.native_bridge",
+            "flexflow_tpu_torch.serving.placement", "flexflow_tpu_torch.serving.engine",
+            "flexflow_tpu_torch.models.mlp")
+
+
+def test_rules_cover_the_required_modules():
+    names = {name for name, _ in _modules()}
+    assert set(REQUIRED) <= names, sorted(set(REQUIRED) - names)
+
+
 def test_importing_every_port_module_loads_no_jax():
     names = [name for name, _ in _modules()]
     code = (
