@@ -103,8 +103,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
    requests all resolve, their greedy tokens held to full causal forwards
    by the margin rule; (e) the span tracer's cost on (a)'s float32 burst
    and every request's five nested spans;
-12. the kernels line, one JSON object;
-13. the last line: {"ok": true, "device": {...}}.
+12. the zoo: ResNet-50 with batch norm (229 px, 1000 classes) and DLRM at
+   DLRMConfig() (4 tables of 1,000,000 x 64), batch 64, in float32 and
+   bfloat16: three FFModel.fit steps (ResNet's first batch norm's running
+   statistics held to a float64 computation of the same batches),
+   FFModel.eval and 64 requests through register_ffmodel; step ms,
+   samples/s, model TFLOP/s and a profiled step's device-busy share;
+   AlexNet, ResNeXt-50, Inception-v3, XDL, CANDLE-Uno and NMT at their
+   defaults, one fit step and a timed forward each; every model's
+   pre-softmax forward on the card held to the same weights on the CPU;
+   none of the port's kernels launched;
+13. the kernels line, one JSON object;
+14. the last line: {"ok": true, "device": {...}}.
 
 Imports torch, numpy and flexflow_tpu_torch only.
 """
@@ -223,6 +233,37 @@ BERT_BATCH, BERT_STEPS, BERT_LAYERS = 8, 2, 12
 # 256 streamed; dkv bf16 design (b) at 144 and design (a) at 80 and 128
 # resident and 128 streamed, f32 (b) at 144 and (a) at 80 and 128 streamed
 WIDE_BWD_INSTANCES = 14
+# the rest of the zoo, at FFConfig's default batch of 64: ResNet-50 with
+# batch norm (229 px, 1000 classes; SGD 0.01 with momentum 0.9, sparse CE)
+# and DLRM at DLRMConfig() (4 tables of 1,000,000 x 64, 1.02 GB of f32;
+# SGD 0.01, the MSE loss), each through ZOO_FIT_STEPS steps of fit, eval
+# and one served burst, their steps timed; AlexNet (229 px), ResNeXt-50
+# (224 px), Inception-v3 (299 px), XDL, CANDLE-Uno and NMT at their
+# build functions' defaults, a timed forward and one fit step each
+ZOO_BATCH = 64
+ZOO_FIT_STEPS = 3
+ZOO_LR, ZOO_MOMENTUM = 0.01, 0.9
+# every model's pre-softmax forward on the card against the same model and
+# weights on this machine's CPU, at batch 2. f32, as a fraction of the
+# largest |logit|: TF32 off on both sides, sums in other orders and by
+# other algorithms (cuDNN may take Winograd or FFT transforms, which round
+# more than a direct sum), through up to 50 layers. bf16: within
+# BF16_FLOOR_FACTOR times the CPU bf16 path's distance from the CPU f32 one
+ZOO_CHECK_BATCH = 2
+ZOO_F32_TOL = 1e-3
+# ResNet-50's first batch norm's running statistics after the fit steps
+# against a float64 computation of the same batches from the same conv
+# weights, as a fraction of the largest statistic. f32: the convolution's
+# and the statistics' sums in another order. bf16: the reference rounds
+# where the step does (the conv's output, the bias add), but cuDNN's f32
+# sums round to other bf16 neighbours at a few elements, and the step
+# rounds the batch mean and variance to bf16 (2^-9 of each)
+ZOO_STATS_TOL = {"float32": 1e-4, "bfloat16": 2 ** -6}
+# served answers against one forward of the same rows on the card: the
+# same kernels on the same padded batch (a row's answer does not depend
+# on the others in eval), so only a different algorithm choice could move
+# them
+ZOO_SERVE_TOL = 1e-5
 
 
 class SmokeFailure(RuntimeError):
@@ -2549,6 +2590,335 @@ def phase_serving_breadth(card: str, plain: dict) -> dict:
     return row
 
 
+# ---- the rest of the model zoo -------------------------------------------
+
+
+SPARSE_CE, MSE = "SPARSE_CATEGORICAL_CROSSENTROPY", "MEAN_SQUARED_ERROR_AVG_REDUCE"
+# device kernel classes of a profiled zoo step
+ZOO_CLASSES = (
+    ("conv", lambda n: any(w in n.lower() for w in (
+        "conv", "cudnn", "fprop", "dgrad", "wgrad", "winograd", "fft", "implicit"))),
+    ("gemm", lambda n: any(w in n.lower() for w in ("gemm", "xmma", "cutlass", "nvjet"))),
+    ("memcpy", lambda n: "memcpy" in n.lower()),
+)
+
+
+def zoo_models() -> dict:
+    """name -> (build(ff, batch) -> the model's output, loss, SGD momentum)."""
+    from flexflow_tpu_torch import models as m
+
+    return {
+        "resnet50": (lambda ff, b: m.build_resnet50(ff, b, use_bn=True)[1], SPARSE_CE,
+                     ZOO_MOMENTUM),
+        "dlrm": (lambda ff, b: m.build_dlrm(ff, b)[1], MSE, 0.0),
+        "alexnet": (lambda ff, b: m.build_alexnet(ff, b)[1], SPARSE_CE, 0.0),
+        "resnext50": (lambda ff, b: m.build_resnext50(ff, b)[1], SPARSE_CE, 0.0),
+        "inception_v3": (lambda ff, b: m.build_inception_v3(ff, b)[1], SPARSE_CE, 0.0),
+        "xdl": (lambda ff, b: m.build_xdl(ff, b)[1], MSE, 0.0),
+        "candle_uno": (lambda ff, b: m.build_candle_uno(ff, b)[1], MSE, 0.0),
+        "nmt": (lambda ff, b: m.build_nmt(ff, b)[2], SPARSE_CE, 0.0),
+    }
+
+
+def zoo_model(name: str, batch: int, device: str, compute_dtype=None, train: bool = True):
+    """The zoo model compiled for training (SGD, its loss and the loss as
+    the metric), or for its pre-softmax forward alone."""
+    from flexflow_tpu_torch import FFConfig, FFModel, LossType, MetricsType, SGDOptimizer
+
+    build, loss, momentum = zoo_models()[name]
+    ff = FFModel(FFConfig(batch_size=batch, seed=SEED, device=device,
+                          compute_dtype=compute_dtype))
+    out = build(ff, batch)
+    if train:
+        metric = (MetricsType.SPARSE_CATEGORICAL_CROSSENTROPY if loss == SPARSE_CE
+                  else MetricsType.MEAN_SQUARED_ERROR)
+        ff.compile(SGDOptimizer(lr=ZOO_LR, momentum=momentum), getattr(LossType, loss),
+                   metrics=[metric])
+    else:
+        layer = out.owner_layer
+        ff.compile(logits_tensor=layer.inputs[0] if layer.op_type.name == "SOFTMAX" else out)
+    return ff
+
+
+def zoo_inputs(cm, n: int, rng) -> list:
+    """n samples of every input: ids within their table, the rest normal."""
+    xs = []
+    for t in cm.input_tensors:
+        if t.dtype.name == "INT32":
+            vocab = min(op.attrs["num_entries"] for op in cm.ops
+                        if op.op_type.name == "EMBEDDING"
+                        and op.layer.inputs[0].tensor_id == t.tensor_id)
+            xs.append(rng.integers(0, vocab, size=(n,) + t.dims[1:], dtype=np.int32))
+        else:
+            xs.append(rng.standard_normal(size=(n,) + t.dims[1:], dtype=np.float32))
+    return xs
+
+
+def zoo_labels(cm, n: int, rng) -> np.ndarray:
+    dims = tuple(cm.logits_tensor.dims)
+    if cm.loss_type.name == SPARSE_CE:
+        return rng.integers(0, dims[-1], size=(n,) + dims[1:-1], dtype=np.int32).reshape(n, -1)
+    return rng.random(size=(n,) + dims[1:], dtype=np.float32)
+
+
+def zoo_forward_flops(cm) -> float:
+    """Multiply-adds x 2 of one forward: convolutions, recurrences, dense."""
+    total = 0.0
+    for op in cm.ops:
+        if hasattr(op, "flops"):
+            total += op.flops()
+        elif op.op_type.name == "LINEAR":
+            total += 2.0 * float(np.prod(op.output_shapes[0].sizes)) * op.in_dim
+    return total
+
+
+def weights_by_order(cm) -> list:
+    """The params as numpy, one dict per weighted op in graph order (two
+    builds of one model name their unnamed layers differently)."""
+    return [{w: t.detach().float().cpu().numpy() for w, t in cm.params[op.name].items()}
+            for op in cm.ops if op.name in cm.params]
+
+
+def rel_err(got: np.ndarray, want: np.ndarray) -> float:
+    return float(np.abs(got.astype(np.float64) - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def zoo_agreement(name: str, weights: list, card: str) -> dict:
+    """The model's pre-softmax forward on the card and on the CPU, f32 and
+    bf16, at batch ZOO_CHECK_BATCH with ``weights``: the card's f32 against
+    the CPU's within ZOO_F32_TOL, the card's bf16 within BF16_FLOOR_FACTOR
+    times the CPU bf16 path's distance from the CPU f32 one."""
+    from flexflow_tpu_torch import load_numpy_params
+
+    outs, xs = {}, None
+    for device in (DEVICE, "cpu"):
+        for dt in ("float32", "bfloat16"):
+            ff = zoo_model(name, ZOO_CHECK_BATCH, device, None if dt == "float32" else dt,
+                           train=False)
+            cm = ff.compiled
+            names = [op.name for op in cm.ops if op.name in cm.params]
+            load_numpy_params(ff, dict(zip(names, weights)))
+            if xs is None:
+                xs = zoo_inputs(cm, ZOO_CHECK_BATCH, np.random.default_rng(SEED + 40))
+            out = cm.forward_fn(cm.params, *(torch.from_numpy(a).to(cm.device) for a in xs))
+            outs[(device, dt)] = out.float().cpu().numpy()
+            del ff, cm, out
+    ref = outs[("cpu", "float32")]
+    row = dict(max_abs_logit=float(np.abs(ref).max()),
+               f32_err=rel_err(outs[(DEVICE, "float32")], ref),
+               bf16_err=rel_err(outs[(DEVICE, "bfloat16")], ref),
+               cpu_bf16_err=rel_err(outs[("cpu", "bfloat16")], ref))
+    row["bf16_bound"] = BF16_FLOOR_FACTOR * row["cpu_bf16_err"]
+    check(all(np.isfinite(v).all() for v in outs.values()), f"{name}: a forward is not finite")
+    check(row["f32_err"] <= ZOO_F32_TOL and row["bf16_err"] <= row["bf16_bound"],
+          f"{name} card vs CPU: {row}")
+    print(f"zoo {name} card vs cpu at batch {ZOO_CHECK_BATCH}: f32 {row['f32_err']:.3g} of the "
+          f"largest |logit| {row['max_abs_logit']:.4g} (tol {ZOO_F32_TOL:g}), bf16 "
+          f"{row['bf16_err']:.3g} (bound {row['bf16_bound']:.3g}: twice the CPU bf16 "
+          f"path's {row['cpu_bf16_err']:.3g}) [{card}]", flush=True)
+    return row
+
+
+def fit_loss(pm, cm) -> float:
+    """The epoch's mean loss from fit's accumulated metrics."""
+    if cm.loss_type.name == SPARSE_CE:
+        return pm.sparse_cce_loss / max(1, pm.train_all)
+    return pm.mse_loss / max(1, pm.train_all * int(np.prod(cm.logits_tensor.dims[1:])))
+
+
+def bn_stats_reference(conv, bn, params: dict, x: np.ndarray, compute_dtype) -> tuple:
+    """(running mean, running var) that ``bn`` (after ``conv``, the
+    model's first layers) should hold after one step on ``x``: the conv in
+    float64 from the inputs and weights as the step sees them (under bf16:
+    rounded to bf16, the output rounded and the bias added in bf16, as the
+    step does), the batch mean and unbiased variance over N, H, W in
+    float64, and the momentum-0.1 update."""
+    import torch.nn.functional as F
+
+    cast = (lambda t: t.to(torch.bfloat16)) if compute_dtype else (lambda t: t)
+    p = params[conv.name]
+    xin = cast(torch.from_numpy(x).to(DEVICE)).double()
+    y = F.conv2d(xin, cast(p["kernel"]).double(), None, conv.stride, conv.padding, 1,
+                 conv.groups)
+    if compute_dtype:
+        # the step rounds the conv's output to bf16 and adds the bias in
+        # bf16: on a bf16 value c, c + b rounds to c plus b in whole units
+        # of c's last place, an error the same for every c of a binade,
+        # which the mean does not average away
+        y = (y.to(torch.bfloat16) + cast(p["bias"])[None, :, None, None]).double()
+    else:
+        y = y + p["bias"].double()[None, :, None, None]
+    var, mean = torch.var_mean(y, dim=(0, 2, 3), correction=1)
+    q = params[bn.name]
+    return (0.9 * q["running_mean"].double() + 0.1 * mean,
+            0.9 * q["running_var"].double() + 0.1 * var)
+
+
+def zoo_full_width(name: str, compute_dtype: str, card: str) -> tuple:
+    """ResNet-50 or DLRM at full width and batch ZOO_BATCH: ZOO_FIT_STEPS
+    steps of fit (one batch each; ResNet's first batch norm's statistics
+    held to bn_stats_reference after each), eval, one served burst of
+    ZOO_BATCH requests, then the step time (median of TIMED_STEPS after
+    warm-up, by CUDA events), a profiled step and the peak memory. Returns
+    (row, the f32 weights by op order or None)."""
+    from flexflow_tpu_torch.serving import InferenceEngine
+
+    dt = None if compute_dtype == "float32" else compute_dtype
+    ff = zoo_model(name, ZOO_BATCH, DEVICE, dt)
+    cm = ff.compiled
+    rng = np.random.default_rng(SEED + 41)
+    n = ZOO_BATCH * ZOO_FIT_STEPS
+    xs, y = zoo_inputs(cm, n, rng), zoo_labels(cm, n, rng)
+    conv = next((op for op in cm.ops if op.op_type.name == "CONV2D"), None)
+    bn = next((op for op in cm.ops if op.op_type.name == "BATCHNORM"), None)
+    losses, stats_err = [], 0.0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(ZOO_FIT_STEPS):
+        rows = slice(i * ZOO_BATCH, (i + 1) * ZOO_BATCH)
+        want = bn_stats_reference(conv, bn, cm.params, xs[0][rows], dt) if bn else None
+        pm = ff.fit([a[rows] for a in xs], y[rows], shuffle=False, verbose=False)[0]
+        losses.append(fit_loss(pm, cm))
+        if bn:
+            for got, ref in zip((cm.params[bn.name]["running_mean"],
+                                 cm.params[bn.name]["running_var"]), want):
+                stats_err = max(stats_err, rel_err(got.double().cpu().numpy(),
+                                                   ref.cpu().numpy()))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    check(all(np.isfinite(losses)), f"{name} {compute_dtype}: fit losses {losses}")
+    if bn:
+        check(stats_err <= ZOO_STATS_TOL[compute_dtype],
+              f"{name} {compute_dtype}: running statistics {stats_err:.3g} from the float64 "
+              f"reference (tol {ZOO_STATS_TOL[compute_dtype]:g})")
+    ev = ff.eval([a[:ZOO_BATCH] for a in xs], y[:ZOO_BATCH], verbose=False)
+    eval_loss = fit_loss(ev, cm)
+    check(np.isfinite(eval_loss), f"{name} {compute_dtype}: eval loss {eval_loss}")
+    eng = InferenceEngine()
+    try:
+        eng.register_ffmodel(ff, name)
+        t0 = time.perf_counter()
+        futs = [eng.infer_async(name, [a[j] for a in xs]) for j in range(ZOO_BATCH)]
+        served = np.stack([f.result(300) for f in futs])
+        serve_s = time.perf_counter() - t0
+    finally:
+        eng.stop()
+    xb = [torch.from_numpy(a[:ZOO_BATCH]).to(cm.device) for a in xs]
+    direct = cm.forward_fn(cm.params, *xb).cpu().numpy()
+    serve_err = rel_err(served, direct)
+    check(np.isfinite(served).all() and serve_err <= ZOO_SERVE_TOL,
+          f"{name} {compute_dtype}: served answers {serve_err:.3g} from the forward")
+    weights = weights_by_order(cm) if compute_dtype == "float32" else None
+    yb = torch.from_numpy(y[:ZOO_BATCH]).to(cm.device)
+
+    def step():
+        cm.train_step(cm.params, cm.opt_state, None, *xb, yb)
+
+    step_ms, _, peak = timed_steps(step, 1)
+    ms = float(np.median(step_ms))
+    prof = profile_breakdown(step, ZOO_CLASSES)
+    flops = 3.0 * zoo_forward_flops(cm)
+    row = dict(model=name, compute_dtype=compute_dtype, card=card, batch=ZOO_BATCH,
+               fit_steps=ZOO_FIT_STEPS, fit_losses=losses, fit_s=fit_s, eval_loss=eval_loss,
+               serve_requests=ZOO_BATCH, serve_s=serve_s, serve_err=serve_err,
+               running_stats_err=stats_err if bn else None, step_ms=ms,
+               step_ms_p90=float(np.percentile(step_ms, 90)),
+               samples_per_s=ZOO_BATCH / (ms / 1e3), train_flops=flops,
+               model_tflops=flops / (ms / 1e3) / 1e12, peak_gib=peak,
+               device_busy_share=1.0 - prof["device_idle_share"], breakdown=prof)
+    print(f"zoo {name} {compute_dtype}: fit {ZOO_FIT_STEPS} steps of batch {ZOO_BATCH} in "
+          f"{fit_s:.2f} s, losses {[round(v, 5) for v in losses]}, eval loss "
+          f"{eval_loss:.5f}"
+          + (f", first batch norm's running stats {stats_err:.3g} from float64 (tol "
+             f"{ZOO_STATS_TOL[compute_dtype]:g})" if bn else "")
+          + f"; served {ZOO_BATCH} requests in {serve_s:.2f} s (err {serve_err:.3g}); "
+          f"step {ms:.2f} ms (median of {len(step_ms)}, p90 {row['step_ms_p90']:.2f}), "
+          f"{row['samples_per_s']:.1f} samples/s, {row['model_tflops']:.2f} model TFLOP/s "
+          f"({flops / 1e12:.3f} TFLOP a step), device busy "
+          f"{row['device_busy_share']:.3f} of a profiled step, peak {peak:.2f} GiB [{card}]",
+          flush=True)
+    print(f"zoo {name} {compute_dtype} breakdown " + json.dumps(
+        {k: prof[k] for k in ("wall_ms", "device_busy_ms", "device_idle_share",
+                              "device_ms_by_class", "top_kernels_ms")}), flush=True)
+    del ff, cm, eng, xb, yb
+    return row, weights
+
+
+def zoo_default(name: str, compute_dtype: str, card: str) -> tuple:
+    """A model at its build function's defaults and batch ZOO_BATCH: one fit step
+    (finite loss) and its forward's time (mean of 5 by CUDA events after
+    2 warm-ups). Returns (row, the f32 weights by op order or None)."""
+    dt = None if compute_dtype == "float32" else compute_dtype
+    ff = zoo_model(name, ZOO_BATCH, DEVICE, dt)
+    cm = ff.compiled
+    rng = np.random.default_rng(SEED + 42)
+    xs, y = zoo_inputs(cm, ZOO_BATCH, rng), zoo_labels(cm, ZOO_BATCH, rng)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = fit_loss(ff.fit(xs, y, shuffle=False, verbose=False)[0], cm)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    check(np.isfinite(loss), f"{name} {compute_dtype}: fit loss {loss}")
+    xb = [torch.from_numpy(a).to(cm.device) for a in xs]
+    fwd_ms = time_ms(lambda: cm.forward_fn(cm.params, *xb), iters=5, warmup=2)
+    n_params = sum(t.numel() for ws in cm.params.values() for t in ws.values())
+    row = dict(model=name, compute_dtype=compute_dtype, card=card, batch=ZOO_BATCH,
+               params=n_params, fit_loss=loss, fit_step_s=fit_s, forward_ms=fwd_ms,
+               forward_flops=zoo_forward_flops(cm))
+    print(f"zoo {name} {compute_dtype}: {n_params / 1e6:.1f}M params, one fit step of batch "
+          f"{ZOO_BATCH} in {fit_s:.2f} s (loss {loss:.5f}), forward {fwd_ms:.2f} ms "
+          f"({row['forward_flops'] / 1e9:.1f} GFLOP) [{card}]", flush=True)
+    weights = weights_by_order(cm) if compute_dtype == "float32" else None
+    del ff, cm, xb
+    return row, weights
+
+
+def free_device() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_zoo(card: str) -> dict:
+    """The rest of the zoo on the card: ResNet-50 (batch norm) and DLRM at
+    full width, the other six at their build functions' defaults, in float32 and
+    bfloat16; each model's forward held to the CPU's. The zoo runs none of
+    the port's kernels (cuDNN convolutions, cuBLAS products, torch ops), so
+    its launch counts must stay 0."""
+    from flexflow_tpu_torch import kernels
+
+    kernels.reset_launch_counts()
+    rows, agree = [], {}
+    for name in ("resnet50", "dlrm"):
+        weights = None
+        for dt in ("float32", "bfloat16"):
+            row, w = zoo_full_width(name, dt, card)
+            rows.append(row)
+            weights = w if w is not None else weights
+            free_device()
+        agree[name] = zoo_agreement(name, weights, card)
+        del weights
+        free_device()
+    for name in ("alexnet", "resnext50", "inception_v3", "xdl", "candle_uno", "nmt"):
+        weights = None
+        for dt in ("float32", "bfloat16"):
+            row, w = zoo_default(name, dt, card)
+            rows.append(row)
+            weights = w if w is not None else weights
+            free_device()
+        agree[name] = zoo_agreement(name, weights, card)
+        del weights
+        free_device()
+    launches = kernels.launch_counts()
+    check(not any(launches.values()), f"the zoo launched the port's kernels: {launches}")
+    cuts = (f"ResNet-50 and DLRM: {ZOO_FIT_STEPS} fit steps and {TIMED_STEPS} timed steps; "
+            f"the other six: one fit step and 5 timed forwards; every card-vs-CPU check at "
+            f"batch {ZOO_CHECK_BATCH}")
+    print(f"zoo cuts: {cuts}", flush=True)
+    out = {"rows": rows, "agreement": agree, "cuts": cuts}
+    print("zoo_json " + json.dumps(out, default=float), flush=True)
+    return out
+
+
 def check_spans(events: list, n: int, validate) -> None:
     """Every served request has the reference's five spans on its own
     track, nested in its serving.request span."""
@@ -2643,6 +3013,9 @@ def main() -> int:
     breadth = phase_serving_breadth(card, plains)
     del plains
     print(f"phases: serving breadth done at {time.perf_counter() - t0:.0f} s", flush=True)
+    free_device()
+    phase_zoo(card)
+    print(f"phases: zoo done at {time.perf_counter() - t0:.0f} s", flush=True)
     train_launches = {name: sum(r["fit_launches"][name] for r in train)
                       for name in train[0]["fit_launches"]}
     # GPT's path: its fits and the full-sequence forwards of its dense and

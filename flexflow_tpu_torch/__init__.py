@@ -23,6 +23,12 @@ batcher (``native_bridge``), admission bounds, deadlines, the failure
 breaker and worker respawn, driven by the fault plan
 (``runtime.faults``, ``FFConfig.fault_plan``) and observed through the
 metrics registry and the span tracer (``obs``, ``FFConfig.trace``).
+The rest of the zoo (AlexNet, ResNet-50 with batch norm, ResNeXt-50,
+Inception-v3, DLRM, XDL, CANDLE-Uno and the LSTM NMT model; every
+``models.zoo_smoke_builders()`` entry) trains and serves through the same
+entry points, on the structural, reduce, convolution, pooling,
+batch-norm and recurrent ops (cuDNN and cuBLAS through stock torch, as
+they are XLA, not Pallas, in the reference).
 """
 
 from .config import FFConfig

@@ -50,6 +50,11 @@ class LowerCtx:
     # JAX package's does, and a training Dropout op raises
     rng: Optional[int] = None
     seed: int = 0
+    # non-trainable state the training forward writes (BatchNorm's running
+    # statistics): {(op_name, weight_name): new value}. ``train_step``
+    # writes these into the params after the optimizer update; None: the
+    # caller does not track state (eval, ``grad_step``, the manual verbs)
+    state_updates: Optional[dict] = None
 
     def generator(self, op_name: str, device: torch.device) -> torch.Generator:
         """A fresh ``torch.Generator`` on ``device`` for one op's draws in
@@ -90,6 +95,11 @@ class Op:
         weights: Dict[str, torch.Tensor],
     ) -> List[torch.Tensor]:
         raise NotImplementedError
+
+    def materialize(self, device: torch.device) -> None:
+        """Put what the op reads every step, besides its weights, on
+        ``device`` once, when the model is compiled (Constant's value);
+        most ops have nothing."""
 
     def propagate(
         self, input_shapes: List[ParallelTensorShape]

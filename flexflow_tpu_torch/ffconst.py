@@ -55,6 +55,13 @@ class AggrMode(enum.Enum):
     AVG = 22
 
 
+class PoolType(enum.Enum):
+    """Pooling modes (reference: ffconst.h POOL_MAX/POOL_AVG)."""
+
+    MAX = 30
+    AVG = 31
+
+
 class LossType(enum.Enum):
     """Loss functions (reference: ffconst.h LOSS_*)."""
 

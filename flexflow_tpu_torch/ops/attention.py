@@ -1,7 +1,10 @@
-"""MultiHeadAttention operator.
+"""BatchMatmul and MultiHeadAttention operators.
 
-PyTorch counterpart of ``MultiHeadAttention`` in
-``flexflow_tpu/ops/attention.py``: the same weights in the same layouts
+PyTorch counterpart of ``flexflow_tpu/ops/attention.py``. BatchMatmul is
+``torch.matmul`` over matching batch dims; its ``a_seq_length_dim`` /
+``b_seq_length_dim`` attributes are accepted and have no effect, since
+nothing in the port sets a sequence length to truncate to (ROADMAP A9).
+MultiHeadAttention keeps the JAX op's weights in the same layouts
 (``wq/wk/wv`` (E, H, D), ``wo`` (H, D, E), biases ``bq/bk/bv`` (H, D) and
 ``bo`` (E,)) and the same math. The attention itself goes through
 :func:`~flexflow_tpu_torch.kernels.flash_attention.attend` at any sequence
@@ -42,6 +45,22 @@ def dropout_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         s = s.masked_fill(~keep, float("-inf"))
     p = drop(torch.softmax(s, dim=-1), rate, ctx, op_name)
     return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+@register_op
+class BatchMatmul(Op):
+    op_type = OpType.BATCHMATMUL
+
+    def infer_output_shapes(self):
+        a, b = self.input_shapes
+        if not (len(a.sizes) == len(b.sizes) >= 3 and a.sizes[:-2] == b.sizes[:-2]
+                and a.sizes[-1] == b.sizes[-2]):
+            raise ValueError(f"{self.name}: batch_matmul of {a.sizes} and {b.sizes}")
+        return [(a.sizes[:-1] + (b.sizes[-1],), a.dtype)]
+
+    def forward(self, ctx, inputs, weights):
+        a, b = inputs
+        return [torch.matmul(a, b)]
 
 
 @register_op

@@ -9,7 +9,10 @@ device and returns plain functions over the op graph: ``forward_fn``
 signatures without ``seq_length``. Gradients come from autograd through
 the op graph (and through the kernels' ``torch.autograd.Function`` classes);
 the auxiliary losses that ops append to ``LowerCtx.aux_losses`` (the MoE
-balance term) join the training loss only. A training step's ``rng`` is an
+balance term) join the training loss only, and the state the training
+forward leaves in ``LowerCtx.state_updates`` (BatchNorm's running
+statistics) is written into the params by ``train_step`` alone, after the
+optimizer update. A training step's ``rng`` is an
 int key (``FFModel`` passes a counter, as the JAX package folds one into
 its root key); each op's random draws come from a generator seeded by the
 config's seed, that key and the op's name. Gradient accumulation,
@@ -197,7 +200,8 @@ def _forward_graph(ops: List[Op], params: Params,
                    plain_kernels: bool = False,
                    training: bool = False,
                    rng: Optional[int] = None,
-                   seed: int = 0
+                   seed: int = 0,
+                   state_updates: Optional[dict] = None
                    ) -> Tuple[Dict[int, torch.Tensor], List[torch.Tensor]]:
     """Run the op graph; returns (every activation by tensor id, the
     auxiliary losses the ops appended). With a ``compute_dtype`` (bf16)
@@ -205,9 +209,11 @@ def _forward_graph(ops: List[Op], params: Params,
     cast back, while ``params`` stay f32: autograd through the casts gives
     f32 gradients against the f32 master params. Integer inputs (token
     ids) are never cast. ``rng``/``seed``: the step's key and the config's
-    seed, from which each op draws (``LowerCtx.generator``)."""
+    seed, from which each op draws (``LowerCtx.generator``).
+    ``state_updates``: a dict the training forward fills with the ops' new
+    non-trainable state."""
     ctx = LowerCtx(plain_kernels=plain_kernels, training=training, aux_losses=[],
-                   rng=rng, seed=seed)
+                   rng=rng, seed=seed, state_updates=state_updates)
     cast = make_caster(compute_dtype)
     acts = {k: cast(v) for k, v in inputs.items()}
     for op in ops:
@@ -264,6 +270,8 @@ def compile_model(
     input_pshapes = {t.tensor_id: ParallelTensorShape.unpartitioned(t.dims, t.dtype)
                      for t in input_tensors}
     ops, _ = build_ops(layers, input_pshapes)
+    for op in ops:
+        op.materialize(device)
     params, wd_mask = init_params(ops, config.seed, device)
     cdt = _resolve_compute_dtype(config.compute_dtype)
     n_inputs = len(input_tensors)
@@ -272,11 +280,13 @@ def compile_model(
     from_logits = _ends_without_softmax(ops, logits_id)
 
     def run(params: Params, xs, plain_kernels: bool, training: bool,
-            rng: Optional[int] = None) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+            rng: Optional[int] = None, state_updates: Optional[dict] = None
+            ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         """(f32 logits, the auxiliary losses in f32): loss and metrics are
         f32 whatever the compute dtype."""
         acts, aux = _forward_graph(ops, params, dict(zip(input_ids, xs)), cdt,
-                                   plain_kernels, training, rng, config.seed)
+                                   plain_kernels, training, rng, config.seed,
+                                   state_updates)
         return acts[logits_id].float(), [a.float() for a in aux]
 
     def forward_fn(params: Params, *xs: torch.Tensor,
@@ -284,17 +294,19 @@ def compile_model(
         with torch.inference_mode():
             return run(params, xs, plain_kernels, training=False)[0]
 
-    def value_and_grad(params: Params, batch, plain_kernels: bool, rng):
+    def value_and_grad(params: Params, batch, plain_kernels: bool, rng,
+                       state_updates: Optional[dict] = None):
         """(loss, logits, grads) of one batch; the loss includes the
         auxiliary losses (the training loss only, as in the JAX package's
         train and grad steps), and the grads are f32 trees like
-        ``params``."""
+        ``params``. ``state_updates`` collects the forward's new state."""
         xs, y = batch[:n_inputs], batch[n_inputs]
         leaves = {op: {w: t.detach().requires_grad_(True) for w, t in ws.items()}
                   for op, ws in params.items()}
         flat = [t for ws in leaves.values() for t in ws.values()]
         with torch.enable_grad():
-            logits, aux = run(leaves, xs, plain_kernels, training=True, rng=rng)
+            logits, aux = run(leaves, xs, plain_kernels, training=True, rng=rng,
+                              state_updates=state_updates)
             loss = compute_loss(loss_type, logits, y, from_logits)
             for a in aux:
                 loss = loss + a
@@ -309,11 +321,17 @@ def compile_model(
 
     def train_step(params: Params, opt_state, rng, *batch: torch.Tensor,
                    plain_kernels: bool = False):
-        loss, logits, grads = value_and_grad(params, batch, plain_kernels, rng)
+        updates: dict = {}
+        loss, logits, grads = value_and_grad(params, batch, plain_kernels, rng, updates)
         bm = compute_batch_metrics(metrics, loss_type, logits, batch[n_inputs],
                                    from_logits)
         params, opt_state = optimizer.update(params, grads, opt_state, wd_mask,
                                              optimizer.hyperparams())
+        # non-trainable state (BatchNorm's running statistics), written after
+        # the optimizer update in the master dtype, outside autograd
+        with torch.no_grad():
+            for (op_name, w_name), v in updates.items():
+                params[op_name][w_name].copy_(v.detach())
         return params, opt_state, loss, bm
 
     def eval_step(params: Params, *batch: torch.Tensor,

@@ -1,10 +1,12 @@
 """FFModel: the user-facing model API.
 
 PyTorch counterpart of ``flexflow_tpu/runtime/model.py``: the graph calls
-the port's slices need (``create_tensor``, ``dense``,
-``multihead_attention``, ``softmax``, ``layer_norm``, the elementwise
-binary and unary verbs, ``dropout``, ``embedding``, ``gather`` and the MoE
-family up to ``moe``), ``compile`` with an optimizer, a loss and
+the port's slices need (``create_tensor``, ``dense``, ``conv2d``,
+``pool2d``, ``batch_norm``, ``multihead_attention``, ``batch_matmul``,
+``softmax``, ``layer_norm``, the elementwise binary and unary verbs, the
+structural verbs from ``flat`` to ``constant``, ``mean`` and
+``reduce_sum``, ``dropout``, ``embedding``, ``gather``, the recurrent
+``lstm``/``gru``/``rnn`` and the MoE family up to ``moe``), ``compile`` with an optimizer, a loss and
 metrics, ``fit``/``eval`` over the numpy data loader, the manual
 ``set_batch``/``forward``/``zero_gradients``/``backward``/``update``
 verbs, and :func:`load_numpy_params` to carry the JAX package's params
@@ -30,7 +32,7 @@ from ..core.op import create_op
 from ..core.parallel_tensor import ParallelTensorShape
 from ..core.tensor import Tensor
 from ..ffconst import (ActiMode, AggrMode, CompMode, DataType, LossType, MetricsType,
-                       OpType)
+                       OpType, PoolType)
 from ..obs.trace import configure_tracer
 from .compiler import CompiledModel, Params, compile_model
 from .dataloader import DataLoaderGroup, SingleDataLoader
@@ -103,6 +105,47 @@ class FFModel:
                      bias_initializer=bias_initializer)
         return self._infer_and_add(OpType.LINEAR, [input], attrs, name)
 
+    def conv2d(self, input: Tensor, out_channels: int, kernel_h: int, kernel_w: int,
+               stride_h: int, stride_w: int, padding_h: int, padding_w: int,
+               activation: ActiMode = ActiMode.NONE, groups: int = 1,
+               use_bias: bool = True, kernel_initializer=None, bias_initializer=None,
+               name: Optional[str] = None,
+               strategy: Optional[Dict[str, str]] = None) -> Tensor:
+        """NCHW convolution with an OIHW kernel. A ``strategy`` raises:
+        sharding it needs a mesh (queue A7)."""
+        attrs = dict(out_channels=out_channels, kernel=(kernel_h, kernel_w),
+                     stride=(stride_h, stride_w), padding=(padding_h, padding_w),
+                     activation=activation, groups=groups, use_bias=use_bias,
+                     kernel_initializer=kernel_initializer,
+                     bias_initializer=bias_initializer)
+        if strategy:
+            attrs["strategy"] = strategy
+        return self._infer_and_add(OpType.CONV2D, [input], attrs, name)
+
+    def pool2d(self, input: Tensor, kernel_h: int, kernel_w: int, stride_h: int,
+               stride_w: int, padding_h: int, padding_w: int,
+               pool_type: PoolType = PoolType.MAX,
+               activation: ActiMode = ActiMode.NONE, name: Optional[str] = None) -> Tensor:
+        attrs = dict(kernel=(kernel_h, kernel_w), stride=(stride_h, stride_w),
+                     padding=(padding_h, padding_w), pool_type=pool_type,
+                     activation=activation)
+        return self._infer_and_add(OpType.POOL2D, [input], attrs, name)
+
+    def batch_norm(self, input: Tensor, relu: bool = True, eps: float = 1e-5,
+                   name: Optional[str] = None) -> Tensor:
+        """Per-channel batch norm of an NCHW tensor, with a fused ReLU
+        unless ``relu=False``; its running statistics update in ``fit``'s
+        training steps only."""
+        return self._infer_and_add(OpType.BATCHNORM, [input],
+                                   dict(relu=relu, eps=float(eps)), name)
+
+    def batch_matmul(self, A: Tensor, B: Tensor, a_seq_length_dim: int = -1,
+                     b_seq_length_dim: int = -1, name=None) -> Tensor:
+        """A @ B over matching batch dims. The seq-length dims are kept as
+        attributes and have no effect (queue A9)."""
+        attrs = dict(a_seq_length_dim=a_seq_length_dim, b_seq_length_dim=b_seq_length_dim)
+        return self._infer_and_add(OpType.BATCHMATMUL, [A, B], attrs, name)
+
     def multihead_attention(self, query: Tensor, key: Tensor, value: Tensor,
                             embed_dim: int, num_heads: int, kdim: int = 0,
                             vdim: int = 0, dropout: float = 0.0,
@@ -117,6 +160,101 @@ class FFModel:
 
     def softmax(self, input: Tensor, axis: int = -1, name=None) -> Tensor:
         return self._infer_and_add(OpType.SOFTMAX, [input], dict(dim=axis), name)
+
+    # ---- structural and reductions ----------------------------------------
+    def flat(self, input: Tensor, name=None) -> Tensor:
+        return self._infer_and_add(OpType.FLAT, [input], {}, name)
+
+    def reshape(self, input: Tensor, shape: Sequence[int], name=None) -> Tensor:
+        return self._infer_and_add(OpType.RESHAPE, [input], dict(shape=tuple(shape)), name)
+
+    def transpose(self, input: Tensor, perm: Sequence[int], name=None) -> Tensor:
+        return self._infer_and_add(OpType.TRANSPOSE, [input], dict(perm=tuple(perm)), name)
+
+    def reverse(self, input: Tensor, axis: int, name=None) -> Tensor:
+        return self._infer_and_add(OpType.REVERSE, [input], dict(axis=axis), name)
+
+    def concat(self, tensors: List[Tensor], axis: int, name=None) -> Tensor:
+        return self._infer_and_add(OpType.CONCAT, list(tensors), dict(axis=axis), name)
+
+    def split(self, input: Tensor, sizes: Union[int, Sequence[int]], axis: int,
+              name=None) -> List[Tensor]:
+        """``sizes``: the parts' sizes along ``axis``, or how many equal parts."""
+        if isinstance(sizes, int):
+            total = input.dims[axis % len(input.dims)]
+            if total % sizes:
+                raise ValueError(f"split of a dim of {total} into {sizes} equal parts")
+            splits = [total // sizes] * sizes
+        else:
+            splits = list(sizes)
+        out = self._infer_and_add(OpType.SPLIT, [input], dict(axis=axis, splits=splits),
+                                  name)
+        return out if isinstance(out, list) else [out]
+
+    def cast(self, input: Tensor, dtype: DataType, name=None) -> Tensor:
+        return self._infer_and_add(OpType.CAST, [input], dict(dtype=dtype), name)
+
+    def slice_tensor(self, input: Tensor, items, name=None) -> Tensor:
+        """Static strided slice and integer indexing (``Slice``'s items)."""
+        return self._infer_and_add(OpType.SLICE, [input], dict(items=list(items)), name)
+
+    def constant(self, value, name=None) -> Tensor:
+        """A baked-in constant: integers become int32, bools stay bool,
+        everything else float32, as in the JAX package."""
+        v = np.asarray(value)
+        if np.issubdtype(v.dtype, np.integer):
+            dt, v = DataType.INT32, v.astype(np.int32)
+        elif v.dtype == np.bool_:
+            dt = DataType.BOOL
+        else:
+            dt, v = DataType.FLOAT, v.astype(np.float32)
+        return self._infer_and_add(OpType.CONSTANT, [], dict(value=v, dtype=dt), name)
+
+    def mean(self, input: Tensor, dims: Sequence[int], keepdims: bool = False,
+             name=None) -> Tensor:
+        return self._infer_and_add(OpType.MEAN, [input],
+                                   dict(axes=tuple(dims), keepdims=keepdims), name)
+
+    def reduce_sum(self, input: Tensor, axes: Sequence[int], keepdims: bool = False,
+                   name=None) -> Tensor:
+        return self._infer_and_add(OpType.REDUCE_SUM, [input],
+                                   dict(axes=tuple(axes), keepdims=keepdims), name)
+
+    # ---- recurrent --------------------------------------------------------
+    def _recurrent(self, op_type, input, initial_state, attrs, name):
+        inputs = [input]
+        if initial_state is not None:
+            inputs.extend(initial_state if isinstance(initial_state, (list, tuple))
+                          else [initial_state])
+        return self._infer_and_add(op_type, inputs, attrs, name)
+
+    def lstm(self, input: Tensor, hidden_size: int, return_sequences: bool = True,
+             return_state: bool = False, initial_state=None, kernel_initializer=None,
+             recurrent_initializer=None, name=None):
+        """LSTM over (batch, seq, features). ``initial_state``: (h0, c0).
+        Returns the sequence (or the last hidden state), then (h, c) with
+        ``return_state``."""
+        attrs = dict(hidden_size=hidden_size, return_sequences=return_sequences,
+                     return_state=return_state, kernel_initializer=kernel_initializer,
+                     recurrent_initializer=recurrent_initializer)
+        return self._recurrent(OpType.LSTM, input, initial_state, attrs, name)
+
+    def gru(self, input: Tensor, hidden_size: int, return_sequences: bool = True,
+            return_state: bool = False, initial_state=None, kernel_initializer=None,
+            recurrent_initializer=None, name=None):
+        """GRU with nn.GRU's gates (r, z, n)."""
+        attrs = dict(hidden_size=hidden_size, return_sequences=return_sequences,
+                     return_state=return_state, kernel_initializer=kernel_initializer,
+                     recurrent_initializer=recurrent_initializer)
+        return self._recurrent(OpType.GRU, input, initial_state, attrs, name)
+
+    def rnn(self, input: Tensor, hidden_size: int, activation: ActiMode = ActiMode.TANH,
+            return_sequences: bool = True, return_state: bool = False,
+            initial_state=None, name=None):
+        """Vanilla RNN, tanh or ReLU."""
+        attrs = dict(hidden_size=hidden_size, activation=activation,
+                     return_sequences=return_sequences, return_state=return_state)
+        return self._recurrent(OpType.RNN, input, initial_state, attrs, name)
 
     def layer_norm(self, input: Tensor, axes: Sequence[int],
                    elementwise_affine: bool = True, eps: float = 1e-5,
@@ -448,7 +586,9 @@ class FFModel:
         self._cur_grads = None
 
     def backward(self) -> None:
-        """The current batch's gradients (set_batch with a label first)."""
+        """The current batch's gradients (set_batch with a label first).
+        The manual verbs do not advance BatchNorm's running statistics:
+        only ``fit``'s training steps write them."""
         cm = self._training_model()
         if self._cur_batch is None or len(self._cur_batch) != len(cm.input_tensors) + 1:
             raise RuntimeError("set_batch(xs, y) with a label before backward()")

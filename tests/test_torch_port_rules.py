@@ -29,7 +29,13 @@ REQUIRED = ("flexflow_tpu_torch.obs", "flexflow_tpu_torch.obs.metrics",
             "flexflow_tpu_torch.obs.trace", "flexflow_tpu_torch.runtime.faults",
             "flexflow_tpu_torch.runtime.retry", "flexflow_tpu_torch.native_bridge",
             "flexflow_tpu_torch.serving.placement", "flexflow_tpu_torch.serving.engine",
-            "flexflow_tpu_torch.models.mlp")
+            "flexflow_tpu_torch.models.mlp", "flexflow_tpu_torch.ops.structural",
+            "flexflow_tpu_torch.ops.conv", "flexflow_tpu_torch.ops.reduce",
+            "flexflow_tpu_torch.ops.recurrent", "flexflow_tpu_torch.models.alexnet",
+            "flexflow_tpu_torch.models.resnet", "flexflow_tpu_torch.models.resnext",
+            "flexflow_tpu_torch.models.inception", "flexflow_tpu_torch.models.dlrm",
+            "flexflow_tpu_torch.models.xdl", "flexflow_tpu_torch.models.candle_uno",
+            "flexflow_tpu_torch.models.nmt")
 
 
 def test_rules_cover_the_required_modules():
