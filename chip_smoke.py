@@ -113,8 +113,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
    defaults, one fit step and a timed forward each; every model's
    pre-softmax forward on the card held to the same weights on the CPU;
    none of the port's kernels launched;
-13. the kernels line, one JSON object;
-14. the last line: {"ok": true, "device": {...}}.
+13. training robustness and dynamic shapes: (a) GPT at GPTConfig() with
+   Adam through one fit epoch of 128 rows of lengths 16-1024 on pow2
+   sequence buckets with an 8192-token budget, and the same epoch padded
+   to 1024, in float32 and bfloat16, the rows shuffled by fit and sorted
+   by length: each step's loss and the params held to the pad-max run's,
+   one step's gradients at each ragged width of the sorted rows held to
+   the plain kernels' path and to the same rows padded to 1024, valid
+   tokens/s, step ms, the padded share, dispatches and flash launches by
+   width, fit.bucket_compiles; (b) the Transformer at TransformerConfig(),
+   batch 8: grad_accum_steps 2 against 1, and steps_per_dispatch 4 with a
+   prefetch depth of 2 against the serial loop (params equal), step ms;
+   (c) GPT, float32: the TrainingGuard under train.nan_loss (rollback, lr
+   backoff, a Generator built before the fault serving the restored
+   weights), a child process killed by train.kill and resumed with
+   resume_from, its params and Adam moments equal to an uninterrupted
+   run's, the checkpoint's bytes and save ms, and both torn-write targets
+   falling back to the previous step;
+14. the kernels line, one JSON object;
+15. the last line: {"ok": true, "device": {...}}.
 
 Imports torch, numpy and flexflow_tpu_torch only.
 """
@@ -125,6 +142,7 @@ import gc
 import json
 import pathlib
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -264,6 +282,37 @@ ZOO_STATS_TOL = {"float32": 1e-4, "bfloat16": 2 ** -6}
 # on the others in eval), so only a different algorithm choice could move
 # them
 ZOO_SERVE_TOL = 1e-5
+# training robustness (phase 13). (a) GPT at GPTConfig() with Adam at
+# ROB_ALPHA through one bucketed fit epoch: ROB_ROWS rows whose lengths are
+# uniform in ROB_LEN, pow2 buckets from 8, ROB_BUDGET tokens a batch, against
+# the same epoch padded to the ladder's top. The two runs compute each
+# valid token from the same math; they differ in the sums' lengths (a row's
+# masked CE, the weight gradients' products over rows x width) and in the
+# cuBLAS kernels the shapes pick, so f32 per-step losses agree to the
+# rounding of the forward averaged over thousands of tokens plus the
+# params' drift, ROB_LOSS_TOL relative (LOSS_TOL's f32 value). The params
+# are held within 2 x ROB_ALPHA x steps: Adam moves a weight whose gradient
+# is rounding noise (the attention's key bias, whose exact gradient the
+# softmax cancels) by up to ROB_ALPHA a step in either run, so that is as
+# close as two Adam runs can be held; the sensitive checks are the losses
+# and one step's gradients at the ragged widths against the plain path and
+# against the same rows padded to 1024 (GRAD_TOL). bf16: within
+# BF16_FLOOR_FACTOR times the bf16 pad-max run's distance from the f32 one
+ROB_ALPHA = 1e-3
+ROB_ROWS, ROB_LEN, ROB_BUDGET = 128, (16, 1024), 8192
+ROB_LOSS_TOL = 1e-4
+# (b) the Transformer at TransformerConfig(), batch 8: grad_accum_steps 2 vs 1
+# over ROB_ACCUM_STEPS SGD steps (held as the kernels are to the plain path,
+# GRAD_TOL of each layer's largest update); steps_per_dispatch 4 with
+# prefetch depth 2 vs the serial loop over ROB_MULTI_STEPS steps (equal)
+ROB_ACCUM_STEPS, ROB_MULTI_STEPS = 3, 8
+# (c) GPT at GPTConfig(), f32, batch 8 at 1024 tokens: the guard over 3
+# epochs of 2 steps with a NaN at step ROB_NAN_AT; a child killed at step
+# ROB_KILL_AT with checkpoints every ROB_CKPT_INTERVAL steps, resumed over
+# ROB_RESUME_EPOCHS epochs of 3 steps
+ROB_GUARD_ROWS, ROB_NAN_AT = 16, 3
+ROB_RESUME_ROWS, ROB_RESUME_EPOCHS = 24, 3
+ROB_CKPT_INTERVAL, ROB_KILL_AT = 2, 5
 
 
 class SmokeFailure(RuntimeError):
@@ -2919,6 +2968,611 @@ def phase_zoo(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: training robustness and dynamic shapes
+def rob_gpt(compute_dtype: str, **cfg):
+    """GPT at GPTConfig()'s width for this phase: Adam at ROB_ALPHA, sparse
+    CE with accuracy and CE metrics, the config's extra knobs ``cfg``."""
+    from flexflow_tpu_torch import (AdamOptimizer, FFConfig, FFModel, LossType,
+                                    MetricsType)
+    from flexflow_tpu_torch.models import build_gpt
+
+    ff = FFModel(FFConfig(batch_size=GPT_BATCH, compute_dtype=compute_dtype, seed=SEED,
+                          device=DEVICE, **cfg))
+    build_gpt(ff, GPT_BATCH, GPT_SEQ, gpt_config())
+    ff.compile(AdamOptimizer(alpha=ROB_ALPHA), LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
+               [MetricsType.ACCURACY, MetricsType.SPARSE_CATEGORICAL_CROSSENTROPY])
+    return ff
+
+
+def ragged_gpt_data(n: int):
+    """``n`` rows of random tokens whose lengths are drawn (seed 0)
+    uniformly from ROB_LEN; tokens 0 and labels -1 past each length."""
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(ROB_LEN[0], ROB_LEN[1] + 1, size=n)
+    tok = rng.integers(0, gpt_config().vocab_size, size=(n, GPT_SEQ + 1), dtype=np.int32)
+    x, y = tok[:, :-1].copy(), tok[:, 1:].copy()
+    pad = np.arange(GPT_SEQ)[None, :] >= lengths[:, None]
+    x[pad] = 0
+    y[pad] = -1
+    pos = np.broadcast_to(np.arange(GPT_SEQ, dtype=np.int32), (n, GPT_SEQ)).copy()
+    return x, pos, y
+
+
+def device_copy(tree: dict) -> dict:
+    return {op: {w: t.detach().clone() for w, t in ws.items()} for op, ws in tree.items()}
+
+
+def load_tree(ff, tree: dict) -> None:
+    """Copy a params tree into the model in place, with a fresh optimizer
+    state."""
+    cm = ff.compiled
+    with torch.no_grad():
+        for op, ws in tree.items():
+            for w, t in ws.items():
+                cm.params[op][w].copy_(t)
+    cm.opt_state = cm.optimizer.init_state(cm.params)
+
+
+class StepRecorder:
+    """Wraps a compiled model's train_step for one fit: each step's width
+    and rows (from its labels), loss, CUDA-event time and flash launches.
+    Records nothing on the device's critical path but two events."""
+
+    def __init__(self, cm, keep_batches: bool = False):
+        self.cm, self.inner, self.keep = cm, cm.train_step, keep_batches
+        self.steps, self.batches = [], {}
+        cm.train_step = self
+
+    def __call__(self, *args, **kw):
+        from flexflow_tpu_torch import kernels
+
+        before = kernels.launch_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.inner(*args, **kw)
+        end.record()
+        after = kernels.launch_counts()
+        rows, width = args[-1].shape[0], args[-1].shape[1]
+        if self.keep and width not in self.batches:
+            self.batches[width] = [a.clone() for a in args[3:]]
+        self.steps.append(dict(width=int(width), rows=int(rows), loss=out[2], start=start,
+                               end=end, launches={k: after[k] - before[k] for k in after}))
+        return out
+
+    def close(self) -> list:
+        self.cm.train_step = self.inner
+        torch.cuda.synchronize()
+        for s in self.steps:
+            s["ms"] = s.pop("start").elapsed_time(s.pop("end"))
+            s["loss"] = s["loss"].item()
+        return self.steps
+
+
+def by_width(steps: list) -> dict:
+    """{width: {dispatches, rows, flash launches}} of recorded steps."""
+    out = {}
+    for s in steps:
+        row = out.setdefault(s["width"], {"dispatches": 0, "rows": [], **{
+            k: 0 for k in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                           "flash_attention_bwd_dkv")}})
+        row["dispatches"] += 1
+        if s["rows"] not in row["rows"]:
+            row["rows"].append(s["rows"])
+        for k in ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+            row[k] += s["launches"][k]
+    return dict(sorted(out.items()))
+
+
+def rob_fit(ff, x, pos, y, shuffle: bool, keep_batches: bool = False) -> dict:
+    """One fit epoch through the entry point with the launch counts set to
+    0 just before and read just after; the steps it recorded."""
+    from flexflow_tpu_torch import kernels
+    from flexflow_tpu_torch.obs.metrics import metrics_registry
+
+    compiles0 = metrics_registry().counter("fit.bucket_compiles").value
+    rec = StepRecorder(ff.compiled, keep_batches)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    (pm,) = ff.fit([x, pos], y, epochs=1, shuffle=shuffle, verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    steps = rec.close()
+    summed = {k: sum(s["launches"][k] for s in steps) for k in launches}
+    check(summed == launches, f"launches by step {summed} vs the fit's {launches}")
+    return dict(pm=pm, wall_s=wall, steps=steps, launches=launches, batches=rec.batches,
+                profile=ff.fit_profile,
+                bucket_compiles=int(metrics_registry().counter("fit.bucket_compiles").value
+                                    - compiles0))
+
+
+def rob_bucket_order(compute_dtype: str, card: str, order: str, ref: dict = None) -> tuple:
+    """One data order of (a): GPT at GPTConfig() through one bucketed fit
+    epoch (pow2 buckets from 8, token budget ROB_BUDGET) and the same epoch
+    padded to the ladder's top, from the same init, then a timed epoch of
+    each. ``order``: "shuffled" (fit's shuffle over the rows as drawn) or
+    "sorted" (the rows sorted by length, no shuffle: groups of like
+    lengths, so the dispatches take several widths and row counts; there
+    also one step's gradients at the ragged widths are held to the plain
+    kernels' path and to the same rows padded to 1024). ``ref``: the float32
+    run's numbers, which set the bfloat16 bounds. Returns (row, ref)."""
+    from flexflow_tpu_torch.runtime.buckets import (PackingSpec, build_epoch_plan,
+                                                    plan_token_stats, resolve_ladder,
+                                                    row_lengths)
+
+    what = f"robustness buckets {compute_dtype} {order}"
+    x, pos, y = ragged_gpt_data(ROB_ROWS)
+    shuffle = order == "shuffled"
+    if not shuffle:
+        by_len = np.argsort((y >= 0).sum(axis=1), kind="stable")
+        x, pos, y = x[by_len], pos[by_len], y[by_len]
+    knobs = dict(seq_buckets="pow2", seq_bucket_min=8, token_budget=ROB_BUDGET)
+    ffs = {"bucketed": rob_gpt(compute_dtype, **knobs),
+           "pad_max": rob_gpt(compute_dtype, seq_bucket_pad_max="on", **knobs)}
+    init = device_copy(ffs["bucketed"].compiled.params)
+    load_tree(ffs["pad_max"], init)
+    n_attn = gpt_config().num_layers
+    runs = {mode: rob_fit(ff, x, pos, y, shuffle, keep_batches=(mode == "bucketed"))
+            for mode, ff in ffs.items()}
+    # the plan, straight from the bucket module, for the padded shares
+    lengths = row_lengths(y)
+    ladder = resolve_ladder("pow2", 8, GPT_SEQ)
+    perm = (np.random.default_rng(SEED).permutation(ROB_ROWS) if shuffle
+            else np.arange(ROB_ROWS))
+    shares = {}
+    for mode, pad_max in (("bucketed", False), ("pad_max", True)):
+        v, t = plan_token_stats(build_epoch_plan(lengths[perm], PackingSpec(
+            ladder=ladder, token_budget=ROB_BUDGET, batch_size=GPT_BATCH, pad_max=pad_max)))
+        shares[mode] = 1.0 - v / t
+        prof = runs[mode]["profile"]["buckets"]
+        check(abs(prof["padded_token_fraction"] - shares[mode]) < 1e-6,
+              f"{what}: fit's padded share {prof['padded_token_fraction']} vs the plan's "
+              f"{shares[mode]}")
+        check(runs[mode]["bucket_compiles"] == prof["new_compiles"],
+              f"{what}: fit.bucket_compiles {runs[mode]['bucket_compiles']} vs "
+              f"{prof['new_compiles']}")
+        for s in runs[mode]["steps"]:
+            check(all(s["launches"][k] == n_attn for k in (
+                "flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")),
+                f"{what} {mode}: a step at width {s['width']} launched {s['launches']}")
+    valid = int((y >= 0).sum())
+    b, p = runs["bucketed"], runs["pad_max"]
+    lb, lp = [s["loss"] for s in b["steps"]], [s["loss"] for s in p["steps"]]
+    check(len(lb) == len(lp) and all(np.isfinite(lb + lp)),
+          f"{what}: losses {lb} vs pad-max {lp}")
+    check(b["pm"].train_all == p["pm"].train_all == valid,
+          f"{what}: counted {b['pm'].train_all} and {p['pm'].train_all} tokens of {valid}")
+    loss_err = max(abs(u - v) / abs(v) for u, v in zip(lb, lp))
+    param_diff = tree_err(ffs["bucketed"].compiled.params, ffs["pad_max"].compiled.params)
+    n_steps = len(lb)
+    pad_final = {op: {w: t.cpu() for w, t in ws.items()}
+                 for op, ws in ffs["pad_max"].compiled.params.items()}
+    if ref is None:
+        loss_tol = ROB_LOSS_TOL
+        param_tol = 2 * ROB_ALPHA * n_steps
+        loss_floor = param_floor = None
+    else:
+        loss_floor = max(abs(u - v) / abs(v) for u, v in zip(lp, ref["pad_max_losses"]))
+        param_floor = tree_err(pad_final, ref["pad_max_params"])
+        loss_tol = BF16_FLOOR_FACTOR * loss_floor
+        param_tol = BF16_FLOOR_FACTOR * param_floor
+    check(loss_err <= loss_tol, f"{what}: per-step losses {lb} vs pad-max {lp}: "
+          f"{loss_err:.3g} > {loss_tol:.3g}")
+    check(param_diff <= param_tol, f"{what}: params after the epoch {param_diff:.3g} from "
+          f"pad-max's > {param_tol:.3g}")
+    update_err, update_worst = layer_err(ffs["bucketed"].compiled.params,
+                                         ffs["pad_max"].compiled.params, init)
+
+    grad_rows, grad_ref = [], {}
+    if not shuffle:
+        # one step's gradients at the ragged widths, from the init: kernels
+        # vs the plain path, and the ragged rows vs the same rows padded to
+        # 1024
+        cm = ffs["bucketed"].compiled
+        load_tree(ffs["bucketed"], init)
+        for w in sorted(b["batches"]):
+            tok, ps, lab = b["batches"][w]
+            g_k = cm.grad_step(cm.params, None, tok, ps, lab)
+            g_p = cm.grad_step(cm.params, None, tok, ps, lab, plain_kernels=True)
+            err, worst = layer_err(g_k, g_p)
+            floor = None if ref is None else layer_err(g_p, ref["grads"][w])[0]
+            tol = GRAD_TOL if ref is None else BF16_FLOOR_FACTOR * floor
+            check(err <= tol, f"{what}: grads at width {w} vs plain path {err:.3g} of the "
+                  f"largest gradient of {worst}'s layer > {tol:.3g}")
+            padded = [torch.nn.functional.pad(t, (0, GPT_SEQ - w), value=v)
+                      for t, v in ((tok, 0), (ps, 0), (lab, -1))]
+            g_pad = cm.grad_step(cm.params, None, *padded)
+            pad_err, pad_worst = layer_err(g_k, g_pad)
+            check(ref is not None or pad_err <= GRAD_TOL,
+                  f"{what}: grads at width {w} vs the rows padded to {GPT_SEQ}: {pad_err:.3g}"
+                  f" of the largest gradient of {pad_worst}'s layer > {GRAD_TOL}")
+            grad_ref[w] = {op: {n: t.cpu() for n, t in ws.items()} for op, ws in g_p.items()}
+            grad_rows.append(dict(width=w, rows=int(tok.shape[0]), vs_plain=err, worst=worst,
+                                  tolerance=tol, bf16_floor=floor, vs_pad_max_width=pad_err,
+                                  pad_worst=pad_worst))
+            del g_k, g_p, g_pad
+    # a timed epoch of each mode (the first epochs paid the warm-up)
+    timed = {mode: rob_fit(ffs[mode], x, pos, y, shuffle) for mode in ("bucketed", "pad_max")}
+    rates = {m: valid / r["wall_s"] for m, r in timed.items()}
+    step_ms = {m: float(np.median([s["ms"] for s in r["steps"]])) for m, r in timed.items()}
+    row = dict(compute_dtype=compute_dtype, card=card, order=order, rows=ROB_ROWS,
+               lengths=list(ROB_LEN), token_budget=ROB_BUDGET, ladder=list(ladder),
+               valid_tokens=valid, padded_share=shares,
+               dispatches={m: len(r["steps"]) for m, r in runs.items()},
+               by_width={m: by_width(r["steps"]) for m, r in runs.items()},
+               bucket_compiles={m: r["bucket_compiles"] for m, r in runs.items()},
+               losses=lb, pad_max_losses=lp, loss_rel_err=loss_err, loss_tolerance=loss_tol,
+               loss_bf16_floor=loss_floor, param_max_abs_diff=param_diff,
+               param_tolerance=param_tol, param_bf16_floor=param_floor,
+               update_rel_err=update_err, update_worst=update_worst, grads=grad_rows,
+               valid_tokens_per_s=rates, step_ms_median=step_ms,
+               epoch_s={m: r["wall_s"] for m, r in timed.items()},
+               launches={k: sum(r["launches"][k] for r in [b, p, *timed.values()])
+                         for k in b["launches"]})
+    for mode in ("bucketed", "pad_max"):
+        print(f"robustness buckets {compute_dtype} {order} {mode}: {len(runs[mode]['steps'])} "
+              f"dispatches, {rates[mode]:.0f} valid tokens/s, step {step_ms[mode]:.2f} ms "
+              f"median, padded share {shares[mode]:.4f}, fit.bucket_compiles "
+              f"{runs[mode]['bucket_compiles']}, by width "
+              f"{json.dumps(row['by_width'][mode])} [{card}]", flush=True)
+    held = (f"tol {loss_tol:.3g}" if ref is None
+            else f"bf16 floor {loss_floor:.3g} x{BF16_FLOOR_FACTOR}")
+    print(f"robustness buckets {compute_dtype} {order}: {n_steps} losses vs pad-max max rel "
+          f"err {loss_err:.3g} ({held}); params max |diff| {param_diff:.3g} (tol "
+          f"{param_tol:.3g}), {update_err:.3g} of the layer's largest update (worst "
+          f"{update_worst}); valid tokens/s bucketed / pad-max "
+          f"{rates['bucketed'] / rates['pad_max']:.3f}; grads {json.dumps(grad_rows)}",
+          flush=True)
+    this_ref = {"pad_max_losses": lp, "pad_max_params": pad_final, "grads": grad_ref}
+    del ffs, init
+    free_device()
+    return row, this_ref
+
+
+def transformer_model(compute_dtype: str, **cfg):
+    from flexflow_tpu_torch import FFConfig, FFModel, LossType, SGDOptimizer
+    from flexflow_tpu_torch.models.transformer import TransformerConfig, build_transformer
+
+    ff = FFModel(FFConfig(batch_size=BATCH, compute_dtype=compute_dtype, seed=SEED,
+                          device=DEVICE, **cfg))
+    build_transformer(ff, BATCH, TransformerConfig())
+    ff.compile(optimizer=SGDOptimizer(lr=0.01),
+               loss_type=LossType.MEAN_SQUARED_ERROR_AVG_REDUCE)
+    return ff
+
+
+def timed_fit(ff, x, y) -> tuple:
+    """(wall ms a step, flash launches) of one fit epoch, no shuffle, the
+    counts set to 0 just before."""
+    from flexflow_tpu_torch import kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    ff.fit(x, y, epochs=1, shuffle=False, verbose=False)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / (len(x) // BATCH), kernels.launch_counts()
+
+
+def trees_equal(a: dict, b: dict) -> bool:
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(trees_equal(a[k], b[k]) for k in a)
+    return a == b
+
+
+def rob_transformer(compute_dtype: str, card: str, ref: dict = None) -> tuple:
+    """(b) the Transformer at TransformerConfig(), batch 8: grad_accum_steps
+    2 against 1 over ROB_ACCUM_STEPS steps; steps_per_dispatch 4 with
+    prefetch depth 2 against the serial loop over ROB_MULTI_STEPS steps,
+    params EQUAL; step ms of each mode."""
+    from flexflow_tpu_torch.models.transformer import TransformerConfig
+
+    what = f"robustness transformer {compute_dtype}"
+    cfg = TransformerConfig()
+    rng = np.random.default_rng(SEED + 11)
+    n = ROB_MULTI_STEPS * BATCH
+    x = rng.normal(size=(n, cfg.sequence_length, cfg.hidden_size)).astype(np.float32)
+    y = rng.normal(size=(n, cfg.sequence_length, 1)).astype(np.float32)
+    ffs = {"serial": transformer_model(compute_dtype),
+           "accum2": transformer_model(compute_dtype, grad_accum_steps=2),
+           "multi4": transformer_model(compute_dtype, steps_per_dispatch=4, prefetch_depth=2)}
+    init = device_copy(ffs["serial"].compiled.params)
+    n_attn = cfg.num_layers
+    all_launches = []
+    # accumulation: ROB_ACCUM_STEPS steps of each from the same init
+    xa, ya = x[:ROB_ACCUM_STEPS * BATCH], y[:ROB_ACCUM_STEPS * BATCH]
+    accum = {}
+    for mode in ("serial", "accum2"):
+        load_tree(ffs[mode], init)
+        ms, launches = timed_fit(ffs[mode], xa, ya)
+        all_launches.append(launches)
+        micro = 2 if mode == "accum2" else 1
+        check_flash_launches(launches, n_attn * micro * ROB_ACCUM_STEPS,
+                             n_attn * micro * ROB_ACCUM_STEPS, f"{what} {mode}")
+        accum[mode] = dict(ms_cold=ms, launches=launches,
+                           params=device_copy(ffs[mode].compiled.params))
+    acc_err, acc_worst = layer_err(accum["accum2"]["params"], accum["serial"]["params"],
+                                   init, ulps=ROB_ACCUM_STEPS)
+    host = {op: {w: t.cpu() for w, t in ws.items()} for op, ws in accum["serial"]["params"].items()}
+    acc_floor = (None if ref is None else
+                 layer_err(accum["serial"]["params"], ref["serial"], init, ulps=ROB_ACCUM_STEPS)[0])
+    acc_tol = GRAD_TOL if ref is None else BF16_FLOOR_FACTOR * acc_floor
+    check(acc_err <= acc_tol, f"{what}: grad_accum_steps 2 vs 1 after {ROB_ACCUM_STEPS} steps: "
+          f"{acc_err:.3g} of the largest update of {acc_worst}'s layer > {acc_tol:.3g}")
+    # multi-step dispatch against the serial loop, from the same init
+    multi = {}
+    for mode in ("serial", "multi4"):
+        load_tree(ffs[mode], init)
+        ms, launches = timed_fit(ffs[mode], x, y)
+        all_launches.append(launches)
+        check_flash_launches(launches, n_attn * ROB_MULTI_STEPS, n_attn * ROB_MULTI_STEPS,
+                             f"{what} {mode}")
+        multi[mode] = dict(ms=ms, launches=launches)
+    equal = trees_equal(ffs["multi4"].compiled.params, ffs["serial"].compiled.params)
+    nondeterministic, bound = None, 0.0
+    if not equal:
+        # is the serial loop itself deterministic run to run?
+        again = device_copy(ffs["serial"].compiled.params)
+        load_tree(ffs["serial"], init)
+        all_launches.append(timed_fit(ffs["serial"], x, y)[1])
+        if trees_equal(again, ffs["serial"].compiled.params):
+            check(False, f"{what}: steps_per_dispatch 4 params differ from the serial loop's, "
+                  f"which repeats bitwise: max |diff| "
+                  f"{tree_err(ffs['multi4'].compiled.params, again)}")
+        nondeterministic = "the serial loop differs from itself run to run"
+        bound = tree_err(again, ffs["serial"].compiled.params)
+        diff = tree_err(ffs["multi4"].compiled.params, again)
+        check(diff <= BF16_FLOOR_FACTOR * bound,
+              f"{what}: multi-step params {diff:.3g} from serial > 2 x run-to-run {bound:.3g}")
+    # the timed modes, warm: one more epoch each
+    for mode in ("serial", "multi4"):
+        multi[mode]["ms_warm"], launches = timed_fit(ffs[mode], x, y)
+        all_launches.append(launches)
+    for mode in ("serial", "accum2"):
+        accum[mode]["ms"], launches = timed_fit(ffs[mode], xa, ya)
+        all_launches.append(launches)
+    row = dict(compute_dtype=compute_dtype, card=card, batch=BATCH,
+               accum_steps=ROB_ACCUM_STEPS, accum_rel_err=acc_err, accum_worst=acc_worst,
+               accum_tolerance=acc_tol, accum_bf16_floor=acc_floor,
+               accum_step_ms={m: v["ms"] for m, v in accum.items()},
+               accum_step_ms_cold={m: v["ms_cold"] for m, v in accum.items()},
+               multi_steps=ROB_MULTI_STEPS, multi_params_equal=equal,
+               multi_nondeterministic=nondeterministic, multi_run_to_run=bound,
+               multi_step_ms={m: v["ms"] for m, v in multi.items()},
+               multi_step_ms_warm={m: v["ms_warm"] for m, v in multi.items()},
+               launches={k: sum(c[k] for c in all_launches) for k in all_launches[0]})
+    print(f"robustness transformer {compute_dtype}: grad_accum_steps 2 vs 1 after "
+          f"{ROB_ACCUM_STEPS} steps {acc_err:.3g} of the layer's largest update (worst "
+          f"{acc_worst}; tol {acc_tol:.3g}), step ms {accum['serial']['ms']:.2f} / "
+          f"{accum['accum2']['ms']:.2f} (K=1 / K=2, B*H 64 per microbatch, warm epoch); "
+          f"steps_per_dispatch 4 + prefetch 2 vs serial over {ROB_MULTI_STEPS} steps: params "
+          f"{'EQUAL' if equal else 'not equal: ' + str(nondeterministic)}, step ms "
+          f"{multi['serial']['ms_warm']:.2f} serial / {multi['multi4']['ms_warm']:.2f} "
+          f"multi-step (warm epoch) [{card}]", flush=True)
+    return row, {"serial": host}
+
+
+def kill_child(ckpt_dir: str) -> None:
+    """The crash half of (c), run in a child process: fit with checkpoints
+    every ROB_CKPT_INTERVAL steps, killed by train.kill at ROB_KILL_AT
+    (os._exit(41) inside fit); returning at all is a failure."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ff = rob_gpt("float32", checkpoint_interval_steps=ROB_CKPT_INTERVAL,
+                 checkpoint_dir=ckpt_dir, fault_plan={"schema": 1, "sites": {
+                     "train.kill": {"at_step": ROB_KILL_AT, "exit_code": 41}}})
+    tok, pos, lab = gpt_data(SEED + 13, ROB_RESUME_ROWS)
+    ff.fit([tok, pos], lab, epochs=ROB_RESUME_EPOCHS, verbose=False)
+
+
+def rob_guard_resume(card: str) -> dict:
+    """(c) GPT at GPTConfig(), f32: the guard under train.nan_loss, a
+    killed child resumed against an uninterrupted run, both torn-write
+    targets."""
+    from flexflow_tpu_torch import FFConfig, kernels
+    from flexflow_tpu_torch.obs.metrics import metrics_registry
+    from flexflow_tpu_torch.runtime.checkpoint import CheckpointManager
+    from flexflow_tpu_torch.runtime.faults import configure_faults
+    from flexflow_tpu_torch.runtime.guard import TrainingGuard
+    from flexflow_tpu_torch.serving import Generator
+
+    what = "robustness guard/resume float32"
+    reg = metrics_registry()
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    # --- the guard: NaN at step ROB_NAN_AT (epoch 1 of 3), two restores allowed
+    tok, pos, lab = gpt_data(SEED + 13, ROB_GUARD_ROWS)
+    ff = rob_gpt("float32", fault_plan={"schema": 1, "sites": {
+        "train.nan_loss": {"at_step": ROB_NAN_AT}}})
+    cm = ff.compiled
+    prompt = tok[:GPT_BATCH, :16]
+    gen = Generator(ff, max_length=GPT_SEQ)
+    gen.prefill(prompt)  # the generator's state before the fault
+    at_restore = []
+
+    class Guard(TrainingGuard):
+        def recover(self, model, verbose=True):
+            ok = super().recover(model, verbose)
+            snap_equal = all(torch.equal(cm.params[op][w].cpu(), t)
+                             for op, ws in self._snap[0].items() for w, t in ws.items())
+            old, fresh = gen.prefill(prompt)[0], Generator(model, max_length=GPT_SEQ).prefill(
+                prompt)[0]
+            at_restore.append(dict(params_are_snapshot=snap_equal,
+                                   old_vs_fresh=(old - fresh).abs().max().item(),
+                                   version=cm.params_version))
+            return ok
+
+    guard = Guard(max_restores=2)
+    version0, lr0 = cm.params_version, ff.optimizer.alpha
+    fired0 = reg.counter("faults.train.nan_loss").value
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    hist = ff.fit([tok, pos], lab, epochs=ROB_RESUME_EPOCHS, guard=guard, verbose=False)
+    torch.cuda.synchronize()
+    add(kernels.launch_counts())
+    rep = guard.report()
+    final_ce = hist[-1].sparse_cce_loss / max(1, hist[-1].train_all)
+    check(rep["restores"] == 1 and len(at_restore) == 1 and at_restore[0]["params_are_snapshot"]
+          and at_restore[0]["old_vs_fresh"] == 0.0 and at_restore[0]["version"] == version0 + 1
+          and ff.optimizer.alpha == lr0 * guard.lr_backoff and np.isfinite(final_ce)
+          and reg.counter("faults.train.nan_loss").value == fired0 + 1,
+          f"{what}: guard report {rep}, at the restore {at_restore}, alpha "
+          f"{ff.optimizer.alpha}, final CE {final_ce}")
+    guard_row = dict(report=rep, at_restore=at_restore[0], alpha_after=ff.optimizer.alpha,
+                     final_sparse_cce=final_ce)
+    print(f"robustness guard float32: NaN at step {ROB_NAN_AT}: restores {rep['restores']}, "
+          f"events {[(e['kind'], e.get('scope'), e['step']) for e in rep['events']]}, alpha "
+          f"{lr0} -> {ff.optimizer.alpha}, params at the restore equal the snapshot "
+          f"{at_restore[0]['params_are_snapshot']}, the earlier Generator vs a fresh one "
+          f"{at_restore[0]['old_vs_fresh']} (params version {version0} -> "
+          f"{at_restore[0]['version']}), final CE {final_ce:.4f} [{card}]", flush=True)
+    del gen, ff, cm, guard, Guard
+    configure_faults(FFConfig(device=DEVICE))
+    free_device()
+
+    # --- crash and resume
+    tok, pos, lab = gpt_data(SEED + 13, ROB_RESUME_ROWS)
+    root = pathlib.Path(__file__).resolve().parent
+    work = root / ".ffcache" / "smoke_checkpoints"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        ckpt = str(work / "run")
+        code = (f"import sys; sys.path.insert(0, {str(root)!r}); import chip_smoke; "
+                f"chip_smoke.kill_child({ckpt!r}); sys.exit(0)")
+        t0 = time.perf_counter()
+        child = subprocess.run([sys.executable, "-c", code], cwd=str(root),
+                               capture_output=True, text=True, timeout=600)
+        child_s = time.perf_counter() - t0
+        check(child.returncode == 41, f"{what}: the killed child exited {child.returncode}: "
+              f"{child.stderr[-2000:]}")
+        mgr = CheckpointManager(ckpt, max_to_keep=3)
+        last = ROB_KILL_AT - ROB_KILL_AT % ROB_CKPT_INTERVAL
+        check(mgr.latest_step() == last, f"{what}: the child left steps {mgr.all_steps()}")
+        ckpt_bytes = mgr.payload_bytes(last)
+        resumes0 = reg.counter("checkpoint.resumes").value
+        resumed = rob_gpt("float32", checkpoint_interval_steps=ROB_CKPT_INTERVAL,
+                          checkpoint_dir=ckpt)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        resumed.fit([tok, pos], lab, epochs=ROB_RESUME_EPOCHS, resume_from=ckpt,
+                    verbose=False)
+        torch.cuda.synchronize()
+        add(kernels.launch_counts())
+        whole = rob_gpt("float32")
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        whole.fit([tok, pos], lab, epochs=ROB_RESUME_EPOCHS, verbose=False)
+        torch.cuda.synchronize()
+        add(kernels.launch_counts())
+        rc, wc = resumed.compiled, whole.compiled
+        same_params = trees_equal(rc.params, wc.params)
+        same_moments = trees_equal(rc.opt_state, wc.opt_state)
+        total = ROB_RESUME_EPOCHS * ROB_RESUME_ROWS // GPT_BATCH
+        check(same_params and same_moments and rc.iteration == wc.iteration == total
+              and reg.counter("checkpoint.resumes").value == resumes0 + 1,
+              f"{what}: resumed vs uninterrupted: params equal {same_params} (max |diff| "
+              f"{tree_err(rc.params, wc.params):.3g}), Adam moments equal {same_moments},"
+              f" iterations {rc.iteration} / {wc.iteration}")
+        # the save's time and size, of the resumed model's state
+        times = []
+        for step in (total + 1, total + 2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mgr.save(resumed, step, extra={"schema": 1})
+            times.append((time.perf_counter() - t0) * 1e3)
+        resume_row = dict(child_exit=child.returncode, child_s=child_s, resumed_from=last,
+                          steps=total, params_equal=same_params, moments_equal=same_moments,
+                          checkpoint_bytes=ckpt_bytes, save_ms=times)
+        print(f"robustness resume float32: child killed at step {ROB_KILL_AT} (exit "
+              f"{child.returncode}, {child_s:.1f} s), resumed from step {last}, {total} steps: "
+              f"params {'EQUAL' if same_params else 'differ'}, Adam moments "
+              f"{'EQUAL' if same_moments else 'differ'} to the uninterrupted run's; checkpoint "
+              f"{ckpt_bytes} bytes, save ms {[f'{t:.0f}' for t in times]} [{card}]", flush=True)
+        del whole, rc, wc
+        free_device()
+
+        # --- torn writes: the second of two saves torn; restore falls back
+        torn = {}
+        for target in ("payload", "sidecar"):
+            tdir = str(work / f"torn_{target}")
+            configure_faults(FFConfig(device=DEVICE, fault_plan={"schema": 1, "sites": {
+                "checkpoint.torn_write": {"at_step": 2, "target": target}}}))
+            tmgr = CheckpointManager(tdir, max_to_keep=3)
+            n_torn = reg.counter("faults.torn_checkpoints").value
+            n_fall = reg.counter("checkpoint.corrupt_fallbacks").value
+            tmgr.save(resumed, 1, extra={"schema": 1})
+            tmgr.save(resumed, 2, extra={"schema": 1})
+            configure_faults(FFConfig(device=DEVICE))
+            step = tmgr.restore(resumed, require_extra=True)
+            torn[target] = dict(
+                restored=step, torn=int(reg.counter("faults.torn_checkpoints").value - n_torn),
+                fallbacks=int(reg.counter("checkpoint.corrupt_fallbacks").value - n_fall))
+            check(torn[target] == dict(restored=1, torn=1, fallbacks=1),
+                  f"{what}: torn {target}: {torn[target]}")
+        print(f"robustness torn writes float32: {json.dumps(torn)} [{card}]", flush=True)
+        del resumed
+    finally:
+        configure_faults(FFConfig(device=DEVICE))
+        shutil.rmtree(work, ignore_errors=True)
+    free_device()
+    return dict(guard=guard_row, resume=resume_row, torn=torn, launches=launches)
+
+
+def phase_training_robustness(card: str) -> dict:
+    """Training robustness and dynamic shapes: (a) bucketed GPT, (b) the
+    Transformer's accumulation and multi-step dispatch, (c) the guard,
+    crash and resume, torn writes. Returns the phase's row with its flash
+    launches, all and by width."""
+    out = {"buckets": [], "transformer": []}
+    for order in ("shuffled", "sorted"):
+        ref = None
+        for dt in ("float32", "bfloat16"):
+            row, r = rob_bucket_order(dt, card, order, ref)
+            ref = ref or r
+            out["buckets"].append(row)
+        del ref
+    ref = None
+    for dt in ("float32", "bfloat16"):
+        row, r = rob_transformer(dt, card, ref)
+        ref = ref or r
+        out["transformer"].append(row)
+        free_device()
+    del ref
+    out["guard_resume"] = rob_guard_resume(card)
+    names = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+    launches = {k: sum(r["launches"][k] for r in out["buckets"])
+                + sum(r["launches"][k] for r in out["transformer"])
+                + out["guard_resume"]["launches"].get(k, 0) for k in names}
+    widths = {}
+    for r in out["buckets"]:
+        for mode in ("bucketed", "pad_max"):
+            for w, v in r["by_width"][mode].items():
+                acc = widths.setdefault(str(w), {k: 0 for k in names})
+                for k in names:
+                    acc[k] += v[k]
+    out["launches"] = launches
+    out["bucket_launches_by_width"] = widths
+    cuts = (f"GPT bucketed: {ROB_ROWS} rows shuffled and sorted by length, one checked and "
+            f"one timed epoch a mode; "
+            f"Transformer: {ROB_ACCUM_STEPS} accumulation and {ROB_MULTI_STEPS} multi-step "
+            f"steps; guard: 3 epochs of {ROB_GUARD_ROWS // GPT_BATCH} steps, resume: "
+            f"{ROB_RESUME_EPOCHS} epochs of {ROB_RESUME_ROWS // GPT_BATCH} steps, at batch "
+            f"{GPT_BATCH}, seq {GPT_SEQ}")
+    out["cuts"] = cuts
+    print(f"robustness cuts: {cuts}", flush=True)
+    print("training_robustness_json " + json.dumps(out, default=float), flush=True)
+    return out
+
+
 def check_spans(events: list, n: int, validate) -> None:
     """Every served request has the reference's five spans on its own
     track, nested in its serving.request span."""
@@ -3016,6 +3670,9 @@ def main() -> int:
     free_device()
     phase_zoo(card)
     print(f"phases: zoo done at {time.perf_counter() - t0:.0f} s", flush=True)
+    free_device()
+    rob = phase_training_robustness(card)
+    print(f"phases: training robustness done at {time.perf_counter() - t0:.0f} s", flush=True)
     train_launches = {name: sum(r["fit_launches"][name] for r in train)
                       for name in train[0]["fit_launches"]}
     # GPT's path: its fits and the full-sequence forwards of its dense and
@@ -3034,7 +3691,7 @@ def main() -> int:
                       + train_launches["flash_attention_fwd"]
                       + gpt_launches["flash_attention_fwd"]
                       + bert_launches["flash_attention_fwd"]
-                      + breadth["launches"],
+                      + breadth["launches"] + rob["launches"]["flash_attention_fwd"],
                       serving_launches=sum(r["launches"] for r in serve),
                       serving_breadth_launches=breadth["launches"],
                       training_launches=train_launches["flash_attention_fwd"],
@@ -3044,6 +3701,10 @@ def main() -> int:
                       gpt_paged_full_forward_launches=sum(
                           r["full_forward_launches"]["flash_attention_fwd"] for r in gpt_paged),
                       bert_launches=bert_launches["flash_attention_fwd"],
+                      robustness_launches=rob["launches"]["flash_attention_fwd"],
+                      robustness_bucket_launches_by_width={
+                          w: v["flash_attention_fwd"]
+                          for w, v in rob["bucket_launches_by_width"].items()},
                       wide_source="flexflow_tpu_torch/kernels/csrc/flash_attention_fwd_wide.cu",
                       wide_route="D > 256: flash_fwd_kernel_wide_mma (bf16) and "
                                  "flash_fwd_kernel_wide_tf32x3 (f32, split TF32), on the "
@@ -3053,10 +3714,15 @@ def main() -> int:
                       "flexflow_tpu/kernels/flash_attention.py:59", kern["dq"],
                       train_launches["flash_attention_bwd_dq"]
                       + gpt_launches["flash_attention_bwd_dq"]
-                      + bert_launches["flash_attention_bwd_dq"],
+                      + bert_launches["flash_attention_bwd_dq"]
+                      + rob["launches"]["flash_attention_bwd_dq"],
                       training_launches=train_launches["flash_attention_bwd_dq"],
                       gpt_launches=gpt_launches["flash_attention_bwd_dq"],
                       bert_launches=bert_launches["flash_attention_bwd_dq"],
+                      robustness_launches=rob["launches"]["flash_attention_bwd_dq"],
+                      robustness_bucket_launches_by_width={
+                          w: v["flash_attention_bwd_dq"]
+                          for w, v in rob["bucket_launches_by_width"].items()},
                       plain_and_library_cover="dq, dk and dv (the whole gradient)",
                       wide_source=wide_bwd_src,
                       wide_route="D > 256: flash_bwd_dq_kernel_wide_mma (bf16) and "
@@ -3066,10 +3732,15 @@ def main() -> int:
                       "flexflow_tpu/kernels/flash_attention.py:79", kern["dkv"],
                       train_launches["flash_attention_bwd_dkv"]
                       + gpt_launches["flash_attention_bwd_dkv"]
-                      + bert_launches["flash_attention_bwd_dkv"],
+                      + bert_launches["flash_attention_bwd_dkv"]
+                      + rob["launches"]["flash_attention_bwd_dkv"],
                       training_launches=train_launches["flash_attention_bwd_dkv"],
                       gpt_launches=gpt_launches["flash_attention_bwd_dkv"],
                       bert_launches=bert_launches["flash_attention_bwd_dkv"],
+                      robustness_launches=rob["launches"]["flash_attention_bwd_dkv"],
+                      robustness_bucket_launches_by_width={
+                          w: v["flash_attention_bwd_dkv"]
+                          for w, v in rob["bucket_launches_by_width"].items()},
                       plain_and_library_cover="dq, dk and dv (the whole gradient)",
                       wide_source=wide_bwd_src,
                       wide_route="D > 256: flash_bwd_dkv_kernel_wide_mma (bf16) and "

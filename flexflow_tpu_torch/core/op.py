@@ -55,6 +55,9 @@ class LowerCtx:
     # writes these into the params after the optimizer update; None: the
     # caller does not track state (eval, ``grad_step``, the manual verbs)
     state_updates: Optional[dict] = None
+    # FFIterationConfig.seq_length: > 0 truncates the sequence dims ops
+    # declare (BatchMatmul's a/b_seq_length_dim); -1 truncates nothing
+    seq_length: int = -1
 
     def generator(self, op_name: str, device: torch.device) -> torch.Generator:
         """A fresh ``torch.Generator`` on ``device`` for one op's draws in

@@ -1,9 +1,10 @@
 """BatchMatmul and MultiHeadAttention operators.
 
 PyTorch counterpart of ``flexflow_tpu/ops/attention.py``. BatchMatmul is
-``torch.matmul`` over matching batch dims; its ``a_seq_length_dim`` /
-``b_seq_length_dim`` attributes are accepted and have no effect, since
-nothing in the port sets a sequence length to truncate to (ROADMAP A9).
+``torch.matmul`` over matching batch dims; with a positive
+``LowerCtx.seq_length`` (``FFIterationConfig.seq_length``, or a step's
+``seq_length``) it first slices its ``a_seq_length_dim`` /
+``b_seq_length_dim`` (when >= 0) to that length, as the reference does.
 MultiHeadAttention keeps the JAX op's weights in the same layouts
 (``wq/wk/wv`` (E, H, D), ``wo`` (H, D, E), biases ``bq/bk/bv`` (H, D) and
 ``bo`` (E,)) and the same math. The attention itself goes through
@@ -60,6 +61,14 @@ class BatchMatmul(Op):
 
     def forward(self, ctx, inputs, weights):
         a, b = inputs
+        sl = ctx.seq_length
+        if sl and sl > 0:
+            ad = self.attrs.get("a_seq_length_dim", -1)
+            bd = self.attrs.get("b_seq_length_dim", -1)
+            if ad >= 0:
+                a = a.narrow(ad, 0, sl)
+            if bd >= 0:
+                b = b.narrow(bd, 0, sl)
         return [torch.matmul(a, b)]
 
 

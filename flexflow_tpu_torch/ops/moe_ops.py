@@ -15,8 +15,12 @@ loss, appended to ``LowerCtx.aux_losses``: its gradient with respect to the
 full gate is ``(lambda_bal * n / batch) * count[e]``, zero-meaned per row.
 The compiler adds it to the training loss only.
 
-Not ported yet: ``Cache`` and the expert-parallel branch of the stacked ops
-(a mesh axis on the expert dim and the all-to-all), queue A7.
+``Cache`` passes its input through, as in the JAX package, where a graph
+reaches it as ``OpType.CACHE`` (neither package has a builder verb for it);
+the trigger machinery it pairs with is ``runtime/recompile.py``.
+
+Not ported yet: the expert-parallel branch of the stacked ops (a mesh axis
+on the expert dim and the all-to-all), queue A7.
 """
 
 from __future__ import annotations
@@ -269,3 +273,18 @@ class AggregateStacked(_AggregateBase):
                             stacked.reshape(self.n, self.capacity, -1))
         self._append_aux(ctx, full_gate, assign)
         return [out]
+
+
+@register_op
+class Cache(Op):
+    """Caches an intermediate tensor (expert assignments) across
+    iterations in the reference; here, as in the JAX package, a
+    pass-through that pairs with recompile-on-condition."""
+
+    op_type = OpType.CACHE
+
+    def infer_output_shapes(self):
+        return [(self.input_shapes[0].sizes, self.input_shapes[0].dtype)]
+
+    def forward(self, ctx, inputs, weights):
+        return [inputs[0]]

@@ -5,19 +5,30 @@ package traces one jitted program per step; PyTorch runs eagerly, so
 :func:`compile_model` builds the ops, draws the params on the configured
 device and returns plain functions over the op graph: ``forward_fn``
 (under ``torch.inference_mode()``), and with an optimizer and a loss
-``train_step``, ``eval_step`` and ``grad_step``, on the JAX package's
-signatures without ``seq_length``. Gradients come from autograd through
-the op graph (and through the kernels' ``torch.autograd.Function`` classes);
-the auxiliary losses that ops append to ``LowerCtx.aux_losses`` (the MoE
-balance term) join the training loss only, and the state the training
+``train_step``, ``train_k_steps``, ``eval_step`` and ``grad_step``, on the
+JAX package's signatures; each takes ``seq_length`` (default -1) into
+``LowerCtx.seq_length``. Gradients come from autograd through the op graph
+(and through the kernels' ``torch.autograd.Function`` classes); the
+auxiliary losses that ops append to ``LowerCtx.aux_losses`` (the MoE
+balance term) and the ``kernel_regularizer`` penalties on the f32 master
+kernels join ``train_step``'s loss only (``grad_step`` adds the auxiliary
+losses and no penalty, ``eval_step`` neither), and the state the training
 forward leaves in ``LowerCtx.state_updates`` (BatchNorm's running
 statistics) is written into the params by ``train_step`` alone, after the
-optimizer update. A training step's ``rng`` is an
-int key (``FFModel`` passes a counter, as the JAX package folds one into
-its root key); each op's random draws come from a generator seeded by the
-config's seed, that key and the op's name. Gradient accumulation,
-multi-step dispatch, ZeRO, regularizers and sharding arrive with later
-slices.
+optimizer update. A training step's ``rng`` is an int key (``FFModel``
+passes a counter, as the JAX package folds one into its root key); each
+op's random draws come from a generator seeded by the config's seed, that
+key and the op's name.
+
+``config.grad_accum_steps`` K > 1 splits each training batch into K
+microbatches, sums their gradients, metrics and BatchNorm state, divides
+the gradients and the state by K and updates once. Microbatch ``i`` of a
+step whose key is ``r`` draws with key ``r * K + i`` (distinct across
+steps and microbatches; K = 1 keeps ``r``), where the JAX package splits
+its key; dropout masks therefore differ between the packages under
+accumulation, and parity holds at rate 0. Under ``config.seq_buckets`` the
+sparse-CE loss and metrics mask ``-1`` positions (``mask_padding``).
+ZeRO and sharding arrive with later slices.
 """
 
 from __future__ import annotations
@@ -72,6 +83,38 @@ class CompiledModel:
     grad_step: Optional[Callable[..., Params]] = None
     # the graph has no trailing softmax: CE losses take log-softmax
     from_logits: bool = True
+    # train_k_steps(params, opt_state, rngs, *stacked, fold_from=None) ->
+    # (params, opt_state, (k,) losses, metrics folded in step order onto
+    # ``fold_from``): k train_steps over (k, batch, ...) super-batches in
+    # one host call, equal to k serial train_steps bit for bit
+    train_k_steps: Optional[Callable[..., tuple]] = None
+    # global step counter, monotonic across fits and recompiles
+    iteration: int = 0
+    # bumped whenever the params are replaced or restored (guard rollback,
+    # checkpoint restore); derived caches (the serving bf16 cast) key on it
+    params_version: int = 0
+    # every (kind, rows, seq_length) bucketed fit/eval has dispatched
+    _seen_shapes: set = dataclasses.field(default_factory=set)
+
+    def note_dispatch_shape(self, kind: str, rows: int, seq_length: int) -> bool:
+        """Record a (kind, rows, seq_length) dispatch shape; True the first
+        time it is seen (fit counts it on ``fit.bucket_compiles``)."""
+        key = (kind, int(rows), int(seq_length))
+        if key in self._seen_shapes:
+            return False
+        self._seen_shapes.add(key)
+        return True
+
+    def bump_params_version(self) -> None:
+        """Call after replacing or restoring ``params``."""
+        self.params_version += 1
+
+    def resume_state(self) -> Dict[str, int]:
+        """The JSON-scalar resume view (the checkpoint sidecar)."""
+        return {"iteration": int(self.iteration)}
+
+    def load_resume_state(self, state: Optional[Dict[str, int]]) -> None:
+        self.iteration = int((state or {}).get("iteration", 0))
 
 
 def toposort_layers(layers: List[Layer]) -> List[Layer]:
@@ -201,7 +244,8 @@ def _forward_graph(ops: List[Op], params: Params,
                    training: bool = False,
                    rng: Optional[int] = None,
                    seed: int = 0,
-                   state_updates: Optional[dict] = None
+                   state_updates: Optional[dict] = None,
+                   seq_length: int = -1
                    ) -> Tuple[Dict[int, torch.Tensor], List[torch.Tensor]]:
     """Run the op graph; returns (every activation by tensor id, the
     auxiliary losses the ops appended). With a ``compute_dtype`` (bf16)
@@ -211,9 +255,10 @@ def _forward_graph(ops: List[Op], params: Params,
     ids) are never cast. ``rng``/``seed``: the step's key and the config's
     seed, from which each op draws (``LowerCtx.generator``).
     ``state_updates``: a dict the training forward fills with the ops' new
-    non-trainable state."""
+    non-trainable state. ``seq_length``: ``LowerCtx.seq_length``."""
     ctx = LowerCtx(plain_kernels=plain_kernels, training=training, aux_losses=[],
-                   rng=rng, seed=seed, state_updates=state_updates)
+                   rng=rng, seed=seed, state_updates=state_updates,
+                   seq_length=seq_length)
     cast = make_caster(compute_dtype)
     acts = {k: cast(v) for k, v in inputs.items()}
     for op in ops:
@@ -279,52 +324,102 @@ def compile_model(
     logits_id = logits_tensor.tensor_id
     from_logits = _ends_without_softmax(ops, logits_id)
 
+    # bucketed sequences pad rows with -1 labels, masked out of the loss
+    # and the metrics; off, the unmasked path is untouched
+    mask_pad = config.seq_buckets != "off"
+    accum = max(1, int(config.grad_accum_steps))
+    regularized = [(op.name, op.attrs["kernel_regularizer"]) for op in ops
+                   if op.attrs.get("kernel_regularizer") is not None
+                   and hasattr(op.attrs["kernel_regularizer"], "penalty")]
+
     def run(params: Params, xs, plain_kernels: bool, training: bool,
-            rng: Optional[int] = None, state_updates: Optional[dict] = None
-            ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+            rng: Optional[int] = None, state_updates: Optional[dict] = None,
+            seq_length: int = -1) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         """(f32 logits, the auxiliary losses in f32): loss and metrics are
         f32 whatever the compute dtype."""
         acts, aux = _forward_graph(ops, params, dict(zip(input_ids, xs)), cdt,
                                    plain_kernels, training, rng, config.seed,
-                                   state_updates)
+                                   state_updates, seq_length)
         return acts[logits_id].float(), [a.float() for a in aux]
 
-    def forward_fn(params: Params, *xs: torch.Tensor,
-                   plain_kernels: bool = False) -> torch.Tensor:
+    def forward_fn(params: Params, *xs: torch.Tensor, plain_kernels: bool = False,
+                   seq_length: int = -1) -> torch.Tensor:
         with torch.inference_mode():
-            return run(params, xs, plain_kernels, training=False)[0]
+            return run(params, xs, plain_kernels, training=False,
+                       seq_length=seq_length)[0]
 
     def value_and_grad(params: Params, batch, plain_kernels: bool, rng,
-                       state_updates: Optional[dict] = None):
+                       state_updates: Optional[dict] = None, seq_length: int = -1,
+                       regularize: bool = False):
         """(loss, logits, grads) of one batch; the loss includes the
         auxiliary losses (the training loss only, as in the JAX package's
-        train and grad steps), and the grads are f32 trees like
-        ``params``. ``state_updates`` collects the forward's new state."""
+        train and grad steps) and, with ``regularize`` (train_step), each
+        ``kernel_regularizer``'s penalty on the f32 master kernel; the
+        grads are f32 trees like ``params``. ``state_updates`` collects
+        the forward's new state."""
         xs, y = batch[:n_inputs], batch[n_inputs]
         leaves = {op: {w: t.detach().requires_grad_(True) for w, t in ws.items()}
                   for op, ws in params.items()}
         flat = [t for ws in leaves.values() for t in ws.values()]
         with torch.enable_grad():
             logits, aux = run(leaves, xs, plain_kernels, training=True, rng=rng,
-                              state_updates=state_updates)
-            loss = compute_loss(loss_type, logits, y, from_logits)
+                              state_updates=state_updates, seq_length=seq_length)
+            loss = compute_loss(loss_type, logits, y, from_logits, mask_pad)
             for a in aux:
                 loss = loss + a
+            if regularize:
+                for op_name, reg in regularized:
+                    if "kernel" in leaves.get(op_name, {}):
+                        loss = loss + reg.penalty(leaves[op_name]["kernel"])
         gs = iter(torch.autograd.grad(loss, flat, allow_unused=True))
         grads = {op: {w: _or_zeros(next(gs), t) for w, t in ws.items()}
                  for op, ws in leaves.items()}
         return loss.detach(), logits.detach(), grads
 
     def grad_step(params: Params, rng, *batch: torch.Tensor,
-                  plain_kernels: bool = False) -> Params:
-        return value_and_grad(params, batch, plain_kernels, rng)[2]
+                  plain_kernels: bool = False, seq_length: int = -1) -> Params:
+        return value_and_grad(params, batch, plain_kernels, rng,
+                              seq_length=seq_length)[2]
+
+    def accumulated(params: Params, batch, plain_kernels: bool, rng, seq_length: int):
+        """(loss, grads, batch metrics, state updates) of one batch as K
+        microbatches: sums in microbatch order, the gradients, the loss and
+        the state divided by K."""
+        n = batch[n_inputs].shape[0]
+        if n % accum:
+            raise ValueError(f"batch {n} not divisible by grad_accum_steps {accum}")
+        micro = list(zip(*(b.chunk(accum) for b in batch)))
+        loss_sum = grads = bm = upd_sum = None
+        for i, mb in enumerate(micro):
+            upd: dict = {}
+            li, lgi, gi = value_and_grad(params, mb, plain_kernels,
+                                         None if rng is None else int(rng) * accum + i,
+                                         upd, seq_length, regularize=True)
+            bmi = compute_batch_metrics(metrics, loss_type, lgi, mb[n_inputs],
+                                        from_logits, mask_pad)
+            if grads is None:
+                loss_sum, grads, bm, upd_sum = li, gi, bmi, upd
+                continue
+            loss_sum = loss_sum + li
+            grads = {op: {w: g + gi[op][w] for w, g in ws.items()}
+                     for op, ws in grads.items()}
+            bm = {k: bm[k] + v for k, v in bmi.items()}
+            upd_sum = {k: upd_sum[k] + v for k, v in upd.items()}
+        grads = {op: {w: g / accum for w, g in ws.items()} for op, ws in grads.items()}
+        return (loss_sum / accum, grads, bm,
+                {k: v / accum for k, v in upd_sum.items()})
 
     def train_step(params: Params, opt_state, rng, *batch: torch.Tensor,
-                   plain_kernels: bool = False):
-        updates: dict = {}
-        loss, logits, grads = value_and_grad(params, batch, plain_kernels, rng, updates)
-        bm = compute_batch_metrics(metrics, loss_type, logits, batch[n_inputs],
-                                   from_logits)
+                   plain_kernels: bool = False, seq_length: int = -1):
+        if accum == 1:
+            updates: dict = {}
+            loss, logits, grads = value_and_grad(params, batch, plain_kernels, rng,
+                                                 updates, seq_length, regularize=True)
+            bm = compute_batch_metrics(metrics, loss_type, logits, batch[n_inputs],
+                                       from_logits, mask_pad)
+        else:
+            loss, grads, bm, updates = accumulated(params, batch, plain_kernels, rng,
+                                                   seq_length)
         params, opt_state = optimizer.update(params, grads, opt_state, wd_mask,
                                              optimizer.hyperparams())
         # non-trainable state (BatchNorm's running statistics), written after
@@ -334,15 +429,35 @@ def compile_model(
                 params[op_name][w_name].copy_(v.detach())
         return params, opt_state, loss, bm
 
+    def train_k_steps(params: Params, opt_state, rngs, *stacked: torch.Tensor,
+                      plain_kernels: bool = False, seq_length: int = -1,
+                      fold_from: Optional[dict] = None):
+        """``len(rngs)`` train_steps over the super-batches' leading dim in
+        one host call: a plain loop, so it equals as many serial
+        train_steps bit for bit. The metrics fold on the device in step
+        order onto ``fold_from`` (fit passes its epoch's running sums, so
+        the epoch totals equal the serial loop's too); the losses come
+        back stacked (k,)."""
+        losses, folded = [], fold_from
+        for i, r in enumerate(rngs):
+            params, opt_state, loss, bm = train_step(
+                params, opt_state, r, *(s[i] for s in stacked),
+                plain_kernels=plain_kernels, seq_length=seq_length)
+            losses.append(loss)
+            folded = dict(bm) if folded is None else {
+                **folded, **{k: folded[k] + v if k in folded else v for k, v in bm.items()}}
+        return params, opt_state, torch.stack(losses), folded
+
     def eval_step(params: Params, *batch: torch.Tensor,
-                  plain_kernels: bool = False):
+                  plain_kernels: bool = False, seq_length: int = -1):
         y = batch[n_inputs]
         with torch.inference_mode():
             # the auxiliary losses are dropped: eval reports the model's loss
-            logits = run(params, batch[:n_inputs], plain_kernels, training=False)[0]
-            loss = compute_loss(loss_type, logits, y, from_logits)
+            logits = run(params, batch[:n_inputs], plain_kernels, training=False,
+                         seq_length=seq_length)[0]
+            loss = compute_loss(loss_type, logits, y, from_logits, mask_pad)
             return loss, logits, compute_batch_metrics(metrics, loss_type, logits,
-                                                       y, from_logits)
+                                                       y, from_logits, mask_pad)
 
     training = (comp_mode is CompMode.TRAINING and optimizer is not None
                 and loss_type is not None)
@@ -354,6 +469,7 @@ def compile_model(
         opt_state=optimizer.init_state(params) if training else None,
         wd_mask=wd_mask,
         train_step=train_step if training else None,
+        train_k_steps=train_k_steps if training else None,
         eval_step=eval_step if loss_type is not None else None,
         grad_step=grad_step if training else None,
         from_logits=from_logits)

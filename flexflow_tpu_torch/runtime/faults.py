@@ -32,11 +32,15 @@ Each rule has exactly one trigger (``at_step``, the 1-based evaluation
 index of its site, or ``p``, a Bernoulli draw an evaluation) plus an
 optional ``max_fires`` and its site's parameters (:data:`SITES`).
 
-A departure kept on purpose: the port wires ``serving.worker`` and
-``device_put.transient`` only. A plan naming any other site validates as
-in the reference but raises ``NotImplementedError`` at
-:func:`configure_faults`, naming the ROADMAP item that ports the site: a
-plan that validates and never fires would hide that the site is missing.
+The port evaluates every site but the three ``multihost.*`` ones:
+``serving.worker``, ``device_put.transient``, ``prefetch.worker`` (the
+Prefetcher's worker), ``checkpoint.torn_write`` (``CheckpointManager``)
+and ``train.nan_loss``, ``train.stall`` and ``train.kill`` (``fit``'s
+step loop). A plan naming a ``multihost.*`` site validates as in the
+reference but raises ``NotImplementedError`` at :func:`configure_faults`,
+naming ROADMAP A7: a plan that validates and never fires would hide that
+the site is missing. ``train.stall`` sleeps as in the reference; the
+watchdog it is meant to trip is A10's.
 """
 
 from __future__ import annotations
@@ -92,11 +96,6 @@ SITES: Dict[str, str] = {
 # the sites the port does not evaluate yet -> the ROADMAP item that
 # ports them
 _UNWIRED: Dict[str, str] = {
-    "prefetch.worker": "A9 (with the Prefetcher)",
-    "checkpoint.torn_write": "A9 (with runtime/checkpoint.py)",
-    "train.nan_loss": "A9 (with runtime/guard.py)",
-    "train.stall": "A9 (with the fit loop's fault sites)",
-    "train.kill": "A9 (with runtime/checkpoint.py's resume)",
     "multihost.init_timeout": "A7 (with parallel/multihost.py)",
     "multihost.peer_kill": "A7 (with parallel/multihost.py)",
     "multihost.slow_peer": "A7 (with parallel/multihost.py)",

@@ -2,8 +2,8 @@
 
 PyTorch counterpart of ``flexflow_tpu/runtime/loss.py``: the scalar loss
 (mean over the batch) of the final op's output, whose gradient autograd
-takes. The masked token-level path (``mask_padding``, for bucketed
-sequences) is not ported yet.
+takes. ``mask_padding`` (bucketed sequences) masks ``-1`` positions out
+of token-level sparse cross-entropy.
 """
 
 from __future__ import annotations
@@ -34,11 +34,37 @@ def pick_log_prob(logp: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return torch.where(valid, ll, torch.nan)
 
 
+def masked_token_log_probs(logp: torch.Tensor, labels: torch.Tensor):
+    """(per-position log-probability with ``-1`` positions exactly 0,
+    valid mask) for (..., V) ``logp`` and labels of its leading shape.
+    The index is replaced before the gather and the value after it, so a
+    padded position carries an exact zero (and no gradient) where
+    :func:`pick_log_prob` would give it a NaN; a label past the vocab
+    still gives NaN, as in the JAX package."""
+    lab = labels.reshape(logp.shape[:-1])
+    valid = lab >= 0
+    idx, in_range = _take_index(torch.where(valid, lab, torch.zeros_like(lab)),
+                                logp.shape[-1])
+    ll = torch.where(in_range, logp.gather(-1, idx[..., None])[..., 0], torch.nan)
+    return torch.where(valid, ll, torch.zeros_like(ll)), valid
+
+
 def compute_loss(loss_type: LossType, logits: torch.Tensor,
-                 labels: torch.Tensor, from_logits: bool = False) -> torch.Tensor:
+                 labels: torch.Tensor, from_logits: bool = False,
+                 mask_padding: bool = False) -> torch.Tensor:
     """Return the scalar loss (mean over the batch). ``from_logits`` is
-    True when the graph does not end in a softmax (the compiler decides)."""
+    True when the graph does not end in a softmax (the compiler decides).
+
+    ``mask_padding`` (token-level sparse CE; on when ``seq_buckets`` is):
+    ``-1`` positions contribute an exact zero, the sum runs per row first
+    and then across rows, and the mean divides by the valid-token count,
+    as in the JAX package."""
     if loss_type is LossType.SPARSE_CATEGORICAL_CROSSENTROPY:
+        if mask_padding and logits.dim() >= 3:
+            ll, valid = masked_token_log_probs(log_probs(logits, from_logits), labels)
+            row = ll.sum(dim=-1)
+            n = valid.sum().clamp(min=1).to(row.dtype)
+            return -row.sum() / n
         if logits.dim() >= 3:
             # token-level CE: one label per position, positions flatten
             # into the batch

@@ -3,8 +3,8 @@
 PyTorch counterpart of ``flexflow_tpu/runtime/metrics.py``: per-batch
 metrics computed on the device from the final op's output, accumulated on
 the device across an epoch and read back once at its end
-(:meth:`PerfMetrics.flush`). The masked token-level path (``mask_padding``)
-is not ported yet.
+(:meth:`PerfMetrics.flush`). ``mask_padding`` drops ``-1`` positions out of
+the token-level sparse metrics, as the loss does.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ from typing import Dict, List, Optional
 import torch
 
 from ..ffconst import LossType, MetricsType
-from .loss import log_probs, pick_log_prob
+from .loss import log_probs, masked_token_log_probs, pick_log_prob
 
 _SUMS = ("cce_loss", "sparse_cce_loss", "mse_loss", "rmse_loss", "mae_loss")
 
@@ -52,6 +52,15 @@ class PerfMetrics:
         for k, v in batch.items():
             acc[k] = acc[k] + v if k in acc else v
 
+    @property
+    def pending(self) -> Optional[Dict[str, torch.Tensor]]:
+        """The device-side sums not yet flushed (None: none)."""
+        return self._pending
+
+    @pending.setter
+    def pending(self, sums: Optional[Dict[str, torch.Tensor]]) -> None:
+        self._pending = sums
+
     def flush(self) -> None:
         """Fold the device-side sums into the host counters (one sync)."""
         if self._pending:
@@ -81,10 +90,25 @@ class PerfMetrics:
 
 def compute_batch_metrics(metrics: List[MetricsType], loss_type: LossType,
                           logits: torch.Tensor, labels: torch.Tensor,
-                          from_logits: bool = False) -> Dict[str, torch.Tensor]:
-    """Per-batch metric sums, as device tensors. ``from_logits`` mirrors
-    :func:`~flexflow_tpu_torch.runtime.loss.compute_loss`."""
+                          from_logits: bool = False,
+                          mask_padding: bool = False) -> Dict[str, torch.Tensor]:
+    """Per-batch metric sums, as device tensors. ``from_logits`` and
+    ``mask_padding`` mirror
+    :func:`~flexflow_tpu_torch.runtime.loss.compute_loss`: masked, ``-1``
+    positions drop out of the count, the correct count and the CE sum,
+    each summed per row first."""
     sparse = loss_type is LossType.SPARSE_CATEGORICAL_CROSSENTROPY
+    if sparse and logits.dim() >= 3 and mask_padding:
+        lab = labels.reshape(logits.shape[:-1])
+        valid = lab >= 0
+        out: Dict[str, torch.Tensor] = {"count": valid.sum()}
+        if MetricsType.ACCURACY in metrics:
+            pred = torch.argmax(logits, dim=-1)
+            out["correct"] = torch.sum(torch.sum(valid & (pred == lab), dim=-1))
+        if MetricsType.SPARSE_CATEGORICAL_CROSSENTROPY in metrics:
+            ll, _ = masked_token_log_probs(log_probs(logits, from_logits), labels)
+            out["sparse_cce_loss"] = -torch.sum(torch.sum(ll, dim=-1))
+        return out
     if sparse and logits.dim() >= 3:
         # token-level metrics: positions flatten into the batch, as in
         # compute_loss's rank-3 path

@@ -217,10 +217,12 @@ class _ExecParamsCache:
     """Cast-once cache of the params in the decode compute dtype (bf16:
     one cast per params version, not one per token).
 
-    Keyed on every leaf's identity (weak references: a replaced params
-    tree stays collectable) and its in-place version counter, so replacing
-    the tree, swapping one weight, an optimizer step and
-    ``load_numpy_params`` (which update in place) all re-derive the cast."""
+    Keyed on the compiled model's ``params_version`` (bumped by a guard
+    rollback and a checkpoint restore), every leaf's identity (weak
+    references: a replaced params tree stays collectable) and its in-place
+    version counter, so replacing the tree, swapping one weight, an
+    optimizer step and ``load_numpy_params`` (which update in place) all
+    re-derive the cast."""
 
     __slots__ = ("_key", "_cast")
 
@@ -231,18 +233,19 @@ class _ExecParamsCache:
         self._key = None
         self._cast = None
 
-    def get(self, params, compute_dtype: Optional[torch.dtype]):
+    def get(self, params, compute_dtype: Optional[torch.dtype], params_version: int = 0):
         if compute_dtype is None:
             return params
         leaves = [t for ws in params.values() for t in ws.values()]
-        if (self._cast is not None and len(self._key) == len(leaves)
+        if (self._cast is not None and self._key[0] == params_version
+                and len(self._key[1]) == len(leaves)
                 and all(ref() is t and ver == t._version
-                        for (ref, ver), t in zip(self._key, leaves))):
+                        for (ref, ver), t in zip(self._key[1], leaves))):
             return self._cast
         with torch.no_grad():
             self._cast = {op: {w: t.to(compute_dtype) if t.is_floating_point() else t
                                for w, t in ws.items()} for op, ws in params.items()}
-        self._key = tuple((weakref.ref(t), t._version) for t in leaves)
+        self._key = (params_version, tuple((weakref.ref(t), t._version) for t in leaves))
         return self._cast
 
 
@@ -288,7 +291,8 @@ class _DecodeGraph:
     def _exec_params(self):
         """Params in the decode compute dtype, cast once per params
         version (see :class:`_ExecParamsCache`)."""
-        return self._params_cache.get(self._cm.params, self._compute_dtype())
+        return self._params_cache.get(self._cm.params, self._compute_dtype(),
+                                      self._cm.params_version)
 
     def invalidate_params_cache(self) -> None:
         """Drop the cast copy of the params. The cache already follows

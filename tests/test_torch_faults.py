@@ -4,8 +4,9 @@
 Plan validation and the per-site firing sequences are pure Python and held
 exactly: the same plans give the same acceptance and the same ``ValueError``
 text, and 1000 evaluations of each trigger fire at the same evaluations. A
-plan naming a site the port does not evaluate yet raises
-``NotImplementedError`` at ``configure_faults``, naming its ROADMAP item.
+plan naming a site the port does not evaluate yet (the ``multihost.*``
+sites) raises ``NotImplementedError`` at ``configure_faults``, naming
+ROADMAP A7; the five training sites arm and fire as the reference's.
 A ``fit`` whose batch copies fail transiently trains exactly as the
 plan-less ``fit`` (the retry absorbs every fault: ``max_fires`` stays below
 the retry's three attempts).
@@ -101,13 +102,41 @@ def test_firing_sequences_equal_the_reference(rule, seed, fresh_registries):
     ("train.stall", "A9"), ("train.kill", "A9"), ("multihost.init_timeout", "A7"),
     ("multihost.peer_kill", "A7"), ("multihost.slow_peer", "A7")])
 def test_unwired_site_raises_naming_its_item(site, item):
+    """The A7 sites are still unwired and raise naming A7; the A9 sites are
+    wired now (their queue item is done) and arm as the reference's do."""
     cfg = FFConfig(device="cpu", fault_plan={
         "schema": 1, "sites": {"serving.worker": {"at_step": 1}, site: {"at_step": 1}}})
-    with pytest.raises(NotImplementedError, match=rf"'{site}' \(ROADMAP {item}"):
-        tfaults.configure_faults(cfg)
-    assert not tfaults.active()  # nothing was armed
+    if item == "A9":
+        assert tfaults.configure_faults(cfg) is not None
+        assert tfaults.active()
+    else:
+        with pytest.raises(NotImplementedError, match=rf"'{site}' \(ROADMAP {item}"):
+            tfaults.configure_faults(cfg)
+        assert not tfaults.active()  # nothing was armed
     jfaults.configure_faults(type("C", (), {"fault_plan": cfg.fault_plan})())
     assert jfaults.active()  # the reference arms it
+
+
+@pytest.mark.parametrize("site,rule", [
+    ("prefetch.worker", {"at_step": 3}), ("checkpoint.torn_write", {"p": 0.3, "target": "sidecar"}),
+    ("train.nan_loss", {"p": 0.25, "max_fires": 4}), ("train.stall", {"at_step": 2, "stall_s": 0.5}),
+    ("train.kill", {"at_step": 5, "exit_code": 41})])
+def test_a9_site_arms_and_fires_as_in_the_reference(site, rule):
+    spec = {"schema": 1, "seed": 3, "sites": {site: rule}}
+    plan = tfaults.configure_faults(FFConfig(device="cpu", fault_plan=spec))
+    jfaults.configure_faults(type("C", (), {"fault_plan": spec})())
+    got = [tfaults.fire(site) for _ in range(200)]
+    want = [jfaults.fire(site) for _ in range(200)]
+    assert got == want and any(r is not None for r in got)
+    assert plan.snapshot() == jfaults.faults_block()
+
+
+def test_a7_site_still_raises_naming_a7():
+    spec = {"schema": 1, "sites": {"train.kill": {"at_step": 1},
+                                   "multihost.peer_kill": {"at_step": 1}}}
+    with pytest.raises(NotImplementedError, match="'multihost.peer_kill' \\(ROADMAP A7"):
+        tfaults.configure_faults(FFConfig(device="cpu", fault_plan=spec))
+    assert not tfaults.active()
 
 
 def test_configure_keeps_an_equal_plan_and_none_clears():

@@ -21,7 +21,7 @@ def _modules():
 
 def _is_forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "flexflow_tpu")
+    return top in ("jax", "jaxlib", "flexflow_tpu", "orbax")
 
 
 # modules the rules must cover by name (each slice adds its own)
@@ -35,7 +35,10 @@ REQUIRED = ("flexflow_tpu_torch.obs", "flexflow_tpu_torch.obs.metrics",
             "flexflow_tpu_torch.models.resnet", "flexflow_tpu_torch.models.resnext",
             "flexflow_tpu_torch.models.inception", "flexflow_tpu_torch.models.dlrm",
             "flexflow_tpu_torch.models.xdl", "flexflow_tpu_torch.models.candle_uno",
-            "flexflow_tpu_torch.models.nmt")
+            "flexflow_tpu_torch.models.nmt", "flexflow_tpu_torch.ops.fused",
+            "flexflow_tpu_torch.keras", "flexflow_tpu_torch.keras.regularizers",
+            "flexflow_tpu_torch.runtime.buckets", "flexflow_tpu_torch.runtime.guard",
+            "flexflow_tpu_torch.runtime.checkpoint", "flexflow_tpu_torch.runtime.recompile")
 
 
 def test_rules_cover_the_required_modules():
@@ -50,7 +53,7 @@ def test_importing_every_port_module_loads_no_jax():
         f"for n in {names!r}:\n"
         "    importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flexflow_tpu'))\n"
+        "('jax', 'jaxlib', 'flexflow_tpu', 'orbax'))\n"
         "print(len(sys.modules)); assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=PORT.parent,
                           capture_output=True, text=True, timeout=120)
@@ -86,3 +89,18 @@ def test_ffmodel_without_device_cpu_raises_without_a_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         FFModel(FFConfig(device="cuda:0"))
     assert FFModel(FFConfig(device="cpu")).device.type == "cpu"
+
+
+@pytest.mark.parametrize("module", [
+    "flexflow_tpu_torch.ops.fused", "flexflow_tpu_torch.keras",
+    "flexflow_tpu_torch.keras.regularizers", "flexflow_tpu_torch.runtime.buckets",
+    "flexflow_tpu_torch.runtime.guard", "flexflow_tpu_torch.runtime.checkpoint",
+    "flexflow_tpu_torch.runtime.recompile"])
+def test_training_robustness_modules_import_no_orbax(module):
+    """The checkpoint payload is the port's own (torch.save), so no module
+    of this layer reads orbax, which the card's machine does not have."""
+    path = dict(_modules())[module]
+    tree = ast.parse(path.read_text(), filename=str(path))
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    names += [n.module or "" for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)]
+    assert not [n for n in names if n.split(".")[0] == "orbax"]
