@@ -130,8 +130,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
    resume_from, its params and Adam moments equal to an uninterrupted
    run's, the checkpoint's bytes and save ms, and both torn-write targets
    falling back to the previous step;
-14. the kernels line, one JSON object;
-15. the last line: {"ok": true, "device": {...}}.
+14. the device mesh: the same Transformer (TransformerConfig(), 8 samples
+   a data rank, SGD 0.01, MSE) through FFModel.compile over a mesh_shape ->
+   fit, in float32 and bfloat16, on (a) {data: 2} (2 ranks) and (b)
+   {data: 2, model: 2} with tp_axis "model" (4 ranks), the ranks spawned
+   on this one card over gloo (the collectives staged through the host):
+   each rank's backend, local attention shape and flash launches (each
+   above 0), the warm step ms, the bytes a step through the host beside
+   the bytes counted from the shapes, and the gathered params against the
+   one-rank run of the same global batches on the card: f32 after 3 steps,
+   within 1e-3 of each layer's largest update; bf16 after 1 step, the
+   model's update error in 2-norm within twice the one-rank bf16 run's
+   distance from one-rank f32, a bound that must stay under half the
+   reading of params left at their start (1); (c) {data: 2, seq: 2} at 2
+   layers, ring and a2a, float32, held as f32; ring_all_reduce against
+   psum_all_reduce on 64 MB;
+15. the kernels line, one JSON object;
+16. the last line: {"ok": true, "device": {...}}.
 
 Imports torch, numpy and flexflow_tpu_torch only.
 """
@@ -3573,6 +3588,314 @@ def phase_training_robustness(card: str) -> dict:
     return out
 
 
+# ---- the device mesh: data, tensor and sequence parallelism ------------
+PAR_BATCH = 8  # samples per data rank, as bench.py trains the Transformer
+PAR_STEPS, PAR_TIMED = 3, 4  # fit steps held to the one-rank run; timed steps
+PAR_SEQ_LAYERS = 2  # (c)'s depth
+PAR_F32_TOL = 1e-3  # of each layer's largest update, the training phases' form
+# bf16 runs are held after one step, before their rounding compounds; the
+# bound must stay under this share of what params left at their start read
+PAR_BF16_CONTROL_SHARE = 0.5
+PAR_RING_ELEMS = 16 * 2 ** 20  # the collective check's f32 tensor: 64 MB
+FLASH_NAMES = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+
+
+def par_opts(layers: int = 0) -> dict:
+    """What a rank builds (TransformerConfig's widths; ``layers``, default
+    its depth): passed to the spawned ranks, which import this script
+    afresh."""
+    from flexflow_tpu_torch.models.transformer import TransformerConfig
+
+    cfg = TransformerConfig()
+    return dict(device=DEVICE, hidden=cfg.hidden_size, heads=cfg.num_heads,
+                seq=cfg.sequence_length, layers=layers or cfg.num_layers)
+
+
+def par_model(opts: dict, compute_dtype: str, mesh_shape, tp=None, seq_axis=None,
+              seq_mode: str = "ring"):
+    from flexflow_tpu_torch import FFConfig, FFModel, LossType, SGDOptimizer
+    from flexflow_tpu_torch.models.transformer import TransformerConfig, build_transformer
+
+    data = (mesh_shape or {}).get("data", 1)
+    batch = PAR_BATCH * max(data, 2)  # the one-rank run takes the global batch
+    cfg = TransformerConfig(hidden_size=opts["hidden"], embedding_size=opts["hidden"],
+                            num_heads=opts["heads"], num_layers=opts["layers"],
+                            sequence_length=opts["seq"])
+    ff = FFModel(FFConfig(batch_size=batch, compute_dtype=compute_dtype, seed=SEED,
+                          device=opts["device"], mesh_shape=mesh_shape))
+    build_transformer(ff, batch, cfg, tp_axis=tp, seq_axis=seq_axis, seq_mode=seq_mode)
+    ff.compile(optimizer=SGDOptimizer(lr=0.01),
+               loss_type=LossType.MEAN_SQUARED_ERROR_AVG_REDUCE)
+    return ff
+
+
+def par_data(opts: dict, n: int):
+    rng = np.random.default_rng(SEED + 15)
+    x = rng.standard_normal(size=(n, opts["seq"], opts["hidden"]), dtype=np.float32)
+    y = rng.standard_normal(size=(n, opts["seq"], 1), dtype=np.float32)
+    return x, y
+
+
+def par_sync(device: str) -> None:
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def par_fit(opts: dict, compute_dtype: str, mesh_shape=None, **kw) -> dict:
+    """One run of the parallel phase on this rank: FFModel.compile over the
+    mesh -> fit of PAR_STEPS global batches, the first one alone (launches
+    counted just around them), then PAR_TIMED train_steps timed one by
+    one, the bytes staged through the host counted over them. Returns this
+    rank's record; rank 0 (or the one-rank run) adds the whole params
+    after the first step and after the fit."""
+    from flexflow_tpu_torch import kernels
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.parallel import collectives, distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ff = par_model(opts, compute_dtype, mesh_shape, **kw)
+    cm = ff.compiled
+    batch = cm.input_tensors[0].dims[0]
+    x, y = par_data(opts, batch * PAR_STEPS)
+    p0 = ff.numpy_params() if cm.mesh is None else None
+    shapes = set()
+    fwd = fa.flash_attention_fwd
+
+    def recording_fwd(q, *a, **k):
+        shapes.add(tuple(q.shape))
+        return fwd(q, *a, **k)
+
+    fa.flash_attention_fwd = recording_fwd
+    try:
+        par_sync(opts["device"])
+        kernels.reset_launch_counts()
+        ff.fit(x[:batch], y[:batch], batch_size=batch, epochs=1, shuffle=False, verbose=False)
+        first = ff.numpy_params()
+        ff.fit(x[batch:], y[batch:], batch_size=batch, epochs=1, shuffle=False, verbose=False)
+        par_sync(opts["device"])
+        launches = kernels.launch_counts()
+    finally:
+        fa.flash_attention_fwd = fwd
+    params = ff.numpy_params()
+    rank = cm.mesh.rank if cm.mesh is not None else 0
+    # the bytes a step must stage, from the shapes: this rank's f32
+    # gradient blocks in one buffer, and with a model axis the four
+    # (rows, seq, hidden) activation all-reduces a layer (two forward, two
+    # backward; the first layer's input takes no gradient), each to the
+    # host and back; the loss's scalars aside
+    grads = 4 * sum(t.numel() for ws in cm.params.values() for t in ws.values())
+    acts = 0
+    if kw.get("tp"):
+        rows = batch // cm.mesh.degree("data")
+        elem = torch.empty((), dtype=getattr(torch, compute_dtype)).element_size()
+        acts = (4 * opts["layers"] - 1) * rows * opts["seq"] * opts["hidden"] * elem
+    ms = []
+    collectives.reset_stats()
+    for i in range(PAR_TIMED):
+        ff.set_batch([x[:batch]], y[:batch])
+        par_sync(opts["device"])
+        t0 = time.perf_counter()
+        cm.params, cm.opt_state, loss, _ = cm.train_step(cm.params, cm.opt_state, None,
+                                                         *ff._cur_batch)
+        loss.item()
+        par_sync(opts["device"])
+        ms.append((time.perf_counter() - t0) * 1e3)
+    st = collectives.stats()
+    local = sorted(shapes)
+    return dict(rank=rank, backend=distributed.backend(),
+                mesh=dict(cm.mesh.shape) if cm.mesh is not None else None,
+                local_attention_shapes=[list(t) for t in local], launches=launches,
+                step_ms=ms, step_ms_median=float(np.median(ms[1:])),
+                host_bytes_per_step=st["staged_bytes"] / PAR_TIMED,
+                shape_host_bytes_per_step=(None if cm.mesh is None or kw.get("seq_axis")
+                                           else 2 * (grads + acts)),
+                collectives_per_step=st["calls"] / PAR_TIMED,
+                params=params if rank == 0 else None,
+                first=first if rank == 0 else None, start=p0)
+
+
+def par_collectives(opts: dict) -> dict:
+    """ring_all_reduce against psum_all_reduce over the ``data`` axis of a
+    2-rank mesh on a 64 MB f32 tensor: the error of one against the
+    other (as a share of the largest |sum|) and each one's ms (median of 3,
+    host staging included)."""
+    from flexflow_tpu_torch.core.machine import make_mesh
+    from flexflow_tpu_torch.parallel import collectives
+
+    mesh = make_mesh({"data": 2})
+    gen = torch.Generator(device=opts["device"])
+    gen.manual_seed(SEED + mesh.rank)
+    x = torch.randn(PAR_RING_ELEMS, generator=gen, device=opts["device"])
+    out = {}
+    for name, fn in (("ring_all_reduce", collectives.ring_all_reduce),
+                     ("psum_all_reduce", collectives.psum_all_reduce)):
+        ms = []
+        for _ in range(3):
+            par_sync(opts["device"])
+            t0 = time.perf_counter()
+            r = fn(x, mesh, "data")
+            par_sync(opts["device"])
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out[name] = (r, float(np.median(ms)))
+    ring, psum = out["ring_all_reduce"][0], out["psum_all_reduce"][0]
+    err = ((ring - psum).abs().max() / psum.abs().max()).item()
+    return dict(rank=mesh.rank, bytes=x.numel() * 4, err=err,
+                ring_ms=out["ring_all_reduce"][1], psum_ms=out["psum_all_reduce"][1])
+
+
+def par_worker(rank: int, world: int, jobs: list) -> list:
+    """A spawned rank: run each job in order (every rank the same jobs)."""
+    out = []
+    for kind, opts, kw in jobs:
+        out.append(par_collectives(opts) if kind == "collectives" else par_fit(opts, **kw))
+        gc.collect()
+        if opts["device"] == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def as_tensors(tree: dict) -> dict:
+    return {op: {w: torch.from_numpy(np.asarray(a)) for w, a in ws.items()}
+            for op, ws in tree.items()}
+
+
+def update_err(got: dict, want: dict, start: dict) -> tuple:
+    """(|got - want| / |want - start|, the layer with the largest part of
+    the numerator), each a 2-norm over every param: the relative error of
+    the whole model's update. Over the whole model, not layer by layer: a
+    bf16 step's gradients cancel over the batch in some layers, where
+    rounding alone moves a quarter of the layer's update, while a dropped
+    or doubled gradient moves every layer. Params left at ``start`` read
+    exactly 1."""
+    num = den = most = 0.0
+    where = ""
+    for op, ws in want.items():
+        for w in ws:
+            check(bool(torch.isfinite(got[op][w]).all()), f"non-finite {op}.{w}")
+        d = sum(float((got[op][w] - t).double().norm() ** 2) for w, t in ws.items())
+        num += d
+        den += sum(float((t - start[op][w]).double().norm() ** 2) for w, t in ws.items())
+        if d >= most:
+            most, where = d, op
+    return ((num / den) ** 0.5 if den > 0 else 0.0), where
+
+
+def par_check(name: str, ranks: list, ref: dict, start: dict, card: str,
+              bf16: dict = None, flash: bool = True) -> dict:
+    """Hold one mesh run (every rank's record) to the one-rank run: f32
+    params after PAR_STEPS steps, each layer's largest error within
+    PAR_F32_TOL of its largest update; with ``bf16`` (its ``bound``) the
+    params after the first step by :func:`update_err`. ``flash``:
+    every rank must have launched each flash kernel (sequence-parallel
+    attention is torch ops and launches none)."""
+    r0 = ranks[0]
+    check(len({r["backend"] for r in ranks}) == 1, f"{name}: backends {ranks}")
+    if bf16 is None:
+        # each of the steps rounds a param once, so each element's error
+        # counts past PAR_STEPS f32 ulps of its value (the training phases' form)
+        steps, bound, what = PAR_STEPS, PAR_F32_TOL, "of the layer's largest update"
+        err, worst = layer_err(as_tensors(r0["params"]), as_tensors(ref["params"]),
+                               as_tensors(start), ulps=PAR_STEPS)
+    else:
+        steps, bound, what = 1, bf16["bound"], "of the model's update (2-norm)"
+        err, worst = update_err(as_tensors(r0["first"]), as_tensors(ref["first"]),
+                                      as_tensors(start))
+    after = f"{steps} step{'s' if steps > 1 else ''}"
+    check(err <= bound, f"{name}: params after {after} {err:.3g} {what} from the "
+                        f"one-rank run (worst {worst}) > {bound:.3g}")
+    per_rank = [{k: r["launches"][k] for k in FLASH_NAMES} for r in ranks]
+    if flash and DEVICE == "cuda":
+        check(all(v > 0 for lr in per_rank for v in lr.values()),
+              f"{name}: a rank launched no flash kernel: {per_rank}")
+    shaped = r0["shape_host_bytes_per_step"]
+    if shaped is not None and r0["backend"] == "gloo" and DEVICE == "cuda":
+        check(abs(r0["host_bytes_per_step"] - shaped) <= 1024,
+              f"{name}: {r0['host_bytes_per_step']} bytes a step through the host, the "
+              f"shapes give {shaped}")
+    row = dict(name=name, card=card, backend=r0["backend"], world=len(ranks),
+               mesh=r0["mesh"], local_attention_shapes=[r["local_attention_shapes"] for r in ranks],
+               launches_per_rank=per_rank,
+               step_ms_median=r0["step_ms_median"],
+               step_ms_median_max_rank=max(r["step_ms_median"] for r in ranks),
+               one_rank_step_ms_median=ref["step_ms_median"],
+               host_bytes_per_step=r0["host_bytes_per_step"],
+               shape_host_bytes_per_step=shaped,
+               collectives_per_step=r0["collectives_per_step"],
+               steps_held=steps, param_err_vs_one_rank=err, param_err_worst=worst,
+               bound=bound, bf16=bf16)
+    counted = "" if shaped is None else f" (the shapes give {shaped / 2 ** 20:.1f})"
+    print(f"parallel {name}: backend {r0['backend']}, world {len(ranks)}, mesh {r0['mesh']}; "
+          f"local attention (B*H, S, D) by rank {row['local_attention_shapes']}; flash "
+          f"launches by rank {per_rank}; warm step {r0['step_ms_median']:.1f} ms median of "
+          f"{PAR_TIMED - 1} (slowest rank {row['step_ms_median_max_rank']:.1f}; one rank "
+          f"{ref['step_ms_median']:.1f}); {r0['host_bytes_per_step'] / 2 ** 20:.1f} MiB a step "
+          f"through the host{counted} in {r0['collectives_per_step']:.0f} collectives; params "
+          f"after {after} {err:.3g} {what} from the one-rank run (worst {worst}; bound "
+          f"{bound:.3g}) [{card}]", flush=True)
+    return row
+
+
+def phase_parallel(card: str) -> dict:
+    """(a) the reference Transformer at full width on {data: 2} and (b) on
+    {data: 2, model: 2} with tp_axis "model", both dtypes, 8 samples per
+    data rank, spawned ranks sharing this card over gloo (NCCL where each
+    rank has a card); (c) {data: 2, seq: 2} at PAR_SEQ_LAYERS layers, ring
+    and a2a, float32; every run held to the one-rank run of the same
+    global batches on the card; then ring_all_reduce against
+    psum_all_reduce on 64 MB."""
+    from flexflow_tpu_torch.parallel.distributed import spawn
+
+    t0 = time.perf_counter()
+    full, short = par_opts(), par_opts(PAR_SEQ_LAYERS)
+    refs = {dt: par_fit(full, dt) for dt in ("float32", "bfloat16")}
+    refs["seq"] = par_fit(short, "float32")
+    free_device()
+    two = spawn(par_worker, 2, [("fit", full, dict(compute_dtype=dt, mesh_shape={"data": 2}))
+                                for dt in ("float32", "bfloat16")]
+                + [("collectives", full, {})])
+    four = spawn(par_worker, 4,
+                 [("fit", full, dict(compute_dtype=dt, mesh_shape={"data": 2, "model": 2},
+                                     tp="model")) for dt in ("float32", "bfloat16")]
+                 + [("fit", short, dict(compute_dtype="float32",
+                                        mesh_shape={"data": 2, "seq": 2}, seq_axis="seq",
+                                        seq_mode=mode)) for mode in ("ring", "a2a")])
+    start = refs["float32"]["start"]
+    first16, first32 = (as_tensors(refs[dt]["first"]) for dt in ("bfloat16", "float32"))
+    floor = update_err(first16, first32, as_tensors(start))[0]
+    control = update_err(as_tensors(start), first16, as_tensors(start))[0]
+    bf16 = dict(bound=BF16_FLOOR_FACTOR * floor, floor=floor, control=control)
+    print(f"parallel bf16 bound: one-rank bf16 vs f32 after 1 step {floor:.3g} of the model's "
+          f"update (2-norm), x{BF16_FLOOR_FACTOR} = {bf16['bound']:.3g}; params left at their "
+          f"start read {control:.3g}", flush=True)
+    check(bf16["bound"] < PAR_BF16_CONTROL_SHARE * control,
+          f"the bf16 bound {bf16['bound']:.3g} is not under {PAR_BF16_CONTROL_SHARE} of the "
+          f"unchanged params' reading {control:.3g}: it could pass a run that did not train")
+    rows = []
+    for i, dt in enumerate(("float32", "bfloat16")):
+        for tag, runs in (("(a) {data: 2}", two), ("(b) {data: 2, model: 2}", four)):
+            rows.append(par_check(f"{tag} {dt}", [r[i] for r in runs], refs[dt], start, card,
+                                  bf16 if dt == "bfloat16" else None))
+    for i, mode in enumerate(("ring", "a2a"), start=2):
+        rows.append(par_check(f"(c) {{data: 2, seq: 2}} {mode} float32 {PAR_SEQ_LAYERS} layers",
+                              [r[i] for r in four], refs["seq"], refs["seq"]["start"], card,
+                              flash=False))
+    coll = [r[2] for r in two]
+    check(all(c["err"] <= 1e-6 for c in coll),
+          f"ring_all_reduce vs psum_all_reduce: {[c['err'] for c in coll]}")
+    coll_row = dict(bytes=coll[0]["bytes"], err=max(c["err"] for c in coll),
+                    ring_ms=coll[0]["ring_ms"], psum_ms=coll[0]["psum_ms"], card=card)
+    print(f"parallel collectives: ring_all_reduce vs psum_all_reduce over 2 ranks on "
+          f"{coll_row['bytes'] / 2 ** 20:.0f} MiB f32: max err {coll_row['err']:.3g} of the "
+          f"largest |sum|, ring {coll_row['ring_ms']:.1f} ms, psum {coll_row['psum_ms']:.1f} ms "
+          f"(median of 3, host staging included) [{card}]", flush=True)
+    launches = {k: sum(lr[k] for row in rows for lr in row["launches_per_rank"])
+                for k in FLASH_NAMES}
+    out = dict(rows=rows, collectives=coll_row, launches=launches,
+               seconds=time.perf_counter() - t0)
+    print("parallel_json " + json.dumps(out), flush=True)
+    return out
+
+
 def check_spans(events: list, n: int, validate) -> None:
     """Every served request has the reference's five spans on its own
     track, nested in its serving.request span."""
@@ -3673,6 +3996,9 @@ def main() -> int:
     free_device()
     rob = phase_training_robustness(card)
     print(f"phases: training robustness done at {time.perf_counter() - t0:.0f} s", flush=True)
+    free_device()
+    par = phase_parallel(card)
+    print(f"phases: parallel done at {time.perf_counter() - t0:.0f} s", flush=True)
     train_launches = {name: sum(r["fit_launches"][name] for r in train)
                       for name in train[0]["fit_launches"]}
     # GPT's path: its fits and the full-sequence forwards of its dense and
@@ -3691,7 +4017,9 @@ def main() -> int:
                       + train_launches["flash_attention_fwd"]
                       + gpt_launches["flash_attention_fwd"]
                       + bert_launches["flash_attention_fwd"]
-                      + breadth["launches"] + rob["launches"]["flash_attention_fwd"],
+                      + breadth["launches"] + rob["launches"]["flash_attention_fwd"]
+                      + par["launches"]["flash_attention_fwd"],
+                      parallel_launches=par["launches"]["flash_attention_fwd"],
                       serving_launches=sum(r["launches"] for r in serve),
                       serving_breadth_launches=breadth["launches"],
                       training_launches=train_launches["flash_attention_fwd"],
@@ -3715,7 +4043,9 @@ def main() -> int:
                       train_launches["flash_attention_bwd_dq"]
                       + gpt_launches["flash_attention_bwd_dq"]
                       + bert_launches["flash_attention_bwd_dq"]
-                      + rob["launches"]["flash_attention_bwd_dq"],
+                      + rob["launches"]["flash_attention_bwd_dq"]
+                      + par["launches"]["flash_attention_bwd_dq"],
+                      parallel_launches=par["launches"]["flash_attention_bwd_dq"],
                       training_launches=train_launches["flash_attention_bwd_dq"],
                       gpt_launches=gpt_launches["flash_attention_bwd_dq"],
                       bert_launches=bert_launches["flash_attention_bwd_dq"],
@@ -3733,7 +4063,9 @@ def main() -> int:
                       train_launches["flash_attention_bwd_dkv"]
                       + gpt_launches["flash_attention_bwd_dkv"]
                       + bert_launches["flash_attention_bwd_dkv"]
-                      + rob["launches"]["flash_attention_bwd_dkv"],
+                      + rob["launches"]["flash_attention_bwd_dkv"]
+                      + par["launches"]["flash_attention_bwd_dkv"],
+                      parallel_launches=par["launches"]["flash_attention_bwd_dkv"],
                       training_launches=train_launches["flash_attention_bwd_dkv"],
                       gpt_launches=gpt_launches["flash_attention_bwd_dkv"],
                       bert_launches=bert_launches["flash_attention_bwd_dkv"],

@@ -6,7 +6,8 @@ far, and adds ``device``: the port runs on the card unless the caller asks
 for the CPU, and a missing card is an error, never a quiet CPU run.
 :meth:`FFConfig.parse_args` reads the JAX package's flags for those
 fields; :class:`FFIterationConfig` carries the per-iteration sequence
-length.
+length. ``mesh_shape`` names the mesh of ranks a model is compiled over
+(one process per rank; ``core/machine.py``).
 """
 
 from __future__ import annotations
@@ -48,6 +49,13 @@ class FFConfig:
     seed: int = 0
     # "cuda" (default) or "cpu"; "cuda:N" picks a card
     device: str = "cuda"
+    # mesh axes and degrees ({"data": 2, "model": 2}); the product must be
+    # the process group's world size. None: a data mesh over every rank
+    # (one rank: no mesh)
+    mesh_shape: Optional[dict] = None
+    # ZeRO-1 (optimizer state sharded over the data axis) is ROADMAP A7b:
+    # True raises under a data axis above 1
+    zero_optimizer: bool = False
     # fuse straight chains of weightless unary ops into one FusedOp at
     # compile (ops/fused.py); the logits tensor is never fused away
     perform_fusion: bool = False
@@ -175,6 +183,7 @@ class FFConfig:
         }
         switches = {"--fusion": ("perform_fusion", True),
                     "--elastic-resume": ("elastic_resume", True),
+                    "--zero-optimizer": ("zero_optimizer", True),
                     "--trace": ("trace", "on")}
         args = list(argv)
         i = 0

@@ -2,10 +2,16 @@
 
 PyTorch counterpart of ``flexflow_tpu/core/op.py``. An Op is a function
 over torch tensors plus metadata: a shape rule, declared weights and a
-forward. There is no mesh yet, so ``propagate`` only turns the shape rule
-into unpartitioned shapes. Random draws (dropout) come from an explicit
-``torch.Generator`` per op and step (:meth:`LowerCtx.generator`), where
-the JAX package folds the op's index into the step's PRNG key.
+forward. ``propagate(input_shapes, strategy)`` maps the inputs' layouts
+over the mesh (``ParallelTensorShape``) and the op's strategy to its
+output and weight layouts, as the JAX package's does, and also records in
+``input_layouts`` the layout each input must arrive in: where a producer's
+layout differs, the compiler inserts the transition (a slice or an
+all-gather), where the JAX package leaves the resharding to GSPMD. Under
+a mesh each rank's forward sees its local blocks. Random draws (dropout)
+come from an explicit ``torch.Generator`` per op and step
+(:meth:`LowerCtx.generator`), where the JAX package folds the op's index
+into the step's PRNG key.
 """
 
 from __future__ import annotations
@@ -18,7 +24,7 @@ import torch
 
 from ..ffconst import DataType, OpType
 from .layer import Layer
-from .parallel_tensor import ParallelTensorShape
+from .parallel_tensor import ParallelDim, ParallelTensorShape
 
 
 @dataclasses.dataclass
@@ -34,8 +40,10 @@ class WeightSpec:
 
 @dataclasses.dataclass
 class LowerCtx:
-    """Context threaded through each op's forward (no mesh yet)."""
+    """Context threaded through each op's forward."""
 
+    # the rank grid (``core/machine.Mesh``) under SPMD; None on one device
+    mesh: Optional[Any] = None
     # run every kernel's plain PyTorch version, on any device: the
     # reference the card's kernels are held against
     plain_kernels: bool = False
@@ -75,6 +83,8 @@ class Op:
     """Base operator. Subclasses set ``op_type`` and implement the hooks."""
 
     op_type: OpType = OpType.NOOP
+    # inputs line up from their trailing dims (broadcasting elementwise ops)
+    broadcasts_from_right = False
 
     def __init__(self, layer: Layer, input_shapes: List[ParallelTensorShape]):
         self.layer = layer
@@ -84,6 +94,9 @@ class Op:
         # filled by the compiler:
         self.output_shapes: List[ParallelTensorShape] = []
         self.weight_shapes: Dict[str, ParallelTensorShape] = {}
+        # the layout each input must arrive in (propagate sets it)
+        self.input_layouts: List[ParallelTensorShape] = list(input_shapes)
+        self.honored_strategy_keys: set = set()
 
     def infer_output_shapes(self) -> List[Tuple[Tuple[int, ...], DataType]]:
         raise NotImplementedError
@@ -104,11 +117,47 @@ class Op:
         ``device`` once, when the model is compiled (Constant's value);
         most ops have nothing."""
 
+    def reads_across(self, i: int) -> Tuple[int, ...]:
+        """The dims of input ``i`` that one output element reads across (a
+        reduction, a product, a reshape). A sharded one is gathered before
+        the op runs, except the batch dim 0, where the op would need a
+        global reduction: that raises. Default: every dim but dim 0."""
+        return tuple(range(1, len(self.input_shapes[i].dims)))
+
+    def readable(self, i: int, shape: ParallelTensorShape) -> ParallelTensorShape:
+        """``shape`` with the dims :meth:`reads_across` names unpartitioned;
+        a sharded batch dim among them raises naming A7b."""
+        for d in self.reads_across(i):
+            dim = shape.dims[d]
+            if not dim.is_partitioned:
+                continue
+            if d == 0:
+                raise NotImplementedError(
+                    f"{self.name} ({self.op_type.name}) reduces across dim 0, which is "
+                    f"sharded over mesh axis {dim.axis!r}; a global reduction over the "
+                    f"sharded batch is ROADMAP A7b")
+            shape = shape.combined(d)
+        return shape
+
     def propagate(
-        self, input_shapes: List[ParallelTensorShape]
+        self, input_shapes: List[ParallelTensorShape],
+        strategy: Optional[Dict[str, Any]] = None,
     ) -> Tuple[List[ParallelTensorShape], Dict[str, ParallelTensorShape]]:
-        """Output and weight shapes on one device."""
-        out_shapes = [ParallelTensorShape.unpartitioned(sizes, dtype)
+        """Output and weight layouts under ``strategy`` (its
+        ``"_axis_sizes"`` entry maps mesh axis to degree). The default rule,
+        the JAX package's: outputs inherit input 0's partitioning on the
+        dims they share its size with; weights are replicated. Input 0
+        arrives with the dims it reads across gathered, the other inputs
+        in input 0's partitioning where their dims line up with its own
+        (from the right for broadcasting elementwise ops), unpartitioned
+        elsewhere. ``honored_strategy_keys`` records the entries realized
+        without changing a shape (attention's ``seq_mode``)."""
+        self.honored_strategy_keys = set()
+        in0 = self.readable(0, input_shapes[0]) if input_shapes else None
+        self.input_layouts = ([in0] if input_shapes else []) + [
+            self.readable(i, _aligned(s, in0, self.broadcasts_from_right))
+            for i, s in enumerate(input_shapes[1:], start=1)]
+        out_shapes = [_aligned(ParallelTensorShape.unpartitioned(sizes, dtype), in0, False)
                       for sizes, dtype in self.infer_output_shapes()]
         weight_shapes = {
             ws.name: ParallelTensorShape.unpartitioned(ws.shape, ws.dtype)
@@ -127,6 +176,22 @@ _OP_REGISTRY: Dict[OpType, Type[Op]] = {}
 def register_op(cls: Type[Op]) -> Type[Op]:
     _OP_REGISTRY[cls.op_type] = cls
     return cls
+
+
+def _aligned(shape: ParallelTensorShape, ref: Optional[ParallelTensorShape],
+             from_right: bool) -> ParallelTensorShape:
+    """``shape`` partitioned as ``ref`` on the dims that line up with one of
+    ``ref``'s of the same size, unpartitioned elsewhere."""
+    dims = []
+    n, m = len(shape.dims), len(ref.dims) if ref is not None else 0
+    for i, d in enumerate(shape.dims):
+        j = i + m - n if from_right else i
+        src = ref.dims[j] if ref is not None and 0 <= j < m else None
+        if src is not None and src.size == d.size and src.is_partitioned:
+            dims.append(ParallelDim(d.size, src.degree, src.axis))
+        else:
+            dims.append(ParallelDim(d.size))
+    return ParallelTensorShape(tuple(dims), shape.dtype)
 
 
 def create_op(layer: Layer, input_shapes: List[ParallelTensorShape]) -> Op:

@@ -15,6 +15,11 @@ kernel, every function here takes any head dim. This module holds:
   differentiable through :class:`_FlashAttention`, the counterpart of the
   ``_flash`` custom VJP; :func:`attend`, the same without the length
   contract, which the attention op calls at any sequence length;
+* :func:`sharded_flash_attention` — the JAX package's ``shard_map`` of the
+  kernel over a mesh's batch and heads axes: each rank holds its
+  (B/dp, S, H/tp, D) block already and runs :func:`attend` on it, the
+  same kernels (it takes any length and head dim, so the JAX module's
+  ``sharded_supported`` has nothing to check);
 * :func:`flash_attention_fwd` / :func:`flash_attention_bwd` — the wrappers
   on (B*H, S, D) tensors: the kernels for CUDA tensors, the plain versions
   for CPU tensors;
@@ -255,6 +260,22 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     out = _FlashAttention.apply(_to_bh(q), _to_bh(k), _to_bh(v), causal, scale, plain)
     return out.reshape(b, h, sq, d).transpose(1, 2)
+
+
+def sharded_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh,
+                            batch_axis: Optional[str], heads_axis: Optional[str],
+                            causal: bool = False, scale: Optional[float] = None,
+                            plain: bool = False) -> torch.Tensor:
+    """Flash attention over a mesh: q/k/v are this rank's (B/dp, S, H/tp, D)
+    blocks, sharded on batch over ``batch_axis`` and on heads over
+    ``heads_axis`` (None: not sharded). Attention is independent across
+    both, so each rank runs the kernels on its block (no collective);
+    sequence-sharded attention goes through ``parallel/ring_attention.py``."""
+    for name, ax in (("batch", batch_axis), ("heads", heads_axis)):
+        if ax is not None and mesh.degree(ax) == 1:
+            raise ValueError(f"sharded_flash_attention: {name} axis {ax!r} is not a "
+                             f"mesh axis of degree above 1 ({mesh.shape})")
+    return attend(q, k, v, causal, scale, plain)
 
 
 def _check_lengths(sq: int, skv: int) -> None:

@@ -3,8 +3,8 @@
 PyTorch counterpart of ``flexflow_tpu/models/dlrm.py``: sum-aggregated
 embedding tables and a bottom MLP on the dense features, their concat (the
 "cat" interaction), then the top MLP with a sigmoid on its last layer.
-``param_axis`` (tables sharded on the vocab dim) raises until the port has
-a mesh (queue A7).
+``param_axis`` (tables sharded on the vocab dim) raises: sharded tables are
+ROADMAP A7b.
 """
 
 from __future__ import annotations
@@ -40,8 +40,8 @@ def build_dlrm(ff: FFModel, batch_size: int, cfg: Optional[DLRMConfig] = None,
     """Returns (the sparse id inputs + the dense input, the output)."""
     if param_axis is not None:
         raise NotImplementedError(
-            f"build_dlrm(param_axis={param_axis!r}): sharding the tables needs a "
-            f"mesh (ROADMAP queue A7)")
+            f"build_dlrm(param_axis={param_axis!r}): sharded tables are "
+            f"ROADMAP A7b")
     cfg = cfg or DLRMConfig()
     sparse_inputs = [
         ff.create_tensor((batch_size, cfg.embedding_bag_size), DataType.INT32,

@@ -31,13 +31,12 @@ class GPTConfig:
 def build_gpt(ff: FFModel, batch_size: int, seq_length: int,
               cfg: Optional[GPTConfig] = None, tp_axis: Optional[str] = None):
     """Returns (tokens, positions, logits), the inputs int32 (B, S) and the
-    logits (B, S, vocab) raw. ``tp_axis`` (tensor parallelism over a mesh
-    axis) raises until the port has a mesh (queue A7)."""
-    if tp_axis is not None:
-        raise NotImplementedError(
-            f"build_gpt(tp_axis={tp_axis!r}): tensor parallelism needs a mesh "
-            f"(ROADMAP queue A7)")
+    logits (B, S, vocab) raw. ``tp_axis`` shards the attention heads and
+    the MLP hidden over a mesh axis."""
     cfg = cfg or GPTConfig()
+    heads = {"heads": tp_axis} if tp_axis else None
+    up = {"out": tp_axis} if tp_axis else None
+    down = {"in": tp_axis} if tp_axis else None
     tokens = ff.create_tensor((batch_size, seq_length), DataType.INT32, name="tokens")
     positions = ff.create_tensor((batch_size, seq_length), DataType.INT32,
                                  name="positions")
@@ -48,12 +47,12 @@ def build_gpt(ff: FFModel, batch_size: int, seq_length: int,
     for i in range(cfg.num_layers):
         ln1 = ff.layer_norm(h, axes=[-1], name=f"block{i}_ln1")
         attn = ff.multihead_attention(ln1, ln1, ln1, cfg.hidden_size, cfg.num_heads,
-                                      causal=True, name=f"block{i}_attn")
+                                      causal=True, name=f"block{i}_attn", strategy=heads)
         h = ff.add(h, attn, name=f"block{i}_res1")
         ln2 = ff.layer_norm(h, axes=[-1], name=f"block{i}_ln2")
         m = ff.dense(ln2, cfg.mlp_ratio * cfg.hidden_size, ActiMode.GELU,
-                     name=f"block{i}_mlp_up")
-        m = ff.dense(m, cfg.hidden_size, name=f"block{i}_mlp_down")
+                     name=f"block{i}_mlp_up", strategy=up)
+        m = ff.dense(m, cfg.hidden_size, name=f"block{i}_mlp_down", strategy=down)
         h = ff.add(h, m, name=f"block{i}_res2")
     h = ff.layer_norm(h, axes=[-1], name="ln_f")
     logits = ff.dense(h, cfg.vocab_size, use_bias=False, name="lm_head")

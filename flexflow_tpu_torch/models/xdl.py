@@ -3,7 +3,7 @@
 PyTorch counterpart of ``flexflow_tpu/models/xdl.py``: sparse id inputs,
 sum-aggregated embeddings, their concat, then a bias-free top MLP with a
 sigmoid on its second-to-last layer. ``embedding_strategy`` (sharded
-tables) raises until the port has a mesh (queue A7).
+tables) raises: sharded tables are ROADMAP A7b.
 """
 
 from __future__ import annotations
@@ -28,8 +28,8 @@ def build_xdl(ff: FFModel, batch_size: int, cfg: Optional[XDLConfig] = None,
     """Returns (the sparse id inputs, the output)."""
     if embedding_strategy:
         raise NotImplementedError(
-            f"build_xdl(embedding_strategy={embedding_strategy!r}): sharding the "
-            f"tables needs a mesh (ROADMAP queue A7)")
+            f"build_xdl(embedding_strategy={embedding_strategy!r}): sharded "
+            f"tables are ROADMAP A7b")
     cfg = cfg or XDLConfig()
     inputs, embedded = [], []
     for i, vocab in enumerate(cfg.embedding_size):

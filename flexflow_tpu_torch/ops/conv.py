@@ -99,7 +99,7 @@ class Conv2D(Op):
         a = self.attrs
         if a.get("strategy"):
             raise NotImplementedError(
-                f"{self.name}: a sharded convolution needs a mesh (ROADMAP queue A7)")
+                f"{self.name}: a sharded convolution is ROADMAP A7b")
         self.out_channels = a["out_channels"]
         self.kernel = tuple(a["kernel"])
         self.stride = tuple(a["stride"])
@@ -178,6 +178,11 @@ class BatchNorm(Op):
     write-back of ``LowerCtx.state_updates``."""
 
     op_type = OpType.BATCHNORM
+
+    def reads_across(self, i):
+        # the batch statistics: a sharded batch raises (SyncBN-style global
+        # statistics are ROADMAP A7b)
+        return (0, 2, 3)
 
     def infer_output_shapes(self):
         return [(self.input_shapes[0].sizes, self.input_shapes[0].dtype)]

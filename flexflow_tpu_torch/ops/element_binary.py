@@ -27,6 +27,11 @@ _BINARY_FNS: Dict[OpType, Callable] = {
 
 
 class _ElementBinaryBase(Op):
+    broadcasts_from_right = True
+
+    def reads_across(self, i):
+        return ()
+
     def infer_output_shapes(self):
         a, b = self.input_shapes
         out = np.broadcast_shapes(a.sizes, b.sizes)

@@ -41,6 +41,9 @@ _SCALAR_FNS: Dict[OpType, Callable] = {
 
 
 class _ElementUnaryBase(Op):
+    def reads_across(self, i):
+        return ()
+
     def infer_output_shapes(self):
         return [(self.input_shapes[0].sizes, self.input_shapes[0].dtype)]
 

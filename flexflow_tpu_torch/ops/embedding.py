@@ -39,12 +39,16 @@ class Embedding(Op):
         super().__init__(layer, input_shapes)
         if self.attrs.get("strategy"):
             raise NotImplementedError(
-                f"{self.name}: a sharded embedding needs a mesh (ROADMAP "
-                f"queue A7)")
+                f"{self.name}: a sharded embedding table is ROADMAP A7b")
         self.num_entries = self.attrs["num_entries"]
         self.out_dim = self.attrs["out_dim"]
         self.aggr: AggrMode = self.attrs.get("aggr", AggrMode.NONE)
         self.out_dtype: DataType = self.attrs.get("dtype", DataType.FLOAT)
+
+    def reads_across(self, i):
+        # one table row per id; SUM/AVG reduce the trailing multi-hot dim
+        nd = len(self.input_shapes[0].dims)
+        return () if self.aggr is AggrMode.NONE else (nd - 1,)
 
     def infer_output_shapes(self):
         in_sizes = self.input_shapes[0].sizes

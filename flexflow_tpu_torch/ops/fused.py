@@ -39,10 +39,13 @@ class FusedOp(Op):
         cur = list(input_shapes)
         for sl in self.sub_layers:
             op = create_op(sl, cur)
-            outs, _ = op.propagate(cur)
+            outs, _ = op.propagate(cur, {})
             op.output_shapes = outs
             self.sub_ops.append(op)
             cur = outs
+
+    def reads_across(self, i):
+        return ()  # a chain of elementwise unary ops
 
     def infer_output_shapes(self):
         last = self.sub_ops[-1].output_shapes[0]

@@ -20,7 +20,9 @@ reaches it as ``OpType.CACHE`` (neither package has a builder verb for it);
 the trigger machinery it pairs with is ``runtime/recompile.py``.
 
 Not ported yet: the expert-parallel branch of the stacked ops (a mesh axis
-on the expert dim and the all-to-all), queue A7.
+on the expert dim and the all-to-all), ROADMAP A7b. Under a mesh whose
+data axis shards the batch the routing ops raise: their capacity and the
+balance term are statistics of the whole batch.
 """
 
 from __future__ import annotations
@@ -84,12 +86,19 @@ def _no_expert_axis(name: str, attrs) -> None:
     strategy = attrs.get("strategy") or {}
     if strategy.get("expert"):
         raise NotImplementedError(
-            f"{name}: the expert-parallel path (strategy {strategy}) needs a "
-            f"mesh, which the port does not have yet (ROADMAP queue A7)")
+            f"{name}: the expert-parallel path (strategy {strategy}) is "
+            f"ROADMAP A7b")
+
+
+class _BatchRouting(Op):
+    """An op whose routing reads the whole batch (capacity, balance)."""
+
+    def reads_across(self, i):
+        return tuple(range(len(self.input_shapes[i].dims)))
 
 
 @register_op
-class GroupBy(Op):
+class GroupBy(_BatchRouting):
     """Scatter input rows into n fixed-capacity expert tensors by the gate
     assignment (one output per expert)."""
 
@@ -113,7 +122,7 @@ class GroupBy(Op):
         return [rows[e] for e in range(self.n)]
 
 
-class _AggregateBase(Op):
+class _AggregateBase(_BatchRouting):
     def __init__(self, layer, input_shapes):
         super().__init__(layer, input_shapes)
         self.n = self.attrs["n"]
@@ -184,7 +193,7 @@ class AggregateSpec(_AggregateBase):
 
 
 @register_op
-class GroupByStacked(Op):
+class GroupByStacked(_BatchRouting):
     """GroupBy emitting one stacked (n, capacity, d) tensor."""
 
     op_type = OpType.GROUP_BY_STACKED

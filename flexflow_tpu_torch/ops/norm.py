@@ -30,6 +30,9 @@ class LayerNorm(Op):
         self.norm_shape = tuple(input_shapes[0].sizes[a] for a in self.axes)
         self.trailing = self.axes == tuple(range(nd - len(self.axes), nd))
 
+    def reads_across(self, i):
+        return self.axes
+
     def infer_output_shapes(self):
         return [(self.input_shapes[0].sizes, self.input_shapes[0].dtype)]
 

@@ -20,6 +20,10 @@ def _reduced_shape(sizes, axes, keepdims):
 
 
 class _Reduce(Op):
+    def reads_across(self, i):
+        nd = len(self.input_shapes[0].dims)
+        return tuple(sorted({a % nd for a in self.attrs["axes"]}))
+
     def infer_output_shapes(self):
         sizes = _reduced_shape(self.input_shapes[0].sizes, self.attrs["axes"],
                                self.attrs.get("keepdims", False))

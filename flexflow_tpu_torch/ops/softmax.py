@@ -16,6 +16,9 @@ from ..ffconst import OpType
 class Softmax(Op):
     op_type = OpType.SOFTMAX
 
+    def reads_across(self, i):
+        return (self.attrs.get("dim", -1) % len(self.input_shapes[0].dims),)
+
     def infer_output_shapes(self):
         return [(self.input_shapes[0].sizes, self.input_shapes[0].dtype)]
 

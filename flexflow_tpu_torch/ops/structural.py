@@ -39,6 +39,12 @@ class Flat(Op):
 class Reshape(Op):
     op_type = OpType.RESHAPE
 
+    def reads_across(self, i):
+        # a reshape that keeps the batch dim keeps each rank's rows whole
+        nd = len(self.input_shapes[0].dims)
+        keeps = self.infer_output_shapes()[0][0][:1] == self.input_shapes[0].sizes[:1]
+        return tuple(range(1 if keeps else 0, nd))
+
     def infer_output_shapes(self):
         in_sizes = self.input_shapes[0].sizes
         shape = list(self.attrs["shape"])
@@ -57,6 +63,9 @@ class Reshape(Op):
 @register_op
 class Transpose(Op):
     op_type = OpType.TRANSPOSE
+
+    def reads_across(self, i):
+        return tuple(d for d, p in enumerate(self.attrs["perm"]) if d != p)
 
     def infer_output_shapes(self):
         sizes = self.input_shapes[0].sizes
@@ -116,6 +125,9 @@ class Split(Op):
 @register_op
 class Cast(Op):
     op_type = OpType.CAST
+
+    def reads_across(self, i):
+        return ()
 
     def infer_output_shapes(self):
         return [(self.input_shapes[0].sizes, self.attrs["dtype"])]

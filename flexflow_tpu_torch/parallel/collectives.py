@@ -1,0 +1,306 @@
+"""Collectives over the mesh's process groups, and their autograd pairs.
+
+PyTorch counterpart of ``flexflow_tpu/parallel/collectives.py``. This is
+the only module of the port that calls a ``torch.distributed``
+collective. Each function takes a rank's local block; a ``Group``
+(``core/machine.py``) names the ranks it runs among.
+
+On a ``gloo`` group a CUDA tensor goes through a host buffer: copied to
+the host, reduced or moved there, copied back. The bytes copied each way
+are counted (:func:`stats`), so a run can say what its ranks moved
+through the host.
+
+The pairs that keep gradients exact under SPMD, each a
+``torch.autograd.Function``:
+
+==========================================  ==========  ==========
+transition                                  forward     backward
+==========================================  ==========  ==========
+replicated -> sharded (:func:`scatter_to`)  slice       all_gather
+partial sum -> replicated (:func:`reduce_from`)  all_reduce  identity
+replicated input of a sharded compute
+(:func:`copy_to`)                           identity    all_reduce
+sharded -> replicated (:func:`gather_from`)  all_gather  slice
+==========================================  ==========  ==========
+
+:func:`ring_shift` (send to the next rank, receive from the previous;
+backward the other way) and :func:`all_to_all` (its own transpose) carry
+sequence-parallel attention. :func:`ring_all_reduce`,
+:func:`psum_all_reduce`, :func:`expert_all_to_all` and
+:func:`experts_to_tokens` are the JAX module's four functions.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Dict, List, Sequence
+
+import torch
+import torch.distributed as dist
+
+from ..core.machine import Group, Mesh
+
+_stats_lock = threading.Lock()
+_stats = {"calls": 0, "staged_bytes": 0}
+
+
+def stats() -> Dict[str, int]:
+    """Collective calls and bytes staged through the host (each way) since
+    the last :func:`reset_stats`."""
+    with _stats_lock:
+        return dict(_stats)
+
+
+def reset_stats() -> None:
+    with _stats_lock:
+        _stats["calls"] = _stats["staged_bytes"] = 0
+
+
+def _count(staged: int) -> None:
+    with _stats_lock:
+        _stats["calls"] += 1
+        _stats["staged_bytes"] += staged
+
+
+def _staged(group: Group, t: torch.Tensor) -> bool:
+    return t.is_cuda and dist.get_backend(group.pg) == "gloo"
+
+
+def _host(group: Group, t: torch.Tensor, copy: bool = False) -> torch.Tensor:
+    """The buffer a collective runs on: a host copy on a gloo group, else
+    ``t`` made contiguous (a copy when the collective writes in place)."""
+    if _staged(group, t):
+        return t.detach().cpu()
+    return t.detach().clone(memory_format=torch.contiguous_format) if copy \
+        else t.detach().contiguous()
+
+
+def _back(t: torch.Tensor, buf: torch.Tensor, staged_in: int) -> torch.Tensor:
+    if buf.device != t.device:
+        out = buf.to(t.device)
+        _count(staged_in + buf.numel() * buf.element_size())
+        return out
+    _count(0)
+    return buf
+
+
+# ------------------------------------------------------------ primitives
+def all_reduce_sum(t: torch.Tensor, group: Group) -> torch.Tensor:
+    """The sum of ``t`` over the group's ranks (a new tensor)."""
+    buf = _host(group, t, copy=True)
+    n_in = buf.numel() * buf.element_size() if buf.device != t.device else 0
+    dist.all_reduce(buf, group=group.pg)
+    return _back(t, buf, n_in)
+
+
+def all_gather(t: torch.Tensor, group: Group, dim: int) -> torch.Tensor:
+    """The ranks' blocks of ``t`` concatenated along ``dim`` in rank order."""
+    buf = _host(group, t)
+    n_in = buf.numel() * buf.element_size() if buf.device != t.device else 0
+    parts = [torch.empty_like(buf) for _ in range(group.size)]
+    dist.all_gather(parts, buf, group=group.pg)
+    return _back(t, torch.cat(parts, dim=dim), n_in)
+
+
+def _all_to_all_dim0(t: torch.Tensor, group: Group) -> torch.Tensor:
+    """Chunk ``j`` of ``t``'s dim 0 goes to rank ``j``; chunk ``j`` of the
+    result came from rank ``j``."""
+    buf = _host(group, t)
+    n_in = buf.numel() * buf.element_size() if buf.device != t.device else 0
+    out = torch.empty_like(buf)
+    dist.all_to_all_single(out, buf, group=group.pg)
+    return _back(t, out, n_in)
+
+
+def _shift(t: torch.Tensor, group: Group, step: int) -> torch.Tensor:
+    """Send ``t`` to the rank ``step`` places on in the group, receive
+    from the rank ``step`` places back."""
+    buf = _host(group, t)
+    n_in = buf.numel() * buf.element_size() if buf.device != t.device else 0
+    out = torch.empty_like(buf)
+    n = group.size
+    to = group.ranks[(group.index + step) % n]
+    frm = group.ranks[(group.index - step) % n]
+    reqs = dist.batch_isend_irecv([dist.P2POp(dist.isend, buf, to, group.pg),
+                                   dist.P2POp(dist.irecv, out, frm, group.pg)])
+    for r in reqs:
+        r.wait()
+    return _back(t, out, n_in)
+
+
+def all_reduce_coalesced(tensors: Sequence[torch.Tensor], group: Group) -> List[torch.Tensor]:
+    """The sums of several tensors over the group in one collective: one
+    flat buffer (per dtype), as DDP's buckets."""
+    out: List[torch.Tensor] = list(tensors)
+    by_dtype: Dict[torch.dtype, List[int]] = {}
+    for i, t in enumerate(tensors):
+        by_dtype.setdefault(t.dtype, []).append(i)
+    for idx in by_dtype.values():
+        flat = all_reduce_sum(torch.cat([tensors[i].reshape(-1) for i in idx]), group)
+        for i, part in zip(idx, flat.split([tensors[i].numel() for i in idx])):
+            out[i] = part.view(tensors[i].shape)
+    return out
+
+
+def _chunk(t: torch.Tensor, group: Group, dim: int) -> torch.Tensor:
+    size = t.shape[dim]
+    if size % group.size:
+        raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split into "
+                         f"{group.size} blocks")
+    step = size // group.size
+    return t.narrow(dim, group.index * step, step).contiguous()
+
+
+# ------------------------------------------------------ autograd pairs
+class _ScatterTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _chunk(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g.contiguous(), ctx.group, ctx.dim), None, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather(x.contiguous(), group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _chunk(g, ctx.group, ctx.dim), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum(g.contiguous(), ctx.group), None
+
+
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _shift(x.contiguous(), group, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _shift(g.contiguous(), ctx.group, -1), None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_to_all_dim0(x.contiguous(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        # chunk j of the output came from rank j's chunk [index]: the
+        # exchange is its own transpose
+        return _all_to_all_dim0(g.contiguous(), ctx.group), None
+
+
+def scatter_to(x: torch.Tensor, group: Group, dim: int) -> torch.Tensor:
+    """Replicated -> sharded on ``dim``: this rank's block; backward
+    all-gathers the gradient."""
+    return _ScatterTo.apply(x, group, dim)
+
+
+def gather_from(x: torch.Tensor, group: Group, dim: int) -> torch.Tensor:
+    """Sharded on ``dim`` -> replicated: the blocks concatenated; backward
+    keeps this rank's block of the gradient."""
+    return _GatherFrom.apply(x, group, dim)
+
+
+def reduce_from(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """Partial sums -> replicated: all-reduce; backward identity."""
+    return _ReduceFrom.apply(x, group)
+
+
+def copy_to(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """A replicated input entering a computation sharded over the group:
+    identity; backward all-reduces the partial gradients."""
+    return _CopyTo.apply(x, group)
+
+
+def ring_shift(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """This rank's ``x`` to the next rank of the group's ring, the previous
+    rank's to this one; backward sends the gradient the other way."""
+    return _RingShift.apply(x, group)
+
+
+def all_to_all(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """Chunk ``j`` of dim 0 to rank ``j``; differentiable."""
+    return _AllToAll.apply(x, group)
+
+
+# --------------------------------------- the JAX module's four functions
+def ring_all_reduce(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """The sum over ``axis`` of the ranks' ``x``, scheduled as the NCCL ring:
+    n-1 reduce-scatter steps of a chunk of dim 0 to the next rank, then
+    n-1 all-gather steps. Dim 0 must split into the axis degree."""
+    group = mesh.group([axis])
+    n, me = group.size, group.index
+    acc = list(x.chunk(n, dim=0))
+    if len(acc) != n or x.shape[0] % n:
+        raise ValueError(f"ring_all_reduce: dim 0 of {tuple(x.shape)} does not split "
+                         f"into {n} chunks")
+    acc = [a.clone() for a in acc]
+    for s in range(n - 1):
+        send_i, recv_i = (me - s) % n, (me - s - 1) % n
+        acc[recv_i] = acc[recv_i] + _shift(acc[send_i], group, 1)
+    # this rank owns the fully reduced chunk (me + 1) % n; pass it round
+    own = (me + 1) % n
+    for s in range(n - 1):
+        i = (own - s) % n
+        acc[(i - 1) % n] = _shift(acc[i], group, 1)
+    return torch.cat(acc, dim=0)
+
+
+def psum_all_reduce(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """The sum over ``axis`` of the ranks' ``x``: one all-reduce."""
+    return all_reduce_sum(x, mesh.group([axis]))
+
+
+def expert_all_to_all(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """(experts, capacity/n, d) sharded on tokens -> (experts/n, capacity,
+    d) sharded on experts: each rank receives its experts' tokens."""
+    group = mesh.group([axis])
+    n = group.size
+    e, c, d = x.shape
+    if e % n:
+        raise ValueError(f"expert_all_to_all: {e} experts over {n} ranks")
+    # chunk j (rank j's experts) to rank j; rank r's tokens arrive in slot r
+    got = _all_to_all_dim0(x.reshape(n, e // n, c, d), group)
+    return got.permute(1, 0, 2, 3).reshape(e // n, n * c, d)
+
+
+def experts_to_tokens(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """Inverse of :func:`expert_all_to_all`: (experts/n, capacity, d) ->
+    (experts, capacity/n, d)."""
+    group = mesh.group([axis])
+    n = group.size
+    el, c, d = x.shape
+    if c % n:
+        raise ValueError(f"experts_to_tokens: capacity {c} over {n} ranks")
+    send = x.reshape(el, n, c // n, d).permute(1, 0, 2, 3).contiguous()
+    return _all_to_all_dim0(send, group).reshape(n * el, c // n, d)

@@ -31,7 +31,7 @@ The crash-safety contract is the reference's:
   ``checkpoint.elastic_resumes``.
 
 Multi-process checkpoints (``MultiHostCheckpointManager``) are ROADMAP
-queue A7: a manager opened in a process group of more than one process
+A7b: a manager opened in a process group of more than one process
 raises ``NotImplementedError``.
 """
 
@@ -176,7 +176,7 @@ class CheckpointManager:
         if _process_count() > 1:
             raise NotImplementedError(
                 "multi-process checkpoints (MultiHostCheckpointManager) are not "
-                "ported yet (ROADMAP A7)")
+                "ported yet (ROADMAP A7b)")
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
         os.makedirs(self.directory, exist_ok=True)

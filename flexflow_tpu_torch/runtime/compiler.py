@@ -28,7 +28,19 @@ steps and microbatches; K = 1 keeps ``r``), where the JAX package splits
 its key; dropout masks therefore differ between the packages under
 accumulation, and parity holds at rate 0. Under ``config.seq_buckets`` the
 sparse-CE loss and metrics mask ``-1`` positions (``mask_padding``).
-ZeRO and sharding arrive with later slices.
+
+Over a mesh (``config.mesh_shape`` or ``mesh=``, one process per rank)
+the JAX package's GSPMD program becomes explicit SPMD: inputs are sharded
+on the batch over ``data``, :func:`build_ops` propagates the layouts
+under each layer's strategy, every rank draws each weight whole from the
+seed and keeps its block, and the forward hands each op its inputs in the
+layout its ``propagate`` asked for (``ops/parallel_ops.reshard``). Each
+rank's loss is its share of the global mean (its local sum over the
+global count), so the step's loss is the sum over the ranks the logits
+are sharded over, and a weight's gradient is all-reduced, one flat buffer
+a set of axes, over the axes its op's output is sharded on and the weight
+is not (``data``, ``seq``). The metrics' sums are all-reduced the same
+way. ZeRO, the pipeline and expert parallelism are ROADMAP A7b.
 """
 
 from __future__ import annotations
@@ -41,10 +53,13 @@ import torch
 
 from ..config import FFConfig
 from ..core.layer import Layer
+from ..core.machine import DATA_AXIS, Mesh, make_mesh
 from ..core.op import LowerCtx, Op, create_op
-from ..core.parallel_tensor import ParallelTensorShape
+from ..core.parallel_tensor import ParallelDim, ParallelTensorShape
 from ..core.tensor import Tensor
 from ..ffconst import CompMode, DataType, LossType, MetricsType, OpType
+from ..ops.parallel_ops import reshard
+from ..parallel import collectives as C
 from .loss import compute_loss
 from .metrics import compute_batch_metrics
 from .optimizer import Optimizer
@@ -95,6 +110,28 @@ class CompiledModel:
     params_version: int = 0
     # every (kind, rows, seq_length) bucketed fit/eval has dispatched
     _seen_shapes: set = dataclasses.field(default_factory=set)
+    # the rank grid (None on one device) and every tensor's layout over it
+    # by tensor id; under a mesh ``params`` hold this rank's blocks, the
+    # step functions take the rank's rows of a batch (``batch_rows``) and
+    # return the global loss and metrics, and ``forward_fn``/``eval_step``
+    # the whole logits
+    mesh: Optional[Mesh] = None
+    layouts: Dict[int, ParallelTensorShape] = dataclasses.field(default_factory=dict)
+
+    def batch_rows(self, i: int) -> slice:
+        """This rank's rows of a global batch of input ``i`` (the label
+        when ``i`` is the input count): all of them unless its dim 0 is
+        sharded."""
+        if self.mesh is None:
+            return slice(None)
+        if i == len(self.input_tensors):
+            layout = self.layouts[self.logits_tensor.tensor_id]
+        else:
+            layout = self.layouts[self.input_tensors[i].tensor_id]
+        return self.mesh.local_slices(layout)[0]
+
+    def weight_layout(self, op_name: str, w_name: str) -> ParallelTensorShape:
+        return next(op.weight_shapes[w_name] for op in self.ops if op.name == op_name)
 
     def note_dispatch_shape(self, kind: str, rows: int, seq_length: int) -> bool:
         """Record a (kind, rows, seq_length) dispatch shape; True the first
@@ -133,23 +170,47 @@ def toposort_layers(layers: List[Layer]) -> List[Layer]:
     return layers
 
 
+def _provenance(layer: Layer) -> str:
+    return f"layer {layer.name!r} ({layer.op_type.name})"
+
+
 def build_ops(
     layers: List[Layer],
     input_pshapes: Dict[int, ParallelTensorShape],
+    axis_sizes: Optional[Dict[str, int]] = None,
+    strategies: Optional[Dict[str, Dict[str, Any]]] = None,
 ) -> Tuple[List[Op], Dict[int, ParallelTensorShape]]:
-    """Instantiate ops and propagate shapes through the graph."""
+    """Instantiate ops and propagate layouts through the graph under each
+    layer's strategy (``strategies[layer name]``) over a mesh of
+    ``axis_sizes``; every failure names the layer."""
+    axis_sizes = dict(axis_sizes or {})
+    strategies = strategies or {}
     pshapes: Dict[int, ParallelTensorShape] = dict(input_pshapes)
     ops: List[Op] = []
     for layer in toposort_layers(layers):
         in_shapes = [pshapes[t.tensor_id] for t in layer.inputs]
         op = create_op(layer, in_shapes)
-        out_shapes, weight_shapes = op.propagate(in_shapes)
+        strategy = dict(strategies.get(layer.name, {}))
+        strategy["_axis_sizes"] = axis_sizes
+        try:
+            out_shapes, weight_shapes = op.propagate(in_shapes, strategy)
+        except (ValueError, KeyError, IndexError) as e:
+            raise ValueError(
+                f"{_provenance(layer)}: sharding propagation rejected strategy "
+                f"{strategies.get(layer.name)} on inputs {[str(s) for s in in_shapes]}: "
+                f"{e}") from e
+        for ps in list(out_shapes) + list(weight_shapes.values()) + list(op.input_layouts):
+            if ps.has_duplicate_axes():
+                raise ValueError(
+                    f"{_provenance(layer)}: strategy {strategies.get(layer.name)} maps one "
+                    f"mesh axis onto two dims of a tensor ({ps.partition_spec()}); pick "
+                    f"a different axis for this op")
         op.output_shapes = out_shapes
         op.weight_shapes = weight_shapes
         for i, (t, ps) in enumerate(zip(layer.outputs, out_shapes)):
             if tuple(t.dims) != tuple(ps.sizes):
                 raise ValueError(
-                    f"layer {layer.name!r} output {i}: declared dims "
+                    f"{_provenance(layer)} output {i}: declared dims "
                     f"{tuple(t.dims)} vs propagated {tuple(ps.sizes)}")
             pshapes[t.tensor_id] = ps
         ops.append(op)
@@ -162,11 +223,13 @@ def _weight_seed(seed: int, op_name: str, index: int) -> int:
     return (seed * 1_000_003 + zlib.crc32(op_name.encode()) * 131 + index) % (1 << 63)
 
 
-def init_params(ops: List[Op], seed: int,
-                device: torch.device) -> Tuple[Params, Dict[str, Dict[str, bool]]]:
+def init_params(ops: List[Op], seed: int, device: torch.device,
+                mesh: Optional[Mesh] = None) -> Tuple[Params, Dict[str, Dict[str, bool]]]:
     """Draw every weight on ``device`` from a ``torch.Generator`` seeded
     per (seed, op name, weight index). Returns (params, wd_mask), the mask
-    from each ``WeightSpec.weight_decay``."""
+    from each ``WeightSpec.weight_decay``. Under a mesh each weight is
+    drawn whole and the rank keeps its block, so a sharded model starts
+    from the one-rank model's values."""
     params: Params = {}
     wd_mask: Dict[str, Dict[str, bool]] = {}
     for op in ops:
@@ -178,8 +241,10 @@ def init_params(ops: List[Op], seed: int,
         for wi, ws in enumerate(specs):
             gen = torch.Generator(device=device)
             gen.manual_seed(_weight_seed(seed, op.name, wi))
-            params[op.name][ws.name] = ws.initializer(
-                gen, ws.shape, ws.dtype.to_torch(), device)
+            w = ws.initializer(gen, ws.shape, ws.dtype.to_torch(), device)
+            if mesh is not None:
+                w = w[mesh.local_slices(op.weight_shapes[ws.name])].contiguous()
+            params[op.name][ws.name] = w
             wd_mask[op.name][ws.name] = ws.weight_decay
     return params, wd_mask
 
@@ -237,7 +302,8 @@ def cast_op_params(cast, op: Op, params: Dict[str, torch.Tensor],
     return {k: cast(v) for k, v in params.items()}
 
 
-def _forward_graph(ops: List[Op], params: Params,
+def _forward_graph(ops: List[Op], layouts: Dict[int, ParallelTensorShape],
+                   mesh: Optional[Mesh], params: Params,
                    inputs: Dict[int, torch.Tensor],
                    compute_dtype: Optional[torch.dtype] = None,
                    plain_kernels: bool = False,
@@ -247,24 +313,44 @@ def _forward_graph(ops: List[Op], params: Params,
                    state_updates: Optional[dict] = None,
                    seq_length: int = -1
                    ) -> Tuple[Dict[int, torch.Tensor], List[torch.Tensor]]:
-    """Run the op graph; returns (every activation by tensor id, the
-    auxiliary losses the ops appended). With a ``compute_dtype`` (bf16)
-    activations and op weights are cast on entry to each op and outputs
-    cast back, while ``params`` stay f32: autograd through the casts gives
-    f32 gradients against the f32 master params. Integer inputs (token
-    ids) are never cast. ``rng``/``seed``: the step's key and the config's
-    seed, from which each op draws (``LowerCtx.generator``).
-    ``state_updates``: a dict the training forward fills with the ops' new
-    non-trainable state. ``seq_length``: ``LowerCtx.seq_length``."""
-    ctx = LowerCtx(plain_kernels=plain_kernels, training=training, aux_losses=[],
-                   rng=rng, seed=seed, state_updates=state_updates,
+    """Run the op graph on this rank's blocks; returns (every activation by
+    tensor id, in its producer's layout, the auxiliary losses the ops
+    appended). Under a ``mesh`` each op gets its inputs in the layouts its
+    ``propagate`` asked for, resharded from the producer's once a forward
+    (cached by tensor and layout), and each output's block is checked
+    against its layout; without one every layout is whole. With a
+    ``compute_dtype`` (bf16) activations and op weights are cast on entry
+    to each op and outputs cast back, while ``params`` stay f32: autograd
+    through the casts gives f32 gradients against the f32 master params.
+    Integer inputs (token ids) are never cast. ``rng``/``seed``: the step's
+    key and the config's seed, from which each op draws
+    (``LowerCtx.generator``). ``state_updates``: a dict the training
+    forward fills with the ops' new non-trainable state. ``seq_length``:
+    ``LowerCtx.seq_length``."""
+    ctx = LowerCtx(mesh=mesh, plain_kernels=plain_kernels, training=training,
+                   aux_losses=[], rng=rng, seed=seed, state_updates=state_updates,
                    seq_length=seq_length)
     cast = make_caster(compute_dtype)
     acts = {k: cast(v) for k, v in inputs.items()}
+    moved: Dict[Tuple[int, tuple], torch.Tensor] = {}
+
+    def fetch(tid: int, want: ParallelTensorShape) -> torch.Tensor:
+        src = layouts[tid]
+        if mesh is None or want.layout() == src.layout():
+            return acts[tid]
+        key = (tid, want.layout())
+        if key not in moved:
+            moved[key] = reshard(acts[tid], src, want, mesh)
+        return moved[key]
+
     for op in ops:
-        ins = [acts[t.tensor_id] for t in op.layer.inputs]
+        ins = [fetch(t.tensor_id, want) for t, want in zip(op.layer.inputs, op.input_layouts)]
         p = cast_op_params(cast, op, params.get(op.name, {}), compute_dtype)
-        for out, t in zip(op.forward(ctx, ins, p), op.layer.outputs):
+        for out, t, ps in zip(op.forward(ctx, ins, p), op.layer.outputs, op.output_shapes):
+            if mesh is not None and tuple(out.shape) != ps.local_sizes():
+                raise RuntimeError(
+                    f"{_provenance(op.layer)}: this rank's output block is "
+                    f"{tuple(out.shape)}, its layout {ps} gives {ps.local_sizes()}")
             acts[t.tensor_id] = cast(out)
     return acts, ctx.aux_losses
 
@@ -303,21 +389,35 @@ def compile_model(
     loss_type: Optional[LossType] = None,
     metrics: Optional[List[MetricsType]] = None,
     comp_mode: CompMode = CompMode.TRAINING,
+    strategies: Optional[Dict[str, Dict[str, Any]]] = None,
+    mesh: Optional[Mesh] = None,
 ) -> CompiledModel:
     """The compile entry point. ``eval_step`` exists when a loss is given,
     ``train_step``/``grad_step`` when an optimizer and a loss are given and
-    ``comp_mode`` is TRAINING (an inference model never gets them)."""
+    ``comp_mode`` is TRAINING (an inference model never gets them).
+    ``strategies`` maps a layer name to its strategy; ``mesh`` defaults to
+    ``make_mesh(config.mesh_shape)`` (None on one rank)."""
     if config.search_budget != 0:
         raise NotImplementedError(
             "the strategy search is not ported; search_budget must be 0")
     metrics = list(metrics or [])
     device = config.torch_device()
-    input_pshapes = {t.tensor_id: ParallelTensorShape.unpartitioned(t.dims, t.dtype)
-                     for t in input_tensors}
-    ops, _ = build_ops(layers, input_pshapes)
+    if mesh is None:
+        mesh = make_mesh(config.mesh_shape)
+    axis_sizes = dict(mesh.shape) if mesh is not None else {}
+    if config.zero_optimizer and axis_sizes.get(DATA_AXIS, 1) > 1:
+        raise NotImplementedError("zero_optimizer: ZeRO-1 over the data axis is ROADMAP A7b")
+    data_degree = axis_sizes.get(DATA_AXIS, 1)
+    input_pshapes = {}
+    for t in input_tensors:
+        dims = [ParallelDim(s) for s in t.dims]
+        if dims and data_degree > 1 and t.dims[0] % data_degree == 0:
+            dims[0] = ParallelDim(t.dims[0], data_degree, DATA_AXIS)
+        input_pshapes[t.tensor_id] = ParallelTensorShape(tuple(dims), t.dtype)
+    ops, layouts = build_ops(layers, input_pshapes, axis_sizes, strategies)
     for op in ops:
         op.materialize(device)
-    params, wd_mask = init_params(ops, config.seed, device)
+    params, wd_mask = init_params(ops, config.seed, device, mesh)
     cdt = _resolve_compute_dtype(config.compute_dtype)
     n_inputs = len(input_tensors)
     input_ids = [t.tensor_id for t in input_tensors]
@@ -332,21 +432,94 @@ def compile_model(
                    if op.attrs.get("kernel_regularizer") is not None
                    and hasattr(op.attrs["kernel_regularizer"], "penalty")]
 
+    # ---- the mesh's share of the step: each rank's loss is its local sum
+    # over the global count; gradients and metric sums are all-reduced
+    logits_layout = layouts[logits_id]
+    weight_layouts = {op.name: op.weight_shapes for op in ops}
+    loss_group = reduce_plan = None
+    if mesh is not None:
+        if (loss_type in (LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
+                          LossType.CATEGORICAL_CROSSENTROPY)
+                and logits_layout.dims[-1].is_partitioned):
+            raise NotImplementedError(
+                f"the {loss_type.name} loss reads the class dim whole; the logits shard "
+                f"it over {logits_layout.dims[-1].axis!r}: combine it first")
+        if logits_layout.partition_axes:
+            loss_group = mesh.group(logits_layout.partition_axes)
+        reduce_plan = {}
+        for op in ops:
+            out_axes = set(op.output_shapes[0].partition_axes) if op.output_shapes else set()
+            for w_name, ws in op.weight_shapes.items():
+                axes = tuple(a for a in mesh.axis_names
+                             if a in out_axes and a not in ws.partition_axes)
+                if axes:
+                    reduce_plan.setdefault(axes, []).append((op.name, w_name))
+
+    def sync_grads(grads: Params) -> Params:
+        """All-reduce each weight's gradient over its plan's axes, one flat
+        buffer a set of axes (DP's bucket)."""
+        for axes, names in (reduce_plan or {}).items():
+            summed = C.all_reduce_coalesced([grads[o][w] for o, w in names],
+                                            mesh.group(axes))
+            for (o, w), g in zip(names, summed):
+                grads[o][w] = g
+        return grads
+
+    def sync_metrics(bm: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        if loss_group is None or not bm:
+            return bm
+        keys = sorted(bm)
+        summed = C.all_reduce_sum(torch.stack([bm[k].double() for k in keys]), loss_group)
+        return {k: summed[i].to(bm[k].dtype) for i, k in enumerate(keys)}
+
+    def label_block(y: torch.Tensor) -> torch.Tensor:
+        """The labels of this rank's logits block: its rows arrive from the
+        loader; the other dims are cut as the logits' are."""
+        if mesh is None:
+            return y
+        for d in range(1, min(y.dim(), len(logits_layout.dims))):
+            ld = logits_layout.dims[d]
+            if ld.is_partitioned and y.shape[d] == ld.size:
+                y = C.scatter_to(y, mesh.group([ld.axis]), d)
+        return y
+
+    def loss_share(loss: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """This rank's share of the global mean: its local mean times its
+        share of the global count."""
+        if loss_group is None:
+            return loss
+        if (mask_pad and loss_type is LossType.SPARSE_CATEGORICAL_CROSSENTROPY
+                and len(logits_layout.dims) >= 3):
+            n = (y >= 0).sum().double()
+            total = C.all_reduce_sum(n, loss_group)
+            return loss * (n / total.clamp(min=1)).to(loss.dtype)
+        return loss / loss_group.size
+
+    def global_loss(share: torch.Tensor) -> torch.Tensor:
+        return share if loss_group is None else C.all_reduce_sum(share, loss_group)
+
     def run(params: Params, xs, plain_kernels: bool, training: bool,
             rng: Optional[int] = None, state_updates: Optional[dict] = None,
             seq_length: int = -1) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         """(f32 logits, the auxiliary losses in f32): loss and metrics are
-        f32 whatever the compute dtype."""
-        acts, aux = _forward_graph(ops, params, dict(zip(input_ids, xs)), cdt,
+        f32 whatever the compute dtype. Under a mesh, this rank's block of
+        the logits."""
+        acts, aux = _forward_graph(ops, layouts, mesh, params, dict(zip(input_ids, xs)), cdt,
                                    plain_kernels, training, rng, config.seed,
                                    state_updates, seq_length)
         return acts[logits_id].float(), [a.float() for a in aux]
 
+    def whole(logits: torch.Tensor) -> torch.Tensor:
+        if mesh is None:
+            return logits
+        return reshard(logits, logits_layout,
+                       ParallelTensorShape.unpartitioned(logits_layout.sizes), mesh)
+
     def forward_fn(params: Params, *xs: torch.Tensor, plain_kernels: bool = False,
                    seq_length: int = -1) -> torch.Tensor:
         with torch.inference_mode():
-            return run(params, xs, plain_kernels, training=False,
-                       seq_length=seq_length)[0]
+            return whole(run(params, xs, plain_kernels, training=False,
+                             seq_length=seq_length)[0])
 
     def value_and_grad(params: Params, batch, plain_kernels: bool, rng,
                        state_updates: Optional[dict] = None, seq_length: int = -1,
@@ -357,29 +530,40 @@ def compile_model(
         ``kernel_regularizer``'s penalty on the f32 master kernel; the
         grads are f32 trees like ``params``. ``state_updates`` collects
         the forward's new state."""
-        xs, y = batch[:n_inputs], batch[n_inputs]
+        xs, y = batch[:n_inputs], label_block(batch[n_inputs])
         leaves = {op: {w: t.detach().requires_grad_(True) for w, t in ws.items()}
                   for op, ws in params.items()}
         flat = [t for ws in leaves.values() for t in ws.values()]
         with torch.enable_grad():
             logits, aux = run(leaves, xs, plain_kernels, training=True, rng=rng,
                               state_updates=state_updates, seq_length=seq_length)
-            loss = compute_loss(loss_type, logits, y, from_logits, mask_pad)
+            loss = loss_share(compute_loss(loss_type, logits, y, from_logits, mask_pad), y)
             for a in aux:
                 loss = loss + a
             if regularize:
                 for op_name, reg in regularized:
                     if "kernel" in leaves.get(op_name, {}):
-                        loss = loss + reg.penalty(leaves[op_name]["kernel"])
+                        loss = loss + penalty_share(op_name, reg, leaves[op_name]["kernel"])
         gs = iter(torch.autograd.grad(loss, flat, allow_unused=True))
         grads = {op: {w: _or_zeros(next(gs), t) for w, t in ws.items()}
                  for op, ws in leaves.items()}
         return loss.detach(), logits.detach(), grads
 
+    def penalty_share(op_name: str, reg, kernel: torch.Tensor) -> torch.Tensor:
+        """A regularizer's penalty: on a sharded kernel the blocks' partial
+        penalties are summed; each loss rank adds its share."""
+        pen = reg.penalty(kernel)
+        if mesh is None:
+            return pen
+        axes = weight_layouts[op_name]["kernel"].partition_axes
+        if axes:
+            pen = C.reduce_from(pen, mesh.group(axes))
+        return pen / (loss_group.size if loss_group is not None else 1)
+
     def grad_step(params: Params, rng, *batch: torch.Tensor,
                   plain_kernels: bool = False, seq_length: int = -1) -> Params:
-        return value_and_grad(params, batch, plain_kernels, rng,
-                              seq_length=seq_length)[2]
+        return sync_grads(value_and_grad(params, batch, plain_kernels, rng,
+                                         seq_length=seq_length)[2])
 
     def accumulated(params: Params, batch, plain_kernels: bool, rng, seq_length: int):
         """(loss, grads, batch metrics, state updates) of one batch as K
@@ -395,7 +579,7 @@ def compile_model(
             li, lgi, gi = value_and_grad(params, mb, plain_kernels,
                                          None if rng is None else int(rng) * accum + i,
                                          upd, seq_length, regularize=True)
-            bmi = compute_batch_metrics(metrics, loss_type, lgi, mb[n_inputs],
+            bmi = compute_batch_metrics(metrics, loss_type, lgi, label_block(mb[n_inputs]),
                                         from_logits, mask_pad)
             if grads is None:
                 loss_sum, grads, bm, upd_sum = li, gi, bmi, upd
@@ -415,11 +599,13 @@ def compile_model(
             updates: dict = {}
             loss, logits, grads = value_and_grad(params, batch, plain_kernels, rng,
                                                  updates, seq_length, regularize=True)
-            bm = compute_batch_metrics(metrics, loss_type, logits, batch[n_inputs],
+            bm = compute_batch_metrics(metrics, loss_type, logits, label_block(batch[n_inputs]),
                                        from_logits, mask_pad)
         else:
             loss, grads, bm, updates = accumulated(params, batch, plain_kernels, rng,
                                                    seq_length)
+        if mesh is not None:
+            grads, bm, loss = sync_grads(grads), sync_metrics(bm), global_loss(loss)
         params, opt_state = optimizer.update(params, grads, opt_state, wd_mask,
                                              optimizer.hyperparams())
         # non-trainable state (BatchNorm's running statistics), written after
@@ -450,14 +636,16 @@ def compile_model(
 
     def eval_step(params: Params, *batch: torch.Tensor,
                   plain_kernels: bool = False, seq_length: int = -1):
-        y = batch[n_inputs]
+        y = label_block(batch[n_inputs])
         with torch.inference_mode():
             # the auxiliary losses are dropped: eval reports the model's loss
             logits = run(params, batch[:n_inputs], plain_kernels, training=False,
                          seq_length=seq_length)[0]
-            loss = compute_loss(loss_type, logits, y, from_logits, mask_pad)
-            return loss, logits, compute_batch_metrics(metrics, loss_type, logits,
-                                                       y, from_logits, mask_pad)
+            loss = global_loss(loss_share(
+                compute_loss(loss_type, logits, y, from_logits, mask_pad), y))
+            bm = sync_metrics(compute_batch_metrics(metrics, loss_type, logits, y,
+                                                    from_logits, mask_pad))
+            return loss, whole(logits), bm
 
     training = (comp_mode is CompMode.TRAINING and optimizer is not None
                 and loss_type is not None)
@@ -472,7 +660,7 @@ def compile_model(
         train_k_steps=train_k_steps if training else None,
         eval_step=eval_step if loss_type is not None else None,
         grad_step=grad_step if training else None,
-        from_logits=from_logits)
+        from_logits=from_logits, mesh=mesh, layouts=layouts)
 
 
 def _or_zeros(grad: Optional[torch.Tensor], like: torch.Tensor) -> torch.Tensor:

@@ -14,7 +14,9 @@ their bucket. :class:`Prefetcher` assembles host batches on a worker
 thread ahead of the step (``prefetch_depth``) and groups them into stacked
 super-batches for ``train_k_steps`` (``steps_per_dispatch``); the consumer
 copies them to the card. Batch order is the serial loader's at any depth.
-The C++ native loader is not ported.
+Under a mesh each rank's loader keeps its rows of every global batch
+(``rows``), so the shuffle, the batch boundaries and the Prefetcher's
+order are every rank's alike. The C++ native loader is not ported.
 """
 
 from __future__ import annotations
@@ -55,13 +57,15 @@ def _put(batch: np.ndarray, device: torch.device) -> torch.Tensor:
 class SingleDataLoader:
     """One tensor's loader. The sample count need not divide into whole
     batches: an epoch takes the whole batches, and a batch that would run
-    past the end starts over at the first sample."""
+    past the end starts over at the first sample. ``rows``: this rank's
+    rows of each batch (all by default)."""
 
     def __init__(self, full_array: np.ndarray, batch_size: int,
-                 device: torch.device):
+                 device: torch.device, rows: slice = slice(None)):
         self.data = np.ascontiguousarray(full_array)
         self.batch_size = batch_size
         self.device = torch.device(device)
+        self.rows = rows
         self.num_samples = self.data.shape[0]
         self.next_index = 0
         # row permutation of the pristine dataset, set by the group
@@ -86,7 +90,8 @@ class SingleDataLoader:
             i = 0
         rows = slice(i, i + self.batch_size)
         self.next_index = i + self.batch_size
-        return self.data[self.perm[rows]] if self.perm is not None else self.data[rows]
+        batch = self.data[self.perm[rows]] if self.perm is not None else self.data[rows]
+        return batch[self.rows]
 
     def next_batch(self) -> torch.Tensor:
         return _put(self.next_batch_host(), self.device)

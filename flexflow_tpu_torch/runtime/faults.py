@@ -38,7 +38,7 @@ Prefetcher's worker), ``checkpoint.torn_write`` (``CheckpointManager``)
 and ``train.nan_loss``, ``train.stall`` and ``train.kill`` (``fit``'s
 step loop). A plan naming a ``multihost.*`` site validates as in the
 reference but raises ``NotImplementedError`` at :func:`configure_faults`,
-naming ROADMAP A7: a plan that validates and never fires would hide that
+naming ROADMAP A7b: a plan that validates and never fires would hide that
 the site is missing. ``train.stall`` sleeps as in the reference; the
 watchdog it is meant to trip is A10's.
 """
@@ -96,9 +96,9 @@ SITES: Dict[str, str] = {
 # the sites the port does not evaluate yet -> the ROADMAP item that
 # ports them
 _UNWIRED: Dict[str, str] = {
-    "multihost.init_timeout": "A7 (with parallel/multihost.py)",
-    "multihost.peer_kill": "A7 (with parallel/multihost.py)",
-    "multihost.slow_peer": "A7 (with parallel/multihost.py)",
+    "multihost.init_timeout": "A7b (with parallel/multihost.py)",
+    "multihost.peer_kill": "A7b (with parallel/multihost.py)",
+    "multihost.slow_peer": "A7b (with parallel/multihost.py)",
 }
 
 # rule keys accepted per site (trigger keys are shared)

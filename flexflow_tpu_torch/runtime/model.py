@@ -30,6 +30,16 @@ each unseen (rows, width) counted on ``fit.bucket_compiles``), a
 (``recompile_state=``) and the fault sites ``train.nan_loss``,
 ``train.stall`` and ``train.kill``. The stall watchdog, the per-epoch
 throughput series and the ledger records are ROADMAP queue A10.
+
+Over a mesh (``FFConfig.mesh_shape``, one process per rank, see
+``core/machine.py``) ``compile`` takes ``strategies=`` and the layers'
+``strategy=`` entries (``dense``, ``multihead_attention``), as the JAX
+package does; ``export_strategy``/``import_strategy`` write and read its
+JSON. The batch is the global one: ``fit``, ``eval`` and ``set_batch``
+take each rank's rows of it, ``load_numpy_params`` takes whole arrays and
+keeps each rank's blocks, and :meth:`FFModel.numpy_params` gathers them
+back. The parallel verbs (``repartition``, ``combine``, ``replicate``,
+``reduction``, ``allreduce``) move the data they name.
 """
 
 from __future__ import annotations
@@ -93,6 +103,8 @@ class FFModel:
         self.eval_profile: Optional[dict] = None
         self._resolved_ladder: Tuple[int, ...] = ()
         self._resolved_token_budget = 0
+        # the strategies of the last compile, by layer name
+        self._strategies: Dict[str, Dict[str, str]] = {}
 
     # ---- graph construction ---------------------------------------------
     def create_tensor(self, dims: Sequence[int],
@@ -128,14 +140,19 @@ class FFModel:
     def dense(self, input: Tensor, out_dim: int,
               activation: ActiMode = ActiMode.NONE, use_bias: bool = True,
               kernel_initializer=None, bias_initializer=None,
-              kernel_regularizer=None, name: Optional[str] = None) -> Tensor:
+              kernel_regularizer=None, name: Optional[str] = None,
+              strategy: Optional[Dict[str, str]] = None) -> Tensor:
         """``kernel_regularizer`` (``keras.regularizers``) adds its penalty
-        on the kernel to the training loss."""
+        on the kernel to the training loss. ``strategy``: ``{"out": axis}``
+        shards the out-features over a mesh axis, ``{"in": axis}`` the
+        in-features."""
         attrs = dict(out_dim=out_dim, activation=activation, use_bias=use_bias,
                      kernel_initializer=kernel_initializer,
                      bias_initializer=bias_initializer)
         if kernel_regularizer is not None:
             attrs["kernel_regularizer"] = kernel_regularizer
+        if strategy:
+            attrs["strategy"] = strategy
         return self._infer_and_add(OpType.LINEAR, [input], attrs, name)
 
     def conv2d(self, input: Tensor, out_channels: int, kernel_h: int, kernel_w: int,
@@ -145,7 +162,7 @@ class FFModel:
                name: Optional[str] = None,
                strategy: Optional[Dict[str, str]] = None) -> Tensor:
         """NCHW convolution with an OIHW kernel. A ``strategy`` raises:
-        sharding it needs a mesh (queue A7)."""
+        a sharded convolution is ROADMAP A7b."""
         attrs = dict(out_channels=out_channels, kernel=(kernel_h, kernel_w),
                      stride=(stride_h, stride_w), padding=(padding_h, padding_w),
                      activation=activation, groups=groups, use_bias=use_bias,
@@ -184,11 +201,16 @@ class FFModel:
                             embed_dim: int, num_heads: int, kdim: int = 0,
                             vdim: int = 0, dropout: float = 0.0,
                             bias: bool = True, kernel_initializer=None,
-                            causal: bool = False, name=None) -> Tensor:
+                            causal: bool = False, name=None,
+                            strategy: Optional[Dict[str, str]] = None) -> Tensor:
+        """``strategy``: ``{"heads": axis}`` shards the heads over a mesh
+        axis, ``{"seq": axis, "seq_mode": "ring" | "a2a"}`` the sequence."""
         attrs = dict(embed_dim=embed_dim, num_heads=num_heads,
                      kdim=kdim or embed_dim, vdim=vdim or embed_dim,
                      dropout=dropout, bias=bias,
                      kernel_initializer=kernel_initializer, causal=causal)
+        if strategy:
+            attrs["strategy"] = strategy
         return self._infer_and_add(OpType.MULTIHEAD_ATTENTION,
                                    [query, key, value], attrs, name)
 
@@ -310,8 +332,8 @@ class FFModel:
                   kernel_initializer=None, name=None,
                   strategy: Optional[Dict[str, str]] = None) -> Tensor:
         """Rows of a (num_entries, out_dim) table; SUM/AVG reduce the
-        trailing multi-hot dim. A ``strategy`` raises: sharding the table
-        needs a mesh (queue A7)."""
+        trailing multi-hot dim. A ``strategy`` raises: a sharded table is
+        ROADMAP A7b."""
         attrs = dict(num_entries=num_entries, out_dim=out_dim, aggr=aggr, dtype=dtype,
                      kernel_initializer=kernel_initializer)
         if strategy:
@@ -425,8 +447,8 @@ class FFModel:
                          alpha: float, name=None,
                          strategy: Optional[Dict[str, str]] = None) -> Tensor:
         """GroupBy emitting one stacked (n, capacity, d) tensor. A pinned
-        ``strategy={"expert": axis}`` raises: the expert-parallel path
-        needs a mesh (queue A7)."""
+        ``strategy={"expert": axis}`` raises: the expert-parallel path is
+        ROADMAP A7b."""
         attrs = dict(n=n, alpha=alpha)
         if strategy:
             attrs["strategy"] = strategy
@@ -483,19 +505,97 @@ class FFModel:
             agg_inputs.append(self.softmax(h))
         return self.aggregate(agg_inputs, num_exp, lambda_bal, name=f"{nm}_agg")
 
+    # ---- parallel ops -------------------------------------------------------
+    def repartition(self, input: Tensor, dim: int, axis: str,
+                    degree: Optional[int] = None, name=None) -> Tensor:
+        """Shard ``dim`` over mesh axis ``axis``."""
+        attrs = dict(dim=dim, axis=axis)
+        if degree:
+            attrs["degree"] = degree
+        return self._infer_and_add(OpType.REPARTITION, [input], attrs, name)
+
+    def combine(self, input: Tensor, dim: int, name=None) -> Tensor:
+        """Gather a sharded ``dim`` back to whole."""
+        return self._infer_and_add(OpType.COMBINE, [input], dict(dim=dim), name)
+
+    def replicate(self, input: Tensor, axis: str, name=None) -> Tensor:
+        """Replicate over ``axis``; the backward sums the replicas' gradients."""
+        return self._infer_and_add(OpType.REPLICATE, [input], dict(axis=axis), name)
+
+    def reduction(self, input: Tensor, axis: str, name=None) -> Tensor:
+        """Sum partial values over ``axis``."""
+        return self._infer_and_add(OpType.REDUCTION, [input], dict(axis=axis), name)
+
+    def allreduce(self, input: Tensor, name=None) -> Tensor:
+        return self._infer_and_add(OpType.ALLREDUCE, [input], {}, name)
+
+    # ---- strategies ---------------------------------------------------------
+    def export_strategy(self, path: str) -> None:
+        """Write the strategies in effect (the last compile's, and the
+        layers' own) as ``{"version": 1, "strategies": {layer: {...}}}``."""
+        import json
+
+        merged = dict(self._strategies)
+        for layer in self.layers:
+            if layer.attrs.get("strategy"):
+                merged[layer.name] = layer.attrs["strategy"]
+        strat = {name: clean for name, s in merged.items()
+                 if (clean := {k: v for k, v in s.items() if not k.startswith("_")})}
+        with open(path, "w") as f:
+            json.dump({"version": 1, "strategies": strat}, f, indent=2)
+
+    def import_strategy(self, path: str) -> Dict[str, Dict[str, str]]:
+        """Read a file :meth:`export_strategy` wrote (or a bare
+        ``{layer: strategy}`` map) onto the layers; returns the map."""
+        import json
+
+        with open(path) as f:
+            data = json.load(f)
+        strat = data.get("strategies", data)
+        for layer in self.layers:
+            if layer.name in strat:
+                layer.attrs["strategy"] = dict(strat[layer.name])
+        return strat
+
+    def numpy_params(self) -> Dict[str, Dict[str, np.ndarray]]:
+        """The whole params as numpy on every rank (each sharded weight's
+        blocks all-gathered): the JAX package's ``np.asarray`` of a sharded
+        param."""
+        from ..ops.parallel_ops import reshard
+
+        cm = self.compiled
+        if cm is None:
+            raise RuntimeError("compile() before numpy_params()")
+        out: Dict[str, Dict[str, np.ndarray]] = {}
+        with torch.no_grad():
+            for op_name, ws in cm.params.items():
+                out[op_name] = {}
+                for w_name, t in ws.items():
+                    if cm.mesh is not None:
+                        lay = cm.weight_layout(op_name, w_name)
+                        t = reshard(t, lay, ParallelTensorShape.unpartitioned(lay.sizes),
+                                    cm.mesh)
+                    out[op_name][w_name] = t.cpu().numpy().copy()
+        return out
+
     # ---- compile ----------------------------------------------------------
     def compile(self, optimizer: Optional[Optimizer] = None,
                 loss_type: Optional[Union[LossType, str]] = None,
                 metrics: Optional[Sequence[Union[MetricsType, str]]] = None,
                 comp_mode: Optional[CompMode] = None,
-                logits_tensor: Optional[Tensor] = None) -> None:
+                logits_tensor: Optional[Tensor] = None,
+                strategies: Optional[Dict[str, Dict[str, str]]] = None,
+                mesh=None) -> None:
         """Compile the graph. With a loss and TRAINING mode (the config's
         ``computation_mode`` unless ``comp_mode`` says otherwise) the model
         gets its training steps; without an optimizer it trains with the
         JAX package's default, SGD at lr 0.01 and weight decay 1e-4 (its
         ``FFConfig.learning_rate``/``weight_decay`` defaults). Under
         ``config.perform_fusion`` chains of weightless unary ops compile as
-        one ``FusedOp`` each, the logits never fused away."""
+        one ``FusedOp`` each, the logits never fused away. ``strategies``
+        maps layer names to strategies (a layer's own ``strategy=`` wins);
+        ``mesh`` (``core.machine.Mesh``) defaults to
+        ``make_mesh(config.mesh_shape)``."""
         configure_tracer(self.config)
         configure_faults(self.config)  # a malformed plan fails before any work
         if comp_mode is None:
@@ -509,6 +609,11 @@ class FFModel:
         mtypes = [_METRICS_FROM_STRING[m] if isinstance(m, str) else m
                   for m in metrics or []]
         logits = logits_tensor if logits_tensor is not None else self._final_output()
+        strat = dict(strategies or {})
+        for layer in self.layers:
+            if layer.attrs.get("strategy") and layer.name not in strat:
+                strat[layer.name] = layer.attrs["strategy"]
+        self._strategies = strat
         layers = self.layers
         if self.config.perform_fusion:
             from ..ops.fused import apply_fusion
@@ -516,7 +621,7 @@ class FFModel:
             layers = apply_fusion(layers, {logits.tensor_id})
         self.compiled = compile_model(self.config, layers, self._used_inputs(),
                                       logits, self.optimizer, loss_type, mtypes,
-                                      comp_mode)
+                                      comp_mode, strat, mesh)
 
     def _used_inputs(self) -> List[Tensor]:
         used = {t.tensor_id for layer in self.layers for t in layer.inputs
@@ -558,6 +663,10 @@ class FFModel:
         if pad_max not in ("on", "off"):
             raise DynamicShapeError("DYN003", f"seq_bucket_pad_max={pad_max!r} "
                                     "(expected 'on' or 'off')")
+        if mode != "off" and cm.mesh is not None:
+            raise NotImplementedError(
+                "seq_buckets over a mesh: packed batches of any row count do not split "
+                "over the data axis (ROADMAP A7b)")
         if mode == "off":
             if budget:
                 raise DynamicShapeError(
@@ -588,12 +697,14 @@ class FFModel:
         reshaped to (N, -1) int32 once, on the host); under
         ``seq_buckets`` the group carries the packing spec."""
         cm = self.compiled
-        loaders = [SingleDataLoader(np.asarray(a), batch_size, cm.device) for a in xs]
+        loaders = [SingleDataLoader(np.asarray(a), batch_size, cm.device, cm.batch_rows(i))
+                   for i, a in enumerate(xs)]
         y_arr = np.asarray(y)
         _check_label(cm, y_arr.shape)
         if cm.loss_type is LossType.SPARSE_CATEGORICAL_CROSSENTROPY:
             y_arr = y_arr.reshape(y_arr.shape[0], -1).astype(np.int32)
-        loaders.append(SingleDataLoader(y_arr, batch_size, cm.device))
+        loaders.append(SingleDataLoader(y_arr, batch_size, cm.device,
+                                        cm.batch_rows(len(xs))))
         dyn = self._dynamic_shapes_spec(cm, loaders, y_arr)
         if dyn is None:
             return DataLoaderGroup(loaders, seed=self.config.seed, shuffle=shuffle)
@@ -911,8 +1022,13 @@ class FFModel:
         if y is not None and self.compiled is not None:
             _check_label(self.compiled, np.shape(y))
         batch = list(xs) + ([y] if y is not None else [])
-        self._cur_batch = [torch.as_tensor(np.asarray(a), device=self.device)
-                           for a in batch]
+        cm = self.compiled
+        rows = [cm.batch_rows(i) if cm is not None else slice(None)
+                for i in range(len(batch))]
+        if y is not None and cm is not None:
+            rows[-1] = cm.batch_rows(len(cm.input_tensors))
+        self._cur_batch = [torch.as_tensor(np.asarray(a)[r], device=self.device)
+                           for a, r in zip(batch, rows)]
 
     def forward(self, seq_length: Optional[int] = None) -> torch.Tensor:
         """The current batch's logits; ``seq_length`` truncates the
@@ -1007,7 +1123,8 @@ def load_numpy_params(ff: FFModel,
     port model. Op names, weight names, shapes and dtypes must match; the
     layouts are the same in both packages, so this is a checked copy. It
     copies into the existing tensors, so an optimizer state built for them
-    stays valid."""
+    stays valid. Under a mesh the arrays are whole and each rank copies its
+    blocks."""
     cm = ff.compiled
     if cm is None:
         raise RuntimeError("compile() the port model before loading params")
@@ -1022,14 +1139,17 @@ def load_numpy_params(ff: FFModel,
                 f"{op_name}: weight names {sorted(src)} vs {sorted(weights)}")
         for w_name, cur in weights.items():
             arr = np.asarray(src[w_name])
-            if tuple(arr.shape) != tuple(cur.shape):
+            want = cm.weight_layout(op_name, w_name).sizes if cm.mesh else tuple(cur.shape)
+            if tuple(arr.shape) != tuple(want):
                 raise ValueError(
-                    f"{op_name}.{w_name}: shape {arr.shape} vs "
-                    f"{tuple(cur.shape)}")
+                    f"{op_name}.{w_name}: shape {arr.shape} vs {tuple(want)}")
             if DataType(arr.dtype.name).to_torch() != cur.dtype:
                 raise ValueError(
                     f"{op_name}.{w_name}: dtype {arr.dtype} vs {cur.dtype}")
     with torch.no_grad():
         for op_name, weights in cm.params.items():
             for w_name, cur in weights.items():
-                cur.copy_(torch.tensor(np.asarray(tree[op_name][w_name])))
+                arr = np.asarray(tree[op_name][w_name])
+                if cm.mesh is not None:
+                    arr = arr[cm.mesh.local_slices(cm.weight_layout(op_name, w_name))]
+                cur.copy_(torch.tensor(arr))

@@ -42,7 +42,7 @@ With ``FFConfig.trace="on"`` every served request records its span tree
 and ``reply``) on its own virtual track.
 
 Not ported: ONNX registration (ROADMAP A12), the watchdog sections and the
-serving ledger record (A10), and instances over several devices (A7).
+serving ledger record (A10), and instances over several devices (A7b).
 """
 
 from __future__ import annotations
@@ -156,6 +156,10 @@ class ModelInstance:
     def __init__(self, ff, name: str = "model"):
         if ff.compiled is None:
             raise ValueError("compile() the FFModel before serving it")
+        if ff.compiled.mesh is not None:
+            raise NotImplementedError(
+                f"{name!r} was compiled over the mesh {ff.compiled.mesh.shape}: serving "
+                f"over a mesh is ROADMAP A7b")
         configure_faults(ff.config)
         self.name = name
         self._ff = ff
@@ -376,7 +380,7 @@ class InferenceEngine:
         ``build(ff, batch_size)`` adds the graph; every instance gets
         instance 0's weights, paired by op order (fresh builds get other
         op names and other init draws). ``strategies`` would shard an
-        instance over several devices, which waits for ROADMAP A7."""
+        instance over several devices, which is ROADMAP A7b."""
         from ..config import FFConfig
         from ..ffconst import CompMode
         from ..runtime.model import FFModel
@@ -384,7 +388,7 @@ class InferenceEngine:
         if strategies:
             raise NotImplementedError(
                 f"{name!r}: per-op strategies shard an instance over a device "
-                f"mesh, which the port does not have yet (ROADMAP A7)")
+                f"mesh: serving over a mesh is ROADMAP A7b")
         out: List[ModelInstance] = []
         for dev in devices:
             ff = FFModel(FFConfig(batch_size=int(batch_size),

@@ -258,6 +258,10 @@ class _DecodeGraph:
         cm = ff.compiled
         if cm is None:
             raise ValueError("compile() the model before generating")
+        if cm.mesh is not None:
+            raise NotImplementedError(
+                f"the model was compiled over the mesh {cm.mesh.shape}: generation "
+                f"over a mesh is ROADMAP A7b")
         self._cm = cm
         self.max_length = int(max_length)
         self._attn_ops = [op for op in cm.ops

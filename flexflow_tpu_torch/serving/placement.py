@@ -2,8 +2,8 @@
 
 PyTorch counterpart of ``flexflow_tpu/serving/placement.py``. The
 reference carves a disjoint device submesh for each instance of each model
-and compiles the instance over it; the port has no meshes yet (ROADMAP
-A7), so each instance is one ``torch.device`` and a ``mesh_shape`` whose
+and compiles the instance over it; serving over a mesh is ROADMAP
+A7b, so each instance is one ``torch.device`` and a ``mesh_shape`` whose
 product exceeds 1 raises ``NotImplementedError``. Placement is first-fit
 over the device list (by default ``cuda:0`` .. ``cuda:{n-1}``) in file
 order, and raises when the devices run out: two models never share a
@@ -44,8 +44,8 @@ def instance_meshes(n_instances: int, mesh_shape: Dict[str, int],
                     devices: Optional[Sequence] = None,
                     offset: int = 0) -> List[torch.device]:
     """``n_instances`` disjoint placements of ``mesh_shape`` from the
-    device list, starting at ``offset``: until the port has meshes each is
-    one device. Raises when the devices run out, which would put two
+    device list, starting at ``offset``: serving over a mesh is ROADMAP
+    A7b, so each is one device. Raises when the devices run out, which would put two
     instances on one device."""
     devices = [torch.device(d) for d in (devices if devices is not None
                                          else default_devices())]
@@ -55,7 +55,7 @@ def instance_meshes(n_instances: int, mesh_shape: Dict[str, int],
     if per != 1:
         raise NotImplementedError(
             f"mesh_shape {mesh_shape} spans {per} devices an instance: instances "
-            f"over a device mesh wait for ROADMAP A7")
+            f"over a device mesh are ROADMAP A7b")
     need = offset + n_instances * per
     if need > len(devices):
         raise ValueError(
@@ -123,8 +123,8 @@ def _register_generator(engine, name: str, build: Callable, device,
 
     if entry.get("strategies"):
         raise NotImplementedError(
-            f"generator {name!r}: per-op strategies shard over a device mesh, "
-            f"which the port does not have yet (ROADMAP A7)")
+            f"generator {name!r}: per-op strategies shard over a device mesh: "
+            f"serving over a mesh is ROADMAP A7b")
     ff = FFModel(FFConfig(batch_size=int(entry.get("batch_size", 1)),
                           computation_mode=CompMode.INFERENCE, device=str(device)))
     build(ff, ff.config.batch_size)

@@ -1,0 +1,213 @@
+"""Rank bodies for the port's mesh tests, run by
+``flexflow_tpu_torch.parallel.distributed.spawn``.
+
+A spawned rank imports this module by name, so it imports only torch,
+numpy and the port: no JAX (``tests/test_torch_port_rules.py`` checks).
+Each function takes ``(rank, world, ...)`` and returns numpy results; the
+test files hold them against the JAX package in the test process.
+"""
+
+from __future__ import annotations
+
+import sys
+
+import torch
+
+
+def loaded_modules(rank: int, world: int) -> list:
+    """The JAX modules a spawned rank has loaded (none)."""
+    return sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flexflow_tpu"))
+
+
+def collectives(rank: int, world: int, blocks, experts, w) -> dict:
+    """The four JAX-module collectives on this rank's blocks over a 1-D
+    mesh ``{"x": world}``, and the gradients each autograd pair gives for
+    the loss sum(w * f(x)) (float64)."""
+    from flexflow_tpu_torch.core.machine import make_mesh
+    from flexflow_tpu_torch.parallel import collectives as C
+
+    mesh = make_mesh({"x": world})
+    g = mesh.group(["x"])
+    out = {"index": g.index, "modules": loaded_modules(rank, world)}
+    x = torch.from_numpy(blocks[rank])
+    out["ring"] = C.ring_all_reduce(x, mesh, "x").numpy()
+    out["psum"] = C.psum_all_reduce(x, mesh, "x").numpy()
+    c = experts.shape[1] // world
+    ex = torch.from_numpy(experts[:, rank * c:(rank + 1) * c])
+    out["to_experts"] = C.expert_all_to_all(ex, mesh, "x").numpy()
+    out["to_tokens"] = C.experts_to_tokens(torch.from_numpy(out["to_experts"]), mesh, "x").numpy()
+    pairs = {
+        "scatter_to": lambda t: C.scatter_to(t, g, 0),   # x replicated
+        "gather_from": lambda t: C.gather_from(t, g, 0),  # x: this rank's block
+        "reduce_from": lambda t: C.reduce_from(t, g),
+        "copy_to": lambda t: C.copy_to(t, g),
+        "ring_shift": lambda t: C.ring_shift(t, g),
+        "all_to_all": lambda t: C.all_to_all(t, g),
+    }
+    for name, fn in pairs.items():
+        src = w["x_full"] if name == "scatter_to" else w["x"][rank]
+        xt = torch.from_numpy(src).requires_grad_(True)
+        y = fn(xt)
+        (y * torch.from_numpy(w["w"][rank][: y.shape[0]])).sum().backward()
+        out[name] = (y.detach().numpy(), xt.grad.numpy())
+    return out
+
+
+def attention(rank: int, world: int, mesh_shape: dict, q, k, v, g, u, rate: float) -> dict:
+    """Ring and Ulysses attention over the mesh's ``seq`` axis on this
+    rank's sequence blocks, causal and not: each output block and the
+    gradients of sum(g * out); with ``rate`` the blocks of ``u``."""
+    from flexflow_tpu_torch.core.machine import make_mesh
+    from flexflow_tpu_torch.parallel.ring_attention import ring_attention, ulysses_attention
+
+    mesh = make_mesh(mesh_shape)
+    n, r = mesh.degree("seq"), mesh.coords["seq"]
+    sl = q.shape[1] // n
+    blk = slice(r * sl, (r + 1) * sl)
+    out = {"seq_index": r}
+    for name, fn in (("ring", ring_attention), ("a2a", ulysses_attention)):
+        for causal in (False, True):
+            ts = [torch.from_numpy(a[:, blk]).requires_grad_(True) for a in (q, k, v)]
+            o = fn(*ts, mesh, "seq", causal=causal, scale=0.3)
+            (o * torch.from_numpy(g[:, blk])).sum().backward()
+            out[(name, causal)] = [o.detach().numpy()] + [t.grad.numpy() for t in ts]
+            with torch.no_grad():
+                od = fn(*[torch.from_numpy(a[:, blk]) for a in (q, k, v)], mesh, "seq",
+                        causal=causal, scale=0.3, dropout_rate=rate, u=torch.from_numpy(u))
+            out[(name, causal, "drop")] = od.numpy()
+    return out
+
+
+def build(ff, model: str, batch: int, shape: dict, **kw):
+    from flexflow_tpu_torch.ffconst import ActiMode
+    from flexflow_tpu_torch.models import GPTConfig, TransformerConfig, build_gpt
+    from flexflow_tpu_torch.models.transformer import build_transformer
+
+    if model == "gpt":
+        return build_gpt(ff, batch, shape["seq"], GPTConfig(**shape["cfg"]), **kw)
+    if model == "transformer":
+        return build_transformer(ff, batch, TransformerConfig(**shape), **kw)
+    if model == "mlp_l1l2":
+        # a tensor-parallel MLP whose kernels carry penalties: a sharded
+        # kernel's penalty is the sum of its blocks'
+        from flexflow_tpu_torch.keras.regularizers import L1L2
+
+        tp = kw.get("tp_axis")
+        x = ff.create_tensor((batch, shape["hidden_size"]), name="input")
+        reg = L1L2(l1=1e-3, l2=1e-2)
+        t = ff.dense(x, 4 * shape["hidden_size"], ActiMode.RELU, name="up",
+                     kernel_regularizer=reg, strategy={"out": tp} if tp else None)
+        t = ff.dense(t, shape["hidden_size"], name="down", kernel_regularizer=reg,
+                     strategy={"in": tp} if tp else None)
+        return x, ff.dense(t, 1, name="head", kernel_regularizer=reg)
+    if model == "verbs":
+        return verbs(ff, ActiMode.RELU, batch, shape["hidden_size"], kw.get("tp_axis", "model"))
+    # "dropout": attention dropout over the sequence strategy, then a Dropout op
+    x = ff.create_tensor((batch, shape["sequence_length"], shape["hidden_size"]), name="input")
+    strategy = {"seq": kw["seq_axis"], "seq_mode": kw.get("seq_mode", "ring")} \
+        if kw.get("seq_axis") else None
+    t = ff.multihead_attention(x, x, x, shape["hidden_size"], shape["num_heads"], dropout=0.25,
+                               name="attn", strategy=strategy)
+    t = ff.dropout(ff.dense(t, shape["hidden_size"], ActiMode.RELU, name="ff"), 0.3, name="drop")
+    return x, ff.dense(t, 1, name="head")
+
+
+def verbs(ff, relu, batch: int, h: int, axis: str):
+    """The parallel verbs between two dense layers, for either package:
+    replicate then repartition the features over ``axis``, tanh on the
+    blocks, combine and reduction back (``relu``: that package's
+    ``ActiMode.RELU``)."""
+    x = ff.create_tensor((batch, h), name="input")
+    t = ff.dense(x, 2 * h, relu, name="up")
+    t = ff.repartition(ff.replicate(t, axis, name="rep"), 1, axis, name="part")
+    t = ff.reduction(ff.combine(ff.tanh(t, name="act"), 1, name="comb"), axis, name="red")
+    return x, ff.dense(t, 1, name="head")
+
+
+def train(rank: int, world: int, model: str, mesh_shape, shape: dict, kw: dict, params,
+          batches, loss: str, compute_dtype=None, rng=None) -> dict:
+    """The model over ``mesh_shape`` from ``params``: one ``train_step`` per
+    global batch (this rank's rows through ``set_batch``); the losses and
+    the whole params after (every rank gathers, rank 0 returns them)."""
+    from flexflow_tpu_torch import FFConfig, FFModel, LossType, SGDOptimizer, load_numpy_params
+    from flexflow_tpu_torch.parallel import distributed
+
+    batch = batches[0][-1].shape[0]
+    ff = FFModel(FFConfig(batch_size=batch, device="cpu", mesh_shape=mesh_shape,
+                          compute_dtype=compute_dtype))
+    build(ff, model, batch, shape, **kw)
+    ff.compile(SGDOptimizer(lr=0.01), getattr(LossType, loss))
+    load_numpy_params(ff, params)
+    cm = ff.compiled
+    losses = []
+    for i, b in enumerate(batches):
+        ff.set_batch(list(b[:-1]), b[-1])
+        cm.params, cm.opt_state, l, _ = cm.train_step(
+            cm.params, cm.opt_state, None if rng is None else rng + i, *ff._cur_batch)
+        losses.append(float(l))
+    full = ff.numpy_params()
+    return dict(losses=losses, params=full if rank == 0 else None,
+                backend=distributed.backend(), rank=rank)
+
+
+def fit(rank: int, world: int, mesh_shape, shape: dict, params, x, y, depth: int) -> dict:
+    """``FFModel.fit`` of the Transformer over ``mesh_shape`` with the
+    Prefetcher at ``depth``; the whole params after and the epoch's
+    metrics."""
+    from flexflow_tpu_torch import (FFConfig, FFModel, LossType, MetricsType, SGDOptimizer,
+                                    load_numpy_params)
+    from flexflow_tpu_torch.models.transformer import TransformerConfig, build_transformer
+
+    ff = FFModel(FFConfig(batch_size=8, device="cpu", mesh_shape=mesh_shape,
+                          prefetch_depth=depth))
+    build_transformer(ff, 8, TransformerConfig(**shape))
+    ff.compile(SGDOptimizer(lr=0.01), LossType.MEAN_SQUARED_ERROR_AVG_REDUCE,
+               metrics=[MetricsType.MEAN_SQUARED_ERROR])
+    load_numpy_params(ff, params)
+    pm = ff.fit(x, y, epochs=1, shuffle=True, verbose=False)[0]
+    ev = ff.eval(x, y, verbose=False)
+    return dict(params=ff.numpy_params(), train_all=pm.train_all, mse=pm.mse_loss,
+                eval_all=ev.train_all, eval_mse=ev.mse_loss,
+                profile_depth=ff.fit_profile["prefetch_depth"])
+
+
+def jobs(rank: int, world: int, todo: list) -> list:
+    """Several of this module's rank bodies in one process group, in order:
+    ``todo`` holds (function name, arguments) pairs."""
+    return [globals()[name](rank, world, *args) for name, args in todo]
+
+
+def sharded_flash(rank: int, world: int, q, k, v, causal: bool, dtype: str) -> dict:
+    """``sharded_flash_attention`` on the card: this rank's batch block
+    over a {"data": 2} mesh, then its heads block over {"model": 2};
+    the output blocks and the flash launches."""
+    from flexflow_tpu_torch import kernels
+    from flexflow_tpu_torch.core.machine import make_mesh
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.parallel import distributed
+
+    out = {"backend": distributed.backend()}
+    kernels.reset_launch_counts()
+    for axis, dim in (("data", 0), ("model", 2)):
+        mesh = make_mesh({axis: 2})
+        n = q.shape[dim] // 2
+        blk = [slice(None)] * 4
+        blk[dim] = slice(rank * n, (rank + 1) * n)
+        ts = [torch.from_numpy(a[tuple(blk)]).cuda().to(getattr(torch, dtype))
+              for a in (q, k, v)]
+        o = fa.sharded_flash_attention(*ts, mesh, axis if dim == 0 else None,
+                                       axis if dim == 2 else None, causal, 0.125)
+        out[axis] = o.float().cpu().numpy()
+    out["launches"] = kernels.launch_counts()["flash_attention_fwd"]
+    return out
+
+
+def nccl_all_reduce(rank: int, world: int) -> dict:
+    from flexflow_tpu_torch.core.machine import make_mesh
+    from flexflow_tpu_torch.parallel import collectives as C, distributed
+
+    mesh = make_mesh({"data": world})
+    x = torch.full((1024,), float(rank + 1), device="cuda")
+    s = C.psum_all_reduce(x, mesh, "data")
+    return {"backend": distributed.backend(), "sum": float(s[0]),
+            "staged": C.stats()["staged_bytes"]}

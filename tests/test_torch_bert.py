@@ -107,6 +107,12 @@ def test_bert_proxy_forward_and_five_steps_match_jax(compute_dtype):
     for op, ws in tcm.params.items():
         for w, t in ws.items():
             _close(t.detach().numpy(), jcm.params[op][w], tol, f"{op}.{w}")
-    with pytest.raises(NotImplementedError, match="A7"):
-        build_bert_proxy(FFModel(FFConfig(device="cpu")), BATCH, TransformerConfig(**SHAPE),
-                         tp_axis="model")
+    # tp_axis names the same strategies as the JAX builder's (the mesh
+    # runs are tests/test_torch_parallel_training.py)
+    tff, jff = FFModel(FFConfig(device="cpu")), JFFModel(JFFConfig(batch_size=BATCH))
+    build_bert_proxy(tff, BATCH, TransformerConfig(**SHAPE), tp_axis="model")
+    jbuild_bert_proxy(jff, BATCH, JTransformerConfig(**SHAPE), tp_axis="model")
+    # by position: unnamed layers take each package's own name counter
+    assert [(l.op_type.value, l.attrs.get("strategy")) for l in tff.layers] == \
+        [(l.op_type.value, l.attrs.get("strategy")) for l in jff.layers]
+    assert any(l.attrs.get("strategy") for l in tff.layers)

@@ -144,9 +144,15 @@ def test_gpt_graph_and_weights_match_jax():
     for op, ws in jff.compiled.params.items():
         assert {w: tuple(v.shape) for w, v in ws.items()} == \
             {w: tuple(t.shape) for w, t in tff.compiled.params[op].items()}
-    with pytest.raises(NotImplementedError, match="A7"):
-        build_gpt(FFModel(FFConfig(device="cpu")), BATCH, SEQ, GPTConfig(**SHAPE),
-                  tp_axis="model")
+    # tp_axis names the same strategies as the JAX builder's (the mesh
+    # runs are tests/test_torch_parallel_training.py)
+    tff, jff2 = FFModel(FFConfig(device="cpu")), JFFModel(JFFConfig(batch_size=BATCH))
+    build_gpt(tff, BATCH, SEQ, GPTConfig(**SHAPE), tp_axis="model")
+    jbuild_gpt(jff2, BATCH, SEQ, JGPTConfig(**SHAPE), tp_axis="model")
+    # by position: unnamed layers take each package's own name counter
+    assert [(l.op_type.value, l.attrs.get("strategy")) for l in tff.layers] == \
+        [(l.op_type.value, l.attrs.get("strategy")) for l in jff2.layers]
+    assert any(l.attrs.get("strategy") for l in tff.layers)
 
 
 @DTYPES

@@ -298,7 +298,9 @@ def test_int8_divergence_matches_jax_and_fallback_is_loud(capsys):
     assert dec.pool.kv["block0_attn"][0].dtype == torch.int8
     # an impossible budget: back to float32 arenas, loudly
     _, tff = _pair()
-    fb = PagedDecoder(tff, max_length=MAX_LEN, decode_slots=2, block_size=BLOCK,
+    # the slot count of the decoder it is held to: its calibration decodes
+    # batches of the same shape, so CPU BLAS rounds them alike
+    fb = PagedDecoder(tff, max_length=MAX_LEN, decode_slots=SLOTS, block_size=BLOCK,
                       kv_dtype="int8", kv_divergence_budget=1e-9)
     assert fb.kv_dtype == "float32" and fb.pool.stats()["kv_dtype"] == "float32"
     assert fb.kv_divergence == pytest.approx(dec.kv_divergence, abs=1e-7)
@@ -307,8 +309,10 @@ def test_int8_divergence_matches_jax_and_fallback_is_loud(capsys):
     # the fallback pool serves
     table = fb.pool.try_admit(3 + 2)
     tok = int(fb.prefill(np.ones(3, np.int32), table).argmax())
-    out = fb.decode(np.array([tok, 0], np.int32), np.stack([table, np.zeros_like(table)]),
-                    np.array([3, 0], np.int32))
+    idle = SLOTS - 1
+    out = fb.decode(np.array([tok] + [0] * idle, np.int32),
+                    np.stack([table] + [np.zeros_like(table)] * idle),
+                    np.array([3] + [0] * idle, np.int32))
     assert np.isfinite(out).all()
 
 

@@ -1,6 +1,9 @@
 """Rules the port keeps: it (and chip_smoke.py, which drives it on the
-card) imports neither JAX nor the JAX package, and it never runs on the
-CPU unless asked to."""
+card, and the ranks it spawns) imports neither JAX nor the JAX package,
+it never runs on the CPU unless asked to, and only
+``flexflow_tpu_torch/parallel/`` calls a ``torch.distributed``
+collective, so staging through the host and its count stay in one
+place."""
 
 import ast
 import pathlib
@@ -38,7 +41,10 @@ REQUIRED = ("flexflow_tpu_torch.obs", "flexflow_tpu_torch.obs.metrics",
             "flexflow_tpu_torch.models.nmt", "flexflow_tpu_torch.ops.fused",
             "flexflow_tpu_torch.keras", "flexflow_tpu_torch.keras.regularizers",
             "flexflow_tpu_torch.runtime.buckets", "flexflow_tpu_torch.runtime.guard",
-            "flexflow_tpu_torch.runtime.checkpoint", "flexflow_tpu_torch.runtime.recompile")
+            "flexflow_tpu_torch.runtime.checkpoint", "flexflow_tpu_torch.runtime.recompile",
+            "flexflow_tpu_torch.parallel", "flexflow_tpu_torch.parallel.collectives",
+            "flexflow_tpu_torch.parallel.distributed", "flexflow_tpu_torch.parallel.ring_attention",
+            "flexflow_tpu_torch.core.machine", "flexflow_tpu_torch.ops.parallel_ops")
 
 
 def test_rules_cover_the_required_modules():
@@ -104,3 +110,59 @@ def test_training_robustness_modules_import_no_orbax(module):
     names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
     names += [n.module or "" for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)]
     assert not [n for n in names if n.split(".")[0] == "orbax"]
+
+
+# torch.distributed's collectives and point-to-point calls
+COLLECTIVES = {"all_reduce", "all_gather", "all_gather_into_tensor", "all_gather_object",
+               "reduce_scatter", "reduce_scatter_tensor", "all_to_all", "all_to_all_single",
+               "broadcast", "broadcast_object_list", "reduce", "gather", "scatter", "barrier",
+               "send", "recv", "isend", "irecv", "batch_isend_irecv", "P2POp"}
+
+
+def _collective_calls(tree) -> list:
+    """(line, name) of each use of a torch.distributed collective: an
+    attribute of a name bound to ``torch.distributed`` (``dist.x``,
+    ``torch.distributed.x``) or a name imported from it."""
+    aliases, names = {"torch.distributed"}, set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            aliases |= {a.asname for a in node.names
+                        if a.name == "torch.distributed" and a.asname}
+        elif isinstance(node, ast.ImportFrom) and node.module == "torch.distributed":
+            names |= {a.asname or a.name for a in node.names if a.name in COLLECTIVES}
+        elif isinstance(node, ast.ImportFrom) and node.module == "torch":
+            aliases |= {a.asname or a.name for a in node.names if a.name == "distributed"}
+    found = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Attribute) and node.attr in COLLECTIVES:
+            if ast.unparse(node.value) in aliases:
+                found.append((node.lineno, node.attr))
+        elif isinstance(node, ast.Name) and node.id in names:
+            found.append((node.lineno, node.id))
+    return found
+
+
+def test_only_the_parallel_package_calls_collectives():
+    offenders, seen = [], set()
+    for name, path in _modules():
+        calls = _collective_calls(ast.parse(path.read_text(), filename=str(path)))
+        if name.startswith("flexflow_tpu_torch.parallel"):
+            seen |= {c for _, c in calls}
+        else:
+            offenders += [f"{name}:{line} calls {c}" for line, c in calls]
+    assert not offenders, offenders
+    # the rule sees the calls the collectives module does make
+    assert {"all_reduce", "all_gather", "all_to_all_single", "batch_isend_irecv"} <= seen
+    bad = ast.parse("import torch.distributed as d\nfrom torch.distributed import all_reduce\n"
+                    "d.broadcast(x)\nall_reduce(y)\ntorch.distributed.send(z, 1)\n")
+    assert sorted(c for _, c in _collective_calls(bad)) == ["all_reduce", "broadcast", "send"]
+
+
+def test_a_spawned_rank_loads_no_jax():
+    """A rank imports the worker's module by name and the port: no JAX
+    (the test process has it loaded; the ranks start afresh)."""
+    import _torch_mesh_workers as workers
+    from flexflow_tpu_torch.parallel.distributed import spawn
+
+    assert "jax" in sys.modules
+    assert spawn(workers.loaded_modules, 2) == [[], []]
