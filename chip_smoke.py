@@ -130,8 +130,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    resume_from, its params and Adam moments equal to an uninterrupted
    run's, the checkpoint's bytes and save ms, and both torn-write targets
    falling back to the previous step;
-14. the device mesh: the same Transformer (TransformerConfig(), 8 samples
-   a data rank, SGD 0.01, MSE) through FFModel.compile over a mesh_shape ->
+14. the device mesh: the same Transformer (TransformerConfig()'s widths at
+   6 layers, 8 samples a data rank, SGD 0.01, MSE) through FFModel.compile
+   over a mesh_shape ->
    fit, in float32 and bfloat16, on (a) {data: 2} (2 ranks) and (b)
    {data: 2, model: 2} with tp_axis "model" (4 ranks), the ranks spawned
    on this one card over gloo (the collectives staged through the host):
@@ -145,8 +146,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
    reading of params left at their start (1); (c) {data: 2, seq: 2} at 2
    layers, ring and a2a, float32, held as f32; ring_all_reduce against
    psum_all_reduce on 64 MB;
-15. the kernels line, one JSON object;
-16. the last line: {"ok": true, "device": {...}}.
+15. expert parallelism, ZeRO-1 and the pipeline (A7b), the ranks on this
+   card over gloo: (d) build_moe_mnist(stacked=True, expert_axis="data")
+   with 8 experts (MoeConfig()'s other widths), batch 64, SGD 0.1, on
+   {data: 2} and {data: 4}: at alpha 4.0 (no drops) f32 and bf16 held to
+   the one-rank run as (14) holds its runs, at alpha 2.0 f32 checked to
+   train; the n-branch MoE at MoeConfig() on {data: 2} (the gathered
+   routing) held to one rank; each rank's K4/K5 launches at its local
+   shapes (3 and 1 a step), those shapes held against the plain versions,
+   the bytes through the host beside the all-to-alls' and gradients' from
+   the shapes; (e) the Transformer of (14) with Adam on {data: 2}, ZeRO-1
+   on and off: params after 3 steps held to the ZeRO-off run, each run's
+   optimizer-state bytes a rank (ratio about 1/2); (f) the same
+   Transformer at (14)'s 6 layers through compile(pipeline=...) on
+   {pipe: 2}: gpipe on the
+   host engine, 1f1b and interleaved (V 2) on the single-call engine,
+   f32, and 1f1b single-call in bf16; on {pipe: 2, data: 2} 1f1b
+   single-call, f32; each held to (14)'s one-rank run, with the warm step
+   ms, the boundary bytes a step sent beside those the shapes give, each
+   stage's peak_activation_bytes beside max_memory_allocated, and K1-K3
+   launches a stage;
+16. the kernels line, one JSON object;
+17. the last line: {"ok": true, "device": {...}}.
 
 Imports torch, numpy and flexflow_tpu_torch only.
 """
@@ -155,6 +176,7 @@ from __future__ import annotations
 
 import gc
 import json
+import os
 import pathlib
 import re
 import shutil
@@ -3592,6 +3614,10 @@ def phase_training_robustness(card: str) -> dict:
 PAR_BATCH = 8  # samples per data rank, as bench.py trains the Transformer
 PAR_STEPS, PAR_TIMED = 3, 4  # fit steps held to the one-rank run; timed steps
 PAR_SEQ_LAYERS = 2  # (c)'s depth
+# (a), (b) and the pipeline's depth, cut from TransformerConfig()'s 12 so
+# the script stays near half its time limit (the widths stay); ZeRO-1's
+# run keeps the 12
+PAR_LAYERS = 6
 PAR_F32_TOL = 1e-3  # of each layer's largest update, the training phases' form
 # bf16 runs are held after one step, before their rounding compounds; the
 # bound must stay under this share of what params left at their start read
@@ -3612,9 +3638,14 @@ def par_opts(layers: int = 0) -> dict:
 
 
 def par_model(opts: dict, compute_dtype: str, mesh_shape, tp=None, seq_axis=None,
-              seq_mode: str = "ring"):
-    from flexflow_tpu_torch import FFConfig, FFModel, LossType, SGDOptimizer
+              seq_mode: str = "ring", adam: bool = False, zero: bool = False,
+              pipeline: dict = None):
+    """The Transformer over ``mesh_shape``: SGD (lr 0.01), or Adam with
+    ``adam`` (ZeRO-1 with ``zero``); ``pipeline``: PipelineConfig's
+    fields."""
+    from flexflow_tpu_torch import AdamOptimizer, FFConfig, FFModel, LossType, SGDOptimizer
     from flexflow_tpu_torch.models.transformer import TransformerConfig, build_transformer
+    from flexflow_tpu_torch.parallel.pipeline import PipelineConfig
 
     data = (mesh_shape or {}).get("data", 1)
     batch = PAR_BATCH * max(data, 2)  # the one-rank run takes the global batch
@@ -3622,10 +3653,11 @@ def par_model(opts: dict, compute_dtype: str, mesh_shape, tp=None, seq_axis=None
                             num_heads=opts["heads"], num_layers=opts["layers"],
                             sequence_length=opts["seq"])
     ff = FFModel(FFConfig(batch_size=batch, compute_dtype=compute_dtype, seed=SEED,
-                          device=opts["device"], mesh_shape=mesh_shape))
+                          device=opts["device"], mesh_shape=mesh_shape, zero_optimizer=zero))
     build_transformer(ff, batch, cfg, tp_axis=tp, seq_axis=seq_axis, seq_mode=seq_mode)
-    ff.compile(optimizer=SGDOptimizer(lr=0.01),
-               loss_type=LossType.MEAN_SQUARED_ERROR_AVG_REDUCE)
+    ff.compile(optimizer=AdamOptimizer(alpha=1e-4) if adam else SGDOptimizer(lr=0.01),
+               loss_type=LossType.MEAN_SQUARED_ERROR_AVG_REDUCE,
+               pipeline=PipelineConfig(**pipeline) if pipeline else None)
     return ff
 
 
@@ -3678,12 +3710,21 @@ def par_fit(opts: dict, compute_dtype: str, mesh_shape=None, **kw) -> dict:
         fa.flash_attention_fwd = fwd
     params = ff.numpy_params()
     rank = cm.mesh.rank if cm.mesh is not None else 0
+    if cm.mesh is not None:
+        # only rank 0's trees are read; spawned ranks hand them back as files
+        params, first = (stash_tree(params), stash_tree(first)) if rank == 0 else (None, None)
+    pm = ff.pipelined
     # the bytes a step must stage, from the shapes: this rank's f32
     # gradient blocks in one buffer, and with a model axis the four
     # (rows, seq, hidden) activation all-reduces a layer (two forward, two
     # backward; the first layer's input takes no gradient), each to the
-    # host and back; the loss's scalars aside
+    # host and back; the loss's scalars aside. Under ZeRO-1 the slices of
+    # the params all-gathered besides; a pipeline's are its own (below)
     grads = 4 * sum(t.numel() for ws in cm.params.values() for t in ws.values())
+    if cm.zero_dims:
+        dp = cm.mesh.degree("data")
+        whole = sum(cm.params[o][w].numel() for o, w in cm.zero_dims)
+        grads += 2 * (whole // dp + whole)  # half of it is one way: x 2 below
     acts = 0
     if kw.get("tp"):
         rows = batch // cm.mesh.degree("data")
@@ -3691,27 +3732,56 @@ def par_fit(opts: dict, compute_dtype: str, mesh_shape=None, **kw) -> dict:
         acts = (4 * opts["layers"] - 1) * rows * opts["seq"] * opts["hidden"] * elem
     ms = []
     collectives.reset_stats()
+    if opts["device"] == "cuda":
+        torch.cuda.reset_peak_memory_stats()
     for i in range(PAR_TIMED):
         ff.set_batch([x[:batch]], y[:batch])
         par_sync(opts["device"])
         t0 = time.perf_counter()
-        cm.params, cm.opt_state, loss, _ = cm.train_step(cm.params, cm.opt_state, None,
-                                                         *ff._cur_batch)
+        if pm is not None:
+            loss, _ = pm.train_step(None, ff._cur_batch[:1], ff._cur_batch[1])
+        else:
+            cm.params, cm.opt_state, loss, _ = cm.train_step(cm.params, cm.opt_state, None,
+                                                             *ff._cur_batch)
         loss.item()
         par_sync(opts["device"])
         ms.append((time.perf_counter() - t0) * 1e3)
     st = collectives.stats()
     local = sorted(shapes)
-    return dict(rank=rank, backend=distributed.backend(),
+    extra = {}
+    if pm is not None:
+        mb = batch // pm.cfg.num_microbatches
+        rec = pm.profile(mb)
+        dp = cm.mesh.degree("data")
+        # the boundary's bytes a step, whole and this data shard's share;
+        # what this rank sent (the single-call engine's fixed-width ring
+        # carries zeros on idle ticks); the stage's gradients all-reduced
+        # over data to the host and back
+        stage_grads = 4 * sum(t.numel() for ws in pm.stage_params.values() for t in ws.values())
+        extra = dict(stage=pm.stage, engine=pm.engine_name, schedule=pm.cfg.schedule,
+                     interleave=pm.cfg.interleave, microbatches=pm.cfg.num_microbatches,
+                     ticks=rec["ticks"], boundary_bytes_per_step=rec["boundary_bytes_per_step"],
+                     boundary_bytes_per_step_local=rec["boundary_bytes_per_step"] // dp,
+                     sent_bytes_per_step=pm.step_sent_bytes,
+                     transfers_per_step=pm.step_transfers,
+                     peak_activation_bytes=rec["peak_activation_bytes"],
+                     stage_grad_bytes=stage_grads,
+                     max_memory_allocated=(torch.cuda.max_memory_allocated()
+                                           if opts["device"] == "cuda" else None))
+    if cm.opt_state is not None and kw.get("adam"):
+        extra["opt_state_bytes"] = sum(t.numel() * t.element_size()
+                                       for k in ("m", "v") for ws in cm.opt_state[k].values()
+                                       for t in ws.values())
+        extra["zero_weights"] = len(cm.zero_dims)
+    return dict(rank=rank, backend=distributed.backend(), **extra,
                 mesh=dict(cm.mesh.shape) if cm.mesh is not None else None,
                 local_attention_shapes=[list(t) for t in local], launches=launches,
                 step_ms=ms, step_ms_median=float(np.median(ms[1:])),
                 host_bytes_per_step=st["staged_bytes"] / PAR_TIMED,
                 shape_host_bytes_per_step=(None if cm.mesh is None or kw.get("seq_axis")
-                                           else 2 * (grads + acts)),
+                                           or pm is not None else 2 * (grads + acts)),
                 collectives_per_step=st["calls"] / PAR_TIMED,
-                params=params if rank == 0 else None,
-                first=first if rank == 0 else None, start=p0)
+                params=params, first=first, start=p0)
 
 
 def par_collectives(opts: dict) -> dict:
@@ -3743,18 +3813,53 @@ def par_collectives(opts: dict) -> dict:
                 ring_ms=out["ring_all_reduce"][1], psum_ms=out["psum_all_reduce"][1])
 
 
+# whole param trees a spawned rank hands back, as files (pickling them
+# through the result queue took about 20 s a GB); removed by each phase
+TREE_DIR = pathlib.Path(".ffcache") / "smoke_trees"
+_stashed = [0]
+
+
+def stash_tree(tree: dict) -> str:
+    """Write a {op: {weight: array}} tree to TREE_DIR; returns its path."""
+    TREE_DIR.mkdir(parents=True, exist_ok=True)
+    _stashed[0] += 1
+    path = TREE_DIR / f"{os.getpid()}_{_stashed[0]}.npz"
+    np.savez(path, **{f"{op}/{w}": a for op, ws in tree.items() for w, a in ws.items()})
+    return str(path)
+
+
+def read_stashed_tree(path: str) -> dict:
+    tree: dict = {}
+    with np.load(path) as z:
+        for key in z.files:
+            op, w = key.split("/")
+            tree.setdefault(op, {})[w] = z[key]
+    return tree
+
+
 def par_worker(rank: int, world: int, jobs: list) -> list:
     """A spawned rank: run each job in order (every rank the same jobs)."""
     out = []
+    run = {"collectives": lambda opts, kw: par_collectives(opts),
+           "fit": lambda opts, kw: par_fit(opts, **kw),
+           "ep": lambda opts, kw: ep_fit(opts, **kw)}
     for kind, opts, kw in jobs:
-        out.append(par_collectives(opts) if kind == "collectives" else par_fit(opts, **kw))
+        t0 = time.perf_counter()
+        out.append(run[kind](opts, kw))
+        if rank == 0:
+            print(f"phases: rank job {kind} {kw.get('compute_dtype', '')} "
+                  f"{kw.get('mesh_shape', '')} took {time.perf_counter() - t0:.1f} s", flush=True)
         gc.collect()
         if opts["device"] == "cuda":
             torch.cuda.empty_cache()
     return out
 
 
-def as_tensors(tree: dict) -> dict:
+def as_tensors(tree) -> dict:
+    """A numpy tree (or the path :func:`stash_tree` wrote it to) as
+    tensors."""
+    if isinstance(tree, str):
+        tree = read_stashed_tree(tree)
     return {op: {w: torch.from_numpy(np.asarray(a)) for w, a in ws.items()}
             for op, ws in tree.items()}
 
@@ -3836,8 +3941,9 @@ def par_check(name: str, ranks: list, ref: dict, start: dict, card: str,
 
 
 def phase_parallel(card: str) -> dict:
-    """(a) the reference Transformer at full width on {data: 2} and (b) on
-    {data: 2, model: 2} with tp_axis "model", both dtypes, 8 samples per
+    """(a) the reference Transformer at full width and PAR_LAYERS layers on
+    {data: 2} and (b) on {data: 2, model: 2} with tp_axis "model", both
+    dtypes, 8 samples per
     data rank, spawned ranks sharing this card over gloo (NCCL where each
     rank has a card); (c) {data: 2, seq: 2} at PAR_SEQ_LAYERS layers, ring
     and a2a, float32; every run held to the one-rank run of the same
@@ -3846,7 +3952,7 @@ def phase_parallel(card: str) -> dict:
     from flexflow_tpu_torch.parallel.distributed import spawn
 
     t0 = time.perf_counter()
-    full, short = par_opts(), par_opts(PAR_SEQ_LAYERS)
+    full, short = par_opts(PAR_LAYERS), par_opts(PAR_SEQ_LAYERS)
     refs = {dt: par_fit(full, dt) for dt in ("float32", "bfloat16")}
     refs["seq"] = par_fit(short, "float32")
     free_device()
@@ -3890,9 +3996,390 @@ def phase_parallel(card: str) -> dict:
           f"(median of 3, host staging included) [{card}]", flush=True)
     launches = {k: sum(lr[k] for row in rows for lr in row["launches_per_rank"])
                 for k in FLASH_NAMES}
+    shutil.rmtree(TREE_DIR, ignore_errors=True)
     out = dict(rows=rows, collectives=coll_row, launches=launches,
                seconds=time.perf_counter() - t0)
     print("parallel_json " + json.dumps(out), flush=True)
+    # the one-rank runs and the bf16 bound, for phase_parallel_b
+    return out, dict(refs=refs, bf16=bf16)
+
+
+# ---- phase_parallel_b: expert parallelism, ZeRO-1 and the pipeline (A7b)
+EP_EXPERTS = 8  # MoeConfig()'s 5 experts split over 5 ranks only; 8 over 2 and 4
+EP_STEPS = 3  # fit steps held to the one-rank run
+EP_NO_DROP_ALPHA, EP_DROP_ALPHA = 4.0, 2.0
+# (schedule, interleave, engine, dtype) on {pipe: 2}; then 1f1b single-call
+# on {pipe: 2, data: 2}
+PIPE_RUNS = (("gpipe", 1, "host", "float32"), ("1f1b", 1, "compiled", "float32"),
+             ("interleaved", 2, "compiled", "float32"), ("1f1b", 1, "compiled", "bfloat16"))
+
+
+def ep_model(opts: dict, compute_dtype: str, mesh_shape, alpha: float, stacked: bool,
+             num_exp: int):
+    """build_moe_mnist at MoeConfig()'s widths (784 in, 64 hidden, 10
+    classes, k 2, lambda 0.04) with ``num_exp`` experts, batch 64, SGD at
+    lr 0.1; stacked ones put the experts on ``data`` (expert parallelism
+    over a data mesh, no-op on one rank)."""
+    from flexflow_tpu_torch import FFConfig, FFModel, LossType, MetricsType, SGDOptimizer
+    from flexflow_tpu_torch.models.moe import MoeConfig, build_moe_mnist
+
+    ff = FFModel(FFConfig(batch_size=MOE_BATCH, compute_dtype=compute_dtype, seed=SEED,
+                          device=opts["device"], mesh_shape=mesh_shape))
+    build_moe_mnist(ff, MOE_BATCH, MoeConfig(num_exp=num_exp, alpha=alpha), stacked=stacked,
+                    expert_axis="data" if stacked else None)
+    ff.compile(optimizer=SGDOptimizer(lr=0.1),
+               loss_type=LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
+               metrics=[MetricsType.SPARSE_CATEGORICAL_CROSSENTROPY])
+    return ff
+
+
+def ep_kernel_check(shapes: set, device: str) -> list:
+    """K4 and K5 at each shape this rank launched them with on the path
+    (the dispatch, the combine and their backwards), on fresh data: each
+    wrapper against its plain version (held exact), and each one's ms
+    (CUDA events, median of 20)."""
+    from flexflow_tpu_torch.kernels import moe_kernels as mk
+
+    out = []
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 161)
+    for name, x_shape, idx_shape, dtype in sorted(shapes):
+        dt = getattr(torch, dtype)
+        x = torch.randn(x_shape, generator=gen, device=device).to(dt)
+        idx = torch.randint(0, x_shape[0], idx_shape, generator=gen, device=device,
+                            dtype=torch.int32)
+        w = torch.rand(idx_shape, generator=gen, device=device)
+        fn = mk.row_gather if name == "row_gather" else mk.row_gather_sum
+        plain = mk.row_gather_reference if name == "row_gather" else mk.row_gather_sum_reference
+        got, want = fn(x, idx, w), plain(x, idx, w)
+        err = (got.float() - want.float()).abs().max().item()
+        check(err <= MOE_TOL, f"{name} at the rank's shape {x_shape} <- {idx_shape} {dtype}: "
+                              f"{err} from its plain version")
+        row = dict(name=name, x=list(x_shape), idx=list(idx_shape), dtype=dtype,
+                   max_abs_err=err)
+        if device == "cuda":
+            row["ms"] = time_ms(lambda: fn(x, idx, w), 20)
+            row["plain_ms"] = time_ms(lambda: plain(x, idx, w), 20)
+        out.append(row)
+    return out
+
+
+def ep_fit(opts: dict, compute_dtype: str, mesh_shape=None, alpha: float = EP_NO_DROP_ALPHA,
+           stacked: bool = True, num_exp: int = EP_EXPERTS) -> dict:
+    """One run of (d) on this rank: the MoE model over the mesh, fit of
+    EP_STEPS global batches one by one (launches counted around them, the
+    shapes the MoE kernels got recorded; the first batch's loss evaluated
+    before and after its step), then K4/K5 at those shapes
+    against their plain versions, then PAR_TIMED train_steps timed, the
+    bytes staged through the host counted over them. Rank 0 (or the
+    one-rank run) adds the whole params after the first step and after
+    the fit."""
+    from flexflow_tpu_torch import kernels
+    from flexflow_tpu_torch.kernels import moe_kernels as mk
+    from flexflow_tpu_torch.parallel import collectives, distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ff = ep_model(opts, compute_dtype, mesh_shape, alpha, stacked, num_exp)
+    cm = ff.compiled
+    x, y = moe_data(SEED + 16, MOE_BATCH * EP_STEPS)
+    p0 = ff.numpy_params() if cm.mesh is None else None
+    shapes, real = set(), (mk.row_gather, mk.row_gather_sum)
+
+    def recording(name, fn):
+        def run(xt, idx, w):
+            shapes.add((name, tuple(xt.shape), tuple(idx.shape), str(xt.dtype).split(".")[-1]))
+            return fn(xt, idx, w)
+        return run
+
+    def batch0_loss():
+        pm = ff.eval(x[:MOE_BATCH], y[:MOE_BATCH], batch_size=MOE_BATCH, verbose=False)
+        return pm.sparse_cce_loss / pm.train_all
+
+    # the first batch's loss before and after the first step on it; the
+    # launches counted around each fit alone
+    losses, first = [batch0_loss()], None
+    launches = {}
+    mk.row_gather, mk.row_gather_sum = (recording("row_gather", real[0]),
+                                        recording("row_gather_sum", real[1]))
+    try:
+        for i in range(EP_STEPS):
+            rows = slice(i * MOE_BATCH, (i + 1) * MOE_BATCH)
+            par_sync(opts["device"])
+            kernels.reset_launch_counts()
+            ff.fit(x[rows], y[rows], batch_size=MOE_BATCH, epochs=1, shuffle=False,
+                   verbose=False)
+            par_sync(opts["device"])
+            for k, v in kernels.launch_counts().items():
+                launches[k] = launches.get(k, 0) + v
+            if i == 0:
+                losses.append(batch0_loss())
+                first = ff.numpy_params()
+    finally:
+        mk.row_gather, mk.row_gather_sum = real
+    params = ff.numpy_params()
+    rank = cm.mesh.rank if cm.mesh is not None else 0
+    held = ep_kernel_check(shapes, opts["device"])
+    # the bytes a step must stage under expert parallelism, from the
+    # shapes: the dispatch's all-to-all (784-wide rows; the model's input
+    # takes no gradient, so it has no backward) and the combine's (64
+    # wide) with its backward, each buffer to the host and back; the
+    # gate's and head's gradients (the experts' are not all-reduced);
+    # scalars aside
+    shaped = None
+    if cm.mesh is not None and stacked:
+        deg = cm.mesh.degree("data")
+        exp = next(op for op in cm.ops if op.name == "moe_group")
+        es = torch.empty((), dtype=getattr(torch, compute_dtype)).element_size()
+        rows_moved = exp.n * (exp.capacity // deg)
+        a2a = 2 * rows_moved * (784 + 2 * 64) * es
+        dense = 4 * sum(t.numel() for op in ("moe_gate", "moe_head")
+                        for t in cm.params[op].values())
+        shaped = a2a + 2 * dense
+    ms = []
+    collectives.reset_stats()
+    for i in range(PAR_TIMED):
+        ff.set_batch([x[:MOE_BATCH]], y[:MOE_BATCH])
+        par_sync(opts["device"])
+        t0 = time.perf_counter()
+        cm.params, cm.opt_state, loss, _ = cm.train_step(cm.params, cm.opt_state, None,
+                                                         *ff._cur_batch)
+        loss.item()
+        par_sync(opts["device"])
+        ms.append((time.perf_counter() - t0) * 1e3)
+    st = collectives.stats()
+    experts = cm.params["moe_experts"]["kernel"].shape if stacked else None
+    return dict(rank=rank, backend=distributed.backend(),
+                mesh=dict(cm.mesh.shape) if cm.mesh is not None else None,
+                launches=launches, kernels_held=held, expert_block=list(experts) if experts is not None else None,
+                losses=losses, step_ms=ms, step_ms_median=float(np.median(ms[1:])),
+                host_bytes_per_step=st["staged_bytes"] / PAR_TIMED,
+                shape_host_bytes_per_step=shaped,
+                collectives_per_step=st["calls"] / PAR_TIMED,
+                params=params if rank == 0 else None, first=first if rank == 0 else None,
+                start=p0)
+
+
+def ep_check(name: str, ranks: list, ref: dict, card: str, bf16: dict = None,
+             drops: bool = False) -> dict:
+    """Hold one (d) run: every rank launched K4 and K5 (3 and 1 a step)
+    at its local shapes, held to their plain versions; the staged bytes as
+    the shapes give them; then, without drops, the params against the
+    one-rank run (f32: each layer's largest error after EP_STEPS steps
+    within PAR_F32_TOL of its largest update; bf16: the first step's
+    2-norm rule); with drops (per-shard capacity: the one-rank routing
+    drops others), that the run trains."""
+    r0 = ranks[0]
+    per_rank = [{k: r["launches"][k] for k in ("row_gather", "row_gather_sum")} for r in ranks]
+    if DEVICE == "cuda":
+        check(all(lr == {"row_gather": 3 * EP_STEPS, "row_gather_sum": EP_STEPS}
+                  for lr in per_rank) or r0["expert_block"] is None,
+              f"{name}: MoE kernel launches by rank {per_rank}")
+        check(all(lr["row_gather"] > 0 and lr["row_gather_sum"] > 0 for lr in per_rank),
+              f"{name}: a rank launched no MoE kernel: {per_rank}")
+    shaped = r0["shape_host_bytes_per_step"]
+    if shaped is not None and r0["backend"] == "gloo" and DEVICE == "cuda":
+        check(abs(r0["host_bytes_per_step"] - shaped) <= 1024,
+              f"{name}: {r0['host_bytes_per_step']} bytes a step through the host, the "
+              f"shapes give {shaped}")
+    if drops:
+        err, worst, bound, what = None, None, None, "trains"
+        check(all(np.isfinite(r0["losses"])) and r0["losses"][1] < r0["losses"][0],
+              f"{name}: the first step did not lower its batch's loss {r0['losses']}")
+    elif bf16 is None:
+        bound, what = PAR_F32_TOL, "of the layer's largest update"
+        err, worst = layer_err(as_tensors(r0["params"]), as_tensors(ref["params"]),
+                               as_tensors(ref["start"]), ulps=EP_STEPS)
+        check(err <= bound, f"{name}: params {err:.3g} {what} from the one-rank run "
+                            f"(worst {worst}) > {bound}")
+    else:
+        bound, what = bf16["bound"], "of the model's update (2-norm), 1 step"
+        err, worst = update_err(as_tensors(r0["first"]), as_tensors(ref["first"]),
+                                as_tensors(ref["start"]))
+        check(err <= bound, f"{name}: params {err:.3g} {what} from the one-rank run "
+                            f"(worst {worst}) > {bound:.3g}")
+    row = dict(name=name, card=card, backend=r0["backend"], world=len(ranks), mesh=r0["mesh"],
+               expert_block=r0["expert_block"],
+               kernels_held=[r["kernels_held"] for r in ranks], launches_per_rank=per_rank,
+               losses=r0["losses"], step_ms_median=r0["step_ms_median"],
+               step_ms_median_max_rank=max(r["step_ms_median"] for r in ranks),
+               one_rank_step_ms_median=ref["step_ms_median"] if ref else None,
+               host_bytes_per_step=r0["host_bytes_per_step"], shape_host_bytes_per_step=shaped,
+               collectives_per_step=r0["collectives_per_step"], param_err_vs_one_rank=err,
+               param_err_worst=worst, bound=bound)
+    counted = "" if shaped is None else f" (the shapes give {shaped / 2 ** 20:.3f})"
+    held = "; ".join(f"{v['name']} {v['x']}<-{v['idx']} err {v['max_abs_err']} "
+                     f"{v.get('ms', float('nan')):.4f} ms (plain {v.get('plain_ms', float('nan')):.4f})"
+                     for v in r0["kernels_held"])
+    verdict = (f"the first batch's loss {r0['losses'][0]:.6f} -> {r0['losses'][1]:.6f} after "
+               f"its step" if drops else
+               f"params vs one rank {err:.3g} {what} (worst {worst}; bound {bound:.3g})")
+    print(f"parallel_b {name}: backend {r0['backend']}, world {len(ranks)}, expert block "
+          f"{r0['expert_block']}; MoE launches by rank {per_rank}; rank 0 held {held}; warm "
+          f"step {r0['step_ms_median']:.1f} ms (slowest rank "
+          f"{row['step_ms_median_max_rank']:.1f}"
+          + (f"; one rank {ref['step_ms_median']:.1f}" if ref else "") + f"); "
+          f"{r0['host_bytes_per_step'] / 2 ** 20:.3f} MiB a step through the host{counted} in "
+          f"{r0['collectives_per_step']:.0f} collectives; {verdict} [{card}]", flush=True)
+    return row
+
+
+def zero_check(on: list, off: list, card: str) -> dict:
+    """(e): the ZeRO-1 run's params after PAR_STEPS steps against the
+    ZeRO-off run's (the same arithmetic on each element: held within
+    PAR_F32_TOL of each layer's largest update, and reported bitwise or
+    not); the optimizer-state bytes of a rank in each."""
+    err, worst = layer_err(as_tensors(on[0]["params"]), as_tensors(off[0]["params"]),
+                           as_tensors(off[0]["first"]), ulps=PAR_STEPS)
+    got, want = read_stashed_tree(on[0]["params"]), read_stashed_tree(off[0]["params"])
+    bitwise = all(np.array_equal(got[op][w], a) for op, ws in want.items() for w, a in ws.items())
+    check(err <= PAR_F32_TOL, f"(e) ZeRO-1: params {err:.3g} of the layer's largest update "
+                              f"from the ZeRO-off run (worst {worst})")
+    ratio = on[0]["opt_state_bytes"] / off[0]["opt_state_bytes"]
+    check(ratio < 0.55, f"(e) ZeRO-1: a rank's optimizer state is {ratio:.3f} of the "
+                        f"replicated run's")
+    shaped = on[0]["shape_host_bytes_per_step"]
+    if on[0]["backend"] == "gloo" and DEVICE == "cuda":
+        check(abs(on[0]["host_bytes_per_step"] - shaped) <= 1024,
+              f"(e): {on[0]['host_bytes_per_step']} bytes a step through the host, the "
+              f"shapes give {shaped}")
+    row = dict(name="(e) ZeRO-1 {data: 2} Adam float32", card=card,
+               opt_state_bytes_zero=on[0]["opt_state_bytes"],
+               opt_state_bytes_replicated=off[0]["opt_state_bytes"], ratio=ratio,
+               zero_weights=on[0]["zero_weights"], step_ms_median=on[0]["step_ms_median"],
+               step_ms_median_replicated=off[0]["step_ms_median"],
+               host_bytes_per_step=on[0]["host_bytes_per_step"],
+               host_bytes_per_step_replicated=off[0]["host_bytes_per_step"],
+               shape_host_bytes_per_step=shaped,
+               launches_per_rank=[{k: r["launches"][k] for k in FLASH_NAMES} for r in on],
+               param_err_vs_replicated=err, param_err_worst=worst, bitwise=bitwise)
+    print(f"parallel_b (e) ZeRO-1 {{data: 2}} Adam float32: optimizer state a rank "
+          f"{on[0]['opt_state_bytes'] / 2 ** 20:.1f} MiB vs {off[0]['opt_state_bytes'] / 2 ** 20:.1f}"
+          f" replicated ({ratio:.4f}; {on[0]['zero_weights']} weights sharded); warm step "
+          f"{on[0]['step_ms_median']:.1f} ms vs {off[0]['step_ms_median']:.1f}; "
+          f"{on[0]['host_bytes_per_step'] / 2 ** 20:.1f} MiB a step through the host (the shapes "
+          f"give {shaped / 2 ** 20:.1f}) vs {off[0]['host_bytes_per_step'] / 2 ** 20:.1f}; params "
+          f"after {PAR_STEPS} steps {err:.3g} of the layer's largest update from ZeRO off "
+          f"(worst {worst}; bitwise {bitwise}) [{card}]", flush=True)
+    return row
+
+
+def pipe_check(name: str, ranks: list, ref: dict, start: dict, card: str,
+               bf16: dict = None) -> dict:
+    """(f): one pipeline run held to the one-rank run (phase_parallel's,
+    the same global batches), as par_check holds a mesh run; every rank
+    launched each flash kernel; on the host engine the bytes its ranks
+    sent across the boundary equal those the shapes give."""
+    row = par_check(name, ranks, ref, start, card, bf16)
+    by_pipe = {}
+    for r in ranks:
+        by_pipe.setdefault(r["stage"], []).append(r)
+    r0 = ranks[0]
+    dp = len(ranks) // len(by_pipe)
+    sent = sum(r["sent_bytes_per_step"] for r in ranks) / dp
+    if r0["engine"] == "host":
+        check(sent == r0["boundary_bytes_per_step"],
+              f"{name}: {sent} boundary bytes sent a step, the shapes give "
+              f"{r0['boundary_bytes_per_step']}")
+    row.update(engine=r0["engine"], schedule=r0["schedule"], interleave=r0["interleave"],
+               microbatches=r0["microbatches"], ticks=r0["ticks"],
+               boundary_bytes_per_step=r0["boundary_bytes_per_step"],
+               sent_bytes_per_step=sent,
+               peak_activation_bytes=[r["peak_activation_bytes"]["per_stage"][r["stage"]]
+                                      for r in ranks],
+               max_memory_allocated=[r["max_memory_allocated"] for r in ranks],
+               stages=[r["stage"] for r in ranks])
+    print(f"parallel_b {name}: engine {r0['engine']}, {r0['ticks']} ticks, "
+          f"{r0['microbatches']} microbatches; boundary bytes a step {sent / 2 ** 20:.1f} MiB "
+          f"sent (the shapes give {r0['boundary_bytes_per_step'] / 2 ** 20:.1f}); stages "
+          f"{row['stages']}: peak activation bytes {[b / 2 ** 20 for b in row['peak_activation_bytes']]}"
+          f" MiB beside max_memory_allocated "
+          f"{[None if m is None else round(m / 2 ** 20, 1) for m in row['max_memory_allocated']]}"
+          f" MiB [{card}]", flush=True)
+    return row
+
+
+def phase_parallel_b(card: str, par: dict) -> dict:
+    """(d) expert parallelism: the stacked MoE (8 experts over ``data``) on
+    {data: 2} and {data: 4}, f32 and bf16 at alpha 4.0 (no drops) held to
+    the one-rank run, f32 at alpha 2.0 (per-shard drops) checked to train,
+    and the n-branch MoE (MoeConfig()) on {data: 2} routing the gathered
+    batch, held to one rank; K4/K5 at each rank's local shapes against
+    their plain versions. (e) ZeRO-1: the Transformer at full width with
+    Adam on {data: 2}, on and off. (f) the pipeline: the Transformer at
+    full width on {pipe: 2} (gpipe host; 1f1b and interleaved single-call;
+    1f1b single-call bf16) and {pipe: 2, data: 2} (1f1b single-call), at
+    PAR_LAYERS layers, held to phase_parallel's one-rank runs. The ranks
+    share this card over gloo."""
+    from flexflow_tpu_torch.models.moe import MoeConfig
+    from flexflow_tpu_torch.parallel.distributed import spawn
+
+    t0 = time.perf_counter()
+    # the pipeline at phase_parallel's depth (its one-rank runs); ZeRO-1
+    # at TransformerConfig()'s
+    opts, full, piped = dict(device=DEVICE), par_opts(), par_opts(PAR_LAYERS)
+    refs = {dt: ep_fit(opts, dt) for dt in ("float32", "bfloat16")}
+    n_branch = MoeConfig().num_exp
+    refs["n-branch"] = ep_fit(opts, "float32", alpha=EP_DROP_ALPHA, stacked=False,
+                              num_exp=n_branch)
+    start = as_tensors(refs["float32"]["start"])
+    floor = update_err(as_tensors(refs["bfloat16"]["first"]),
+                       as_tensors(refs["float32"]["first"]), start)[0]
+    control = update_err(start, as_tensors(refs["bfloat16"]["first"]), start)[0]
+    ep_bf16 = dict(bound=BF16_FLOOR_FACTOR * floor, floor=floor, control=control)
+    print(f"parallel_b (d) bf16 bound: one-rank bf16 vs f32 after 1 step {floor:.3g} of the "
+          f"model's update (2-norm), x{BF16_FLOOR_FACTOR} = {ep_bf16['bound']:.3g}; params "
+          f"left at their start read {control:.3g}", flush=True)
+    check(ep_bf16["bound"] < PAR_BF16_CONTROL_SHARE * control,
+          f"(d) the bf16 bound {ep_bf16['bound']:.3g} is not under {PAR_BF16_CONTROL_SHARE} of "
+          f"the unchanged params' reading {control:.3g}")
+    free_device()
+    print(f"phases: parallel_b one-rank runs at {time.perf_counter() - t0:.1f} s", flush=True)
+    ep_jobs = lambda mesh: [  # noqa: E731
+        ("ep", opts, dict(compute_dtype=dt, mesh_shape=mesh)) for dt in ("float32", "bfloat16")
+    ] + [("ep", opts, dict(compute_dtype="float32", mesh_shape=mesh, alpha=EP_DROP_ALPHA))]
+    pipe = lambda sched, inter, engine: dict(num_stages=2, num_microbatches=4,  # noqa: E731
+                                             schedule=sched, interleave=inter, engine=engine)
+    two = spawn(par_worker, 2, ep_jobs({"data": 2})
+                + [("ep", opts, dict(compute_dtype="float32", mesh_shape={"data": 2},
+                                     alpha=EP_DROP_ALPHA, stacked=False,
+                                     num_exp=n_branch))]
+                + [("fit", full, dict(compute_dtype="float32", mesh_shape={"data": 2},
+                                      adam=True, zero=z)) for z in (True, False)]
+                + [("fit", piped, dict(compute_dtype=dt, mesh_shape={"pipe": 2},
+                                      pipeline=pipe(sched, inter, engine)))
+                   for sched, inter, engine, dt in PIPE_RUNS])
+    print(f"phases: parallel_b 2 ranks at {time.perf_counter() - t0:.1f} s", flush=True)
+    four = spawn(par_worker, 4, ep_jobs({"data": 4})
+                 + [("fit", piped, dict(compute_dtype="float32", mesh_shape={"pipe": 2, "data": 2},
+                                       pipeline=pipe("1f1b", 1, "compiled")))])
+    print(f"phases: parallel_b 4 ranks at {time.perf_counter() - t0:.1f} s", flush=True)
+    rows = []
+    for world, runs in ((2, two), (4, four)):
+        for i, dt in enumerate(("float32", "bfloat16")):
+            rows.append(ep_check(f"(d) {{data: {world}}} stacked, 8 experts, alpha "
+                                 f"{EP_NO_DROP_ALPHA} {dt}", [r[i] for r in runs], refs[dt], card,
+                                 ep_bf16 if dt == "bfloat16" else None))
+        rows.append(ep_check(f"(d) {{data: {world}}} stacked, 8 experts, alpha {EP_DROP_ALPHA} "
+                             f"float32", [r[2] for r in runs], None, card, drops=True))
+    rows.append(ep_check(f"(d) {{data: 2}} n-branch MoeConfig(), gathered routing float32",
+                         [r[3] for r in two], refs["n-branch"], card))
+    zero = zero_check([r[4] for r in two], [r[5] for r in two], card)
+    prefs, pstart = par["refs"], par["refs"]["float32"]["start"]
+    for i, (sched, inter, engine, dt) in enumerate(PIPE_RUNS, start=6):
+        rows.append(pipe_check(f"(f) {{pipe: 2}} {sched}{' V 2' if inter > 1 else ''} "
+                               f"{engine} {dt}", [r[i] for r in two], prefs[dt], pstart, card,
+                               par["bf16"] if dt == "bfloat16" else None))
+    rows.append(pipe_check("(f) {pipe: 2, data: 2} 1f1b compiled float32",
+                           [r[3] for r in four], prefs["float32"], pstart, card))
+    moe = {k: sum(lr[k] for row in rows if "expert_block" in row
+                  for lr in row["launches_per_rank"]) for k in ("row_gather", "row_gather_sum")}
+    flash = {k: sum(lr[k] for row in rows + [zero] if "launches_per_rank" in row
+                    and k in row["launches_per_rank"][0] for lr in row["launches_per_rank"])
+             for k in FLASH_NAMES}
+    shutil.rmtree(TREE_DIR, ignore_errors=True)
+    out = dict(rows=rows, zero=zero, moe_launches=moe, flash_launches=flash,
+               seconds=time.perf_counter() - t0)
+    print("parallel_b_json " + json.dumps(out), flush=True)
     return out
 
 
@@ -3934,14 +4421,15 @@ def _kernel_entry(name: str, source: str, replaces: str, rows: list, launches: i
 
 
 def _moe_entry(name: str, source: str, replaces: str, rows: list, serving: int,
-               training: int) -> dict:
+               training: int, expert_parallel: int) -> dict:
     """One MoE kernel's entry of the kernels line, its numbers from the
     float32 row at the MoE model's shape (the serving and training paths'
-    variant); ``launches`` counts the MoE serving and fit runs."""
+    variant); ``launches`` counts the MoE serving and fit runs and every
+    rank's launches under expert parallelism."""
     main_row = next(r for r in rows if r["dtype"] == "float32" and r["shape"].startswith("main"))
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": serving + training, "serving_launches": serving,
-            "training_launches": training, "max_abs_err": main_row["max_abs_err"],
+            "launches": serving + training + expert_parallel, "serving_launches": serving,
+            "training_launches": training, "expert_parallel_launches": expert_parallel, "max_abs_err": main_row["max_abs_err"],
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"], "library": "F.embedding_bag",
@@ -3997,8 +4485,12 @@ def main() -> int:
     rob = phase_training_robustness(card)
     print(f"phases: training robustness done at {time.perf_counter() - t0:.0f} s", flush=True)
     free_device()
-    par = phase_parallel(card)
+    par, par_refs = phase_parallel(card)
     print(f"phases: parallel done at {time.perf_counter() - t0:.0f} s", flush=True)
+    free_device()
+    par_b = phase_parallel_b(card, par_refs)
+    del par_refs
+    print(f"phases: parallel_b done at {time.perf_counter() - t0:.0f} s", flush=True)
     train_launches = {name: sum(r["fit_launches"][name] for r in train)
                       for name in train[0]["fit_launches"]}
     # GPT's path: its fits and the full-sequence forwards of its dense and
@@ -4018,8 +4510,10 @@ def main() -> int:
                       + gpt_launches["flash_attention_fwd"]
                       + bert_launches["flash_attention_fwd"]
                       + breadth["launches"] + rob["launches"]["flash_attention_fwd"]
-                      + par["launches"]["flash_attention_fwd"],
+                      + par["launches"]["flash_attention_fwd"]
+                      + par_b["flash_launches"]["flash_attention_fwd"],
                       parallel_launches=par["launches"]["flash_attention_fwd"],
+                      parallel_b_launches=par_b["flash_launches"]["flash_attention_fwd"],
                       serving_launches=sum(r["launches"] for r in serve),
                       serving_breadth_launches=breadth["launches"],
                       training_launches=train_launches["flash_attention_fwd"],
@@ -4044,8 +4538,10 @@ def main() -> int:
                       + gpt_launches["flash_attention_bwd_dq"]
                       + bert_launches["flash_attention_bwd_dq"]
                       + rob["launches"]["flash_attention_bwd_dq"]
-                      + par["launches"]["flash_attention_bwd_dq"],
+                      + par["launches"]["flash_attention_bwd_dq"]
+                      + par_b["flash_launches"]["flash_attention_bwd_dq"],
                       parallel_launches=par["launches"]["flash_attention_bwd_dq"],
+                      parallel_b_launches=par_b["flash_launches"]["flash_attention_bwd_dq"],
                       training_launches=train_launches["flash_attention_bwd_dq"],
                       gpt_launches=gpt_launches["flash_attention_bwd_dq"],
                       bert_launches=bert_launches["flash_attention_bwd_dq"],
@@ -4064,8 +4560,10 @@ def main() -> int:
                       + gpt_launches["flash_attention_bwd_dkv"]
                       + bert_launches["flash_attention_bwd_dkv"]
                       + rob["launches"]["flash_attention_bwd_dkv"]
-                      + par["launches"]["flash_attention_bwd_dkv"],
+                      + par["launches"]["flash_attention_bwd_dkv"]
+                      + par_b["flash_launches"]["flash_attention_bwd_dkv"],
                       parallel_launches=par["launches"]["flash_attention_bwd_dkv"],
+                      parallel_b_launches=par_b["flash_launches"]["flash_attention_bwd_dkv"],
                       training_launches=train_launches["flash_attention_bwd_dkv"],
                       gpt_launches=gpt_launches["flash_attention_bwd_dkv"],
                       bert_launches=bert_launches["flash_attention_bwd_dkv"],
@@ -4084,7 +4582,8 @@ def main() -> int:
         serving = sum(r["launches"][name] for r in moe_serve)
         training = sum(r["fit_launches"][name] for r in moe_train)
         entries.append(_moe_entry(name, moe_src, f"flexflow_tpu/kernels/moe_kernels.py:{line}",
-                                  moe_kern[name], serving, training))
+                                  moe_kern[name], serving, training,
+                                  par_b["moe_launches"][name]))
     check(all(e["launches"] > 0 for e in entries),
           f"a kernel never launched on its path: {[(e['name'], e['launches']) for e in entries]}")
     print(json.dumps({"kernels": entries}), flush=True)

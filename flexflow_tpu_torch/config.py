@@ -53,9 +53,20 @@ class FFConfig:
     # the process group's world size. None: a data mesh over every rank
     # (one rank: no mesh)
     mesh_shape: Optional[dict] = None
-    # ZeRO-1 (optimizer state sharded over the data axis) is ROADMAP A7b:
-    # True raises under a data axis above 1
+    # ZeRO-1: each optimizer-state array is sharded over the data axis on
+    # its first unsharded dim the data degree divides; each rank updates
+    # its slice of the parameter and all-gathers it
     zero_optimizer: bool = False
+    # --- pipeline (parallel/schedule.py, parallel/pipeline.py) ---
+    # the microbatch order when compile() enables the pipeline on a pipe
+    # axis: "gpipe", "1f1b", "interleaved" (1f1b over pipeline_interleave
+    # chunks a stage) or "auto", which needs the simulator's ranking
+    # (ROADMAP A8) and raises until it is ported
+    pipeline_schedule: str = "auto"
+    # rematerialize each chunk's forward inside its backward
+    pipeline_remat: bool = False
+    # chunks a stage under schedule="interleaved" (>= 2)
+    pipeline_interleave: int = 2
     # fuse straight chains of weightless unary ops into one FusedOp at
     # compile (ops/fused.py); the logits tensor is never fused away
     perform_fusion: bool = False
@@ -180,10 +191,13 @@ class FFConfig:
             "--serving-spec-k": ("serving_spec_k", int),
             "--serving-kv-dtype": ("serving_kv_dtype", str),
             "--serving-kv-divergence-budget": ("serving_kv_divergence_budget", float),
+            "--pipeline-schedule": ("pipeline_schedule", str),
+            "--pipeline-interleave": ("pipeline_interleave", int),
         }
         switches = {"--fusion": ("perform_fusion", True),
                     "--elastic-resume": ("elastic_resume", True),
                     "--zero-optimizer": ("zero_optimizer", True),
+                    "--pipeline-remat": ("pipeline_remat", True),
                     "--trace": ("trace", "on")}
         args = list(argv)
         i = 0

@@ -112,6 +112,11 @@ class Op:
     ) -> List[torch.Tensor]:
         raise NotImplementedError
 
+    def flops(self) -> float:
+        """Forward FLOPs, the JAX package's estimate (the pipeline's stage
+        split balances by it); 0 for ops it does not price."""
+        return 0.0
+
     def materialize(self, device: torch.device) -> None:
         """Put what the op reads every step, besides its weights, on
         ``device`` once, when the model is compiled (Constant's value);

@@ -29,8 +29,9 @@ class MoeConfig:
 def build_moe_mnist(ff: FFModel, batch_size: int, cfg: Optional[MoeConfig] = None,
                     stacked: bool = False, expert_axis: Optional[str] = None):
     """Returns (input tensor, softmax output). ``stacked=True`` builds the
-    stacked formulation; ``expert_axis`` (which needs a mesh) raises until
-    the expert-parallel path is ported."""
+    stacked formulation; ``expert_axis`` shards its experts over that mesh
+    axis (expert parallelism when it is the axis that shards the batch,
+    ``"data"``)."""
     cfg = cfg or MoeConfig()
     x = ff.create_tensor((batch_size, cfg.input_dim), DataType.FLOAT, name="input")
     t = ff.moe(x, cfg.num_exp, cfg.num_select, cfg.expert_hidden_size,

@@ -85,6 +85,10 @@ class BatchMatmul(Op):
                 b = b.narrow(bd, 0, sl)
         return [torch.matmul(a, b)]
 
+    def flops(self) -> float:
+        a, b = self.input_shapes
+        return 2.0 * math.prod(a.sizes[:-2]) * a.sizes[-2] * a.sizes[-1] * b.sizes[-1]
+
 
 @register_op
 class MultiHeadAttention(Op):
@@ -183,6 +187,11 @@ class MultiHeadAttention(Op):
         h = self.weight_shapes["wq"].dims[1]
         return ParallelTensorShape((q.dims[0], h, ParallelDim(q.sizes[1]),
                                     ParallelDim(self.input_layouts[1].sizes[1])))
+
+    def flops(self) -> float:
+        b, s = self.input_shapes[0].sizes[0], self.input_shapes[0].sizes[1]
+        e, h, d = self.embed_dim, self.num_heads, self.head_dim
+        return 2.0 * b * s * e * h * d * 4 + 2.0 * b * h * s * s * d * 2
 
     def forward(self, ctx, inputs, weights):
         q, k, v = inputs

@@ -37,6 +37,9 @@ class _ElementBinaryBase(Op):
         out = np.broadcast_shapes(a.sizes, b.sizes)
         return [(tuple(int(s) for s in out), a.dtype)]
 
+    def flops(self) -> float:
+        return float(np.prod(self.infer_output_shapes()[0][0], dtype=np.float64))
+
 
 def _make_binary(op_type: OpType):
     fn = _BINARY_FNS[op_type]

@@ -8,6 +8,7 @@ floor divide, and ``pow``), each a stock torch op.
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Dict
 
 import torch
@@ -46,6 +47,9 @@ class _ElementUnaryBase(Op):
 
     def infer_output_shapes(self):
         return [(self.input_shapes[0].sizes, self.input_shapes[0].dtype)]
+
+    def flops(self) -> float:
+        return float(math.prod(self.input_shapes[0].sizes))
 
 
 def _make_unary(op_type: OpType):

@@ -51,6 +51,9 @@ class FusedOp(Op):
         last = self.sub_ops[-1].output_shapes[0]
         return [(last.sizes, last.dtype)]
 
+    def flops(self) -> float:
+        return sum(op.flops() for op in self.sub_ops)
+
     def forward(self, ctx, inputs, weights):
         x = inputs[0]
         for op in self.sub_ops:

@@ -13,6 +13,7 @@ the partial products are all-reduced, then the bias is added once).
 
 from __future__ import annotations
 
+import math
 from typing import List, Sequence
 
 import torch
@@ -104,6 +105,9 @@ class Linear(Op):
         if self.use_bias:
             weight_shapes["bias"] = ParallelTensorShape((out_feat,), in0.dtype)
         return [ParallelTensorShape(tuple(out_dims + [out_feat]), in0.dtype)], weight_shapes
+
+    def flops(self) -> float:
+        return 2.0 * math.prod(self.input_shapes[0].sizes[:-1]) * self.in_dim * self.out_dim
 
     def forward(self, ctx: LowerCtx, inputs: Sequence[torch.Tensor], weights):
         (x,) = inputs

@@ -6,6 +6,8 @@ PyTorch counterpart of ``flexflow_tpu/ops/softmax.py``: softmax over the
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..core.op import Op, register_op
@@ -24,3 +26,6 @@ class Softmax(Op):
 
     def forward(self, ctx, inputs, weights):
         return [torch.softmax(inputs[0], dim=self.attrs.get("dim", -1))]
+
+    def flops(self) -> float:
+        return 5.0 * math.prod(self.input_shapes[0].sizes)

@@ -27,7 +27,17 @@ sharded -> replicated (:func:`gather_from`)  all_gather  slice
 backward the other way) and :func:`all_to_all` (its own transpose) carry
 sequence-parallel attention. :func:`ring_all_reduce`,
 :func:`psum_all_reduce`, :func:`expert_all_to_all` and
-:func:`experts_to_tokens` are the JAX module's four functions.
+:func:`experts_to_tokens` are the JAX module's four functions; the last
+two carry expert parallelism and are differentiable, each one's backward
+the other. :func:`send_recv` is the pipeline's stage-boundary exchange:
+point-to-point messages over the pipe group, each tagged by direction.
+
+A batch gathered for an op that reads the whole batch (the MoE routing
+ops) goes through :func:`gather_from`, whose backward keeps this rank's
+rows: the op's output is cut back to this rank's rows by
+:func:`scatter_to`, whose backward all-gathers the rows' gradients, so
+every rank holds the whole gradient of the gathered tensor and a
+reduce-scatter there would count it once per rank.
 """
 
 from __future__ import annotations
@@ -102,6 +112,24 @@ def all_gather(t: torch.Tensor, group: Group, dim: int) -> torch.Tensor:
     return _back(t, torch.cat(parts, dim=dim), n_in)
 
 
+def all_gather_coalesced(tensors: Sequence[torch.Tensor], group: Group,
+                         dims: Sequence[int]) -> List[torch.Tensor]:
+    """Each tensor's blocks concatenated along its ``dims`` entry in rank
+    order, in one collective: the ranks' tensors (of one dtype and the
+    same shapes on every rank) travel as one flat buffer."""
+    if not tensors:
+        return []
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    buf = _host(group, flat)
+    n_in = buf.numel() * buf.element_size() if buf.device != flat.device else 0
+    parts = [torch.empty_like(buf) for _ in range(group.size)]
+    dist.all_gather(parts, buf, group=group.pg)
+    sizes = [t.numel() for t in tensors]
+    pieces = [p.split(sizes) for p in _back(flat, torch.cat(parts), n_in).split(flat.numel())]
+    return [torch.cat([pieces[r][i].view(t.shape) for r in range(group.size)], dim=d)
+            for i, (t, d) in enumerate(zip(tensors, dims))]
+
+
 def _all_to_all_dim0(t: torch.Tensor, group: Group) -> torch.Tensor:
     """Chunk ``j`` of ``t``'s dim 0 goes to rank ``j``; chunk ``j`` of the
     result came from rank ``j``."""
@@ -149,6 +177,39 @@ def _chunk(t: torch.Tensor, group: Group, dim: int) -> torch.Tensor:
                          f"{group.size} blocks")
     step = size // group.size
     return t.narrow(dim, group.index * step, step).contiguous()
+
+
+def send_recv(group: Group, sends: Sequence[tuple], recvs: Sequence[tuple]
+              ) -> List[torch.Tensor]:
+    """Point-to-point messages over ``group``: ``sends`` holds (peer index
+    in the group, tag, tensor), ``recvs`` (peer index, tag, numel, dtype,
+    device); returns the received tensors, 1-D, in ``recvs``' order. All
+    are posted together and waited for. On a gloo group a CUDA tensor goes
+    through the host both ways (counted by :func:`stats`)."""
+    ops, bufs, staged = [], [], 0
+    for peer, tag, t in sends:
+        buf = _host(group, t).reshape(-1)
+        if buf.device != t.device:
+            staged += buf.numel() * buf.element_size()
+        ops.append(dist.P2POp(dist.isend, buf, group.ranks[peer], group.pg, tag))
+        bufs.append(buf)  # kept alive until the wait
+    outs = []
+    for peer, tag, numel, dtype, device in recvs:
+        on_host = device.type == "cuda" and dist.get_backend(group.pg) == "gloo"
+        buf = torch.empty(numel, dtype=dtype, device="cpu" if on_host else device)
+        ops.append(dist.P2POp(dist.irecv, buf, group.ranks[peer], group.pg, tag))
+        outs.append((buf, device))
+    if ops:
+        for r in dist.batch_isend_irecv(ops):
+            r.wait()
+    got = []
+    for buf, device in outs:
+        if buf.device != device:
+            staged += buf.numel() * buf.element_size()
+            buf = buf.to(device)
+        got.append(buf)
+    _count(staged)
+    return got
 
 
 # ------------------------------------------------------ autograd pairs
@@ -281,26 +342,56 @@ def psum_all_reduce(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     return all_reduce_sum(x, mesh.group([axis]))
 
 
-def expert_all_to_all(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
-    """(experts, capacity/n, d) sharded on tokens -> (experts/n, capacity,
-    d) sharded on experts: each rank receives its experts' tokens."""
-    group = mesh.group([axis])
+def _to_experts(x: torch.Tensor, group: Group) -> torch.Tensor:
     n = group.size
     e, c, d = x.shape
     if e % n:
         raise ValueError(f"expert_all_to_all: {e} experts over {n} ranks")
     # chunk j (rank j's experts) to rank j; rank r's tokens arrive in slot r
-    got = _all_to_all_dim0(x.reshape(n, e // n, c, d), group)
+    got = _all_to_all_dim0(x.contiguous().reshape(n, e // n, c, d), group)
     return got.permute(1, 0, 2, 3).reshape(e // n, n * c, d)
 
 
-def experts_to_tokens(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
-    """Inverse of :func:`expert_all_to_all`: (experts/n, capacity, d) ->
-    (experts, capacity/n, d)."""
-    group = mesh.group([axis])
+def _to_tokens(x: torch.Tensor, group: Group) -> torch.Tensor:
     n = group.size
     el, c, d = x.shape
     if c % n:
         raise ValueError(f"experts_to_tokens: capacity {c} over {n} ranks")
     send = x.reshape(el, n, c // n, d).permute(1, 0, 2, 3).contiguous()
     return _all_to_all_dim0(send, group).reshape(n * el, c // n, d)
+
+
+class _ExpertAllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _to_experts(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _to_tokens(g.contiguous(), ctx.group), None
+
+
+class _ExpertsToTokens(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _to_tokens(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _to_experts(g.contiguous(), ctx.group), None
+
+
+def expert_all_to_all(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """(experts, capacity/n, d) sharded on tokens -> (experts/n, capacity,
+    d) sharded on experts: each rank receives its experts' tokens.
+    Differentiable: the backward is :func:`experts_to_tokens`."""
+    return _ExpertAllToAll.apply(x, mesh.group([axis]))
+
+
+def experts_to_tokens(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """Inverse of :func:`expert_all_to_all`: (experts/n, capacity, d) ->
+    (experts, capacity/n, d). Differentiable: the backward is
+    :func:`expert_all_to_all`."""
+    return _ExpertsToTokens.apply(x, mesh.group([axis]))

@@ -40,7 +40,19 @@ global count), so the step's loss is the sum over the ranks the logits
 are sharded over, and a weight's gradient is all-reduced, one flat buffer
 a set of axes, over the axes its op's output is sharded on and the weight
 is not (``data``, ``seq``). The metrics' sums are all-reduced the same
-way. ZeRO, the pipeline and expert parallelism are ROADMAP A7b.
+way. An expert weight sharded over the axis that also shards the batch
+is all-reduced over neither: each rank owns its experts, whose gradients
+the all-to-all's backward brings in from every rank's tokens.
+
+``config.zero_optimizer`` over a data axis above 1 is ZeRO-1, as the JAX
+package lays it out: each optimizer-state array is sharded over ``data``
+on its weight's first dim that is unsharded and divisible by the data
+degree (a weight already sharded over ``data`` keeps its own layout, as
+do weights with no such dim). Each rank updates its slice of such a
+parameter with its slice of the state, from the whole all-reduced
+gradient, then the slices are all-gathered, one buffer for all of them.
+The pipeline engines (``parallel/pipeline.py``) run the ops of
+:func:`compile_model` chunk by chunk through :func:`_forward_graph`.
 """
 
 from __future__ import annotations
@@ -117,6 +129,19 @@ class CompiledModel:
     # the whole logits
     mesh: Optional[Mesh] = None
     layouts: Dict[int, ParallelTensorShape] = dataclasses.field(default_factory=dict)
+    # update_fn(params, grads, opt_state) -> (params, opt_state): the
+    # optimizer step train_step takes (ZeRO-1's sliced update under
+    # ``config.zero_optimizer``), for the manual ``update`` verb
+    update_fn: Optional[Callable[..., tuple]] = None
+    # ZeRO-1: {(op, weight): the dim its optimizer state is sharded on}
+    zero_dims: Dict[Tuple[str, str], int] = dataclasses.field(default_factory=dict)
+    # the mesh's share of a loss, for the pipeline engines:
+    # loss_share(loss of this rank's block, labels) -> the rank's share of
+    # the global mean; sync_grads(grads) -> all-reduced over the mesh;
+    # label_block(y) -> the labels of this rank's logits block
+    loss_share: Optional[Callable] = None
+    sync_grads: Optional[Callable] = None
+    label_block: Optional[Callable] = None
 
     def batch_rows(self, i: int) -> slice:
         """This rank's rows of a global batch of input ``i`` (the label
@@ -311,7 +336,8 @@ def _forward_graph(ops: List[Op], layouts: Dict[int, ParallelTensorShape],
                    rng: Optional[int] = None,
                    seed: int = 0,
                    state_updates: Optional[dict] = None,
-                   seq_length: int = -1
+                   seq_length: int = -1,
+                   check_shapes: bool = True,
                    ) -> Tuple[Dict[int, torch.Tensor], List[torch.Tensor]]:
     """Run the op graph on this rank's blocks; returns (every activation by
     tensor id, in its producer's layout, the auxiliary losses the ops
@@ -326,7 +352,9 @@ def _forward_graph(ops: List[Op], layouts: Dict[int, ParallelTensorShape],
     key and the config's seed, from which each op draws
     (``LowerCtx.generator``). ``state_updates``: a dict the training
     forward fills with the ops' new non-trainable state. ``seq_length``:
-    ``LowerCtx.seq_length``."""
+    ``LowerCtx.seq_length``. ``check_shapes=False`` leaves the blocks'
+    shapes unchecked, for a pipeline's microbatches of the compiled batch;
+    ``inputs`` then hold every tensor the ``ops`` read from outside."""
     ctx = LowerCtx(mesh=mesh, plain_kernels=plain_kernels, training=training,
                    aux_losses=[], rng=rng, seed=seed, state_updates=state_updates,
                    seq_length=seq_length)
@@ -347,7 +375,7 @@ def _forward_graph(ops: List[Op], layouts: Dict[int, ParallelTensorShape],
         ins = [fetch(t.tensor_id, want) for t, want in zip(op.layer.inputs, op.input_layouts)]
         p = cast_op_params(cast, op, params.get(op.name, {}), compute_dtype)
         for out, t, ps in zip(op.forward(ctx, ins, p), op.layer.outputs, op.output_shapes):
-            if mesh is not None and tuple(out.shape) != ps.local_sizes():
+            if check_shapes and mesh is not None and tuple(out.shape) != ps.local_sizes():
                 raise RuntimeError(
                     f"{_provenance(op.layer)}: this rank's output block is "
                     f"{tuple(out.shape)}, its layout {ps} gives {ps.local_sizes()}")
@@ -405,8 +433,6 @@ def compile_model(
     if mesh is None:
         mesh = make_mesh(config.mesh_shape)
     axis_sizes = dict(mesh.shape) if mesh is not None else {}
-    if config.zero_optimizer and axis_sizes.get(DATA_AXIS, 1) > 1:
-        raise NotImplementedError("zero_optimizer: ZeRO-1 over the data axis is ROADMAP A7b")
     data_degree = axis_sizes.get(DATA_AXIS, 1)
     input_pshapes = {}
     for t in input_tensors:
@@ -457,8 +483,12 @@ def compile_model(
 
     def sync_grads(grads: Params) -> Params:
         """All-reduce each weight's gradient over its plan's axes, one flat
-        buffer a set of axes (DP's bucket)."""
+        buffer a set of axes (DP's bucket); the weights ``grads`` holds (a
+        pipeline stage's)."""
         for axes, names in (reduce_plan or {}).items():
+            names = [(o, w) for o, w in names if o in grads]
+            if not names:
+                continue
             summed = C.all_reduce_coalesced([grads[o][w] for o, w in names],
                                             mesh.group(axes))
             for (o, w), g in zip(names, summed):
@@ -471,6 +501,50 @@ def compile_model(
         keys = sorted(bm)
         summed = C.all_reduce_sum(torch.stack([bm[k].double() for k in keys]), loss_group)
         return {k: summed[i].to(bm[k].dtype) for i, k in enumerate(keys)}
+
+    # ---- ZeRO-1: the dim each weight's optimizer state is sharded on
+    zero_dims: Dict[Tuple[str, str], int] = {}
+    if config.zero_optimizer and data_degree > 1:
+        for op in ops:
+            for w_name, ws in op.weight_shapes.items():
+                if DATA_AXIS in ws.partition_axes:
+                    continue
+                d = next((d for d, dim in enumerate(ws.dims) if not dim.is_partitioned
+                          and dim.size % data_degree == 0 and dim.size >= data_degree), None)
+                if d is not None:
+                    zero_dims[(op.name, w_name)] = d
+
+    def zero_slices(tree: Params) -> Params:
+        """This rank's slice of each ZeRO-sharded tensor of ``tree`` (a
+        view: in-place updates land in the tensor), the rest whole."""
+        out: Params = {}
+        for op_name, ws in tree.items():
+            out[op_name] = {}
+            for w_name, t in ws.items():
+                d = zero_dims.get((op_name, w_name))
+                if d is not None:
+                    step = t.shape[d] // data_degree
+                    t = t.narrow(d, mesh.coords[DATA_AXIS] * step, step)
+                out[op_name][w_name] = t
+        return out
+
+    def apply_update(params: Params, grads: Params, opt_state):
+        """The optimizer step; under ZeRO-1 on this rank's slices, then the
+        updated slices all-gathered into the params."""
+        if not zero_dims:
+            return optimizer.update(params, grads, opt_state, wd_mask,
+                                    optimizer.hyperparams())
+        views = zero_slices(params)
+        _, opt_state = optimizer.update(views, zero_slices(grads), opt_state, wd_mask,
+                                        optimizer.hyperparams())
+        names = list(zero_dims)
+        with torch.no_grad():
+            whole = C.all_gather_coalesced([views[o][w] for o, w in names],
+                                           mesh.group([DATA_AXIS]),
+                                           [zero_dims[k] for k in names])
+            for (o, w), t in zip(names, whole):
+                params[o][w].copy_(t)
+        return params, opt_state
 
     def label_block(y: torch.Tensor) -> torch.Tensor:
         """The labels of this rank's logits block: its rows arrive from the
@@ -606,8 +680,7 @@ def compile_model(
                                                    seq_length)
         if mesh is not None:
             grads, bm, loss = sync_grads(grads), sync_metrics(bm), global_loss(loss)
-        params, opt_state = optimizer.update(params, grads, opt_state, wd_mask,
-                                             optimizer.hyperparams())
+        params, opt_state = apply_update(params, grads, opt_state)
         # non-trainable state (BatchNorm's running statistics), written after
         # the optimizer update in the master dtype, outside autograd
         with torch.no_grad():
@@ -654,8 +727,10 @@ def compile_model(
         logits_tensor=logits_tensor, params=params, forward_fn=forward_fn,
         label_tensor=_label_tensor(loss_type, logits_tensor) if loss_type else None,
         loss_type=loss_type, metrics=metrics, optimizer=optimizer,
-        opt_state=optimizer.init_state(params) if training else None,
-        wd_mask=wd_mask,
+        opt_state=optimizer.init_state(zero_slices(params)) if training else None,
+        wd_mask=wd_mask, update_fn=apply_update if training else None,
+        zero_dims=zero_dims, loss_share=loss_share, sync_grads=sync_grads,
+        label_block=label_block,
         train_step=train_step if training else None,
         train_k_steps=train_k_steps if training else None,
         eval_step=eval_step if loss_type is not None else None,

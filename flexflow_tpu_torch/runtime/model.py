@@ -40,6 +40,17 @@ take each rank's rows of it, ``load_numpy_params`` takes whole arrays and
 keeps each rank's blocks, and :meth:`FFModel.numpy_params` gathers them
 back. The parallel verbs (``repartition``, ``combine``, ``replicate``,
 ``reduction``, ``allreduce``) move the data they name.
+
+``compile(pipeline=PipelineConfig(...))`` trains through a pipeline
+engine (``parallel/pipeline.py``), and a mesh with a ``pipe`` axis above
+1 enables one when the graph has at least that many ops, with
+``config.pipeline_schedule``/``pipeline_interleave``/``pipeline_remat``;
+``schedule="auto"`` raises (it needs the simulator's ranking, ROADMAP
+A8). ``config.grad_accum_steps`` folds into its microbatch count. With an
+engine, ``fit``, ``eval``, ``set_batch`` and ``forward`` take the global
+batch on every rank and go through it, ``fit_profile["pipeline"]``
+records it, and :meth:`FFModel.numpy_params` gathers every stage's
+params.
 """
 
 from __future__ import annotations
@@ -105,6 +116,8 @@ class FFModel:
         self._resolved_token_budget = 0
         # the strategies of the last compile, by layer name
         self._strategies: Dict[str, Dict[str, str]] = {}
+        # the pipeline engine of the last compile (parallel/pipeline.py)
+        self.pipelined = None
 
     # ---- graph construction ---------------------------------------------
     def create_tensor(self, dims: Sequence[int],
@@ -446,9 +459,11 @@ class FFModel:
     def group_by_stacked(self, input: Tensor, assign: Tensor, n: int,
                          alpha: float, name=None,
                          strategy: Optional[Dict[str, str]] = None) -> Tensor:
-        """GroupBy emitting one stacked (n, capacity, d) tensor. A pinned
-        ``strategy={"expert": axis}`` raises: the expert-parallel path is
-        ROADMAP A7b."""
+        """GroupBy emitting one stacked (n, capacity, d) tensor.
+        ``strategy={"expert": axis}`` shards the experts over a mesh axis;
+        on the axis that shards the batch that is expert parallelism (each
+        rank routes its own tokens, an all-to-all carries them to the
+        experts' owners)."""
         attrs = dict(n=n, alpha=alpha)
         if strategy:
             attrs["strategy"] = strategy
@@ -566,6 +581,8 @@ class FFModel:
         cm = self.compiled
         if cm is None:
             raise RuntimeError("compile() before numpy_params()")
+        if self.pipelined is not None:
+            self.pipelined.sync_to(cm)
         out: Dict[str, Dict[str, np.ndarray]] = {}
         with torch.no_grad():
             for op_name, ws in cm.params.items():
@@ -585,7 +602,7 @@ class FFModel:
                 comp_mode: Optional[CompMode] = None,
                 logits_tensor: Optional[Tensor] = None,
                 strategies: Optional[Dict[str, Dict[str, str]]] = None,
-                mesh=None) -> None:
+                mesh=None, pipeline=None) -> None:
         """Compile the graph. With a loss and TRAINING mode (the config's
         ``computation_mode`` unless ``comp_mode`` says otherwise) the model
         gets its training steps; without an optimizer it trains with the
@@ -595,7 +612,10 @@ class FFModel:
         one ``FusedOp`` each, the logits never fused away. ``strategies``
         maps layer names to strategies (a layer's own ``strategy=`` wins);
         ``mesh`` (``core.machine.Mesh``) defaults to
-        ``make_mesh(config.mesh_shape)``."""
+        ``make_mesh(config.mesh_shape)``. ``pipeline``
+        (``parallel.pipeline.PipelineConfig``) trains through a pipeline
+        engine over the mesh's pipe axis; a pipe axis above 1 enables one
+        from the config's ``pipeline_*`` fields."""
         configure_tracer(self.config)
         configure_faults(self.config)  # a malformed plan fails before any work
         if comp_mode is None:
@@ -622,6 +642,43 @@ class FFModel:
         self.compiled = compile_model(self.config, layers, self._used_inputs(),
                                       logits, self.optimizer, loss_type, mtypes,
                                       comp_mode, strat, mesh)
+        self.pipelined = None
+        cm = self.compiled
+        if pipeline is None and cm.mesh is not None and cm.train_step is not None:
+            pipe_deg = cm.mesh.shape.get("pipe", 1)
+            if pipe_deg > 1 and len(layers) >= pipe_deg:
+                from ..parallel.pipeline import PipelineConfig, pipe_microbatches
+
+                cfg = self.config
+                pipeline = PipelineConfig(
+                    num_stages=pipe_deg, num_microbatches=pipe_microbatches(cfg.batch_size),
+                    schedule=cfg.pipeline_schedule,
+                    interleave=(max(2, int(cfg.pipeline_interleave))
+                                if cfg.pipeline_schedule == "interleaved" else 1),
+                    remat=cfg.pipeline_remat)
+        if pipeline is not None:
+            from ..parallel.pipeline import make_pipelined_model
+
+            self.pipelined = make_pipelined_model(cm, self._resolve_pipeline(pipeline))
+
+    def _resolve_pipeline(self, pipeline):
+        """A PipelineConfig finalized against the config:
+        ``grad_accum_steps`` K folds into the microbatch count (K times the
+        microbatches: the same averaging); ``schedule="auto"`` raises, as
+        its ranking is the simulator's (ROADMAP A8)."""
+        import dataclasses as _dc
+
+        accum = max(1, int(self.config.grad_accum_steps))
+        if accum > 1 and not pipeline.accum_folded:
+            pipeline = _dc.replace(pipeline, num_microbatches=pipeline.num_microbatches * accum,
+                                   accum_folded=True)
+        if pipeline.schedule == "auto":
+            raise NotImplementedError(
+                "pipeline schedule 'auto' ranks the schedules with the simulator's cost model "
+                "(sim/simulator.py rank_pipeline_schedules), which is ROADMAP A8; pin "
+                "schedule='gpipe', '1f1b' or 'interleaved' (FFConfig.pipeline_schedule or "
+                "PipelineConfig(schedule=...))")
+        return pipeline
 
     def _used_inputs(self) -> List[Tensor]:
         used = {t.tensor_id for layer in self.layers for t in layer.inputs
@@ -697,14 +754,15 @@ class FFModel:
         reshaped to (N, -1) int32 once, on the host); under
         ``seq_buckets`` the group carries the packing spec."""
         cm = self.compiled
-        loaders = [SingleDataLoader(np.asarray(a), batch_size, cm.device, cm.batch_rows(i))
+        # a pipeline engine takes the global batch on every rank
+        rows = (lambda i: slice(None)) if self.pipelined is not None else cm.batch_rows
+        loaders = [SingleDataLoader(np.asarray(a), batch_size, cm.device, rows(i))
                    for i, a in enumerate(xs)]
         y_arr = np.asarray(y)
         _check_label(cm, y_arr.shape)
         if cm.loss_type is LossType.SPARSE_CATEGORICAL_CROSSENTROPY:
             y_arr = y_arr.reshape(y_arr.shape[0], -1).astype(np.int32)
-        loaders.append(SingleDataLoader(y_arr, batch_size, cm.device,
-                                        cm.batch_rows(len(xs))))
+        loaders.append(SingleDataLoader(y_arr, batch_size, cm.device, rows(len(xs))))
         dyn = self._dynamic_shapes_spec(cm, loaders, y_arr)
         if dyn is None:
             return DataLoaderGroup(loaders, seed=self.config.seed, shuffle=shuffle)
@@ -721,7 +779,7 @@ class FFModel:
         max_inflight = max(1, int(cfg.max_inflight_steps))
         k = max(1, int(cfg.steps_per_dispatch))
         if (recompile_state is not None or cm.train_k_steps is None
-                or cfg.seq_buckets != "off"):
+                or cfg.seq_buckets != "off" or self.pipelined is not None):
             k = 1
         return depth, max_inflight, k
 
@@ -841,6 +899,8 @@ class FFModel:
         cm = self._training_model()
         configure_tracer(self.config)
         configure_faults(self.config)
+        if guard is not None and self.pipelined is not None:
+            raise ValueError("TrainingGuard does not support pipelined training")
         xs = x if isinstance(x, (list, tuple)) else [x]
         epochs = epochs or self.config.epochs
         group = self._loader_group(xs, y, batch_size or self.config.batch_size, shuffle)
@@ -889,8 +949,12 @@ class FFModel:
                         if cm.note_dispatch_shape("train", rows, sl):
                             bucket_missed += 1
                             metrics_registry().counter("fit.bucket_compiles").inc()
-                    cm.params, cm.opt_state, loss, bm = cm.train_step(
-                        cm.params, cm.opt_state, self._next_rng(), *batch, seq_length=sl)
+                    if self.pipelined is not None:
+                        loss, bm = self.pipelined.train_step(self._next_rng(), batch[:-1],
+                                                             batch[-1])
+                    else:
+                        cm.params, cm.opt_state, loss, bm = cm.train_step(
+                            cm.params, cm.opt_state, self._next_rng(), *batch, seq_length=sl)
                     guard_add = loss
                 if _fx.active() and _fx.fire("train.nan_loss") is not None:
                     # poisons the guard's accumulator as a real overflow would
@@ -972,6 +1036,12 @@ class FFModel:
                 group, bucket_missed, tok_valid, tok_total)
         if guard is not None:
             self.fit_profile["guard"] = guard.report()
+        if self.pipelined is not None:
+            bs = batch_size or self.config.batch_size
+            self.fit_profile["pipeline"] = self.pipelined.profile(
+                bs // self.pipelined.cfg.num_microbatches)
+            # every stage's trained params into the compiled model
+            self.pipelined.sync_to(cm)
         return history
 
     def eval(self, x, y, batch_size: Optional[int] = None,
@@ -1001,7 +1071,10 @@ class FFModel:
                 if cm.note_dispatch_shape("eval", rows, sl):
                     bucket_missed += 1
                     metrics_registry().counter("eval.bucket_compiles").inc()
-            _, _, bm = cm.eval_step(cm.params, *batch, seq_length=sl)
+            if self.pipelined is not None:
+                _, _, bm = self.pipelined.eval_step(batch[:-1], batch[-1])
+            else:
+                _, _, bm = cm.eval_step(cm.params, *batch, seq_length=sl)
             pm.accumulate(bm)
             self._advance_window(inflight, max_inflight)
             n_steps += 1
@@ -1023,9 +1096,9 @@ class FFModel:
             _check_label(self.compiled, np.shape(y))
         batch = list(xs) + ([y] if y is not None else [])
         cm = self.compiled
-        rows = [cm.batch_rows(i) if cm is not None else slice(None)
-                for i in range(len(batch))]
-        if y is not None and cm is not None:
+        whole = cm is None or self.pipelined is not None
+        rows = [slice(None) if whole else cm.batch_rows(i) for i in range(len(batch))]
+        if y is not None and not whole:
             rows[-1] = cm.batch_rows(len(cm.input_tensors))
         self._cur_batch = [torch.as_tensor(np.asarray(a)[r], device=self.device)
                            for a, r in zip(batch, rows)]
@@ -1038,6 +1111,8 @@ class FFModel:
         if cm is None or self._cur_batch is None:
             raise RuntimeError("compile() and set_batch() before forward()")
         sl = self.iter_config.seq_length if seq_length is None else seq_length
+        if self.pipelined is not None:
+            return self.pipelined.forward_only(self._cur_batch[: len(cm.input_tensors)])
         return cm.forward_fn(cm.params, *self._cur_batch[: len(cm.input_tensors)],
                              seq_length=sl)
 
@@ -1063,8 +1138,7 @@ class FFModel:
         cm = self._training_model()
         if self._cur_grads is None:
             raise RuntimeError("backward() before update()")
-        cm.params, cm.opt_state = cm.optimizer.update(
-            cm.params, self._cur_grads, cm.opt_state, cm.wd_mask)
+        cm.params, cm.opt_state = cm.update_fn(cm.params, self._cur_grads, cm.opt_state)
         self._cur_grads = None
 
     def set_learning_rate(self, lr: float) -> None:
@@ -1077,6 +1151,8 @@ class FFModel:
             opt.alpha = float(lr)
         else:
             raise ValueError("optimizer has no learning-rate attribute")
+        if self.pipelined is not None:
+            self.pipelined.refresh_updates()
 
     def _next_rng(self) -> int:
         """The next training step's dropout key."""

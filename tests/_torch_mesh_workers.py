@@ -202,6 +202,40 @@ def sharded_flash(rank: int, world: int, q, k, v, causal: bool, dtype: str) -> d
     return out
 
 
+def ep_kernels(rank: int, world: int, x, assign, gate, n: int, capacity: int,
+               dtype: str) -> dict:
+    """The expert-parallel row movement on the card: this rank's block of
+    the batch dispatched at the local capacity (``row_gather``), the rows
+    through ``expert_all_to_all`` and back, and the rank's combine
+    (``row_gather_sum``), each against its plain version on the same
+    tensors; the launches counted around the kernel path alone."""
+    from flexflow_tpu_torch import kernels
+    from flexflow_tpu_torch.core.machine import make_mesh
+    from flexflow_tpu_torch.kernels import moe_kernels as mk
+    from flexflow_tpu_torch.parallel import collectives as C, distributed
+
+    mesh = make_mesh({"data": world})
+    b = x.shape[0] // world
+    rows = slice(rank * b, (rank + 1) * b)
+    tdt = getattr(torch, dtype)
+    xl = torch.from_numpy(x[rows]).cuda().to(tdt)
+    al = torch.from_numpy(assign[rows]).cuda()
+    gl = torch.from_numpy(gate[rows]).cuda()
+    c_loc = capacity // world
+    out = {"backend": distributed.backend(), "local_rows": b, "local_capacity": c_loc}
+    for plain in (True, False):
+        kernels.reset_launch_counts()
+        disp = mk.moe_dispatch(xl, al, n, c_loc, plain=plain)
+        experts = C.expert_all_to_all(disp, mesh, "data")
+        back = C.experts_to_tokens(experts * 2, mesh, "data")
+        comb = mk.moe_combine(back, al, gl, plain=plain)
+        torch.cuda.synchronize()
+        out["plain" if plain else "kernel"] = dict(
+            dispatch=disp.float().cpu().numpy(), combine=comb.float().cpu().numpy(),
+            experts_shape=tuple(experts.shape), launches=kernels.launch_counts())
+    return out
+
+
 def nccl_all_reduce(rank: int, world: int) -> dict:
     from flexflow_tpu_torch.core.machine import make_mesh
     from flexflow_tpu_torch.parallel import collectives as C, distributed
@@ -211,3 +245,139 @@ def nccl_all_reduce(rank: int, world: int) -> dict:
     s = C.psum_all_reduce(x, mesh, "data")
     return {"backend": distributed.backend(), "sum": float(s[0]),
             "staged": C.stats()["staged_bytes"]}
+
+
+def whole_tree(cm, tree: dict) -> dict:
+    """A tree of this rank's blocks (params or gradients) as whole numpy
+    arrays: each sharded block all-gathered by its weight's layout."""
+    from flexflow_tpu_torch.core.parallel_tensor import ParallelTensorShape
+    from flexflow_tpu_torch.ops.parallel_ops import reshard
+
+    out = {}
+    with torch.no_grad():
+        for op, ws in tree.items():
+            out[op] = {}
+            for w, t in ws.items():
+                if cm.mesh is not None:
+                    lay = cm.weight_layout(op, w)
+                    t = reshard(t, lay, ParallelTensorShape.unpartitioned(lay.sizes), cm.mesh)
+                out[op][w] = t.float().numpy().copy()
+    return out
+
+
+def moe(rank: int, world: int, mesh_shape, cfg: dict, stacked: bool, expert_axis, params,
+        batches, grad_batch=None) -> dict:
+    """``build_moe_mnist`` over ``mesh_shape`` from ``params``: one SGD
+    ``train_step`` per global batch (this rank's rows), then, with
+    ``grad_batch``, one ``grad_step``. Returns the losses, the whole
+    params and gradients, this rank's expert-weight block shape and the
+    calls of the expert all-to-alls."""
+    from flexflow_tpu_torch import FFConfig, FFModel, LossType, SGDOptimizer, load_numpy_params
+    from flexflow_tpu_torch.models import MoeConfig, build_moe_mnist
+    from flexflow_tpu_torch.parallel import collectives as C
+
+    batch = batches[0][-1].shape[0]
+    ff = FFModel(FFConfig(batch_size=batch, device="cpu", mesh_shape=mesh_shape))
+    build_moe_mnist(ff, batch, MoeConfig(**cfg), stacked=stacked, expert_axis=expert_axis)
+    ff.compile(SGDOptimizer(lr=0.1), LossType.SPARSE_CATEGORICAL_CROSSENTROPY)
+    load_numpy_params(ff, params)
+    cm = ff.compiled
+    calls = {"to_experts": 0, "to_tokens": 0}
+    real = C.expert_all_to_all, C.experts_to_tokens
+
+    def counted(name, fn):
+        def run(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return run
+
+    C.expert_all_to_all = counted("to_experts", real[0])
+    C.experts_to_tokens = counted("to_tokens", real[1])
+    try:
+        losses = []
+        for b in batches:
+            ff.set_batch([b[0]], b[1])
+            cm.params, cm.opt_state, loss, _ = cm.train_step(cm.params, cm.opt_state, None,
+                                                             *ff._cur_batch)
+            losses.append(float(loss))
+        grads = None
+        if grad_batch is not None:
+            ff.set_batch([grad_batch[0]], grad_batch[1])
+            grads = whole_tree(cm, cm.grad_step(cm.params, None, *ff._cur_batch))
+    finally:
+        C.expert_all_to_all, C.experts_to_tokens = real
+    experts = cm.params.get("moe_experts", {}).get("kernel")
+    return dict(losses=losses, params=whole_tree(cm, cm.params), grads=grads, calls=calls,
+                expert_block=None if experts is None else tuple(experts.shape))
+
+
+def pipe(rank: int, world: int, mesh_shape: dict, model: str, shape: dict, params, batches,
+         loss: str, pipeline: dict, kw: dict = None, config: dict = None,
+         forward_x=None) -> dict:
+    """``model`` compiled over ``mesh_shape`` with ``pipeline`` (the
+    ``PipelineConfig`` fields), from ``params``: one ``train_step`` of the
+    engine per global batch; the losses, the whole params after, the
+    engine's record and, with ``forward_x``, ``forward_only``'s logits."""
+    from flexflow_tpu_torch import FFConfig, FFModel, LossType, SGDOptimizer, load_numpy_params
+    from flexflow_tpu_torch.parallel.pipeline import PipelineConfig
+
+    batch = batches[0][-1].shape[0]
+    ff = FFModel(FFConfig(batch_size=batch, device="cpu", mesh_shape=mesh_shape,
+                          **(config or {})))
+    if model == "moe":
+        from flexflow_tpu_torch.models import MoeConfig, build_moe_mnist
+
+        build_moe_mnist(ff, batch, MoeConfig(**shape), **(kw or {}))
+    else:
+        build(ff, model, batch, shape, **(kw or {}))
+    ff.compile(SGDOptimizer(lr=0.01), getattr(LossType, loss),
+               pipeline=PipelineConfig(**pipeline) if pipeline is not None else None)
+    load_numpy_params(ff, params)
+    pm = ff.pipelined
+    losses = [float(pm.train_step(None, list(b[:-1]), b[-1])[0]) for b in batches]
+    logits = None if forward_x is None else pm.forward_only(list(forward_x)).numpy()
+    rec = pm.profile(batch // pm.cfg.num_microbatches)
+    return dict(losses=losses, params=ff.numpy_params(), engine=pm.engine_name,
+                fallback_reason=pm.fallback_reason, stage=rec["stage"],
+                microbatches=pm.cfg.num_microbatches, logits=logits,
+                chunks=[[op.name for op in ch] for ch in pm.chunks])
+
+
+def zero(rank: int, world: int, model: str, mesh_shape, shape: dict, kw: dict, params,
+         batches, loss: str, optimizer: str, zero_optimizer: bool) -> dict:
+    """``model`` over ``mesh_shape`` with ``optimizer`` ("sgd_momentum" or
+    "adam") and ZeRO-1 on or off: one ``train_step`` per global batch,
+    then the manual ``backward``/``update`` verbs on the first batch; the
+    losses, the whole params after, this rank's optimizer-state bytes and
+    each state array's local shape beside its weight's."""
+    from flexflow_tpu_torch import (AdamOptimizer, FFConfig, FFModel, LossType, SGDOptimizer,
+                                    load_numpy_params)
+
+    batch = batches[0][-1].shape[0]
+    ff = FFModel(FFConfig(batch_size=batch, device="cpu", mesh_shape=mesh_shape,
+                          zero_optimizer=zero_optimizer))
+    build(ff, model, batch, shape, **kw)
+    opt = (AdamOptimizer(alpha=0.01) if optimizer == "adam"
+           else SGDOptimizer(lr=0.01, momentum=0.9))
+    ff.compile(opt, getattr(LossType, loss))
+    load_numpy_params(ff, params)
+    cm = ff.compiled
+    losses = []
+    for b in batches:
+        ff.set_batch(list(b[:-1]), b[-1])
+        cm.params, cm.opt_state, l, _ = cm.train_step(cm.params, cm.opt_state, None,
+                                                      *ff._cur_batch)
+        losses.append(float(l))
+    after_steps = ff.numpy_params()
+    ff.set_batch(list(batches[0][:-1]), batches[0][-1])
+    ff.backward()
+    ff.update()
+    state = cm.opt_state["m"] if optimizer == "adam" else cm.opt_state
+    shapes = {f"{op}.{w}": (tuple(t.shape), tuple(cm.params[op][w].shape))
+              for op, ws in state.items() for w, t in ws.items()}
+    nbytes = sum(t.numel() * t.element_size() for ws in state.values() for t in ws.values())
+    if optimizer == "adam":
+        nbytes *= 2  # m and v
+    return dict(losses=losses, params=ff.numpy_params(), after_steps=after_steps,
+                state_bytes=nbytes,
+                state_shapes=shapes, zero_dims=dict(cm.zero_dims))

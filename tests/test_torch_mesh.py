@@ -21,14 +21,15 @@ from flexflow_tpu.models.transformer import TransformerConfig as JTransformerCon
 from flexflow_tpu.models.transformer import build_bert_proxy as jbuild_bert_proxy
 from flexflow_tpu.models.transformer import build_transformer as jbuild_transformer
 from flexflow_tpu.runtime.compiler import build_ops as jbuild_ops
-from flexflow_tpu_torch import FFConfig, FFModel, LossType
-from flexflow_tpu_torch.core.machine import LAUNCH_HINT, Mesh, make_mesh
+from flexflow_tpu_torch import AdamOptimizer, FFConfig, FFModel, LossType
+from flexflow_tpu_torch.core.machine import LAUNCH_HINT, Group, Mesh, make_mesh
 from flexflow_tpu_torch.core.parallel_tensor import ParallelDim, ParallelTensorShape
 from flexflow_tpu_torch.ffconst import ActiMode, DataType
 from flexflow_tpu_torch.models import GPTConfig, TransformerConfig, build_gpt
 from flexflow_tpu_torch.models.dlrm import build_dlrm
 from flexflow_tpu_torch.models.transformer import build_bert_proxy, build_transformer
 from flexflow_tpu_torch.models.xdl import build_xdl
+from flexflow_tpu_torch.ops.moe_ops import expert_capacity
 from flexflow_tpu_torch.runtime.compiler import build_ops, compile_model
 from flexflow_tpu_torch.serving.placement import instance_meshes
 
@@ -199,15 +200,53 @@ def _batch_sum(ff):
     ff.reduce_sum(ff.create_tensor((BATCH, 16), name="x"), axes=[0], name="sum")
 
 
-def _moe(ff):
-    ff.moe(ff.create_tensor((BATCH, 16), name="x"), 4, 2, 8, name="moe")
+def _moe(ff, stacked=False, expert_axis=None):
+    ff.moe(ff.create_tensor((BATCH, 16), name="x"), 4, 2, 8, stacked=stacked,
+           expert_axis=expert_axis, name="moe")
 
 
-@pytest.mark.parametrize("build, op", [(_bn, "bn"), (_batch_sum, "sum"), (_moe, "GROUP_BY")],
-                         ids=["batch_norm", "reduce_over_batch", "moe"])
+@pytest.mark.parametrize("build, op", [(_bn, "bn"), (_batch_sum, "sum")],
+                         ids=["batch_norm", "reduce_over_batch"])
 def test_a_reduction_across_the_sharded_batch_raises_naming_a7b(build, op):
     with pytest.raises(NotImplementedError, match=f"{op}.*A7b"):
         _data_mesh_ops(build)
+
+
+@pytest.mark.parametrize("stacked, expert_axis", [(False, None), (True, None), (True, "data")],
+                         ids=["n_branch", "stacked", "expert_parallel"])
+def test_moe_routing_over_the_sharded_batch_layouts(stacked, expert_axis):
+    """The routing ops over {data: 2}: without expert parallelism they read
+    the batch gathered and their combine comes out sharded on the batch;
+    with ``expert_axis="data"`` the stacked ops keep the batch sharded, the
+    experts and their weights shard over ``data``. The stacked layouts
+    match the JAX package's."""
+    ops, _ = _data_mesh_ops(lambda ff: _moe(ff, stacked, expert_axis))
+    by = {op.name: op for op in ops}
+    agg = by["moe_agg"]
+    assert agg.output_shapes[0].partition_spec() == ("data", None)
+    if expert_axis is None:
+        assert all(not ps.partition_axes for i, ps in enumerate(agg.input_layouts)
+                   if i != agg.full_gate_at)
+        assert agg.input_layouts[agg.full_gate_at].partition_spec() == ("data", None)
+        return
+    group, experts = by["moe_group"], by["moe_experts"]
+    assert [ps.partition_spec() for ps in group.input_layouts] == [("data", None)] * 2
+    assert group.output_shapes[0].partition_spec() == ("data", None, None)
+    assert experts.weight_shapes["kernel"].partition_spec() == ("data", None, None)
+    assert experts.weight_shapes["bias"].partition_spec() == ("data", None)
+    jff = JFFModel(JFFConfig(batch_size=BATCH))
+    _moe(jff, stacked, expert_axis)
+    pshapes = {t.tensor_id: JParallelTensorShape(
+        (JParallelDim(t.dims[0], 2, "data"),) + tuple(JParallelDim(s) for s in t.dims[1:]))
+        for t in jff.input_tensors}
+    strategies = {l.name: l.attrs["strategy"] for l in jff.layers if l.attrs.get("strategy")}
+    jops = {op.name: op for op in jbuild_ops(jff.layers, pshapes, {"data": 2}, strategies)[0]}
+    for name in ("moe_group", "moe_experts", "moe_agg"):
+        assert by[name].output_shapes[0].partition_spec() == \
+            tuple(jops[name].output_shapes[0].partition_spec()), name
+    for w in ("kernel", "bias"):
+        assert experts.weight_shapes[w].partition_spec() == \
+            tuple(jops["moe_experts"].weight_shapes[w].partition_spec())
 
 
 def test_a_reduction_across_a_sharded_feature_dim_gathers_it():
@@ -237,7 +276,6 @@ def test_a7b_strategies_raise_naming_a7b():
     img = ff.create_tensor((BATCH, 3, 8, 8), name="img")
     gate = ff.dense(x, 4, name="gate")
     _, assign = ff.top_k(gate, 2, sorted=False)
-    cases.append(lambda: ff.group_by_stacked(x, assign, 4, 2.0, strategy={"expert": "e"}))
     cases.append(lambda: ff.embedding(ids, 32, 8, strategy={"vocab": "model"}))
     cases.append(lambda: ff.conv2d(img, 4, 3, 3, 1, 1, 1, 1, strategy={"out": "model"}))
     cases.append(lambda: build_dlrm(FFModel(FFConfig(device="cpu")), BATCH, param_axis="model"))
@@ -247,11 +285,27 @@ def test_a7b_strategies_raise_naming_a7b():
     for case in cases:
         with pytest.raises(NotImplementedError, match="A7b"):
             case()
+    # an expert strategy and ZeRO-1 no longer raise: their layouts compile.
+    # An axis the mesh lacks, or a degree that does not divide the
+    # experts, raises the JAX package's ValueError
+    grouped = ff.group_by_stacked(x, assign, 4, 2.0, strategy={"expert": "data"}, name="grp")
+    assert grouped.dims == (4, expert_capacity(BATCH, 2, 4, 2.0), 16)
+    for axes, strategy, msg in (({"data": 2}, {"expert": "e"}, "not a mesh axis"),
+                                ({"data": 3}, {"expert": "data"}, "does not divide")):
+        with pytest.raises(ValueError, match=msg):
+            build_ops(ff.layers, {t.tensor_id: ParallelTensorShape.unpartitioned(t.dims, t.dtype)
+                                  for t in ff.input_tensors}, axes, {"grp": strategy})
     ff = FFModel(FFConfig(batch_size=BATCH, device="cpu", zero_optimizer=True))
     build_transformer(ff, BATCH, TransformerConfig(**SHAPE))
-    with pytest.raises(NotImplementedError, match="ZeRO-1.*A7b"):
-        compile_model(ff.config, ff.layers, ff.input_tensors, ff._final_output(),
-                      mesh=Mesh({"data": 2}, 0, {}))
+    cm = compile_model(ff.config, ff.layers, ff.input_tensors, ff._final_output(),
+                       optimizer=AdamOptimizer(), loss_type=LossType.MEAN_SQUARED_ERROR_AVG_REDUCE,
+                       mesh=Mesh({"data": 2}, 0, {("data",): Group(("data",), None, (0, 1), 0)}))
+    for (op, w), d in cm.zero_dims.items():
+        full, m = cm.params[op][w], cm.opt_state["m"][op][w]
+        assert m.shape[d] * 2 == full.shape[d] and m.dim() == full.dim()
+    assert cm.zero_dims and all(
+        cm.opt_state["m"][op][w].shape == t.shape for op, ws in cm.params.items()
+        for w, t in ws.items() if (op, w) not in cm.zero_dims)
 
 
 def test_strategy_files_round_trip_with_jax(tmp_path):

@@ -330,12 +330,19 @@ def test_aggregate_gradients_match_jax():
 
 
 def test_pinned_expert_axis_raises_until_a7():
+    """A pinned expert axis builds and, on one rank, compiles to the
+    unsharded model (the runs over a mesh are
+    test_torch_expert_parallel.py); the n-branch formulation still takes
+    no expert axis."""
     from flexflow_tpu_torch import FFConfig, FFModel
     from flexflow_tpu_torch.models import MoeConfig, build_moe_mnist
 
     ff = FFModel(FFConfig(batch_size=8, device="cpu"))
-    with pytest.raises(NotImplementedError, match="A7"):
-        build_moe_mnist(ff, 8, MoeConfig(input_dim=16), stacked=True, expert_axis="data")
+    build_moe_mnist(ff, 8, MoeConfig(input_dim=16), stacked=True, expert_axis="data")
+    ff.compile()
+    assert not ff.compiled.ops[3].output_shapes[0].partition_axes
+    out = ff.compiled.forward_fn(ff.compiled.params, torch.ones(8, 16))
+    assert out.shape == (8, 10) and torch.isfinite(out).all()
     with pytest.raises(ValueError, match="stacked"):
         build_moe_mnist(FFModel(FFConfig(batch_size=8, device="cpu")), 8,
                         MoeConfig(input_dim=16), expert_axis="data")

@@ -44,7 +44,9 @@ REQUIRED = ("flexflow_tpu_torch.obs", "flexflow_tpu_torch.obs.metrics",
             "flexflow_tpu_torch.runtime.checkpoint", "flexflow_tpu_torch.runtime.recompile",
             "flexflow_tpu_torch.parallel", "flexflow_tpu_torch.parallel.collectives",
             "flexflow_tpu_torch.parallel.distributed", "flexflow_tpu_torch.parallel.ring_attention",
-            "flexflow_tpu_torch.core.machine", "flexflow_tpu_torch.ops.parallel_ops")
+            "flexflow_tpu_torch.core.machine", "flexflow_tpu_torch.ops.parallel_ops",
+            "flexflow_tpu_torch.parallel.schedule", "flexflow_tpu_torch.parallel.pipeline",
+            "flexflow_tpu_torch.parallel.pipeline_compiled")
 
 
 def test_rules_cover_the_required_modules():
