@@ -166,8 +166,33 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ms, the boundary bytes a step sent beside those the shapes give, each
    stage's peak_activation_bytes beside max_memory_allocated, and K1-K3
    launches a stage;
-16. the kernels line, one JSON object;
-17. the last line: {"ok": true, "device": {...}}.
+16. the rest of A7b, the ranks and worker processes on this card over
+   gloo: (g) parallel/launch.py supervising the Transformer of (14) with
+   ZeRO-1 Adam on {data: 2} as two worker processes, 8 steps of 16
+   samples, a checkpoint every 2 (MultiHostCheckpointManager): an
+   uninterrupted cohort, one whose rank 1 multihost.peer_kill kills at
+   step 4 and one whose rank 1 multihost.slow_peer stalls at step 3
+   (detected after 10 s without heartbeat progress), run at once, both
+   relaunched and resumed with params bitwise equal to the uninterrupted
+   cohort's (their digests), then one process resuming the killed
+   cohort's checkpoints through restore_elastic; (h) the Transformer of
+   (4) over {model: 2} from a repository entry with its tensor-parallel
+   strategies, two ranks of a rank group on this card, f32 and bf16: 32
+   requests against the one-device instance with the same params (the
+   serving bounds), K1 launches by rank at (8*8, 512, 64), req/s; GPT at
+   GPTConfig() over {model: 2} through a "generator": true entry and
+   through the dense Generator with both ranks in step, 4 prompts of 64
+   and 32 greedy tokens each against the one-device Generator (parting
+   only where the margin rule allows), tokens/s; (i) DLRM at DLRMConfig()
+   with param_axis "model" on {model: 2} (512 MiB of tables a rank), 3
+   SGD steps held to the one-rank run as (14) holds f32; (j) ResNet-50
+   with batch norm at 229 px, batch 64, on {data: 2} with global batch
+   statistics, its first update held to the one-rank run in 2-norm
+   within 0.1 (the 3-step error reported), and its stem (7x7/2 conv,
+   batch norm, 3x3/2 pool) at 224 px with {"spatial": "model"} on
+   {model: 2}, held as (i);
+17. the kernels line, one JSON object;
+18. the last line: {"ok": true, "device": {...}}.
 
 Imports torch, numpy and flexflow_tpu_torch only.
 """
@@ -182,6 +207,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -3842,7 +3868,9 @@ def par_worker(rank: int, world: int, jobs: list) -> list:
     out = []
     run = {"collectives": lambda opts, kw: par_collectives(opts),
            "fit": lambda opts, kw: par_fit(opts, **kw),
-           "ep": lambda opts, kw: ep_fit(opts, **kw)}
+           "ep": lambda opts, kw: ep_fit(opts, **kw),
+           "mesh": lambda opts, kw: mesh_fit(opts, **kw),
+           "tp_gen": lambda opts, kw: tp_generate_job(opts, **kw)}
     for kind, opts, kw in jobs:
         t0 = time.perf_counter()
         out.append(run[kind](opts, kw))
@@ -4383,6 +4411,555 @@ def phase_parallel_b(card: str, par: dict) -> dict:
     return out
 
 
+# ---- phase_parallel_c: multi-process runs, serving over a mesh, sharded
+# tables and spatial convolution, global batch statistics (A7b items 4-7)
+# (g): the launcher's cohort of 2 workers, ZeRO-1 Adam, 16 samples a step
+LAUNCH_SAMPLES, LAUNCH_EPOCHS, LAUNCH_INTERVAL = 32, 4, 2  # 2 steps an epoch: 8 steps
+LAUNCH_KILL_STEP, LAUNCH_HANG_STEP, LAUNCH_HANG_S = 4, 3, 10.0
+LAUNCH_DIR = pathlib.Path(".ffcache") / "smoke_launch"
+# (h): requests through the {model: 2} instance; GPT generation over it
+MESH_REQUESTS = 32
+MESH_GEN_PROMPTS, MESH_GEN_PROMPT, MESH_GEN_NEW = 4, 64, 32
+# (i), (j): SGD steps held to one rank; the stem's image
+MESH_STEPS, MESH_RESNET_BATCH, STEM_BATCH, STEM_PX = 3, 64, 16, 224
+MESH_LR = 0.01
+# ResNet-50's first update held in 2-norm over the whole model: at random
+# init a batch norm's backward cancels nearly all of a flat softmax's
+# gradient, so two one-rank runs whose convolutions take other algorithms
+# part by percents in deep layers (0.5 % of the model's update on the CPU
+# between thread counts), while a gradient lost or counted twice over the
+# data axis moves it by half or more
+MESH_RESNET_TOL = 0.1
+# (j)'s running statistics after the first step, by the layer rule of (i)
+# and the stem (a batch norm's running mean and variance are its layer):
+# both runs read the same params there, so global statistics part only by
+# summation order, while per-rank ones over half the batch part by their
+# sampling noise: on the H100, 1.0e-7 global and 1.8e-3 per-rank
+# (scripts/torch_bn_stats_control.py), so the bound sits a hundredfold from
+# each. After MESH_STEPS steps they follow the params' deep-layer
+# divergence (0.11 global, 0.98 per-rank) and are reported
+MESH_BN_STATS_TOL = 1e-5
+
+
+def launch_job(config: dict, nproc: int):
+    """(g)'s job for ``parallel/launch.py``'s workers (``--job
+    chip_smoke:launch_job``): the reference Transformer at full width and
+    PAR_LAYERS layers, ZeRO-1 Adam on {data: nproc}, 16 samples a step
+    (8 a rank of 2), LAUNCH_SAMPLES samples from par_data's seed."""
+    from flexflow_tpu_torch import AdamOptimizer, FFConfig, FFModel, LossType, MetricsType
+    from flexflow_tpu_torch.models.transformer import TransformerConfig, build_transformer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    opts = par_opts(PAR_LAYERS)
+    batch = 2 * PAR_BATCH
+    cfg = TransformerConfig(hidden_size=opts["hidden"], embedding_size=opts["hidden"],
+                            num_heads=opts["heads"], num_layers=opts["layers"],
+                            sequence_length=opts["seq"])
+    ff = FFModel(FFConfig(batch_size=batch, seed=SEED, mesh_shape={"data": nproc},
+                          zero_optimizer=True, **config))
+    build_transformer(ff, batch, cfg)
+    ff.compile(optimizer=AdamOptimizer(alpha=1e-4),
+               loss_type=LossType.MEAN_SQUARED_ERROR_AVG_REDUCE,
+               metrics=[MetricsType.MEAN_SQUARED_ERROR])
+    x, y = par_data(opts, LAUNCH_SAMPLES)
+    return ff, x, y
+
+
+def par_launch(card: str) -> dict:
+    """(g) the uninterrupted cohort, a peer killed by ``multihost.peer_kill``
+    at step LAUNCH_KILL_STEP and one stalled by ``multihost.slow_peer`` at
+    step LAUNCH_HANG_STEP run at once (six workers sharing this card over
+    gloo); then one process resumes the killed cohort's checkpoints. The
+    relaunched cohorts' params must equal the uninterrupted one's bit for
+    bit (their digests); the shrunk one takes the counted elastic path."""
+    from flexflow_tpu_torch.parallel import launch
+
+    shutil.rmtree(LAUNCH_DIR, ignore_errors=True)
+    common = dict(nproc=2, job="chip_smoke:launch_job", epochs=LAUNCH_EPOCHS,
+                  interval=LAUNCH_INTERVAL, device=DEVICE, cohort_timeout_s=600.0)
+    kill = {"schema": 1, "seed": 0, "sites": {"multihost.peer_kill": {
+        "at_step": LAUNCH_KILL_STEP, "exit_code": launch.KILL_EXIT}}}
+    hang = {"schema": 1, "seed": 0, "sites": {"multihost.slow_peer": {
+        "at_step": LAUNCH_HANG_STEP, "stall_s": 600.0}}}
+    runs = {"baseline": dict(max_relaunches=0),
+            "kill": dict(fault_plan=kill, fault_rank=1, max_relaunches=2),
+            "hang": dict(fault_plan=hang, fault_rank=1, hang_threshold_s=LAUNCH_HANG_S,
+                         max_relaunches=2)}
+    reps, errors = {}, {}
+
+    def run(name, kw):
+        try:
+            reps[name] = launch.supervise(run_dir=str(LAUNCH_DIR / name), **common, **kw)
+        except BaseException as e:  # noqa: BLE001 (checked below, in the main thread)
+            errors[name] = repr(e)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=run, args=item) for item in runs.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    together_s = time.perf_counter() - t0
+    check(not errors and all(r["ok"] for r in reps.values()),
+          f"(g) cohorts failed: {errors or {n: (r.get('error'), r['events']) for n, r in reps.items() if not r['ok']}}")
+    base, killed, hung = reps["baseline"], reps["kill"], reps["hang"]
+    steps = LAUNCH_EPOCHS * LAUNCH_SAMPLES // (2 * PAR_BATCH)
+    check(base["agree"] and base["results"]["0"]["iteration"] == steps,
+          f"(g) baseline: ranks agree {base['agree']}, iteration "
+          f"{base['results']['0']['iteration']} (want {steps})")
+    ev = killed["events"][0] if killed["events"] else {}
+    check(killed["relaunches"] == 1 and ev.get("outcome") == "dead"
+          and ev.get("failed") == {"1": launch.KILL_EXIT},
+          f"(g) kill: {killed['relaunches']} relaunches, first event {ev}")
+    check(all(r["resumes"] >= 1 for r in killed["results"].values()),
+          "(g) kill: a relaunched rank did not resume from its shard")
+    check(hung["relaunches"] == 1 and hung["events"][0]["outcome"] == "hung",
+          f"(g) hang: {hung['relaunches']} relaunches, events "
+          f"{[e['outcome'] for e in hung['events']]}")
+    sha = base["results"]["0"]["params_sha"]
+    for name, rep in (("kill", killed), ("hang", hung)):
+        check(rep["agree"] and rep["results"]["0"]["params_sha"] == sha,
+              f"(g) {name}: the relaunched cohort's params differ from the uninterrupted "
+              f"cohort's")
+    t1 = time.perf_counter()
+    shrunk = launch.supervise(run_dir=str(LAUNCH_DIR / "shrink"), ckpt_dir=killed["ckpt_dir"],
+                              max_relaunches=0,
+                              **dict(common, nproc=1, epochs=LAUNCH_EPOCHS + 1))
+    shrink_s = time.perf_counter() - t1
+    check(shrunk["ok"], f"(g) shrink: {shrunk.get('error')} {shrunk['events']}")
+    res = shrunk["results"]["0"]
+    check(res["elastic_resumes"] >= 1 and res["iteration"] > steps,
+          f"(g) shrink 2 -> 1: elastic resumes {res['elastic_resumes']}, iteration "
+          f"{res['iteration']} (restored {steps})")
+    payload = pathlib.Path(killed["ckpt_dir"]) / "shard-000" / f"step_{steps}.pt"
+    ckpt_bytes = payload.stat().st_size
+    launches = {k: sum(r["kernel_launches"][k] for rep in list(reps.values()) + [shrunk]
+                       for r in rep["results"].values()) for k in FLASH_NAMES}
+    row = dict(card=card, steps=steps, together_s=together_s, shrink_s=shrink_s,
+               seconds={n: r["seconds"] for n, r in reps.items()},
+               kill_events=[e["outcome"] for e in killed["events"]],
+               hang_events=[e["outcome"] for e in hung["events"]],
+               bitwise_after_kill=True, bitwise_after_hang=True,
+               elastic_resumes=res["elastic_resumes"], shrunk_iteration=res["iteration"],
+               checkpoint_bytes_a_rank=ckpt_bytes, launches=launches)
+    print(f"parallel_c (g) launcher: the Transformer at full width, {PAR_LAYERS} layers, "
+          f"ZeRO-1 Adam, {{data: 2}} as two worker processes, {steps} steps, a checkpoint "
+          f"every {LAUNCH_INTERVAL}: peer killed at step {LAUNCH_KILL_STEP} -> "
+          f"{row['kill_events']} -> relaunched, params bitwise equal to the uninterrupted "
+          f"cohort's; peer stalled at step {LAUNCH_HANG_STEP} -> {row['hang_events']} after "
+          f"{LAUNCH_HANG_S:g} s without progress -> relaunched, bitwise equal; 2 -> 1 shrink "
+          f"resumed through restore_elastic ({res['elastic_resumes']} elastic resume, "
+          f"iteration {res['iteration']}); the three cohorts took {together_s:.1f} s together "
+          f"(baseline {base['seconds']:.1f}, kill {killed['seconds']:.1f}, hang "
+          f"{hung['seconds']:.1f}), the shrunk one {shrink_s:.1f} s; {ckpt_bytes / 2 ** 20:.1f} "
+          f"MiB a rank's checkpoint payload; flash launches {launches} [{card}]", flush=True)
+    shutil.rmtree(LAUNCH_DIR, ignore_errors=True)
+    return row
+
+
+def mesh_transformer(ff, bs: int) -> None:
+    """(h)'s builder, importable by the rank group: the Transformer
+    phase_serving serves; the repository entry carries the strategies and
+    the compute dtype."""
+    from flexflow_tpu_torch.models.transformer import TransformerConfig, build_transformer
+
+    build_transformer(ff, bs, TransformerConfig())
+
+
+def mesh_gpt(ff, bs: int) -> None:
+    """(h)'s generator builder: GPT at gpt_config(), heads and MLP over
+    ``model``."""
+    from flexflow_tpu_torch.models import build_gpt
+
+    build_gpt(ff, bs, MESH_GEN_PROMPT, gpt_config(), tp_axis="model")
+
+
+def tp_strategies() -> dict:
+    """The Transformer's tensor-parallel strategies by layer name (what
+    ``tp_axis="model"`` sets), for a repository entry."""
+    from flexflow_tpu_torch import FFConfig, FFModel
+    from flexflow_tpu_torch.models.transformer import TransformerConfig, build_transformer
+
+    ff = FFModel(FFConfig(batch_size=BATCH, device="cpu"))
+    build_transformer(ff, BATCH, TransformerConfig(), tp_axis="model")
+    return {l.name: l.attrs["strategy"] for l in ff.layers if l.attrs.get("strategy")}
+
+
+def serve_mesh_classic(compute_dtype: str, card: str, tmp: pathlib.Path,
+                       f32_ref: np.ndarray = None) -> tuple:
+    """(h) the Transformer over {model: 2}: a repository entry with the
+    strategies, its two ranks sharing this card, phase_serving's random
+    params; MESH_REQUESTS requests against the one-device instance with
+    the same params, f32 within SERVE_TOL, bf16 within twice the
+    one-device bf16 instance's distance from ``f32_ref`` (the f32
+    one-device answers; the rule ROADMAP gives phase_serving's thin bf16
+    margin). Returns (row, the one-device answers)."""
+    from flexflow_tpu_torch import CompMode, FFConfig, FFModel, load_numpy_params
+    from flexflow_tpu_torch.serving import InferenceEngine, ModelInstance
+
+    ff = FFModel(FFConfig(batch_size=BATCH, computation_mode=CompMode.INFERENCE,
+                          compute_dtype=compute_dtype, seed=SEED, device=DEVICE))
+    mesh_transformer(ff, BATCH)
+    ff.compile()
+    load_numpy_params(ff, random_params(ff, SEED))
+    cm = ff.compiled
+    rng = np.random.default_rng(SEED + 61)
+    xs = rng.standard_normal(size=(MESH_REQUESTS, SEQ, cm.input_tensors[0].dims[-1]),
+                             dtype=np.float32)
+    one = ModelInstance(ff, "one")
+    ref = np.concatenate([one.infer([xs[i:i + BATCH]])[0] for i in range(0, len(xs), BATCH)])
+    weights = weights_by_order(cm)
+    n_attn = sum(op.op_type.name == "MULTIHEAD_ATTENTION" for op in cm.ops)
+    del one, ff, cm
+    free_device()
+    path = tmp / f"mesh_repository_{compute_dtype}.json"
+    path.write_text(json.dumps({"models": {"tp": {
+        "instances": 1, "mesh_shape": {"model": 2}, "batch_size": BATCH,
+        "strategies": tp_strategies(),
+        "config": {"compute_dtype": compute_dtype, "seed": SEED}}}}))
+    eng = InferenceEngine()
+    try:
+        t0 = time.perf_counter()
+        placed = eng.load_repository(str(path), builders={"tp": mesh_transformer},
+                                     devices=[DEVICE, DEVICE])
+        start_s = time.perf_counter() - t0
+        check(placed == {"tp": 1}, f"(h) repository placed {placed}")
+        (inst,) = eng.instances("tp")
+        inst.load_weights(weights)
+        eng.infer("tp", [xs[0]], timeout=600)  # warm-up
+        inst.group.call("launch_counts", True)
+        d0 = inst.dispatches
+        t0 = time.perf_counter()
+        futs = [eng.infer_async("tp", [x]) for x in xs]
+        got = np.stack([f.result(600) for f in futs])
+        serve_s = time.perf_counter() - t0
+        counts = inst.group.call("launch_counts", False)
+        dispatches = inst.dispatches - d0
+        pids = inst.group.pids
+    finally:
+        eng.stop()
+    tol = SERVE_TOL[compute_dtype]
+    if f32_ref is not None:
+        tol = BF16_FLOOR_FACTOR * float(np.abs(ref - f32_ref).max()) / float(
+            np.abs(f32_ref).max())
+    err = check_served(got, ref, tol, f"(h) {{model: 2}} Transformer {compute_dtype}")
+    fwd = [c["flash_attention_fwd"] for c in counts]
+    check(all(f == n_attn * dispatches for f in fwd),
+          f"(h) {compute_dtype}: flash launches by rank {fwd}, want {n_attn} a dispatch "
+          f"x {dispatches}")
+    local = [BATCH * HEADS // 2, SEQ, HEAD_DIM]
+    rule = "" if f32_ref is None else ", twice the one-device bf16 instance's distance from f32"
+    row = dict(card=card, compute_dtype=compute_dtype, requests=MESH_REQUESTS,
+               dispatches=dispatches, req_per_s=MESH_REQUESTS / serve_s, start_s=start_s,
+               err_vs_one_device=err, tol=tol,
+               flash_launches_by_rank=fwd, local_attention_shape=local, ranks=len(pids))
+    print(f"parallel_c (h) {{model: 2}} Transformer {compute_dtype}: load_repository with "
+          f"{len(tp_strategies())} strategies, two ranks on this card over gloo (started in "
+          f"{start_s:.1f} s); {MESH_REQUESTS} requests in {dispatches} dispatches, "
+          f"{row['req_per_s']:.1f} req/s; answers vs the one-device instance {err:.3g} of the "
+          f"largest (tol {tol:.3g}{rule}); K1 launches by rank {fwd} at (B*H, S, D) = "
+          f"{tuple(local)} [{card}]", flush=True)
+    return dict(row, launches=sum(fwd)), ref
+
+
+def serve_mesh_generation(card: str, tmp: pathlib.Path) -> tuple:
+    """(h) GPT at gpt_config() in f32: MESH_GEN_PROMPTS prompts of
+    MESH_GEN_PROMPT tokens, MESH_GEN_NEW greedy tokens each, through a
+    repository ``"generator": true`` entry over {model: 2} (the rank
+    group's paged pools hold 4 of the 8 heads each), against the
+    one-device dense Generator with the same params: each answer equal up
+    to a first parting where the reference's full-forward top-2 margin is
+    within GEN_TOL of its largest |logit|. Returns (row, the prompts, the
+    weights by op order, the reference answers and margins) for the dense
+    Generator's run over the ranks."""
+    from flexflow_tpu_torch import load_numpy_params
+    from flexflow_tpu_torch.serving import Generator, InferenceEngine
+
+    ff, _ = gpt_model("float32", training=False)
+    load_numpy_params(ff, gpt_params(ff, SEED))
+    cm = ff.compiled
+    rng = np.random.default_rng(SEED + 71)
+    vocab = gpt_config().vocab_size
+    prompts = rng.integers(0, vocab, size=(MESH_GEN_PROMPTS, MESH_GEN_PROMPT), dtype=np.int32)
+    total = MESH_GEN_PROMPT + MESH_GEN_NEW
+    ref = Generator(ff, max_length=total, batch_size=MESH_GEN_PROMPTS).generate(
+        prompts, MESH_GEN_NEW)
+    traffic = [(p, MESH_GEN_NEW) for p in prompts]
+    margins = full_forward_margins(cm, traffic, list(ref))
+    bounds = [GEN_TOL["float32"] * m[2] for m in margins]
+    weights = weights_by_order(cm)
+    del ff, cm
+    free_device()
+    path = tmp / "mesh_generator.json"
+    path.write_text(json.dumps({"models": {"lm": {
+        "generator": True, "mesh_shape": {"model": 2}, "batch_size": 1,
+        "decode_slots": MESH_GEN_PROMPTS, "block_size": 16, "max_length": total,
+        "prefill_buckets": [MESH_GEN_PROMPT, total], "config": {"seed": SEED}}}}))
+    eng = InferenceEngine()
+    try:
+        placed = eng.load_repository(str(path), builders={"lm": mesh_gpt},
+                                     devices=[DEVICE, DEVICE])
+        check(placed == {"lm": 1}, f"(h) generator repository placed {placed}")
+        gen = eng.generator("lm")
+        gen.decoder.load_weights(weights)
+        t0 = time.perf_counter()
+        futs = [eng.generate_async("lm", p, MESH_GEN_NEW) for p in prompts]
+        outs = [np.asarray(f.result(600)) for f in futs]
+        gen_s = time.perf_counter() - t0
+        stats = gen.stats()
+    finally:
+        eng.stop()
+    parted, worst = first_divergences(outs, list(ref), margins, bounds)
+    row = dict(card=card, prompts=MESH_GEN_PROMPTS, prompt=MESH_GEN_PROMPT, new=MESH_GEN_NEW,
+               tokens_per_s=MESH_GEN_PROMPTS * MESH_GEN_NEW / gen_s,
+               decode_steps=stats["decode_steps"], parted=parted, worst_margin_share=worst,
+               rank_pool_bytes=gen.decoder.rank_pool_bytes)
+    print(f"parallel_c (h) GPT {{model: 2}} GenerationInstance float32: {MESH_GEN_PROMPTS} "
+          f"prompts of {MESH_GEN_PROMPT}, {MESH_GEN_NEW} greedy tokens each in "
+          f"{stats['decode_steps']} decode steps, {row['tokens_per_s']:.1f} tokens/s; "
+          f"{parted} answers part from the one-device Generator's (at margins up to "
+          f"{worst:.3g} of the bound); {row['rank_pool_bytes'] / 2 ** 20:.1f} MiB of arenas "
+          f"a rank [{card}]", flush=True)
+    return row, (prompts, weights, list(ref), margins, bounds)
+
+
+def stash_weights(weights: list) -> str:
+    """Weights by op order to TREE_DIR; returns the path."""
+    return stash_tree({str(i): ws for i, ws in enumerate(weights)})
+
+
+def read_weights(path: str) -> list:
+    tree = read_stashed_tree(path)
+    return [tree[str(i)] for i in range(len(tree))]
+
+
+def mesh_model(kind: str, device: str, mesh_shape=None):
+    """(i)/(j)'s models: DLRM at DLRMConfig() (tables sharded over
+    ``model`` under a mesh), ResNet-50 with batch norm at 229 px, and the
+    ResNet-50 stem (7x7/2 conv, batch norm, 3x3/2 pool) at STEM_PX with a
+    spatial strategy over ``model`` under a mesh; SGD at MESH_LR."""
+    from flexflow_tpu_torch import DataType, FFConfig, FFModel, LossType, SGDOptimizer
+    from flexflow_tpu_torch import models as m
+
+    on_mesh = bool(mesh_shape)
+    batch = {"dlrm": ZOO_BATCH, "resnet": MESH_RESNET_BATCH, "stem": STEM_BATCH}[kind]
+    ff = FFModel(FFConfig(batch_size=batch, seed=SEED, device=device, mesh_shape=mesh_shape))
+    strategies = None
+    if kind == "dlrm":
+        m.build_dlrm(ff, batch, param_axis="model" if on_mesh else None)
+        loss = LossType.MEAN_SQUARED_ERROR_AVG_REDUCE
+    elif kind == "resnet":
+        m.build_resnet50(ff, batch, use_bn=True)
+        loss = LossType.SPARSE_CATEGORICAL_CROSSENTROPY
+    else:
+        x = ff.create_tensor((batch, 3, STEM_PX, STEM_PX), DataType.FLOAT, name="stem_in")
+        t = ff.conv2d(x, 64, 7, 7, 2, 2, 3, 3, use_bias=False, name="stem_conv")
+        t = ff.pool2d(ff.batch_norm(t, name="stem_bn"), 3, 3, 2, 2, 1, 1, name="stem_pool")
+        ff.softmax(ff.dense(ff.flat(t), 10, name="stem_head"))
+        loss = LossType.SPARSE_CATEGORICAL_CROSSENTROPY
+        strategies = {"stem_conv": {"spatial": "model"}} if on_mesh else None
+    ff.compile(SGDOptimizer(lr=MESH_LR), loss, strategies=strategies)
+    return ff
+
+
+def mesh_data(cm, kind: str):
+    rng = np.random.default_rng(SEED + {"dlrm": 81, "resnet": 82, "stem": 83}[kind])
+    n = cm.input_tensors[0].dims[0] * MESH_STEPS
+    return zoo_inputs(cm, n, rng), zoo_labels(cm, n, rng)
+
+
+def mesh_fit(opts: dict, kind: str, mesh_shape=None, weights=None) -> dict:
+    """MESH_STEPS SGD steps of ``kind`` (one global batch each, this rank's
+    rows), from ``weights`` (by op order, a stashed path) when given; the
+    whole params before and after by op order, stashed by rank 0 (or the
+    one-rank run). DLRM's tables are cut to the rows the batches read:
+    SGD without momentum or decay changes no other row, and the 4 x 256
+    MiB tables would not be stashed in time."""
+    from flexflow_tpu_torch.serving.group import load_weights_by_order
+    from flexflow_tpu_torch.serving.group import weights_by_order as whole_weights
+
+    ff = mesh_model(kind, opts["device"], mesh_shape)
+    cm = ff.compiled
+    if weights is not None:
+        load_weights_by_order(ff, read_weights(weights))
+    start = whole_weights(ff)
+    xs, y = mesh_data(cm, kind)
+    batch = cm.input_tensors[0].dims[0]
+    par_sync(opts["device"])
+    t0 = time.perf_counter()
+    first = None
+    for i in range(MESH_STEPS):
+        rows = slice(i * batch, (i + 1) * batch)
+        ff.fit([a[rows] for a in xs], y[rows], batch_size=batch, epochs=1, shuffle=False,
+               verbose=False)
+        if i == 0 and kind == "resnet":
+            first = whole_weights(ff)
+    par_sync(opts["device"])
+    fit_s = time.perf_counter() - t0
+    after = whole_weights(ff)
+    if kind == "dlrm":
+        names = [op.name for op in cm.ops if op.name in cm.params]
+        start, after = ([{"rows": ws["weight"][np.unique(xs[int(n.split("_")[1])])]}
+                         if n.startswith("emb_") else ws for n, ws in zip(names, tree)]
+                        for tree in (start, after))
+    rank = cm.mesh.rank if cm.mesh is not None else 0
+    return dict(params=stash_weights(after) if rank == 0 else None,
+                start=stash_weights(start) if rank == 0 else None,
+                first=stash_weights(first) if rank == 0 and first is not None else None,
+                fit_s=fit_s,
+                mesh=dict(cm.mesh.shape) if cm.mesh is not None else None,
+                specs={op.name: op.output_shapes[0].partition_spec() for op in cm.ops
+                       if op.op_type.name in ("CONV2D", "BATCHNORM", "POOL2D", "EMBEDDING")})
+
+
+def tp_generate_job(opts: dict, prompts: np.ndarray, weights: str) -> dict:
+    """(h)'s dense Generator over {model: 2}, every rank in step: GPT at
+    gpt_config() from the stashed weights, MESH_GEN_NEW greedy tokens."""
+    from flexflow_tpu_torch import CompMode, FFConfig, FFModel
+    from flexflow_tpu_torch.serving import Generator
+    from flexflow_tpu_torch.serving.group import load_weights_by_order
+
+    ff = FFModel(FFConfig(batch_size=len(prompts), computation_mode=CompMode.INFERENCE,
+                          seed=SEED, device=opts["device"], mesh_shape={"model": 2}))
+    mesh_gpt(ff, len(prompts))
+    ff.compile()
+    load_weights_by_order(ff, read_weights(weights))
+    gen = Generator(ff, max_length=MESH_GEN_PROMPT + MESH_GEN_NEW)
+    gen.generate(prompts[:, :8], 2)  # warm-up
+    par_sync(opts["device"])
+    t0 = time.perf_counter()
+    out = gen.generate(prompts, MESH_GEN_NEW)
+    par_sync(opts["device"])
+    return dict(tokens=out, seconds=time.perf_counter() - t0,
+                local_heads=sorted({gen.local_heads(op) for op in gen._attn_ops}))
+
+
+def mesh_check(name: str, ranks: list, ref: dict, card: str, whole: bool = False) -> dict:
+    """Hold a mesh run's params (by op order; running statistics among
+    them) to the one-rank run's: each layer's largest error within
+    PAR_F32_TOL of its largest update, past MESH_STEPS f32 ulps (the
+    training phases' form); with ``whole`` the whole model's update error
+    in 2-norm after the first step within MESH_RESNET_TOL, the error after
+    MESH_STEPS steps reported beside, and each batch norm's running
+    statistics after the first step by the layer rule within
+    MESH_BN_STATS_TOL (after MESH_STEPS steps reported)."""
+    got, want, start = (as_tensors(t) for t in (ranks[0]["params"], ref["params"],
+                                                 ref["start"]))
+    steps, after, stats = MESH_STEPS, None, None
+    if not whole:
+        err, worst = layer_err(got, want, start, ulps=MESH_STEPS)
+        bound, what = PAR_F32_TOL, "of the layer's largest update"
+    else:
+        after = update_err(got, want, start)[0]
+        first_got, first_want = as_tensors(ranks[0]["first"]), as_tensors(ref["first"])
+        err, worst = update_err(first_got, first_want, start)
+        bound, what, steps = MESH_RESNET_TOL, "of the model's update (2-norm)", 1
+        stats = bn_stats_err(first_got, first_want, start, 1)
+        check(stats[0] <= MESH_BN_STATS_TOL,
+              f"{name}: running statistics after the first step {stats[0]:.3g} of the "
+              f"layer's largest update from the one-rank run (worst {stats[1]}; bound "
+              f"{MESH_BN_STATS_TOL:.3g})")
+        stats += bn_stats_err(got, want, start, MESH_STEPS)
+    check(err <= bound, f"{name}: params after {steps} step(s) {err:.3g} {what} from the "
+                        f"one-rank run (worst {worst}; bound {bound:.3g})")
+    row = dict(name=name, card=card, mesh=ranks[0]["mesh"], steps_held=steps,
+               param_err_vs_one_rank=err, param_err_worst=worst, bound=bound,
+               err_after_all_steps=after, fit_s=ranks[0]["fit_s"], one_rank_fit_s=ref["fit_s"],
+               specs=ranks[0]["specs"])
+    late = "" if after is None else f"; after {MESH_STEPS} steps {after:.3g} (reported)"
+    if stats is not None:
+        row.update(running_stats_err=stats[0], running_stats_worst=stats[1],
+                   running_stats_bound=MESH_BN_STATS_TOL, running_stats_err_after=stats[2])
+        late += (f"; running statistics after 1 step {stats[0]:.3g} of the layer's largest "
+                 f"update (worst {stats[1]}; bound {MESH_BN_STATS_TOL:.3g}), after "
+                 f"{MESH_STEPS} steps {stats[2]:.3g} (reported)")
+    print(f"parallel_c {name}: {ranks[0]['mesh']}, params (running statistics among them) "
+          f"after {steps} step(s) {err:.3g} {what} from the one-rank run (worst {worst}; "
+          f"bound {bound:.3g}){late}; {MESH_STEPS} steps in {ranks[0]['fit_s']:.2f} s (one "
+          f"rank {ref['fit_s']:.2f} s) [{card}]", flush=True)
+    return row
+
+
+def bn_stats_err(got: dict, want: dict, start: dict, steps: int) -> tuple:
+    """:func:`layer_err` of the batch norms' running mean and variance
+    alone (each batch norm one layer), past ``steps`` f32 ulps."""
+    def stats(tree: dict) -> dict:
+        return {op: {w: t for w, t in ws.items() if w.startswith("running_")}
+                for op, ws in tree.items() if "running_mean" in ws}
+
+    return layer_err(stats(got), stats(want), stats(start), ulps=steps)
+
+
+def phase_parallel_c(card: str) -> dict:
+    """(g) the launcher: kill, hang and shrink of a ZeRO-1 Transformer
+    cohort; (h) serving over {model: 2}: the Transformer through a
+    repository entry with strategies in both dtypes, GPT through a
+    generator entry and the dense Generator; (i) DLRM at DLRMConfig() with
+    its tables over {model: 2}; (j) ResNet-50 at 229 px over {data: 2} with
+    global batch statistics, and its stem with a spatial strategy over
+    {model: 2}; every run held to its one-device run. The ranks share this
+    card over gloo."""
+    from flexflow_tpu_torch.parallel.distributed import spawn
+
+    t0 = time.perf_counter()
+    tmp = pathlib.Path(".ffcache") / "smoke_mesh"
+    tmp.mkdir(parents=True, exist_ok=True)
+    launch_row = par_launch(card)
+    print(f"phases: parallel_c (g) at {time.perf_counter() - t0:.1f} s", flush=True)
+    free_device()
+    row32, ref32 = serve_mesh_classic("float32", card, tmp)
+    serving = [row32, serve_mesh_classic("bfloat16", card, tmp, ref32)[0]]
+    gen_row, (prompts, gpt_weights, ref_tokens, margins, bounds) = \
+        serve_mesh_generation(card, tmp)
+    print(f"phases: parallel_c (h) served at {time.perf_counter() - t0:.1f} s", flush=True)
+    opts = dict(device=DEVICE)
+    refs = {k: mesh_fit(opts, k) for k in ("dlrm", "resnet", "stem")}
+    free_device()
+    print(f"phases: parallel_c one-rank runs at {time.perf_counter() - t0:.1f} s", flush=True)
+    ranks = spawn(par_worker, 2, [
+        ("mesh", opts, dict(kind="dlrm", mesh_shape={"model": 2})),
+        ("mesh", opts, dict(kind="resnet", mesh_shape={"data": 2},
+                            weights=refs["resnet"]["start"])),
+        ("mesh", opts, dict(kind="stem", mesh_shape={"model": 2},
+                            weights=refs["stem"]["start"])),
+        ("tp_gen", opts, dict(prompts=prompts, weights=stash_weights(gpt_weights)))])
+    print(f"phases: parallel_c 2 ranks at {time.perf_counter() - t0:.1f} s", flush=True)
+    rows = [mesh_check("(i) DLRM DLRMConfig(), tables over {model: 2}",
+                       [r[0] for r in ranks], refs["dlrm"], card),
+            mesh_check(f"(j) ResNet-50 229 px, batch {MESH_RESNET_BATCH}, {{data: 2}}, global "
+                       f"batch-norm statistics", [r[1] for r in ranks], refs["resnet"], card,
+                       whole=True),
+            mesh_check(f"(j) ResNet-50 stem at {STEM_PX} px, {{spatial: model}} over {{model: 2}}",
+                       [r[2] for r in ranks], refs["stem"], card)]
+    check(rows[2]["specs"]["stem_conv"][2] == "model" and rows[2]["specs"]["stem_pool"][2] == "model",
+          f"(j) the stem's height is not sharded: {rows[2]['specs']}")
+    check(all(s[0] == "data" for n, s in rows[1]["specs"].items()),
+          f"(j) ResNet-50's batch is not sharded everywhere: {rows[1]['specs']}")
+    for row in rows:
+        row.pop("specs")
+    tp = [r[3] for r in ranks]
+    check(tp[0]["tokens"].shape == (MESH_GEN_PROMPTS, MESH_GEN_PROMPT + MESH_GEN_NEW)
+          and all(np.array_equal(t["tokens"], tp[0]["tokens"]) for t in tp),
+          "(h) the dense Generator's ranks disagree")
+    parted, worst = first_divergences(list(tp[0]["tokens"]), ref_tokens, margins, bounds)
+    check(tp[0]["local_heads"] == [gpt_config().num_heads // 2],
+          f"(h) local heads {tp[0]['local_heads']}")
+    dense = dict(tokens_per_s=MESH_GEN_PROMPTS * MESH_GEN_NEW / tp[0]["seconds"],
+                 parted=parted, worst_margin_share=worst, local_heads=tp[0]["local_heads"])
+    print(f"parallel_c (h) GPT {{model: 2}} dense Generator float32: {MESH_GEN_PROMPTS} x "
+          f"{MESH_GEN_NEW} greedy tokens, {dense['tokens_per_s']:.1f} tokens/s, "
+          f"{dense['local_heads'][0]} heads a rank; {parted} answers part from the one-device "
+          f"Generator's (at margins up to {worst:.3g} of the bound) [{card}]", flush=True)
+    shutil.rmtree(TREE_DIR, ignore_errors=True)
+    shutil.rmtree(tmp, ignore_errors=True)
+    launches = dict(launch_row["launches"])
+    launches["flash_attention_fwd"] += sum(r["launches"] for r in serving)
+    out = dict(launch=launch_row, serving=serving, generation=gen_row, dense_generation=dense,
+               training=rows, flash_launches=launches, seconds=time.perf_counter() - t0)
+    print("parallel_c_json " + json.dumps(out), flush=True)
+    return out
+
+
 def check_spans(events: list, n: int, validate) -> None:
     """Every served request has the reference's five spans on its own
     track, nested in its serving.request span."""
@@ -4491,6 +5068,9 @@ def main() -> int:
     par_b = phase_parallel_b(card, par_refs)
     del par_refs
     print(f"phases: parallel_b done at {time.perf_counter() - t0:.0f} s", flush=True)
+    free_device()
+    par_c = phase_parallel_c(card)
+    print(f"phases: parallel_c done at {time.perf_counter() - t0:.0f} s", flush=True)
     train_launches = {name: sum(r["fit_launches"][name] for r in train)
                       for name in train[0]["fit_launches"]}
     # GPT's path: its fits and the full-sequence forwards of its dense and
@@ -4511,9 +5091,11 @@ def main() -> int:
                       + bert_launches["flash_attention_fwd"]
                       + breadth["launches"] + rob["launches"]["flash_attention_fwd"]
                       + par["launches"]["flash_attention_fwd"]
-                      + par_b["flash_launches"]["flash_attention_fwd"],
+                      + par_b["flash_launches"]["flash_attention_fwd"]
+                      + par_c["flash_launches"]["flash_attention_fwd"],
                       parallel_launches=par["launches"]["flash_attention_fwd"],
                       parallel_b_launches=par_b["flash_launches"]["flash_attention_fwd"],
+                      parallel_c_launches=par_c["flash_launches"]["flash_attention_fwd"],
                       serving_launches=sum(r["launches"] for r in serve),
                       serving_breadth_launches=breadth["launches"],
                       training_launches=train_launches["flash_attention_fwd"],
@@ -4539,9 +5121,11 @@ def main() -> int:
                       + bert_launches["flash_attention_bwd_dq"]
                       + rob["launches"]["flash_attention_bwd_dq"]
                       + par["launches"]["flash_attention_bwd_dq"]
-                      + par_b["flash_launches"]["flash_attention_bwd_dq"],
+                      + par_b["flash_launches"]["flash_attention_bwd_dq"]
+                      + par_c["flash_launches"]["flash_attention_bwd_dq"],
                       parallel_launches=par["launches"]["flash_attention_bwd_dq"],
                       parallel_b_launches=par_b["flash_launches"]["flash_attention_bwd_dq"],
+                      parallel_c_launches=par_c["flash_launches"]["flash_attention_bwd_dq"],
                       training_launches=train_launches["flash_attention_bwd_dq"],
                       gpt_launches=gpt_launches["flash_attention_bwd_dq"],
                       bert_launches=bert_launches["flash_attention_bwd_dq"],
@@ -4561,9 +5145,11 @@ def main() -> int:
                       + bert_launches["flash_attention_bwd_dkv"]
                       + rob["launches"]["flash_attention_bwd_dkv"]
                       + par["launches"]["flash_attention_bwd_dkv"]
-                      + par_b["flash_launches"]["flash_attention_bwd_dkv"],
+                      + par_b["flash_launches"]["flash_attention_bwd_dkv"]
+                      + par_c["flash_launches"]["flash_attention_bwd_dkv"],
                       parallel_launches=par["launches"]["flash_attention_bwd_dkv"],
                       parallel_b_launches=par_b["flash_launches"]["flash_attention_bwd_dkv"],
+                      parallel_c_launches=par_c["flash_launches"]["flash_attention_bwd_dkv"],
                       training_launches=train_launches["flash_attention_bwd_dkv"],
                       gpt_launches=gpt_launches["flash_attention_bwd_dkv"],
                       bert_launches=bert_launches["flash_attention_bwd_dkv"],

@@ -82,6 +82,10 @@ class FFConfig:
     # a resume whose checkpoint was written under another topology raises
     # CKPT001 unless this opts into the counted portable restore
     elastic_resume: bool = False
+    # multi-process checkpoints: rank 0 waits this long for every rank's
+    # ack before it writes a step's manifest; past it the step is not
+    # manifested (counted on checkpoint.barrier_timeouts)
+    checkpoint_barrier_timeout_s: float = 60.0
     # gradient accumulation: each step splits its batch into K
     # microbatches, sums their gradients and metrics, divides the
     # gradients by K and updates once
@@ -171,6 +175,7 @@ class FFConfig:
             "--checkpoint-interval": ("checkpoint_interval_steps", int),
             "--checkpoint-dir": ("checkpoint_dir", str),
             "--checkpoint-keep": ("checkpoint_max_to_keep", int),
+            "--checkpoint-barrier-timeout": ("checkpoint_barrier_timeout_s", float),
             "--grad-accum-steps": ("grad_accum_steps", int),
             "--prefetch-depth": ("prefetch_depth", int),
             "--max-inflight-steps": ("max_inflight_steps", int),

@@ -125,23 +125,18 @@ class Op:
     def reads_across(self, i: int) -> Tuple[int, ...]:
         """The dims of input ``i`` that one output element reads across (a
         reduction, a product, a reshape). A sharded one is gathered before
-        the op runs, except the batch dim 0, where the op would need a
-        global reduction: that raises. Default: every dim but dim 0."""
+        the op runs, the batch dim 0 among them: the op then computes on
+        the whole batch, as GSPMD's reshard does in the JAX package. Ops
+        that reduce over the batch themselves (Reduce*, BatchNorm) keep
+        dim 0 sharded and run a collective instead. Default: every dim but
+        dim 0."""
         return tuple(range(1, len(self.input_shapes[i].dims)))
 
     def readable(self, i: int, shape: ParallelTensorShape) -> ParallelTensorShape:
-        """``shape`` with the dims :meth:`reads_across` names unpartitioned;
-        a sharded batch dim among them raises naming A7b."""
+        """``shape`` with the dims :meth:`reads_across` names unpartitioned."""
         for d in self.reads_across(i):
-            dim = shape.dims[d]
-            if not dim.is_partitioned:
-                continue
-            if d == 0:
-                raise NotImplementedError(
-                    f"{self.name} ({self.op_type.name}) reduces across dim 0, which is "
-                    f"sharded over mesh axis {dim.axis!r}; a global reduction over the "
-                    f"sharded batch is ROADMAP A7b")
-            shape = shape.combined(d)
+            if shape.dims[d].is_partitioned:
+                shape = shape.combined(d)
         return shape
 
     def propagate(

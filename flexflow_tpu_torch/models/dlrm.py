@@ -3,8 +3,8 @@
 PyTorch counterpart of ``flexflow_tpu/models/dlrm.py``: sum-aggregated
 embedding tables and a bottom MLP on the dense features, their concat (the
 "cat" interaction), then the top MLP with a sigmoid on its last layer.
-``param_axis`` (tables sharded on the vocab dim) raises: sharded tables are
-ROADMAP A7b.
+``param_axis`` shards every table on its vocab dim over that mesh axis
+(the JAX package's parameter parallelism for DLRM).
 """
 
 from __future__ import annotations
@@ -37,11 +37,8 @@ def _mlp(ff: FFModel, t, dims: List[int], sigmoid_layer: int, prefix: str):
 
 def build_dlrm(ff: FFModel, batch_size: int, cfg: Optional[DLRMConfig] = None,
                param_axis: Optional[str] = None):
-    """Returns (the sparse id inputs + the dense input, the output)."""
-    if param_axis is not None:
-        raise NotImplementedError(
-            f"build_dlrm(param_axis={param_axis!r}): sharded tables are "
-            f"ROADMAP A7b")
+    """Returns (the sparse id inputs + the dense input, the output).
+    ``param_axis``: the mesh axis the tables' vocab dim shards over."""
     cfg = cfg or DLRMConfig()
     sparse_inputs = [
         ff.create_tensor((batch_size, cfg.embedding_bag_size), DataType.INT32,
@@ -49,7 +46,9 @@ def build_dlrm(ff: FFModel, batch_size: int, cfg: Optional[DLRMConfig] = None,
         for i in range(len(cfg.embedding_size))]
     dense_input = ff.create_tensor((batch_size, cfg.mlp_bot[0]), DataType.FLOAT,
                                    name="dense_input")
-    ly = [ff.embedding(inp, vocab, cfg.sparse_feature_size, AggrMode.SUM, name=f"emb_{i}")
+    strategy = {"vocab": param_axis} if param_axis else None
+    ly = [ff.embedding(inp, vocab, cfg.sparse_feature_size, AggrMode.SUM, name=f"emb_{i}",
+                       strategy=strategy)
           for i, (inp, vocab) in enumerate(zip(sparse_inputs, cfg.embedding_size))]
     x = _mlp(ff, dense_input, cfg.mlp_bot, cfg.sigmoid_bot, "bot")
     z = ff.concat(ly + [x], axis=-1)

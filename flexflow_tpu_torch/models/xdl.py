@@ -2,8 +2,8 @@
 
 PyTorch counterpart of ``flexflow_tpu/models/xdl.py``: sparse id inputs,
 sum-aggregated embeddings, their concat, then a bias-free top MLP with a
-sigmoid on its second-to-last layer. ``embedding_strategy`` (sharded
-tables) raises: sharded tables are ROADMAP A7b.
+sigmoid on its second-to-last layer. ``embedding_strategy`` (for
+example ``{"vocab": "model"}``) is every table's strategy.
 """
 
 from __future__ import annotations
@@ -25,11 +25,8 @@ class XDLConfig:
 
 def build_xdl(ff: FFModel, batch_size: int, cfg: Optional[XDLConfig] = None,
               embedding_strategy: Optional[dict] = None):
-    """Returns (the sparse id inputs, the output)."""
-    if embedding_strategy:
-        raise NotImplementedError(
-            f"build_xdl(embedding_strategy={embedding_strategy!r}): sharded "
-            f"tables are ROADMAP A7b")
+    """Returns (the sparse id inputs, the output); ``embedding_strategy``
+    shards every table (the DLRM-style vocab sharding)."""
     cfg = cfg or XDLConfig()
     inputs, embedded = [], []
     for i, vocab in enumerate(cfg.embedding_size):
@@ -37,7 +34,7 @@ def build_xdl(ff: FFModel, batch_size: int, cfg: Optional[XDLConfig] = None,
                              name=f"sparse{i}")
         inputs.append(s)
         embedded.append(ff.embedding(s, vocab, cfg.sparse_feature_size, AggrMode.SUM,
-                                     name=f"emb{i}"))
+                                     name=f"emb{i}", strategy=embedding_strategy))
     t = ff.concat(embedded, axis=-1)
     sigmoid_layer = len(cfg.mlp_top) - 2
     for i, out_dim in enumerate(cfg.mlp_top):

@@ -19,6 +19,20 @@ PyTorch counterpart of ``flexflow_tpu/ops/conv.py``:
   the unbiased variance feeding ``running_var``); ``train_step`` writes
   them after the optimizer update. The arithmetic, and where it promotes
   bf16 to f32 (the statistics stay f32 under bf16), follows the JAX op.
+
+Over a mesh, where the JAX package leaves the data movement to GSPMD:
+
+* Conv2D ``{"out_channels": axis}`` computes this rank's output channels
+  from the whole input; ``{"spatial": axis}`` shards the height, and each
+  rank widens its rows by the halo its window reads from its neighbours
+  (:func:`spatial_window`, point to point), whose gradients go back to
+  them in the backward. Pool2D carries a height sharding through the same
+  way.
+* BatchNorm over a batch or a height sharded over mesh axes normalises by
+  the global statistics (SyncBN): the per-channel sums, then the sums of
+  squares about their mean, in f32 are all-reduced over those axes with
+  the global count, and so are their gradients. A channel dim sharded upstream shards its
+  four per-channel weights.
 """
 
 from __future__ import annotations
@@ -31,7 +45,9 @@ import torch
 import torch.nn.functional as F
 
 from ..core.op import Op, WeightSpec, register_op
+from ..core.parallel_tensor import ParallelDim
 from ..ffconst import ActiMode, OpType, PoolType
+from ..parallel import collectives as C
 from ..runtime.initializer import (ConstantInitializer, DefaultBiasInitializer,
                                    DefaultWeightInitializer, ZeroInitializer)
 from .linear import apply_activation, relu
@@ -90,6 +106,28 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, stride, padding, groups: int) -> to
     return _Conv2dFn.apply(x, w, tuple(stride), tuple(padding), groups)
 
 
+def spatial_window(x: torch.Tensor, group, height: int, kernel: int, stride: int,
+                   pad: int, value: float) -> torch.Tensor:
+    """This rank's rows of a height-sharded NCHW ``x`` (rank ``q`` of the
+    group holds rows ``[q h, (q+1) h)`` of ``height``) widened to the input
+    window of its block of output rows: the halo rows from its neighbours
+    (``collectives.halo_rows``) and, past the image's edges, the padding
+    rows (``value``) a convolution or pooling of stride ``stride`` and
+    padding ``pad`` reads. The result is convolved or pooled without
+    padding along H."""
+    n = group.size
+    out_h = _conv_out(height, kernel, pad, stride)
+    per = out_h // n
+    windows = [(r * per * stride - pad, (r + 1) * per * stride - stride - pad + kernel)
+               for r in range(n)]
+    lo, hi = windows[group.index]
+    rows = C.halo_rows(x, group, 2, windows)
+    top, bottom = max(0, -lo), max(0, hi - height)
+    if top or bottom:
+        rows = F.pad(rows, (0, 0, top, bottom), value=value)
+    return rows
+
+
 @register_op
 class Conv2D(Op):
     op_type = OpType.CONV2D
@@ -97,9 +135,6 @@ class Conv2D(Op):
     def __init__(self, layer, input_shapes):
         super().__init__(layer, input_shapes)
         a = self.attrs
-        if a.get("strategy"):
-            raise NotImplementedError(
-                f"{self.name}: a sharded convolution is ROADMAP A7b")
         self.out_channels = a["out_channels"]
         self.kernel = tuple(a["kernel"])
         self.stride = tuple(a["stride"])
@@ -108,6 +143,46 @@ class Conv2D(Op):
         self.use_bias = a.get("use_bias", True)
         self.activation = a.get("activation", ActiMode.NONE)
         self.in_channels = input_shapes[0].sizes[1]
+        # the mesh axes the strategy engages (propagate)
+        self.oc_axis = self.sp_axis = None
+
+    def propagate(self, input_shapes, strategy=None):
+        """The JAX op's rule. ``{"out_channels": axis}`` shards the kernel's
+        O dim, the bias and the output's channels (with ``groups`` > 1
+        only when the axis degree divides the groups); the input arrives
+        whole on the axis and enters through ``copy_to``. ``{"spatial":
+        axis}`` shards the height of the input and of the output when both
+        divide and each input shard is taller than the kernel's half
+        height; a height sharding arriving on an input of the output's
+        height carries through the same way (the JAX package's base rule),
+        without the key. The input's width and channels arrive whole."""
+        strategy = strategy or {}
+        out_shapes, weight_shapes = super().propagate(input_shapes, strategy)
+        sizes = strategy.get("_axis_sizes", {})
+        self.oc_axis = self.sp_axis = None
+        ax = strategy.get("out_channels")
+        deg = sizes.get(ax, 1) if ax else 1
+        if (deg > 1 and self.out_channels % deg == 0
+                and (self.groups == 1 or self.groups % deg == 0)):
+            dim = ParallelDim(self.out_channels, deg, ax)
+            out_shapes[0] = out_shapes[0].with_dim(1, dim)
+            weight_shapes["kernel"] = weight_shapes["kernel"].with_dim(0, dim)
+            if self.use_bias:
+                weight_shapes["bias"] = weight_shapes["bias"].with_dim(0, dim)
+            self.oc_axis = ax
+        hd = input_shapes[0].dims[2]
+        in_h, out_h = input_shapes[0].sizes[2], out_shapes[0].sizes[2]
+        ax = strategy.get("spatial") or (hd.axis if hd.is_partitioned and in_h == out_h
+                                         else None)
+        deg = sizes.get(ax, hd.degree if ax == hd.axis else 1) if ax else 1
+        if (deg > 1 and ax not in out_shapes[0].partition_axes
+                and in_h % deg == 0 and out_h % deg == 0 and in_h // deg > self.kernel[0] // 2):
+            out_shapes[0] = out_shapes[0].with_dim(2, ParallelDim(out_h, deg, ax))
+            self.input_layouts[0] = self.input_layouts[0].with_dim(2, ParallelDim(in_h, deg, ax))
+            self.sp_axis = ax
+            if strategy.get("spatial"):
+                self.honored_strategy_keys.add("spatial")
+        return out_shapes, weight_shapes
 
     def infer_output_shapes(self):
         n, _, h, w = self.input_shapes[0].sizes
@@ -129,7 +204,20 @@ class Conv2D(Op):
 
     def forward(self, ctx, inputs, weights):
         (x,) = inputs
-        y = conv2d(x, weights["kernel"], self.stride, self.padding, self.groups)
+        groups, padding = self.groups, self.padding
+        if ctx.mesh is not None and self.oc_axis:
+            group = ctx.mesh.group([self.oc_axis])
+            x = C.copy_to(x, group)
+            if groups > 1:
+                # this rank's output channels read its groups' input channels
+                groups //= group.size
+                c = x.shape[1] // group.size
+                x = x.narrow(1, group.index * c, c)
+        if ctx.mesh is not None and self.sp_axis:
+            x = spatial_window(x, ctx.mesh.group([self.sp_axis]), self.input_shapes[0].sizes[2],
+                               self.kernel[0], self.stride[0], padding[0], 0.0)
+            padding = (0, padding[1])
+        y = conv2d(x, weights["kernel"], self.stride, padding, groups)
         if self.use_bias:
             y = y + weights["bias"][None, :, None, None]
         return [apply_activation(y, self.activation)]
@@ -150,11 +238,34 @@ class Pool2D(Op):
         return [((n, c, _conv_out(h, kh, ph, sh), _conv_out(w, kw, pw, sw)),
                  self.input_shapes[0].dtype)]
 
+    # the mesh axis a height sharding carries through on (propagate)
+    sp_axis = None
+
+    def propagate(self, input_shapes, strategy=None):
+        """The JAX op's rule: a height sharding of the input carries
+        through when the pooled height still divides by its degree (the
+        input arrives sharded on it; its neighbours' halo rows are
+        exchanged); the width and channels arrive whole."""
+        out_shapes, weight_shapes = super().propagate(input_shapes, strategy)
+        hd = input_shapes[0].dims[2]
+        out_h = out_shapes[0].sizes[2]
+        self.sp_axis = None
+        if (hd.is_partitioned and out_h % hd.degree == 0
+                and hd.axis not in out_shapes[0].partition_axes):
+            out_shapes[0] = out_shapes[0].with_dim(2, ParallelDim(out_h, hd.degree, hd.axis))
+            self.input_layouts[0] = self.input_layouts[0].with_dim(2, hd)
+            self.sp_axis = hd.axis
+        return out_shapes, weight_shapes
+
     def forward(self, ctx, inputs, weights):
         (x,) = inputs
         kernel, stride = tuple(self.attrs["kernel"]), tuple(self.attrs["stride"])
         ph, pw = self.attrs["padding"]
         is_max = self.attrs.get("pool_type", PoolType.MAX) is PoolType.MAX
+        if ctx.mesh is not None and self.sp_axis:
+            x = spatial_window(x, ctx.mesh.group([self.sp_axis]), self.input_shapes[0].sizes[2],
+                               kernel[0], stride[0], ph, float("-inf") if is_max else 0.0)
+            ph = 0
         if ph > kernel[0] // 2 or pw > kernel[1] // 2:
             # torch pools pad at most half a window; pad explicitly (with
             # the value reduce_window pads with) and pool unpadded
@@ -179,10 +290,29 @@ class BatchNorm(Op):
 
     op_type = OpType.BATCHNORM
 
+    # the mesh axes sharding the batch dim 0 and the height dim 2
+    # (propagate): the statistics are all-reduced over them
+    stat_axes: tuple = ()
+
     def reads_across(self, i):
-        # the batch statistics: a sharded batch raises (SyncBN-style global
-        # statistics are ROADMAP A7b)
-        return (0, 2, 3)
+        # the batch and the height may stay sharded (global statistics);
+        # the width is gathered
+        return (3,)
+
+    def propagate(self, input_shapes, strategy=None):
+        """The output keeps the input's layout (the width gathered); a
+        channel dim sharded by an upstream ``out_channels`` shards the four
+        per-channel weights the same way; the axes sharding N and H carry
+        the statistics' all-reduce."""
+        out_shapes, weight_shapes = super().propagate(input_shapes, strategy)
+        in0 = self.input_layouts[0]
+        out_shapes[0] = in0.with_dim(1, in0.dims[1])
+        c = in0.dims[1]
+        if c.is_partitioned:
+            weight_shapes = {k: w.partitioned(0, c.degree, c.axis)
+                             for k, w in weight_shapes.items()}
+        self.stat_axes = tuple(in0.dims[d].axis for d in (0, 2) if in0.dims[d].is_partitioned)
+        return out_shapes, weight_shapes
 
     def infer_output_shapes(self):
         return [(self.input_shapes[0].sizes, self.input_shapes[0].dtype)]
@@ -202,11 +332,17 @@ class BatchNorm(Op):
         (x,) = inputs
         eps = float(self.attrs.get("eps", 1e-5))
         if ctx.training:
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), keepdim=True, correction=0)
+            # this rank's block (a microbatch's, under grad accumulation)
+            count = x.shape[0] * x.shape[2] * x.shape[3]
+            if ctx.mesh is not None and self.stat_axes:
+                group = ctx.mesh.group(self.stat_axes)
+                count *= group.size  # every rank holds an equal block
+                var, mean = self._global_stats(x, group, count)
+            else:
+                var, mean = torch.var_mean(x, dim=(0, 2, 3), keepdim=True, correction=0)
             if ctx.state_updates is not None:
                 m = float(self.attrs.get("momentum", 0.1))
-                n = x.shape[0] * x.shape[2] * x.shape[3]
-                unbiased = var[0, :, 0, 0] * (n / max(1, n - 1))
+                unbiased = var[0, :, 0, 0] * (count / max(1, count - 1))
                 ctx.state_updates[(self.name, "running_mean")] = (
                     (1.0 - m) * weights["running_mean"] + m * mean[0, :, 0, 0])
                 ctx.state_updates[(self.name, "running_var")] = (
@@ -219,3 +355,19 @@ class BatchNorm(Op):
         if self.attrs.get("relu", True):
             y = relu(y)
         return [y]
+
+    @staticmethod
+    def _global_stats(x: torch.Tensor, group, count: int):
+        """(population variance, mean), each (1, C, 1, 1) f32, of the whole
+        batch when the group's ranks hold its blocks: the per-channel sums
+        in f32 all-reduced over the global count give the mean, then the
+        sums of squares about it give the variance (two passes, as
+        ``var_mean`` on one rank: squares about zero would lose the
+        variance of a channel whose mean is large to cancellation). Both
+        directions all-reduce: each rank's loss reads the statistics, so
+        their gradient is summed over the group."""
+        xf = x.float()
+        mean = C.copy_to(C.reduce_from(xf.sum(dim=(0, 2, 3)), group), group) / count
+        dev = xf - mean[None, :, None, None]
+        var = C.copy_to(C.reduce_from((dev * dev).sum(dim=(0, 2, 3)), group), group) / count
+        return var[None, :, None, None], mean[None, :, None, None]

@@ -31,6 +31,9 @@ sequence-parallel attention. :func:`ring_all_reduce`,
 two carry expert parallelism and are differentiable, each one's backward
 the other. :func:`send_recv` is the pipeline's stage-boundary exchange:
 point-to-point messages over the pipe group, each tagged by direction.
+:func:`halo_rows` carries a spatially sharded convolution or pooling:
+each rank receives the rows of its window that its neighbours hold, and
+the backward sends their gradients back.
 
 A batch gathered for an op that reads the whole batch (the MoE routing
 ops) goes through :func:`gather_from`, whose backward keeps this rank's
@@ -42,6 +45,7 @@ reduce-scatter there would count it once per rank.
 
 from __future__ import annotations
 
+import math
 import threading
 from typing import Dict, List, Sequence
 
@@ -170,6 +174,14 @@ def all_reduce_coalesced(tensors: Sequence[torch.Tensor], group: Group) -> List[
     return out
 
 
+def all_gather_objects(obj) -> list:
+    """Every rank's picklable ``obj`` over the default group, in rank
+    order (a rank group's bookkeeping, off the data path)."""
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, obj)
+    return out
+
+
 def _chunk(t: torch.Tensor, group: Group, dim: int) -> torch.Tensor:
     size = t.shape[dim]
     if size % group.size:
@@ -278,6 +290,95 @@ class _AllToAll(torch.autograd.Function):
         # chunk j of the output came from rank j's chunk [index]: the
         # exchange is its own transpose
         return _all_to_all_dim0(g.contiguous(), ctx.group), None
+
+
+def _overlap(a: tuple, b: tuple) -> tuple:
+    return max(a[0], b[0]), min(a[1], b[1])
+
+
+class _Halo(torch.autograd.Function):
+    """The rows of a window along ``dim`` from the ranks that own them."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim, windows):
+        ctx.group, ctx.dim, ctx.windows, ctx.length = group, dim, windows, x.shape[dim]
+        return _halo_forward(x, group, dim, windows)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _halo_backward(g.contiguous(), ctx.group, ctx.dim, ctx.windows,
+                              ctx.length), None, None, None
+
+
+def _clamped(windows: Sequence[tuple], total: int) -> List[tuple]:
+    return [(max(0, lo), min(total, hi)) for lo, hi in windows]
+
+
+def _halo_forward(x: torch.Tensor, group: Group, dim: int,
+                  windows: Sequence[tuple]) -> torch.Tensor:
+    me, n, length = group.index, group.size, x.shape[dim]
+    wins = _clamped(windows, n * length)
+    own = (me * length, (me + 1) * length)
+    sends, recvs, pieces = [], [], {}
+    for r in range(n):
+        if r == me:
+            continue
+        lo, hi = _overlap(wins[r], own)
+        if hi > lo:  # rows of mine in rank r's window
+            sends.append((r, 0, x.narrow(dim, lo - own[0], hi - lo).contiguous()))
+        lo, hi = _overlap(wins[me], (r * length, (r + 1) * length))
+        if hi > lo:  # rows of rank r's in my window
+            shape = list(x.shape)
+            shape[dim] = hi - lo
+            recvs.append((r, 0, math.prod(shape), x.dtype, x.device))
+            pieces[r] = (lo, shape)
+    got = send_recv(group, sends, recvs)
+    for (r, (lo, shape)), t in zip(sorted(pieces.items()), got):
+        pieces[r] = (lo, t.view(shape))
+    lo, hi = _overlap(wins[me], own)
+    if hi > lo:
+        pieces[me] = (lo, x.narrow(dim, lo - own[0], hi - lo))
+    return torch.cat([t for _, t in sorted(pieces.values(), key=lambda p: p[0])], dim=dim)
+
+
+def _halo_backward(g: torch.Tensor, group: Group, dim: int, windows: Sequence[tuple],
+                   length: int) -> torch.Tensor:
+    me, n = group.index, group.size
+    wins = _clamped(windows, n * length)
+    own = (me * length, (me + 1) * length)
+    shape = list(g.shape)
+    shape[dim] = length
+    grad = torch.zeros(shape, dtype=g.dtype, device=g.device)
+    sends, recvs, where = [], [], []
+    for r in range(n):
+        if r == me:
+            continue
+        lo, hi = _overlap(wins[me], (r * length, (r + 1) * length))
+        if hi > lo:  # the gradient of rank r's rows back to it
+            sends.append((r, 1, g.narrow(dim, lo - wins[me][0], hi - lo).contiguous()))
+        lo, hi = _overlap(wins[r], own)
+        if hi > lo:  # the gradient of my rows from rank r's window
+            part = list(shape)
+            part[dim] = hi - lo
+            recvs.append((r, 1, math.prod(part), g.dtype, g.device))
+            where.append((lo - own[0], part))
+    for t, (at, part) in zip(send_recv(group, sends, recvs), where):
+        grad.narrow(dim, at, part[dim]).add_(t.view(part))
+    lo, hi = _overlap(wins[me], own)
+    if hi > lo:
+        grad.narrow(dim, lo - own[0], hi - lo).add_(g.narrow(dim, lo - wins[me][0], hi - lo))
+    return grad
+
+
+def halo_rows(x: torch.Tensor, group: Group, dim: int, windows: Sequence[tuple]) -> torch.Tensor:
+    """The rows ``[lo, hi)`` of ``dim`` that this rank's window
+    ``windows[group.index]`` names, clamped to the whole tensor, when rank
+    ``q`` of the group holds rows ``[q L, (q+1) L)`` (``L`` this block's
+    length): its own rows and its neighbours' halo, sent point to point
+    by their owners. Every rank passes every rank's window. The backward
+    sends each row's gradient back to its owner, which sums the gradients
+    of its rows from every window that read them."""
+    return _Halo.apply(x, group, dim, tuple(tuple(w) for w in windows))
 
 
 def scatter_to(x: torch.Tensor, group: Group, dim: int) -> torch.Tensor:

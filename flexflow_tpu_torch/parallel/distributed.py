@@ -39,11 +39,15 @@ def choose_backend(local_world_size: int) -> str:
 
 def init_process_group(rank: Optional[int] = None, world_size: Optional[int] = None,
                        init_method: str = "env://",
-                       local_world_size: Optional[int] = None) -> str:
-    """Join the default process group with the backend placement picks;
-    returns the backend. Without arguments it reads torchrun's variables
-    (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``). Under
-    ``nccl`` the rank's current card is its local rank."""
+                       local_world_size: Optional[int] = None,
+                       backend: Optional[str] = None,
+                       timeout_s: float = TIMEOUT_S) -> str:
+    """Join the default process group with the backend placement picks
+    (or ``backend``, when the caller placed the ranks itself); returns the
+    backend. Without arguments it reads torchrun's variables (``RANK``,
+    ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``). Under ``nccl``
+    the rank's current card is its local rank. A collective that waits
+    longer than ``timeout_s`` on a peer raises."""
     import torch.distributed as dist
 
     rank = int(os.environ["RANK"]) if rank is None else rank
@@ -51,12 +55,12 @@ def init_process_group(rank: Optional[int] = None, world_size: Optional[int] = N
     if local_world_size is None:
         local_world_size = int(os.environ.get("LOCAL_WORLD_SIZE", world_size))
     local_rank = int(os.environ.get("LOCAL_RANK", rank % local_world_size))
-    backend = choose_backend(local_world_size)
+    backend = backend or choose_backend(local_world_size)
     if backend == "nccl":
         torch.cuda.set_device(local_rank)
     dist.init_process_group(backend, init_method=init_method, rank=rank,
                             world_size=world_size,
-                            timeout=datetime.timedelta(seconds=TIMEOUT_S))
+                            timeout=datetime.timedelta(seconds=timeout_s))
     return backend
 
 

@@ -578,9 +578,11 @@ def compile_model(
         """(f32 logits, the auxiliary losses in f32): loss and metrics are
         f32 whatever the compute dtype. Under a mesh, this rank's block of
         the logits."""
+        # packed (bucketed) batches come in many row counts and widths:
+        # their blocks are not the compiled layout's
         acts, aux = _forward_graph(ops, layouts, mesh, params, dict(zip(input_ids, xs)), cdt,
                                    plain_kernels, training, rng, config.seed,
-                                   state_updates, seq_length)
+                                   state_updates, seq_length, check_shapes=not mask_pad)
         return acts[logits_id].float(), [a.float() for a in aux]
 
     def whole(logits: torch.Tensor) -> torch.Tensor:

@@ -107,7 +107,8 @@ class DataLoaderGroup:
 
     def __init__(self, loaders: List[SingleDataLoader], seed: int = 0,
                  shuffle: bool = False, packing: Optional[PackingSpec] = None,
-                 lengths: Optional[np.ndarray] = None):
+                 lengths: Optional[np.ndarray] = None,
+                 shard: Optional[Tuple[int, int]] = None):
         if not loaders:
             raise ValueError("DataLoaderGroup needs at least one loader")
         if len({l.num_samples for l in loaders}) != 1:
@@ -116,6 +117,9 @@ class DataLoaderGroup:
         self.shuffle = shuffle
         self._rng = np.random.default_rng(seed)
         self.packing = packing
+        # (index, count): this rank's block of every packed batch's rows,
+        # the packed row counts being multiples of ``count``
+        self.shard = shard
         self._lengths = (np.asarray(lengths, dtype=np.int64)
                          if lengths is not None else None)
         self._pack_plan = None
@@ -197,6 +201,10 @@ class DataLoaderGroup:
                 pad = np.full((g.pad_rows - g.rows,) + rows.shape[1:],
                               spec.pad_values[li], dtype=rows.dtype)
                 rows = np.concatenate([rows, pad])
+            if self.shard is not None:
+                i, n = self.shard
+                per = rows.shape[0] // n
+                rows = rows[i * per:(i + 1) * per]
             out.append(np.ascontiguousarray(rows))
         return out
 

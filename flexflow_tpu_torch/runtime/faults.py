@@ -32,15 +32,17 @@ Each rule has exactly one trigger (``at_step``, the 1-based evaluation
 index of its site, or ``p``, a Bernoulli draw an evaluation) plus an
 optional ``max_fires`` and its site's parameters (:data:`SITES`).
 
-The port evaluates every site but the three ``multihost.*`` ones:
+The port evaluates every site where the reference does:
 ``serving.worker``, ``device_put.transient``, ``prefetch.worker`` (the
-Prefetcher's worker), ``checkpoint.torn_write`` (``CheckpointManager``)
-and ``train.nan_loss``, ``train.stall`` and ``train.kill`` (``fit``'s
-step loop). A plan naming a ``multihost.*`` site validates as in the
-reference but raises ``NotImplementedError`` at :func:`configure_faults`,
-naming ROADMAP A7b: a plan that validates and never fires would hide that
-the site is missing. ``train.stall`` sleeps as in the reference; the
-watchdog it is meant to trip is A10's.
+Prefetcher's worker), ``checkpoint.torn_write`` (both checkpoint
+managers), ``train.nan_loss``, ``train.stall`` and ``train.kill``
+(``fit``'s step loop), ``multihost.init_timeout``
+(``parallel/multihost.elastic_init``'s retried attempt) and
+``multihost.slow_peer`` and ``multihost.peer_kill`` (``fit``'s step loop,
+after the checkpoint block, as ``train.kill``). ``train.stall`` and
+``multihost.slow_peer`` sleep as in the reference; the watchdog they are
+meant to trip is A10's, while the supervisor
+(``parallel/launch.py``) sees the stalled heartbeat.
 """
 
 from __future__ import annotations
@@ -53,8 +55,7 @@ from ..obs.metrics import metrics_registry
 
 FAULT_PLAN_SCHEMA = 1
 
-# site name -> what firing it does (the reference's table; _UNWIRED says
-# which sites the port does not evaluate yet)
+# site name -> what firing it does (the reference's table)
 SITES: Dict[str, str] = {
     "prefetch.worker": (
         "raise inside the Prefetcher worker's batch assembly — proves "
@@ -91,14 +92,6 @@ SITES: Dict[str, str] = {
         "sleep stall_s inside the step loop — the worker's heartbeat "
         "stops progressing so the supervisor's hang detector (and the "
         "stall watchdog's black-box dump) must fire"),
-}
-
-# the sites the port does not evaluate yet -> the ROADMAP item that
-# ports them
-_UNWIRED: Dict[str, str] = {
-    "multihost.init_timeout": "A7b (with parallel/multihost.py)",
-    "multihost.peer_kill": "A7b (with parallel/multihost.py)",
-    "multihost.slow_peer": "A7b (with parallel/multihost.py)",
 }
 
 # rule keys accepted per site (trigger keys are shared)
@@ -231,9 +224,7 @@ def configure_faults(config) -> Optional[FaultPlan]:
     Runs at ``compile()``, ``fit()`` and serving-instance construction, so
     a malformed plan fails before any work. A config whose ``fault_plan``
     is None clears the plan: chaos never leaks from one run into the next.
-    Configuring again with an equal spec keeps the armed plan's counts. A
-    valid plan naming a site the port does not evaluate yet raises
-    ``NotImplementedError`` naming the ROADMAP item that ports it."""
+    Configuring again with an equal spec keeps the armed plan's counts."""
     global _PLAN
     spec = getattr(config, "fault_plan", None)
     if spec is None:
@@ -244,11 +235,6 @@ def configure_faults(config) -> Optional[FaultPlan]:
     if cur is not None and cur.spec == spec:
         return cur
     plan = FaultPlan(spec)
-    unwired = sorted(s for s in plan.spec["sites"] if s in _UNWIRED)
-    if unwired:
-        raise NotImplementedError(
-            "fault_plan names sites the PyTorch port does not evaluate yet: "
-            + "; ".join(f"{s!r} (ROADMAP {_UNWIRED[s]})" for s in unwired))
     _PLAN = plan
     return plan
 

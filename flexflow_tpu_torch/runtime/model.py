@@ -26,9 +26,12 @@ card, ``grad_accum_steps`` (in the compiled step), sequence buckets with
 masked padding (``seq_buckets``, ``token_budget``, ``seq_bucket_pad_max``;
 each unseen (rows, width) counted on ``fit.bucket_compiles``), a
 ``TrainingGuard`` (``guard=``), crash-safe checkpoints every
-``checkpoint_interval_steps`` and ``resume_from=``, recompile-on-condition
+``checkpoint_interval_steps`` and ``resume_from=`` (a multi-process
+group, or a directory a cohort wrote, takes the
+``MultiHostCheckpointManager``), recompile-on-condition
 (``recompile_state=``) and the fault sites ``train.nan_loss``,
-``train.stall`` and ``train.kill``. The stall watchdog, the per-epoch
+``train.stall``, ``train.kill``, ``multihost.slow_peer`` and
+``multihost.peer_kill``. The stall watchdog, the per-epoch
 throughput series and the ledger records are ROADMAP queue A10.
 
 Over a mesh (``FFConfig.mesh_shape``, one process per rank, see
@@ -67,6 +70,7 @@ import torch
 from .. import ops as _ops  # noqa: F401  (registers the op library)
 from ..config import FFConfig, FFIterationConfig
 from ..core.layer import Layer
+from ..core.machine import DATA_AXIS
 from ..core.op import create_op
 from ..core.parallel_tensor import ParallelTensorShape
 from ..core.tensor import Tensor
@@ -174,8 +178,8 @@ class FFModel:
                use_bias: bool = True, kernel_initializer=None, bias_initializer=None,
                name: Optional[str] = None,
                strategy: Optional[Dict[str, str]] = None) -> Tensor:
-        """NCHW convolution with an OIHW kernel. A ``strategy`` raises:
-        a sharded convolution is ROADMAP A7b."""
+        """NCHW convolution with an OIHW kernel. ``strategy``:
+        ``{"out_channels": axis}`` or ``{"spatial": axis}`` (ops/conv.py)."""
         attrs = dict(out_channels=out_channels, kernel=(kernel_h, kernel_w),
                      stride=(stride_h, stride_w), padding=(padding_h, padding_w),
                      activation=activation, groups=groups, use_bias=use_bias,
@@ -345,8 +349,8 @@ class FFModel:
                   kernel_initializer=None, name=None,
                   strategy: Optional[Dict[str, str]] = None) -> Tensor:
         """Rows of a (num_entries, out_dim) table; SUM/AVG reduce the
-        trailing multi-hot dim. A ``strategy`` raises: a sharded table is
-        ROADMAP A7b."""
+        trailing multi-hot dim. ``strategy``: ``{"vocab": axis}`` or
+        ``{"out": axis}`` (ops/embedding.py)."""
         attrs = dict(num_entries=num_entries, out_dim=out_dim, aggr=aggr, dtype=dtype,
                      kernel_initializer=kernel_initializer)
         if strategy:
@@ -720,10 +724,6 @@ class FFModel:
         if pad_max not in ("on", "off"):
             raise DynamicShapeError("DYN003", f"seq_bucket_pad_max={pad_max!r} "
                                     "(expected 'on' or 'off')")
-        if mode != "off" and cm.mesh is not None:
-            raise NotImplementedError(
-                "seq_buckets over a mesh: packed batches of any row count do not split "
-                "over the data axis (ROADMAP A7b)")
         if mode == "off":
             if budget:
                 raise DynamicShapeError(
@@ -744,8 +744,11 @@ class FFModel:
         pad_values = tuple([0] * (len(loaders) - 1) + [-1])
         self._resolved_ladder = ladder
         self._resolved_token_budget = budget
+        # every packed row count is a multiple of the data degree, so each
+        # packed batch splits over the data axis (the JAX package's rule)
+        quantum = cm.mesh.degree(DATA_AXIS) if cm.mesh is not None else 1
         return PackingSpec(ladder=ladder, token_budget=budget,
-                           batch_size=loaders[0].batch_size, quantum=1,
+                           batch_size=loaders[0].batch_size, quantum=quantum,
                            pad_max=(pad_max == "on"), seq_axes=seq_axes,
                            pad_values=pad_values), lengths
 
@@ -767,8 +770,11 @@ class FFModel:
         if dyn is None:
             return DataLoaderGroup(loaders, seed=self.config.seed, shuffle=shuffle)
         spec, lengths = dyn
+        shard = None
+        if cm.mesh is not None and self.pipelined is None and spec.quantum > 1:
+            shard = (cm.mesh.coords[DATA_AXIS], spec.quantum)
         return DataLoaderGroup(loaders, seed=self.config.seed, shuffle=shuffle,
-                               packing=spec, lengths=lengths)
+                               packing=spec, lengths=lengths, shard=shard)
 
     def _step_loop_knobs(self, cm: CompiledModel, recompile_state=None):
         """(prefetch depth, steps in flight, steps per dispatch). Multi-step
@@ -819,7 +825,8 @@ class FFModel:
         and sidecar): params, optimizer state, iteration, the dropout
         counter, lr and the guard's state. Returns (manager, interval,
         start epoch, steps to skip in it); an empty directory starts fresh."""
-        from .checkpoint import CheckpointManager, CheckpointTopologyError
+        from .checkpoint import (CheckpointManager, CheckpointTopologyError,
+                                 MultiHostCheckpointManager, _process_count, is_multihost_dir)
 
         cfg = self.config
         interval = max(0, int(cfg.checkpoint_interval_steps or 0))
@@ -827,8 +834,14 @@ class FFModel:
         start_epoch = skip_steps = 0
         if interval or resume_from:
             ckpt_dir = resume_from or cfg.checkpoint_dir or os.path.join(".ffcache", "ckpt")
-            mgr = CheckpointManager(ckpt_dir,
-                                    max_to_keep=max(1, int(cfg.checkpoint_max_to_keep or 3)))
+            keep = max(1, int(cfg.checkpoint_max_to_keep or 3))
+            if _process_count() > 1 or is_multihost_dir(ckpt_dir):
+                # a cohort (or a resized relaunch reading a cohort's
+                # directory): each rank's shard and rank 0's manifest
+                mgr = MultiHostCheckpointManager(
+                    ckpt_dir, max_to_keep=keep, barrier_timeout_s=cfg.checkpoint_barrier_timeout_s)
+            else:
+                mgr = CheckpointManager(ckpt_dir, max_to_keep=keep)
         if resume_from and mgr.latest_step() is not None:
             try:
                 step = mgr.restore(self, require_extra=True)
@@ -869,7 +882,7 @@ class FFModel:
             "rng_counter": int(self._rng_counter),
             "lr": float(lr) if lr is not None else None,
             "guard": guard.state() if guard is not None else None,
-            "topology": topology_signature(cm.device),
+            "topology": topology_signature(cm.device, mesh=cm.mesh),
             **cm.resume_state(),
         }
         mgr.save(self, cm.iteration, extra=extra)
@@ -998,6 +1011,17 @@ class FFModel:
                         sys.stdout.flush()
                         sys.stderr.flush()
                         os._exit(int(rule.get("exit_code", 41)))
+                    # a cohort's chaos: a slow peer stalls its heartbeat
+                    # (the supervisor's hang detector), a killed peer dies
+                    # after the checkpoint block, as train.kill
+                    rule = _fx.fire("multihost.slow_peer")
+                    if rule is not None:
+                        time.sleep(float(rule.get("stall_s", 2.0)))
+                    rule = _fx.fire("multihost.peer_kill")
+                    if rule is not None:
+                        sys.stdout.flush()
+                        sys.stderr.flush()
+                        os._exit(int(rule.get("exit_code", 43)))
                 if recompile_state is not None:
                     from .recompile import recompile_on_condition
 

@@ -41,13 +41,23 @@ With ``FFConfig.trace="on"`` every served request records its span tree
 (``serving.request`` over ``queue_wait``, ``batch_assembly``, ``infer``
 and ``reply``) on its own virtual track.
 
+An instance over a device mesh is a group of rank processes
+(``serving/group.py``): :class:`~flexflow_tpu_torch.serving.group.MeshInstance`
+has :class:`ModelInstance`'s surface, so the engine batches for it as for
+any instance; a dead or stuck rank fails its batch within the group's
+deadline, and the next batch starts a new group. A
+:class:`ModelInstance` over a model compiled on a mesh is itself
+collective: every rank calls :meth:`ModelInstance.infer` with the same
+batch (a group's ranks do).
+
 Not ported: ONNX registration (ROADMAP A12), the watchdog sections and the
-serving ledger record (A10), and instances over several devices (A7b).
+serving ledger record (A10).
 """
 
 from __future__ import annotations
 
 import collections
+import dataclasses
 import itertools
 import sys
 import threading
@@ -156,18 +166,27 @@ class ModelInstance:
     def __init__(self, ff, name: str = "model"):
         if ff.compiled is None:
             raise ValueError("compile() the FFModel before serving it")
-        if ff.compiled.mesh is not None:
-            raise NotImplementedError(
-                f"{name!r} was compiled over the mesh {ff.compiled.mesh.shape}: serving "
-                f"over a mesh is ROADMAP A7b")
         configure_faults(ff.config)
         self.name = name
         self._ff = ff
         self._cm = ff.compiled
         self.batch_size = self._cm.input_tensors[0].dims[0]
         self.n_inputs = len(self._cm.input_tensors)
+        # (name, per-request dims) of each input, which admission checks
+        self.input_shapes = [(t.name, tuple(t.dims[1:])) for t in self._cm.input_tensors]
         # forward dispatches so far (one per served batch)
         self.dispatches = 0
+
+    def spec_signature(self) -> tuple:
+        from .group import spec_signature
+
+        return spec_signature(self._cm)
+
+    def load_weights(self, weights) -> None:
+        """Whole weights in op order (``group.weights_by_order``)."""
+        from .group import load_weights_by_order
+
+        load_weights_by_order(self._ff, weights)
 
     @property
     def devices(self) -> frozenset:
@@ -187,11 +206,13 @@ class ModelInstance:
         _fault_inject("device_put.transient", TransientFault)
         cm = self._cm
         xs = []
-        for a in inputs:
+        for i, a in enumerate(inputs):
             a = np.asarray(a)
             if a.shape[0] < self.batch_size:
                 pad = np.zeros((self.batch_size - a.shape[0],) + a.shape[1:], a.dtype)
                 a = np.concatenate([a, pad], axis=0)
+            # over a mesh this rank's rows (the forward returns them all)
+            a = a[cm.batch_rows(i)]
             xs.append(torch.from_numpy(np.ascontiguousarray(a)).to(cm.device))
         logits = cm.forward_fn(cm.params, *xs)
         self.dispatches += 1
@@ -209,14 +230,61 @@ class GenerationInstance:
     ``spec_k`` and no ``draft_ff``, a non-empty ``serving_draft_model``
     names it. Constructing one arms its config's fault plan."""
 
-    def __init__(self, ff, name: str = "lm", **scheduler_kw):
-        if ff.compiled is None:
-            raise ValueError("compile() the FFModel before serving it")
+    def __init__(self, ff, name: str = "lm", group=None, weights=None, **scheduler_kw):
         from .generation import build_draft_model
         from .scheduler import ContinuousBatchingScheduler
 
+        if group is not None:
+            self._init_group(group, name, weights, scheduler_kw)
+            return
+        if ff.compiled is None:
+            raise ValueError("compile() the FFModel before serving it")
         configure_faults(ff.config)
         cfg = ff.config
+        defaults = self._defaults(cfg)
+        defaults.update(scheduler_kw)
+        if (defaults.get("spec_k", 0) and "draft_ff" not in defaults
+                and cfg.serving_draft_model):
+            defaults["draft_ff"] = str(cfg.serving_draft_model)
+        if isinstance(defaults.get("draft_ff"), str):
+            defaults["draft_ff"] = build_draft_model(ff, defaults["draft_ff"])
+        self.name = name
+        self._ff = ff
+        self.scheduler = ContinuousBatchingScheduler(ff, name=name, **defaults)
+
+    # the scheduler's knobs a generation group's ranks take (their decoder's)
+    _DECODER_KNOBS = ("max_length", "decode_slots", "block_size", "num_blocks",
+                      "prefill_buckets", "kv_dtype", "kv_divergence_budget")
+
+    def _init_group(self, group, name: str, weights, scheduler_kw) -> None:
+        """Serve over a group of rank processes (``group``: a
+        :class:`~flexflow_tpu_torch.serving.group.GroupSpec` with
+        ``generator`` unset): the ranks hold the model over its mesh and
+        run each step; the scheduler and the block allocator stay here.
+        Speculative decoding needs a one-device generator (the draft reads
+        the target's weights in place)."""
+        from ..config import FFConfig
+        from .group import GroupDecoder
+        from .scheduler import ContinuousBatchingScheduler
+
+        cfg = FFConfig(device="cpu", **(group.config or {}))
+        configure_faults(cfg)
+        defaults = self._defaults(cfg)
+        defaults.update(scheduler_kw)
+        if defaults.pop("spec_k", 0) or defaults.pop("draft_ff", None) is not None:
+            raise ValueError(f"{name!r}: speculative decoding over a rank group is not "
+                             f"supported; serve the draft pair on one device")
+        knobs = {k: defaults.pop(k) for k in self._DECODER_KNOBS if k in defaults}
+        self.name = name
+        self._ff = None
+        self.scheduler = ContinuousBatchingScheduler(
+            None, name=name, decoder=GroupDecoder(dataclasses.replace(group, generator=knobs),
+                                                  weights),
+            **defaults)
+
+    @staticmethod
+    def _defaults(cfg) -> Dict:
+        """The scheduler's knobs from a config's ``serving_*`` fields."""
         defaults = {
             "decode_slots": cfg.serving_decode_slots,
             "block_size": cfg.serving_block_size,
@@ -234,15 +302,7 @@ class GenerationInstance:
         if cfg.serving_prefill_buckets:
             defaults["prefill_buckets"] = [
                 int(x) for x in str(cfg.serving_prefill_buckets).split(",") if x.strip()]
-        defaults.update(scheduler_kw)
-        if (defaults.get("spec_k", 0) and "draft_ff" not in defaults
-                and cfg.serving_draft_model):
-            defaults["draft_ff"] = str(cfg.serving_draft_model)
-        if isinstance(defaults.get("draft_ff"), str):
-            defaults["draft_ff"] = build_draft_model(ff, defaults["draft_ff"])
-        self.name = name
-        self._ff = ff
-        self.scheduler = ContinuousBatchingScheduler(ff, name=name, **defaults)
+        return defaults
 
     @property
     def decoder(self):
@@ -259,7 +319,11 @@ class GenerationInstance:
         return self.scheduler.stats()
 
     def stop(self) -> None:
+        """Stop the scheduler; a group's ranks are reaped."""
         self.scheduler.stop()
+        stop_ranks = getattr(self.scheduler.decoder, "stop", None)
+        if stop_ranks is not None:
+            stop_ranks()
 
 
 class InferenceRequest:
@@ -278,18 +342,6 @@ class InferenceRequest:
         # seconds after enqueue past which the request is rejected instead
         # of served late (None: no deadline)
         self.deadline_s = deadline_s
-
-
-def _spec_signature(inst: ModelInstance) -> tuple:
-    """What one instance computes: batch, inputs, output and the op types
-    and shapes in order (not op names: a second build of one model gets
-    other names and is the same function)."""
-    cm = inst._cm
-    return (inst.batch_size, inst.n_inputs,
-            tuple((tuple(t.dims), t.dtype) for t in cm.input_tensors),
-            tuple(cm.logits_tensor.dims),
-            tuple((o.op_type, tuple(tuple(t.dims) for t in o.layer.outputs))
-                  for o in cm.ops))
 
 
 class InferenceEngine:
@@ -349,7 +401,7 @@ class InferenceEngine:
                     f"name, one model")
             group = self._models.get(instance.name)
             if group:
-                if _spec_signature(instance) != _spec_signature(group[0]):
+                if instance.spec_signature() != group[0].spec_signature():
                     raise ValueError(
                         f"instance group {instance.name!r} mixes model specs "
                         f"(inputs/outputs/graph must match instance 0)")
@@ -374,34 +426,58 @@ class InferenceEngine:
         return inst
 
     def register_built_instances(self, build, name: str, devices,
-                                 batch_size: int = 8, strategies=None) -> List[ModelInstance]:
-        """One instance of a builder-defined model on each device of
-        ``devices`` (torch devices or their names), each its own compile.
-        ``build(ff, batch_size)`` adds the graph; every instance gets
-        instance 0's weights, paired by op order (fresh builds get other
-        op names and other init draws). ``strategies`` would shard an
-        instance over several devices, which is ROADMAP A7b."""
+                                 batch_size: int = 8, strategies=None,
+                                 config=None) -> List:
+        """One instance of a builder-defined model on each placement of
+        ``devices``: a device (or its name), compiled here, or a
+        :class:`~flexflow_tpu_torch.serving.placement.MeshPlacement`, a
+        group of rank processes compiled over its mesh
+        (:class:`~flexflow_tpu_torch.serving.group.MeshInstance`; ``build``
+        must then be importable by name). ``build(ff, batch_size)`` adds
+        the graph; ``strategies`` (the per-model strategy dict) shard it
+        over a placement's mesh; ``config``: further ``FFConfig`` fields.
+        Every instance gets instance 0's weights, paired by op order
+        (fresh builds get other op names and other init draws)."""
         from ..config import FFConfig
         from ..ffconst import CompMode
         from ..runtime.model import FFModel
+        from .group import GroupSpec, MeshInstance, weights_by_order
+        from .placement import MeshPlacement
 
-        if strategies:
-            raise NotImplementedError(
-                f"{name!r}: per-op strategies shard an instance over a device "
-                f"mesh: serving over a mesh is ROADMAP A7b")
-        out: List[ModelInstance] = []
+        out: List = []
+        weights = None
+        with self._mu:
+            used = frozenset().union(*(i.devices for i in self._models.get(name, [])))
         for dev in devices:
-            ff = FFModel(FFConfig(batch_size=int(batch_size),
-                                  computation_mode=CompMode.INFERENCE, device=str(dev)))
-            build(ff, int(batch_size))
-            ff.compile()
-            if out:
-                src, dst = out[0]._cm, ff.compiled
-                with torch.no_grad():
-                    for op0, op1 in zip(src.ops, dst.ops):
-                        for w, v in src.params.get(op0.name, {}).items():
-                            dst.params[op1.name][w].copy_(v.to(dst.device))
-            out.append(self.register_ffmodel(ff, name=name))
+            wanted = {_canonical_device(torch.device(d)) for d in
+                      (dev.devices if isinstance(dev, MeshPlacement) else [dev])}
+            if wanted & used:
+                # refused before a compile or a rank group starts
+                raise ValueError(f"instance of {name!r} overlaps devices already serving "
+                                 f"that model: {sorted(str(d) for d in wanted & used)}")
+            if isinstance(dev, MeshPlacement):
+                spec = GroupSpec(build, dict(dev.mesh_shape), tuple(str(d) for d in dev.devices),
+                                 int(batch_size), strategies, dict(config or {}))
+                inst = MeshInstance(spec, name=name, weights=weights)
+                try:
+                    self.register(inst)
+                except BaseException:
+                    inst.stop()  # no rank outlives a refused registration
+                    raise
+            else:
+                ff = FFModel(FFConfig(batch_size=int(batch_size),
+                                      computation_mode=CompMode.INFERENCE, device=str(dev),
+                                      **(config or {})))
+                build(ff, int(batch_size))
+                ff.compile(strategies=strategies)
+                inst = ModelInstance(ff, name=name)
+                if weights is not None:
+                    inst.load_weights(weights)
+                self.register(inst)
+            if weights is None:
+                weights = inst.weights if isinstance(inst, MeshInstance) else \
+                    weights_by_order(inst._ff)
+            out.append(inst)
         return out
 
     def load_repository(self, path: str, builders=None, devices=None) -> Dict[str, int]:
@@ -415,7 +491,9 @@ class InferenceEngine:
         """Register a continuous-batching generation instance under ``name``
         (a name no model or generator holds). The engine's degradation
         knobs are the scheduler's defaults; ``kw`` (the scheduler's knobs)
-        override them and the config's ``serving_*`` defaults."""
+        override them and the config's ``serving_*`` defaults. With
+        ``group=`` (a :class:`~flexflow_tpu_torch.serving.group.GroupSpec`)
+        and ``ff`` None the model runs over a group of rank processes."""
         defaults = dict(admission_limit=self.admission_limit,
                         default_deadline_s=self.default_deadline_s,
                         breaker_threshold=self.breaker_threshold,
@@ -538,11 +616,17 @@ class InferenceEngine:
                     b.destroy()
                 self._batchers[name] = _make_batcher(
                     self._models[name][0].batch_size, self.batch_timeout_s)
+            groups = [i for insts in self._models.values() for i in insts
+                      if hasattr(i, "stop")]
             # a stopped engine is a clean slate: a restart probes again
             self._abandoned.clear()
             self._breaker_open_until.clear()
             self._consec_failures.clear()
             self._stopping = False
+        # every rank of an instance over a mesh is reaped; its next batch
+        # starts a new group
+        for inst in groups:
+            inst.stop()
 
     # ---- request path -------------------------------------------------------
     def infer_async(self, model: str, inputs: Sequence[np.ndarray],
@@ -584,11 +668,10 @@ class InferenceEngine:
         # alone instead of poisoning every co-batched request
         if len(inputs) != inst.n_inputs:
             raise ValueError(f"{model!r} takes {inst.n_inputs} inputs, got {len(inputs)}")
-        for a, t in zip(inputs, inst._cm.input_tensors):
-            want = tuple(t.dims[1:])
+        for a, (in_name, want) in zip(inputs, inst.input_shapes):
             if tuple(np.shape(a)) != want:
                 raise ValueError(
-                    f"{model!r} input {t.name!r}: expected per-request shape "
+                    f"{model!r} input {in_name!r}: expected per-request shape "
                     f"{want}, got {np.shape(a)}")
         # the deadline is coerced here, so a malformed one fails the caller
         # and never a worker with a batch in hand

@@ -24,6 +24,16 @@ graph walk:
   arenas may be int8, held to a divergence budget at construction
   (KVQ001). :func:`build_draft_model` builds the draft model that
   speculative decoding proposes with.
+
+A model compiled over a mesh generates SPMD: every rank of the group calls
+the same steps with the same host arrays. Where the JAX package walks the
+graph with no mesh and lets GSPMD place it, each rank here walks its
+shard: the ops take their inputs in their ``propagate`` layouts and run
+the collectives they run in training (a ``tp_axis`` MLP's all-reduce),
+the cached attention keeps this rank's heads in its K/V cache or pool
+arenas and all-reduces its output projection over the heads axis. Every
+rank holds every row of a step (a data axis replicates the decode).
+``serving/group.py`` runs such a group behind one engine.
 """
 
 from __future__ import annotations
@@ -39,9 +49,12 @@ import numpy as np
 import torch
 
 from ..core.op import LowerCtx
+from ..core.parallel_tensor import ParallelTensorShape
 from ..ffconst import OpType
 from ..kernels.flash_attention import NEG_INF
 from ..obs.metrics import metrics_registry
+from ..ops.parallel_ops import reshard
+from ..parallel import collectives as C
 from ..runtime.compiler import _resolve_compute_dtype
 from .kv_cache import NULL_BLOCK, PagedKVPool
 
@@ -58,17 +71,20 @@ def _qkv(op, weights, x: torch.Tensor
     return qh, kh, vh
 
 
-def _out_proj(op, weights, ctxv: torch.Tensor) -> torch.Tensor:
+def _out_proj(op, weights, ctxv: torch.Tensor, mesh=None) -> torch.Tensor:
     """The output projection of the (B, S, H, D) attention context, in
-    its dtype, bias added."""
+    its dtype, bias added. Over a mesh whose axis shards the heads, the
+    rank's heads give a partial sum, all-reduced over that axis first."""
     out = torch.matmul(ctxv.flatten(-2), weights["wo"].flatten(0, 1).to(ctxv.dtype))
+    if mesh is not None and op.heads_axis:
+        out = C.reduce_from(out, mesh.group([op.heads_axis]))
     if op.use_bias:
         out = out + weights["bo"]
     return out
 
 
 def _attn_with_cache(op, weights, x: torch.Tensor, kcache: torch.Tensor,
-                     vcache: torch.Tensor, offset: int) -> torch.Tensor:
+                     vcache: torch.Tensor, offset: int, mesh=None) -> torch.Tensor:
     """Causal self-attention of a (B, S_blk, E) block over [cache ∪ block].
 
     The block's K and V are written into the (B, max_length, H, D) caches
@@ -86,7 +102,7 @@ def _attn_with_cache(op, weights, x: torch.Tensor, kcache: torch.Tensor,
     scores = scores.masked_fill(kpos[None, :] > qpos[:, None], NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     ctxv = torch.einsum("bhqk,bkhd->bqhd", probs, vcache)
-    return _out_proj(op, weights, ctxv)
+    return _out_proj(op, weights, ctxv, mesh)
 
 
 def _quant_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -145,7 +161,7 @@ def _entry_read(entry: Tuple[torch.Tensor, ...],
 
 
 def _attn_with_paged_cache(op, weights, x: torch.Tensor, entry, tables: torch.Tensor,
-                           seq_lens: torch.Tensor) -> torch.Tensor:
+                           seq_lens: torch.Tensor, mesh=None) -> torch.Tensor:
     """W-token causal self-attention through a paged KV pool.
 
     ``x``: (n, W, E), W new tokens a decode slot at absolute positions
@@ -184,10 +200,10 @@ def _attn_with_paged_cache(op, weights, x: torch.Tensor, entry, tables: torch.Te
     scores = scores.masked_fill((kpos[None, None, :] > pos[:, :, None])[:, None], NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     ctxv = torch.einsum("bhqk,bkhd->bqhd", probs, v.to(dt))
-    return _out_proj(op, weights, ctxv).to(x.dtype)
+    return _out_proj(op, weights, ctxv, mesh).to(x.dtype)
 
 
-def _causal_attn(op, weights, x: torch.Tensor
+def _causal_attn(op, weights, x: torch.Tensor, mesh=None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Dense causal self-attention of (B, S, E) ``x`` from position 0 in
     torch ops (the reference's einsum path for its prefill and its
@@ -199,7 +215,7 @@ def _causal_attn(op, weights, x: torch.Tensor
     pos = torch.arange(x.shape[1], device=x.device)
     scores = scores.masked_fill(pos[None, :] > pos[:, None], NEG_INF)
     ctxv = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(scores, dim=-1), vh)
-    return _out_proj(op, weights, ctxv), kh, vh
+    return _out_proj(op, weights, ctxv, mesh), kh, vh
 
 
 def sample_next_token(row_logits: np.ndarray, temperature: float,
@@ -258,11 +274,8 @@ class _DecodeGraph:
         cm = ff.compiled
         if cm is None:
             raise ValueError("compile() the model before generating")
-        if cm.mesh is not None:
-            raise NotImplementedError(
-                f"the model was compiled over the mesh {cm.mesh.shape}: generation "
-                f"over a mesh is ROADMAP A7b")
         self._cm = cm
+        self._mesh = cm.mesh
         self.max_length = int(max_length)
         self._attn_ops = [op for op in cm.ops
                           if op.op_type is OpType.MULTIHEAD_ATTENTION]
@@ -270,6 +283,10 @@ class _DecodeGraph:
             ids = {t.tensor_id for t in op.layer.inputs}
             if len(ids) != 1 or not op.causal:
                 raise ValueError(f"{op.name}: generation needs causal SELF-attention")
+            if op.seq_axis:
+                raise ValueError(f"{op.name}: the sequence is sharded over {op.seq_axis!r}; "
+                                 f"a KV cache decodes one position at a time (shard the "
+                                 f"heads, tp_axis, to generate over a mesh)")
         if len(cm.input_tensors) != 2:
             raise ValueError(
                 f"generation needs a (tokens, positions) graph; this one has "
@@ -304,13 +321,27 @@ class _DecodeGraph:
         reference's explicit call, for code written against it."""
         self._params_cache.invalidate()
 
+    def local_heads(self, op) -> int:
+        """The heads of ``op`` this rank holds (all of them on one rank)."""
+        if self._mesh is None or not op.heads_axis:
+            return op.num_heads
+        return op.num_heads // self._mesh.degree(op.heads_axis)
+
     def _forward_block(self, params, acts, attn) -> torch.Tensor:
         """Walk the op graph over the activations in ``acts``; ``attn``
         handles each causal self-attention op. Returns the (B, S, vocab)
-        logits in float32."""
-        ctx = LowerCtx(training=False, aux_losses=[])
+        logits in float32. Over a mesh every rank holds every row (a
+        batch sharding of the compiled layouts is dropped: each step's
+        few rows are not split) and its blocks of the other dims: each op
+        gets its inputs in its ``propagate`` layout, resharded from the
+        producer's, and runs its collectives as in training."""
+        ctx = LowerCtx(mesh=self._mesh, training=False, aux_losses=[])
+        layouts = self._cm.layouts
         for op in self._cm.ops:
             ins = [acts[t.tensor_id] for t in op.layer.inputs]
+            if self._mesh is not None:
+                ins = [self._resharded(x, layouts[t.tensor_id], want)
+                       for x, t, want in zip(ins, op.layer.inputs, op.input_layouts)]
             p = params.get(op.name, {})
             if op.op_type is OpType.MULTIHEAD_ATTENTION:
                 outs = [attn(op, p, ins[0])]
@@ -318,7 +349,23 @@ class _DecodeGraph:
                 outs = op.forward(ctx, ins, p)
             for out, t in zip(outs, op.layer.outputs):
                 acts[t.tensor_id] = out
-        return acts[self._cm.logits_tensor.tensor_id].float()
+        logits = acts[self._cm.logits_tensor.tensor_id]
+        if self._mesh is not None:
+            lay = _rows_whole(layouts[self._cm.logits_tensor.tensor_id])
+            logits = reshard(logits, lay, ParallelTensorShape.unpartitioned(lay.sizes),
+                             self._mesh)
+        return logits.float()
+
+    def _resharded(self, x: torch.Tensor, src, want) -> torch.Tensor:
+        src, want = _rows_whole(src), _rows_whole(want)
+        if src.layout() == want.layout():
+            return x
+        return reshard(x, src, want, self._mesh)
+
+
+def _rows_whole(ps: ParallelTensorShape) -> ParallelTensorShape:
+    """``ps`` with its batch dim 0 whole."""
+    return ps.combined(0) if ps.dims and ps.dims[0].is_partitioned else ps
 
 
 class Generator(_DecodeGraph):
@@ -340,7 +387,7 @@ class Generator(_DecodeGraph):
         cache = {}
         with torch.inference_mode():
             for op in self._attn_ops:
-                shape = (self.batch_size, self.max_length, op.num_heads, op.head_dim)
+                shape = (self.batch_size, self.max_length, self.local_heads(op), op.head_dim)
                 cache[op.name] = (torch.zeros(shape, dtype=dt, device=self.device),
                                   torch.zeros(shape, dtype=dt, device=self.device))
         return cache
@@ -357,7 +404,7 @@ class Generator(_DecodeGraph):
 
         def attn(op, p, x):
             k, v = cache[op.name]
-            return _attn_with_cache(op, p, x, k, v, offset)
+            return _attn_with_cache(op, p, x, k, v, offset, self._mesh)
 
         with torch.inference_mode():
             return self._forward_block(params, acts, attn)
@@ -525,7 +572,7 @@ class PagedDecoder(_DecodeGraph):
 
     def _new_pool(self, num_blocks: int) -> PagedKVPool:
         return PagedKVPool(
-            {op.name: (op.num_heads, op.head_dim) for op in self._attn_ops},
+            {op.name: (self.local_heads(op), op.head_dim) for op in self._attn_ops},
             num_blocks=num_blocks, block_size=self.block_size,
             max_blocks_per_request=self.max_blocks_per_request,
             dtype=self._compute_dtype() or torch.float32, kv_dtype=self.kv_dtype,
@@ -552,7 +599,8 @@ class PagedDecoder(_DecodeGraph):
         acts = {self._token_id.tensor_id: tokens, self._pos_id.tensor_id: positions}
 
         def attn(op, p, x):
-            return _attn_with_paged_cache(op, p, x, self.pool.kv[op.name], tables, seq_lens)
+            return _attn_with_paged_cache(op, p, x, self.pool.kv[op.name], tables, seq_lens,
+                                          self._mesh)
 
         with torch.inference_mode():
             return self._forward_block(params, acts, attn)
@@ -578,7 +626,7 @@ class PagedDecoder(_DecodeGraph):
         bs = self.block_size
 
         def attn(op, p, x):
-            out, kh, vh = _causal_attn(op, p, x)
+            out, kh, vh = _causal_attn(op, p, x, self._mesh)
             flat = torch.where(pos[None, :] < lengths[:, None],
                                tables[:, pos // bs] * bs + (pos % bs)[None, :],
                                NULL_BLOCK * bs)
@@ -673,7 +721,7 @@ class PagedDecoder(_DecodeGraph):
                 self._pos_id.tensor_id: self._ids(np.arange(s)[None, :])}
 
         def attn(op, p, x):
-            return _causal_attn(op, p, x)[0]
+            return _causal_attn(op, p, x, self._mesh)[0]
 
         with torch.inference_mode():
             return self._forward_block(self._exec_params(), acts, attn)[0].cpu().numpy()

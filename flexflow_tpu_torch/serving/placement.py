@@ -2,37 +2,57 @@
 
 PyTorch counterpart of ``flexflow_tpu/serving/placement.py``. The
 reference carves a disjoint device submesh for each instance of each model
-and compiles the instance over it; serving over a mesh is ROADMAP
-A7b, so each instance is one ``torch.device`` and a ``mesh_shape`` whose
-product exceeds 1 raises ``NotImplementedError``. Placement is first-fit
-over the device list (by default ``cuda:0`` .. ``cuda:{n-1}``) in file
-order, and raises when the devices run out: two models never share a
-device.
+and compiles the instance over it. Here an instance of one device is one
+``torch.device``; an instance over a mesh (a ``mesh_shape`` whose product
+exceeds 1) is a :class:`MeshPlacement`, one device a rank, which the
+engine serves as a group of rank processes (``serving/group.py``).
+Placement is first-fit over the device list in file order, and raises
+when the devices run out. The default list has one entry per card, so two
+instances never share a card and a mesh needs as many cards as ranks. A
+caller's list may name a card more than once: an instance's ranks then
+share it (over gloo), while instances still take disjoint stretches of
+the list.
 
 The repository file is the reference's JSON::
 
     {"models": {
         "clf": {"instances": 2, "batch_size": 8},
+        "tp":  {"instances": 1, "mesh_shape": {"model": 2}, "batch_size": 8,
+                "strategies": {"dense_1": {"out": "model"}}},
         "lm":  {"generator": true, "decode_slots": 4, "block_size": 16,
                 "num_blocks": 64, "max_length": 128}
     }}
 
 A model's ``builder(ff, batch_size)`` (looked up by its name) adds its
-graph. An entry with ``"generator": true`` registers a continuous-batching
+graph; over a mesh it must be importable by name (the ranks unpickle it).
+An entry with ``"generator": true`` registers a continuous-batching
 :class:`~flexflow_tpu_torch.serving.engine.GenerationInstance` (one
 scheduler owns the paged pool, so ``instances`` must be 1) whose builder
 makes a causal LM, its ``_GEN_KNOBS`` keys over the config's ``serving_*``
-defaults. A builder that wants another compute dtype sets
-``ff.config.compute_dtype`` itself (compile reads it). An ``"onnx"``
-entry raises ``NotImplementedError`` (ROADMAP A12).
+defaults; with a ``mesh_shape`` it runs over a rank group too. A builder
+that wants another compute dtype sets ``ff.config.compute_dtype`` itself
+(compile reads it); over a mesh the entry's ``"config"`` dict gives the
+ranks' further ``FFConfig`` fields. An ``"onnx"`` entry raises
+``NotImplementedError`` (ROADMAP A12).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshPlacement:
+    """One instance over a mesh: its axes and degrees, and one device a
+    rank in rank order (``arange(world).reshape(sizes)``, as
+    ``core/machine.make_mesh`` lays the ranks out)."""
+
+    mesh_shape: Dict[str, int]
+    devices: Tuple[torch.device, ...]
 
 
 def default_devices() -> List[torch.device]:
@@ -42,26 +62,34 @@ def default_devices() -> List[torch.device]:
 
 def instance_meshes(n_instances: int, mesh_shape: Dict[str, int],
                     devices: Optional[Sequence] = None,
-                    offset: int = 0) -> List[torch.device]:
+                    offset: int = 0) -> List[Union[torch.device, MeshPlacement]]:
     """``n_instances`` disjoint placements of ``mesh_shape`` from the
-    device list, starting at ``offset``: serving over a mesh is ROADMAP
-    A7b, so each is one device. Raises when the devices run out, which would put two
-    instances on one device."""
+    device list, starting at ``offset``: a device each when the mesh is
+    one device, else a :class:`MeshPlacement` of as many consecutive
+    entries as the mesh has ranks. Raises when the devices run out, which
+    would put two instances on one entry."""
     devices = [torch.device(d) for d in (devices if devices is not None
                                          else default_devices())]
     per = 1
     for s in mesh_shape.values():
         per *= int(s)
-    if per != 1:
-        raise NotImplementedError(
-            f"mesh_shape {mesh_shape} spans {per} devices an instance: instances "
-            f"over a device mesh are ROADMAP A7b")
     need = offset + n_instances * per
     if need > len(devices):
         raise ValueError(
             f"{n_instances} instances of mesh {mesh_shape} need {need} "
             f"devices (offset {offset}), have {len(devices)}")
-    return [devices[offset + i] for i in range(n_instances)]
+    if per == 1:
+        return [devices[offset + i] for i in range(n_instances)]
+    shape = {str(k): int(v) for k, v in mesh_shape.items()}
+    return [MeshPlacement(shape, tuple(devices[offset + i * per: offset + (i + 1) * per]))
+            for i in range(n_instances)]
+
+
+def _per(mesh_shape: Dict[str, int]) -> int:
+    per = 1
+    for s in mesh_shape.values():
+        per *= int(s)
+    return per
 
 
 def load_repository(engine, path: str,
@@ -91,20 +119,21 @@ def load_repository(engine, path: str,
                 raise ValueError(
                     f"generator {name!r} needs a builder (a causal-LM "
                     f"graph; ONNX generators are not supported yet)")
-            (device,) = instance_meshes(1, mesh_shape, devices, offset)
-            offset += 1
-            _register_generator(engine, name, builders[name], device, m)
+            (placement,) = instance_meshes(1, mesh_shape, devices, offset)
+            offset += _per(mesh_shape)
+            _register_generator(engine, name, builders[name], placement, m)
             placed[name] = 1
             continue
         placement = instance_meshes(n, mesh_shape, devices, offset)
-        offset += n
+        offset += n * _per(mesh_shape)
         if name not in builders:
             raise ValueError(
                 f"model {name!r} has no 'onnx' path and no builder was "
                 f"supplied for it")
         engine.register_built_instances(
             builders[name], name=name, devices=placement,
-            batch_size=int(m.get("batch_size", 8)), strategies=m.get("strategies"))
+            batch_size=int(m.get("batch_size", 8)), strategies=m.get("strategies"),
+            config=m.get("config"))
         placed[name] = n
     return placed
 
@@ -113,24 +142,30 @@ _GEN_KNOBS = ("decode_slots", "block_size", "num_blocks", "max_length",
               "prefill_buckets", "max_prefills_per_step")
 
 
-def _register_generator(engine, name: str, build: Callable, device,
+def _register_generator(engine, name: str, build: Callable, placement,
                         entry: Dict) -> None:
-    """Compile a builder-defined causal LM for inference on ``device`` and
-    register it as a continuous-batching generation instance."""
+    """Compile a builder-defined causal LM for inference on ``placement``
+    (a device, or a :class:`MeshPlacement` whose rank group compiles it)
+    and register it as a continuous-batching generation instance."""
     from ..config import FFConfig
     from ..ffconst import CompMode
     from ..runtime.model import FFModel
 
-    if entry.get("strategies"):
-        raise NotImplementedError(
-            f"generator {name!r}: per-op strategies shard over a device mesh: "
-            f"serving over a mesh is ROADMAP A7b")
-    ff = FFModel(FFConfig(batch_size=int(entry.get("batch_size", 1)),
-                          computation_mode=CompMode.INFERENCE, device=str(device)))
-    build(ff, ff.config.batch_size)
-    ff.compile()
     kw = {k: entry[k] for k in _GEN_KNOBS if k in entry}
+    batch = int(entry.get("batch_size", 1))
+    if isinstance(placement, MeshPlacement):
+        from .group import GroupSpec
+
+        spec = GroupSpec(build, dict(placement.mesh_shape),
+                         tuple(str(d) for d in placement.devices), batch,
+                         entry.get("strategies"), dict(entry.get("config") or {}))
+        engine.register_generator(None, name=name, group=spec, **kw)
+        return
+    ff = FFModel(FFConfig(batch_size=batch, computation_mode=CompMode.INFERENCE,
+                          device=str(placement), **(entry.get("config") or {})))
+    build(ff, ff.config.batch_size)
+    ff.compile(strategies=entry.get("strategies"))
     engine.register_generator(ff, name=name, **kw)
 
 
-__all__ = ["default_devices", "instance_meshes", "load_repository"]
+__all__ = ["MeshPlacement", "default_devices", "instance_meshes", "load_repository"]

@@ -146,14 +146,19 @@ class ContinuousBatchingScheduler:
                  breaker_threshold: int = 0, breaker_cooldown_s: float = 1.0,
                  worker_retry_budget: int = 2, draft_ff=None, spec_k: int = 0,
                  kv_dtype: str = "float32",
-                 kv_divergence_budget: Optional[float] = None):
-        if max_length is None:
-            max_length = _position_capacity(ff)
+                 kv_divergence_budget: Optional[float] = None, decoder=None):
         self.name = name
-        self.decoder = PagedDecoder(
-            ff, max_length, decode_slots=decode_slots, block_size=block_size,
-            num_blocks=num_blocks, prefill_buckets=prefill_buckets, kv_dtype=kv_dtype,
-            kv_divergence_budget=kv_divergence_budget)
+        if decoder is not None:
+            # a generation group's decoder (serving/group.py): the ranks
+            # own the model and the arenas, this process the allocator
+            self.decoder = decoder
+        else:
+            if max_length is None:
+                max_length = _position_capacity(ff)
+            self.decoder = PagedDecoder(
+                ff, max_length, decode_slots=decode_slots, block_size=block_size,
+                num_blocks=num_blocks, prefill_buckets=prefill_buckets, kv_dtype=kv_dtype,
+                kv_divergence_budget=kv_divergence_budget)
         self.spec_k = max(0, int(spec_k))
         self.draft: Optional[PagedDecoder] = None
         if self.spec_k > 0:

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import sys
 
+import numpy as np
+
 import torch
 
 
@@ -381,3 +383,176 @@ def zero(rank: int, world: int, model: str, mesh_shape, shape: dict, kw: dict, p
     return dict(losses=losses, params=ff.numpy_params(), after_steps=after_steps,
                 state_bytes=nbytes,
                 state_shapes=shapes, zero_dims=dict(cm.zero_dims))
+
+
+# ------------------------------------------- sharded tables, convolution, BN
+def sharded_graph(ff, kind: str, batch: int, ns):
+    """A small graph of ``kind`` for either package (``ns``: that
+    package's ``ffconst``), its layers named so strategies find them;
+    returns its inputs. The strategies go to ``compile``."""
+    A = ns.ActiMode
+    if kind in ("emb", "emb_rows", "emb_bag"):
+        ids = ff.create_tensor((batch, 3), ns.DataType.INT32, name="ids")
+        if kind == "emb_rows":
+            ff.embedding(ids, 16, 8, ns.AggrMode.NONE, name="emb_none")
+            return [ids]
+        if kind == "emb_bag":
+            ff.concat([ff.embedding(ids, 16, 8, ns.AggrMode.SUM, name="emb_sum"),
+                       ff.embedding(ids, 16, 8, ns.AggrMode.AVG, name="emb_avg")], axis=-1)
+            return [ids]
+        rows = ff.flat(ff.embedding(ids, 16, 8, ns.AggrMode.NONE, name="emb_none"))
+        t = ff.concat([rows, ff.embedding(ids, 16, 8, ns.AggrMode.SUM, name="emb_sum"),
+                       ff.embedding(ids, 16, 8, ns.AggrMode.AVG, name="emb_avg")], axis=-1)
+        ff.dense(t, 1, name="head")
+        return [ids]
+    if kind == "reduce":
+        x = ff.create_tensor((batch, 16), name="x")
+        h = ff.dense(x, 16, A.RELU, name="d1")
+        c = ff.subtract(h, ff.mean(h, dims=[0], keepdims=True, name="batch_mean"))
+        s = ff.scalar_multiply(ff.reduce_sum(h, axes=[0], keepdims=True, name="batch_sum"),
+                               0.01)
+        ff.dense(ff.add(c, s), 1, name="head")
+        return [x]
+    if kind == "reduce_all":
+        x = ff.create_tensor((batch, 16), name="x")
+        h = ff.dense(x, 16, A.TANH, name="d1")
+        total = ff.reduce_sum(h, axes=[0, 1], name="all_sum")
+        ff.add(ff.dense(h, 1, name="head"), ff.scalar_multiply(total, 0.01))
+        return [x]
+    img_shape = {"conv_stack": (3, 16, 16), "conv_odd": (3, 16, 16), "conv_oc": (4, 8, 8),
+                 "bn": (3, 8, 8), "stem": (3, 32, 32)}[kind]
+    x = ff.create_tensor((batch,) + img_shape, ns.DataType.FLOAT, name="img")
+    if kind == "conv_stack":  # tests/test_parallel.py's spatial stack
+        t = ff.conv2d(x, 8, 3, 3, 1, 1, 1, 1, A.RELU, name="c1")
+        t = ff.pool2d(t, 2, 2, 2, 2, 0, 0, name="p1")
+        t = ff.conv2d(t, 16, 3, 3, 1, 1, 1, 1, name="c2")
+    elif kind == "conv_odd":  # an odd kernel at stride 2, padded top and bottom
+        t = ff.conv2d(x, 6, 5, 5, 2, 2, 2, 2, A.RELU, name="c1")
+        t = ff.pool2d(t, 3, 3, 2, 2, 1, 1, ns.PoolType.AVG, name="p1")
+        t = ff.conv2d(t, 4, 3, 3, 1, 1, 1, 1, name="c2")
+    elif kind == "conv_oc":
+        t = ff.conv2d(x, 16, 3, 3, 1, 1, 1, 1, name="c1")
+        t = ff.batch_norm(t, name="bn1")
+        t = ff.conv2d(t, 8, 3, 3, 1, 1, 1, 1, A.RELU, groups=2, name="c2")
+    elif kind == "bn":
+        t = ff.batch_norm(ff.conv2d(x, 4, 3, 3, 1, 1, 1, 1, name="c1"), name="bn1")
+    else:  # the ResNet-50 stem: 7x7/2 conv, batch norm, 3x3/2 max pool
+        t = ff.conv2d(x, 8, 7, 7, 2, 2, 3, 3, name="c1", use_bias=False)
+        t = ff.batch_norm(t, name="bn1")
+        t = ff.pool2d(t, 3, 3, 2, 2, 1, 1, name="p1")
+    t = ff.dense(ff.flat(t), 5, name="head")
+    ff.softmax(t)
+    return [x]
+
+
+def _port_graph(ff, kind: str, batch: int):
+    from flexflow_tpu_torch import ffconst
+    from flexflow_tpu_torch.models import (DLRMConfig, XDLConfig, build_dlrm,
+                                           build_xdl)
+
+    if kind == "dlrm":
+        return build_dlrm(ff, batch, DLRMConfig(embedding_size=[32, 64], sparse_feature_size=8,
+                                                mlp_bot=[4, 8, 8], mlp_top=[8, 8, 2]),
+                          param_axis="model")[0]
+    if kind == "xdl":
+        return build_xdl(ff, batch, XDLConfig(embedding_size=[32] * 2, sparse_feature_size=8,
+                                              mlp_top=[16, 1]),
+                         embedding_strategy={"vocab": "model"})[0]
+    return sharded_graph(ff, kind, batch, ffconst)
+
+
+def sharded_ops(rank: int, world: int, kind: str, mesh_shape, strategies, params, batches,
+                loss: str, forward_x=None) -> dict:
+    """``kind`` over ``mesh_shape`` under ``strategies`` from ``params``:
+    with ``batches``, one SGD ``train_step`` each (this rank's rows), the
+    losses and the whole params after; with ``forward_x``, the whole
+    ``forward_fn`` output; the layouts of every op's outputs."""
+    from flexflow_tpu_torch import FFConfig, FFModel, LossType, SGDOptimizer, load_numpy_params
+
+    batch = (batches[0][-1] if batches else forward_x[0]).shape[0]
+    ff = FFModel(FFConfig(batch_size=batch, device="cpu", mesh_shape=mesh_shape))
+    _port_graph(ff, kind, batch)
+    ff.compile(SGDOptimizer(lr=0.05), getattr(LossType, loss) if loss else None,
+               strategies=strategies)
+    load_numpy_params(ff, params)
+    cm = ff.compiled
+    out = {"specs": {op.name: op.output_shapes[0].partition_spec() for op in cm.ops},
+           "weight_specs": {op.name: {w: s.partition_spec() for w, s in op.weight_shapes.items()}
+                            for op in cm.ops}}
+    if forward_x is not None:
+        xs = [torch.from_numpy(np.ascontiguousarray(a[cm.batch_rows(i)]))
+              for i, a in enumerate(forward_x)]
+        out["forward"] = cm.forward_fn(cm.params, *xs).numpy()
+    losses = []
+    for b in batches or ():
+        ff.set_batch(list(b[:-1]), b[-1])
+        cm.params, cm.opt_state, l, _ = cm.train_step(cm.params, cm.opt_state, None,
+                                                      *ff._cur_batch)
+        losses.append(float(l))
+    out.update(losses=losses, params=ff.numpy_params())
+    return out
+
+
+def bucket_fit(rank: int, world: int, mesh_shape, cfg: dict, params, x, pos, y) -> dict:
+    """A tiny GPT's bucketed ``fit`` (``seq_buckets="pow2"``, a token
+    budget) over ``mesh_shape``: the whole params after, the dispatched
+    (rows, width) shapes of this rank and the bucket profile."""
+    from flexflow_tpu_torch import FFConfig, FFModel, LossType, SGDOptimizer, load_numpy_params
+    from flexflow_tpu_torch.models import GPTConfig, build_gpt
+
+    ff = FFModel(FFConfig(batch_size=8, device="cpu", mesh_shape=mesh_shape, seed=3,
+                          seq_buckets="pow2", seq_bucket_min=4, token_budget=64))
+    build_gpt(ff, 8, x.shape[1], GPTConfig(**cfg))
+    ff.compile(SGDOptimizer(lr=0.05), LossType.SPARSE_CATEGORICAL_CROSSENTROPY)
+    load_numpy_params(ff, params)
+    shapes = []
+    step = ff.compiled.train_step
+
+    def recording(p, o, r, *batch, **kw):
+        shapes.append(tuple(batch[-1].shape))
+        return step(p, o, r, *batch, **kw)
+
+    ff.compiled.train_step = recording
+    ff.fit([x, pos], y, epochs=1, shuffle=False, verbose=False)
+    return dict(params=ff.numpy_params(), shapes=shapes,
+                buckets=ff.fit_profile["buckets"])
+
+
+# ------------------------------------------------------- serving over a mesh
+def serving_classifier(ff, bs, model_axis=None):
+    """``tests/test_serving.py``'s classifier: dense 12 -> 32 (ReLU, its
+    features over ``model_axis``), dense to 3, softmax."""
+    from flexflow_tpu_torch.ffconst import ActiMode
+
+    x = ff.create_tensor((bs, 12), name="x")
+    t = ff.dense(x, 32, ActiMode.RELU, strategy={"out": model_axis} if model_axis else None)
+    return ff.softmax(ff.dense(t, 3))
+
+
+SERVING_GPT = dict(vocab_size=64, max_positions=32, hidden_size=32, num_heads=4, num_layers=2)
+
+
+def serving_gpt(ff, bs):
+    """A small GPT with its heads and MLP over ``model`` (a one-device
+    compile ignores the axis)."""
+    from flexflow_tpu_torch.models import GPTConfig, build_gpt
+
+    build_gpt(ff, bs, 8, GPTConfig(**SERVING_GPT), tp_axis="model")
+
+
+def tp_generate(rank: int, world: int, weights, prompt, new: int) -> dict:
+    """The dense ``Generator`` over {model: world}, every rank in step:
+    the prefill's last logits and the greedy tokens."""
+    from flexflow_tpu_torch import CompMode, FFConfig, FFModel
+    from flexflow_tpu_torch.serving import Generator
+    from flexflow_tpu_torch.serving.group import load_weights_by_order
+
+    ff = FFModel(FFConfig(batch_size=prompt.shape[0], device="cpu",
+                          computation_mode=CompMode.INFERENCE, mesh_shape={"model": world}))
+    serving_gpt(ff, prompt.shape[0])
+    ff.compile()
+    load_weights_by_order(ff, weights)
+    gen = Generator(ff, max_length=32)
+    heads = {op.name: gen.local_heads(op) for op in gen._attn_ops}
+    last = gen.prefill(prompt)[0].numpy()
+    return dict(last=last, tokens=gen.generate(prompt, new), heads=heads)

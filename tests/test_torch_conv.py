@@ -139,10 +139,36 @@ def test_conv2d_matches_jax(shape, co, k, s, p, groups, use_bias):
 
 
 def test_conv2d_strategy_raises_naming_a7():
+    """A convolution's strategy compiles since A7b: ``out_channels`` and
+    ``spatial`` give the JAX package's layouts over {data: 2, model: 2}
+    (the values over ranks are ``test_torch_sharded_ops.py``'s)."""
+    from flexflow_tpu.core.parallel_tensor import ParallelDim as JParallelDim
+    from flexflow_tpu.core.parallel_tensor import ParallelTensorShape as JPShape
+    from flexflow_tpu.runtime.compiler import build_ops as jbuild_ops
+    from flexflow_tpu_torch.core.parallel_tensor import ParallelDim, ParallelTensorShape
+    from flexflow_tpu_torch.runtime.compiler import build_ops
+
+    strategies = {"oc": {"out_channels": "model"}, "sp": {"spatial": "model"}}
     ff = FFModel(FFConfig(batch_size=2, device="cpu"))
-    x = ff.create_tensor((2, 3, 8, 8))
-    with pytest.raises(NotImplementedError, match="A7"):
-        ff.conv2d(x, 4, 3, 3, 1, 1, 1, 1, strategy={"out_channels": "model"})
+    x = ff.create_tensor((2, 3, 8, 8), name="img")
+    for name in ("oc", "sp"):
+        ff.conv2d(x, 4, 3, 3, 1, 1, 1, 1, strategy=strategies[name], name=name)
+    jff = JFFModel(JFFConfig(batch_size=2))
+    jx = jff.create_tensor((2, 3, 8, 8), name="img")
+    for name in ("oc", "sp"):
+        jff.conv2d(jx, 4, 3, 3, 1, 1, 1, 1, name=name)
+    sizes = {"data": 2, "model": 2}
+    ops, _ = build_ops(ff.layers, {x.tensor_id: ParallelTensorShape(
+        (ParallelDim(2, 2, "data"),) + tuple(ParallelDim(s) for s in (3, 8, 8)))}, sizes,
+        strategies)
+    jops, _ = jbuild_ops(jff.layers, {jx.tensor_id: JPShape(
+        (JParallelDim(2, 2, "data"),) + tuple(JParallelDim(s) for s in (3, 8, 8)))}, sizes,
+        strategies)
+    for o, jo in zip(ops, jops):
+        assert o.output_shapes[0].partition_spec() == tuple(jo.output_shapes[0].partition_spec())
+        for w, ws in o.weight_shapes.items():
+            assert ws.partition_spec() == tuple(jo.weight_shapes[w].partition_spec())
+    assert ops[0].oc_axis == "model" and ops[1].sp_axis == "model"
 
 
 # (id, input shape, kernel, stride, padding)

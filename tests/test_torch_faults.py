@@ -102,17 +102,14 @@ def test_firing_sequences_equal_the_reference(rule, seed, fresh_registries):
     ("train.stall", "A9"), ("train.kill", "A9"), ("multihost.init_timeout", "A7"),
     ("multihost.peer_kill", "A7"), ("multihost.slow_peer", "A7")])
 def test_unwired_site_raises_naming_its_item(site, item):
-    """The A7 sites are still unwired and raise naming A7; the A9 sites are
-    wired now (their queue item is done) and arm as the reference's do."""
+    """Every site is wired now, the A9 ones (PR 14) and the A7 ones (the
+    ``multihost.*`` sites, with ``parallel/multihost.py``): each arms and
+    fires on its first evaluation as the reference's does."""
     cfg = FFConfig(device="cpu", fault_plan={
         "schema": 1, "sites": {"serving.worker": {"at_step": 1}, site: {"at_step": 1}}})
-    if item == "A9":
-        assert tfaults.configure_faults(cfg) is not None
-        assert tfaults.active()
-    else:
-        with pytest.raises(NotImplementedError, match=rf"'{site}' \(ROADMAP {item}"):
-            tfaults.configure_faults(cfg)
-        assert not tfaults.active()  # nothing was armed
+    assert tfaults.configure_faults(cfg) is not None
+    assert tfaults.active()
+    assert tfaults.fire(site) is not None
     jfaults.configure_faults(type("C", (), {"fault_plan": cfg.fault_plan})())
     assert jfaults.active()  # the reference arms it
 
@@ -132,11 +129,16 @@ def test_a9_site_arms_and_fires_as_in_the_reference(site, rule):
 
 
 def test_a7_site_still_raises_naming_a7():
-    spec = {"schema": 1, "sites": {"train.kill": {"at_step": 1},
-                                   "multihost.peer_kill": {"at_step": 1}}}
-    with pytest.raises(NotImplementedError, match="'multihost.peer_kill' \\(ROADMAP A7"):
-        tfaults.configure_faults(FFConfig(device="cpu", fault_plan=spec))
-    assert not tfaults.active()
+    """The A7 sites arm since A7b and fire in the reference's sequence."""
+    spec = {"schema": 1, "seed": 2, "sites": {"train.kill": {"at_step": 1},
+                                              "multihost.peer_kill": {"at_step": 3},
+                                              "multihost.slow_peer": {"p": 0.4,
+                                                                      "stall_s": 0.1}}}
+    plan = tfaults.configure_faults(FFConfig(device="cpu", fault_plan=spec))
+    jfaults.configure_faults(type("C", (), {"fault_plan": spec})())
+    for site in spec["sites"]:
+        assert [tfaults.fire(site) for _ in range(20)] == [jfaults.fire(site) for _ in range(20)]
+    assert plan.snapshot() == jfaults.faults_block()
 
 
 def test_configure_keeps_an_equal_plan_and_none_clears():

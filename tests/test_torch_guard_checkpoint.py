@@ -334,11 +334,34 @@ def test_topology_mismatch_raises_and_elastic_restore_counts(tmp_path):
 
 
 def test_multi_process_checkpoints_wait_for_a7(monkeypatch, tmp_path):
+    """In a process group of two a single-process manager no longer
+    raises: it is the multi-process manager, the one multi-process layout.
+    Each rank commits its shard, rank 0 the manifest once both have
+    acknowledged, and each rank restores its own shard through it."""
     from flexflow_tpu_torch.runtime import checkpoint
 
     monkeypatch.setattr(checkpoint, "_process_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="A7"):
-        CheckpointManager(str(tmp_path))
+    ffs = [_mlp(), _mlp()]
+    with torch.no_grad():  # the ranks hold different params
+        for ws in ffs[1].compiled.params.values():
+            for t in ws.values():
+                t.add_(1.0)
+    mgrs = []
+    for rank in (1, 0):  # rank 1 first: rank 0's barrier then passes
+        monkeypatch.setattr(checkpoint, "_process_index", lambda rank=rank: rank)
+        mgr = CheckpointManager(str(tmp_path))
+        assert isinstance(mgr, checkpoint.MultiHostCheckpointManager) and mgr.rank == rank
+        mgr.save(ffs[rank], 7)
+        mgrs.append(mgr)
+    assert (tmp_path / "manifest_7.json").exists() and not (tmp_path / "rank-001").exists()
+    for mgr in mgrs:
+        fresh = _mlp()
+        with torch.no_grad():
+            for ws in fresh.compiled.params.values():
+                for t in ws.values():
+                    t.zero_()
+        assert mgr.all_steps() == [7] and mgr.restore(fresh) == 7
+        _assert_tree_equal(_snapshot(fresh), _snapshot(ffs[mgr.rank]))
 
 
 # ---------------------------------------------------------------- recompile

@@ -2,7 +2,7 @@
 algebra, the layouts every op of the Transformer, GPT and the BERT proxy
 propagates under ``tp_axis`` and ``seq_axis`` against the JAX package's
 ``partition_spec()``s, the errors (duplicate axes, a mesh that does not
-match the world), the strategies that are ROADMAP A7b, and the strategy
+match the world), the A7b strategies against the JAX layouts, and the strategy
 file round trip. The runs over ranks are in
 ``test_torch_parallel_training.py``."""
 
@@ -24,7 +24,7 @@ from flexflow_tpu.runtime.compiler import build_ops as jbuild_ops
 from flexflow_tpu_torch import AdamOptimizer, FFConfig, FFModel, LossType
 from flexflow_tpu_torch.core.machine import LAUNCH_HINT, Group, Mesh, make_mesh
 from flexflow_tpu_torch.core.parallel_tensor import ParallelDim, ParallelTensorShape
-from flexflow_tpu_torch.ffconst import ActiMode, DataType
+from flexflow_tpu_torch.ffconst import ActiMode
 from flexflow_tpu_torch.models import GPTConfig, TransformerConfig, build_gpt
 from flexflow_tpu_torch.models.dlrm import build_dlrm
 from flexflow_tpu_torch.models.transformer import build_bert_proxy, build_transformer
@@ -205,11 +205,36 @@ def _moe(ff, stacked=False, expert_axis=None):
            expert_axis=expert_axis, name="moe")
 
 
+def _jax_data_mesh_ops(build, axis_sizes=None, strategies=None):
+    jff = JFFModel(JFFConfig(batch_size=BATCH))
+    build(jff)
+    pshapes = {t.tensor_id: JParallelTensorShape(
+        (JParallelDim(t.dims[0], 2, "data"),) + tuple(JParallelDim(s) for s in t.dims[1:]))
+        for t in jff.input_tensors}
+    strategies = {**{l.name: l.attrs["strategy"] for l in jff.layers if l.attrs.get("strategy")},
+                  **(strategies or {})}
+    return jbuild_ops(jff.layers, pshapes, axis_sizes or {"data": 2}, strategies)
+
+
 @pytest.mark.parametrize("build, op", [(_bn, "bn"), (_batch_sum, "sum")],
                          ids=["batch_norm", "reduce_over_batch"])
 def test_a_reduction_across_the_sharded_batch_raises_naming_a7b(build, op):
-    with pytest.raises(NotImplementedError, match=f"{op}.*A7b"):
-        _data_mesh_ops(build)
+    """A reduction over the batch sharded over ``data`` no longer raises:
+    it keeps the batch sharded and reduces globally (BatchNorm's statistics
+    and ReduceSum are all-reduced over ``data``), with the JAX package's
+    layouts; ``test_torch_sharded_ops.py`` holds the values to JAX over
+    ranks."""
+    ops, _ = _data_mesh_ops(build)
+    by = {o.name: o for o in ops}
+    jby = {o.name: o for o in _jax_data_mesh_ops(build)[0]}
+    assert by[op].input_layouts[0].partition_spec()[0] == "data"
+    if op == "bn":
+        assert by[op].stat_axes == ("data",)
+    else:
+        assert by[op].batch_axis == "data"
+    for name, o in by.items():
+        assert o.output_shapes[0].partition_spec() == \
+            tuple(jby[name].output_shapes[0].partition_spec()), name
 
 
 @pytest.mark.parametrize("stacked, expert_axis", [(False, None), (True, None), (True, "data")],
@@ -265,26 +290,64 @@ def test_a_reduction_across_a_sharded_feature_dim_gathers_it():
 
 
 def test_a7b_strategies_raise_naming_a7b():
-    cases = []
-
-    def dense_only(ff):
-        return ff.create_tensor((BATCH, 16), name="x")
-
+    """The strategies of ROADMAP A7b compile (they raised before it was
+    ported): sharded tables, DLRM/XDL, a convolution's strategy, instance
+    placement over a mesh, the expert strategy and ZeRO-1."""
     ff = FFModel(FFConfig(batch_size=BATCH, device="cpu"))
-    x = dense_only(ff)
-    ids = ff.create_tensor((BATCH, 4), DataType.INT32, name="ids")
-    img = ff.create_tensor((BATCH, 3, 8, 8), name="img")
+    x = ff.create_tensor((BATCH, 16), name="x")
     gate = ff.dense(x, 4, name="gate")
     _, assign = ff.top_k(gate, 2, sorted=False)
-    cases.append(lambda: ff.embedding(ids, 32, 8, strategy={"vocab": "model"}))
-    cases.append(lambda: ff.conv2d(img, 4, 3, 3, 1, 1, 1, 1, strategy={"out": "model"}))
-    cases.append(lambda: build_dlrm(FFModel(FFConfig(device="cpu")), BATCH, param_axis="model"))
-    cases.append(lambda: build_xdl(FFModel(FFConfig(device="cpu")), BATCH,
-                                   embedding_strategy={"vocab": "model"}))
-    cases.append(lambda: instance_meshes(1, {"data": 2}, devices=["cpu", "cpu"]))
-    for case in cases:
-        with pytest.raises(NotImplementedError, match="A7b"):
-            case()
+    # the sharded tables and convolutions compile, with the JAX package's
+    # layouts over {data: 2, model: 2}
+    from flexflow_tpu import ffconst as jns
+    from flexflow_tpu.models.dlrm import DLRMConfig as JDLRMConfig
+    from flexflow_tpu.models.dlrm import build_dlrm as jbuild_dlrm
+    from flexflow_tpu.models.xdl import XDLConfig as JXDLConfig
+    from flexflow_tpu.models.xdl import build_xdl as jbuild_xdl
+    from flexflow_tpu.serving.placement import instance_meshes as jinstance_meshes
+    from flexflow_tpu_torch import ffconst as tns
+    from flexflow_tpu_torch.models import DLRMConfig, XDLConfig
+
+    def emb(ns):
+        return lambda f: f.embedding(f.create_tensor((BATCH, 4), ns.DataType.INT32, name="ids"),
+                                     32, 8, strategy={"vocab": "model"}, name="emb")
+
+    def conv(strategy):
+        return lambda f: f.conv2d(f.create_tensor((BATCH, 3, 8, 8), name="img"), 4, 3, 3,
+                                  1, 1, 1, 1, name="cv", **strategy)
+
+    tables = dict(embedding_size=[64] * 4, sparse_feature_size=8)
+    cases = [
+        (emb(tns), emb(jns), None),
+        # "out" is not a convolution's key: both packages leave it unsharded
+        (conv({"strategy": {"out": "model"}}), conv({}), {"cv": {"out": "model"}}),
+        (lambda f: build_dlrm(f, BATCH, DLRMConfig(**tables), param_axis="model"),
+         lambda f: jbuild_dlrm(f, BATCH, JDLRMConfig(**tables), param_axis="model"), None),
+        (lambda f: build_xdl(f, BATCH, XDLConfig(**tables), embedding_strategy={"vocab": "model"}),
+         lambda f: jbuild_xdl(f, BATCH, JXDLConfig(**tables),
+                              embedding_strategy={"vocab": "model"}), None),
+    ]
+    sizes = {"data": 2, "model": 2}
+    for build, jbuild, jstrategies in cases:
+        ops = _data_mesh_ops(build, sizes)[0]
+        jops = {o.name: o for o in _jax_data_mesh_ops(jbuild, sizes, jstrategies)[0]}
+        named = [o for o in ops if o.name in jops]  # auto names count per package
+        assert any(o.weight_shapes for o in named)
+        for o in named:
+            assert o.output_shapes[0].partition_spec() == \
+                tuple(jops[o.name].output_shapes[0].partition_spec()), o.name
+            for w, ws in o.weight_shapes.items():
+                assert ws.partition_spec() == \
+                    tuple(jops[o.name].weight_shapes[w].partition_spec()), (o.name, w)
+        assert any("model" in ws.partition_axes for o in ops for ws in o.weight_shapes.values()
+                   ) == (jstrategies is None)
+    # a device list may name one card twice: an instance's two ranks share it
+    import jax
+
+    (place,) = instance_meshes(1, {"data": 2}, devices=["cpu", "cpu"])
+    (jmesh,) = jinstance_meshes(1, {"data": 2}, jax.devices()[:2])
+    assert place.mesh_shape == dict(zip(jmesh.axis_names, jmesh.devices.shape))
+    assert [str(d) for d in place.devices] == ["cpu", "cpu"]
     # an expert strategy and ZeRO-1 no longer raise: their layouts compile.
     # An axis the mesh lacks, or a degree that does not divide the
     # experts, raises the JAX package's ValueError

@@ -46,7 +46,9 @@ REQUIRED = ("flexflow_tpu_torch.obs", "flexflow_tpu_torch.obs.metrics",
             "flexflow_tpu_torch.parallel.distributed", "flexflow_tpu_torch.parallel.ring_attention",
             "flexflow_tpu_torch.core.machine", "flexflow_tpu_torch.ops.parallel_ops",
             "flexflow_tpu_torch.parallel.schedule", "flexflow_tpu_torch.parallel.pipeline",
-            "flexflow_tpu_torch.parallel.pipeline_compiled")
+            "flexflow_tpu_torch.parallel.pipeline_compiled",
+            "flexflow_tpu_torch.parallel.multihost", "flexflow_tpu_torch.parallel.launch",
+            "flexflow_tpu_torch.serving.group")
 
 
 def test_rules_cover_the_required_modules():

@@ -463,8 +463,11 @@ def test_placement_carves_disjoint_devices_and_refuses_the_rest():
     assert instance_meshes(1, {"data": 1}, devs, offset=2) == devs[2:]
     with pytest.raises(ValueError, match="need 4 devices"):
         instance_meshes(2, {"data": 1}, devs, offset=2)
-    with pytest.raises(NotImplementedError, match="A7"):
-        instance_meshes(1, {"data": 2}, devs)
+    # a mesh of two takes two consecutive devices, one a rank
+    (place,) = instance_meshes(1, {"data": 2}, devs)
+    assert place.mesh_shape == {"data": 2} and list(place.devices) == devs[:2]
+    with pytest.raises(ValueError, match="need 4 devices"):
+        instance_meshes(2, {"data": 2}, devs)
 
 
 def _build_for_jax(ff, bs):
@@ -532,9 +535,9 @@ def test_repository_builder_sets_the_compute_dtype(tmp_path):
 
 
 @pytest.mark.parametrize("entry,err,match", [
-    ({"instances": 1, "mesh_shape": {"data": 2}}, NotImplementedError, "A7"),
+    ({"instances": 1, "mesh_shape": {"data": 2}}, ValueError, "need 2 devices"),
     ({"instances": 1, "onnx": "/nonexistent/model.onnx"}, NotImplementedError, "A12"),
-    ({"instances": 1, "strategies": {"dense_1": {"out": "model"}}}, NotImplementedError, "A7"),
+    ({"instances": 3, "strategies": {"dense_1": {"out": "model"}}}, ValueError, "need 3 devices"),
     ({"instances": 2}, ValueError, "need 2 devices"),
     ({"instances": 2, "generator": True}, ValueError, "instances must be 1"),
 ])

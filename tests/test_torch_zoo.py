@@ -135,12 +135,34 @@ def test_zoo_builds_the_same_layer_list(name):
 
 
 def test_sharded_tables_raise_naming_a7():
-    with pytest.raises(NotImplementedError, match="A7"):
-        tmodels.build_dlrm(_tff(2), 2, tmodels.DLRMConfig(embedding_size=[10] * 4),
-                           param_axis="model")
-    with pytest.raises(NotImplementedError, match="A7"):
-        tmodels.build_xdl(_tff(2), 2, tmodels.XDLConfig(embedding_size=[10] * 4),
-                          embedding_strategy={"vocab": "model"})
+    """DLRM's ``param_axis`` and XDL's ``embedding_strategy`` build since
+    A7b: every table carries the vocab strategy, as the JAX package's
+    builders give it, and shards its rows over {model: 2} (the values over
+    ranks are ``test_torch_sharded_ops.py``'s)."""
+    from flexflow_tpu.runtime.compiler import build_ops as jbuild_ops
+    from flexflow_tpu_torch.runtime.compiler import build_ops
+
+    cases = ((tmodels.build_dlrm, jmodels.build_dlrm, tmodels.DLRMConfig, jmodels.DLRMConfig,
+              dict(param_axis="model")),
+             (tmodels.build_xdl, jmodels.build_xdl, tmodels.XDLConfig, jmodels.XDLConfig,
+              dict(embedding_strategy={"vocab": "model"})))
+    for build, jbuild, cfg, jcfg, kw in cases:
+        tff, jff = _tff(2), _jff(2)
+        build(tff, 2, cfg(embedding_size=[10] * 4), **kw)
+        jbuild(jff, 2, jcfg(embedding_size=[10] * 4), **kw)
+        strat = {l.name: l.attrs.get("strategy") for l in tff.layers if l.attrs.get("strategy")}
+        jstrat = {l.name: l.attrs.get("strategy") for l in jff.layers if l.attrs.get("strategy")}
+        assert strat == jstrat and len(strat) == 4
+        ops, _ = build_ops(tff.layers, {t.tensor_id: ParallelTensorShape.unpartitioned(
+            t.dims, t.dtype) for t in tff.input_tensors}, {"model": 2}, strat)
+        jops, _ = jbuild_ops(jff.layers, {t.tensor_id: JPShape.unpartitioned(t.dims, t.dtype)
+                                          for t in jff.input_tensors}, {"model": 2}, jstrat)
+        jby = {o.name: o for o in jops}
+        for o in ops:
+            if o.name in strat:
+                assert o.weight_shapes["weight"].partition_spec() == ("model", None)
+                assert o.weight_shapes["weight"].partition_spec() == \
+                    tuple(jby[o.name].weight_shapes["weight"].partition_spec())
 
 
 # ---- numerical parity --------------------------------------------------------
