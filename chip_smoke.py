@@ -191,8 +191,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
    within 0.1 (the 3-step error reported), and its stem (7x7/2 conv,
    batch norm, 3x3/2 pool) at 224 px with {"spatial": "model"} on
    {model: 2}, held as (i);
-17. the kernels line, one JSON object;
-18. the last line: {"ok": true, "device": {...}}.
+17. the simulator and the search (A8a): (k) sim/calibrate.py's
+   calibrate() in float32 and bfloat16 (the small Transformer, the bench
+   Transformer and AlexNet at 229 px), each calibrated simulation within
+   a factor 2 of its measured step, the gloo staging rate of two ranks
+   on this card, and ProfilingCostModel's measured forwards against
+   OpCostModel's on the bench Transformer's ops (the five largest gaps);
+   (l) TransformerConfig(), batch 8, one rank, float32 and bfloat16,
+   compiled with a search through the strategy cache: the plan and its
+   estimate beside the measured step, 3 fit steps bitwise equal to a
+   compile without search, a recompile hitting the cache with no
+   cost-model query; (m) (14)'s Transformer on 4 ranks: a search pinned
+   to {data: 2, model: 2}, an unpinned search over the 4 ranks with a
+   3-step playoff against data parallelism (the faster kept), and
+   {pipe: 2} with schedule="auto", each held to (14)'s one-rank f32 run
+   with K1-K3 launches on every rank; the native simulator built from
+   the checkout and its replay used;
+18. the kernels line, one JSON object;
+19. the last line: {"ok": true, "device": {...}}.
 
 Imports torch, numpy and flexflow_tpu_torch only.
 """
@@ -3665,10 +3681,10 @@ def par_opts(layers: int = 0) -> dict:
 
 def par_model(opts: dict, compute_dtype: str, mesh_shape, tp=None, seq_axis=None,
               seq_mode: str = "ring", adam: bool = False, zero: bool = False,
-              pipeline: dict = None):
+              pipeline: dict = None, config: dict = None):
     """The Transformer over ``mesh_shape``: SGD (lr 0.01), or Adam with
     ``adam`` (ZeRO-1 with ``zero``); ``pipeline``: PipelineConfig's
-    fields."""
+    fields; ``config``: more FFConfig fields (the search's)."""
     from flexflow_tpu_torch import AdamOptimizer, FFConfig, FFModel, LossType, SGDOptimizer
     from flexflow_tpu_torch.models.transformer import TransformerConfig, build_transformer
     from flexflow_tpu_torch.parallel.pipeline import PipelineConfig
@@ -3679,7 +3695,8 @@ def par_model(opts: dict, compute_dtype: str, mesh_shape, tp=None, seq_axis=None
                             num_heads=opts["heads"], num_layers=opts["layers"],
                             sequence_length=opts["seq"])
     ff = FFModel(FFConfig(batch_size=batch, compute_dtype=compute_dtype, seed=SEED,
-                          device=opts["device"], mesh_shape=mesh_shape, zero_optimizer=zero))
+                          device=opts["device"], mesh_shape=mesh_shape, zero_optimizer=zero,
+                          **(config or {})))
     build_transformer(ff, batch, cfg, tp_axis=tp, seq_axis=seq_axis, seq_mode=seq_mode)
     ff.compile(optimizer=AdamOptimizer(alpha=1e-4) if adam else SGDOptimizer(lr=0.01),
                loss_type=LossType.MEAN_SQUARED_ERROR_AVG_REDUCE,
@@ -3735,6 +3752,7 @@ def par_fit(opts: dict, compute_dtype: str, mesh_shape=None, **kw) -> dict:
     finally:
         fa.flash_attention_fwd = fwd
     params = ff.numpy_params()
+    cm = ff.compiled  # a playoff may have kept the data-parallel compile
     rank = cm.mesh.rank if cm.mesh is not None else 0
     if cm.mesh is not None:
         # only rank 0's trees are read; spawned ranks hand them back as files
@@ -3799,13 +3817,18 @@ def par_fit(opts: dict, compute_dtype: str, mesh_shape=None, **kw) -> dict:
                                        for k in ("m", "v") for ws in cm.opt_state[k].values()
                                        for t in ws.values())
         extra["zero_weights"] = len(cm.zero_dims)
+    if kw.get("config"):
+        extra.update(search=ff.search_profile, playoff=ff._playoff_record,
+                     strategies={k: v for k, v in ff._strategies.items() if v},
+                     schedule_records=ff._pipe_schedule_records)
     return dict(rank=rank, backend=distributed.backend(), **extra,
                 mesh=dict(cm.mesh.shape) if cm.mesh is not None else None,
                 local_attention_shapes=[list(t) for t in local], launches=launches,
                 step_ms=ms, step_ms_median=float(np.median(ms[1:])),
                 host_bytes_per_step=st["staged_bytes"] / PAR_TIMED,
                 shape_host_bytes_per_step=(None if cm.mesh is None or kw.get("seq_axis")
-                                           or pm is not None else 2 * (grads + acts)),
+                                           or pm is not None or kw.get("config")
+                                           else 2 * (grads + acts)),
                 collectives_per_step=st["calls"] / PAR_TIMED,
                 params=params, first=first, start=p0)
 
@@ -4960,6 +4983,270 @@ def phase_parallel_c(card: str) -> dict:
     return out
 
 
+# ---- phase_search: the simulator and the Unity search (A8a) --------------
+# (k): each calibration config's calibrated simulation against its measured
+# step must fall within this factor either way (the JAX package's
+# calibration gate: search/unity.py adoption_margin's shared-host 2x)
+CALIB_RATIO = 2.0
+CALIB_ITERS = 20
+# (k): the all-reduce payloads the staging readings are fitted over
+STAGING_SIZES = (1 << 20, 64 << 20)
+# (m): the pinned search adopts its own best sharded plan unless data
+# parallelism is predicted faster (search/unity.py adoption_margin)
+PINNED_ADOPTION_MARGIN = 1.0
+# (l), (m): fit steps after a search; the playoff's timed steps
+SEARCH_STEPS, SEARCH_PLAYOFF_STEPS = 3, 3
+
+
+def search_calibration(card: str) -> dict:
+    """(k): calibrate() in f32 and bf16 (every point's calibrated
+    simulation within CALIB_RATIO of its measured step), the gloo staging
+    readings of ranks sharing this card (calibrate.STAGING_LAYOUTS), and
+    ProfilingCostModel against OpCostModel on the bench Transformer's ops
+    (the five largest gaps)."""
+    from flexflow_tpu_torch import FFConfig, FFModel, LossType, SGDOptimizer
+    from flexflow_tpu_torch.models.transformer import TransformerConfig, build_transformer
+    from flexflow_tpu_torch.sim import OpCostModel, ProfilingCostModel, detect_machine_model
+    from flexflow_tpu_torch.sim.calibrate import calibrate, measure_staging_rate
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fits = {}
+    for dt in ("float32", "bfloat16"):
+        r = calibrate(compute_dtype=None if dt == "float32" else dt, iters=CALIB_ITERS)
+        chip = r.machine.chip
+        points = [dict(config=n, measured_ms=real * 1e3, simulated_ms=sim * 1e3,
+                       ratio=sim / real) for n, real, sim in r.points]
+        fits[dt] = dict(chip=chip.name, scale=r.scale, step_overhead_s=r.step_overhead,
+                        mxu_efficiency=chip.mxu_efficiency, hbm_efficiency=chip.hbm_efficiency,
+                        points=points)
+        print(f"search (k) calibrate {dt}: scale {r.scale:.4f}, step_overhead "
+              f"{r.step_overhead * 1e3:.3f} ms, mxu_efficiency {chip.mxu_efficiency:.4f}, "
+              f"hbm_efficiency {chip.hbm_efficiency:.4f} (chip {chip.name}); "
+              + "; ".join(f"{p['config']}: measured {p['measured_ms']:.3f} ms, calibrated "
+                          f"simulation {p['simulated_ms']:.3f} ms ({p['ratio']:.3f})"
+                          for p in points) + f" [{card}]", flush=True)
+        for p in points:
+            check(1.0 / CALIB_RATIO <= p["ratio"] <= CALIB_RATIO,
+                  f"(k) {dt} {p['config']}: calibrated simulation {p['simulated_ms']:.3f} ms "
+                  f"vs measured {p['measured_ms']:.3f} ms, outside x{CALIB_RATIO}")
+        free_device()
+    staging = measure_staging_rate(STAGING_SIZES)
+    for r in staging:
+        print(f"search (k) staging: gloo all-reduce, {r['ranks']} ranks on this card in "
+              f"groups of {r['degree']}, "
+              + ", ".join(f"{b / 2 ** 20:.0f} MiB {t * 1e3:.2f} ms" for b, t in
+                          r["points"].items())
+              + f": rate {r['rate'] / 1e9:.4f} GB/s of payload, latency "
+              f"{r['latency'] * 1e3:.3f} ms [{card}]", flush=True)
+        check(r["rate"] > 0 and np.isfinite(r["rate"]), f"(k) staging reading {r}")
+    # the bench Transformer's ops, each forward measured and analytic
+    ff = FFModel(FFConfig(batch_size=BATCH, seed=SEED, device=DEVICE))
+    build_transformer(ff, BATCH, TransformerConfig())
+    ff.compile(SGDOptimizer(lr=0.01), LossType.MEAN_SQUARED_ERROR_AVG_REDUCE)
+    machine = detect_machine_model(1, device=DEVICE)
+    analytic, profiled = OpCostModel(machine), ProfilingCostModel(machine, device=DEVICE)
+    ops = []
+    for op in ff.compiled.ops:
+        a, m = analytic.measure(op).forward_time, profiled.measure(op).forward_time
+        ops.append(dict(op=op.name, type=op.op_type.name, analytic_ms=a * 1e3,
+                        profiled_ms=m * 1e3, ratio=a / m if m > 0 else None))
+    check(not profiled.fallbacks, f"(k) ops the profiler could not time: {profiled.fallbacks}")
+    gaps = sorted((o for o in ops if o["ratio"]), key=lambda o: -abs(np.log(o["ratio"])))[:5]
+    total_a = sum(o["analytic_ms"] for o in ops)
+    total_m = sum(o["profiled_ms"] for o in ops)
+    print(f"search (k) ProfilingCostModel vs OpCostModel ({machine.chip.name}) on "
+          f"TransformerConfig() batch {BATCH} f32, {len(ops)} ops: forward sums analytic "
+          f"{total_a:.3f} ms, profiled {total_m:.3f} ms; five largest gaps "
+          + "; ".join(f"{o['op']} ({o['type']}) analytic {o['analytic_ms']:.4f} vs profiled "
+                      f"{o['profiled_ms']:.4f} ms" for o in gaps) + f" [{card}]", flush=True)
+    del ff
+    free_device()
+    return dict(fits=fits, staging=staging, ops=ops, gaps=gaps, forward_analytic_ms=total_a,
+                forward_profiled_ms=total_m, card=card)
+
+
+def search_one_rank(compute_dtype: str, card: str, tmp: pathlib.Path) -> dict:
+    """(l): TransformerConfig() at batch 8 on one rank compiled with a
+    search through the strategy cache in ``tmp``: the plan and its
+    estimate beside the measured step; SEARCH_STEPS fit steps with params
+    bitwise equal to a compile without a search; a recompile hitting the
+    cache with no cost-model query and the same plan."""
+    from flexflow_tpu_torch import FFConfig, FFModel, LossType, SGDOptimizer, kernels
+    from flexflow_tpu_torch.models.transformer import TransformerConfig, build_transformer
+    from flexflow_tpu_torch.sim import cost_model
+    from flexflow_tpu_torch.sim.calibrate import measure_step_time
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = TransformerConfig()
+
+    def build(search: bool):
+        extra = dict(search_budget=1, search_cache="on", search_cache_dir=str(tmp)) \
+            if search else {}
+        ff = FFModel(FFConfig(batch_size=BATCH, compute_dtype=compute_dtype, seed=SEED,
+                              device=DEVICE, **extra))
+        build_transformer(ff, BATCH, cfg)
+        ff.compile(SGDOptimizer(lr=0.01), LossType.MEAN_SQUARED_ERROR_AVG_REDUCE)
+        return ff
+
+    rng = np.random.default_rng(SEED + 18)
+    x = rng.standard_normal((BATCH * SEARCH_STEPS, cfg.sequence_length, cfg.hidden_size),
+                            dtype=np.float32)
+    y = rng.standard_normal((BATCH * SEARCH_STEPS, cfg.sequence_length, 1), dtype=np.float32)
+    ff = build(True)
+    prof = dict(ff.search_profile)
+    check(prof["cache"] == "miss", f"(l) {compute_dtype}: first compile's cache {prof['cache']}")
+    plan = {k: v for k, v in ff._strategies.items() if v}
+    kernels.reset_launch_counts()
+    ff.fit(x, y, batch_size=BATCH, epochs=1, shuffle=False, verbose=False)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    searched = ff.numpy_params()
+    measured = measure_step_time(ff, iters=CALIB_ITERS)
+    del ff
+    free_device()
+    ff = build(False)
+    ff.fit(x, y, batch_size=BATCH, epochs=1, shuffle=False, verbose=False)
+    plain = ff.numpy_params()
+    del ff
+    free_device()
+    same = all(np.array_equal(searched[o][w], plain[o][w]) for o in plain for w in plain[o])
+    check(same, f"(l) {compute_dtype}: params after {SEARCH_STEPS} steps differ from a compile "
+                f"without search")
+    calls = cost_model.MEASURE_CALLS
+    ff = build(True)
+    hit = dict(ff.search_profile)
+    hit_plan = {k: v for k, v in ff._strategies.items() if v}
+    queries = cost_model.MEASURE_CALLS - calls
+    del ff
+    free_device()
+    check(hit["cache"] == "hit" and queries == 0 and hit_plan == plan
+          and hit["mesh_shape"] == prof["mesh_shape"],
+          f"(l) {compute_dtype}: recompile cache {hit['cache']}, {queries} cost-model queries, "
+          f"plan {hit_plan} vs {plan}")
+    for k in FLASH_NAMES:
+        check(launches[k] > 0 or DEVICE != "cuda",
+              f"(l) {compute_dtype}: {k} never launched: {launches}")
+    row = dict(compute_dtype=compute_dtype, mesh=prof["mesh_shape"], plan=plan,
+               est_step_ms=prof["est_step_time"] * 1e3, measured_step_ms=measured * 1e3,
+               search_s=prof["search_time_s"], states=prof["states_explored"],
+               hit_search_s=hit["search_time_s"], hit_queries=queries,
+               launches={k: launches[k] for k in FLASH_NAMES}, card=card)
+    print(f"search (l) TransformerConfig() batch {BATCH} {compute_dtype}, one rank: mesh "
+          f"{row['mesh']}, plan {plan or 'plain'}, est_step_time {row['est_step_ms']:.3f} ms "
+          f"beside the measured step {row['measured_step_ms']:.3f} ms; search "
+          f"{row['search_s']:.3f} s ({row['states']} states); params after {SEARCH_STEPS} fit "
+          f"steps bitwise equal to a compile without search; recompile: cache hit, {queries} "
+          f"cost-model queries, {row['hit_search_s']:.4f} s; flash launches {row['launches']} "
+          f"[{card}]", flush=True)
+    return row
+
+
+def search_mesh_check(name: str, ranks: list, ref: dict, start: dict, card: str,
+                      pipe: bool = False) -> dict:
+    """(m): one searched run held to phase_parallel's one-rank run (the
+    f32 bound of (14), or (f)'s through pipe_check), with its plan."""
+    row = (pipe_check if pipe else par_check)(name, ranks, ref, start, card)
+    r0 = ranks[0]
+    row.update(search=r0["search"], playoff=r0["playoff"], strategies=r0["strategies"],
+               schedule_records=r0["schedule_records"])
+    return row
+
+
+def phase_search(card: str, par: dict) -> dict:
+    """(k) calibration; (l) the search on one rank, f32 and bf16; (m) the
+    Transformer at PAR_LAYERS layers on 4 ranks: a search pinned to
+    {data: 2, model: 2}, an unpinned search over the 4 ranks with a
+    SEARCH_PLAYOFF_STEPS-step playoff, and {pipe: 2} with schedule="auto"
+    on 2 ranks, each held to phase_parallel's one-rank f32 run. The ranks
+    share this card over gloo."""
+    from flexflow_tpu_torch import native_bridge
+    from flexflow_tpu_torch.parallel.distributed import spawn
+
+    t0 = time.perf_counter()
+    lib, seconds = native_bridge.build_sim(), time.perf_counter() - t0
+    print(f"search: the native simulator {lib.name} built from the checkout in "
+          f"{seconds:.1f} s", flush=True)
+    calib = search_calibration(card)
+    print(f"phases: search (k) at {time.perf_counter() - t0:.1f} s", flush=True)
+    tmp = pathlib.Path(".ffcache") / "smoke_search"
+    shutil.rmtree(tmp, ignore_errors=True)
+    one = [search_one_rank(dt, card, tmp / dt) for dt in ("float32", "bfloat16")]
+    print(f"phases: search (l) at {time.perf_counter() - t0:.1f} s", flush=True)
+    full = par_opts(PAR_LAYERS)
+    searched = dict(search_budget=1, profiling=True)
+    four = spawn(par_worker, 4, [
+        ("fit", full, dict(compute_dtype="float32", mesh_shape={"data": 2, "model": 2},
+                           config=dict(searched,
+                                       search_adoption_margin=PINNED_ADOPTION_MARGIN))),
+        ("fit", full, dict(compute_dtype="float32",
+                           config=dict(searched, playoff_steps=SEARCH_PLAYOFF_STEPS)))])
+    two = spawn(par_worker, 2, [
+        ("fit", full, dict(compute_dtype="float32", mesh_shape={"pipe": 2},
+                           config=dict(pipeline_schedule="auto", profiling=True)))])
+    print(f"phases: search (m) ranks at {time.perf_counter() - t0:.1f} s", flush=True)
+    ref, start = par["refs"]["float32"], par["refs"]["float32"]["start"]
+    pinned = search_mesh_check("(m) searched, pinned {data: 2, model: 2} float32",
+                               [r[0] for r in four], ref, start, card)
+    p = pinned["search"]
+    check(p["mesh_shape"] == {"data": 2, "model": 2} and p["cache"] == "off",
+          f"(m) pinned search {p}")
+    check(bool(pinned["strategies"]), f"(m) the pinned search kept the plain plan: {p}")
+    unpinned_ranks = [r[1] for r in four]
+    u = unpinned_ranks[0]
+    upipe = (u["mesh"] or {}).get("pipe", 1) > 1
+    unpinned = search_mesh_check("(m) searched over 4 ranks, playoff float32", unpinned_ranks,
+                                 ref, start, card, pipe=upipe and u.get("engine") is not None)
+    po = unpinned["playoff"]
+    check(po is not None and "kept" in po,
+          f"(m) the unpinned search's playoff did not run: {po}, plan "
+          f"{unpinned['search']['mesh_shape']} {unpinned['strategies']}")
+    check((po["kept"] == "dp") == (po["dp_ms"] < po["searched_ms"]),
+          f"(m) the playoff kept the slower plan: {po}")
+    check(all(r["playoff"] == po for r in unpinned_ranks), "(m) the ranks' playoffs disagree")
+    auto = search_mesh_check("(m) {pipe: 2} schedule auto float32", [r[0] for r in two], ref,
+                             start, card, pipe=True)
+    check(auto["schedule"] in ("gpipe", "1f1b", "interleaved") and auto["schedule_records"],
+          f"(m) auto schedule {auto['schedule']}, records {auto['schedule_records']}")
+    auto_est = next(r["est_step_time"] for r in auto["schedule_records"]
+                    if r["schedule"] == auto["schedule"])
+    # each searched plan's estimate beside its measured step
+    ests = [("pinned", p["est_step_time"] * 1e3, pinned["step_ms_median"]),
+            ("unpinned (its playoff time)", unpinned["search"]["est_step_time"] * 1e3,
+             po["searched_ms"]),
+            ("{pipe: 2} auto", auto_est * 1e3, auto["step_ms_median"])]
+    for what, est, measured in ests:
+        check(1.0 / CALIB_RATIO <= est / measured <= CALIB_RATIO,
+              f"(m) {what}: est {est:.3f} ms vs measured {measured:.3f} ms, outside "
+              f"x{CALIB_RATIO}")
+    print(f"search (m) pinned {{data: 2, model: 2}}: plan {pinned['strategies'] or 'plain'}, "
+          f"est {p['est_step_time'] * 1e3:.3f} ms vs measured "
+          f"{pinned['step_ms_median']:.1f} ms; unpinned: mesh "
+          f"{unpinned['search']['mesh_shape']}, plan {unpinned['strategies'] or 'plain'}, "
+          f"schedule {unpinned['search'].get('pipe_schedule')}, est "
+          f"{unpinned['search']['est_step_time'] * 1e3:.3f} ms; playoff searched "
+          f"{po['searched_ms']:.1f} ms/step vs dp {po['dp_ms']:.1f} ms/step -> {po['kept']}; "
+          f"{{pipe: 2}} auto -> {auto['schedule']} on the {auto['engine']} engine ("
+          + ", ".join(f"{r['schedule']} {r['est_step_time'] * 1e3:.3f} ms"
+                      for r in auto["schedule_records"]) + f"), measured "
+          f"{auto['step_ms_median']:.1f} ms; est/measured "
+          + ", ".join(f"{what} {est / measured:.3f}" for what, est, measured in ests)
+          + f" (bound x{CALIB_RATIO}) [{card}]", flush=True)
+    rows = [pinned, unpinned, auto]
+    launches = {k: sum(r["launches"][k] for r in one)
+                + sum(lr[k] for row in rows for lr in row["launches_per_rank"])
+                for k in FLASH_NAMES}
+    shutil.rmtree(TREE_DIR, ignore_errors=True)
+    shutil.rmtree(tmp, ignore_errors=True)
+    check(native_bridge.SIM_CALLS["sim_taskgraph"] > 0,
+          "the native task-graph replay never ran: the simulator fell back")
+    out = dict(calibration=calib, one_rank=one, mesh=rows, flash_launches=launches,
+               est_vs_measured_ms=[dict(run=w, est=e, measured=m) for w, e, m in ests],
+               native_sim_calls=dict(native_bridge.SIM_CALLS),
+               seconds=time.perf_counter() - t0)
+    print("search_json " + json.dumps(out, default=str), flush=True)
+    return out
+
+
 def check_spans(events: list, n: int, validate) -> None:
     """Every served request has the reference's five spans on its own
     track, nested in its serving.request span."""
@@ -5066,11 +5353,14 @@ def main() -> int:
     print(f"phases: parallel done at {time.perf_counter() - t0:.0f} s", flush=True)
     free_device()
     par_b = phase_parallel_b(card, par_refs)
-    del par_refs
     print(f"phases: parallel_b done at {time.perf_counter() - t0:.0f} s", flush=True)
     free_device()
     par_c = phase_parallel_c(card)
     print(f"phases: parallel_c done at {time.perf_counter() - t0:.0f} s", flush=True)
+    free_device()
+    search = phase_search(card, par_refs)
+    del par_refs
+    print(f"phases: search done at {time.perf_counter() - t0:.0f} s", flush=True)
     train_launches = {name: sum(r["fit_launches"][name] for r in train)
                       for name in train[0]["fit_launches"]}
     # GPT's path: its fits and the full-sequence forwards of its dense and
@@ -5092,8 +5382,10 @@ def main() -> int:
                       + breadth["launches"] + rob["launches"]["flash_attention_fwd"]
                       + par["launches"]["flash_attention_fwd"]
                       + par_b["flash_launches"]["flash_attention_fwd"]
-                      + par_c["flash_launches"]["flash_attention_fwd"],
+                      + par_c["flash_launches"]["flash_attention_fwd"]
+                      + search["flash_launches"]["flash_attention_fwd"],
                       parallel_launches=par["launches"]["flash_attention_fwd"],
+                      search_launches=search["flash_launches"]["flash_attention_fwd"],
                       parallel_b_launches=par_b["flash_launches"]["flash_attention_fwd"],
                       parallel_c_launches=par_c["flash_launches"]["flash_attention_fwd"],
                       serving_launches=sum(r["launches"] for r in serve),
@@ -5122,8 +5414,10 @@ def main() -> int:
                       + rob["launches"]["flash_attention_bwd_dq"]
                       + par["launches"]["flash_attention_bwd_dq"]
                       + par_b["flash_launches"]["flash_attention_bwd_dq"]
-                      + par_c["flash_launches"]["flash_attention_bwd_dq"],
+                      + par_c["flash_launches"]["flash_attention_bwd_dq"]
+                      + search["flash_launches"]["flash_attention_bwd_dq"],
                       parallel_launches=par["launches"]["flash_attention_bwd_dq"],
+                      search_launches=search["flash_launches"]["flash_attention_bwd_dq"],
                       parallel_b_launches=par_b["flash_launches"]["flash_attention_bwd_dq"],
                       parallel_c_launches=par_c["flash_launches"]["flash_attention_bwd_dq"],
                       training_launches=train_launches["flash_attention_bwd_dq"],
@@ -5146,8 +5440,10 @@ def main() -> int:
                       + rob["launches"]["flash_attention_bwd_dkv"]
                       + par["launches"]["flash_attention_bwd_dkv"]
                       + par_b["flash_launches"]["flash_attention_bwd_dkv"]
-                      + par_c["flash_launches"]["flash_attention_bwd_dkv"],
+                      + par_c["flash_launches"]["flash_attention_bwd_dkv"]
+                      + search["flash_launches"]["flash_attention_bwd_dkv"],
                       parallel_launches=par["launches"]["flash_attention_bwd_dkv"],
+                      search_launches=search["flash_launches"]["flash_attention_bwd_dkv"],
                       parallel_b_launches=par_b["flash_launches"]["flash_attention_bwd_dkv"],
                       parallel_c_launches=par_c["flash_launches"]["flash_attention_bwd_dkv"],
                       training_launches=train_launches["flash_attention_bwd_dkv"],

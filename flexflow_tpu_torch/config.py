@@ -40,8 +40,49 @@ class FFConfig:
 
     batch_size: int = 64
     epochs: int = 1  # fit()'s default epoch count
-    # the strategy search is not ported; 0 (no search) is the only value
+    # --- the strategy search (search/unity.py, search/mcmc.py) ---
+    # nonzero: compile() runs the search when no strategy is given
     search_budget: int = 0
+    search_alpha: float = 1.2
+    # "unity" (the DP over layers and meshes) or "mcmc" (annealing)
+    search_method: str = "unity"
+    # the simulator overlaps the gradient all-reduce with the backward
+    search_overlap_backward_update: bool = True
+    # drop every strategy: plain data parallelism
+    only_data_parallel: bool = False
+    # shard the inputs' batch dim over the data axis
+    enable_sample_parallel: bool = True
+    enable_parameter_parallel: bool = False
+    enable_attribute_parallel: bool = False
+    # structural rewrites (search/graph_xfer.py) compete with the graph
+    enable_graph_rewrites: bool = True
+    # the runtime/memory lambda search; the budget is memory_threshold_mb
+    # when set, else the machine model's device memory
+    perform_memory_search: bool = False
+    memory_threshold_mb: Optional[int] = None
+    # a plan sharded beyond data parallelism is adopted only when its
+    # predicted speedup over data parallelism exceeds this factor
+    # (0 = auto, search/unity.py adoption_margin)
+    search_adoption_margin: float = 0.0
+    # > 0: the first fit after a search times this many steps of the
+    # searched plan against a data-parallel compile and keeps the faster
+    playoff_steps: int = 0
+    # full_search's forked worker pool: 0 = auto, 1 = serial, N workers
+    search_num_workers: int = 0
+    # skip candidates whose compute-only lower bound exceeds the incumbent
+    search_prune: bool = True
+    # the strategy cache (search/cache.py): "on", "off" or "refresh"
+    search_cache: str = "off"
+    search_cache_dir: str = ".ffcache/strategies"
+    # extra strategy templates ({"rules": {...}}, search/substitution.py)
+    substitution_json_path: Optional[str] = None
+    # a machine-model file (sim/machine_model.py load_machine_model) in
+    # place of detect_machine_model
+    machine_model_file: Optional[str] = None
+    # the search's beam: frontier states kept a layer (at least 8)
+    base_optimize_threshold: int = 10
+    # print the search's plan and the auto schedule's ranking
+    profiling: bool = False
     computation_mode: CompMode = CompMode.TRAINING
     # "bfloat16" runs activations and matmuls in bf16 while the params
     # stay float32; None/"float32" = full precision
@@ -60,8 +101,8 @@ class FFConfig:
     # --- pipeline (parallel/schedule.py, parallel/pipeline.py) ---
     # the microbatch order when compile() enables the pipeline on a pipe
     # axis: "gpipe", "1f1b", "interleaved" (1f1b over pipeline_interleave
-    # chunks a stage) or "auto", which needs the simulator's ranking
-    # (ROADMAP A8) and raises until it is ported
+    # chunks a stage) or "auto", the simulator's ranking
+    # (sim/simulator.py rank_pipeline_schedules)
     pipeline_schedule: str = "auto"
     # rematerialize each chunk's forward inside its backward
     pipeline_remat: bool = False
@@ -198,12 +239,32 @@ class FFConfig:
             "--serving-kv-divergence-budget": ("serving_kv_divergence_budget", float),
             "--pipeline-schedule": ("pipeline_schedule", str),
             "--pipeline-interleave": ("pipeline_interleave", int),
+            "--alpha": ("search_alpha", float), "--search-alpha": ("search_alpha", float),
+            "--search-method": ("search_method", str),
+            "--base-optimize-threshold": ("base_optimize_threshold", int),
+            "--memory-threshold": ("memory_threshold_mb", int),
+            "--adoption-margin": ("search_adoption_margin", float),
+            "--playoff-steps": ("playoff_steps", int),
+            "--search-workers": ("search_num_workers", int),
+            "--search-cache": ("search_cache", str),
+            "--search-cache-dir": ("search_cache_dir", str),
+            "--substitution-json": ("substitution_json_path", str),
+            "--machine-model-file": ("machine_model_file", str),
         }
         switches = {"--fusion": ("perform_fusion", True),
                     "--elastic-resume": ("elastic_resume", True),
                     "--zero-optimizer": ("zero_optimizer", True),
                     "--pipeline-remat": ("pipeline_remat", True),
-                    "--trace": ("trace", "on")}
+                    "--trace": ("trace", "on"),
+                    "--only-data-parallel": ("only_data_parallel", True),
+                    "--enable-parameter-parallel": ("enable_parameter_parallel", True),
+                    "--enable-attribute-parallel": ("enable_attribute_parallel", True),
+                    "--disable-graph-rewrites": ("enable_graph_rewrites", False),
+                    "--memory-search": ("perform_memory_search", True),
+                    "--disable-sample-parallel": ("enable_sample_parallel", False),
+                    "--disable-overlap": ("search_overlap_backward_update", False),
+                    "--disable-search-prune": ("search_prune", False),
+                    "--profiling": ("profiling", True)}
         args = list(argv)
         i = 0
         while i < len(args):

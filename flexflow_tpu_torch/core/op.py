@@ -165,6 +165,14 @@ class Op:
         }
         return out_shapes, weight_shapes
 
+    def input_contraction_dims(self) -> List[Tuple[int, int, Optional[str], int]]:
+        """(input index, input dim, weight name, weight dim) for each input
+        dim summed against a weight dim, the JAX package's contraction
+        structure: the simulator prices a contraction sharded on both
+        sides as partial sums (an all-reduce) and one sharded on the input
+        alone as an all-gather of the input. Default: none."""
+        return []
+
     def __repr__(self) -> str:
         return f"{type(self).__name__}({self.name})"
 

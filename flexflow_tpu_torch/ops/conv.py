@@ -227,6 +227,9 @@ class Conv2D(Op):
         return (2.0 * n * co * oh * ow * (self.in_channels // self.groups)
                 * self.kernel[0] * self.kernel[1])
 
+    def input_contraction_dims(self):
+        return [(0, 1, "kernel", 1)]  # input C contracts with kernel I
+
 
 @register_op
 class Pool2D(Op):

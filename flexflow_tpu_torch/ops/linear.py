@@ -109,6 +109,9 @@ class Linear(Op):
     def flops(self) -> float:
         return 2.0 * math.prod(self.input_shapes[0].sizes[:-1]) * self.in_dim * self.out_dim
 
+    def input_contraction_dims(self):
+        return [(0, len(self.input_shapes[0].dims) - 1, "kernel", 0)]
+
     def forward(self, ctx: LowerCtx, inputs: Sequence[torch.Tensor], weights):
         (x,) = inputs
         mesh = ctx.mesh

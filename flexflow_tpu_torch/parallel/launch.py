@@ -35,9 +35,11 @@ Usage::
     python -m flexflow_tpu_torch.parallel.launch --nproc 2 --fault-rank 1 \\
         --fault-plan '{"schema":1,"sites":{"multihost.peer_kill":{"at_step":6}}}'
 
-The ledger merge and the watchdog's black-box dumps wait for the port's
-observability (ROADMAP A10), and the strategy cache's re-search on a
-changed topology for its search (A8).
+A job whose ``FFConfig`` searches through the strategy cache
+(``search_budget`` > 0, ``search_cache="on"``) re-searches after a
+resize: the cache key covers the ``torch.distributed`` world size
+(``search/cache.py``). The ledger merge and the watchdog's black-box
+dumps wait for the port's observability (ROADMAP A10).
 """
 
 from __future__ import annotations

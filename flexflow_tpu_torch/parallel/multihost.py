@@ -20,8 +20,9 @@ is a process group whose ranks sit on several hosts.
   (hosts) is the outermost;
 * :func:`process_local_batch`: this rank's rows of a global batch.
 
-The JAX package's ``MultiSliceMachineModel`` pricing of the cross-host
-axis belongs to the simulator (ROADMAP A8).
+:func:`two_level_mesh_spec` also returns the machine model that prices
+the cross-process axis (``sim/machine_model.py``
+``MultiSliceMachineModel``), for ``FFConfig.machine_model_file``.
 """
 
 from __future__ import annotations
@@ -182,23 +183,32 @@ def make_local_mesh(mesh_shape: Optional[Dict[str, int]] = None) -> Optional[Mes
 
 
 def two_level_mesh_spec(num_processes: int, devices_per_process: int,
-                        model_degree: int = 1) -> Dict:
+                        model_degree: int = 1, chip: str = "h100") -> Dict:
     """The two-level layout of a cohort: a model axis stays inside a
     process's devices, the data axis composes the in-process and the
     cross-process degrees, the cross-process factor outermost (the
     :func:`make_multihost_mesh` convention). Returns ``{"mesh_shape",
-    "dcn_mesh_shape"}``; the machine model that prices the cross-process
-    axis is the simulator's (ROADMAP A8)."""
+    "dcn_mesh_shape", "machine_model"}``, the last a
+    ``load_machine_model`` multislice config that prices the whole
+    composed data axis at the cross-process rate (the hop its gradient
+    all-reduce crosses) and a model axis inside a node; write it to a file
+    for ``FFConfig.machine_model_file``."""
     if devices_per_process <= 0 or num_processes <= 0:
         raise ValueError("num_processes and devices_per_process must be positive")
     if model_degree < 1 or devices_per_process % model_degree:
         raise ValueError(
             f"model_degree {model_degree} must divide the per-process device count "
             f"{devices_per_process} (model/tensor axes stay inside a process)")
-    mesh_shape: Dict[str, int] = {"data": devices_per_process // model_degree}
+    ici_data = devices_per_process // model_degree
+    mesh_shape: Dict[str, int] = {"data": ici_data}
+    axis_degrees: Dict[str, int] = {"data": ici_data * num_processes}
     if model_degree > 1:
         mesh_shape["model"] = model_degree
-    return {"mesh_shape": mesh_shape, "dcn_mesh_shape": {"data": num_processes}}
+        axis_degrees["model"] = model_degree
+    return {"mesh_shape": mesh_shape, "dcn_mesh_shape": {"data": num_processes},
+            "machine_model": {"version": "multislice", "chip": chip,
+                              "axis_degrees": axis_degrees,
+                              "dcn_axes": ["data"] if num_processes > 1 else []}}
 
 
 def make_multihost_mesh(mesh_shape: Optional[Dict[str, int]] = None,

@@ -71,8 +71,8 @@ class PipelineConfig:
     ``schedule``: ``"gpipe"`` (all forwards, then all backwards),
     ``"1f1b"`` (one forward, one backward in the steady state: live
     activations O(num_stages)) or ``"interleaved"`` (1F1B over
-    ``interleave`` chunks a stage). ``"auto"`` needs the simulator's
-    ranking (ROADMAP A8) and raises at compile.
+    ``interleave`` chunks a stage). ``"auto"`` is resolved at compile by
+    the simulator's ranking (``FFModel._resolve_pipeline``).
 
     ``remat=True`` recomputes each chunk's forward inside its backward
     (only stage-boundary activations are kept); by default the host

@@ -217,6 +217,9 @@ def build_ops(
         op = create_op(layer, in_shapes)
         strategy = dict(strategies.get(layer.name, {}))
         strategy["_axis_sizes"] = axis_sizes
+        # the mesh the op runs on, which the simulator prices the gradient
+        # sync of weights over (sim/cost_model.py _axis_sizes_from)
+        op.axis_sizes = dict(axis_sizes)
         try:
             out_shapes, weight_shapes = op.propagate(in_shapes, strategy)
         except (ValueError, KeyError, IndexError) as e:
@@ -425,9 +428,6 @@ def compile_model(
     ``comp_mode`` is TRAINING (an inference model never gets them).
     ``strategies`` maps a layer name to its strategy; ``mesh`` defaults to
     ``make_mesh(config.mesh_shape)`` (None on one rank)."""
-    if config.search_budget != 0:
-        raise NotImplementedError(
-            "the strategy search is not ported; search_budget must be 0")
     metrics = list(metrics or [])
     device = config.torch_device()
     if mesh is None:
@@ -437,7 +437,8 @@ def compile_model(
     input_pshapes = {}
     for t in input_tensors:
         dims = [ParallelDim(s) for s in t.dims]
-        if dims and data_degree > 1 and t.dims[0] % data_degree == 0:
+        if (dims and data_degree > 1 and t.dims[0] % data_degree == 0
+                and config.enable_sample_parallel):
             dims[0] = ParallelDim(t.dims[0], data_degree, DATA_AXIS)
         input_pshapes[t.tensor_id] = ParallelTensorShape(tuple(dims), t.dtype)
     ops, layouts = build_ops(layers, input_pshapes, axis_sizes, strategies)

@@ -48,12 +48,22 @@ back. The parallel verbs (``repartition``, ``combine``, ``replicate``,
 engine (``parallel/pipeline.py``), and a mesh with a ``pipe`` axis above
 1 enables one when the graph has at least that many ops, with
 ``config.pipeline_schedule``/``pipeline_interleave``/``pipeline_remat``;
-``schedule="auto"`` raises (it needs the simulator's ranking, ROADMAP
-A8). ``config.grad_accum_steps`` folds into its microbatch count. With an
+``schedule="auto"`` takes the simulator's ranking
+(``sim/simulator.py``). ``config.grad_accum_steps`` folds into its
+microbatch count. With an
 engine, ``fit``, ``eval``, ``set_batch`` and ``forward`` take the global
 batch on every rank and go through it, ``fit_profile["pipeline"]``
 records it, and :meth:`FFModel.numpy_params` gathers every stage's
 params.
+
+With ``config.search_budget`` nonzero and no strategy given, ``compile``
+runs the strategy search (``search/``: the Unity DP over the layers and
+every mesh shape of the world, or on the pinned ``mesh_shape``; MCMC
+under ``search_method="mcmc"``), priced by the simulator (``sim/``) on
+the platform's machine model or ``machine_model_file``, through the
+strategy cache under ``search_cache``; ``search_profile`` records it.
+``playoff_steps`` > 0 races the searched plan against plain data
+parallelism at the first ``fit`` and keeps the faster.
 """
 
 from __future__ import annotations
@@ -77,7 +87,7 @@ from ..core.tensor import Tensor
 from ..ffconst import (ActiMode, AggrMode, CompMode, DataType, LossType, MetricsType,
                        OpType, PoolType)
 from ..obs.metrics import metrics_registry
-from ..obs.trace import configure_tracer
+from ..obs.trace import configure_tracer, tracer
 from . import faults as _fx
 from .buckets import DynamicShapeError, PackingSpec, resolve_ladder, row_lengths
 from .compiler import CompiledModel, Params, compile_model
@@ -122,6 +132,18 @@ class FFModel:
         self._strategies: Dict[str, Dict[str, str]] = {}
         # the pipeline engine of the last compile (parallel/pipeline.py)
         self.pipelined = None
+        # the last search's GraphSearchResult and its profile (timing,
+        # coverage, the cache outcome); the graph a structural rewrite won
+        self.search_result = None
+        self.search_profile: Optional[dict] = None
+        self._search_layers: Optional[List[Layer]] = None
+        self._strategy_cache_key: Optional[str] = None
+        # schedule="auto"'s per-candidate pricing records
+        self._pipe_schedule_records: list = []
+        # the execution playoff (fit's first call after a search)
+        self._compile_ctx: Optional[dict] = None
+        self._playoff_done = True
+        self._playoff_record: Optional[dict] = None
 
     # ---- graph construction ---------------------------------------------
     def create_tensor(self, dims: Sequence[int],
@@ -637,8 +659,17 @@ class FFModel:
         for layer in self.layers:
             if layer.attrs.get("strategy") and layer.name not in strat:
                 strat[layer.name] = layer.attrs["strategy"]
+        self._search_layers = None
+        if self.config.only_data_parallel:
+            strat = {}
+        elif self.config.search_budget != 0 and not strat:
+            # the search (search/unity.py, or search/mcmc.py under
+            # search_method="mcmc"); explicit strategies win over it
+            strat, mesh = self._run_search(mesh, logits)
         self._strategies = strat
-        layers = self.layers
+        # a structural rewrite the search chose compiles its graph; its
+        # boundary tensors (the logits among them) are the builder's
+        layers = self._search_layers or self.layers
         if self.config.perform_fusion:
             from ..ops.fused import apply_fusion
 
@@ -664,25 +695,434 @@ class FFModel:
             from ..parallel.pipeline import make_pipelined_model
 
             self.pipelined = make_pipelined_model(cm, self._resolve_pipeline(pipeline))
+        # what the execution playoff recompiles as plain data parallelism
+        self._compile_ctx = dict(loss_type=loss_type, mtypes=mtypes, comp_mode=comp_mode,
+                                 logits=logits)
+        self._playoff_done = False
+        self._playoff_record = None
 
     def _resolve_pipeline(self, pipeline):
-        """A PipelineConfig finalized against the config:
-        ``grad_accum_steps`` K folds into the microbatch count (K times the
-        microbatches: the same averaging); ``schedule="auto"`` raises, as
-        its ranking is the simulator's (ROADMAP A8)."""
+        """A PipelineConfig finalized against the config and the compiled
+        model: ``grad_accum_steps`` K folds into the microbatch count (K
+        times the microbatches: the same averaging); ``schedule="auto"``
+        takes the search's schedule when a search ran on this pipe mesh,
+        else the simulator's ranking over the compiled ops
+        (``sim/simulator.py`` ``rank_pipeline_schedules``), its records in
+        ``self._pipe_schedule_records``."""
         import dataclasses as _dc
 
-        accum = max(1, int(self.config.grad_accum_steps))
+        cfg = self.config
+        accum = max(1, int(cfg.grad_accum_steps))
         if accum > 1 and not pipeline.accum_folded:
             pipeline = _dc.replace(pipeline, num_microbatches=pipeline.num_microbatches * accum,
                                    accum_folded=True)
-        if pipeline.schedule == "auto":
-            raise NotImplementedError(
-                "pipeline schedule 'auto' ranks the schedules with the simulator's cost model "
-                "(sim/simulator.py rank_pipeline_schedules), which is ROADMAP A8; pin "
-                "schedule='gpipe', '1f1b' or 'interleaved' (FFConfig.pipeline_schedule or "
-                "PipelineConfig(schedule=...))")
-        return pipeline
+        self._pipe_schedule_records = []
+        if pipeline.schedule != "auto":
+            return pipeline
+        sr = self.search_result
+        if (sr is not None and sr.pipe_schedule
+                and sr.mesh_shape.get(pipeline.axis) == pipeline.num_stages):
+            self._pipe_schedule_records = list(sr.pipe_schedule_records)
+            return _dc.replace(pipeline, schedule=sr.pipe_schedule,
+                               interleave=sr.pipe_interleave)
+        from ..parallel.pipeline_compiled import dp_unsupported_reason
+        from ..search.unity import _stage_cut_bytes
+        from ..sim import OpCostModel
+        from ..sim.simulator import (compiled_envelope_ok, pipeline_schedule_candidates,
+                                     rank_pipeline_schedules)
+
+        cm = self.compiled
+        sizes = dict(cm.mesh.shape) if cm.mesh is not None else {pipeline.axis: 1}
+        machine = self._machine_model(int(np.prod(list(sizes.values()))))
+        cost = OpCostModel(machine)
+        t_sub = sum(cost.measure(op).total_time for op in cm.ops)
+        n_ops = len(cm.ops)
+        layers = [op.layer for op in cm.ops]
+        cands = pipeline_schedule_candidates("auto", cfg.pipeline_interleave,
+                                             pipeline.num_stages, n_ops)
+
+        def cut_fn(nc: int) -> float:
+            return float("inf") if nc > n_ops else _stage_cut_bytes(layers, nc)
+
+        # the single-call engine's envelope for this mesh and graph, so
+        # auto ranks with the dispatch overhead the engine choice delivers
+        compiled_ok = (compiled_envelope_ok(sizes, pipeline.axis)
+                       and dp_unsupported_reason(cm.ops, sizes.get("data", 1)) is None)
+        kind, v, recs = rank_pipeline_schedules(
+            cands, pipeline.num_stages, pipeline.num_microbatches, t_sub, machine,
+            cut_bytes_fn=cut_fn, data_degree=sizes.get("data", 1),
+            compiled_ok=compiled_ok, bwd_ratio=OpCostModel.BWD_FACTOR)
+        self._pipe_schedule_records = recs
+        if cfg.profiling:
+            ranking = ", ".join("%s=%.3fms" % (r["schedule"], r["est_step_time"] * 1e3)
+                                for r in recs)
+            print(f"[pipeline] auto schedule -> {kind}" + (f" x{v}" if v > 1 else "")
+                  + f" ({ranking})", flush=True)
+        return _dc.replace(pipeline, schedule=kind, interleave=v)
+
+    # ---- the search ---------------------------------------------------------
+    def _machine_model(self, n: Optional[int] = None):
+        """``config.machine_model_file`` when given, else the platform's
+        model (``sim/machine_model.py`` ``detect_machine_model``) over
+        ``n`` devices (default: the process group's world size)."""
+        from ..sim import detect_machine_model, load_machine_model
+
+        cfg = self.config
+        if cfg.machine_model_file:
+            return load_machine_model(cfg.machine_model_file)
+        return detect_machine_model(n, compute_dtype=cfg.compute_dtype, device=cfg.device)
+
+    def _run_search(self, mesh, logits):
+        """The auto-parallelization search: the Unity DP
+        (``search/unity.py``: :func:`graph_optimize` on a pinned mesh,
+        :func:`full_search` over every mesh shape of the world otherwise)
+        or, under ``search_method="mcmc"``, simulated annealing bounded by
+        ``search_budget``/``search_alpha``. The strategy cache
+        (``search_cache``) is consulted first. Returns (strategies, mesh);
+        an unpinned search pins ``config.mesh_shape`` to its mesh."""
+        import json as _json
+
+        from ..core.machine import make_mesh
+        from ..search.mcmc import mcmc_optimize
+        from ..search.unity import _pipe_adjusted, data_parallel_input_pshapes, full_search
+        from ..sim import OpCostModel, Simulator
+
+        cfg = self.config
+        # strategy templates scoped to this config ({"rules": {...}}); the
+        # reference's GraphXfer schema ({"rule": [...]}) is ROADMAP A8b
+        cfg._substitution_rules = None
+        if cfg.substitution_json_path:
+            with open(cfg.substitution_json_path) as f:
+                peek = _json.load(f)
+            if "rule" in peek:
+                from ..search.graph_xfer import load_graphxfer_rules
+
+                load_graphxfer_rules(peek)
+            from ..search.substitution import load_substitution_rules
+
+            cfg._substitution_rules = load_substitution_rules(cfg.substitution_json_path)
+
+        inputs = self._used_inputs()
+        use_mcmc = cfg.search_method == "mcmc"
+        beam = max(cfg.base_optimize_threshold, 8)
+        protected = frozenset({logits.tensor_id})
+        # the pipe-stage bound: the post-fusion graph needs one op a stage
+        n_effective = len(self.layers)
+        if cfg.perform_fusion:
+            from ..ops.fused import apply_fusion
+
+            n_effective = len(apply_fusion(self.layers, set(protected)))
+        t_search = time.perf_counter()
+        pinned = mesh is not None or bool(cfg.mesh_shape)
+        if mesh is None and cfg.mesh_shape:
+            mesh = make_mesh(cfg.mesh_shape)
+        full_axis_sizes = (dict(mesh.shape) if mesh is not None
+                           else dict(cfg.mesh_shape or {}))
+        n_pinned = int(np.prod(list(full_axis_sizes.values()) or [1]))
+        machine = self._machine_model(n_pinned if pinned else None)
+        cache_mode = cfg.search_cache or "off"
+        if cache_mode not in ("on", "off", "refresh"):
+            raise ValueError(f"search_cache={cache_mode!r}: expected 'on', 'off' or 'refresh'")
+        cache_key = None
+        self._strategy_cache_key = None
+        cache_dir = cfg.search_cache_dir
+        if cache_mode in ("on", "refresh") and not use_mcmc:
+            from ..search.cache import (cache_path, load_payload, result_from_payload,
+                                        strategy_cache_key)
+
+            cache_key = strategy_cache_key(self.layers, inputs, machine, cfg,
+                                           mesh_axes=full_axis_sizes if pinned else None,
+                                           protected=protected)
+            self._strategy_cache_key = cache_key
+            if cache_mode == "on":
+                payload = load_payload(cache_dir, cache_key)
+                result = (result_from_payload(payload, self.layers, cfg, protected)
+                          if payload is not None else None)
+                if result is not None and not self._validate_cached(
+                        result, inputs, cache_path(cache_dir, cache_key)):
+                    result = None
+                if result is not None:
+                    if not pinned:
+                        cfg.mesh_shape = dict(result.mesh_shape)
+                        mesh = make_mesh(result.mesh_shape)
+                    return self._finish_search(result, mesh, t_search, "hit")
+        if pinned:
+            # the pinned mesh: strategies only. A pipe axis is handled as
+            # full_search does: the inner DP on the per-stage submesh, the
+            # device-memory cap scaled by the stage count, the schedule
+            # model on top
+            pipe = full_axis_sizes.get("pipe", 1)
+            axis_sizes = {a: s for a, s in full_axis_sizes.items() if a != "pipe"}
+            cap = machine.chip.hbm_capacity * pipe
+            input_pshapes = data_parallel_input_pshapes(inputs, axis_sizes,
+                                                        cfg.enable_sample_parallel)
+            if use_mcmc:
+                sim = Simulator(machine, OpCostModel(machine),
+                                overlap_grad_sync=cfg.search_overlap_backward_update)
+                result = mcmc_optimize(self.layers, input_pshapes, axis_sizes, sim, cfg,
+                                       seed=cfg.seed)
+                if pipe > 1:
+                    result = _pipe_adjusted(result, self.layers, pipe, machine,
+                                            cfg.batch_size, fused=cfg.perform_fusion,
+                                            config=cfg)
+            else:
+                result = self._search_pinned(full_axis_sizes, inputs, machine, beam,
+                                             protected, n_effective, input_pshapes, cap)
+        else:
+            result = full_search(self.layers, inputs, machine, cfg, beam_width=beam,
+                                 max_pipe=max(1, n_effective // 2), protected=protected)
+            cfg.mesh_shape = dict(result.mesh_shape)
+            mesh = make_mesh(result.mesh_shape)
+        if cache_key is not None:
+            from ..search.cache import store_result, strategy_cache_key
+
+            store_result(cache_dir, cache_key, result, layers=self.layers)
+            if not pinned:
+                # a recompile keys the cache with the searched mesh pinned
+                key2 = strategy_cache_key(self.layers, inputs, machine, cfg,
+                                          mesh_axes=result.mesh_shape, protected=protected)
+                if key2 != cache_key:
+                    store_result(cache_dir, key2, result, layers=self.layers)
+        return self._finish_search(result, mesh, t_search,
+                                   "off" if cache_key is None else
+                                   ("refresh" if cache_mode == "refresh" else "miss"))
+
+    def _search_pinned(self, full_axis_sizes, inputs, machine, beam, protected,
+                       n_effective, input_pshapes, cap):
+        """The Unity search on a pinned mesh: every graph variant by the
+        candidate body full_search uses (``unity._evaluate_candidate``),
+        then the adoption margin against plain data parallelism."""
+        from ..search.graph_xfer import graph_variants
+        from ..search.unity import (_effective_layer_count, _evaluate_candidate,
+                                    _is_sharded_result, _memory_budget, _pipe_adjusted,
+                                    adoption_margin, graph_optimize)
+        from ..sim import OpCostModel, Simulator
+
+        cfg = self.config
+        pipe = full_axis_sizes.get("pipe", 1)
+        axis_sizes = {a: s for a, s in full_axis_sizes.items() if a != "pipe"}
+        result, errs, n_cand = None, [], 0
+        shared_cm = OpCostModel(machine)
+        for rewrites, vlayers in graph_variants(self.layers, cfg, protected=protected):
+            # a variant too small for the pipe degree would un-pipe at
+            # compile: skip it, unless the original cannot pipe either
+            n_var = _effective_layer_count(vlayers, cfg.perform_fusion, protected)
+            if pipe > 1 and n_var < pipe and n_effective >= pipe:
+                continue
+            n_cand += 1
+            r = _evaluate_candidate(vlayers, full_axis_sizes, inputs, machine, cfg, beam,
+                                    shared_cm, _memory_budget(cfg, machine), err_sink=errs,
+                                    strict_budget=False)
+            if r is None:
+                continue
+            if rewrites:
+                r.rewrites, r.layers = list(rewrites), vlayers
+            if result is None or r.est_step_time < result.est_step_time:
+                result = r
+        if result is None:
+            raise RuntimeError("no feasible strategy on the pinned mesh") from (
+                errs[0] if errs else None)
+        if _is_sharded_result(result):
+            # sharding over the pinned axes must beat leaving them idle
+            # by more than the cost model's error bar, priced under the
+            # same accounting (the loop's memo; ZeRO's sharded state)
+            dp_mult = 2.0 / axis_sizes.get("data", 1) if cfg.zero_optimizer else 2.0
+            dp_sim = Simulator(machine, shared_cm,
+                               overlap_grad_sync=cfg.search_overlap_backward_update,
+                               optimizer_state_mult=dp_mult)
+            try:
+                dp_r = graph_optimize(self.layers, input_pshapes, axis_sizes, dp_sim, cfg,
+                                      beam, memory_cap=cap, dp_only=True)
+                if (cfg.perform_memory_search
+                        and dp_r.est_memory > _memory_budget(cfg, machine) * pipe):
+                    dp_r = None
+                elif pipe > 1:
+                    dp_r = _pipe_adjusted(dp_r, self.layers, pipe, machine, cfg.batch_size,
+                                          fused=cfg.perform_fusion, config=cfg)
+            except RuntimeError:
+                dp_r = None
+            if (dp_r is not None and result.est_step_time * adoption_margin(cfg, machine)
+                    > dp_r.est_step_time):
+                result = dp_r
+        result.candidates = n_cand
+        result.workers = 1
+        return result
+
+    def _validate_cached(self, result, inputs, entry_path: str) -> bool:
+        """A strategy rehydrated from the cache must build: ``build_ops``
+        over the stored strategies and mesh (the JAX package's PCG
+        validation is ROADMAP A11). A failure prints a line and demotes
+        the hit to a miss."""
+        from ..runtime.compiler import build_ops
+        from ..search.unity import data_parallel_input_pshapes
+
+        axis_sizes = {a: int(s) for a, s in result.mesh_shape.items()}
+        try:
+            build_ops(result.layers or self.layers,
+                      data_parallel_input_pshapes(inputs, axis_sizes,
+                                                  self.config.enable_sample_parallel),
+                      axis_sizes, result.strategies)
+        except (ValueError, KeyError, IndexError, NotImplementedError) as e:
+            print(f"[search] cached strategy {entry_path} does not build "
+                  f"({type(e).__name__}: {e}); treating as a miss", flush=True)
+            return False
+        return True
+
+    def _finish_search(self, result, mesh, t_start: float, cache_label: str):
+        """The shared tail of a searched or cache-hit result: the result
+        and its profile, the span and the cache counter, the profiling
+        line; returns (strategies, mesh)."""
+        self.search_result = result
+        self._search_layers = result.layers
+        self.search_profile = {
+            "search_time_s": time.perf_counter() - t_start,
+            "cache": cache_label,
+            "cache_key": self._strategy_cache_key,
+            "candidates": result.candidates,
+            "pruned": result.pruned,
+            "states_explored": result.states_explored,
+            "workers": result.workers,
+            "mesh_shape": dict(result.mesh_shape),
+            "est_step_time": result.est_step_time,
+            "pipe_schedule": result.pipe_schedule,
+        }
+        tracer().complete("compile.search", t_start, self.search_profile["search_time_s"],
+                          cat="compile",
+                          args={"cache": cache_label, "candidates": result.candidates,
+                                "mesh": dict(result.mesh_shape),
+                                "est_step_time": result.est_step_time})
+        metrics_registry().counter(f"search.cache.{cache_label}").inc()
+        metrics_registry().gauge("search.est_step_time_s").set(result.est_step_time)
+        if self.config.profiling:
+            p = self.search_profile
+            print(f"[search] mesh={result.mesh_shape} est_step={result.est_step_time*1e3:.3f}ms "
+                  f"mem={result.est_memory/2**20:.1f}MiB states={result.states_explored}"
+                  f" cand={p['candidates']} pruned={p['pruned']} cache={cache_label}"
+                  f" t={p['search_time_s']:.3f}s"
+                  + (f" rewrites={result.rewrites}" if result.rewrites else ""), flush=True)
+        return result.strategies, mesh
+
+    # ---- the execution playoff: the searched plan against plain data
+    # parallelism, a few real steps each on fit's first batches ------------
+    def _time_compiled(self, cm: CompiledModel, pipelined, xs, y_arr, bs: int,
+                       steps: int) -> float:
+        """Seconds a train step of ``cm`` (through ``pipelined`` when
+        given) over ``steps`` steps after one warmup, each on the next
+        batch of ``xs``/``y_arr`` as fit gives them (CUDA events on the
+        card). The params and optimizer state are restored afterwards,
+        a pipeline stage's own too (under ZeRO-1 its optimizer state is
+        not a view of ``cm.opt_state``)."""
+        def trees():
+            return [cm.params, cm.opt_state] + ([] if pipelined is None else
+                                                [pipelined.stage_params,
+                                                 pipelined.stage_opt_state])
+
+        snaps = [_clone_tree(t) for t in trees()]
+        y_np = np.asarray(y_arr)
+        if cm.loss_type is LossType.SPARSE_CATEGORICAL_CROSSENTROPY:
+            y_np = y_np.reshape(y_np.shape[0], -1).astype(np.int32)
+        arrays = [np.asarray(a) for a in xs] + [y_np]
+        n_batches = max(1, len(y_np) // bs)
+
+        def one(i: int) -> None:
+            lo = (i % n_batches) * bs
+            rows = (lambda j: slice(None)) if pipelined is not None else cm.batch_rows
+            b = [torch.as_tensor(a[lo:lo + bs][rows(j)]).to(cm.device)
+                 for j, a in enumerate(arrays)]
+            rng = (1 << 20) | i
+            if pipelined is not None:
+                pipelined.train_step(rng, b[:-1], b[-1])
+            else:
+                cm.params, cm.opt_state, _, _ = cm.train_step(cm.params, cm.opt_state, rng, *b)
+
+        one(0)
+        cuda = cm.device.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize(cm.device)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            one(i + 1)
+        if cuda:
+            end.record()
+            end.synchronize()
+            elapsed = start.elapsed_time(end) / 1e3 / steps
+        else:
+            elapsed = (time.perf_counter() - t0) / steps
+        for tree, snap in zip(trees(), snaps):
+            _copy_tree_(tree, snap)
+        return elapsed
+
+    def _maybe_playoff(self, xs, y_arr, bs: int) -> None:
+        """``config.playoff_steps`` > 0, at the first fit after a compile
+        whose plan is more than plain data parallelism: time the compiled
+        plan and a data-parallel compile of the builder graph, and keep
+        the faster (each rank's slowest time decides, so every rank keeps
+        the same plan). The decision lands in ``self._playoff_record``."""
+        cfg = self.config
+        steps = int(cfg.playoff_steps)
+        if steps <= 0 or self._playoff_done or self.compiled is None:
+            return
+        cm = self.compiled
+        mesh_axes = dict(cm.mesh.shape) if cm.mesh is not None else {}
+        nontrivial = (any(v for v in self._strategies.values())
+                      or self._search_layers is not None or self.pipelined is not None
+                      or any(a != DATA_AXIS and s > 1 for a, s in mesh_axes.items()))
+        if not nontrivial:
+            self._playoff_done = True
+            return
+        if len(y_arr) < bs:
+            return  # too little data this call; the next fit tries again
+        self._playoff_done = True
+        if cm.iteration:
+            self._playoff_record = {"skipped": "the compiled plan has trained already"}
+            return
+        import dataclasses as _dc
+
+        t_searched = self._time_compiled(cm, self.pipelined, xs, y_arr, bs, steps)
+        dp_cfg = _dc.replace(cfg, only_data_parallel=True, mesh_shape=None, playoff_steps=0,
+                             search_budget=0)
+        ctx = self._compile_ctx
+        layers = self.layers
+        if cfg.perform_fusion:
+            from ..ops.fused import apply_fusion
+
+            layers = apply_fusion(list(layers), {ctx["logits"].tensor_id})
+        dp_cm = compile_model(dp_cfg, layers, self._used_inputs(), ctx["logits"],
+                              self.optimizer, ctx["loss_type"], ctx["mtypes"],
+                              ctx["comp_mode"], {}, None)
+        whole = self.numpy_params()
+        with torch.no_grad():
+            for op_name, ws in dp_cm.params.items():
+                for w_name, cur in ws.items():
+                    arr = whole.get(op_name, {}).get(w_name)
+                    if arr is None:
+                        continue  # a layer a rewrite replaced keeps its init
+                    if dp_cm.mesh is not None:
+                        if tuple(arr.shape) != dp_cm.weight_layout(op_name, w_name).sizes:
+                            continue
+                        arr = arr[dp_cm.mesh.local_slices(dp_cm.weight_layout(op_name, w_name))]
+                    if tuple(arr.shape) == tuple(cur.shape):
+                        cur.copy_(torch.as_tensor(arr))
+        t_dp = self._time_compiled(dp_cm, None, xs, y_arr, bs, steps)
+        if cm.mesh is not None or dp_cm.mesh is not None:
+            from ..parallel import collectives
+
+            times = collectives.all_gather_objects((t_searched, t_dp))
+            t_searched = max(t for t, _ in times)
+            t_dp = max(t for _, t in times)
+        kept = "dp" if t_dp < t_searched else "searched"
+        print(f"[playoff] searched {t_searched*1e3:.2f}ms/step vs "
+              f"dp {t_dp*1e3:.2f}ms/step -> {kept}", flush=True)
+        self._playoff_record = {"searched_ms": t_searched * 1e3, "dp_ms": t_dp * 1e3,
+                                "kept": kept}
+        if kept == "dp":
+            self.compiled = dp_cm
+            self.pipelined = None
+            self._strategies = {}
+            self._search_layers = None
 
     def _used_inputs(self) -> List[Tensor]:
         used = {t.tensor_id for layer in self.layers for t in layer.inputs
@@ -909,12 +1349,14 @@ class FFModel:
         (:class:`~flexflow_tpu_torch.runtime.recompile.RecompileState`)
         is checked after every step. The step-loop record lands in
         ``self.fit_profile``."""
+        xs = x if isinstance(x, (list, tuple)) else [x]
+        self._training_model()
+        self._maybe_playoff(xs, y, batch_size or self.config.batch_size)
         cm = self._training_model()
         configure_tracer(self.config)
         configure_faults(self.config)
         if guard is not None and self.pipelined is not None:
             raise ValueError("TrainingGuard does not support pipelined training")
-        xs = x if isinstance(x, (list, tuple)) else [x]
         epochs = epochs or self.config.epochs
         group = self._loader_group(xs, y, batch_size or self.config.batch_size, shuffle)
         depth, max_inflight, k = self._step_loop_knobs(cm, recompile_state)
@@ -1201,6 +1643,32 @@ class FFModel:
         """An empty PerfMetrics, as the JAX package returns: fit() and
         eval() return the accumulated ones."""
         return PerfMetrics()
+
+
+def _clone_tree(tree):
+    """A copy of a tree of dicts, lists and tensors (params, optimizer
+    state) with every tensor cloned."""
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_clone_tree(v) for v in tree)
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree
+
+
+def _copy_tree_(dst, src) -> None:
+    """Copy ``src``'s tensors into ``dst``'s in place (same structure)."""
+    if isinstance(dst, dict):
+        for k in dst:
+            if isinstance(dst[k], (dict, list, tuple, torch.Tensor)):
+                _copy_tree_(dst[k], src[k])
+            else:
+                dst[k] = src[k]
+    elif isinstance(dst, (list, tuple)):
+        for d, s_ in zip(dst, src):
+            _copy_tree_(d, s_)
+    elif isinstance(dst, torch.Tensor):
+        with torch.no_grad():
+            dst.copy_(src)
 
 
 def _check_label(cm: CompiledModel, shape: Tuple[int, ...]) -> None:

@@ -1,0 +1,172 @@
+"""The substitution library: per-op parallelization candidates.
+
+PyTorch counterpart of ``flexflow_tpu/search/substitution.py`` (the
+reference's ``generate_all_pcg_xfers``, src/runtime/substitution.cc:1726-1869,
+and its JSON rule loader). A reference substitution rewrites the PCG —
+*partition-linear-combine* inserts ``Repartition(in-dim) → Linear →
+Combine`` around a dense layer (substitution.cc:77-108); here the
+Partition/Combine halves are the compiler's resharding between layouts,
+so each xfer collapses to a **strategy assignment** on the compute op:
+
+| reference xfer (substitution.cc)            | strategy here            |
+|---------------------------------------------|--------------------------|
+| create_partition_linear_combine (:77)       | Linear {"in": axis}      |
+| create_replicate_linear_combine (:1756)     | Linear {"out": axis}     |
+| create_partition_attention_combine (:87)    | Attention {"heads": axis}|
+| create_replicate_attention_reduce (:1763)   | Attention {"heads": axis} (grad path differs only in its collective) |
+| embedding vocab partition (DLRM pattern)    | Embedding {"vocab": axis}|
+| data-parallel partition on batch (:1726)    | {} (batch dim inherited) |
+| conv2d channel partition (OptCNN patterns)  | Conv2D {"out_channels": axis} |
+| sequence-dim partition (absent in reference, SURVEY §5) | Attention {"seq": axis} |
+
+Custom rules load from the strategy-template JSON (``{"rules": {op-type
+name: [strategy, ...]}}``, ``FFConfig.substitution_json_path``); the
+reference's GraphXfer schema (``{"rule": [...]}``) is ROADMAP A8b.
+"""
+
+from __future__ import annotations
+
+import json
+from typing import Dict, List, Optional
+
+from ..ffconst import OpType
+from ..config import FFConfig
+from ..core.layer import Layer
+
+# extra rules loaded from JSON: op-type name -> list of strategy templates,
+# each value either a literal axis name or "$model"/"$data"/... placeholders
+_JSON_RULES: Dict[str, List[Dict[str, str]]] = {}
+
+
+def load_substitution_rules(path: str) -> Dict[str, List[Dict[str, str]]]:
+    """Parse a rules file WITHOUT touching process-global state — the
+    config-scoped path (FFConfig.substitution_json_path) uses this so one
+    model's rules never leak into another model's search."""
+    with open(path) as f:
+        data = json.load(f)
+    return {op: list(cands) for op, cands in data.get("rules", {}).items()}
+
+
+def load_substitution_json(path: str) -> int:
+    """Load extra candidate rules into the process-global table
+    (reference: substitution_loader.cc:78, ``--substitution-json-path``).
+    Idempotent: already-present templates are skipped. Returns the number
+    of rules newly added."""
+    n = 0
+    for op_name, cands in load_substitution_rules(path).items():
+        have = _JSON_RULES.setdefault(op_name, [])
+        for c in cands:
+            if c not in have:
+                have.append(c)
+                n += 1
+    return n
+
+
+def _expand(template: Dict[str, str], axis_sizes: Dict[str, int]) -> Optional[Dict[str, str]]:
+    out = {}
+    for k, v in template.items():
+        if isinstance(v, str) and v.startswith("$"):
+            axis = v[1:]
+            if axis_sizes.get(axis, 1) <= 1:
+                return None
+            v = axis
+        out[k] = v
+    return out
+
+
+def candidate_strategies(
+    layer: Layer,
+    axis_sizes: Dict[str, int],
+    config: Optional[FFConfig] = None,
+) -> List[Dict[str, str]]:
+    """All parallelization candidates for one layer on the given mesh.
+
+    The first candidate is always ``{}`` (pure inherited/data parallelism —
+    the reference's default partition-on-batch xfer). Gating flags mirror
+    ``--enable-parameter-parallel`` / ``--enable-attribute-parallel``
+    (model.cc:3623-3627); both default on here because the search itself
+    decides profitability.
+    """
+    param_ok = config is None or config.enable_parameter_parallel or config.search_budget != 0
+    attr_ok = config is None or config.enable_attribute_parallel or config.search_budget != 0
+
+    cands: List[Dict[str, str]] = [{}]
+    model_axes = [
+        a for a, n in axis_sizes.items() if n > 1 and a not in ("data", "pipe")
+    ]
+    t = layer.op_type
+    if t is OpType.LINEAR and param_ok:
+        out_dim = layer.attrs.get("out_dim", 0)
+        in_dim = layer.inputs[0].dims[-1] if layer.inputs else 0
+        for a in model_axes:
+            n = axis_sizes[a]
+            if out_dim % n == 0:
+                cands.append({"out": a})
+            if in_dim % n == 0:
+                cands.append({"in": a})
+    elif t is OpType.MULTIHEAD_ATTENTION and attr_ok:
+        heads = layer.attrs.get("num_heads", 0)
+        for a in model_axes:
+            if heads % axis_sizes[a] == 0:
+                cands.append({"heads": a})
+        seq_deg = axis_sizes.get("seq", 1)
+        if seq_deg > 1:
+            cands.append({"seq": "seq"})  # ring schedule (default)
+            if layer.attrs.get("num_heads", 0) % seq_deg == 0:
+                # Ulysses all-to-all alternative: 4 activation a2a's vs
+                # 2(n-1) k/v permutes (parallel/ring_attention.py)
+                cands.append({"seq": "seq", "seq_mode": "a2a"})
+    elif t is OpType.EMBEDDING and param_ok:
+        vocab = layer.attrs.get("num_entries", 0)
+        out_dim = layer.attrs.get("out_dim", 0)
+        for a in model_axes:
+            n = axis_sizes[a]
+            if vocab % n == 0:
+                cands.append({"vocab": a})
+            if out_dim % n == 0:
+                cands.append({"out": a})
+    elif t is OpType.CONV2D:
+        out_c = layer.attrs.get("out_channels", 0)
+        if param_ok:
+            for a in model_axes:
+                if out_c % axis_sizes[a] == 0:
+                    cands.append({"out_channels": a})
+        if attr_ok and layer.inputs and len(layer.inputs[0].dims) == 4:
+            # spatial (H) partitioning with halo exchange (reference:
+            # substitution.cc:87-95 image-dim partition)
+            in_h = layer.inputs[0].dims[2]
+            kh, _ = layer.attrs.get("kernel", (1, 1))
+            ph, _ = layer.attrs.get("padding", (0, 0))
+            sh, _ = layer.attrs.get("stride", (1, 1))
+            out_h = (in_h + 2 * ph - kh) // sh + 1
+            # profitability gate (the JAX package's): spatial partitioning
+            # is the small-batch/large-image tool (substitution.cc:87-95).
+            # When the batch shards cleanly, batch parallelism gets the
+            # same activation split with no halo exchange, so spatial is
+            # offered only when batch sharding is exhausted (indivisible
+            # or absent) or the image is tall (per-shard height >= 64).
+            batch = layer.inputs[0].dims[0]
+            data_deg = max(axis_sizes.get("data", 1), 1)
+            for a in model_axes:
+                n = axis_sizes[a]
+                profitable = (batch % data_deg != 0 or data_deg == 1
+                              or in_h // n >= 64)
+                if (profitable and in_h % n == 0 and out_h % n == 0
+                        and in_h // n > kh // 2):
+                    cands.append({"spatial": a})
+    elif t is OpType.GROUP_BY_STACKED and param_ok:
+        # expert parallelism: shard the stacked expert dim. The data axis is
+        # a legitimate EP axis here (expert shards colocate with token
+        # shards, dispatch rides an all-to-all); expert_linear and
+        # aggregate_stacked follow the sharding.
+        n_exp = layer.attrs.get("n", 0)
+        for a, sz in axis_sizes.items():
+            if sz > 1 and a != "pipe" and n_exp % sz == 0:
+                cands.append({"expert": a})
+
+    scoped = getattr(config, "_substitution_rules", None) or {}
+    for template in _JSON_RULES.get(t.name, []) + scoped.get(t.name, []):
+        c = _expand(template, axis_sizes)
+        if c is not None and c not in cands:
+            cands.append(c)
+    return cands

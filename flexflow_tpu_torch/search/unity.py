@@ -1,0 +1,1081 @@
+"""Unity-style DP search over per-op parallelization strategies.
+
+PyTorch counterpart of ``flexflow_tpu/search/unity.py`` (the reference's
+``GraphSearchHelper::graph_optimize`` substitution.cc:1898, the recursive
+split DP ``generic_sequence_optimize`` substitution.h:279, ``graph_cost``
+graph.h:174-196 with ``dp_state_hash`` memoization, machine-view
+enumeration ``register_all_machine_views`` graph.cc:2329):
+
+* the DP walks the layer list in order carrying a **frontier signature**,
+  the layout of every tensor a later layer still reads; two partial
+  assignments with equal frontiers are interchangeable, so only the
+  cheaper survives (the bottleneck-split memoization, at every layer);
+* each layer's candidates come from the substitution library
+  (:mod:`.substitution`); machine views become named mesh shapes
+  (:func:`enumerate_mesh_shapes`); ``base_optimize_threshold`` is the
+  beam of frontier states kept a layer;
+* the memory-aware variant (graph.cc:2056) is a hard device-memory prune
+  plus a per-byte penalty, binary-searched by :func:`memory_aware_search`;
+* :func:`full_search` runs the DP for every (graph variant, mesh shape)
+  candidate, optionally on a forked pool of workers that run only the
+  pure-Python cost model (never CUDA), selection folded in candidate
+  order so the pool's answer is the serial one.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Dict, List, Optional, Sequence, Tuple
+
+from ..config import FFConfig
+from ..ffconst import OpType
+from ..core.layer import Layer
+from ..core.op import create_op
+from ..core.parallel_tensor import ParallelDim, ParallelTensorShape
+from ..core.tensor import Tensor
+from ..sim.cost_model import OpCostModel
+from ..sim.machine_model import MachineModel
+from ..sim.simulator import Simulator
+from ..parallel.pipeline import pipe_microbatches
+from .substitution import candidate_strategies
+
+
+@dataclasses.dataclass
+class GraphSearchResult:
+    strategies: Dict[str, Dict[str, str]]
+    mesh_shape: Dict[str, int]
+    est_step_time: float
+    est_memory: int
+    states_explored: int = 0
+    mem_lambda: float = 0.0  # memory-aware search trade-off (graph.cc:2056)
+    # structural substitutions: the rewrites applied to produce the winning
+    # graph, and that graph's layer list (None = the original builder graph)
+    # — reference: GraphXfer-derived best_graph (substitution.cc:1898)
+    rewrites: List[str] = dataclasses.field(default_factory=list)
+    layers: Optional[List[Layer]] = None
+    # search coverage accounting (filled by full_search on the winning
+    # result): total (variant x mesh) candidates enumerated, how many the
+    # lower-bound prune skipped — surfaced in the profiling export so
+    # coverage is never silently truncated — and the worker count the
+    # evaluation ACTUALLY used (1 = serial, incl. pool-failure fallback;
+    # not persisted by the strategy cache, it is run-specific)
+    candidates: int = 0
+    pruned: int = 0
+    workers: int = 0
+    # pipeline schedule the bubble model selected for a pipe-prefixed
+    # mesh (None on un-piped results): compile() builds exactly this
+    # schedule, and the strategy cache persists it so a rehydrated plan
+    # never runs with an undefined schedule
+    pipe_schedule: Optional[str] = None
+    pipe_interleave: int = 1
+    # engine family (compiled|host) the winning schedule was priced
+    # with: the widened single-dispatch envelope (interleaved +
+    # pipe×data submeshes) makes dispatch overhead a first-class
+    # pricing dimension, so the cache must replay the same assumption
+    pipe_engine: Optional[str] = None
+    # per-candidate pricing records from the schedule ranking (not
+    # persisted; profiling/debug surface)
+    pipe_schedule_records: List = dataclasses.field(default_factory=list)
+
+
+def _ps_sig(ps: ParallelTensorShape) -> Tuple:
+    return tuple((d.degree, d.axis) for d in ps.dims) + tuple(sorted(ps.replica_axes))
+
+
+@dataclasses.dataclass
+class _State:
+    cost: float
+    weight_mem: int
+    act_mem: int
+    pshapes: Dict[int, ParallelTensorShape]
+    strategies: Dict[str, Dict[str, str]]
+    n_sharded: int = 0  # layers with a non-default strategy (tie-break)
+
+    @property
+    def memory(self) -> int:
+        return self.weight_mem + self.act_mem
+
+
+def graph_optimize(
+    layers: List[Layer],
+    input_pshapes: Dict[int, ParallelTensorShape],
+    axis_sizes: Dict[str, int],
+    simulator: Simulator,
+    config: Optional[FFConfig] = None,
+    beam_width: int = 64,
+    mem_lambda: float = 0.0,
+    memory_cap: Optional[float] = None,
+    dp_only: bool = False,
+) -> GraphSearchResult:
+    """DP over the layer graph for one fixed mesh shape.
+
+    reference: Graph::graph_optimize_task → optimal strategies + views
+    (graph.cc:2046-2327). Returns the best per-layer strategy dict.
+
+    ``mem_lambda`` blends memory into the objective (the memory-aware
+    variant, graph.cc:2056): states are ranked by
+    ``step_time + mem_lambda * footprint / hbm_bandwidth`` — the memory
+    term is the time to stream the footprint once, so both terms share
+    units and lambda is a dimensionless trade-off knob.
+
+    ``memory_cap`` overrides the hard infeasibility prune (default: the
+    machine's HBM capacity); pipe-prefixed searches raise it by the stage
+    count because each stage holds only ~1/P of the model.
+
+    ``dp_only`` restricts every layer to the default (inherited/data-
+    parallel) candidate — used to price the pure-DP baseline that the
+    adoption margin compares against (see :func:`adoption_margin`).
+    """
+    # consumer bookkeeping to compute live frontiers
+    last_use: Dict[int, int] = {}
+    for li, layer in enumerate(layers):
+        for t in layer.inputs:
+            last_use[t.tensor_id] = li
+
+    if memory_cap is None:
+        memory_cap = simulator.machine.chip.hbm_capacity
+    hbm_bw = simulator.machine.chip.hbm_bandwidth
+    opt_mult = simulator.optimizer_state_mult
+    cm = simulator.cost_model
+
+    def state_footprint(weight_mem: float, act_mem: float) -> float:
+        # weights + optimizer states + activations (same accounting as
+        # Simulator.memory_usage; graph.cc:2056 hard bound)
+        return weight_mem * (1.0 + opt_mult) + act_mem
+
+    n_layers = max(1, len(layers))
+
+    def rank_state(s: "_State") -> float:
+        base = s.cost + mem_lambda * state_footprint(
+            s.weight_mem, s.act_mem) / hbm_bw
+        # tie bias: near-equal states resolve toward the one sharding
+        # FEWER layers (<=0.2% of cost at full sharding), so the search
+        # never picks a hybrid plan over DP — or a non-uniform per-layer
+        # mix over a uniform one — on cost-model noise
+        return base * (1.0 + 0.002 * s.n_sharded / n_layers)
+
+    states: Dict[Tuple, _State] = {
+        (): _State(0.0, 0, 0, dict(input_pshapes), {})
+    }
+    explored = 0
+    for li, layer in enumerate(layers):
+        cands = [{}] if dp_only else candidate_strategies(
+            layer, axis_sizes, config)
+        nxt: Dict[Tuple, _State] = {}
+        for st in states.values():
+            in_shapes = [st.pshapes[t.tensor_id] for t in layer.inputs]
+            for cand in cands:
+                explored += 1
+                op = create_op(layer, in_shapes)
+                strategy = dict(cand)
+                strategy["_axis_sizes"] = axis_sizes
+                op.axis_sizes = dict(axis_sizes)
+                try:
+                    out_shapes, weight_shapes = op.propagate(in_shapes, strategy)
+                except Exception:
+                    continue
+                # a layout sharding one mesh axis onto two dims of a
+                # tensor is rejected by build_ops (the port checks the
+                # inputs' gathered layouts too) — never select it
+                if any(ps.has_duplicate_axes()
+                       for ps in list(out_shapes) + list(weight_shapes.values())
+                       + list(op.input_layouts)):
+                    continue
+                op.output_shapes = out_shapes
+                op.weight_shapes = weight_shapes
+                c = cm.measure(op)
+                comm = simulator._comm_time(op, False) + simulator._comm_time(op, True)
+                step = c.forward_time + c.backward_time + c.sync_time + comm
+                new_w = st.weight_mem + c.weights_memory
+                new_a = st.act_mem + c.outputs_memory
+                if state_footprint(new_w, new_a) > memory_cap:
+                    continue
+                pshapes = dict(st.pshapes)
+                for t, ps in zip(layer.outputs, out_shapes):
+                    pshapes[t.tensor_id] = ps
+                # frontier: tensors any later layer still reads
+                live = tuple(
+                    _ps_sig(pshapes[tid])
+                    for tid in sorted(pshapes)
+                    if last_use.get(tid, -1) > li
+                )
+                cand_state = _State(
+                    st.cost + step,
+                    new_w,
+                    new_a,
+                    pshapes,
+                    {**st.strategies, layer.name: dict(cand)},
+                    st.n_sharded + (1 if cand else 0),
+                )
+                old = nxt.get(live)
+                if old is None or rank_state(cand_state) < rank_state(old):
+                    nxt[live] = cand_state
+        if not nxt:
+            raise RuntimeError(f"search dead-ended at layer {layer.name}")
+        # beam prune (reference: base_optimize_threshold bound)
+        if len(nxt) > beam_width:
+            nxt = dict(
+                sorted(nxt.items(), key=lambda kv: rank_state(kv[1]))[:beam_width]
+            )
+        states = nxt
+
+    best = min(states.values(), key=rank_state)
+    footprint = int(state_footprint(best.weight_mem, best.act_mem))
+    return GraphSearchResult(
+        best.strategies, dict(axis_sizes), best.cost, footprint, explored,
+        mem_lambda,
+    )
+
+
+def memory_aware_search(
+    layers: List[Layer],
+    input_pshapes: Dict[int, ParallelTensorShape],
+    axis_sizes: Dict[str, int],
+    simulator: Simulator,
+    config: Optional[FFConfig] = None,
+    beam_width: int = 64,
+    memory_budget: Optional[float] = None,
+    max_iters: int = 8,
+    lam_max: float = 16.0,
+    memory_cap: Optional[float] = None,
+) -> GraphSearchResult:
+    """Runtime/memory lambda binary search (reference:
+    Graph::graph_optimize_task's try_one_lambda loop, graph.cc:2056-2157 +
+    memory_optimization.h:24-38).
+
+    Finds the smallest lambda whose strategy fits ``memory_budget`` —
+    i.e. the fastest strategy that fits — by binary search between the
+    runtime-optimal (lambda=0) and memory-dominated (lam_max) solutions.
+    """
+    budget = memory_budget or simulator.machine.chip.hbm_capacity
+
+    def run(lam: float) -> GraphSearchResult:
+        return graph_optimize(layers, input_pshapes, axis_sizes, simulator,
+                              config, beam_width, mem_lambda=lam,
+                              memory_cap=memory_cap)
+
+    r0 = run(0.0)
+    if r0.est_memory <= budget:
+        return r0
+    r1 = run(lam_max)
+    if r1.est_memory > budget:
+        # even the memory-dominated solution exceeds the budget; report it
+        # (the reference likewise reports the trade-off rather than failing,
+        # graph.cc:2134-2157)
+        return r1
+    lo, hi, best = 0.0, lam_max, r1
+    for _ in range(max_iters):
+        mid = 0.5 * (lo + hi)
+        r = run(mid)
+        if r.est_memory <= budget:
+            best, hi = r, mid
+        else:
+            lo = mid
+    return best
+
+
+def enumerate_mesh_shapes(
+    n_devices: int,
+    has_moe: bool = False,
+    has_attention: bool = False,
+    max_pipe: int = 0,
+) -> List[Dict[str, int]]:
+    """Candidate mesh layouts (reference: register_all_machine_views
+    graph.cc:2329 — 1-D views over every divisor of the GPU count; here 2-D
+    named meshes {data×model}, 3-axis {data×model×seq|expert} triples when
+    the graph can use them, and pipe-prefixed variants up to ``max_pipe``
+    stages — a generalization the reference reserved but never built)."""
+    shapes: List[Dict[str, int]] = []
+    for d in range(1, n_devices + 1):
+        if n_devices % d != 0:
+            continue
+        m = n_devices // d
+        shape: Dict[str, int] = {}
+        if d > 1 or m == 1:
+            shape["data"] = d
+        if m > 1:
+            shape["model"] = m
+        shapes.append(shape or {"data": 1})
+        if has_moe and m > 1:
+            shapes.append({"expert": m} if d == 1 else {"data": d, "expert": m})
+        if has_attention and m > 1:
+            shapes.append({"seq": m} if d == 1 else {"data": d, "seq": m})
+        # three-axis splits of the model factor: data × model × seq/expert
+        if m > 1:
+            for m1 in range(2, m):
+                if m % m1 != 0:
+                    continue
+                m2 = m // m1
+                if m2 <= 1:
+                    continue
+                base = {"data": d} if d > 1 else {}
+                if has_attention:
+                    shapes.append({**base, "model": m1, "seq": m2})
+                if has_moe:
+                    shapes.append({**base, "model": m1, "expert": m2})
+    # pipeline-prefixed variants: pipe × (every shape over the remaining
+    # devices); costed by the GPipe bubble model in full_search
+    if max_pipe > 1:
+        for p in range(2, max_pipe + 1):
+            if n_devices % p != 0:
+                continue
+            rest = n_devices // p
+            for s in enumerate_mesh_shapes(rest, has_moe, has_attention):
+                shapes.append({"pipe": p, **s})
+    # dedup, preserve order
+    seen, out = set(), []
+    for s in shapes:
+        key = tuple(sorted(s.items()))
+        if key not in seen:
+            seen.add(key)
+            out.append(s)
+    return out
+
+
+def data_parallel_input_pshapes(input_tensors, axis_sizes,
+                                sample_parallel: bool = True):
+    """Batch-dim-on-"data" input shardings (the single policy shared by the
+    search paths and FFModel._run_search): shard dim 0 over the data axis
+    when divisible, replicate otherwise. ``sample_parallel=False``
+    (reference: --enable-sample-parallel off) keeps inputs replicated."""
+    data_deg = axis_sizes.get("data", 1) if sample_parallel else 1
+    input_pshapes = {}
+    for t in input_tensors:
+        dims = [
+            ParallelDim(s, data_deg, "data")
+            if i == 0 and data_deg > 1 and s % data_deg == 0
+            else ParallelDim(s)
+            for i, s in enumerate(t.dims)
+        ]
+        input_pshapes[t.tensor_id] = ParallelTensorShape(tuple(dims), t.dtype)
+    return input_pshapes
+
+
+def adoption_margin(config: Optional[FFConfig],
+                    machine: MachineModel) -> float:
+    """Predicted-speedup factor a non-DP strategy must clear before the
+    search adopts it over the pure-DP baseline.
+
+    The reference's search ranks strategies by timing real kernels
+    (Op::inner_measure_operator_cost, model.cu:17-53), so its rankings
+    track hardware; this framework's analytic model carries error, so a
+    plan is adopted only when its predicted gain exceeds that error bar:
+
+    * explicit ``--adoption-margin`` wins;
+    * with an execution playoff enabled the margin is near-1 (measurement
+      will settle it — only filter plans the model itself calls a wash);
+    * on a shared-host (virtual CPU) mesh the model's validated error is
+      largest: require 2x, the calibration gate's own tolerance;
+    * on real chips, 1.2x.
+    """
+    m = getattr(config, "search_adoption_margin", 0.0) if config else 0.0
+    if m and m > 0:
+        return float(m)
+    if config is not None and getattr(config, "playoff_steps", 0) > 0:
+        return 1.02
+    if getattr(machine, "shared_host", False):
+        return 2.0
+    return 1.2
+
+
+def _is_sharded_result(r: GraphSearchResult) -> bool:
+    """True when a result adopts sharding beyond plain data parallelism:
+    a model/seq/expert/pipe mesh axis or any per-layer strategy choice.
+    Structural rewrites alone (fused/merged graphs on a data-only mesh)
+    do NOT count — they change the compute graph, not its sharding, so
+    the SPMD-overhead misprediction the margin guards against cannot
+    bite them (and the playoff still races them against plain DP)."""
+    return (any(a != "data" and s > 1 for a, s in r.mesh_shape.items())
+            or any(v for v in r.strategies.values()))
+
+
+def _evaluate_candidate(
+    vlayers: List[Layer],
+    shape: Dict[str, int],
+    input_tensors: Sequence[Tensor],
+    machine: MachineModel,
+    config: Optional[FFConfig],
+    beam_width: int,
+    cost_model: OpCostModel,
+    budget: float,
+    err_sink: Optional[List] = None,
+    strict_budget: bool = True,
+) -> Optional[GraphSearchResult]:
+    """One (graph-variant, mesh-shape) candidate: the inner DP plus the
+    GPipe adjustment for pipe-prefixed shapes. Returns None when the
+    candidate is infeasible (search dead-end or memory budget); the
+    dead-end RuntimeError is appended to ``err_sink`` when given (the
+    pinned-mesh path chains the first one into its own diagnostic). The
+    caller owns attaching rewrites/layers — a parallel worker must not
+    ship Layer objects back across the process boundary.
+
+    This is the exact body of the historical full_search inner loop; the
+    serial path and every pool worker run the same function, which is what
+    makes parallel selection bit-identical to serial (results depend only
+    on (vlayers, shape, machine, config), never on memo state or
+    completion order)."""
+    sample_parallel = config is None or config.enable_sample_parallel
+    memory_search = config is not None and config.perform_memory_search
+    overlap = config is None or config.search_overlap_backward_update
+    zero = config is not None and config.zero_optimizer
+    fusion = config is not None and config.perform_fusion
+    pipe = shape.get("pipe", 1)
+    axis_sizes = {a: s for a, s in shape.items() if a != "pipe"}
+    # ZeRO-1 shards optimizer state over the data axis: the per-device
+    # footprint the memory prune charges shrinks by the data degree
+    opt_mult = 2.0 / shape.get("data", 1) if zero else 2.0
+    sim = Simulator(machine, cost_model, overlap_grad_sync=overlap,
+                    optimizer_state_mult=opt_mult)
+    input_pshapes = data_parallel_input_pshapes(
+        input_tensors, axis_sizes, sample_parallel)
+    # each pipe stage holds only ~1/P of the model, so both the hard HBM
+    # prune and the memory budget scale by the stage count — pipelining's
+    # primary use case is exactly the model that does NOT fit unsplit
+    cap = machine.chip.hbm_capacity * pipe
+    try:
+        if memory_search:
+            r = memory_aware_search(
+                vlayers, input_pshapes, axis_sizes, sim, config,
+                beam_width, memory_budget=budget * pipe, memory_cap=cap)
+            # over-budget: full_search skips the mesh (others exist);
+            # the pinned-mesh path has ONE mesh and keeps the reference's
+            # report-the-trade-off behavior (graph.cc:2134-2157) instead
+            if strict_budget and r.est_memory > budget * pipe:
+                return None
+        else:
+            r = graph_optimize(
+                vlayers, input_pshapes, axis_sizes, sim, config,
+                beam_width, memory_cap=cap,
+            )
+    except RuntimeError as e:
+        if err_sink is not None:
+            err_sink.append(e)
+        return None
+    if pipe > 1:
+        r = _pipe_adjusted(r, vlayers, pipe, machine,
+                           config.batch_size if config else None,
+                           fused=fusion, config=config)
+    return r
+
+
+def _variant_profile(layers: List[Layer]) -> Optional[List[Tuple[float, float, bool]]]:
+    """Per-layer (total_flops, total_bytes, is_embedding) of a graph
+    variant at UNSHARDED shapes — the mesh-independent half of the
+    optimistic lower bound. None when the graph cannot be materialized
+    (then that variant is never pruned)."""
+    from ..sim.cost_model import _pshape_local_bytes
+
+    try:
+        pshapes: Dict[int, ParallelTensorShape] = {}
+        prof: List[Tuple[float, float, bool]] = []
+        for layer in layers:
+            in_shapes = []
+            for t in layer.inputs:
+                if t.tensor_id not in pshapes:
+                    pshapes[t.tensor_id] = ParallelTensorShape(
+                        tuple(ParallelDim(s) for s in t.dims), t.dtype)
+                in_shapes.append(pshapes[t.tensor_id])
+            op = create_op(layer, in_shapes)
+            outs, weights = op.propagate(in_shapes, {"_axis_sizes": {}})
+            op.output_shapes = outs
+            op.weight_shapes = weights
+            for t, ps in zip(layer.outputs, outs):
+                pshapes[t.tensor_id] = ps
+            by = sum(_pshape_local_bytes(p)
+                     for p in list(in_shapes) + list(outs)
+                     + list(weights.values()))
+            prof.append((float(op.flops()), float(by),
+                         layer.op_type is OpType.EMBEDDING))
+        return prof
+    except Exception:
+        return None
+
+
+def _shape_lower_bound(
+    profile: Optional[List[Tuple[float, float, bool]]],
+    shape: Dict[str, int],
+    machine: MachineModel,
+    batch_size: Optional[int],
+) -> Optional[float]:
+    """Optimistic per-candidate lower bound: compute/bytes only, ZERO
+    communication, every layer split over EVERY non-pipe mesh axis.
+
+    Soundness (bound <= the candidate's true est_step_time): the cost
+    model's per-layer forward is max(flops_eff/peak, bytes_eff/bw) plus
+    only-ever-positive terms (kernel overhead, shard penalties, tiny-op
+    floors), with flops_eff >= total/parts * serialization and local bytes
+    >= total/parts — ``parts`` here is the product of ALL non-pipe axis
+    degrees, an upper bound on any real partitioning. Backward is >= 1x
+    forward for every family except embedding (bytes-bound scatter,
+    counted as >= 0); sync and comm are >= 0. Pipe shapes multiply the
+    inner estimate by the GPipe bubble (>= the factor used here) and ADD
+    boundary comm. So skipping a candidate whose bound exceeds the
+    incumbent can never skip the winner."""
+    if profile is None:
+        return None
+    pipe = shape.get("pipe", 1)
+    parts = 1
+    for a, s in shape.items():
+        if a != "pipe":
+            parts *= s
+    chip = machine.chip
+    ser = machine.serialization_factor()
+    t = 0.0
+    for fl, by, emb in profile:
+        comp = fl / (chip.peak_bf16_flops * chip.mxu_efficiency)
+        mem = by / (chip.hbm_bandwidth * chip.hbm_efficiency)
+        fwd = max(comp, mem) / max(parts, 1) * ser
+        t += fwd if emb else 2.0 * fwd
+    if pipe > 1 and machine.effective_parallelism(pipe) > 1.0:
+        M = pipe_microbatches(batch_size)
+        t *= (M + pipe - 1) / (M * pipe)
+    return t
+
+
+def _resolve_workers(config: Optional[FFConfig], n_candidates: int) -> int:
+    """config.search_num_workers: 0 = auto (min(cpu_count, candidates),
+    serial below 4 candidates where pool overhead beats the win),
+    1 = the historical serial path, N = exactly N workers."""
+    w = getattr(config, "search_num_workers", 0) if config is not None else 0
+    if not w:
+        if n_candidates < 4:
+            return 1
+        w = min(os.cpu_count() or 1, n_candidates)
+    return max(1, int(w))
+
+
+# fork-inherited context for pool workers: the parent stores the wave's
+# work items + merged memo here right before creating each wave's Pool;
+# forked children read it from their copy-on-write memory image, so no
+# Layer/Tensor/FFModel object is ever pickled (Tensors hold a backref to
+# the whole FFModel). Only candidate indices go down and only
+# (index, result-sans-layers, memo-delta) comes back.
+_FORK_CTX: Optional[dict] = None
+# flipped after any pool failure (missing fork, crash, deadlock timeout):
+# every later search in this process stays serial instead of re-paying
+# the failure
+_PARALLEL_BROKEN = False
+
+
+# the worker's own persistent OpCostModel (one per pool process): created
+# on its first task from the fork-time memo, then grown by the per-task
+# deltas — so the parent ships every memo entry AT MOST ONCE per pool
+# instead of re-pickling the whole since-fork history for every task
+_WORKER_CM: Optional[OpCostModel] = None
+
+
+def _pool_eval(args):
+    """Worker body: evaluate ONE candidate on this worker's persistent
+    OpCostModel (seeded fork-time memo + the parent's incremental deltas),
+    and ship the entries THIS evaluation added back for the parent to
+    merge. A worker that missed an earlier wave's delta only recomputes —
+    memo entries are a pure function of their key, never a correctness
+    input."""
+    global _WORKER_CM
+    idx, delta = args
+    ctx = _FORK_CTX
+    item = ctx["items"][idx]
+    if _WORKER_CM is None:
+        _WORKER_CM = OpCostModel(ctx["machine"])
+        _WORKER_CM.merge_memo(ctx["memo"])
+    _WORKER_CM.merge_memo(delta)
+    baseline = set(_WORKER_CM._cache)
+    r = _evaluate_candidate(
+        item["vlayers"], item["shape"], ctx["input_tensors"],
+        ctx["machine"], ctx["config"], ctx["beam_width"], _WORKER_CM,
+        ctx["budget"])
+    return idx, r, _WORKER_CM.memo_delta(baseline)
+
+
+def _worker_init() -> None:
+    """A forked worker keeps to one thread: the parent's torch thread
+    pools do not survive a fork, and the cost model needs none."""
+    import torch
+
+    torch.set_num_threads(1)
+
+
+def _make_pool(items, memo, machine, config, beam_width, input_tensors,
+               budget, workers):
+    """Fork ONE worker pool for the whole search. The work context
+    (items, machine, memo-at-fork, ...) travels into the children through
+    fork's copy-on-write memory image — no Layer/Tensor/FFModel object is
+    ever pickled (Tensors hold a backref to the whole FFModel); tasks
+    carry only (candidate-index, memo-delta-since-fork) down and
+    (index, result-sans-layers, memo-delta) back. Returns None when fork
+    is unavailable or pool creation fails."""
+    global _FORK_CTX
+    import multiprocessing as mp
+    import warnings
+
+    if "fork" not in mp.get_all_start_methods():
+        return None
+    _FORK_CTX = dict(items=items, memo=memo, machine=machine, config=config,
+                     beam_width=beam_width, input_tensors=list(input_tensors),
+                     budget=budget)
+    try:
+        with warnings.catch_warnings():
+            # the children run only the pure-Python cost model, never
+            # CUDA or a torch kernel; a worker deadlock is bounded by the
+            # per-wave get() timeout (then: serial)
+            warnings.simplefilter("ignore", RuntimeWarning)
+            warnings.simplefilter("ignore", DeprecationWarning)
+            return mp.get_context("fork").Pool(workers, initializer=_worker_init)
+    except Exception:
+        return None
+    finally:
+        # children captured the context at fork; the parent drops it so a
+        # failed/finished search never pins model graphs alive
+        _FORK_CTX = None
+
+
+def full_search(
+    layers: List[Layer],
+    input_tensors: Sequence[Tensor],
+    machine: MachineModel,
+    config: Optional[FFConfig] = None,
+    beam_width: int = 64,
+    mesh_shapes: Optional[List[Dict[str, int]]] = None,
+    max_pipe: Optional[int] = None,
+    protected: Optional[frozenset] = None,
+    num_workers: Optional[int] = None,
+    prune: Optional[bool] = None,
+) -> GraphSearchResult:
+    """Outer loop over mesh shapes × inner DP (reference: the top-level
+    try_one_lambda / machine-mapping enumeration in graph_optimize_task).
+
+    ``max_pipe`` bounds pipe-prefixed candidates; the caller passes the
+    POST-fusion op count so a fused graph is never promised more stages
+    than compile() can split.
+
+    Structural graph substitutions (search/graph_xfer.py) enter here: every
+    bounded graph variant runs the same mesh × DP enumeration, so a
+    rewritten graph wins exactly when its simulated step time is lower —
+    the reference's best-first search over GraphXfer-derived graphs
+    (substitution.cc:1898) collapsed onto the variant loop.
+
+    The (variant × mesh-shape) candidates are independent work items:
+
+    * ``num_workers`` > 1 (default: ``config.search_num_workers``, auto =
+      ``min(os.cpu_count(), candidates)``) evaluates them on a forked
+      process pool in waves; each worker runs its own :class:`OpCostModel`
+      seeded with the parent's memo and ships its memo delta back, so
+      later waves reuse earlier waves' per-op costs. Selection folds
+      results in CANDIDATE-INDEX order with strict ``<`` comparisons —
+      bit-identical to the serial path by construction, never dependent
+      on completion order.
+    * ``prune`` (default: ``config.search_prune``) evaluates the pure-DP
+      baseline first and skips the inner DP for any candidate whose
+      optimistic lower bound (:func:`_shape_lower_bound` — compute only,
+      zero comm) already exceeds the incumbent × adoption margin. The
+      margin slack makes pruning provably selection-neutral (see the
+      bound's docstring); pruned counts are reported on the result so
+      coverage is never silently truncated.
+    """
+    from ..ffconst import OpType
+    from .graph_xfer import graph_variants
+
+    global _PARALLEL_BROKEN
+    n = machine.num_devices()
+    sample_parallel = config is None or config.enable_sample_parallel
+    budget = _memory_budget(config, machine)
+    overlap = config is None or config.search_overlap_backward_update
+    # ONE memoized cost model across every mesh shape AND graph variant
+    # (the reference keeps a single hash_to_operator_cost across the whole
+    # optimize, simulator.h:750) — the memo key includes the full sharding
+    # signature, and shared subgraphs between variants hit the same entries.
+    # Pool workers seed their own model from this memo and their deltas are
+    # merged back between waves.
+    cost_model = OpCostModel(machine)
+    zero = config is not None and config.zero_optimizer
+    xrewrites = getattr(config, "_graphxfer_rewrites", None) if config else None
+    fusion = config is not None and config.perform_fusion
+    n_orig_eff = _effective_layer_count(layers, fusion, protected)
+
+    # ---- candidate enumeration: identical order to the historical nested
+    # variant x mesh loop (selection ties break toward the LOWER index)
+    items: List[dict] = []
+    profiles: List[Optional[List[Tuple[float, float, bool]]]] = []
+    for rewrites, vlayers in graph_variants(layers, config,
+                                            rewrites=xrewrites,
+                                            protected=protected):
+        n_var_eff = (n_orig_eff if vlayers is layers
+                     else _effective_layer_count(vlayers, fusion, protected))
+        if mesh_shapes is None:
+            has_moe = any(
+                l.op_type in (OpType.GROUP_BY, OpType.GROUP_BY_STACKED)
+                for l in vlayers)
+            has_attn = any(l.op_type is OpType.MULTIHEAD_ATTENTION
+                           for l in vlayers)
+            # a shrunk variant must never be promised more pipe stages
+            # than compile() can split (it would silently un-pipe); with
+            # fusion on, compile splits the POST-fusion op list, so bound
+            # by that count
+            if max_pipe is None:
+                # pipe candidates need >=2 layers per stage to be meaningful
+                vmax_pipe = max(1, n_var_eff // 2)
+            else:
+                vmax_pipe = min(max_pipe, max(1, n_var_eff // 2))
+            vmesh_shapes = enumerate_mesh_shapes(n, has_moe, has_attn,
+                                                 min(n, vmax_pipe))
+        else:
+            vmesh_shapes = mesh_shapes
+        vprofile_idx = len(profiles)
+        profiles.append(None)  # computed lazily, only if pruning wants it
+        for shape in vmesh_shapes:
+            pipe = shape.get("pipe", 1)
+            # caller-pinned shapes skip the auto-enumeration's pipe bound:
+            # apply the same guard here (a shrunk variant that cannot fill
+            # the pipe stages would silently un-pipe in compile() while
+            # est_step_time assumed the pipeline), UNLESS the original
+            # graph cannot pipe either — then compile's plain-compile
+            # fallback is the intended behavior
+            if (mesh_shapes is not None and pipe > 1 and n_var_eff < pipe
+                    and n_orig_eff >= pipe):
+                continue
+            items.append(dict(rewrites=rewrites, vlayers=vlayers, shape=shape,
+                              profile_idx=vprofile_idx))
+
+    do_prune = prune if prune is not None else (
+        config is None or getattr(config, "search_prune", True))
+    margin = adoption_margin(config, machine)
+    incumbent: Optional[float] = None
+    pruned_count = 0
+    memory_search = config is not None and config.perform_memory_search
+    if do_prune and mesh_shapes is None and not memory_search:
+        # pure-DP baseline first (cheap: ONE candidate per layer) — it
+        # seeds the memo and prices the incumbent the per-shape lower
+        # bounds prune against. Only sound when the {data: n} mesh is
+        # genuinely in the candidate set (auto enumeration always includes
+        # it; a caller-pinned mesh list may not) and no memory budget can
+        # reject candidates this baseline never checked — otherwise the
+        # incumbent starts at None and builds from folded results, which
+        # are real candidates by definition.
+        try:
+            sim0 = Simulator(machine, cost_model, overlap_grad_sync=overlap,
+                             optimizer_state_mult=(2.0 / n if zero else 2.0))
+            base_ps = data_parallel_input_pshapes(
+                input_tensors, {"data": n}, sample_parallel)
+            r0 = graph_optimize(layers, base_ps, {"data": n}, sim0, config,
+                                beam_width,
+                                memory_cap=machine.chip.hbm_capacity,
+                                dp_only=True)
+            incumbent = r0.est_step_time
+        except RuntimeError:
+            incumbent = None
+    prof_cache_done = [False] * len(profiles)
+
+    best: Optional[GraphSearchResult] = None
+    dp_best: Optional[GraphSearchResult] = None  # pure-DP baseline price
+
+    def fold(idx: int, r: Optional[GraphSearchResult]) -> None:
+        """Selection, in candidate-index order — the historical loop body."""
+        nonlocal best, dp_best, incumbent
+        if r is None:
+            return
+        item = items[idx]
+        if item["rewrites"]:
+            r.rewrites = list(item["rewrites"])
+            r.layers = item["vlayers"]
+        if not _is_sharded_result(r) and (
+                dp_best is None
+                or r.est_step_time < dp_best.est_step_time):
+            dp_best = r
+        if best is None or r.est_step_time < best.est_step_time:
+            best = r
+        if incumbent is None or r.est_step_time < incumbent:
+            incumbent = r.est_step_time
+
+    def should_prune(item: dict) -> bool:
+        if not do_prune or incumbent is None:
+            return False
+        pi = item["profile_idx"]
+        if not prof_cache_done[pi]:
+            profiles[pi] = _variant_profile(item["vlayers"])
+            prof_cache_done[pi] = True
+        b = _shape_lower_bound(profiles[pi], item["shape"], machine,
+                               config.batch_size if config else None)
+        # the margin slack keeps pruning selection-neutral: a skipped
+        # candidate's true cost exceeds incumbent*margin, so it can be
+        # neither the winner nor the DP baseline an adoption-margin
+        # demotion would ship
+        return b is not None and b > incumbent * margin
+
+    workers = (max(1, int(num_workers)) if num_workers
+               else _resolve_workers(config, len(items)))
+    if _PARALLEL_BROKEN:
+        workers = 1
+    import multiprocessing as mp
+
+    pool = None
+    # memo keys already delivered to the pool (at fork or in an earlier
+    # wave's delta): each entry ships at most once per pool
+    sent_keys: set = set()
+    workers_used = 1  # what the evaluation actually ran with (observability)
+    if workers > 1 and len(items) > 1:
+        sent_keys = set(cost_model._cache)
+        pool = _make_pool(items, cost_model.export_memo(), machine, config,
+                          beam_width, input_tensors, budget, workers)
+        if pool is None:
+            _PARALLEL_BROKEN = True
+            workers = 1
+        else:
+            workers_used = workers
+
+    def eval_serial(j: int) -> None:
+        fold(j, _evaluate_candidate(
+            items[j]["vlayers"], items[j]["shape"], input_tensors,
+            machine, config, beam_width, cost_model, budget))
+
+    try:
+        i = 0
+        while i < len(items):
+            if pool is not None:
+                # one WAVE of candidates per pool round-trip: results fold
+                # in index order between waves, so pruning sees a fresh
+                # incumbent and every wave reuses all earlier per-op costs
+                wave: List[int] = []
+                while i < len(items) and len(wave) < workers:
+                    if should_prune(items[i]):
+                        pruned_count += 1
+                    else:
+                        wave.append(i)
+                    i += 1
+                if not wave:
+                    continue
+                # incremental delta: only entries not yet shipped to the
+                # pool (each worker's persistent model accumulates them)
+                delta = cost_model.memo_delta(sent_keys)
+                try:
+                    out = pool.map_async(
+                        _pool_eval, [(j, delta) for j in wave]
+                    ).get(timeout=60.0 + 30.0 * len(wave))
+                except Exception as e:
+                    # pool failed: finish serially — correctness never
+                    # depends on the pool. A TIMEOUT may just be a wave
+                    # slower than the (wave-scaled) allowance, so it
+                    # disables the pool for THIS search only; structural
+                    # failures (crash, unpicklable result) poison the
+                    # process-wide flag so later searches skip the pool
+                    pool.terminate()
+                    pool.join()
+                    pool = None
+                    workers_used = 1
+                    if not isinstance(e, mp.TimeoutError):
+                        _PARALLEL_BROKEN = True
+                    if config is not None and getattr(config, "profiling",
+                                                      False):
+                        print("[search] worker pool failed "
+                              f"({type(e).__name__}); continuing serial",
+                              flush=True)
+                    for j in wave:
+                        eval_serial(j)
+                else:
+                    sent_keys.update(delta)
+                    for j, r, d in sorted(out, key=lambda t: t[0]):
+                        cost_model.merge_memo(d)
+                        fold(j, r)
+            else:
+                if should_prune(items[i]):
+                    pruned_count += 1
+                else:
+                    eval_serial(i)
+                i += 1
+    finally:
+        if pool is not None:
+            pool.terminate()
+            pool.join()
+    if best is None:
+        raise RuntimeError("no feasible mesh/strategy found")
+    # adoption margin: a non-DP winner must beat the DP baseline by more
+    # than the cost model's error bar, else ship the baseline (reference
+    # counterpart: rankings grounded in measured kernel costs,
+    # model.cu:17-53 — here the analytic model's misprediction must not
+    # make a workload slower than plain data parallelism)
+    if (dp_best is not None and _is_sharded_result(best)
+            and best.est_step_time * adoption_margin(config, machine)
+            > dp_best.est_step_time):
+        best = dp_best
+    best.candidates = len(items)
+    best.pruned = pruned_count
+    best.workers = workers_used
+    return best
+
+
+def _effective_layer_count(layers: List[Layer], fusion: bool,
+                           protected: Optional[frozenset] = None) -> int:
+    """Op count compile() will actually split into stages: post-fusion
+    when --fusion is on."""
+    if not fusion:
+        return len(layers)
+    from ..ops.fused import apply_fusion
+
+    return len(apply_fusion(list(layers), set(protected or ())))
+
+
+def _pipe_adjusted(
+    r: GraphSearchResult, layers: List[Layer], pipe: int,
+    machine: MachineModel, batch_size: Optional[int] = None,
+    fused: bool = False, config: Optional[FFConfig] = None,
+) -> GraphSearchResult:
+    """Pipeline schedule cost model for a pipe-prefixed mesh.
+
+    The inner DP estimated one step of the WHOLE model on the per-stage
+    submesh (the non-pipe axes). Pipelining splits that work over ``pipe``
+    stages fed with M microbatches under a SCHEDULE
+    (``config.pipeline_schedule``): each candidate schedule's tick table
+    is priced by :func:`~..sim.simulator.pipeline_schedule_cost` (bubble
+    + boundary link traffic + per-dispatch overhead, engine-aware — the
+    single-dispatch compiled engine pays ONE dispatch where the
+    host-driven engine pays O(stages × microbatches)), and ``"auto"``
+    keeps the cheapest (ties resolve to the smaller activation
+    footprint, i.e. 1F1B over GPipe). The chosen schedule rides on the
+    result (``pipe_schedule``/``pipe_interleave``) so compile() — and
+    the strategy cache — execute exactly what was priced. Per-device
+    memory drops to ~1/P of the whole-model footprint (each stage holds
+    only its layers). No reference equivalent — PP is reserved but
+    unimplemented upstream (model.h:190-192).
+    """
+    from ..sim.simulator import (compiled_envelope_ok,
+                                 pipeline_schedule_candidates,
+                                 rank_pipeline_schedules)
+
+    M = pipe_microbatches(batch_size)
+    data_degree = max(1, r.mesh_shape.get("data", 1))
+    # boundary traffic from the ACTUAL stage-cut tensors: run the same
+    # FLOP-balanced contiguous splitter compile()'s pipeline uses
+    # (parallel/pipeline.py split_stages), then charge every tensor that
+    # crosses a chunk boundary — forward activation + backward cotangent
+    # per step. Boundary tensors stay batch-sharded over the inner data
+    # axis, so each device moves only its shard.
+    n_ops = len(layers)
+
+    def cut_fn(chunk_count: int) -> float:
+        if chunk_count > n_ops:
+            return float("inf")  # unsplittable at this granularity
+        return _stage_cut_bytes(layers, chunk_count, fused=fused)
+
+    cands = pipeline_schedule_candidates(
+        getattr(config, "pipeline_schedule", "auto") or "auto",
+        getattr(config, "pipeline_interleave", 2), pipe, n_ops)
+    # the single-dispatch engine covers the pipe and pipe×data mesh
+    # families; a batch-coupled graph (BatchNorm / MoE gating /
+    # Dropout) under a data submesh stays host-driven, so price it
+    # that way. pipeline_compiled owns the verdict; layers satisfy its
+    # op_type interface, so the search can never drift from the engine.
+    from ..parallel.pipeline_compiled import dp_unsupported_reason
+
+    dp_deg = max(1, r.mesh_shape.get("data", 1))
+    compiled_ok = (
+        compiled_envelope_ok({"pipe": pipe, **r.mesh_shape})
+        and dp_unsupported_reason(layers, dp_deg) is None)
+    best_kind, best_v, records = rank_pipeline_schedules(
+        cands, pipe, M, r.est_step_time, machine, cut_bytes_fn=cut_fn,
+        data_degree=data_degree, compiled_ok=compiled_ok,
+        bwd_ratio=OpCostModel.BWD_FACTOR)
+    best_engine = "compiled" if compiled_ok else "host"
+    if records:
+        rec = next(x for x in records if x["schedule"] == best_kind
+                   and x["interleave"] == best_v)
+        est = rec["est_step_time"]
+        best_engine = rec.get("engine", best_engine)
+    else:  # no candidate legal (e.g. M too small) — fall back to gpipe
+        best_kind, best_v = "gpipe", 1
+        best_engine = "host"
+        bubble = ((M + pipe - 1) / (M * pipe)
+                  if machine.effective_parallelism(pipe) > 1.0 else 1.0)
+        est = (r.est_step_time * bubble
+               + 2.0 * cut_fn(pipe) / max(1, data_degree)
+               / machine.chip.ici_link_bandwidth
+               + 2.0 * M * pipe * machine.chip.step_overhead)
+    res = GraphSearchResult(
+        r.strategies,
+        {"pipe": pipe, **r.mesh_shape},
+        est,
+        int(r.est_memory / pipe),
+        r.states_explored,
+        r.mem_lambda,
+    )
+    res.rewrites, res.layers = r.rewrites, r.layers
+    res.pipe_schedule, res.pipe_interleave = best_kind, best_v
+    res.pipe_engine = best_engine
+    res.pipe_schedule_records = records
+    return res
+
+
+def _stage_cut_bytes(layers: List[Layer], pipe: int,
+                     fused: bool = False) -> float:
+    """Total bytes crossing stage boundaries for ONE traversal direction,
+    using the exact stage assignment compile() will choose: the same
+    ``split_stages`` over the same ``Op.flops()`` (on the post-fusion op
+    list when --fusion is on, which is what compile splits). Falls back to
+    the historical mean-output heuristic if the graph cannot be
+    materialized (fewer layers than stages, an op that rejects unsharded
+    propagation — full_search filters those meshes, but a caller-pinned
+    mesh may not)."""
+    from ..parallel.pipeline import split_stages
+
+    if fused:
+        from ..ops.fused import apply_fusion
+
+        layers = apply_fusion(list(layers), set())
+    try:
+        ops = []
+        pshapes: Dict[int, ParallelTensorShape] = {}
+        for layer in layers:
+            in_shapes = []
+            for t in layer.inputs:
+                if t.tensor_id not in pshapes:
+                    pshapes[t.tensor_id] = ParallelTensorShape(
+                        tuple(ParallelDim(s) for s in t.dims), t.dtype)
+                in_shapes.append(pshapes[t.tensor_id])
+            op = create_op(layer, in_shapes)
+            outs, _ = op.propagate(in_shapes, {"_axis_sizes": {}})
+            op.output_shapes = outs
+            for t, ps in zip(layer.outputs, outs):
+                pshapes[t.tensor_id] = ps
+            ops.append(op)
+        stages = split_stages(ops, pipe)
+    except Exception:
+        out_bytes = [4.0 * _numel(t.dims)
+                     for layer in layers for t in layer.outputs]
+        mean = sum(out_bytes) / max(1, len(out_bytes))
+        return (pipe - 1) * mean
+    stage_of: Dict[int, int] = {}
+    i = 0
+    for si, st in enumerate(stages):
+        for _ in st:
+            stage_of[i] = si
+            i += 1
+    produced: Dict[int, int] = {}
+    for li, layer in enumerate(layers):
+        for t in layer.outputs:
+            produced[t.tensor_id] = li
+    total = 0.0
+    counted = set()
+    for li, layer in enumerate(layers):
+        for t in layer.inputs:
+            pi = produced.get(t.tensor_id)
+            if pi is None or t.tensor_id in counted:
+                continue
+            if stage_of[pi] != stage_of[li]:
+                total += 4.0 * _numel(t.dims)
+                counted.add(t.tensor_id)
+    return total
+
+
+def _numel(dims) -> float:
+    n = 1.0
+    for d in dims:
+        n *= d
+    return n
+
+
+def _memory_budget(config: Optional[FFConfig], machine: MachineModel) -> float:
+    """The memory-search budget: --memory-threshold when given, else the
+    machine's HBM capacity (reference: the device-memory threshold of
+    graph_optimize_with_memory)."""
+    if config is not None and getattr(config, "memory_threshold_mb", None):
+        return config.memory_threshold_mb * (1 << 20)
+    return machine.chip.hbm_capacity

@@ -8,7 +8,8 @@ against each other bit for bit (as ``tests/test_pipe_zoo.py`` holds the
 JAX package's). Then the MoE graph pipelined (int32 routing tensors
 crossing the cut), ``forward_only``, ``grad_accum_steps`` folded into the
 microbatches, the single-call engine's fallback for a batch-coupled graph
-under a data submesh, and ``schedule="auto"`` raising naming A8.
+under a data submesh, and ``schedule="auto"`` resolved by the simulator
+to the schedule the JAX package picks.
 
 Tolerances (f32), as ``test_torch_parallel_training.py``: 1e-5 of the
 largest |value|, and for params 2^-4 of each tensor's largest update."""
@@ -273,9 +274,23 @@ def test_grad_accum_folds_into_microbatches():
         _bitwise(r, got[0])
 
 
+def _auto_rank(rank, world, mesh_shape, config):
+    """Rank body: the Transformer compiled over ``mesh_shape`` with
+    ``schedule="auto"``; the schedule, interleave and engine it resolved."""
+    ff = FFModel(FFConfig(batch_size=BATCH, device="cpu", mesh_shape=mesh_shape, **config))
+    workers.build(ff, "transformer", BATCH, SHAPE)
+    ff.compile(loss_type=LossType.MEAN_SQUARED_ERROR_AVG_REDUCE,
+               pipeline=PipelineConfig(num_stages=2, schedule="auto"))
+    pm = ff.pipelined
+    return (pm.cfg.schedule, pm.cfg.interleave, pm.engine_name,
+            [r["schedule"] for r in ff._pipe_schedule_records])
+
+
 def test_compiled_envelope_and_auto_schedule():
     """The single-call engine's envelope reasons equal the JAX package's;
-    ``schedule="auto"`` raises naming A8 and the schedules to pin."""
+    ``schedule="auto"`` compiles with the schedule the JAX package picks
+    on {pipe: 2} and {pipe: 2, data: 2} (both price on the cpu-host
+    machine over the same device count)."""
     class _Mesh:
         def __init__(self, shape):
             self.shape = shape
@@ -288,11 +303,19 @@ def test_compiled_envelope_and_auto_schedule():
             jm = jmake_mesh(shape, jax.devices()[:n])
             assert compiled_engine_unsupported(_Mesh(shape), cfg, batch_size=6) == \
                 jcompiled_engine_unsupported(jm, jcfg, batch_size=6)
-    ff = FFModel(FFConfig(batch_size=BATCH, device="cpu"))
-    workers.build(ff, "transformer", BATCH, SHAPE)
-    with pytest.raises(NotImplementedError, match="A8.*gpipe.*1f1b.*interleaved"):
-        ff.compile(loss_type=LossType.MEAN_SQUARED_ERROR_AVG_REDUCE,
-                   pipeline=PipelineConfig(num_stages=2, schedule="auto"))
+    for mesh_shape in ({"pipe": 2}, {"pipe": 2, "data": 2}):
+        n = int(np.prod(list(mesh_shape.values())))
+        got = spawn(_auto_rank, n, mesh_shape, {})
+        jff = JFFModel(JFFConfig(batch_size=BATCH, ledger="off", audit_programs="off",
+                                 attribution="off"))
+        _jbuild(jff, "transformer")
+        jff.compile(loss_type=JLossType.MEAN_SQUARED_ERROR_AVG_REDUCE,
+                    mesh=jmake_mesh(mesh_shape, jax.devices()[:n]),
+                    pipeline=JPipelineConfig(num_stages=2, schedule="auto"))
+        jcfg = jff.pipelined.cfg
+        assert all(g == got[0] for g in got)
+        assert got[0][:2] == (jcfg.schedule, jcfg.interleave), (got[0], jcfg)
+        assert got[0][3] == [r["schedule"] for r in jff._pipe_schedule_records]
     assert FFConfig().pipeline_schedule == "auto" and FFConfig().pipeline_interleave == 2
     cfg = FFConfig.parse_args(["--pipeline-schedule", "1f1b", "--pipeline-interleave", "3",
                                "--pipeline-remat"])

@@ -48,7 +48,13 @@ REQUIRED = ("flexflow_tpu_torch.obs", "flexflow_tpu_torch.obs.metrics",
             "flexflow_tpu_torch.parallel.schedule", "flexflow_tpu_torch.parallel.pipeline",
             "flexflow_tpu_torch.parallel.pipeline_compiled",
             "flexflow_tpu_torch.parallel.multihost", "flexflow_tpu_torch.parallel.launch",
-            "flexflow_tpu_torch.serving.group")
+            "flexflow_tpu_torch.serving.group", "flexflow_tpu_torch.sim",
+            "flexflow_tpu_torch.sim.machine_model", "flexflow_tpu_torch.sim.network",
+            "flexflow_tpu_torch.sim.cost_model", "flexflow_tpu_torch.sim.simulator",
+            "flexflow_tpu_torch.sim.calibrate", "flexflow_tpu_torch.search",
+            "flexflow_tpu_torch.search.substitution", "flexflow_tpu_torch.search.unity",
+            "flexflow_tpu_torch.search.graph_xfer", "flexflow_tpu_torch.search.mcmc",
+            "flexflow_tpu_torch.search.cache")
 
 
 def test_rules_cover_the_required_modules():
