@@ -207,14 +207,37 @@ Phases, each of which fails the run (non-zero exit, no result line):
    {pipe: 2} with schedule="auto", each held to (14)'s one-rank f32 run
    with K1-K3 launches on every rank; the native simulator built from
    the checkout and its replay used;
-18. the kernels line, one JSON object;
-19. the last line: {"ok": true, "device": {...}}.
+18. observability and the GraphXfer rule schema (A10, A8b): (n)
+   TransformerConfig() at batch 8, float32 and bfloat16, two epochs of 4
+   steps with the tracer, divergence, executable telemetry, the cost
+   corpus, the watchdog and the obs server on: the compile and fit ledger
+   records with the card's fingerprint, the attribution phases summing to
+   the measured step within 2 % (each phase's share printed), one grad
+   step's flops and peak bytes reconciled with the simulator (the OBS002
+   verdict), a corpus row for every op forward and backward (a counted
+   pass launching K1-K3), /metrics, /healthz, /runs, /attribution and
+   /advice fetched over localhost; (o) the bf16 run's top applicable
+   suggestion applied in two adjacent (baseline, candidate) pairs of fits,
+   judge_experiment's verdict; (p) GPT at GPTConfig() through
+   register_generator, 32 requests: the serving attribution and advice
+   published, one serving ledger record, each answer held to one full
+   causal forward (K1); (q) the train.stall site past a watchdog armed at
+   2 s (the black box: thread stacks, the tracer's tail), then (g)'s job
+   as a supervised 2-rank cohort with cohort_obs, rank 1 hung: its dumps,
+   the merged ledger (each run id once), the cohort report; (r) a rule
+   file in the reference's schema (a Linear+ReLU fusion, a parallel-Linear
+   merge) through the search: a json: rewrite wins on an MLP, which trains
+   3 steps within 1e-4 of the unrewritten graph; the 2-layer Transformer's
+   attention left whole;
+19. the kernels line, one JSON object;
+20. the last line: {"ok": true, "device": {...}}.
 
 Imports torch, numpy and flexflow_tpu_torch only.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import os
@@ -5247,6 +5270,583 @@ def phase_search(card: str, par: dict) -> dict:
     return out
 
 
+OBS_DIR = pathlib.Path(".ffcache") / "smoke_obs"
+OBS_SAMPLES = 32  # (n)'s epoch: 4 steps of batch 8
+OBS_EPOCHS = 2
+# (o): adjacent baseline/candidate fit pairs the verdict is the median of
+OBS_PAIRS = 2
+# (p): GPT requests through register_generator
+OBS_REQUESTS = 32
+OBS_PROMPT, OBS_NEW = (16, 256), (16, 64)
+# (q): the stall the train.stall site injects past the armed watchdog's
+# threshold, and the cohort's hang threshold and watchdog threshold
+OBS_STALL_S, OBS_WATCHDOG_S = 4.0, 2.0
+# the cohort runs 3 epochs of 2 steps; rank 1 stalls at step 4, the second
+# of its epoch, where the loop's watched section is open (it opens at an
+# epoch's second step)
+OBS_HANG_S, OBS_COHORT_WATCHDOG_S, OBS_HANG_STEP, OBS_COHORT_EPOCHS = 8.0, 3.0, 4, 3
+OBS_COHORT_JOB = "chip_smoke:launch_job"  # (g)'s Transformer at PAR_LAYERS layers
+# (r): the rewritten graph trains OBS_RULE_STEPS steps within this share
+# of each param's largest |value| of the unrewritten one (f32, summed in
+# another order where the merged GEMM replaces two)
+OBS_RULE_STEPS, OBS_RULE_TOL = 3, 1e-4
+OBS_ATTR_TOL = 0.02  # the attribution table's reconciliation (JAX's DEFAULT_TOLERANCE)
+
+
+def obs_rules() -> dict:
+    """The rule file of (r), in the reference's schema
+    (substitution_loader.h:168): a Linear+ReLU fusion and a merge of two
+    parallel Linears on one input into a feature concat."""
+    def op(kind, inputs, **para):
+        return {"type": kind, "input": [{"opId": o, "tsId": t} for o, t in inputs],
+                "para": [{"key": k, "value": v} for k, v in para.items()]}
+
+    return {"rule": [
+        {"name": "linear_relu_fusion",
+         "srcOp": [op("OP_LINEAR", [(-1, 0), (-4, 0)], PM_ACTI=0), op("OP_RELU", [(0, 0)])],
+         "dstOp": [op("OP_LINEAR", [(-1, 0), (-4, 0)], PM_ACTI=2)],
+         "mappedOutput": [{"srcOpId": 1, "srcTsId": 0, "dstOpId": 0, "dstTsId": 0}]},
+        {"name": "parallel_linear_merge",
+         "srcOp": [op("OP_LINEAR", [(-1, 0), (-2, 0)], PM_ACTI=0),
+                   op("OP_LINEAR", [(-1, 0), (-3, 0)], PM_ACTI=0),
+                   op("OP_CONCAT", [(0, 0), (1, 0)], PM_AXIS=2, PM_NUMDIM=3)],
+         "dstOp": [op("OP_CONCAT", [(-2, 0), (-3, 0)], PM_AXIS=1, PM_NUMDIM=2),
+                   op("OP_LINEAR", [(-1, 0), (0, 0)], PM_ACTI=0)],
+         "mappedOutput": [{"srcOpId": 2, "srcTsId": 0, "dstOpId": 1, "dstTsId": 0}]}]}
+
+
+def obs_get(port: int, path: str):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=30) as r:
+        return r.status, r.read()
+
+
+def obs_transformer(compute_dtype: str, layers: int = 0, **cfg):
+    from flexflow_tpu_torch import FFConfig, FFModel, LossType, SGDOptimizer
+    from flexflow_tpu_torch.models.transformer import TransformerConfig, build_transformer
+
+    tc = TransformerConfig()
+    if layers:
+        tc = TransformerConfig(num_layers=layers)
+    ff = FFModel(FFConfig(batch_size=BATCH, compute_dtype=compute_dtype, seed=SEED,
+                          device=DEVICE, ledger_dir=str(OBS_DIR / "ledger"), **cfg))
+    build_transformer(ff, BATCH, tc)
+    ff.compile(SGDOptimizer(lr=0.01), LossType.MEAN_SQUARED_ERROR_AVG_REDUCE)
+    return ff, tc
+
+
+def obs_data(tc, n: int = OBS_SAMPLES):
+    rng = np.random.default_rng(SEED + 19)
+    x = rng.standard_normal((n, tc.sequence_length, tc.hidden_size), dtype=np.float32)
+    y = rng.standard_normal((n, tc.sequence_length, 1), dtype=np.float32)
+    return x, y
+
+
+def obs_fit(compute_dtype: str, card: str) -> dict:
+    """(n): TransformerConfig() at batch 8, OBS_EPOCHS epochs with every
+    observability knob on; the records, the phase table, the telemetry,
+    the corpus, the server and the launches checked."""
+    from flexflow_tpu_torch import kernels
+    from flexflow_tpu_torch.obs import costcorpus, ledger
+    from flexflow_tpu_torch.obs.attribution import PHASES, format_phase_table
+    from flexflow_tpu_torch.obs.server import obs_server
+    from flexflow_tpu_torch.obs.trace import configure_tracer, tracer
+
+    what = f"obs (n) {compute_dtype}"
+    ff, tc = obs_transformer(compute_dtype, trace="on", divergence="on", exec_telemetry="on",
+                             cost_corpus="on",
+                             # a corpus a dtype: a row's features are the ops' f32
+                             # shapes, so the two dtypes' rows share their keys
+                             cost_corpus_dir=str(OBS_DIR / f"corpus_{compute_dtype}"),
+                             watchdog="on", obs_server_port=0,
+                             watchdog_dir=str(OBS_DIR / "blackbox"))
+    x, y = obs_data(tc)
+    tracer().clear()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    ff.fit(x, y, epochs=OBS_EPOCHS, shuffle=False, verbose=False)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    configure_tracer(enabled=False)
+    for k in FLASH_NAMES:
+        check(launches[k] > 0, f"{what}: {k} never launched: {launches}")
+    fp = ff.fit_profile
+    n_ops = len(ff.compiled.ops)
+    # the ledger: this compile's and this fit's records, the card's fingerprint
+    runs = ledger.load_runs(str(OBS_DIR / "ledger"))
+    comp = [r for r in runs if r["kind"] == "compile"][-1]
+    fit = [r for r in runs if r["kind"] == "fit"][-1]
+    m = fit["machine"]
+    check(m["backend"] == "cuda" and "H100" in m.get("device_name", "")
+          and m.get("capability") == "9.0" and m.get("power_limit")
+          and m.get("torch") == torch.__version__,
+          f"{what}: the fit record's fingerprint {m}")
+    check(comp["model_sig"] == fit["model_sig"] and comp["n_ops"] == n_ops
+          and comp["knobs"]["compute_dtype"] == compute_dtype,
+          f"{what}: compile record {comp.get('model_sig')} {comp.get('n_ops')}")
+    # attribution: the phases sum to the measured step
+    att = fp["attribution"]
+    rc = att["reconciliation"]
+    check(rc["reconciles"] and rc["error"] <= OBS_ATTR_TOL and fit["attribution"] == att,
+          f"{what}: attribution does not reconcile: {rc}")
+    shares = {p: att["phases"][p]["fraction"] for p in PHASES}
+    bases = {p: att["phases"][p]["basis"] for p in PHASES}
+    check(bases["host_dispatch"] == "measured", f"{what}: host dispatch {bases}")
+    # executable telemetry: flops, the peak and the OBS002 verdict
+    tel = ff.exec_telemetry
+    prog = tel["programs"]["grad_step"]
+    rec_rows = tel.get("reconciliation") or []
+    check(prog.get("flops", 0) > 0 and (prog.get("peak_bytes") or 0) > 0 and len(rec_rows) == 1
+          and "static_peak_bytes" in rec_rows[0],
+          f"{what}: exec telemetry {tel}")
+    obs002 = "finding" in rec_rows[0]
+    # the corpus: a row for every op, forward and backward
+    # the corpus: a row for every op, forward and backward (ops of the same
+    # features, the layers' twins, share one key)
+    corpus = fp["cost_corpus"]
+    check(corpus["appended"] + corpus["duplicates"] == n_ops and corpus["appended"] > 0,
+          f"{what}: corpus {corpus} for {n_ops} ops")
+    # one more pass, counted: its attention rows run the flash kernels
+    kernels.reset_launch_counts()
+    rows = costcorpus.build_rows(ff, iters=1)
+    torch.cuda.synchronize()
+    corpus_launches = kernels.launch_counts()
+    check(len(rows) == n_ops and all(r["measured"]["backward_ms"] is not None for r in rows),
+          f"{what}: corpus rows {len(rows)} for {n_ops} ops, no backward for "
+          f"{[r['name'] for r in rows if r['measured']['backward_ms'] is None]}")
+    check(all(corpus_launches[k] > 0 for k in FLASH_NAMES),
+          f"{what}: the corpus pass launched {corpus_launches}")
+    # divergence: per-op rows, forward and backward
+    div = fp["divergence"]
+    check(len(div["per_op"]) == n_ops and div["e2e_ratio"] > 0, f"{what}: divergence {div}")
+    # the server
+    port = obs_server().port
+    got = {}
+    for path in ("/metrics", "/healthz", "/runs", "/attribution", "/advice"):
+        status, body = obs_get(port, path)
+        check(status == 200, f"{what}: GET {path} -> {status}")
+        got[path] = body
+    check(b"flexflow_fit_steps" in got["/metrics"], f"{what}: /metrics lacks fit.steps")
+    health = json.loads(got["/healthz"])
+    check(health["watchdog"]["enabled"] and health["watchdog"]["dumps"] == 0,
+          f"{what}: /healthz {health}")
+    check(json.loads(got["/runs"])["runs"][-1]["run_id"] == fit["run_id"],
+          f"{what}: /runs does not end with this fit's record")
+    check(json.loads(got["/attribution"])["measured_step_s"] == att["measured_step_s"],
+          f"{what}: /attribution is not this fit's table")
+    advice = fp["advice"]
+    check(json.loads(got["/advice"])["suggestions"] == advice["suggestions"],
+          f"{what}: /advice is not this fit's report")
+    top = advice["suggestions"][0]
+    peak = prog["peak_bytes"]
+    # the host's time to dispatch one train_step with the card idle before
+    # it (median of 5): what the span's host dispatch reads when nothing
+    # holds the host back
+    cm = ff.compiled
+    xb = torch.as_tensor(x[:BATCH], device=cm.device)
+    yb = torch.as_tensor(y[:BATCH], device=cm.device)
+    idle = []
+    for i in range(5):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        cm.params, cm.opt_state, _, _ = cm.train_step(cm.params, cm.opt_state, i, xb, yb)
+        idle.append((time.perf_counter() - t1) * 1e3)
+        torch.cuda.synchronize()
+    idle_ms = float(np.median(idle))
+    row = dict(compute_dtype=compute_dtype, card=card, n_ops=n_ops, fit_s=fit_s,
+               idle_dispatch_ms=idle_ms,
+               steps=[e["steps"] for e in fp["epochs"]],
+               step_ms=att["measured_step_s"] * 1e3, phase_shares=shares, phase_basis=bases,
+               dominant=att["dominant_phase"], reconciliation_error=rc["error"],
+               predicted_ms={k: v * 1e3 for k, v in att["predicted_step_s"].items()},
+               e2e_ratio=div["e2e_ratio"], predicted_step_ms=div["predicted_step_s"] * 1e3,
+               flops=prog["flops"], peak_bytes=peak,
+               static_peak_bytes=rec_rows[0]["static_peak_bytes"],
+               obs002=obs002, peak_ratio=rec_rows[0]["ratio"],
+               corpus_appended=corpus["appended"], corpus_launches=corpus_launches,
+               top=dict(phase=top["phase"], knob=top["knob"], proposed=top["proposed"],
+                        expected_frac=top["expected"]["step_delta_frac"],
+                        basis=top["expected"]["basis"]),
+               suggestions=[s["id"] for s in advice["suggestions"]],
+               fingerprint=m, launches=launches, top_ops=[r["name"] for r in att["top_ops"]])
+    print(format_phase_table(att), flush=True)
+    print(f"{what}: TransformerConfig() batch {BATCH}, {OBS_EPOCHS} epochs of "
+          f"{OBS_SAMPLES // BATCH} steps with trace, divergence, exec telemetry, corpus, "
+          f"watchdog and server on, {fit_s:.1f} s: step {row['step_ms']:.3f} ms, phases "
+          + ", ".join(f"{p} {shares[p] * 100:.1f}% ({bases[p]})" for p in PHASES)
+          + f", reconciliation error {rc['error']:.2e} (tol {OBS_ATTR_TOL}); one train_step "
+          f"dispatched onto an idle card {idle_ms:.3f} ms of host time (median of 5); simulator "
+          f"{row['predicted_step_ms']:.3f} ms, e2e ratio {div['e2e_ratio']}; one grad step "
+          f"{prog['flops'] / 1e12:.3f} TFLOP counted, peak {peak / 2 ** 30:.2f} GiB vs static "
+          f"{rec_rows[0]['static_peak_bytes'] / 2 ** 30:.2f} GiB (ratio {rec_rows[0]['ratio']}, "
+          f"OBS002 {'fired' if obs002 else 'clean'}); corpus {corpus['appended']} rows appended "
+          f"({n_ops} ops, forward and backward; a corpus pass launched {corpus_launches}); "
+          f"top suggestion {top['phase']} -> {top['knob']}={top['proposed']} (expected "
+          f"-{top['expected']['step_delta_frac'] * 100:.1f}%, {top['expected']['basis']}); "
+          f"fingerprint {m.get('device_name')} cap {m.get('capability')} power "
+          f"{m.get('power_limit')}; launches {launches} [{card}]", flush=True)
+    return dict(row=row, ff=ff, tc=tc, x=x, y=y, top=top, attribution=att,
+                steps_per_s=fp["steps_per_s"])
+
+
+def obs_applicable(advice: dict):
+    """The first suggestion a one-card run can apply: every knob an
+    FFConfig field, no mesh or process-count change."""
+    from flexflow_tpu_torch import FFConfig
+
+    fields = {f.name for f in dataclasses.fields(FFConfig)}
+    for s in advice["suggestions"]:
+        if all(k in fields and k not in ("mesh_shape",) for k in s["knobs"]):
+            return s
+    return None
+
+
+def obs_experiment(base: dict, card: str) -> dict:
+    """(o): the bf16 (n) run's top applicable suggestion applied, OBS_PAIRS
+    adjacent (baseline, candidate) fits of OBS_EPOCHS epochs each, judged
+    by judge_experiment on the targeted phase, whatever it finds."""
+    from flexflow_tpu_torch.obs.advisor import judge_experiment
+
+    sug = obs_applicable(base["ff"].fit_profile["advice"])
+    check(sug is not None, f"obs (o): no applicable suggestion in "
+          f"{[s['id'] for s in base['ff'].fit_profile['advice']['suggestions']]}")
+    phase = sug["expected"]["phase"]
+    cand, _ = obs_transformer("bfloat16", **sug["knobs"])
+    x, y = base["x"], base["y"]
+
+    def side(ff):
+        ff.fit(x, y, epochs=OBS_EPOCHS, shuffle=False, verbose=False)
+        torch.cuda.synchronize()
+        att = ff.fit_profile["attribution"]
+        return {"phases": {phase: att["phases"][phase]["seconds"]},
+                "steps_per_s": ff.fit_profile["steps_per_s"],
+                "step_ms": att["measured_step_s"] * 1e3}
+
+    pairs = []
+    for _ in range(OBS_PAIRS):
+        b = side(base["ff"])
+        c = side(cand)
+        pairs.append({"baseline": b, "candidate": c})
+    verdict = judge_experiment(sug, pairs)
+    row = dict(card=card, suggestion=sug["id"], knobs=sug["knobs"], phase=phase,
+               predicted_frac=sug["expected"]["step_delta_frac"], verdict=verdict["verdict"],
+               phase_ratio=verdict["phase_ratio"], metric_ratio=verdict["metric_ratio"],
+               baseline_step_ms=[p["baseline"]["step_ms"] for p in pairs],
+               candidate_step_ms=[p["candidate"]["step_ms"] for p in pairs],
+               baseline_phase_ms=[p["baseline"]["phases"][phase] * 1e3 for p in pairs],
+               candidate_phase_ms=[p["candidate"]["phases"][phase] * 1e3 for p in pairs])
+    print(f"obs (o) bfloat16: {sug['id']} applied ({phase}, predicted "
+          f"-{row['predicted_frac'] * 100:.1f}%): {OBS_PAIRS} adjacent pairs of "
+          f"{OBS_EPOCHS}-epoch fits, step ms baseline {row['baseline_step_ms']} vs candidate "
+          f"{row['candidate_step_ms']}, {phase} ms {row['baseline_phase_ms']} vs "
+          f"{row['candidate_phase_ms']}: phase ratio {verdict['phase_ratio']}, steps/s ratio "
+          f"{verdict['metric_ratio']} -> {verdict['verdict']} [{card}]", flush=True)
+    del cand
+    return row
+
+
+def obs_serving(card: str) -> dict:
+    """(p): GPT at GPTConfig() through register_generator, OBS_REQUESTS
+    greedy requests: the serving attribution and advice published, one
+    serving ledger record, each answer held to one full causal forward
+    (K1's launches)."""
+    from flexflow_tpu_torch import kernels, load_numpy_params
+    from flexflow_tpu_torch.obs import ledger
+    from flexflow_tpu_torch.obs.server import latest_advice, latest_attribution
+
+    what = "obs (p) GPT serving float32"
+    ff, n_attn = gpt_model("float32", training=False)
+    load_numpy_params(ff, gpt_params(ff, SEED + 8))
+    rng = np.random.default_rng(SEED + 20)
+    lens = rng.integers(OBS_PROMPT[0], OBS_PROMPT[1] + 1, size=OBS_REQUESTS)
+    news = rng.integers(OBS_NEW[0], OBS_NEW[1] + 1, size=OBS_REQUESTS)
+    traffic = [(rng.integers(0, gpt_config().vocab_size, size=int(n), dtype=np.int32), int(k))
+               for n, k in zip(lens, news)]
+    before = len(ledger.load_runs(str(OBS_DIR / "ledger"), kind="serving"))
+    served = serve_paged(ff, traffic)
+    recs = ledger.load_runs(str(OBS_DIR / "ledger"), kind="serving")
+    check(len(recs) == before + 1 and recs[-1]["serving_engine"] == "continuous"
+          and recs[-1]["completed"] == OBS_REQUESTS and recs[-1]["model"] == "lm",
+          f"{what}: serving records {len(recs)} (before {before}): {recs[-1:]}")
+    attr = latest_attribution("serving")
+    check(attr is not None and attr["kind"] == "serving" and attr["model"] == "lm"
+          and attr["completed"] == OBS_REQUESTS,
+          f"{what}: /attribution?kind=serving {attr}")
+    adv = latest_advice()
+    check(adv is not None and adv["kind"] == "serving" and adv["suggestions"],
+          f"{what}: /advice {adv}")
+    kernels.reset_launch_counts()
+    margins = full_forward_margins(ff.compiled, traffic, served["outs"])
+    torch.cuda.synchronize()
+    fwd_launches = kernels.launch_counts()
+    check_flash_launches(fwd_launches, n_attn * len(traffic), 0, f"{what}: the full forwards")
+    tol = GEN_TOL["float32"]
+    decided_n = 0
+    for i, ((prompt, _), out) in enumerate(zip(traffic, served["outs"])):
+        argmax, margin, scale = margins[i]
+        decided = margin > tol * scale
+        check(bool((out[prompt.size:] == argmax)[decided].all()),
+              f"{what}: request {i}'s greedy tokens differ from the full forward's argmax")
+        decided_n += int(decided.sum())
+    phases = {k: v["mean"] * 1e3 for k, v in attr["phases"].items()}
+    top = adv["suggestions"][0]
+    row = dict(card=card, requests=OBS_REQUESTS, tokens_per_s=served["tokens_per_s"],
+               phases_mean_ms=phases, dominant=attr["dominant_phase"],
+               top=dict(phase=top["phase"], knob=top["knob"], proposed=top["proposed"],
+                        expected_frac=top["expected"]["step_delta_frac"]),
+               ledger_record=recs[-1]["run_id"], launches=fwd_launches,
+               greedy_checked=decided_n)
+    print(f"{what}: {OBS_REQUESTS} requests (prompts {OBS_PROMPT[0]}-{OBS_PROMPT[1]}, "
+          f"{OBS_NEW[0]}-{OBS_NEW[1]} new), {served['tokens_per_s']:.1f} tokens/s; serving "
+          f"attribution published: "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in phases.items())
+          + f" (dominant {attr['dominant_phase']}); advice {top['phase']} -> {top['knob']}="
+          f"{top['proposed']}; one serving ledger record; full forwards launched "
+          f"{fwd_launches['flash_attention_fwd']} K1, greedy tokens equal their argmax at "
+          f"{decided_n} decided positions [{card}]", flush=True)
+    return row
+
+
+def obs_stall(card: str) -> dict:
+    """(q) the train.stall site past an armed watchdog (a 2-layer
+    Transformer at full width), then a supervised 2-rank cohort with
+    cohort_obs and one hung rank: the black-box dumps, the merged ledger,
+    the cohort report."""
+    from flexflow_tpu_torch.obs.trace import configure_tracer
+    from flexflow_tpu_torch.obs.watchdog import watchdog
+    from flexflow_tpu_torch.parallel import launch
+    from flexflow_tpu_torch.obs import ledger
+
+    bb = OBS_DIR / "stall_blackbox"
+    plan = {"schema": 1, "sites": {"train.stall": {"at_step": 2, "stall_s": OBS_STALL_S}}}
+    ff, tc = obs_transformer("float32", layers=2, trace="on", watchdog="on",
+                             watchdog_threshold_s=OBS_WATCHDOG_S, watchdog_dir=str(bb),
+                             fault_plan=plan)
+    x, y = obs_data(tc, 2 * BATCH * 2)
+    ff.fit(x, y, epochs=1, shuffle=False, verbose=False)
+    torch.cuda.synchronize()
+    configure_tracer(enabled=False)
+    from flexflow_tpu_torch.runtime.faults import configure_faults
+
+    configure_faults(None)
+    watchdog().disarm()
+    boxes = sorted(p for p in bb.iterdir() if p.name.startswith("blackbox-"))
+    check(len(boxes) == 1, f"obs (q): {len(boxes)} black boxes after the stall")
+    doc = json.loads(boxes[0].read_text())
+    main_stack = next(v for k, v in doc["threads"].items() if k.startswith("MainThread"))
+    check(doc["reason"] == "stall" and doc["stalled"].get("fit.loop", 0) >= OBS_WATCHDOG_S
+          and any("sleep" in ln for ln in main_stack)
+          and any(e["name"] == "fit.step" for e in doc["trace_tail"]),
+          f"obs (q): the dump {doc['reason']} {doc['stalled']}")
+    stall_row = dict(stalled_s=doc["stalled"]["fit.loop"], threads=len(doc["threads"]),
+                     trace_tail=len(doc["trace_tail"]), dump=boxes[0].name)
+    del ff
+    free_device()
+    run_dir = OBS_DIR / "cohort"
+    hang = {"schema": 1, "seed": 0, "sites": {"multihost.slow_peer": {
+        "at_step": OBS_HANG_STEP, "stall_s": 600.0}}}
+    t0 = time.perf_counter()
+    rep = launch.supervise(nproc=2, run_dir=str(run_dir), job=OBS_COHORT_JOB,
+                           epochs=OBS_COHORT_EPOCHS, interval=LAUNCH_INTERVAL, device=DEVICE,
+                           cohort_timeout_s=600.0, fault_plan=hang, fault_rank=1,
+                           hang_threshold_s=OBS_HANG_S, max_relaunches=1,
+                           watchdog_threshold_s=OBS_COHORT_WATCHDOG_S, cohort_obs=True)
+    seconds = time.perf_counter() - t0
+    check(rep["ok"], f"obs (q) cohort: {rep.get('error')} {rep['events']}")
+    ev = rep["events"][0] if rep["events"] else {}
+    check(ev.get("outcome") == "hung" and ev.get("blackbox_dumps"),
+          f"obs (q) cohort: first event {ev.get('outcome')}, dumps {ev.get('blackbox_dumps')}")
+    # the stalled rank dumps; its peer, blocked in the step's collective,
+    # may dump too
+    dumps = {r: sorted((run_dir / f"blackbox-r{r}").glob("blackbox-*.json")) for r in (0, 1)}
+    check(bool(dumps[1]), f"obs (q) cohort: the hung rank left no black box: {dumps}")
+    hdoc = json.loads(dumps[1][0].read_text())
+    check(hdoc["reason"] == "stall" and "fit.loop" in hdoc["stalled"] and hdoc["threads"]
+          and hdoc["trace_tail"]
+          and any("sleep" in ln for v in hdoc["threads"].values() for ln in v),
+          f"obs (q) cohort: the hung rank's dump {hdoc['reason']} {hdoc['stalled']}")
+    lrep = rep["ledger"]
+    merged = ledger.scan_ledger(lrep["cohort_dir"])["runs"]
+    ids = [r["run_id"] for rr in range(2)
+           for r in ledger.scan_ledger(str(run_dir / "ledger" / f"rank-{rr}"))["runs"]]
+    fits = [r for r in merged if r["kind"] == "fit"]
+    check(lrep["merged"] == len(ids) == len(set(ids)) == len(merged) and lrep["remerged"] == 0
+          and {r["knobs"].get("process_count") for r in fits} == {2}
+          and len({ledger.cohort_key(r) for r in fits}) == 1,
+          f"obs (q) cohort: merged {lrep}, {len(ids)} rank records, {len(merged)} merged")
+    coh = rep["cohort"]
+    check(coh.get("ranks") == [0, 1] and coh.get("merged_trace_valid") and coh.get("skew")
+          and coh["attribution"]["kind"] == "cohort" and coh["ledger_annotated"] == len(fits),
+          f"obs (q) cohort report: {json.dumps(coh, default=str)[:800]}")
+    launches = {k: sum(r["kernel_launches"][k] for r in rep["results"].values())
+                for k in FLASH_NAMES}
+    skew = coh["skew"]
+    row = dict(card=card, stall=stall_row, cohort_seconds=seconds,
+               events=[e["outcome"] for e in rep["events"]],
+               dumps_by_rank={r: [p.name for p in v] for r, v in dumps.items()},
+               hung_dumps=ev["blackbox_dumps"], merged=lrep["merged"],
+               fit_records=len(fits), steady_skew_frac=skew["steady_skew_frac"],
+               straggler=skew["straggler_rank"], obs003=[f["code"] for f in coh["findings"]],
+               per_rank_mean_step_ms={r: v["mean_step_s"] * 1e3
+                                      for r, v in skew["per_rank"].items()},
+               launches=launches)
+    print(f"obs (q): train.stall {OBS_STALL_S:g} s at step 2 past the watchdog's "
+          f"{OBS_WATCHDOG_S:g} s -> {stall_row['dump']} (fit.loop silent "
+          f"{stall_row['stalled_s']:.2f} s, {stall_row['threads']} thread stacks, "
+          f"{stall_row['trace_tail']} trace events); cohort of 2 ranks (the Transformer at "
+          f"full width, {PAR_LAYERS} layers, cohort_obs on, watchdog {OBS_COHORT_WATCHDOG_S:g} "
+          f"s), rank 1 hung at step {OBS_HANG_STEP} -> {row['events']} with dumps "
+          f"{row['hung_dumps']}, relaunched; ledger merged {lrep['merged']} records (each "
+          f"run id once, a second merge adds {lrep['remerged']}), {len(fits)} fit records in "
+          f"one cohort; report: merged trace valid over lanes {coh['lanes']}, steady skew "
+          f"{skew['steady_skew_frac']}, straggler rank {skew['straggler_rank']}, findings "
+          f"{row['obs003']}, per-rank step ms "
+          f"{row['per_rank_mean_step_ms']}; {seconds:.1f} s; launches {launches} [{card}]",
+          flush=True)
+    return row
+
+
+def obs_branchy(ff, width: int):
+    """(r)'s MLP: two parallel Linears on one input into a feature concat,
+    a Linear and a ReLU, then the head."""
+    x = ff.create_tensor((BATCH * 8, width), name="x")
+    a = ff.dense(x, width, name="ba")
+    b = ff.dense(x, width, name="bb")
+    cat = ff.concat([a, b], axis=-1, name="cat")
+    h = ff.relu(ff.dense(cat, width, name="mid"), name="act")
+    return ff.dense(h, 16, name="head")
+
+
+def obs_rule_search(card: str) -> dict:
+    """(r): the rule file through the search: a json: rewrite wins on the
+    MLP, which then trains OBS_RULE_STEPS steps within OBS_RULE_TOL of the
+    unrewritten graph; the Transformer's attention is left whole."""
+    from flexflow_tpu_torch import (FFConfig, FFModel, LossType, SGDOptimizer,
+                                    load_numpy_params)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    path = OBS_DIR / "rules.json"
+    path.write_text(json.dumps(obs_rules()))
+    width = 1024
+
+    def mlp(rules: bool):
+        ff = FFModel(FFConfig(batch_size=BATCH * 8, seed=SEED, device=DEVICE,
+                              ledger_dir=str(OBS_DIR / "ledger"),
+                              search_budget=1 if rules else 0,
+                              substitution_json_path=str(path) if rules else None))
+        obs_branchy(ff, width)
+        ff.compile(SGDOptimizer(lr=0.01), LossType.SPARSE_CATEGORICAL_CROSSENTROPY)
+        return ff
+
+    base, rew = mlp(False), mlp(True)
+    rewrites = list(rew.search_result.rewrites or [])
+    check(rew._search_layers is not None and any(r.startswith("json:") for r in rewrites),
+          f"obs (r): no json: rewrite won on the MLP: {rewrites}")
+    bp = base.numpy_params()
+    rp = rew.numpy_params()
+    merged = [n for n in rp if n not in bp]
+    tree = {k: v for k, v in bp.items() if k in rp}
+    for n in merged:
+        tree[n] = {w: np.concatenate([bp["ba"][w], bp["bb"][w]], axis=-1) for w in bp["ba"]}
+    load_numpy_params(rew, tree)
+    rng = np.random.default_rng(SEED + 21)
+    n = BATCH * 8 * OBS_RULE_STEPS
+    x = rng.standard_normal((n, width), dtype=np.float32)
+    y = rng.integers(0, 16, size=(n, 1), dtype=np.int32)
+    for ff in (base, rew):
+        ff.fit(x, y, epochs=1, shuffle=False, verbose=False)
+    torch.cuda.synchronize()
+    bp, rp = base.numpy_params(), rew.numpy_params()
+    errs = {}
+    for name, ws in rp.items():
+        for w, got in ws.items():
+            want = (np.concatenate([bp["ba"][w], bp["bb"][w]], axis=-1) if name in merged
+                    else bp[name][w])
+            errs[f"{name}.{w}"] = float(np.abs(got - want).max() / np.abs(want).max())
+    worst = max(errs.values())
+    check(worst <= OBS_RULE_TOL, f"obs (r): the rewritten MLP after {OBS_RULE_STEPS} steps "
+          f"{worst:.3g} from the unrewritten one (tol {OBS_RULE_TOL}): {errs}")
+    xb = torch.as_tensor(x[:BATCH * 8], device=DEVICE)
+    with torch.no_grad():
+        lb = base.compiled.forward_fn(base.compiled.params, xb)
+        lr = rew.compiled.forward_fn(rew.compiled.params, xb)
+    logit_err = float((lr - lb).abs().max() / lb.abs().max())
+    check(logit_err <= OBS_RULE_TOL, f"obs (r): logits after training {logit_err:.3g}")
+    ops_before, ops_after = len(base.compiled.ops), len(rew.compiled.ops)
+    del base, rew
+    free_device()
+    ff, tc = obs_transformer("float32", layers=2, search_budget=1,
+                             substitution_json_path=str(path))
+    attn = [o for o in ff.compiled.ops if o.op_type.name == "MULTIHEAD_ATTENTION"]
+    check(len(attn) == tc.num_layers
+          and all(o.attrs.get("_origin_rewrite") is None for o in attn),
+          f"obs (r): the Transformer's attention ops {[o.name for o in attn]}")
+    t_rewrites = list(ff.search_result.rewrites or []) if ff.search_result else []
+    del ff
+    free_device()
+    row = dict(card=card, rewrites=rewrites, ops_before=ops_before, ops_after=ops_after,
+               param_err=worst, logit_err=logit_err, transformer_rewrites=t_rewrites,
+               attention_ops=len(attn))
+    print(f"obs (r): rule file (Linear+ReLU fusion, parallel-Linear merge) through the "
+          f"search: the MLP ({width} wide, batch {BATCH * 8}) took {rewrites}, {ops_before} -> "
+          f"{ops_after} ops, and after {OBS_RULE_STEPS} SGD steps its params are within "
+          f"{worst:.3g} and its logits {logit_err:.3g} of the unrewritten graph's (tol "
+          f"{OBS_RULE_TOL}); the 2-layer Transformer took {t_rewrites or 'no rewrite'}, its "
+          f"{len(attn)} attention ops whole [{card}]", flush=True)
+    return row
+
+
+def phase_obs(card: str) -> dict:
+    """(n) the observability layer around fit, f32 and bf16; (o) the bf16
+    run's top suggestion applied and judged; (p) serving attribution and
+    advice; (q) the stall watchdog, alone and in a supervised cohort with a
+    hung rank; (r) a GraphXfer rule file through the search."""
+    from flexflow_tpu_torch.obs.server import stop_obs_server
+
+    t0 = time.perf_counter()
+    shutil.rmtree(OBS_DIR, ignore_errors=True)
+    OBS_DIR.mkdir(parents=True)
+    saved = os.environ.get("FLEXFLOW_TPU_LEDGER_DIR")
+    os.environ["FLEXFLOW_TPU_LEDGER_DIR"] = str(OBS_DIR / "ledger")
+    try:
+        f32 = obs_fit("float32", card)
+        n32 = f32.pop("row")
+        del f32
+        free_device()
+        bf16 = obs_fit("bfloat16", card)
+        print(f"phases: obs (n) at {time.perf_counter() - t0:.1f} s", flush=True)
+        exp = obs_experiment(bf16, card)
+        n16 = bf16.pop("row")
+        del bf16
+        free_device()
+        print(f"phases: obs (o) at {time.perf_counter() - t0:.1f} s", flush=True)
+        serving = obs_serving(card)
+        free_device()
+        print(f"phases: obs (p) at {time.perf_counter() - t0:.1f} s", flush=True)
+        stall = obs_stall(card)
+        print(f"phases: obs (q) at {time.perf_counter() - t0:.1f} s", flush=True)
+        rules = obs_rule_search(card)
+    finally:
+        from flexflow_tpu_torch.obs.watchdog import watchdog
+
+        stop_obs_server()
+        watchdog().disarm()
+        if saved is None:
+            os.environ.pop("FLEXFLOW_TPU_LEDGER_DIR", None)
+        else:
+            os.environ["FLEXFLOW_TPU_LEDGER_DIR"] = saved
+    launches = {k: n32["launches"][k] + n16["launches"][k] + stall["launches"][k]
+                for k in FLASH_NAMES}
+    launches["flash_attention_fwd"] += serving["launches"]["flash_attention_fwd"]
+    out = dict(fit=[n32, n16], experiment=exp, serving=serving, stall=stall, rules=rules,
+               flash_launches=launches, seconds=time.perf_counter() - t0)
+    print("obs_json " + json.dumps(out, default=str), flush=True)
+    shutil.rmtree(OBS_DIR, ignore_errors=True)
+    return out
+
+
 def check_spans(events: list, n: int, validate) -> None:
     """Every served request has the reference's five spans on its own
     track, nested in its serving.request span."""
@@ -5361,6 +5961,9 @@ def main() -> int:
     search = phase_search(card, par_refs)
     del par_refs
     print(f"phases: search done at {time.perf_counter() - t0:.0f} s", flush=True)
+    free_device()
+    obs = phase_obs(card)
+    print(f"phases: obs done at {time.perf_counter() - t0:.0f} s", flush=True)
     train_launches = {name: sum(r["fit_launches"][name] for r in train)
                       for name in train[0]["fit_launches"]}
     # GPT's path: its fits and the full-sequence forwards of its dense and
@@ -5383,7 +5986,9 @@ def main() -> int:
                       + par["launches"]["flash_attention_fwd"]
                       + par_b["flash_launches"]["flash_attention_fwd"]
                       + par_c["flash_launches"]["flash_attention_fwd"]
-                      + search["flash_launches"]["flash_attention_fwd"],
+                      + search["flash_launches"]["flash_attention_fwd"]
+                      + obs["flash_launches"]["flash_attention_fwd"],
+                      obs_launches=obs["flash_launches"]["flash_attention_fwd"],
                       parallel_launches=par["launches"]["flash_attention_fwd"],
                       search_launches=search["flash_launches"]["flash_attention_fwd"],
                       parallel_b_launches=par_b["flash_launches"]["flash_attention_fwd"],
@@ -5415,7 +6020,9 @@ def main() -> int:
                       + par["launches"]["flash_attention_bwd_dq"]
                       + par_b["flash_launches"]["flash_attention_bwd_dq"]
                       + par_c["flash_launches"]["flash_attention_bwd_dq"]
-                      + search["flash_launches"]["flash_attention_bwd_dq"],
+                      + search["flash_launches"]["flash_attention_bwd_dq"]
+                      + obs["flash_launches"]["flash_attention_bwd_dq"],
+                      obs_launches=obs["flash_launches"]["flash_attention_bwd_dq"],
                       parallel_launches=par["launches"]["flash_attention_bwd_dq"],
                       search_launches=search["flash_launches"]["flash_attention_bwd_dq"],
                       parallel_b_launches=par_b["flash_launches"]["flash_attention_bwd_dq"],
@@ -5441,7 +6048,9 @@ def main() -> int:
                       + par["launches"]["flash_attention_bwd_dkv"]
                       + par_b["flash_launches"]["flash_attention_bwd_dkv"]
                       + par_c["flash_launches"]["flash_attention_bwd_dkv"]
-                      + search["flash_launches"]["flash_attention_bwd_dkv"],
+                      + search["flash_launches"]["flash_attention_bwd_dkv"]
+                      + obs["flash_launches"]["flash_attention_bwd_dkv"],
+                      obs_launches=obs["flash_launches"]["flash_attention_bwd_dkv"],
                       parallel_launches=par["launches"]["flash_attention_bwd_dkv"],
                       search_launches=search["flash_launches"]["flash_attention_bwd_dkv"],
                       parallel_b_launches=par_b["flash_launches"]["flash_attention_bwd_dkv"],

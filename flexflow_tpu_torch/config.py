@@ -81,8 +81,15 @@ class FFConfig:
     machine_model_file: Optional[str] = None
     # the search's beam: frontier states kept a layer (at least 8)
     base_optimize_threshold: int = 10
-    # print the search's plan and the auto schedule's ranking
+    # print the search's plan and the auto schedule's ranking, each fit's
+    # epoch throughput, phase table and top suggestion
     profiling: bool = False
+    # graph exports written right after compile (runtime/profiling.py):
+    # the op graph (``--compgraph``, cost rows with include_costs_dot_graph)
+    # and the simulator's task graph (``--taskgraph``)
+    export_strategy_computation_graph_file: Optional[str] = None
+    export_strategy_task_graph_file: Optional[str] = None
+    include_costs_dot_graph: bool = False
     computation_mode: CompMode = CompMode.TRAINING
     # "bfloat16" runs activations and matmuls in bf16 while the params
     # stay float32; None/"float32" = full precision
@@ -187,6 +194,53 @@ class FFConfig:
     # span tracer (obs/trace.py): "on" arms the process-wide recorder at
     # compile/fit/eval; "off" keeps the hot loops span-free
     trace: str = "off"
+    # --- observability (obs/): the JAX package's knobs and defaults ---
+    # sim-vs-measured divergence (obs/divergence.py) after each fit:
+    # "off", "e2e" (est_step_time vs the measured step) or "on" (also the
+    # per-op cost model against profile_ops)
+    divergence: str = "off"
+    # |measured/predicted - 1| past which OBS001 fires
+    divergence_threshold: float = 1.0
+    # run ledger (obs/ledger.py): "on" appends one JSONL record a
+    # compile/fit/eval/serving run to ledger_dir (None = the
+    # FLEXFLOW_TPU_LEDGER_DIR env, else .ffcache/obs/runs)
+    ledger: str = "on"
+    ledger_dir: Optional[str] = None
+    # executable telemetry (obs/exec_telemetry.py): "on" counts a traced
+    # step's flops (FlopCounterMode) and its peak bytes on the card, and
+    # reconciles the peak with the simulator's (OBS002 past
+    # exec_mem_threshold; exec_mem_allow waives a program with a reason)
+    exec_telemetry: str = "off"
+    exec_mem_threshold: float = 3.0
+    exec_mem_allow: Optional[dict] = None
+    # step-time attribution (obs/attribution.py) into
+    # fit_profile["attribution"]; top_k rows in its rankings
+    attribution: str = "on"
+    attribution_top_k: int = 8
+    # perf advisor (obs/advisor.py) into fit_profile["advice"]
+    advisor: str = "on"
+    advisor_max_suggestions: int = 5
+    # per-op cost corpus (obs/costcorpus.py): every op timed forward and
+    # backward after fit, appended to cost_corpus_dir (None = the
+    # FLEXFLOW_TPU_COSTCORPUS_DIR env, else .ffcache/costmodel/corpus)
+    cost_corpus: str = "off"
+    cost_corpus_dir: Optional[str] = None
+    # observability HTTP server (obs/server.py): a port arms it (0 = any
+    # free port, read from obs_server().port); None = no socket
+    obs_server_port: Optional[int] = None
+    # divergence per-op rows kept on a ledger fit record
+    ledger_per_op_topk: int = 16
+    # stall watchdog (obs/watchdog.py): "on" arms a daemon thread; a
+    # watched source silent past the threshold writes a black-box dump
+    watchdog: str = "off"
+    watchdog_threshold_s: float = 60.0
+    watchdog_dir: str = ".ffcache/obs/blackbox"
+    # cohort observability (obs/cohort.py): "on" arms the tracer and
+    # exports this rank's trace, metrics and manifest after each fit
+    cohort_obs: str = "off"
+    cohort_skew_threshold: float = 0.25
+    # None = the FLEXFLOW_TPU_COHORT_DIR env, else .ffcache/obs/cohort
+    cohort_obs_dir: Optional[str] = None
     # deterministic fault plan (runtime/faults.py), armed at compile, fit
     # and serving-instance construction; None = no chaos
     fault_plan: Optional[dict] = None
@@ -250,6 +304,23 @@ class FFConfig:
             "--search-cache-dir": ("search_cache_dir", str),
             "--substitution-json": ("substitution_json_path", str),
             "--machine-model-file": ("machine_model_file", str),
+            "--compgraph": ("export_strategy_computation_graph_file", str),
+            "--taskgraph": ("export_strategy_task_graph_file", str),
+            "--divergence": ("divergence", str),
+            "--divergence-threshold": ("divergence_threshold", float),
+            "--ledger": ("ledger", str), "--ledger-dir": ("ledger_dir", str),
+            "--exec-mem-threshold": ("exec_mem_threshold", float),
+            "--attribution": ("attribution", str),
+            "--attribution-top-k": ("attribution_top_k", int),
+            "--advisor": ("advisor", str),
+            "--advisor-max-suggestions": ("advisor_max_suggestions", int),
+            "--cost-corpus-dir": ("cost_corpus_dir", str),
+            "--obs-server-port": ("obs_server_port", int),
+            "--ledger-per-op-topk": ("ledger_per_op_topk", int),
+            "--cohort-skew-threshold": ("cohort_skew_threshold", float),
+            "--cohort-obs-dir": ("cohort_obs_dir", str),
+            "--watchdog-threshold": ("watchdog_threshold_s", float),
+            "--watchdog-dir": ("watchdog_dir", str),
         }
         switches = {"--fusion": ("perform_fusion", True),
                     "--elastic-resume": ("elastic_resume", True),
@@ -264,7 +335,12 @@ class FFConfig:
                     "--disable-sample-parallel": ("enable_sample_parallel", False),
                     "--disable-overlap": ("search_overlap_backward_update", False),
                     "--disable-search-prune": ("search_prune", False),
-                    "--profiling": ("profiling", True)}
+                    "--profiling": ("profiling", True),
+                    "--exec-telemetry": ("exec_telemetry", "on"),
+                    "--cost-corpus": ("cost_corpus", "on"),
+                    "--cohort-obs": ("cohort_obs", "on"),
+                    "--watchdog": ("watchdog", "on"),
+                    "--include-costs-dot-graph": ("include_costs_dot_graph", True)}
         args = list(argv)
         i = 0
         while i < len(args):

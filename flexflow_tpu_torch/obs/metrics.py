@@ -5,10 +5,10 @@ PyTorch counterpart of ``flexflow_tpu/obs/metrics.py``, the whole module
 (pure Python, so the port keeps its own copy). Every call site feeds the
 same registry, so one snapshot (``metrics_registry().to_json()``) or one
 scrape (``.to_prometheus()``) shows serving's shed, reject, respawn and
-retry counters, its queue-wait and latency histograms and the fault
-plan's firings together. Only serving, the retry policy and the fault plan
-publish here so far; ``fit``'s :class:`EpochThroughput` series wait for
-the port's observability queue (ROADMAP A10).
+retry counters, its queue-wait and latency histograms, the fault plan's
+firings, ``fit``'s and ``eval``'s :class:`EpochThroughput` series, the
+pipeline's dispatch counts and the observability layer's own counters
+together.
 """
 
 from __future__ import annotations
@@ -278,8 +278,7 @@ class EpochThroughput:
     blocked on host input, prefetch queue depth and dispatch-ahead depth.
     ``finish()`` renders one JSON-able record (the reference's
     ``fit_profile`` epoch schema), and every sample is mirrored into the
-    registry's ``fit.*`` series. The port's ``fit`` does not drive it yet
-    (ROADMAP A10).
+    registry's ``fit.*`` series (``eval.*`` under ``prefix="eval"``).
     """
 
     def __init__(self, prefix: str = "fit"):

@@ -38,8 +38,17 @@ Usage::
 A job whose ``FFConfig`` searches through the strategy cache
 (``search_budget`` > 0, ``search_cache="on"``) re-searches after a
 resize: the cache key covers the ``torch.distributed`` world size
-(``search/cache.py``). The ledger merge and the watchdog's black-box
-dumps wait for the port's observability (ROADMAP A10).
+(``search/cache.py``).
+
+Each rank's ledger (``<run-dir>/ledger/rank-<r>``) and cost corpus are
+its own directories; after a successful cohort the supervisor folds them
+into ``ledger/cohort`` and ``costcorpus/cohort`` (``merge_runs``,
+deduplicated by run id: merging twice adds nothing). With
+``--watchdog-threshold`` each worker arms the stall watchdog, whose
+black-box dumps (``blackbox-r<r>``) the supervisor attaches to a hung
+peer's event; with ``--cohort-obs`` the ranks export their traces and
+metrics and the supervisor adds the cohort report (merged trace, skew,
+straggler, OBS003) and stamps its skew onto the merged fit records.
 """
 
 from __future__ import annotations
@@ -214,6 +223,12 @@ def run_worker(ns) -> int:
     config = dict(epochs=ns.epochs, checkpoint_interval_steps=ns.interval,
                   checkpoint_dir=ns.ckpt_dir, checkpoint_barrier_timeout_s=120.0,
                   elastic_resume=True, fault_plan=plan, device=ns.device)
+    if ns.watchdog_threshold > 0:
+        config.update(watchdog="on", watchdog_threshold_s=ns.watchdog_threshold,
+                      watchdog_dir=os.path.join(ns.run_dir, f"blackbox-r{ns.rank}"))
+    if ns.cohort_obs:
+        # the artifact directory comes in through FLEXFLOW_TPU_COHORT_DIR
+        config.update(cohort_obs="on", cohort_skew_threshold=ns.cohort_threshold)
     ff, x, y = _load_job(ns.job)(config, ns.nproc, **json.loads(ns.job_args or "{}"))
     hb_dir = os.path.join(ns.run_dir, "hb")
     os.makedirs(hb_dir, exist_ok=True)
@@ -267,11 +282,19 @@ def run_worker(ns) -> int:
 # ------------------------------------------------------------- supervisor
 def _spawn(rank: int, nproc: int, coord: str, run_dir: str, ckpt_dir: str, epochs: int,
            interval: int, init_timeout: float, fault_plan: Optional[Dict], attempt: int,
-           launch_id: str, job: str, job_args: Optional[Dict], device: str) -> Dict:
+           launch_id: str, job: str, job_args: Optional[Dict], device: str,
+           watchdog_threshold: float = 0.0, cohort_obs: bool = False,
+           cohort_threshold: float = 0.25) -> Dict:
     env = dict(os.environ)
     # the cohort's incarnation: the manifest barrier counts only acks of
     # this launch (runtime/checkpoint.MultiHostCheckpointManager)
     env["FLEXFLOW_TPU_MH_LAUNCH_ID"] = launch_id
+    # a ledger and a cost corpus a rank, folded into the cohort's after
+    env["FLEXFLOW_TPU_LEDGER_DIR"] = os.path.join(run_dir, "ledger", f"rank-{rank}")
+    env["FLEXFLOW_TPU_COSTCORPUS_DIR"] = os.path.join(run_dir, "costcorpus", f"rank-{rank}")
+    if cohort_obs:
+        # one shared directory: every artifact's name carries its rank
+        env["FLEXFLOW_TPU_COHORT_DIR"] = os.path.join(run_dir, "cohort")
     env["PYTHONPATH"] = os.pathsep.join(filter(None, [_ROOT, os.getcwd(),
                                                       env.get("PYTHONPATH")]))
     # a worker killed as hung leaves its threads' stacks in its log
@@ -280,7 +303,10 @@ def _spawn(rank: int, nproc: int, coord: str, run_dir: str, ckpt_dir: str, epoch
            "--rank", str(rank), "--nproc", str(nproc), "--coord", coord,
            "--run-dir", run_dir, "--ckpt-dir", ckpt_dir, "--epochs", str(epochs),
            "--interval", str(interval), "--init-timeout", str(init_timeout),
-           "--job", job, "--job-args", json.dumps(job_args or {}), "--device", device]
+           "--job", job, "--job-args", json.dumps(job_args or {}), "--device", device,
+           "--watchdog-threshold", str(watchdog_threshold)]
+    if cohort_obs:
+        cmd += ["--cohort-obs", "--cohort-threshold", str(cohort_threshold)]
     if fault_plan is not None:
         cmd += ["--fault-plan", json.dumps(fault_plan)]
     logs = os.path.join(run_dir, "logs")
@@ -343,6 +369,16 @@ def _monitor(workers: List[Dict], run_dir: str, hb_dir: str, hang_threshold_s: f
                     "failed": {r: rc for r, rc in rcs.items() if rc is None}}
 
 
+def _collect_dumps(run_dir: str, nproc: int) -> List[str]:
+    """Every worker's black-box dumps under the run directory."""
+    from ..obs.watchdog import list_dumps
+
+    out: List[str] = []
+    for r in range(nproc):
+        out += list_dumps(os.path.join(run_dir, f"blackbox-r{r}"))
+    return sorted(out)
+
+
 def _log_tail(path: str, n: int = 1500) -> str:
     try:
         with open(path, errors="replace") as f:
@@ -357,7 +393,8 @@ def supervise(nproc: int = 2, run_dir: Optional[str] = None, ckpt_dir: Optional[
               hang_threshold_s: float = 0.0, max_relaunches: int = 2,
               init_timeout_s: float = 60.0, cohort_timeout_s: float = 420.0,
               job: str = DEFAULT_JOB, job_args: Optional[Dict] = None,
-              device: str = "cuda") -> Dict:
+              device: str = "cuda", watchdog_threshold_s: float = 0.0,
+              cohort_obs: bool = False, cohort_threshold: float = 0.25) -> Dict:
     """Launch and heal one cohort; returns the supervisor's report.
 
     The fault plan goes to ``fault_rank`` on the first launch only: a
@@ -403,7 +440,8 @@ def supervise(nproc: int = 2, run_dir: Optional[str] = None, ckpt_dir: Optional[
             launch_id = uuid.uuid4().hex
             live = [_spawn(r, nproc, coord, run_dir, ckpt_dir, epochs, interval, init_timeout_s,
                            fault_plan if (attempt == 0 and r == fault_rank) else None, attempt,
-                           launch_id, job, job_args, device)
+                           launch_id, job, job_args, device, watchdog_threshold_s, cohort_obs,
+                           cohort_threshold)
                     for r in range(nproc)]
             status = _monitor(live, run_dir, hb_dir, hang_threshold_s, cohort_timeout_s)
             _teardown(live)
@@ -415,6 +453,10 @@ def supervise(nproc: int = 2, run_dir: Optional[str] = None, ckpt_dir: Optional[
                 "attempt": attempt, "outcome": status["outcome"],
                 "failed": {str(r): rc for r, rc in status["failed"].items()},
                 "heartbeat": status.get("heartbeat"),
+                # the hung worker's black-box dumps are its diagnosis: every
+                # thread's stack, the tracer's tail, the last ledger record
+                "blackbox_dumps": [os.path.basename(p)
+                                   for p in _collect_dumps(run_dir, nproc)],
                 "log_tails": {str(w["rank"]): _log_tail(w["err_path"]) for w in workers
                               if str(w["rank"]) in {str(r) for r in status["failed"]}}})
     finally:
@@ -440,7 +482,41 @@ def supervise(nproc: int = 2, run_dir: Optional[str] = None, ckpt_dir: Optional[
     first = results["0"]
     report["agree"] = all(res["params_sha"] == first["params_sha"]
                           and res["epochs"] == first["epochs"] for res in results.values())
+    _fold_cohort_obs(report, run_dir, nproc, cohort_obs, cohort_threshold)
     return report
+
+
+def _fold_cohort_obs(report: Dict, run_dir: str, nproc: int, cohort_obs: bool,
+                     cohort_threshold: float) -> None:
+    """One cohort ledger and cost corpus from every rank's, deduplicated
+    (a second merge must add nothing), and under ``cohort_obs`` the
+    cohort report with its skew stamped onto the merged fit records."""
+    from ..obs.costcorpus import merge_corpus
+    from ..obs.ledger import merge_runs
+
+    cohort_dir = os.path.join(run_dir, "ledger", "cohort")
+    merged = remerged = 0
+    for r in range(nproc):
+        src = os.path.join(run_dir, "ledger", f"rank-{r}")
+        merged += merge_runs(src, cohort_dir)
+        remerged += merge_runs(src, cohort_dir)
+    report["ledger"] = {"cohort_dir": cohort_dir, "merged": merged, "remerged": remerged}
+    corpus_cohort = os.path.join(run_dir, "costcorpus", "cohort")
+    srcs = [os.path.join(run_dir, "costcorpus", f"rank-{r}") for r in range(nproc)]
+    srcs = [d for d in srcs if os.path.isdir(d)]
+    if srcs:
+        report["cost_corpus"] = {"cohort_dir": corpus_cohort,
+                                 "merged": sum(merge_corpus(d, corpus_cohort) for d in srcs)}
+    if cohort_obs:
+        from ..obs.cohort import annotate_ledger_with_skew, build_cohort_report
+
+        try:
+            report["cohort"] = build_cohort_report(os.path.join(run_dir, "cohort"),
+                                                   threshold=cohort_threshold)
+            report["cohort"]["ledger_annotated"] = annotate_ledger_with_skew(
+                cohort_dir, report["cohort"])
+        except Exception as exc:  # noqa: BLE001 — the report never fails the run
+            report["cohort"] = {"error": f"cohort report failed: {exc}"}
 
 
 # ------------------------------------------------------------ the matrix
@@ -585,6 +661,12 @@ def main(argv=None) -> int:
     ap.add_argument("--hang-threshold", type=float, default=0.0,
                     help="seconds an armed heartbeat may stand still (0: off)")
     ap.add_argument("--max-relaunches", type=int, default=2)
+    ap.add_argument("--watchdog-threshold", type=float, default=0.0,
+                    help="arm each worker's stall watchdog at this many seconds (0: off)")
+    ap.add_argument("--cohort-obs", action="store_true",
+                    help="export each rank's trace and metrics; add the cohort report")
+    ap.add_argument("--cohort-threshold", type=float, default=0.25,
+                    help="the steady-state skew fraction past which OBS003 fires")
     ap.add_argument("--smoke", action="store_true", help="the scenario matrix; one JSON line")
     ap.add_argument("--scenario", action="append", default=None,
                     help="a matrix scenario (repeatable; implies --smoke)")
@@ -602,7 +684,9 @@ def main(argv=None) -> int:
                     fault_plan=json.loads(ns.fault_plan) if ns.fault_plan else None,
                     fault_rank=ns.fault_rank, hang_threshold_s=ns.hang_threshold,
                     max_relaunches=ns.max_relaunches, init_timeout_s=ns.init_timeout,
-                    job=ns.job, job_args=job_args, device=ns.device)
+                    job=ns.job, job_args=job_args, device=ns.device,
+                    watchdog_threshold_s=ns.watchdog_threshold, cohort_obs=ns.cohort_obs,
+                    cohort_threshold=ns.cohort_threshold)
     print(json.dumps(rep, sort_keys=True, default=str))
     return 0 if rep["ok"] else 1
 

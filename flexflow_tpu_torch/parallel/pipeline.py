@@ -49,6 +49,8 @@ import torch
 from ..core.machine import PIPE_AXIS
 from ..core.parallel_tensor import ParallelDim, ParallelTensorShape
 from ..ffconst import OpType
+from ..obs.metrics import metrics_registry
+from ..obs.trace import tracer
 from ..runtime.compiler import CompiledModel, _forward_graph, _resolve_compute_dtype
 from ..runtime.loss import compute_loss
 from ..runtime.metrics import compute_batch_metrics
@@ -216,6 +218,8 @@ class PipelinedModel:
         self._meta: Dict[int, List] = {}  # rows -> boundary metas
         # the most recent train_step's counts (profile())
         self.step_dispatches = 0
+        # the single-call engine's first step's telemetry (exec_telemetry)
+        self.exec_telemetry = None
         self.step_transfers = 0
         self.step_sent_bytes = 0
 
@@ -440,7 +444,9 @@ class PipelinedModel:
         d_in: Dict[Tuple[int, int], Dict] = {}      # arrived cotangents
         terms: Dict[Tuple[int, int], torch.Tensor] = {}  # (mb, chunk) -> loss/aux term
         metric_sums = None
-        for row in self.schedule.ticks:
+        tr = tracer()
+        for ti, row in enumerate(self.schedule.ticks):
+            t_tick = tr.now() if tr.enabled else 0.0
             a = row[self.stage]
             sends: List[tuple] = []
             if a is not None:
@@ -484,7 +490,24 @@ class PipelinedModel:
                                       _pack([da[k] for k, *_ in _float_meta(meta[c - 1])])))
             for kind, key, got in self._exchange(row, sends, meta):
                 (fwd_in if kind == "f" else d_in)[key] = got
-        return self._finish(grad_acc, terms, metric_sums)
+            if tr.enabled:
+                # one span a schedule row, with this stage's action
+                tr.complete("pipe.tick", t_tick, tr.now() - t_tick, cat="pipeline",
+                            args={"tick": ti, "stage": self.stage,
+                                  "actions": [] if a is None
+                                  else [f"s{self.stage}:{a.kind}{a.mb}"]})
+        out = self._finish(grad_acc, terms, metric_sums)
+        self._feed_step_metrics()
+        return out
+
+    def _feed_step_metrics(self) -> None:
+        """Mirror the step's dispatch and transfer counts into the metrics
+        registry: the pipeline's series beside fit's and serving's."""
+        reg = metrics_registry()
+        reg.counter("pipeline.steps").inc()
+        reg.counter("pipeline.dispatches").inc(self.step_dispatches)
+        reg.counter("pipeline.transfers").inc(self.step_transfers)
+        reg.gauge("pipeline.dispatches_per_step").set(self.step_dispatches)
 
     def _metrics(self, logits: torch.Tensor, y: torch.Tensor) -> Dict[str, torch.Tensor]:
         cm = self.cm
@@ -681,6 +704,8 @@ class PipelinedModel:
                    transfers_per_step=self.step_transfers,
                    sent_bytes_per_step=self.step_sent_bytes,
                    timeline=render_timeline(self.schedule))
+        metrics_registry().gauge("pipeline.bubble_fraction").set(
+            rec.get("bubble_fraction", 0.0))
         if mb_size:
             rec["peak_activation_bytes"] = self.peak_activation_bytes(mb_size)
             rec["boundary_bytes_per_step"] = self.boundary_bytes_per_step(mb_size)

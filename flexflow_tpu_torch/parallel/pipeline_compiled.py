@@ -309,6 +309,38 @@ class CompiledPipelinedModel(PipelinedModel):
         return self._width[rows]
 
     def train_step(self, rng, xs, y):
+        """The schedule as one call, recorded as one annotated span; with
+        ``exec_telemetry`` on, the first step is measured as the
+        ``pipeline.<schedule>`` program."""
+        from ..obs.exec_telemetry import collect_one, telemetry_mode
+        from ..obs.trace import span
+
+        cfg = self.cm.config
+        with span("pipe.step.compiled", cat="pipeline", schedule=self.cfg.schedule,
+                  interleave=self.cfg.interleave, stages=len(self.stages),
+                  microbatches=self.cfg.num_microbatches, dispatches=1):
+            if self.exec_telemetry is None and telemetry_mode(cfg) == "on":
+                box: list = []
+                self.exec_telemetry = collect_one(
+                    f"pipeline.{self.cfg.schedule}",
+                    lambda: box.append(self._train_step(rng, xs, y)), self.cm.device,
+                    config=cfg, static_peak=self._static_bytes(xs),
+                    allow=getattr(cfg, "exec_mem_allow", None))
+                # a failed measured step raises its error here
+                out = box[0] if box else self._train_step(rng, xs, y)
+            else:
+                out = self._train_step(rng, xs, y)
+        self._feed_step_metrics()
+        return out
+
+    def _static_bytes(self, xs) -> int:
+        """The stage's resident bytes: packed params and optimizer state,
+        and the schedule's peak activations at this microbatch size."""
+        rows = int(xs[0].shape[0]) // self.cfg.num_microbatches
+        peak = self.peak_activation_bytes(rows)["per_stage"][self.stage]
+        return (self.theta.numel() + self.opt_buf.numel()) * 4 + int(peak)
+
+    def _train_step(self, rng, xs, y):
         M = self.cfg.num_microbatches
         dev = self.cm.device
         mbs = self._microbatches(xs, y)

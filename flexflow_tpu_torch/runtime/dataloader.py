@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import collections
 import threading
+import time
 from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -33,6 +34,9 @@ from .faults import TransientFault
 from .faults import active as _faults_active
 from .faults import inject as _fault_inject
 from .retry import RetryPolicy
+from ..obs.trace import tracer
+from ..obs.watchdog import beat as _wd_beat
+from ..obs.watchdog import watch as _wd_watch
 
 # transient copy failures (and the device_put.transient fault site) back
 # off briefly and retry; a persistent failure surfaces after the budget.
@@ -308,10 +312,13 @@ class Prefetcher:
     super-batches for ``train_k_steps``, with the JAX package's sizes
     (:meth:`_plan`)."""
 
-    def __init__(self, group: DataLoaderGroup, depth: int, steps_per_item: int = 1):
+    def __init__(self, group: DataLoaderGroup, depth: int, steps_per_item: int = 1,
+                 stats=None):
         self.group = group
         self.depth = max(0, int(depth))
         self.k = max(1, int(steps_per_item))
+        # an EpochThroughput (obs/metrics.py): input waits and queue depths
+        self.stats = stats
 
     def _plan(self) -> List[int]:
         """Per-epoch item sizes. With a background queue the super sizes
@@ -356,19 +363,52 @@ class Prefetcher:
                     f"item boundaries (prefix sums {plan[:idx]})")
             self.group.skip_batches(skip)
             plan = plan[idx:]
+        tr = tracer()
+        # span names follow the loop that drives this (fit or eval), as the
+        # registry series the stats feed
+        pfx = self.stats.prefix if self.stats is not None else "fit"
+        # the consumer loop is a watched section: every resumption (one a
+        # dispatch) beats it. The watch opens at the second item, since
+        # the first step's dispatch carries the kernels' first launch
+        section = None
         if self.depth == 0:
-            for k in plan:
-                yield k, self.group.place(self.group.assemble_host(k), k)
+            try:
+                for i, k in enumerate(plan):
+                    if i == 1:
+                        section = _wd_watch(f"{pfx}.loop")
+                        section.__enter__()
+                    elif i > 1:
+                        _wd_beat(f"{pfx}.loop")
+                    t0 = time.perf_counter()
+                    host = self.group.assemble_host(k)
+                    wait = time.perf_counter() - t0
+                    if self.stats is not None:
+                        # inline assembly is all wait
+                        self.stats.record_wait(wait)
+                        self.stats.record_depth(0)
+                    if tr.enabled:
+                        tr.complete(f"{pfx}.input_wait", t0, wait, cat=pfx,
+                                    args={"k": k, "mode": "serial"})
+                    yield k, self.group.place(host, k)
+            finally:
+                if section is not None:
+                    section.__exit__(None, None, None)
             return
         chan = _Channel(self.depth)
 
         def _work():
             try:
                 for k in plan:
-                    # fault site: a worker exception must reach the consumer
-                    # as the raised error and never leak this thread
-                    _fault_inject("prefetch.worker")
-                    if not chan.put((k, self.group.assemble_host(k))):
+                    # the assembly must make progress; the put may block on
+                    # a full channel (consumer pacing), so only the
+                    # assembly is watched
+                    with _wd_watch("prefetch.worker"):
+                        # fault site: a worker exception must reach the
+                        # consumer as the raised error and never leak this
+                        # thread
+                        _fault_inject("prefetch.worker")
+                        item = (k, self.group.assemble_host(k))
+                    if not chan.put(item):
                         return  # the consumer closed the channel mid-epoch
                 chan.put(_DONE)
             except BaseException as e:  # raised on the consumer side
@@ -377,15 +417,33 @@ class Prefetcher:
         worker = threading.Thread(target=_work, daemon=True, name="ff-prefetch")
         worker.start()
         try:
+            i = -1
             while True:
+                i += 1
+                if i == 1:
+                    section = _wd_watch(f"{pfx}.loop")
+                    section.__enter__()
+                elif i > 1:
+                    _wd_beat(f"{pfx}.loop")
+                depth_sample = chan.depth()
+                t0 = time.perf_counter()
                 item = chan.get()
+                wait = time.perf_counter() - t0
                 if item is _DONE or item is _CLOSED:
                     return
                 if isinstance(item, _WorkerError):
                     raise item.exc
+                if self.stats is not None:
+                    self.stats.record_depth(depth_sample)
+                    self.stats.record_wait(wait)
+                if tr.enabled:
+                    tr.complete(f"{pfx}.input_wait", t0, wait, cat=pfx,
+                                args={"depth": depth_sample, "mode": "prefetch"})
                 k, host = item
                 yield k, self.group.place(host, k)
         finally:
+            if section is not None:
+                section.__exit__(None, None, None)
             # close, then join: a worker blocked on a full channel wakes at
             # once, so an abandoned epoch leaks no thread
             chan.close()

@@ -40,8 +40,9 @@ managers), ``train.nan_loss``, ``train.stall`` and ``train.kill``
 (``parallel/multihost.elastic_init``'s retried attempt) and
 ``multihost.slow_peer`` and ``multihost.peer_kill`` (``fit``'s step loop,
 after the checkpoint block, as ``train.kill``). ``train.stall`` and
-``multihost.slow_peer`` sleep as in the reference; the watchdog they are
-meant to trip is A10's, while the supervisor
+``multihost.slow_peer`` sleep as in the reference: past
+``config.watchdog_threshold_s`` the armed stall watchdog
+(``obs/watchdog.py``) dumps its black box, and the supervisor
 (``parallel/launch.py``) sees the stalled heartbeat.
 """
 

@@ -31,8 +31,12 @@ group, or a directory a cohort wrote, takes the
 ``MultiHostCheckpointManager``), recompile-on-condition
 (``recompile_state=``) and the fault sites ``train.nan_loss``,
 ``train.stall``, ``train.kill``, ``multihost.slow_peer`` and
-``multihost.peer_kill``. The stall watchdog, the per-epoch
-throughput series and the ledger records are ROADMAP queue A10.
+``multihost.peer_kill``. Each epoch's :class:`EpochThroughput` record
+lands in ``fit_profile``; the fit's tail adds divergence
+(``config.divergence``), attribution and advice (``fit_profile
+["attribution"]``, ``["advice"]``), the cost corpus, one ledger record and
+the cohort export (``obs/``), and the stall watchdog watches the loop
+(``config.watchdog``).
 
 Over a mesh (``FFConfig.mesh_shape``, one process per rank, see
 ``core/machine.py``) ``compile`` takes ``strategies=`` and the layers'
@@ -86,8 +90,8 @@ from ..core.parallel_tensor import ParallelTensorShape
 from ..core.tensor import Tensor
 from ..ffconst import (ActiMode, AggrMode, CompMode, DataType, LossType, MetricsType,
                        OpType, PoolType)
-from ..obs.metrics import metrics_registry
-from ..obs.trace import configure_tracer, tracer
+from ..obs.metrics import EpochThroughput, metrics_registry
+from ..obs.trace import configure_tracer, span, tracer
 from . import faults as _fx
 from .buckets import DynamicShapeError, PackingSpec, resolve_ladder, row_lengths
 from .compiler import CompiledModel, Params, compile_model
@@ -144,6 +148,10 @@ class FFModel:
         self._compile_ctx: Optional[dict] = None
         self._playoff_done = True
         self._playoff_record: Optional[dict] = None
+        # the last compile's executable telemetry (config.exec_telemetry)
+        # and the last fit's OBS001 report (config.divergence)
+        self.exec_telemetry: Optional[dict] = None
+        self.obs_report = None
 
     # ---- graph construction ---------------------------------------------
     def create_tensor(self, dims: Sequence[int],
@@ -643,7 +651,22 @@ class FFModel:
         engine over the mesh's pipe axis; a pipe axis above 1 enables one
         from the config's ``pipeline_*`` fields."""
         configure_tracer(self.config)
+        # mistyped observability modes fail here, before any search work
+        from ..obs.attribution import attribution_mode
+        from ..obs.costcorpus import corpus_mode
+        from ..obs.exec_telemetry import telemetry_mode
+        from ..obs.ledger import ledger_mode
+        from ..obs.server import configure_obs_server
+
+        ledger_mode(self.config)
+        telemetry_mode(self.config)
+        attribution_mode(self.config)
+        corpus_mode(self.config)
         configure_faults(self.config)  # a malformed plan fails before any work
+        # config.obs_server_port arms the scrape surface (ratchet-on; a bad
+        # port raises here)
+        configure_obs_server(self.config)
+        t0_compile = time.perf_counter()
         if comp_mode is None:
             comp_mode = self.config.computation_mode
         if isinstance(loss_type, str):
@@ -700,6 +723,52 @@ class FFModel:
                                  logits=logits)
         self._playoff_done = False
         self._playoff_record = None
+        # executable telemetry (config.exec_telemetry): one step's flops and
+        # the card's peak bytes, reconciled with the simulator's estimate
+        self.exec_telemetry = None
+        if telemetry_mode(self.config) == "on":
+            from ..obs.exec_telemetry import collect_compiled_model
+
+            with span("compile.exec_telemetry", cat="compile"):
+                self.exec_telemetry = collect_compiled_model(
+                    self, config=self.config, allow=self.config.exec_mem_allow)
+        # graph exports the flags ask for (reference: --compgraph and
+        # --taskgraph, written right after compile, model.cc:3666-3674)
+        if self.config.export_strategy_computation_graph_file:
+            self.export_computation_graph(self.config.export_strategy_computation_graph_file,
+                                          include_costs=self.config.include_costs_dot_graph)
+        if self.config.export_strategy_task_graph_file:
+            self.export_task_graph(self.config.export_strategy_task_graph_file)
+        dt_compile = time.perf_counter() - t0_compile
+        tracer().complete("compile", t0_compile, dt_compile, cat="compile",
+                          args={"n_ops": len(cm.ops), "pipelined": self.pipelined is not None})
+        # one ledger record a compile (config.ledger)
+        from ..obs.ledger import record_compile
+
+        record_compile(self, dt_compile)
+
+    def profile_ops(self, iters: int = 10, backward: bool = False):
+        """Each compiled op timed standalone (``runtime/profiling.py``)."""
+        from .profiling import profile_ops
+
+        return profile_ops(self, iters=iters, backward=backward)
+
+    def export_computation_graph(self, path: str, include_costs: bool = False) -> None:
+        from .profiling import export_computation_graph
+
+        export_computation_graph(self, path, include_costs)
+
+    def export_task_graph(self, path: str, fmt: str = "dot") -> None:
+        from .profiling import export_task_graph
+
+        export_task_graph(self, path, fmt)
+
+    def profiler_trace(self, logdir: str):
+        """Context manager: a ``torch.profiler`` trace of the region into
+        ``logdir`` (reference analog: Legion Prof)."""
+        from .profiling import trace
+
+        return trace(logdir)
 
     def _resolve_pipeline(self, pipeline):
         """A PipelineConfig finalized against the config and the compiled
@@ -788,19 +857,27 @@ class FFModel:
         from ..sim import OpCostModel, Simulator
 
         cfg = self.config
-        # strategy templates scoped to this config ({"rules": {...}}); the
-        # reference's GraphXfer schema ({"rule": [...]}) is ROADMAP A8b
+        # extra rules scoped to this config: the reference's GraphXfer
+        # rule collection ({"rule": [...]}, translated to structural
+        # rewrites) or the strategy-template schema ({"rules": {...}})
         cfg._substitution_rules = None
+        cfg._graphxfer_rewrites = None
         if cfg.substitution_json_path:
             with open(cfg.substitution_json_path) as f:
                 peek = _json.load(f)
             if "rule" in peek:
                 from ..search.graph_xfer import load_graphxfer_rules
+                from ..search.rule_interpreter import interpret_rules
 
-                load_graphxfer_rules(peek)
-            from ..search.substitution import load_substitution_rules
+                coll = load_graphxfer_rules(peek)
+                cfg._graphxfer_rewrites, xfer_report = interpret_rules(coll)
+                if cfg.profiling:
+                    print(f"[search] graphxfer rules: {xfer_report} -> "
+                          f"{len(cfg._graphxfer_rewrites)} rewrites", flush=True)
+            else:
+                from ..search.substitution import load_substitution_rules
 
-            cfg._substitution_rules = load_substitution_rules(cfg.substitution_json_path)
+                cfg._substitution_rules = load_substitution_rules(cfg.substitution_json_path)
 
         inputs = self._used_inputs()
         use_mcmc = cfg.search_method == "mcmc"
@@ -903,7 +980,9 @@ class FFModel:
         axis_sizes = {a: s for a, s in full_axis_sizes.items() if a != "pipe"}
         result, errs, n_cand = None, [], 0
         shared_cm = OpCostModel(machine)
-        for rewrites, vlayers in graph_variants(self.layers, cfg, protected=protected):
+        for rewrites, vlayers in graph_variants(
+                self.layers, cfg, rewrites=getattr(cfg, "_graphxfer_rewrites", None),
+                protected=protected):
             # a variant too small for the pipe degree would un-pipe at
             # compile: skip it, unless the original cannot pipe either
             n_var = _effective_layer_count(vlayers, cfg.perform_fusion, protected)
@@ -1229,18 +1308,30 @@ class FFModel:
             k = 1
         return depth, max_inflight, k
 
-    def _advance_window(self, inflight: collections.deque, max_inflight: int) -> None:
-        """The dispatch-ahead window: on the card, wait for the oldest
-        step once more than ``max_inflight`` are outstanding (host memory
-        and the launch queue stay bounded); the CPU runs each step to its
-        end anyway."""
-        if self.device.type != "cuda":
-            return
-        ev = torch.cuda.Event()
-        ev.record()
+    def _advance_window(self, stats, inflight: collections.deque, max_inflight: int,
+                        n_steps: int, nbytes: int) -> float:
+        """The dispatch-ahead window shared by fit and eval: record the
+        occupancy sample and the steps, then, on the card, wait for the
+        oldest step once more than ``max_inflight`` are outstanding (host
+        memory and the launch queue stay bounded); the CPU runs each step
+        to its end anyway. Returns the seconds the host waited."""
+        stats.record_inflight(len(inflight))
+        stats.record_steps(n_steps, nbytes)
+        ev = None
+        if self.device.type == "cuda":
+            ev = torch.cuda.Event()
+            ev.record()
+        # on the CPU a finished step holds the window's slot all the same,
+        # so the occupancy series reads as the JAX package's
         inflight.append(ev)
+        waited = 0.0
         while len(inflight) > max_inflight:
-            inflight.popleft().synchronize()
+            done = inflight.popleft()
+            if done is not None:
+                t0 = time.perf_counter()
+                done.synchronize()
+                waited += time.perf_counter() - t0
+        return waited
 
     @staticmethod
     def _step_loop_profile(epoch_records, depth, max_inflight, k) -> dict:
@@ -1351,10 +1442,31 @@ class FFModel:
         ``self.fit_profile``."""
         xs = x if isinstance(x, (list, tuple)) else [x]
         self._training_model()
+        tr = configure_tracer(self.config)
+        # mistyped observability modes fail before training, not after
+        from ..obs.attribution import attribution_mode
+        from ..obs.cohort import cohort_obs_mode
+        from ..obs.costcorpus import corpus_mode
+        from ..obs.divergence import divergence_mode
+        from ..obs.ledger import ledger_mode
+        from ..obs.server import configure_obs_server
+        from ..obs.watchdog import beat as wd_beat
+        from ..obs.watchdog import configure_watchdog
+
+        divergence_mode(self.config)
+        ledger_mode(self.config)
+        attribution_mode(self.config)
+        corpus_mode(self.config)
+        if cohort_obs_mode(self.config) == "on":
+            # the fit.step spans are the cross-rank skew's input
+            configure_tracer(enabled=True)
+        configure_faults(self.config)
+        configure_obs_server(self.config)
+        # config.watchdog="on" arms the stall monitor; the loop below beats
+        # it through the Prefetcher's watched section and once a step
+        configure_watchdog(self.config)
         self._maybe_playoff(xs, y, batch_size or self.config.batch_size)
         cm = self._training_model()
-        configure_tracer(self.config)
-        configure_faults(self.config)
         if guard is not None and self.pipelined is not None:
             raise ValueError("TrainingGuard does not support pipelined training")
         epochs = epochs or self.config.epochs
@@ -1379,15 +1491,16 @@ class FFModel:
         for epoch in range(epochs):
             if epoch < start_epoch:
                 continue
-            t_epoch = time.perf_counter()
-            n_steps = 0
+            stats = EpochThroughput()
             pm = PerfMetrics()
             last_loss = None
             loss_accum = None  # on the device; a NaN in any batch survives
             inflight: collections.deque = collections.deque()
             steps_in_epoch = skip_steps if epoch == start_epoch else 0
-            pf = Prefetcher(group, depth, steps_per_item=k)
+            pf = Prefetcher(group, depth, steps_per_item=k, stats=stats)
             for nk, batch in pf.epoch(skip=steps_in_epoch):
+                # a span a step: host dispatch and window control
+                ts = tr.now() if tr.enabled else 0.0
                 if nk > 1:
                     rngs = [self._next_rng() for _ in range(nk)]
                     cm.params, cm.opt_state, losses, pm.pending = cm.train_k_steps(
@@ -1423,10 +1536,11 @@ class FFModel:
                     # the sum, not the last value: a mid-epoch NaN must not
                     # hide behind a finite last batch
                     loss_accum = guard_add if loss_accum is None else loss_accum + guard_add
-                self._advance_window(inflight, max_inflight)
+                waited = self._advance_window(stats, inflight, max_inflight, nk,
+                                              group.batch_nbytes * nk)
+                wd_beat("fit.loop")
                 cm.iteration += nk
                 steps_in_epoch += nk
-                n_steps += nk
                 if ckpt_interval and ckpt_mgr is not None:
                     steps_since_ckpt += nk
                     if steps_since_ckpt >= ckpt_interval:
@@ -1471,15 +1585,32 @@ class FFModel:
                     if (recompile_state.iteration + 1) % ci == 0:
                         src = prev_loss if prev_loss is not None else loss
                         recompile_state.last_metric = float(src)
-                    if recompile_on_condition(self, recompile_state):
+                    with span("fit.recompile_check", cat="fit"):
+                        fired = recompile_on_condition(self, recompile_state)
+                    if fired:
                         cm = self.compiled
                 prev_loss = loss
-            pm.flush()  # the epoch's one read of the metric sums
-            epoch_records.append({"steps": n_steps, "wall_s": time.perf_counter() - t_epoch})
+                if tr.enabled:
+                    # the window's wait rides the span: attribution leaves it
+                    # out of host dispatch (the card was busy, not the host)
+                    args = {"k": nk}
+                    if waited:
+                        args["wait_s"] = round(waited, 9)
+                    tr.complete("fit.step", ts, tr.now() - ts, cat="fit", args=args)
+            with span("fit.host_sync", cat="fit", epoch=epoch):
+                pm.flush()  # the epoch's one read of the metric sums
             if dyn:
                 v, t = group.epoch_token_stats
+                stats.record_tokens(v, t)
                 tok_valid += v
                 tok_total += t
+            epoch_records.append(stats.finish())
+            if self.config.profiling:
+                r = epoch_records[-1]
+                print(f"[fit] epoch {epoch}: {r['steps_per_s']:.1f} steps/s"
+                      f" input_wait {r['input_wait_s']*1e3:.1f}ms"
+                      f" occupancy {r['dispatch_ahead_occupancy']:.2f}"
+                      f" depth_hist {r['queue_depth_hist']}", flush=True)
             if guard is not None:
                 accum = float(loss_accum) if loss_accum is not None else 0.0
                 if not np.isfinite(accum):
@@ -1506,9 +1637,43 @@ class FFModel:
             bs = batch_size or self.config.batch_size
             self.fit_profile["pipeline"] = self.pipelined.profile(
                 bs // self.pipelined.cfg.num_microbatches)
+            if self.config.profiling:
+                p = self.fit_profile["pipeline"]
+                print(f"[fit] pipeline {p['engine']}:{p['schedule']} "
+                      f"bubble {p['bubble_fraction']:.3f} "
+                      f"dispatches/step {p['dispatches_per_step']}", flush=True)
             # every stage's trained params into the compiled model
             self.pipelined.sync_to(cm)
+        self._fit_tail()
         return history
+
+    def _fit_tail(self) -> None:
+        """The observability tail of a fit, in the JAX package's order:
+        divergence, attribution (after divergence, so the per-op rows
+        join), the advisor, the cost corpus, the ledger record and the
+        cohort export."""
+        from ..obs.advisor import maybe_advise
+        from ..obs.attribution import format_phase_table, maybe_attribute
+        from ..obs.cohort import maybe_export_cohort
+        from ..obs.costcorpus import maybe_collect_corpus
+        from ..obs.divergence import maybe_record_divergence
+        from ..obs.ledger import record_fit
+
+        maybe_record_divergence(self)
+        maybe_attribute(self)
+        fp = self.fit_profile or {}
+        if self.config.profiling and fp.get("attribution"):
+            print(format_phase_table(fp["attribution"]), flush=True)
+        maybe_advise(self)
+        if self.config.profiling and fp.get("advice"):
+            top = fp["advice"]["suggestions"][0]
+            print(f"[advise] {top['phase']} -> {top['knob']}="
+                  f"{top['proposed']} (expected "
+                  f"-{top['expected']['step_delta_frac'] * 100:.1f}% "
+                  f"step time, {top['expected']['basis']})", flush=True)
+        maybe_collect_corpus(self)
+        record_fit(self)
+        maybe_export_cohort(self)
 
     def eval(self, x, y, batch_size: Optional[int] = None,
              verbose: bool = True) -> PerfMetrics:
@@ -1520,17 +1685,23 @@ class FFModel:
         cm = self.compiled
         if cm is None or cm.eval_step is None:
             raise RuntimeError("compile() with a loss before eval()")
-        configure_tracer(self.config)
+        tr = configure_tracer(self.config)
+        from ..obs.ledger import ledger_mode, record_fit
+        from ..obs.watchdog import beat as wd_beat
+        from ..obs.watchdog import configure_watchdog
+
+        ledger_mode(self.config)  # a typo fails before the eval, not after
+        configure_watchdog(self.config)
         xs = x if isinstance(x, (list, tuple)) else [x]
         group = self._loader_group(xs, y, batch_size or self.config.batch_size, False)
         depth, max_inflight, _ = self._step_loop_knobs(cm)
         dyn = group.packing is not None
         bucket_missed = 0
-        t0 = time.perf_counter()
-        n_steps = 0
+        stats = EpochThroughput(prefix="eval")  # the eval.* registry series
         pm = PerfMetrics()
         inflight: collections.deque = collections.deque()
-        for _nk, batch in Prefetcher(group, depth).epoch(reshuffle=False):
+        for _nk, batch in Prefetcher(group, depth, stats=stats).epoch(reshuffle=False):
+            ts = tr.now() if tr.enabled else 0.0
             sl = self.iter_config.seq_length
             if dyn:
                 rows, sl = batch[-1].shape[0], batch[-1].shape[1]
@@ -1542,16 +1713,26 @@ class FFModel:
             else:
                 _, _, bm = cm.eval_step(cm.params, *batch, seq_length=sl)
             pm.accumulate(bm)
-            self._advance_window(inflight, max_inflight)
-            n_steps += 1
-        pm.flush()
-        self.eval_profile = self._step_loop_profile(
-            [{"steps": n_steps, "wall_s": time.perf_counter() - t0}], depth, max_inflight, 1)
+            self._advance_window(stats, inflight, max_inflight, 1, group.batch_nbytes)
+            wd_beat("eval.loop")
+            if tr.enabled:
+                tr.complete("eval.step", ts, tr.now() - ts, cat="eval")
+        with span("eval.host_sync", cat="eval"):
+            pm.flush()
+        if dyn:
+            stats.record_tokens(*group.epoch_token_stats)
+        self.eval_profile = self._step_loop_profile([stats.finish()], depth, max_inflight, 1)
         if dyn:
             self.eval_profile["buckets"] = self._buckets_profile(
                 group, bucket_missed, *group.epoch_token_stats)
+        if self.config.profiling:
+            rec = self.eval_profile["epochs"][0]
+            print(f"[eval] {rec['steps_per_s']:.1f} steps/s input_wait "
+                  f"{rec['input_wait_s']*1e3:.1f}ms occupancy "
+                  f"{rec['dispatch_ahead_occupancy']:.2f}", flush=True)
         if verbose:
             print(f"eval: {pm.report(cm.metrics)}", flush=True)
+        record_fit(self, kind="eval")
         return pm
 
     # ---- manual-loop verbs ------------------------------------------------

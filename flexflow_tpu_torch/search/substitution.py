@@ -21,7 +21,9 @@ so each xfer collapses to a **strategy assignment** on the compute op:
 
 Custom rules load from the strategy-template JSON (``{"rules": {op-type
 name: [strategy, ...]}}``, ``FFConfig.substitution_json_path``); the
-reference's GraphXfer schema (``{"rule": [...]}``) is ROADMAP A8b.
+reference's GraphXfer schema (``{"rule": [...]}``) goes through
+``search/graph_xfer.py``'s ``load_graphxfer_rules`` and
+``search/rule_interpreter.py`` into structural rewrites instead.
 """
 
 from __future__ import annotations

@@ -50,8 +50,9 @@ deadline, and the next batch starts a new group. A
 collective: every rank calls :meth:`ModelInstance.infer` with the same
 batch (a group's ranks do).
 
-Not ported: ONNX registration (ROADMAP A12), the watchdog sections and the
-serving ledger record (A10).
+Each worker's batch in hand is a watched section of the stall watchdog
+(``serving.<model>.<idx>``, ``config.watchdog``), and ``stop()`` appends
+one serving ledger record. Not ported: ONNX registration (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -70,6 +71,10 @@ import torch
 
 from ..obs.metrics import metrics_registry
 from ..obs.trace import VIRTUAL_TID_BASE, tracer
+from ..obs.server import configure_obs_server
+from ..obs.watchdog import _NULL as _NULL_SECTION
+from ..obs.watchdog import configure_watchdog
+from ..obs.watchdog import watch as _wd_watch
 from ..runtime.faults import InjectedFault, TransientFault, configure_faults
 from ..runtime.faults import fire as _fault_fire
 from ..runtime.faults import inject as _fault_inject
@@ -166,6 +171,10 @@ class ModelInstance:
     def __init__(self, ff, name: str = "model"):
         if ff.compiled is None:
             raise ValueError("compile() the FFModel before serving it")
+        # a serving-only process never fits, so the served model's config
+        # arms the stall monitor and the scrape surface here
+        configure_watchdog(ff.config)
+        configure_obs_server(ff.config)
         configure_faults(ff.config)
         self.name = name
         self._ff = ff
@@ -239,6 +248,8 @@ class GenerationInstance:
             return
         if ff.compiled is None:
             raise ValueError("compile() the FFModel before serving it")
+        configure_watchdog(ff.config)
+        configure_obs_server(ff.config)
         configure_faults(ff.config)
         cfg = ff.config
         defaults = self._defaults(cfg)
@@ -578,8 +589,14 @@ class InferenceEngine:
             batchers = dict(self._batchers)
             generators = dict(self._generators)
             self._generators = {}
+            # the first registered model's config gates the session's
+            # ledger record (ledger="off" disables every append)
+            first = next(iter(self._models.values()), None)
+            ledger_cfg = (getattr(getattr(first[0], "_ff", None), "config", None)
+                          if first else None)
             self._started = False
             self._stopping = True
+        # generation schedulers stop first, each writing its own record
         for g in generators.values():
             g.stop()
         for b in batchers.values():
@@ -627,6 +644,12 @@ class InferenceEngine:
         # starts a new group
         for inst in groups:
             inst.stop()
+        # one ledger record a classic serving session (counters and latency
+        # percentiles; never raises, ledger.errors counts)
+        if batchers:
+            from ..obs.ledger import record_serving
+
+            record_serving({"models": sorted(batchers)}, config=ledger_cfg)
 
     # ---- request path -------------------------------------------------------
     def infer_async(self, model: str, inputs: Sequence[np.ndarray],
@@ -775,6 +798,7 @@ class InferenceEngine:
             inst = self._models[name][idx]
             batcher = self._batchers[name]
         reg = metrics_registry()
+        first_batch = True
         while True:
             ids = batcher.next_batch()
             if ids is None:
@@ -791,6 +815,12 @@ class InferenceEngine:
             if not reqs:
                 continue
             t_pickup = time.perf_counter()
+            # the watchdog watches a batch in hand, not the idle wait for
+            # one; the first batch runs unwatched (its kernels' first
+            # launch, and on a group its ranks' start, is not a stall)
+            section = _NULL_SECTION if first_batch else _wd_watch(f"serving.{name}.{idx}")
+            first_batch = False
+            section.__enter__()
             try:
                 # from the pop above to set_result below, any failure must
                 # resolve the popped futures (the except arm does): they can
@@ -847,6 +877,8 @@ class InferenceEngine:
                                 time.monotonic() + self.breaker_cooldown_s)
                     if n == self.breaker_threshold:
                         reg.counter("serving.breaker_opens").inc()
+            finally:
+                section.__exit__(None, None, None)
 
     @staticmethod
     def _record_request_spans(model: str, reqs, t_pickup, t_assembled, t_infer,

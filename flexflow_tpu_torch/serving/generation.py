@@ -378,6 +378,28 @@ class Generator(_DecodeGraph):
         super().__init__(ff, max_length)
         self.batch_size = batch_size or self._cm.input_tensors[0].dims[0]
         self.device = self._cm.device
+        # executable telemetry (config.exec_telemetry) of one decode step
+        self.exec_telemetry = None
+        from ..obs.exec_telemetry import telemetry_mode
+
+        if telemetry_mode(ff.config) == "on":
+            self.exec_telemetry = self._decode_step_telemetry(ff.config)
+
+    def _decode_step_telemetry(self, cfg) -> Dict:
+        """One decode step at offset 0 on a fresh cache, its peak against
+        the resident bytes it needs (the params it reads and the cache)."""
+        from ..obs.exec_telemetry import collect_one
+
+        params = self._exec_params()
+        cache = self.init_cache()
+        tokens = torch.zeros((self.batch_size, 1), dtype=torch.int32, device=self.device)
+        static = sum(t.numel() * t.element_size()
+                     for ws in params.values() for t in ws.values())
+        static += sum(t.numel() * t.element_size() for kv in cache.values() for t in kv)
+        return collect_one("serving.decode_step",
+                           lambda: self._step(params, tokens, cache, 0), self.device,
+                           config=cfg, static_peak=static,
+                           allow=getattr(cfg, "exec_mem_allow", None))
 
     # ---- cache ------------------------------------------------------------
     def init_cache(self) -> Cache:

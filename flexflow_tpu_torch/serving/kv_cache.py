@@ -78,7 +78,11 @@ class PagedKVPool:
         self.dtype = dtype
         self.kv_dtype = kv_dtype
         self.specs = dict(specs)
-        self.device = torch.device("cpu") if device is None else torch.device(device)
+        # no device: FFConfig's default, the card (raises without one)
+        from ..config import FFConfig
+
+        self.device = FFConfig(device=FFConfig.device if device is None
+                               else str(device)).torch_device()
         self.kv: Dict[str, Tuple[torch.Tensor, ...]] = {}
         with torch.inference_mode():
             for name, (heads, head_dim) in self.specs.items():

@@ -35,8 +35,11 @@ through ``_DECODE_RETRY``, every admission, shed, reject, step and token
 is counted in the metrics registry under the reference's ``serving.*``
 names, and with the tracer on each retired request records its span tree
 (``serving.request`` over ``queue_wait``, ``prefill``, ``decode`` and
-``reply``). Not ported yet: the watchdog, the ledger record and the
-attribution and advisor publishing (ROADMAP A10).
+``reply``). Decode work in hand is a watched section of the stall watchdog
+(``serving.gen.<name>``); retirements publish the session's attribution
+on the obs server (``/attribution?kind=serving``), and ``stop()`` writes
+one serving ledger record and publishes the advisor's report
+(``/advice``).
 """
 
 from __future__ import annotations
@@ -53,11 +56,17 @@ import numpy as np
 
 from ..obs.metrics import metrics_registry, nearest_rank_percentile
 from ..obs.trace import VIRTUAL_TID_BASE, tracer
+from ..obs.watchdog import _NULL as _NULL_SECTION
+from ..obs.watchdog import watch as _wd_watch
 from ..runtime.faults import InjectedFault, TransientFault
 from ..runtime.faults import fire as _fault_fire
 from ..runtime.retry import RetryPolicy
 from .errors import DeadlineExceeded, ShedError
 from .generation import PagedDecoder, sample_next_token
+
+# retirements between refreshes of the obs server's /attribution (the
+# first retirement and stop() always publish)
+_PUBLISH_EVERY = 16
 
 # generation request tracks sit above the classic engine's, so the two
 # engines' per-request trace tracks never collide
@@ -148,6 +157,7 @@ class ContinuousBatchingScheduler:
                  kv_dtype: str = "float32",
                  kv_divergence_budget: Optional[float] = None, decoder=None):
         self.name = name
+        self._ff = ff
         if decoder is not None:
             # a generation group's decoder (serving/group.py): the ranks
             # own the model and the arenas, this process the allocator
@@ -226,6 +236,7 @@ class ContinuousBatchingScheduler:
         self._shed = 0
         self._deadline_rejects = 0
         self._completed = 0
+        self._session_recorded = False
 
     # ---- admission ---------------------------------------------------------
     def submit(self, prompt: np.ndarray, max_new_tokens: int, temperature: float = 0.0,
@@ -298,13 +309,18 @@ class ContinuousBatchingScheduler:
     def stop(self) -> None:
         """Drain and stop: queued requests fail with a RuntimeError, active
         ones decode to the end (their worst case is bounded). A stopped
-        scheduler does not restart."""
+        scheduler does not restart. The session's serving ledger record is
+        written once, however often ``stop`` is called."""
         with self._mu:
             self._closed = True
             self._mu.notify_all()
             t = self._thread
+            already = self._session_recorded
+            self._session_recorded = True
         if t is not None:
             t.join(timeout=120)  # outside _mu
+        if not already:
+            self._record_session()
 
     # ---- worker ------------------------------------------------------------
     def _worker_main(self) -> None:
@@ -351,6 +367,7 @@ class ContinuousBatchingScheduler:
                 r.future.set_exception(wrapped)
 
     def _loop(self) -> None:
+        first_step = True
         while True:
             with self._mu:
                 while (not self._closed and not self._queue
@@ -368,7 +385,14 @@ class ContinuousBatchingScheduler:
             self._admit(closed)
             with self._mu:
                 active = any(r is not None for r in self._slots)
-            if active:
+            if not active:
+                continue
+            # the watchdog watches decode work in hand; the first step runs
+            # unwatched (the kernels' first launch is not a stall)
+            section = (_NULL_SECTION if first_step
+                       else _wd_watch(f"serving.gen.{self.name}"))
+            first_step = False
+            with section:
                 self._decode_once()
 
     # ---- admission between decode steps ------------------------------------
@@ -748,6 +772,13 @@ class ContinuousBatchingScheduler:
         reg.counter("serving.batches").inc()
         self._record_request_spans(req, now)
         req.future.set_result(np.concatenate([req.prompt, np.asarray(req.tokens, np.int32)]))
+        # published after the future resolves and throttled: the first
+        # retirement arms /attribution, every _PUBLISH_EVERY-th refreshes
+        # it, and stop() publishes the final table
+        with self._mu:
+            completed = self._completed
+        if completed % _PUBLISH_EVERY == 1:
+            self._publish_attribution()
 
     def _record_request_spans(self, req: GenerationRequest, t_end: float) -> None:
         """``serving.request`` over ``queue_wait`` -> ``prefill`` ->
@@ -772,6 +803,44 @@ class ContinuousBatchingScheduler:
         tr.complete("serving.reply", t_end, 0.0, cat="serving", tid=tid)
 
     # ---- stats -------------------------------------------------------------
+    def _publish_attribution(self) -> None:
+        """Keep the obs server's ``/attribution`` current for this session
+        (queue_wait, prefill and decode), so a serving-only process has
+        the surface a fit process has."""
+        try:
+            from ..obs.attribution import serving_attribution
+            from ..obs.server import publish_attribution
+
+            rec = serving_attribution(self.stats())
+            if rec is not None:
+                publish_attribution(rec, kind="serving")
+        except Exception:  # noqa: BLE001 — telemetry never fails serving
+            metrics_registry().counter("serving.obs_errors").inc()
+
+    def _record_session(self) -> None:
+        """One serving ledger record a scheduler session, with the final
+        attribution and the advisor's report published."""
+        from ..obs.ledger import model_context, record_serving
+
+        extra = self.stats()
+        try:
+            ctx = model_context(self._ff)
+            if ctx.get("model_sig"):
+                extra["model_sig"] = ctx["model_sig"]
+        except Exception:  # noqa: BLE001 — telemetry never kills stop
+            pass
+        self._publish_attribution()
+        try:
+            from ..obs.advisor import advise_record
+            from ..obs.server import publish_advice
+
+            report = advise_record(dict(extra))
+            if report is not None:
+                publish_advice(report)
+        except Exception:  # noqa: BLE001 — advice never kills stop
+            metrics_registry().counter("advisor.errors").inc()
+        record_serving(extra, config=getattr(self._ff, "config", None))
+
     def stats(self) -> Dict:
         """A live snapshot of the session: counts, per-phase latency
         percentiles (seconds), pool occupancy, throughput."""

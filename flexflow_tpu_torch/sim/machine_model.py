@@ -501,7 +501,8 @@ def detect_machine_model(n_devices: Optional[int] = None,
                          device: Optional[str] = None) -> MachineModel:
     """The model of the platform this process runs on. ``n_devices``
     defaults to the ``torch.distributed`` world size (1 without a group);
-    ``device`` is ``FFConfig.device``:
+    ``device`` is ``FFConfig.device``, whose default, the card, it takes
+    when given none (and raises without a card):
 
     * on the CPU: ``cpu-host`` with ``shared_host=True``, as the JAX
       package on its virtual mesh;
@@ -512,9 +513,11 @@ def detect_machine_model(n_devices: Optional[int] = None,
       (``FFConfig.machine_model_file``)."""
     import torch
 
+    from ..config import FFConfig
+
     n = n_devices if n_devices is not None else world_size()
-    dev = torch.device(device) if device is not None else (
-        torch.device("cuda") if torch.cuda.is_available() else torch.device("cpu"))
+    # no device: FFConfig's default, the card (raises without one)
+    dev = FFConfig(device=FFConfig.device if device is None else str(device)).torch_device()
     if dev.type == "cpu":
         return SimpleMachineModel(CHIP_PRESETS["cpu-host"], n, shared_host=True)
     name = torch.cuda.get_device_name(dev)

@@ -26,6 +26,7 @@ from flexflow_tpu.models.transformer import build_bert_proxy as jbuild_bert_prox
 from flexflow_tpu.runtime.optimizer import SGDOptimizer as JSGDOptimizer
 from flexflow_tpu_torch import FFConfig, FFModel, LossType, SGDOptimizer, load_numpy_params
 from flexflow_tpu_torch.models import TransformerConfig, build_bert_proxy
+from _torch_ledger import _ledger_in_tmp  # noqa: F401  (records under tmp)
 
 BATCH = 2
 SHAPE = dict(hidden_size=32, embedding_size=32, num_heads=4, num_layers=2,

@@ -40,6 +40,7 @@ from flexflow_tpu_torch import (ActiMode, DataType, FFConfig, FFModel, LossType,
 from flexflow_tpu_torch.models import GPTConfig, build_gpt
 from flexflow_tpu_torch.obs.metrics import metrics_registry
 from flexflow_tpu_torch.runtime import buckets as tb
+from _torch_ledger import _ledger_in_tmp  # noqa: F401  (records under tmp)
 
 V, S, BATCH = 64, 32, 4
 SHAPE = dict(vocab_size=V, max_positions=S, hidden_size=32, num_heads=4, num_layers=2)

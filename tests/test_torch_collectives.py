@@ -16,6 +16,7 @@ from flexflow_tpu.parallel import collectives as jcol
 from flexflow_tpu_torch.parallel.distributed import spawn
 
 import _torch_mesh_workers as workers
+from _torch_ledger import _ledger_in_tmp  # noqa: F401  (records under tmp)
 
 C_ROWS, D = 8, 6  # a rank's block; chunks of dim 0 divide by 2 and 4
 EXPERTS, CAP = 8, 8

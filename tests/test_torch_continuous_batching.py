@@ -45,6 +45,7 @@ from flexflow_tpu_torch.runtime.retry import RetryPolicy
 from flexflow_tpu_torch.serving import (ContinuousBatchingScheduler, DeadlineExceeded,
                                         Generator, InferenceEngine, ShedError)
 from flexflow_tpu_torch.serving.scheduler import GenerationRequest
+from _torch_ledger import _ledger_in_tmp  # noqa: F401  (records under tmp)
 
 V = 50
 SHAPE = dict(vocab_size=V, max_positions=32, hidden_size=32, num_heads=4, num_layers=2)

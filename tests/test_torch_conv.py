@@ -47,6 +47,7 @@ from flexflow_tpu_torch.core.op import LowerCtx, create_op
 from flexflow_tpu_torch.core.parallel_tensor import ParallelTensorShape
 from flexflow_tpu_torch.ffconst import OpType, PoolType
 from flexflow_tpu_torch.runtime.compiler import cast_op_params, make_caster
+from _torch_ledger import _ledger_in_tmp  # noqa: F401  (records under tmp)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 BF16_TOL = 2 ** -7

@@ -36,6 +36,7 @@ from flexflow_tpu.runtime.optimizer import SGDOptimizer as JSGDOptimizer
 from flexflow_tpu_torch.parallel.distributed import spawn
 
 import _torch_mesh_workers as workers
+from _torch_ledger import _ledger_in_tmp  # noqa: F401  (records under tmp)
 
 STEPS = 3
 SMALL = dict(input_dim=16, num_classes=4, num_exp=8, num_select=2, expert_hidden_size=32)

@@ -24,6 +24,7 @@ from flexflow_tpu_torch.models import build_mlp
 from flexflow_tpu_torch.obs import metrics as tmetrics
 from flexflow_tpu_torch.runtime import faults as tfaults
 from flexflow_tpu_torch.runtime.retry import RetryPolicy
+from _torch_ledger import _ledger_in_tmp  # noqa: F401  (records under tmp)
 
 
 @pytest.fixture(autouse=True)

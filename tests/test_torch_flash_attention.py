@@ -22,6 +22,7 @@ from flexflow_tpu.parallel.ring_attention import single_device_attention
 from flexflow_tpu_torch import kernels as tkernels
 from flexflow_tpu_torch.kernels import flash_attention as tfa
 from test_torch_flash_attention_bwd import _scores, _tf32_matmul
+from _torch_ledger import _ledger_in_tmp  # noqa: F401  (records under tmp)
 
 # f32 on both sides, same algorithm, different summation order: a few
 # f32 ulps on outputs of magnitude ~1

@@ -23,6 +23,7 @@ from flexflow_tpu.kernels import flash_attention as jfa
 from flexflow_tpu.parallel.ring_attention import single_device_attention
 from flexflow_tpu_torch import kernels as tkernels
 from flexflow_tpu_torch.kernels import flash_attention as tfa
+from _torch_ledger import _ledger_in_tmp  # noqa: F401  (records under tmp)
 
 # f32 on both sides, the same products summed in another order: gradients
 # of magnitude ~1 agree to a few f32 ulps

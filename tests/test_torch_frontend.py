@@ -11,6 +11,7 @@ import torch.nn as nn  # noqa: E402
 from flexflow_tpu import FFConfig, FFModel, LossType, MetricsType, SGDOptimizer  # noqa: E402
 from flexflow_tpu.torch_frontend import PyTorchModel, torch_to_flexflow  # noqa: E402
 from flexflow_tpu.torch_frontend.model import copy_weights  # noqa: E402
+from _torch_ledger import _ledger_in_tmp  # noqa: F401  (records under tmp)
 
 
 class SmallMLP(nn.Module):

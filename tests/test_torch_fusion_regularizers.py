@@ -40,6 +40,7 @@ from flexflow_tpu_torch.core.op import LowerCtx, create_op
 from flexflow_tpu_torch.core.parallel_tensor import ParallelTensorShape
 from flexflow_tpu_torch.keras import regularizers as treg
 from flexflow_tpu_torch.ops.fused import apply_fusion
+from _torch_ledger import _ledger_in_tmp  # noqa: F401  (records under tmp)
 
 # f32, relative to the largest value compared: the same MLP in the same
 # precision, sums in another order, over three updates

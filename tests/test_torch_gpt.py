@@ -37,6 +37,7 @@ from flexflow_tpu_torch.models import GPTConfig, build_gpt
 from flexflow_tpu_torch.runtime.loss import compute_loss
 from flexflow_tpu_torch.runtime.metrics import compute_batch_metrics
 from flexflow_tpu_torch.serving import Generator
+from _torch_ledger import _ledger_in_tmp  # noqa: F401  (records under tmp)
 
 BATCH, SEQ = 2, 32
 SHAPE = dict(vocab_size=128, max_positions=64, hidden_size=32, num_heads=4, num_layers=2)

@@ -32,6 +32,7 @@ from flexflow_tpu.runtime.optimizer import SGDOptimizer as JSGDOptimizer
 from flexflow_tpu_torch import (ActiMode, FFConfig, FFModel, LossType, MetricsType,
                                 SGDOptimizer, load_numpy_params)
 from flexflow_tpu_torch.models import GPTConfig, build_gpt
+from _torch_ledger import _ledger_in_tmp  # noqa: F401  (records under tmp)
 
 # f32, relative to the largest value compared: the same graphs in the same
 # precision, sums in another order, over three updates

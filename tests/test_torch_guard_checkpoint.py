@@ -46,6 +46,7 @@ from flexflow_tpu_torch.runtime.checkpoint import (CheckpointManager,
                                                    topology_signature)
 from flexflow_tpu_torch.runtime.guard import DivergenceError, TrainingGuard
 from flexflow_tpu_torch.runtime.recompile import RecompileState
+from _torch_ledger import _ledger_in_tmp  # noqa: F401  (records under tmp)
 
 BATCH = 8
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

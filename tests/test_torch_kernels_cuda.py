@@ -14,6 +14,7 @@ import torch
 from flexflow_tpu_torch import kernels as tkernels
 from flexflow_tpu_torch.kernels import flash_attention as tfa
 from flexflow_tpu_torch.kernels import moe_kernels as tmk
+from _torch_ledger import _ledger_in_tmp  # noqa: F401  (records under tmp)
 
 # f32: the same f32 math in another summation order
 F32_TOL = dict(rtol=2e-5, atol=2e-5)

@@ -20,6 +20,7 @@ from flexflow_tpu_torch.ffconst import LossType, MetricsType
 from flexflow_tpu_torch.runtime import loss as tloss
 from flexflow_tpu_torch.runtime import metrics as tmetrics
 from flexflow_tpu_torch.runtime import optimizer as toptim
+from _torch_ledger import _ledger_in_tmp  # noqa: F401  (records under tmp)
 
 # f32 on both sides, the same reductions in another order: a few ulps of
 # the result (sums of up to 64 terms)

@@ -32,6 +32,7 @@ from flexflow_tpu_torch.models.xdl import build_xdl
 from flexflow_tpu_torch.ops.moe_ops import expert_capacity
 from flexflow_tpu_torch.runtime.compiler import build_ops, compile_model
 from flexflow_tpu_torch.serving.placement import instance_meshes
+from _torch_ledger import _ledger_in_tmp  # noqa: F401  (records under tmp)
 
 BATCH = 8
 SHAPE = dict(hidden_size=64, embedding_size=64, num_heads=4, num_layers=2, sequence_length=16)

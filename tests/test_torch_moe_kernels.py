@@ -31,6 +31,7 @@ from flexflow_tpu_torch.core.parallel_tensor import ParallelTensorShape
 from flexflow_tpu_torch.ffconst import ActiMode, DataType, OpType
 from flexflow_tpu_torch.kernels import moe_kernels as tmk
 from flexflow_tpu_torch.ops import moe_ops as tmoe
+from _torch_ledger import _ledger_in_tmp  # noqa: F401  (records under tmp)
 
 # f32: a gather is exact and each output element is a product, or a sum of
 # k products in the same order, rounded to f32 on both sides: 1e-6

@@ -32,6 +32,7 @@ from flexflow_tpu.runtime.optimizer import AdamOptimizer as JAdamOptimizer
 from flexflow_tpu_torch import (AdamOptimizer, FFConfig, FFModel, LossType,
                                 MetricsType, load_numpy_params)
 from flexflow_tpu_torch.models import MoeConfig, build_moe_mnist
+from _torch_ledger import _ledger_in_tmp  # noqa: F401  (records under tmp)
 
 BATCH = 8
 SHAPE = dict(input_dim=16, num_exp=4, expert_hidden_size=32)

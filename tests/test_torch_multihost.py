@@ -49,6 +49,7 @@ from flexflow_tpu_torch.runtime.checkpoint import (CheckpointManager,
                                                    is_multihost_dir, topology_matches,
                                                    topology_signature)
 from flexflow_tpu_torch.runtime.compiler import compile_model
+from _torch_ledger import _ledger_in_tmp  # noqa: F401  (records under tmp)
 
 TOL, UPDATE_TOL = 1e-5, 2 ** -4
 EXTRA = {"schema": 1, "epoch": 0, "step_in_epoch": 0, "rng_counter": 0, "lr": None,

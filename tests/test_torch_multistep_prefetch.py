@@ -22,6 +22,7 @@ from flexflow_tpu_torch.runtime import faults
 from flexflow_tpu_torch.runtime.dataloader import (DataLoaderGroup, Prefetcher,
                                                    SingleDataLoader)
 from flexflow_tpu_torch.runtime.faults import InjectedFault
+from _torch_ledger import _ledger_in_tmp  # noqa: F401  (records under tmp)
 
 BATCH = 8
 

@@ -15,6 +15,7 @@ from flexflow_tpu.obs import metrics as jmetrics
 from flexflow_tpu.obs import trace as jtrace
 from flexflow_tpu_torch.obs import metrics as tmetrics
 from flexflow_tpu_torch.obs import trace as ttrace
+from _torch_ledger import _ledger_in_tmp  # noqa: F401  (records under tmp)
 
 
 def _feed(mod, seed: int, n: int = 1500):

@@ -24,6 +24,7 @@ from flexflow_tpu_torch.core.op import LowerCtx, create_op
 from flexflow_tpu_torch.core.parallel_tensor import ParallelTensorShape
 from flexflow_tpu_torch.ffconst import ActiMode, OpType
 import flexflow_tpu_torch.ops  # noqa: F401  (registers the port's ops)
+from _torch_ledger import _ledger_in_tmp  # noqa: F401  (records under tmp)
 
 # f32 on both sides; the products sum in a different order on each
 TOL = dict(rtol=1e-5, atol=1e-5)

@@ -33,6 +33,7 @@ from flexflow_tpu_torch.core.parallel_tensor import ParallelTensorShape
 from flexflow_tpu_torch.ffconst import AggrMode, DataType, OpType
 from flexflow_tpu_torch.ops.attention import dropout_attention
 from flexflow_tpu_torch.runtime.compiler import make_caster
+from _torch_ledger import _ledger_in_tmp  # noqa: F401  (records under tmp)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

@@ -43,6 +43,7 @@ from flexflow_tpu_torch.serving import (Generator, KVPoolExhausted, PagedDecoder
                                         PagedKVPool)
 from flexflow_tpu_torch.serving.generation import _quant_rows
 from flexflow_tpu_torch.serving.kv_cache import NULL_BLOCK
+from _torch_ledger import _ledger_in_tmp  # noqa: F401  (records under tmp)
 
 V = 50
 SHAPE = dict(vocab_size=V, max_positions=32, hidden_size=32, num_heads=4, num_layers=2)
@@ -54,7 +55,7 @@ PROMPT_LENS = (3, 6, 2, 5)
 # ---- the pool -----------------------------------------------------------------
 def test_pool_geometry_admission_free_and_high_water():
     pool = PagedKVPool({"a": (2, 4), "b": (2, 4)}, num_blocks=5, block_size=4,
-                       max_blocks_per_request=3)
+                       max_blocks_per_request=3, device="cpu")
     assert pool.capacity_blocks == 4 and pool.kv["a"][0].shape == (5, 4, 2, 4)
     assert [pool.blocks_for(n) for n in (0, 1, 4, 5, 12)] == [1, 1, 1, 2, 3]
     t1 = pool.try_admit(9)  # 3 blocks, handed out LIFO from 1
@@ -73,7 +74,8 @@ def test_pool_geometry_admission_free_and_high_water():
 
 
 def test_pool_sheds_the_impossible_and_raises_on_double_free():
-    pool = PagedKVPool({"a": (2, 4)}, num_blocks=3, block_size=4, max_blocks_per_request=4)
+    pool = PagedKVPool({"a": (2, 4)}, num_blocks=3, block_size=4, max_blocks_per_request=4,
+                       device="cpu")
     with pytest.raises(KVPoolExhausted, match="exceeds the whole pool"):
         pool.try_admit(12)  # 3 blocks > 2 allocatable
     with pytest.raises(KVPoolExhausted, match="max_blocks_per_request"):
@@ -92,7 +94,7 @@ def test_pool_validates_its_geometry(kw, match):
     args = dict(num_blocks=4, block_size=4, max_blocks_per_request=2)
     args.update(kw)
     with pytest.raises(ValueError, match=match):
-        PagedKVPool({"a": (2, 4)}, **args)
+        PagedKVPool({"a": (2, 4)}, device="cpu", **args)
 
 
 @pytest.mark.parametrize("kv_dtype", ["float32", "bfloat16", "int8"])
@@ -100,7 +102,7 @@ def test_pool_validates_its_geometry(kw, match):
 def test_memory_bytes_equal_the_jax_pool(kv_dtype, compute):
     specs = {"l0": (4, 8), "l1": (2, 16)}
     pool = PagedKVPool(specs, num_blocks=9, block_size=8, max_blocks_per_request=4,
-                       dtype=getattr(torch, compute), kv_dtype=kv_dtype)
+                       dtype=getattr(torch, compute), kv_dtype=kv_dtype, device="cpu")
     jpool = JPagedKVPool(specs, num_blocks=9, block_size=8, max_blocks_per_request=4,
                          dtype=getattr(jnp, compute), kv_dtype=kv_dtype)
     assert pool.memory_bytes() == jpool.memory_bytes()

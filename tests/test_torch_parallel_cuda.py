@@ -16,6 +16,7 @@ import torch
 from flexflow_tpu_torch.parallel.distributed import spawn
 
 import _torch_mesh_workers as workers
+from _torch_ledger import _ledger_in_tmp  # noqa: F401  (records under tmp)
 
 
 @pytest.fixture

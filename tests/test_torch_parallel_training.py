@@ -36,6 +36,7 @@ from flexflow_tpu_torch import FFConfig, FFModel
 from flexflow_tpu_torch.parallel.distributed import spawn
 
 import _torch_mesh_workers as workers
+from _torch_ledger import _ledger_in_tmp  # noqa: F401  (records under tmp)
 
 BATCH, STEPS = 8, 3
 SHAPE = dict(hidden_size=64, embedding_size=64, num_heads=4, num_layers=2, sequence_length=16)

@@ -6,6 +6,7 @@ one-rank port, at the tolerances of ``test_torch_parallel_training.py``
 (whose helpers these runs use)."""
 
 import test_torch_parallel_training as base
+from _torch_ledger import _ledger_in_tmp  # noqa: F401  (records under tmp)
 
 
 def test_ring_and_a2a_match_jax_and_one_rank():

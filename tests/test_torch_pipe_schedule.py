@@ -14,6 +14,7 @@ from flexflow_tpu.parallel import schedule as js
 from flexflow_tpu.parallel.pipeline_compiled import _build_tables as jbuild_tables
 from flexflow_tpu_torch.parallel import schedule as ts
 from flexflow_tpu_torch.parallel.pipeline_compiled import _build_tables
+from _torch_ledger import _ledger_in_tmp  # noqa: F401  (records under tmp)
 
 GRID = [(kind, S, M, V) for kind, S, M in itertools.product(
     ("gpipe", "1f1b", "interleaved"), (2, 3, 4), (1, 2, 4, 7))

@@ -41,6 +41,7 @@ from flexflow_tpu_torch.parallel.pipeline import PipelineConfig, split_stages
 from flexflow_tpu_torch.parallel.pipeline_compiled import compiled_engine_unsupported
 
 import _torch_mesh_workers as workers
+from _torch_ledger import _ledger_in_tmp  # noqa: F401  (records under tmp)
 
 BATCH, STEPS = 8, 3
 SHAPE = dict(hidden_size=32, embedding_size=32, num_heads=4, num_layers=2, sequence_length=8)

@@ -11,6 +11,7 @@ import subprocess
 import sys
 
 import pytest
+from _torch_ledger import _ledger_in_tmp  # noqa: F401  (records under tmp)
 
 PORT = pathlib.Path(__file__).resolve().parents[1] / "flexflow_tpu_torch"
 
@@ -54,7 +55,14 @@ REQUIRED = ("flexflow_tpu_torch.obs", "flexflow_tpu_torch.obs.metrics",
             "flexflow_tpu_torch.sim.calibrate", "flexflow_tpu_torch.search",
             "flexflow_tpu_torch.search.substitution", "flexflow_tpu_torch.search.unity",
             "flexflow_tpu_torch.search.graph_xfer", "flexflow_tpu_torch.search.mcmc",
-            "flexflow_tpu_torch.search.cache")
+            "flexflow_tpu_torch.search.cache", "flexflow_tpu_torch.search.rule_interpreter",
+            "flexflow_tpu_torch.analysis", "flexflow_tpu_torch.analysis.findings",
+            "flexflow_tpu_torch.obs.ledger", "flexflow_tpu_torch.obs.watchdog",
+            "flexflow_tpu_torch.obs.exec_telemetry", "flexflow_tpu_torch.obs.divergence",
+            "flexflow_tpu_torch.obs.attribution", "flexflow_tpu_torch.obs.advisor",
+            "flexflow_tpu_torch.obs.costcorpus", "flexflow_tpu_torch.obs.server",
+            "flexflow_tpu_torch.obs.cohort", "flexflow_tpu_torch.runtime.profiling",
+            "flexflow_tpu_torch.utils.dot")
 
 
 def test_rules_cover_the_required_modules():

@@ -30,6 +30,7 @@ from flexflow_tpu_torch.core.layer import Layer
 from flexflow_tpu_torch.core.op import LowerCtx, create_op
 from flexflow_tpu_torch.core.parallel_tensor import ParallelTensorShape
 from flexflow_tpu_torch.ffconst import OpType
+from _torch_ledger import _ledger_in_tmp  # noqa: F401  (records under tmp)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 B, S, D, H = 3, 6, 5, 4

@@ -25,6 +25,7 @@ from flexflow_tpu_torch.parallel.distributed import spawn
 from flexflow_tpu_torch.parallel.ring_attention import single_device_attention
 
 import _torch_mesh_workers as workers
+from _torch_ledger import _ledger_in_tmp  # noqa: F401  (records under tmp)
 
 B, S, H, D = 2, 16, 4, 8
 SCALE, RATE = 0.3, 0.3

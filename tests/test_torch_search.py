@@ -7,7 +7,7 @@ and ``mcmc_optimize`` giving JAX's strategies, mesh, ``states_explored``
 and ``est_step_time`` (1e-9 relative), the forked workers bit-identical to
 the serial search, ``compile`` with a search on a mesh of ranks (gloo)
 giving JAX's plan and training within ``test_torch_parallel_training.py``'s
-bounds, and the reference's GraphXfer schema raising naming A8b.
+bounds, and a file in the reference's GraphXfer schema compiling.
 
 The departure: the port's attention reads its input's hidden dim whole
 (its ``propagate`` gathers what an op reads across), so a frontier state where a tensor-parallel
@@ -38,6 +38,7 @@ from flexflow_tpu_torch.search import unity as tunity
 from flexflow_tpu_torch import sim as tsim
 
 from test_torch_sim import _close, _ns, _to_jax
+from _torch_ledger import _ledger_in_tmp  # noqa: F401  (records under tmp)
 
 EST = 1e-9  # est_step_time, relative
 
@@ -724,16 +725,22 @@ def test_logits_tensor_protected_from_rewrites():
 
 
 def test_reference_rule_schema_names_a8b(tmp_path):
-    """The reference's GraphXfer schema ({"rule": [...]}) is ROADMAP A8b:
-    compile with such a file raises naming it."""
+    """The reference's GraphXfer schema ({"rule": [...]}) compiles through
+    the search: the rule interpreter (tests/test_torch_rule_interpreter.py)
+    classifies this empty rule as resharding, as JAX's does, and adds no
+    rewrite."""
     p = tmp_path / "rules.json"
     p.write_text(json.dumps({"rule": [{"name": "x", "srcOp": [], "dstOp": [],
                                        "mappedOutput": []}]}))
     ff = T.FFModel(T.FFConfig(batch_size=8, device="cpu", search_budget=1,
-                              substitution_json_path=str(p)))
+                              substitution_json_path=str(p), ledger="off"))
     ff.dense(ff.create_tensor((8, 16), name="x"), 4, name="d")
-    with pytest.raises(NotImplementedError, match="A8b"):
-        ff.compile(T.SGDOptimizer(lr=0.1), T.LossType.MEAN_SQUARED_ERROR_AVG_REDUCE)
+    ff.compile(T.SGDOptimizer(lr=0.1), T.LossType.MEAN_SQUARED_ERROR_AVG_REDUCE)
+    assert ff.config._graphxfer_rewrites == [] and ff.config._substitution_rules is None
+    assert [o.name for o in ff.compiled.ops] == ["d"]
+    assert txfer.load_graphxfer_rules(str(p)).counts() == \
+        jxfer.load_graphxfer_rules(str(p)).counts() == {"resharding": 1, "structural": 0,
+                                                        "unsupported": 0}
 
 
 # ------------------------------------------------ compile with search, on ranks

@@ -24,6 +24,7 @@ from flexflow_tpu_torch.search.cache import (load_payload, result_from_payload,
 from flexflow_tpu_torch.sim import CHIP_PRESETS, SimpleMachineModel
 from flexflow_tpu_torch.sim import cost_model as cost_model_mod
 from flexflow_tpu_torch.sim import simulator as simulator_mod
+from _torch_ledger import _ledger_in_tmp  # noqa: F401  (records under tmp)
 
 MESH = {"data": 2, "model": 4}
 

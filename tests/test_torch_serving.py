@@ -25,6 +25,7 @@ from flexflow_tpu.serving.engine import ModelInstance as JModelInstance
 from flexflow_tpu_torch import CompMode, FFConfig, FFModel, load_numpy_params
 from flexflow_tpu_torch.models.transformer import TransformerConfig, build_transformer
 from flexflow_tpu_torch.serving.engine import InferenceEngine, ModelInstance
+from _torch_ledger import _ledger_in_tmp  # noqa: F401  (records under tmp)
 
 BATCH = 2
 SHAPE = dict(hidden_size=128, embedding_size=128, num_heads=4, num_layers=2,

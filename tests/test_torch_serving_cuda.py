@@ -9,6 +9,7 @@ import torch
 
 from flexflow_tpu_torch.models import build_mlp
 from flexflow_tpu_torch.serving import InferenceEngine
+from _torch_ledger import _ledger_in_tmp  # noqa: F401  (records under tmp)
 
 
 @pytest.mark.cuda

@@ -41,6 +41,7 @@ from flexflow_tpu_torch.serving.group import GroupFailure, GroupSpec, MeshInstan
 from flexflow_tpu_torch.serving.placement import instance_meshes
 
 import _torch_mesh_workers as workers
+from _torch_ledger import _ledger_in_tmp  # noqa: F401  (records under tmp)
 
 TOL = 1e-5
 GEN_TOL = 2e-5

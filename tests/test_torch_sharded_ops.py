@@ -44,6 +44,7 @@ from flexflow_tpu_torch import FFConfig, FFModel
 from flexflow_tpu_torch.parallel.distributed import spawn
 
 import _torch_mesh_workers as workers
+from _torch_ledger import _ledger_in_tmp  # noqa: F401  (records under tmp)
 
 BATCH, STEPS = 8, 2
 TOL, UPDATE_TOL = 1e-5, 2 ** -4

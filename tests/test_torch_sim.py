@@ -41,6 +41,7 @@ from flexflow_tpu_torch.sim import cost_model as tcost
 from flexflow_tpu_torch.sim import machine_model as tmm
 from flexflow_tpu_torch.sim import network as tnet
 from flexflow_tpu_torch.sim import simulator as tsimulator
+from _torch_ledger import _ledger_in_tmp  # noqa: F401  (records under tmp)
 
 REL = 1e-12
 

@@ -21,6 +21,7 @@ from flexflow_tpu.runtime.metrics import compute_batch_metrics as jcompute_batch
 from flexflow_tpu_torch.ffconst import LossType, MetricsType
 from flexflow_tpu_torch.runtime.loss import compute_loss
 from flexflow_tpu_torch.runtime.metrics import compute_batch_metrics
+from _torch_ledger import _ledger_in_tmp  # noqa: F401  (records under tmp)
 
 V = 5
 TOL = dict(rtol=1e-6, atol=1e-6)

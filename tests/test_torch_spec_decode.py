@@ -43,6 +43,7 @@ from flexflow_tpu_torch.serving import (ContinuousBatchingScheduler, DeadlineExc
                                         GenerationInstance, InferenceEngine, PagedKVPool,
                                         build_draft_model)
 from flexflow_tpu_torch.serving.scheduler import GenerationRequest
+from _torch_ledger import _ledger_in_tmp  # noqa: F401  (records under tmp)
 
 V = 50
 SHAPE = dict(vocab_size=V, max_positions=32, hidden_size=32, num_heads=4, num_layers=2)
@@ -329,7 +330,8 @@ def test_int8_admits_twice_the_requests_at_the_f32_pools_bytes():
 
     def pool(dtype, nb):
         return PagedKVPool(specs, num_blocks=nb, block_size=bs,
-                           max_blocks_per_request=max_len // bs, kv_dtype=dtype)
+                           max_blocks_per_request=max_len // bs, kv_dtype=dtype,
+                           device="cpu")
 
     budget = pool("float32", n_f32).memory_bytes()
     n_q = n_f32

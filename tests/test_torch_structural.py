@@ -30,6 +30,7 @@ from flexflow_tpu_torch.core.layer import Layer
 from flexflow_tpu_torch.core.op import LowerCtx, create_op
 from flexflow_tpu_torch.core.parallel_tensor import ParallelTensorShape
 from flexflow_tpu_torch.ffconst import DataType, OpType
+from _torch_ledger import _ledger_in_tmp  # noqa: F401  (records under tmp)
 
 EXACT = dict(rtol=0, atol=0)
 SUMS = dict(rtol=1e-5, atol=1e-5)

@@ -31,6 +31,7 @@ from flexflow_tpu.runtime.optimizer import SGDOptimizer as JSGDOptimizer
 from flexflow_tpu_torch import (AdamOptimizer, FFConfig, FFModel, LossType,
                                 MetricsType, SGDOptimizer, load_numpy_params)
 from flexflow_tpu_torch.models.transformer import TransformerConfig, build_transformer
+from _torch_ledger import _ledger_in_tmp  # noqa: F401  (records under tmp)
 
 BATCH = 2
 SHAPE = dict(hidden_size=128, embedding_size=128, num_heads=4, num_layers=2,

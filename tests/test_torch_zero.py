@@ -26,6 +26,7 @@ from flexflow_tpu_torch.parallel.distributed import spawn
 
 import _torch_mesh_workers as workers
 from test_torch_parallel_training import SHAPE, _case
+from _torch_ledger import _ledger_in_tmp  # noqa: F401  (records under tmp)
 
 MSE = "MEAN_SQUARED_ERROR_AVG_REDUCE"
 TOL, UPDATE_TOL = 1e-5, 2 ** -4

@@ -44,6 +44,7 @@ from flexflow_tpu_torch import models as tmodels
 from flexflow_tpu_torch.core.op import create_op
 from flexflow_tpu_torch.core.parallel_tensor import ParallelTensorShape
 from flexflow_tpu_torch.models import inception as tinception
+from _torch_ledger import _ledger_in_tmp  # noqa: F401  (records under tmp)
 
 TOL = 1e-4
 LR = 0.05
