@@ -167,8 +167,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    stage's peak_activation_bytes beside max_memory_allocated, and K1-K3
    launches a stage;
 16. the rest of A7b, the ranks and worker processes on this card over
-   gloo: (g) parallel/launch.py supervising the Transformer of (14) with
-   ZeRO-1 Adam on {data: 2} as two worker processes, 8 steps of 16
+   gloo: (g) parallel/launch.py supervising the Transformer of (14), cut
+   to 2 layers, with ZeRO-1 Adam on {data: 2} as two worker processes, 8 steps of 16
    samples, a checkpoint every 2 (MultiHostCheckpointManager): an
    uninterrupted cohort, one whose rank 1 multihost.peer_kill kills at
    step 4 and one whose rank 1 multihost.slow_peer stalls at step 3
@@ -223,16 +223,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
    published, one serving ledger record, each answer held to one full
    causal forward (K1); (q) the train.stall site past a watchdog armed at
    2 s (the black box: thread stacks, the tracer's tail), then (g)'s job
-   as a supervised 2-rank cohort with cohort_obs, rank 1 hung: its dumps,
+   at (14)'s depth as a supervised 2-rank cohort with cohort_obs, rank 1 hung: its dumps,
    the merged ledger (each run id once), the cohort report; (r) a rule
    file in the reference's schema (a Linear+ReLU fusion, a parallel-Linear
    merge) through the search: a json: rewrite wins on an MLP, which trains
    3 steps within 1e-4 of the unrewritten graph; the 2-layer Transformer's
    attention left whole;
-19. the kernels line, one JSON object;
-20. the last line: {"ok": true, "device": {...}}.
+19. static analysis (A11): (s) the hot-path, concurrency and knob-flow
+   gates over the installed package, 0 errors each; (t)
+   TransformerConfig() at batch 8 and (u) the MoE model, each compiled
+   with validate_pcg="error" and audit_programs="error" in float32 and
+   bfloat16 and fit for 3 steps, the params equal bit for bit to the
+   same fit with both gates off, each audited program's record and walk
+   time beside the step, its op count, its host round trips by source
+   line and the kernels its recorded call launched (K1-K3, K4/K5); (v)
+   GPT at GPTConfig() through the dense Generator and a PagedDecoder,
+   each with its decode-step audit. The audit's recorded calls count
+   their launches on the recording, so every earlier phase's exact
+   launch counts exclude them;
+20. the kernels line, one JSON object;
+21. the last line: {"ok": true, "device": {...}}.
 
-Imports torch, numpy and flexflow_tpu_torch only.
+Imports torch, numpy and flexflow_tpu_torch only. ``--phase analysis``
+runs the device, build and analysis phases alone, ``--phase mesh`` the
+device and build phases and 14.-19.; neither prints a result line.
 """
 
 from __future__ import annotations
@@ -3029,6 +3043,41 @@ def free_device() -> None:
     torch.cuda.empty_cache()
 
 
+def live_descendants() -> list:
+    """The processes this script started that are still alive, from
+    /proc (a phase must leave none running behind it)."""
+    parent = {}
+    for d in os.listdir("/proc"):
+        if d.isdigit():
+            try:
+                with open(f"/proc/{d}/stat") as f:
+                    parent[int(d)] = int(f.read().rsplit(")", 1)[1].split()[1])
+            except (OSError, IndexError, ValueError):
+                continue
+    mine, grew = {os.getpid()}, True
+    while grew:
+        more = {p for p, pp in parent.items() if pp in mine} - mine
+        mine |= more
+        grew = bool(more)
+    return sorted(mine - {os.getpid()})
+
+
+def _comm(pid: int) -> str:
+    try:
+        with open(f"/proc/{pid}/cmdline", "rb") as f:
+            return f.read().replace(b"\0", b" ").decode(errors="replace").strip()[:120]
+    except OSError:
+        return "?"
+
+
+def phase_done(name: str, t0: float) -> None:
+    """A phase's end: the script's clock and any process left behind."""
+    left = [f"{p} ({_comm(p)})" for p in live_descendants()]
+    print(f"phases: {name} done at {time.perf_counter() - t0:.0f} s"
+          + (f", {len(left)} processes left running: {'; '.join(left)}" if left else ""),
+          flush=True)
+
+
 def phase_zoo(card: str) -> dict:
     """The rest of the zoo on the card: ResNet-50 (batch norm) and DLRM at
     full width, the other six at their build functions' defaults, in float32 and
@@ -4461,6 +4510,10 @@ def phase_parallel_b(card: str, par: dict) -> dict:
 # tables and spatial convolution, global batch statistics (A7b items 4-7)
 # (g): the launcher's cohort of 2 workers, ZeRO-1 Adam, 16 samples a step
 LAUNCH_SAMPLES, LAUNCH_EPOCHS, LAUNCH_INTERVAL = 32, 4, 2  # 2 steps an epoch: 8 steps
+# (g)'s depth: its checks (bitwise digests, events, resumes) do not depend
+# on it, while every cohort writes a checkpoint a rank every LAUNCH_INTERVAL
+# steps (about 48 MiB a layer), some 25 of them in all
+LAUNCH_LAYERS = 2
 LAUNCH_KILL_STEP, LAUNCH_HANG_STEP, LAUNCH_HANG_S = 4, 3, 10.0
 LAUNCH_DIR = pathlib.Path(".ffcache") / "smoke_launch"
 # (h): requests through the {model: 2} instance; GPT generation over it
@@ -4487,16 +4540,16 @@ MESH_RESNET_TOL = 0.1
 MESH_BN_STATS_TOL = 1e-5
 
 
-def launch_job(config: dict, nproc: int):
-    """(g)'s job for ``parallel/launch.py``'s workers (``--job
+def launch_job(config: dict, nproc: int, layers: int = PAR_LAYERS):
+    """The obs cohort's job for ``parallel/launch.py``'s workers (``--job
     chip_smoke:launch_job``): the reference Transformer at full width and
-    PAR_LAYERS layers, ZeRO-1 Adam on {data: nproc}, 16 samples a step
+    ``layers`` layers, ZeRO-1 Adam on {data: nproc}, 16 samples a step
     (8 a rank of 2), LAUNCH_SAMPLES samples from par_data's seed."""
     from flexflow_tpu_torch import AdamOptimizer, FFConfig, FFModel, LossType, MetricsType
     from flexflow_tpu_torch.models.transformer import TransformerConfig, build_transformer
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    opts = par_opts(PAR_LAYERS)
+    opts = par_opts(layers)
     batch = 2 * PAR_BATCH
     cfg = TransformerConfig(hidden_size=opts["hidden"], embedding_size=opts["hidden"],
                             num_heads=opts["heads"], num_layers=opts["layers"],
@@ -4511,6 +4564,12 @@ def launch_job(config: dict, nproc: int):
     return ff, x, y
 
 
+def launch_job_short(config: dict, nproc: int):
+    """(g)'s job (``--job chip_smoke:launch_job_short``): launch_job at
+    LAUNCH_LAYERS layers."""
+    return launch_job(config, nproc, LAUNCH_LAYERS)
+
+
 def par_launch(card: str) -> dict:
     """(g) the uninterrupted cohort, a peer killed by ``multihost.peer_kill``
     at step LAUNCH_KILL_STEP and one stalled by ``multihost.slow_peer`` at
@@ -4521,7 +4580,7 @@ def par_launch(card: str) -> dict:
     from flexflow_tpu_torch.parallel import launch
 
     shutil.rmtree(LAUNCH_DIR, ignore_errors=True)
-    common = dict(nproc=2, job="chip_smoke:launch_job", epochs=LAUNCH_EPOCHS,
+    common = dict(nproc=2, job="chip_smoke:launch_job_short", epochs=LAUNCH_EPOCHS,
                   interval=LAUNCH_INTERVAL, device=DEVICE, cohort_timeout_s=600.0)
     kill = {"schema": 1, "seed": 0, "sites": {"multihost.peer_kill": {
         "at_step": LAUNCH_KILL_STEP, "exit_code": launch.KILL_EXIT}}}
@@ -4588,7 +4647,7 @@ def par_launch(card: str) -> dict:
                bitwise_after_kill=True, bitwise_after_hang=True,
                elastic_resumes=res["elastic_resumes"], shrunk_iteration=res["iteration"],
                checkpoint_bytes_a_rank=ckpt_bytes, launches=launches)
-    print(f"parallel_c (g) launcher: the Transformer at full width, {PAR_LAYERS} layers, "
+    print(f"parallel_c (g) launcher: the Transformer at full width, {LAUNCH_LAYERS} layers, "
           f"ZeRO-1 Adam, {{data: 2}} as two worker processes, {steps} steps, a checkpoint "
           f"every {LAUNCH_INTERVAL}: peer killed at step {LAUNCH_KILL_STEP} -> "
           f"{row['kill_events']} -> relaunched, params bitwise equal to the uninterrupted "
@@ -5285,7 +5344,7 @@ OBS_STALL_S, OBS_WATCHDOG_S = 4.0, 2.0
 # of its epoch, where the loop's watched section is open (it opens at an
 # epoch's second step)
 OBS_HANG_S, OBS_COHORT_WATCHDOG_S, OBS_HANG_STEP, OBS_COHORT_EPOCHS = 8.0, 3.0, 4, 3
-OBS_COHORT_JOB = "chip_smoke:launch_job"  # (g)'s Transformer at PAR_LAYERS layers
+OBS_COHORT_JOB = "chip_smoke:launch_job"  # the Transformer at PAR_LAYERS layers
 # (r): the rewritten graph trains OBS_RULE_STEPS steps within this share
 # of each param's largest |value| of the unrewritten one (f32, summed in
 # another order where the merged GEMM replaces two)
@@ -5900,6 +5959,190 @@ def _moe_entry(name: str, source: str, replaces: str, rows: list, serving: int,
             "shape": main_row["shape"], "variants": rows}
 
 
+ANALYSIS_STEPS = 3  # fit steps a model takes with the gates on, and again with them off
+
+
+def analysis_gates() -> dict:
+    """(s) the three source gates over the installed package: pure AST,
+    each must report 0 errors."""
+    import flexflow_tpu_torch
+    from flexflow_tpu_torch.analysis import concurrency_check, hotpath_lint, knobflow_check
+
+    pkg = os.path.dirname(flexflow_tpu_torch.__file__)
+    out = {}
+    for name, run in (
+            ("hotpath", lambda: hotpath_lint.lint_paths([pkg])),
+            ("concurrency", lambda: concurrency_check.check_package([pkg]).findings),
+            ("knobflow", lambda: knobflow_check.check_package(
+                [pkg], extra_read_paths=knobflow_check.default_extra_paths(pkg)).findings)):
+        t0 = time.perf_counter()
+        findings = run()
+        errors = [f.format() for f in findings if f.severity == "error"]
+        out[name] = {"errors": len(errors), "warnings": len(findings) - len(errors),
+                     "seconds": round(time.perf_counter() - t0, 3), "findings": errors[:20]}
+        check(not errors, f"{name} gate: {errors[:5]}")
+        print(f"analysis: {name} gate {out[name]}", flush=True)
+    return out
+
+
+def audit_row(ff, step_ms: float) -> dict:
+    """Each audited program's cost beside the step's, its op count, its
+    host round trips (AUD003 sites, suppressed ones included) by source
+    line and the kernels its recorded call launched."""
+    rep = ff.audit_report
+    check(rep is not None and not rep.errors, f"audit: {rep.format() if rep else None}")
+    rows = {}
+    for name, st in rep.programs.items():
+        rows[name] = {k: st.get(k) for k in ("ops", "record_s", "walk_s", "static_peak_bytes",
+                                             "host_syncs", "kernels", "collectives",
+                                             "donated_args", "args", "suppressed")}
+        rows[name]["walk_over_step"] = round(st["walk_s"] * 1e3 / step_ms, 4)
+    return {"programs": rows, "findings": [f.format() for f in rep.findings],
+            "pcg": ff.pcg_report.format() if ff.pcg_report is not None else None,
+            "step_ms": step_ms}
+
+
+def steady_audit(ff) -> dict:
+    """The compile's recorded train_step pays the first call's warm-up:
+    record it again, and time the same call unrecorded, for the audit's
+    steady cost beside one step."""
+    from flexflow_tpu_torch.analysis.program_audit import audit_spec
+
+    spec = next(s for s in ff.compiled.audit_exec if s.name == "train_step")
+    rep = audit_spec(spec)
+    st = rep.programs["train_step"]
+    args = spec.make_args()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    spec.fn(*args)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    del args
+    return {"record_ms": round(st["record_s"] * 1e3, 3), "walk_ms": round(st["walk_s"] * 1e3, 3),
+            "step_ms": round(step_ms, 3), "record_over_step": round(st["record_s"] * 1e3 / step_ms, 3),
+            "ops_by_site": st["ops_by_site"]}
+
+
+def gated_fit(build, compute_dtype: str, gates: bool, x, y, loss, optimizer, batch: int):
+    """``build`` compiled with both gates on (or both off) and fit for
+    ANALYSIS_STEPS steps; returns (ff, whole params after, ms a step)."""
+    from flexflow_tpu_torch import FFConfig, FFModel
+
+    mode = "error" if gates else "off"
+    ff = FFModel(FFConfig(batch_size=batch, compute_dtype=compute_dtype, seed=SEED,
+                          device=DEVICE, validate_pcg=mode, audit_programs=mode))
+    build(ff)
+    ff.compile(optimizer=optimizer(), loss_type=loss)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ff.fit(x, y, epochs=1, verbose=False)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / ANALYSIS_STEPS
+    return ff, ff.numpy_params(), step_ms
+
+
+def analysis_training(name: str, build, x, y, loss, optimizer, batch: int, card: str) -> dict:
+    """(t)/(u) a model trained through fit with the gates on, in f32 and
+    bf16, against the same fit with both gates off: equal params, bit for
+    bit; the audit's rows beside the step time."""
+    from flexflow_tpu_torch import kernels
+
+    rows = {}
+    for compute_dtype in ("float32", "bfloat16"):
+        kernels.reset_launch_counts()
+        ff, on, step_ms = gated_fit(build, compute_dtype, True, x, y, loss, optimizer, batch)
+        launches = kernels.launch_counts()
+        row = audit_row(ff, step_ms)
+        row["steady"] = steady_audit(ff)
+        check(ff.audit_profile is not None and {"train_step", "eval_step"}
+              <= set(ff.audit_profile["programs"]), f"{name}: audited programs")
+        del ff
+        free_device()
+        ff, off, _ = gated_fit(build, compute_dtype, False, x, y, loss, optimizer, batch)
+        check(ff.audit_report is None and ff.pcg_report is None, f"{name}: gates not off")
+        del ff
+        free_device()
+        same = all(np.array_equal(on[op][w], off[op][w]) for op in on for w in on[op])
+        check(same, f"{name} {compute_dtype}: fit with the gates on differs from off")
+        row.update(fit_launches=launches, bitwise_equal_to_gates_off=same, card=card)
+        rows[compute_dtype] = row
+        print(f"analysis: {name} {compute_dtype} {json.dumps(row, default=str)}", flush=True)
+    return rows
+
+
+def analysis_serving(card: str) -> dict:
+    """(v) GPT at GPTConfig() served by the dense Generator and by a
+    PagedDecoder, each with its decode audit."""
+    from flexflow_tpu_torch.serving import Generator
+    from flexflow_tpu_torch.serving.generation import PagedDecoder
+
+    ff, _ = gpt_model("float32", training=False)
+    cfg = ff.config
+    cfg.audit_programs = "error"
+    gen = Generator(ff, max_length=GPT_SEQ)
+    paged = PagedDecoder(ff, GPT_SEQ, decode_slots=4, block_size=16)
+    out = {}
+    for name, obj, prog in (("dense", gen, "serving.decode_step"),
+                            ("paged", paged, "serving.paged_decode_step")):
+        rep = obj.audit_report
+        check(rep is not None and rep.ok() and prog in rep.programs,
+              f"{name} decode audit: {rep.format() if rep else None}")
+        st = rep.programs[prog]
+        out[name] = {k: st.get(k) for k in ("ops", "record_s", "walk_s", "static_peak_bytes",
+                                            "host_syncs", "kernels")}
+        out[name]["findings"] = [f.format() for f in rep.findings]
+    tok, _, _ = gpt_data(SEED + 40, 2)
+    got = gen.generate(tok[:, :16], 8)
+    check(got.shape == (2, 24) and np.all(got[:, :16] == tok[:, :16]), "dense generate")
+    out["card"] = card
+    print(f"analysis: serving {json.dumps(out, default=str)}", flush=True)
+    del gen, paged, ff
+    free_device()
+    return out
+
+
+def phase_analysis(card: str) -> dict:
+    """(s) the source gates on the card's machine; (t) the Transformer at
+    TransformerConfig()'s full width and (u) the MoE model, each compiled
+    with validate_pcg="error" and audit_programs="error" in f32 and bf16
+    and trained ANALYSIS_STEPS steps through fit, equal bit for bit to the
+    same fit with both gates off; (v) GPT's dense and paged decode audits."""
+    from flexflow_tpu_torch import AdamOptimizer, LossType, SGDOptimizer
+    from flexflow_tpu_torch.models.moe import build_moe_mnist
+    from flexflow_tpu_torch.models.transformer import TransformerConfig, build_transformer
+
+    t0 = time.perf_counter()
+    gates = analysis_gates()
+    tcfg = TransformerConfig()
+    rng = np.random.default_rng(SEED + 50)
+    n = ANALYSIS_STEPS * BATCH
+    x = rng.standard_normal((n, tcfg.sequence_length, tcfg.hidden_size), dtype=np.float32)
+    y = rng.standard_normal((n, tcfg.sequence_length, 1), dtype=np.float32)
+    tf = analysis_training(
+        "transformer", lambda ff: build_transformer(ff, BATCH, tcfg), x, y,
+        LossType.MEAN_SQUARED_ERROR_AVG_REDUCE, lambda: SGDOptimizer(lr=0.01), BATCH, card)
+    for dt, row in tf.items():
+        for k in FLASH_NAMES:
+            check(row["programs"]["train_step"]["kernels"].get(k, 0) > 0,
+                  f"transformer {dt}: the recorded train_step launched no {k}")
+    print(f"phases: analysis (t) at {time.perf_counter() - t0:.1f} s", flush=True)
+    mx, my = moe_data(SEED + 51, ANALYSIS_STEPS * MOE_BATCH)
+    moe = analysis_training(
+        "moe", lambda ff: build_moe_mnist(ff, MOE_BATCH), mx, my,
+        LossType.SPARSE_CATEGORICAL_CROSSENTROPY, lambda: AdamOptimizer(alpha=ADAM_ALPHA),
+        MOE_BATCH, card)
+    for dt, row in moe.items():
+        for k in ("row_gather", "row_gather_sum"):
+            check(row["programs"]["train_step"]["kernels"].get(k, 0) > 0,
+                  f"moe {dt}: the recorded train_step launched no {k}")
+    print(f"phases: analysis (u) at {time.perf_counter() - t0:.1f} s", flush=True)
+    serving = analysis_serving(card)
+    out = dict(gates=gates, transformer=tf, moe=moe, serving=serving,
+               seconds=time.perf_counter() - t0)
+    print("analysis_json " + json.dumps(out, default=str), flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -5907,6 +6150,19 @@ def main() -> int:
     t0 = time.perf_counter()
     card = phase_device()
     phase_build()
+    if sys.argv[1:] == ["--phase", "analysis"]:
+        phase_analysis(card)
+        print(f"phases: analysis alone done at {time.perf_counter() - t0:.0f} s", flush=True)
+        return 0
+    if sys.argv[1:] == ["--phase", "mesh"]:
+        _, par_refs = phase_parallel(card)
+        for phase in (lambda: phase_parallel_b(card, par_refs), lambda: phase_parallel_c(card),
+                      lambda: phase_search(card, par_refs), lambda: phase_obs(card),
+                      lambda: phase_analysis(card)):
+            free_device()
+            phase()
+        print(f"phases: mesh to analysis done at {time.perf_counter() - t0:.0f} s", flush=True)
+        return 0
     kern = phase_kernels()
     print(f"phases: kernels done at {time.perf_counter() - t0:.0f} s", flush=True)
     serve, params, plain, plains = [], None, None, {}
@@ -5944,26 +6200,29 @@ def main() -> int:
     print(f"phases: serving breadth done at {time.perf_counter() - t0:.0f} s", flush=True)
     free_device()
     phase_zoo(card)
-    print(f"phases: zoo done at {time.perf_counter() - t0:.0f} s", flush=True)
+    phase_done("zoo", t0)
     free_device()
     rob = phase_training_robustness(card)
-    print(f"phases: training robustness done at {time.perf_counter() - t0:.0f} s", flush=True)
+    phase_done("training robustness", t0)
     free_device()
     par, par_refs = phase_parallel(card)
-    print(f"phases: parallel done at {time.perf_counter() - t0:.0f} s", flush=True)
+    phase_done("parallel", t0)
     free_device()
     par_b = phase_parallel_b(card, par_refs)
-    print(f"phases: parallel_b done at {time.perf_counter() - t0:.0f} s", flush=True)
+    phase_done("parallel_b", t0)
     free_device()
     par_c = phase_parallel_c(card)
-    print(f"phases: parallel_c done at {time.perf_counter() - t0:.0f} s", flush=True)
+    phase_done("parallel_c", t0)
     free_device()
     search = phase_search(card, par_refs)
     del par_refs
-    print(f"phases: search done at {time.perf_counter() - t0:.0f} s", flush=True)
+    phase_done("search", t0)
     free_device()
     obs = phase_obs(card)
-    print(f"phases: obs done at {time.perf_counter() - t0:.0f} s", flush=True)
+    phase_done("obs", t0)
+    free_device()
+    phase_analysis(card)
+    phase_done("analysis", t0)
     train_launches = {name: sum(r["fit_launches"][name] for r in train)
                       for name in train[0]["fit_launches"]}
     # GPT's path: its fits and the full-sequence forwards of its dense and

@@ -28,7 +28,10 @@ Inception-v3, DLRM, XDL, CANDLE-Uno and the LSTM NMT model; every
 ``models.zoo_smoke_builders()`` entry) trains and serves through the same
 entry points, on the structural, reduce, convolution, pooling,
 batch-norm and recurrent ops (cuDNN and cuBLAS through stock torch, as
-they are XLA, not Pallas, in the reference).
+they are XLA, not Pallas, in the reference). Every compile validates the
+graph and its strategies (``analysis.validate_pcg``) and audits one
+recorded call of each step program (``analysis.program_audit``), as the
+JAX package's compile does.
 """
 
 from .config import FFConfig
@@ -36,7 +39,10 @@ from .ffconst import (ActiMode, AggrMode, CompMode, DataType, LossType, MetricsT
                       OpType)
 from .runtime.model import FFModel, load_numpy_params
 from .runtime.optimizer import AdamOptimizer, SGDOptimizer
+from .analysis import (PCGValidationError, ValidationReport, lint_strategy,
+                       validate_pcg)
 
 __all__ = ["ActiMode", "AdamOptimizer", "AggrMode", "CompMode", "DataType", "FFConfig",
-           "FFModel", "LossType", "MetricsType", "OpType", "SGDOptimizer",
-           "load_numpy_params"]
+           "FFModel", "LossType", "MetricsType", "OpType", "PCGValidationError",
+           "SGDOptimizer", "ValidationReport", "lint_strategy", "load_numpy_params",
+           "validate_pcg"]

@@ -16,13 +16,15 @@ plain PyTorch version, which lives beside the wrapper.
 
 Each wrapper adds one to its launch count where it launches its kernel,
 and nowhere else, so a run can show that its main path went through the
-kernels.
+kernels. A launch observer (:func:`set_launch_observer`) sees every
+launch first and says whether it counts here: the program audit installs
+one that keeps a side recording's launches off these counts.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Dict
+from typing import Callable, Dict, Optional
 
 FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv")
@@ -31,9 +33,20 @@ KERNELS = FLASH_KERNELS + MOE_KERNELS
 
 _counts_lock = threading.Lock()
 _counts: Dict[str, int] = {name: 0 for name in KERNELS}
+# called with each launch's name; False keeps the launch off the counts
+_observer: Optional[Callable[[str], bool]] = None
+
+
+def set_launch_observer(fn: Optional[Callable[[str], bool]]) -> None:
+    """Install the observer :func:`count_launch` calls first (None: none)."""
+    global _observer
+    _observer = fn
 
 
 def count_launch(name: str) -> None:
+    observer = _observer
+    if observer is not None and not observer(name):
+        return
     with _counts_lock:
         _counts[name] += 1
 

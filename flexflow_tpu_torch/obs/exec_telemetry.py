@@ -10,9 +10,13 @@ measures one step of each program instead:
   attention kernels' products are not in the count);
 * **peak bytes** from ``torch.cuda.max_memory_allocated`` around that
   step on the card (``null`` on the CPU, with the reason);
-* the peak reconciled against the simulator's static ``memory_usage``
-  (weights, saved activations, optimizer state): past
-  ``config.exec_mem_threshold`` the coded finding **OBS002** (warn).
+* the peak reconciled against a static estimate: where the program
+  audit ran (``config.audit_programs``, on by default), the audit records
+  the same measured call and its liveness walk's ``static_peak_bytes``
+  is the estimate, as the JAX package reconciles against its audit's;
+  where it did not, the simulator's static ``memory_usage`` (weights,
+  saved activations, optimizer state). Past ``config.exec_mem_threshold``
+  the coded finding **OBS002** (warn).
 
 The block lands on ``FFModel.exec_telemetry``, the compile ledger record
 and the ``exec.*`` metrics. ``config.exec_telemetry="on"`` opts in (one
@@ -94,7 +98,8 @@ def reconcile_peak_memory(name: str, static_bytes, xla_bytes, *,
                           config=None,
                           allow: Optional[Dict[str, str]] = None,
                           printer=print) -> Dict:
-    """Compare the static peak estimate against the measured peak of one
+    """Compare the static peak estimate (the program audit's liveness
+    walk, else the simulator's) against the measured peak of one
     program (``xla_bytes`` keeps the JAX package's name: here it is the
     card's ``max_memory_allocated``). Returns the reconciliation row;
     past ``config.exec_mem_threshold`` it carries the OBS002 finding
@@ -171,10 +176,14 @@ def static_peak_bytes(ffmodel) -> Optional[int]:
 
 
 def collect_compiled_model(ffmodel, *, config=None,
-                           allow: Optional[Dict[str, str]] = None) -> Dict:
+                           allow: Optional[Dict[str, str]] = None,
+                           audit_report=None) -> Dict:
     """Telemetry for the compiled model's step: ``grad_step`` (forward
     and backward on a synthetic batch; the params and optimizer state
-    stay as they are) when it trains, else ``forward``."""
+    stay as they are) when it trains, else ``forward``. With
+    ``audit_report`` (the compile's program audit) the measured call is
+    also the audit's recording of that program: one call serves both
+    gates, and its static peak is the OBS002 estimate."""
     import numpy as np
     import torch
 
@@ -201,8 +210,16 @@ def collect_compiled_model(ffmodel, *, config=None,
         def step():
             with torch.no_grad():
                 return cm.forward_fn(cm.params, *xs)
-    return collect_one(name, step, cm.device, config=config,
-                       static_peak=static_peak_bytes(ffmodel), allow=allow)
+    if audit_report is None:
+        return collect_one(name, step, cm.device, config=config,
+                           static_peak=static_peak_bytes(ffmodel), allow=allow)
+    from ..analysis.program_audit import audit_call
+
+    # the params and the batch are the recorded call's arguments
+    _, tel, _ = audit_call(name, lambda _params, _xs: step(), (cm.params, xs), config=config,
+                           device=cm.device, source="exec_telemetry", report=audit_report,
+                           count=False)
+    return tel
 
 
 __all__ = [

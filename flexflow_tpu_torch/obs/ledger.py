@@ -418,6 +418,7 @@ def record_compile(ff, wall_s: float) -> Optional[Dict]:
             rec["audit"] = {
                 "programs": sorted((ap.get("programs") or {})),
                 "walk_s": ap.get("walk_s"),
+                "record_s": ap.get("record_s"),
                 "errors": len(ff.audit_report.errors)
                 if getattr(ff, "audit_report", None) else 0,
                 "warnings": len(ff.audit_report.warnings)

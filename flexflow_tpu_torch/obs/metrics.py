@@ -41,14 +41,14 @@ class Counter:
     def inc(self, n: float = 1.0) -> None:
         # GIL-atomic enough for stats: a torn read costs one sample of
         # drift, never a crash, and the hot loops take no lock a count
-        self.value += n
+        self.value += n  # concurrency: race-ok (lock-free by design: GIL-atomic add, drift tolerated)
 
     def to_json(self):
         v = self.value
         return int(v) if float(v).is_integer() else v
 
     def merge(self, other: "Counter") -> None:
-        self.value += other.value
+        self.value += other.value  # concurrency: race-ok (merge folds quiesced worker registries)
 
 
 class Gauge:
@@ -60,13 +60,13 @@ class Gauge:
         self.value = 0.0
 
     def set(self, v: float) -> None:
-        self.value = float(v)
+        self.value = float(v)  # concurrency: race-ok (lock-free by design: GIL-atomic store of a last-writer-wins sample)
 
     def to_json(self):
         return self.value
 
     def merge(self, other: "Gauge") -> None:
-        self.value = other.value
+        self.value = other.value  # concurrency: race-ok (merge folds quiesced worker registries)
 
 
 class Histogram:
@@ -86,12 +86,12 @@ class Histogram:
 
     def observe(self, v: float) -> None:
         v = float(v)
-        self.count += 1
-        self.sum += v
+        self.count += 1  # concurrency: race-ok (lock-free by design: GIL-atomic add, drift tolerated)
+        self.sum += v  # concurrency: race-ok (lock-free by design, see count)
         if v < self.min:
-            self.min = v
+            self.min = v  # concurrency: race-ok (lock-free by design, see count)
         if v > self.max:
-            self.max = v
+            self.max = v  # concurrency: race-ok (lock-free by design, see count)
         self._recent.append(v)
 
     def percentile(self, q: float) -> float:
@@ -117,10 +117,10 @@ class Histogram:
         }
 
     def merge(self, other: "Histogram") -> None:
-        self.count += other.count
-        self.sum += other.sum
-        self.min = min(self.min, other.min)
-        self.max = max(self.max, other.max)
+        self.count += other.count  # concurrency: race-ok (merge folds quiesced worker registries)
+        self.sum += other.sum  # concurrency: race-ok (merge folds quiesced registries, see count)
+        self.min = min(self.min, other.min)  # concurrency: race-ok (see count)
+        self.max = max(self.max, other.max)  # concurrency: race-ok (see count)
         # reservoir merge: appending ALL of other's window into the
         # maxlen-bounded deque would evict every one of self's samples
         # whenever other has >= maxlen entries — merged percentiles would
@@ -135,7 +135,7 @@ class Histogram:
         if cap is not None and len(a) + len(b) > cap:
             na = min(len(a), max(1, round(cap * len(a) / (len(a) + len(b)))))
             a, b = _strided(a, na), _strided(b, cap - na)
-        self._recent = collections.deque(
+        self._recent = collections.deque(  # concurrency: race-ok (see count)
             _interleave(a, b), maxlen=cap)
 
 

@@ -61,7 +61,7 @@ class _Span:
         self._t0 = 0.0
 
     def __enter__(self):
-        self._t0 = time.perf_counter()
+        self._t0 = time.perf_counter()  # concurrency: race-ok (a span object lives in one `with` block of one thread; the roles share the class, never an instance)
         return self
 
     def __exit__(self, *exc):
@@ -227,14 +227,14 @@ def configure_tracer(config=None, enabled: Optional[bool] = None) -> Tracer:
     config left trace at the "off" default must not silently disable the
     recorder an opted-in model armed earlier in the same process."""
     if enabled is not None:
-        _TRACER.enabled = bool(enabled)
+        _TRACER.enabled = bool(enabled)  # concurrency: race-ok (bool flip read racily by design: a worker missing one event at arm time is flight-recorder semantics)
         return _TRACER
     if config is not None:
         mode = getattr(config, "trace", "off") or "off"
         if mode not in ("on", "off"):
             raise ValueError(f"trace={mode!r}: expected 'on' or 'off'")
         if mode == "on":
-            _TRACER.enabled = True
+            _TRACER.enabled = True  # concurrency: race-ok (bool flip, see above)
     return _TRACER
 
 

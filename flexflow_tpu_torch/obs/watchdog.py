@@ -122,7 +122,7 @@ class Watchdog:
             self._cv.notify_all()
         # lock-free flag flip: a worker missing one beat at arm time only
         # delays detection a tick
-        self.enabled = True
+        self.enabled = True  # concurrency: race-ok (lock-free flag flip, the tracer's enabled pattern: a worker missing one beat at arm time only delays detection a tick)
         if t is not None:
             self._enable_faulthandler(dirpath)
             t.start()
@@ -131,7 +131,7 @@ class Watchdog:
     def disarm(self) -> None:
         """Stop the monitor and join it; watched sources are kept (the
         next :meth:`arm` resumes them)."""
-        self.enabled = False
+        self.enabled = False  # concurrency: race-ok (lock-free flag flip, see arm)
         with self._cv:
             t = self._thread
             self._cv.notify_all()
@@ -229,7 +229,7 @@ class Watchdog:
             watched = {k: round(time.monotonic() - t, 3)
                        for k, t in self._watched.items()}
         doc = {
-            "schema": BLACKBOX_SCHEMA,
+            "schema": BLACKBOX_SCHEMA,  # knobflow: schema-ok (black-box dumps are post-mortem artifacts for a person; no reader in the port parses them — the supervisor only lists their file names)
             "reason": reason,
             "ts_unix_s": round(time.time(), 3),
             "pid": os.getpid(),

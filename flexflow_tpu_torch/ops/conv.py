@@ -172,16 +172,22 @@ class Conv2D(Op):
             self.oc_axis = ax
         hd = input_shapes[0].dims[2]
         in_h, out_h = input_shapes[0].sizes[2], out_shapes[0].sizes[2]
-        ax = strategy.get("spatial") or (hd.axis if hd.is_partitioned and in_h == out_h
-                                         else None)
-        deg = sizes.get(ax, hd.degree if ax == hd.axis else 1) if ax else 1
-        if (deg > 1 and ax not in out_shapes[0].partition_axes
-                and in_h % deg == 0 and out_h % deg == 0 and in_h // deg > self.kernel[0] // 2):
-            out_shapes[0] = out_shapes[0].with_dim(2, ParallelDim(out_h, deg, ax))
-            self.input_layouts[0] = self.input_layouts[0].with_dim(2, ParallelDim(in_h, deg, ax))
-            self.sp_axis = ax
-            if strategy.get("spatial"):
-                self.honored_strategy_keys.add("spatial")
+        req = strategy.get("spatial")
+        inherited = hd.axis if hd.is_partitioned and in_h == out_h else None
+        # the requested axis first; one the op cannot realize falls back to
+        # the inherited height sharding, as the JAX package's base rule keeps it
+        for ax in dict.fromkeys(a for a in (req, inherited) if a):
+            deg = sizes.get(ax, hd.degree if ax == hd.axis else 1)
+            if (deg > 1 and ax not in out_shapes[0].partition_axes
+                    and in_h % deg == 0 and out_h % deg == 0
+                    and in_h // deg > self.kernel[0] // 2):
+                out_shapes[0] = out_shapes[0].with_dim(2, ParallelDim(out_h, deg, ax))
+                self.input_layouts[0] = self.input_layouts[0].with_dim(
+                    2, ParallelDim(in_h, deg, ax))
+                self.sp_axis = ax
+                if ax == req:
+                    self.honored_strategy_keys.add("spatial")
+                break
         return out_shapes, weight_shapes
 
     def infer_output_shapes(self):

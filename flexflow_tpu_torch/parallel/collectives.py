@@ -8,7 +8,11 @@ collective. Each function takes a rank's local block; a ``Group``
 On a ``gloo`` group a CUDA tensor goes through a host buffer: copied to
 the host, reduced or moved there, copied back. The bytes copied each way
 are counted (:func:`stats`), so a run can say what its ranks moved
-through the host.
+through the host. A collective observer (:func:`set_observer`) sees each
+collective first, with its kind, its group's ranks, its partner table
+for a shift or a point-to-point exchange and its staged bytes, and says
+whether it counts in :func:`stats`: the program audit installs one that
+records collectives for AUD005 and keeps a side recording's off.
 
 The pairs that keep gradients exact under SPMD, each a
 ``torch.autograd.Function``:
@@ -47,7 +51,7 @@ from __future__ import annotations
 
 import math
 import threading
-from typing import Dict, List, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -70,7 +74,20 @@ def reset_stats() -> None:
         _stats["calls"] = _stats["staged_bytes"] = 0
 
 
-def _count(staged: int) -> None:
+# called with (kind, ranks, table, staged); False keeps the call off stats()
+_observer: Optional[Callable[..., bool]] = None
+
+
+def set_observer(fn: Optional[Callable[..., bool]]) -> None:
+    """Install the observer every collective calls first (None: none)."""
+    global _observer
+    _observer = fn
+
+
+def _count(staged: int, kind: str, group: Group, table=None) -> None:
+    observer = _observer
+    if observer is not None and not observer(kind, group.ranks, table, staged):
+        return
     with _stats_lock:
         _stats["calls"] += 1
         _stats["staged_bytes"] += staged
@@ -84,17 +101,18 @@ def _host(group: Group, t: torch.Tensor, copy: bool = False) -> torch.Tensor:
     """The buffer a collective runs on: a host copy on a gloo group, else
     ``t`` made contiguous (a copy when the collective writes in place)."""
     if _staged(group, t):
-        return t.detach().cpu()
+        return t.detach().cpu()  # audit: callback-ok (a gloo group stages a CUDA tensor through the host by design, counted in stats(); NCCL groups do not)
     return t.detach().clone(memory_format=torch.contiguous_format) if copy \
         else t.detach().contiguous()
 
 
-def _back(t: torch.Tensor, buf: torch.Tensor, staged_in: int) -> torch.Tensor:
+def _back(t: torch.Tensor, buf: torch.Tensor, staged_in: int, kind: str,
+          group: Group, table=None) -> torch.Tensor:
     if buf.device != t.device:
-        out = buf.to(t.device)
-        _count(staged_in + buf.numel() * buf.element_size())
+        out = buf.to(t.device)  # audit: const-ok (the staged result of a gloo collective, copied back to the card)
+        _count(staged_in + buf.numel() * buf.element_size(), kind, group, table)
         return out
-    _count(0)
+    _count(0, kind, group, table)
     return buf
 
 
@@ -104,7 +122,7 @@ def all_reduce_sum(t: torch.Tensor, group: Group) -> torch.Tensor:
     buf = _host(group, t, copy=True)
     n_in = buf.numel() * buf.element_size() if buf.device != t.device else 0
     dist.all_reduce(buf, group=group.pg)
-    return _back(t, buf, n_in)
+    return _back(t, buf, n_in, "all_reduce", group)
 
 
 def all_gather(t: torch.Tensor, group: Group, dim: int) -> torch.Tensor:
@@ -113,7 +131,7 @@ def all_gather(t: torch.Tensor, group: Group, dim: int) -> torch.Tensor:
     n_in = buf.numel() * buf.element_size() if buf.device != t.device else 0
     parts = [torch.empty_like(buf) for _ in range(group.size)]
     dist.all_gather(parts, buf, group=group.pg)
-    return _back(t, torch.cat(parts, dim=dim), n_in)
+    return _back(t, torch.cat(parts, dim=dim), n_in, "all_gather", group)
 
 
 def all_gather_coalesced(tensors: Sequence[torch.Tensor], group: Group,
@@ -129,7 +147,8 @@ def all_gather_coalesced(tensors: Sequence[torch.Tensor], group: Group,
     parts = [torch.empty_like(buf) for _ in range(group.size)]
     dist.all_gather(parts, buf, group=group.pg)
     sizes = [t.numel() for t in tensors]
-    pieces = [p.split(sizes) for p in _back(flat, torch.cat(parts), n_in).split(flat.numel())]
+    pieces = [p.split(sizes) for p in _back(flat, torch.cat(parts), n_in, "all_gather",
+                                            group).split(flat.numel())]
     return [torch.cat([pieces[r][i].view(t.shape) for r in range(group.size)], dim=d)
             for i, (t, d) in enumerate(zip(tensors, dims))]
 
@@ -141,7 +160,7 @@ def _all_to_all_dim0(t: torch.Tensor, group: Group) -> torch.Tensor:
     n_in = buf.numel() * buf.element_size() if buf.device != t.device else 0
     out = torch.empty_like(buf)
     dist.all_to_all_single(out, buf, group=group.pg)
-    return _back(t, out, n_in)
+    return _back(t, out, n_in, "all_to_all", group)
 
 
 def _shift(t: torch.Tensor, group: Group, step: int) -> torch.Tensor:
@@ -157,7 +176,7 @@ def _shift(t: torch.Tensor, group: Group, step: int) -> torch.Tensor:
                                    dist.P2POp(dist.irecv, out, frm, group.pg)])
     for r in reqs:
         r.wait()
-    return _back(t, out, n_in)
+    return _back(t, out, n_in, "shift", group, [(i, (i + step) % n) for i in range(n)])
 
 
 def all_reduce_coalesced(tensors: Sequence[torch.Tensor], group: Group) -> List[torch.Tensor]:
@@ -218,9 +237,9 @@ def send_recv(group: Group, sends: Sequence[tuple], recvs: Sequence[tuple]
     for buf, device in outs:
         if buf.device != device:
             staged += buf.numel() * buf.element_size()
-            buf = buf.to(device)
+            buf = buf.to(device)  # audit: const-ok (a message received on the host over gloo, copied to the card)
         got.append(buf)
-    _count(staged)
+    _count(staged, "send_recv", group, [(peer, tag) for peer, tag, _t in sends])
     return got
 
 

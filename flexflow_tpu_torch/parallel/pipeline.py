@@ -219,7 +219,9 @@ class PipelinedModel:
         # the most recent train_step's counts (profile())
         self.step_dispatches = 0
         # the single-call engine's first step's telemetry (exec_telemetry)
+        # and program audit (audit_programs)
         self.exec_telemetry = None
+        self.audit_report = None
         self.step_transfers = 0
         self.step_sent_bytes = 0
 
@@ -390,7 +392,7 @@ class PipelinedModel:
                 elif self._mine(c + 1):
                     (head,) = C.send_recv(self.pipe, [], [(src, _FWD_TAG, _HEADER, torch.int64,
                                                             self.cm.device)])
-                    head, m, i = head.tolist(), [], 1
+                    head, m, i = head.tolist(), [], 1  # audit: callback-ok (the boundary probe runs once a microbatch size: its metadata is cached after the first step)
                     for _ in range(head[0]):
                         k, dt, nd = head[i:i + 3]
                         m.append((k, tuple(head[i + 3:i + 3 + nd]), _DTYPES[dt]))

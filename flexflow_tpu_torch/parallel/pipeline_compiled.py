@@ -48,6 +48,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.machine import DATA_AXIS
 from ..ffconst import OpType
@@ -294,6 +295,7 @@ class CompiledPipelinedModel(PipelinedModel):
             _set_leaf(self.stage_opt_state, path, self.opt_buf[off:off + n].view(shape))
         self._tables = _build_tables(self.schedule)
         self._width: Dict[int, int] = {}  # rows -> boundary buffer width
+        self._first_audited = False
 
     def _ring_width(self, meta, rows: int) -> int:
         """The boundary buffers' float32 width at this microbatch size: the
@@ -305,33 +307,61 @@ class CompiledPipelinedModel(PipelinedModel):
                 if m is not None and self._mine(c):
                     sizes[c] = _leaf_segments(m)[1]
             sizes = C.all_reduce_sum(sizes.to(self.cm.device), self.pipe)
-            self._width[rows] = max(1, int(sizes.max().item()))
+            self._width[rows] = max(1, int(sizes.max().item()))  # audit: callback-ok (once a microbatch size: the width is cached after the first step)
         return self._width[rows]
 
     def train_step(self, rng, xs, y):
-        """The schedule as one call, recorded as one annotated span; with
-        ``exec_telemetry`` on, the first step is measured as the
-        ``pipeline.<schedule>`` program."""
-        from ..obs.exec_telemetry import collect_one, telemetry_mode
+        """The schedule as one call, recorded as one annotated span. Its
+        first call is the ``pipeline.<schedule>`` program of the program
+        audit (``audit_programs``) and of the executable telemetry
+        (``exec_telemetry``): one recorded, measured call, whose result is
+        the step's. The stages then compare their ordered collective
+        sequences (AUD005)."""
         from ..obs.trace import span
 
-        cfg = self.cm.config
         with span("pipe.step.compiled", cat="pipeline", schedule=self.cfg.schedule,
                   interleave=self.cfg.interleave, stages=len(self.stages),
                   microbatches=self.cfg.num_microbatches, dispatches=1):
-            if self.exec_telemetry is None and telemetry_mode(cfg) == "on":
-                box: list = []
-                self.exec_telemetry = collect_one(
-                    f"pipeline.{self.cfg.schedule}",
-                    lambda: box.append(self._train_step(rng, xs, y)), self.cm.device,
-                    config=cfg, static_peak=self._static_bytes(xs),
-                    allow=getattr(cfg, "exec_mem_allow", None))
-                # a failed measured step raises its error here
-                out = box[0] if box else self._train_step(rng, xs, y)
+            if not self._first_audited:
+                self._first_audited = True
+                out = self._audited_first_step(rng, xs, y)
             else:
                 out = self._train_step(rng, xs, y)
         self._feed_step_metrics()
         return out
+
+    def _audited_first_step(self, rng, xs, y):
+        from ..analysis.program_audit import audit_call, audit_mode, check_stage_sequences
+
+        cfg = self.cm.config
+        name = f"pipeline.{self.cfg.schedule}"
+
+        def program(rng, xs, y, _state):
+            # the packed params and optimizer state are the program's
+            # arguments (updated in place), as the JAX program's donated ones
+            return self._train_step(rng, xs, y)
+
+        report, tel, box = audit_call(
+            name, program, (rng, xs, y, (self.theta, self.opt_buf)), config=cfg,
+            device=self.cm.device, source="pipeline", static_peak=self._static_bytes(xs),
+            side=False)
+        if tel is not None:
+            self.exec_telemetry = tel
+        if report is not None:
+            stats = report.programs.get(name, {})
+            if dist.is_initialized():
+                # every rank joins the gather; one whose call failed sends None
+                seq = None if stats.get("trace_failed") else stats["collective_sequence"]
+                seqs = {s: q for s, q in C.all_gather_objects((self.stage, seq))
+                        if q is not None}
+                check_stage_sequences(name, seqs, report)
+            self.audit_report = report
+            report.handle(audit_mode(cfg))
+        if "error" in box:
+            # the step ran (in part, perhaps): its error, never a second run
+            raise box["error"]
+        # no "out": the telemetry failed before the step started
+        return box["out"] if "out" in box else self._train_step(rng, xs, y)
 
     def _static_bytes(self, xs) -> int:
         """The stage's resident bytes: packed params and optimizer state,

@@ -560,7 +560,8 @@ class MultiHostCheckpointManager:
     def _join_pending(self) -> None:
         """Wait for the commit in flight; its failure is raised here."""
         with self._mu:
-            t, self._pending = self._pending, None
+            t = self._pending
+            self._pending = None
         if t is not None and t is not threading.current_thread():
             t.join()
         with self._mu:

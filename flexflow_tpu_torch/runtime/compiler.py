@@ -53,6 +53,14 @@ parameter with its slice of the state, from the whole all-reduced
 gradient, then the slices are all-gathered, one buffer for all of them.
 The pipeline engines (``parallel/pipeline.py``) run the ops of
 :func:`compile_model` chunk by chunk through :func:`_forward_graph`.
+
+``CompiledModel.audit_exec`` lists the step programs the program audit
+(``analysis/program_audit.py``) records one real call of, as the JAX
+package lists its jitted executables: ``train_step`` (and
+``train_k_steps`` when ``config.steps_per_dispatch`` > 1) on clones of
+the params and the optimizer state, ``eval_step`` (the forward pass for
+an inference-only compile), each on the zero batch at the compiled
+shapes (this rank's rows under a mesh).
 """
 
 from __future__ import annotations
@@ -142,6 +150,8 @@ class CompiledModel:
     loss_share: Optional[Callable] = None
     sync_grads: Optional[Callable] = None
     label_block: Optional[Callable] = None
+    # the program audit's specs (analysis/program_audit.ExecutableSpec)
+    audit_exec: List[Any] = dataclasses.field(default_factory=list)
 
     def batch_rows(self, i: int) -> slice:
         """This rank's rows of a global batch of input ``i`` (the label
@@ -725,7 +735,7 @@ def compile_model(
 
     training = (comp_mode is CompMode.TRAINING and optimizer is not None
                 and loss_type is not None)
-    return CompiledModel(
+    cm = CompiledModel(
         config=config, device=device, ops=ops, input_tensors=list(input_tensors),
         logits_tensor=logits_tensor, params=params, forward_fn=forward_fn,
         label_tensor=_label_tensor(loss_type, logits_tensor) if loss_type else None,
@@ -739,6 +749,61 @@ def compile_model(
         eval_step=eval_step if loss_type is not None else None,
         grad_step=grad_step if training else None,
         from_logits=from_logits, mesh=mesh, layouts=layouts)
+    cm.audit_exec = _audit_specs(cm)
+    return cm
+
+
+def _clone_tree(tree):
+    """A copy of a dict/list/tuple tree with every tensor cloned."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().clone()
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_clone_tree(v) for v in tree)
+    return tree
+
+
+def _audit_specs(cm: CompiledModel) -> list:
+    """The step programs the program audit records (module docstring):
+    each spec builds fresh arguments when the audit runs, so nothing is
+    held between compile and the audit, and the recorded call touches
+    none of the model's own params, optimizer state or counters."""
+    from ..analysis.program_audit import ExecutableSpec
+
+    n_inputs = len(cm.input_tensors)
+
+    def zero_batch(lead: tuple = ()) -> list:
+        out = []
+        tensors = list(cm.input_tensors)
+        if cm.label_tensor is not None:
+            tensors.append(cm.label_tensor)
+        for i, t in enumerate(tensors):
+            z = torch.zeros(tuple(t.dims), dtype=t.dtype.to_torch(), device=cm.device)
+            z = z[cm.batch_rows(i)]
+            out.append(z.expand(*lead, *z.shape).contiguous() if lead else z)
+        return out
+
+    specs = []
+    if cm.train_step is not None:
+        specs.append(ExecutableSpec(
+            "train_step", cm.train_step, donated=(0, 1),
+            make_args=lambda: (_clone_tree(cm.params), _clone_tree(cm.opt_state), 0,
+                               *zero_batch())))
+        k = max(1, int(cm.config.steps_per_dispatch))
+        if k > 1:
+            specs.append(ExecutableSpec(
+                "train_k_steps", cm.train_k_steps, donated=(0, 1),
+                make_args=lambda: (_clone_tree(cm.params), _clone_tree(cm.opt_state),
+                                   [0] * k, *zero_batch((k,)))))
+    if cm.eval_step is not None:
+        specs.append(ExecutableSpec("eval_step", cm.eval_step,
+                                    make_args=lambda: (cm.params, *zero_batch())))
+    else:
+        specs.append(ExecutableSpec(
+            "forward", cm.forward_fn,
+            make_args=lambda: (cm.params, *zero_batch()[:n_inputs])))
+    return specs
 
 
 def _or_zeros(grad: Optional[torch.Tensor], like: torch.Tensor) -> torch.Tensor:

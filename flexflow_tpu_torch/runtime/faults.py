@@ -230,13 +230,13 @@ def configure_faults(config) -> Optional[FaultPlan]:
     spec = getattr(config, "fault_plan", None)
     if spec is None:
         # lock-free swap: a racing site sees the old or the new plan
-        _PLAN = None
+        _PLAN = None  # concurrency: race-ok (lock-free plan swap, the tracer's enabled pattern: sites read the reference once; a racing site sees the old or new plan atomically)
         return None
     cur = _PLAN
     if cur is not None and cur.spec == spec:
         return cur
     plan = FaultPlan(spec)
-    _PLAN = plan
+    _PLAN = plan  # concurrency: race-ok (lock-free plan swap, see above)
     return plan
 
 

@@ -152,6 +152,13 @@ class FFModel:
         # and the last fit's OBS001 report (config.divergence)
         self.exec_telemetry: Optional[dict] = None
         self.obs_report = None
+        # the last compile's gate reports (analysis/): the PCG validation,
+        # the program audit and its per-program profile; a cache hit hands
+        # its validation to compile's gate
+        self.pcg_report = None
+        self.audit_report = None
+        self.audit_profile: Optional[dict] = None
+        self._pcg_prevalidated = None
 
     # ---- graph construction ---------------------------------------------
     def create_tensor(self, dims: Sequence[int],
@@ -662,6 +669,9 @@ class FFModel:
         telemetry_mode(self.config)
         attribution_mode(self.config)
         corpus_mode(self.config)
+        # the gates' modes too
+        self._validate_mode()
+        self._audit_mode()
         configure_faults(self.config)  # a malformed plan fails before any work
         # config.obs_server_port arms the scrape surface (ratchet-on; a bad
         # port raises here)
@@ -683,6 +693,7 @@ class FFModel:
             if layer.attrs.get("strategy") and layer.name not in strat:
                 strat[layer.name] = layer.attrs["strategy"]
         self._search_layers = None
+        self._pcg_prevalidated = None
         if self.config.only_data_parallel:
             strat = {}
         elif self.config.search_budget != 0 and not strat:
@@ -693,17 +704,61 @@ class FFModel:
         # a structural rewrite the search chose compiles its graph; its
         # boundary tensors (the logits among them) are the builder's
         layers = self._search_layers or self.layers
+        # --- the PCG gate (analysis/pcg_check.py): the post-search,
+        # post-rewrite graph and the strategies in effect (the builder's,
+        # an imported file's, the search's or the cache's), before fusion
+        # (strategy entries name these layers) and before any params exist
+        self.pcg_report = None
+        vmode = self._validate_mode()
+        if vmode != "off":
+            pre = self._pcg_prevalidated
+            if pre is not None and pre[0] == id(strat):
+                self.pcg_report = pre[1]  # the cache hit's walk, same triple
+            else:
+                from ..analysis import validate_pcg
+
+                src = "rewrite" if self._search_layers is not None else "builder"
+                with span("compile.validate_pcg", cat="compile", source=src):
+                    self.pcg_report = validate_pcg(
+                        layers, self._used_inputs(), strat, self._gate_axis_sizes(mesh),
+                        protected=frozenset({logits.tensor_id}), config=self.config,
+                        source=src)
+                self.pcg_report.handle(vmode)
+        self._pcg_prevalidated = None
         if self.config.perform_fusion:
             from ..ops.fused import apply_fusion
 
             layers = apply_fusion(layers, {logits.tensor_id})
-        self.compiled = compile_model(self.config, layers, self._used_inputs(),
-                                      logits, self.optimizer, loss_type, mtypes,
-                                      comp_mode, strat, mesh)
+        try:
+            with span("compile.lower", cat="compile", n_layers=len(layers)):
+                self.compiled = compile_model(self.config, layers, self._used_inputs(),
+                                              logits, self.optimizer, loss_type, mtypes,
+                                              comp_mode, strat, mesh)
+        except Exception:
+            # under validate_pcg="warn" an error finding proceeds by
+            # contract; when lowering then fails, the coded findings that
+            # predicted it are printed beside the original exception
+            if self.pcg_report is not None and self.pcg_report.errors:
+                print(f"[pcg] compile failed after validate_pcg='warn' proceeded past "
+                      f"{len(self.pcg_report.errors)} error-severity finding(s) — likely "
+                      f"the cause:", file=sys.stderr, flush=True)
+                for f in self.pcg_report.errors:
+                    print(f"[pcg] {f.format()}", file=sys.stderr, flush=True)
+            raise
         self.pipelined = None
         cm = self.compiled
         if pipeline is None and cm.mesh is not None and cm.train_step is not None:
             pipe_deg = cm.mesh.shape.get("pipe", 1)
+            if (pipe_deg > 1 and len(layers) < pipe_deg and self.pcg_report is not None
+                    and "PCG011" not in self.pcg_report.codes()):
+                # fusion shrinking the graph below the stage count is only
+                # knowable here: report the un-piped compile (PCG011)
+                f = self.pcg_report.add(
+                    "PCG011", f"mesh pipe axis has degree {pipe_deg} but the post-fusion "
+                              f"graph has only {len(layers)} ops; compiling un-piped — the "
+                              f"pipe axis stays idle", severity="warning")
+                if vmode == "warn":
+                    print(f"[pcg] {f.format()}", flush=True)
             if pipe_deg > 1 and len(layers) >= pipe_deg:
                 from ..parallel.pipeline import PipelineConfig, pipe_microbatches
 
@@ -723,15 +778,50 @@ class FFModel:
                                  logits=logits)
         self._playoff_done = False
         self._playoff_record = None
+        # --- the program audit (analysis/program_audit.py): one recorded
+        # call of each step program, on every compile (cache hits
+        # included). With a pipeline engine, fit calls the engine's
+        # program, which audits itself at its first call, so the compiled
+        # model's train steps are not recorded
+        self.audit_report = None
+        self.audit_profile = None
+        amode = self._audit_mode()
+        skip = ("train_step", "train_k_steps") if self.pipelined is not None else ()
+        t0_audit = time.perf_counter()
+        if amode != "off":
+            from ..analysis.program_audit import audit_compiled_model
+
+            asrc = "cache" if (self.search_profile or {}).get("cache") == "hit" else "builder"
+            with span("compile.audit", cat="compile", source=asrc):
+                self.audit_report = audit_compiled_model(cm, config=self.config, source=asrc,
+                                                         skip=skip)
         # executable telemetry (config.exec_telemetry): one step's flops and
-        # the card's peak bytes, reconciled with the simulator's estimate
+        # the card's peak bytes, reconciled with the audit's static peak of
+        # the same recorded call (the simulator's estimate without the audit)
         self.exec_telemetry = None
         if telemetry_mode(self.config) == "on":
             from ..obs.exec_telemetry import collect_compiled_model
 
             with span("compile.exec_telemetry", cat="compile"):
                 self.exec_telemetry = collect_compiled_model(
-                    self, config=self.config, allow=self.config.exec_mem_allow)
+                    self, config=self.config, allow=self.config.exec_mem_allow,
+                    audit_report=self.audit_report)
+        if self.audit_report is not None:
+            from ..analysis.program_audit import count_metrics
+
+            dt_audit = time.perf_counter() - t0_audit
+            progs = dict(self.audit_report.programs)
+            self.audit_profile = {
+                "wall_time_s": dt_audit,
+                # the recorded calls run real steps (record_s); the walk
+                # over their op streams is the gate's own cost
+                "walk_s": sum(p.get("walk_s", 0.0) for p in progs.values()),
+                "record_s": sum(p.get("record_s", 0.0) for p in progs.values()),
+                "programs": progs,
+            }
+            count_metrics(self.audit_report, len(progs))
+            metrics_registry().histogram("audit.wall_time_s").observe(dt_audit)
+            self.audit_report.handle(amode)
         # graph exports the flags ask for (reference: --compgraph and
         # --taskgraph, written right after compile, model.cc:3666-3674)
         if self.config.export_strategy_computation_graph_file:
@@ -916,7 +1006,7 @@ class FFModel:
                 result = (result_from_payload(payload, self.layers, cfg, protected)
                           if payload is not None else None)
                 if result is not None and not self._validate_cached(
-                        result, inputs, cache_path(cache_dir, cache_key)):
+                        result, inputs, protected, cache_path(cache_dir, cache_key)):
                     result = None
                 if result is not None:
                     if not pinned:
@@ -1027,11 +1117,55 @@ class FFModel:
         result.workers = 1
         return result
 
-    def _validate_cached(self, result, inputs, entry_path: str) -> bool:
-        """A strategy rehydrated from the cache must build: ``build_ops``
-        over the stored strategies and mesh (the JAX package's PCG
-        validation is ROADMAP A11). A failure prints a line and demotes
-        the hit to a miss."""
+    def _gate_axis_sizes(self, mesh) -> Dict[str, int]:
+        """The mesh axes compile will lower over: ``mesh``'s, else the
+        config's ``mesh_shape``, else a data axis over every rank."""
+        if mesh is not None:
+            return {a: int(n) for a, n in mesh.shape.items()}
+        if self.config.mesh_shape:
+            return {a: int(n) for a, n in self.config.mesh_shape.items()}
+        import torch.distributed as dist
+
+        world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+        return {DATA_AXIS: world}
+
+    def _validate_mode(self) -> str:
+        from ..analysis.findings import gate_mode
+
+        return gate_mode(self.config.validate_pcg, "validate_pcg")
+
+    def _audit_mode(self) -> str:
+        from ..analysis.findings import gate_mode
+
+        return gate_mode(self.config.audit_programs, "audit_programs")
+
+    def _validate_cached(self, result, inputs, protected, entry_path: str) -> bool:
+        """PCG-validate a strategy rehydrated from the cache (the variant
+        graph when the stored rewrites re-applied, else the builder
+        graph). False demotes the hit to a miss; under "error" a corrupt
+        entry raises the coded error instead, since the user asked for a
+        hard gate and a quiet re-search would hide the corruption. With
+        the gate off the entry must still build (``build_ops``)."""
+        mode = self._validate_mode()
+        if mode == "off":
+            return self._cached_builds(result, inputs, entry_path)
+        from ..analysis import validate_pcg
+
+        report = validate_pcg(result.layers or self.layers, inputs, result.strategies,
+                              result.mesh_shape, protected=protected, config=self.config,
+                              source=f"cache:{entry_path}")
+        report.handle(mode)
+        if report.errors:
+            print(f"[search] cached strategy {entry_path} failed PCG validation "
+                  f"({report.errors[0].code}); treating as a miss", flush=True)
+            return False
+        # compile()'s gate reuses this report for the same strategies object
+        self._pcg_prevalidated = (id(result.strategies), report)
+        return True
+
+    def _cached_builds(self, result, inputs, entry_path: str) -> bool:
+        """``build_ops`` over a cached entry's strategies and mesh; a
+        failure prints a line and demotes the hit to a miss."""
         from ..runtime.compiler import build_ops
         from ..search.unity import data_parallel_input_pshapes
 
@@ -1550,7 +1684,7 @@ class FFModel:
                         # rollback point and the resume
                         healthy = True
                         if guard is not None and loss_accum is not None:
-                            healthy = bool(torch.isfinite(loss_accum).item())
+                            healthy = bool(torch.isfinite(loss_accum).item())  # hotpath: sync-ok (checkpoint-boundary only, throttled to checkpoint_interval_steps; the save below copies the state to the host regardless)
                         if healthy:
                             if guard is not None:
                                 guard.snapshot(self, scope="interval")
@@ -1561,30 +1695,30 @@ class FFModel:
                     # above ("kill at step N" leaves steps <= N)
                     rule = _fx.fire("train.stall")
                     if rule is not None:
-                        time.sleep(float(rule.get("stall_s", 1.0)))
+                        time.sleep(float(rule.get("stall_s", 1.0)))  # hotpath: sync-ok (float() of a plan-dict scalar, not a device value; chaos-run only — the site is unreachable without an armed fault plan)
                     rule = _fx.fire("train.kill")
                     if rule is not None:
                         sys.stdout.flush()
                         sys.stderr.flush()
-                        os._exit(int(rule.get("exit_code", 41)))
+                        os._exit(int(rule.get("exit_code", 41)))  # hotpath: sync-ok (int() of a plan-dict scalar, not a device value; chaos-run only)
                     # a cohort's chaos: a slow peer stalls its heartbeat
                     # (the supervisor's hang detector), a killed peer dies
                     # after the checkpoint block, as train.kill
                     rule = _fx.fire("multihost.slow_peer")
                     if rule is not None:
-                        time.sleep(float(rule.get("stall_s", 2.0)))
+                        time.sleep(float(rule.get("stall_s", 2.0)))  # hotpath: sync-ok (plan-dict scalar sleep; chaos-run only — unreachable without an armed fault plan)
                     rule = _fx.fire("multihost.peer_kill")
                     if rule is not None:
                         sys.stdout.flush()
                         sys.stderr.flush()
-                        os._exit(int(rule.get("exit_code", 43)))
+                        os._exit(int(rule.get("exit_code", 43)))  # hotpath: sync-ok (int() of a plan-dict scalar, not a device value; chaos-run only)
                 if recompile_state is not None:
                     from .recompile import recompile_on_condition
 
                     ci = max(1, recompile_state.check_interval)
                     if (recompile_state.iteration + 1) % ci == 0:
                         src = prev_loss if prev_loss is not None else loss
-                        recompile_state.last_metric = float(src)
+                        recompile_state.last_metric = float(src)  # hotpath: sync-ok (throttled to check_interval; reads the previous step's loss, which the in-flight window has already waited on or will next)
                     with span("fit.recompile_check", cat="fit"):
                         fired = recompile_on_condition(self, recompile_state)
                     if fired:

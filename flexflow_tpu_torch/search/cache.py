@@ -286,7 +286,7 @@ def strategy_cache_key(layers, input_tensors, machine, config,
         # plans are only as good as the pricing that selected them: a
         # retuned cost model (bumped COST_MODEL_VERSION) re-searches
         # instead of serving plans chosen under the old model forever
-        "cost_model": COST_MODEL_VERSION,
+        "cost_model": COST_MODEL_VERSION,  # knobflow: schema-ok (key component, not a payload field: a bumped cost model re-addresses entries, so the forced miss is the validation)
         "graph": graph_signature(layers, input_tensors, protected),
         "machine": machine_signature(machine),
         "config": config_signature(config, mesh_axes),

@@ -244,7 +244,10 @@ class GenerationInstance:
         from .scheduler import ContinuousBatchingScheduler
 
         if group is not None:
-            self._init_group(group, name, weights, scheduler_kw)
+            # assigned here, in the constructor: the scheduler's worker reads
+            # it, and construction happens before the instance is published
+            self.name, self._ff = name, None
+            self.scheduler = self._group_scheduler(group, name, weights, scheduler_kw)
             return
         if ff.compiled is None:
             raise ValueError("compile() the FFModel before serving it")
@@ -267,8 +270,8 @@ class GenerationInstance:
     _DECODER_KNOBS = ("max_length", "decode_slots", "block_size", "num_blocks",
                       "prefill_buckets", "kv_dtype", "kv_divergence_budget")
 
-    def _init_group(self, group, name: str, weights, scheduler_kw) -> None:
-        """Serve over a group of rank processes (``group``: a
+    def _group_scheduler(self, group, name: str, weights, scheduler_kw):
+        """The scheduler serving over a group of rank processes (``group``: a
         :class:`~flexflow_tpu_torch.serving.group.GroupSpec` with
         ``generator`` unset): the ranks hold the model over its mesh and
         run each step; the scheduler and the block allocator stay here.
@@ -286,9 +289,7 @@ class GenerationInstance:
             raise ValueError(f"{name!r}: speculative decoding over a rank group is not "
                              f"supported; serve the draft pair on one device")
         knobs = {k: defaults.pop(k) for k in self._DECODER_KNOBS if k in defaults}
-        self.name = name
-        self._ff = None
-        self.scheduler = ContinuousBatchingScheduler(
+        return ContinuousBatchingScheduler(
             None, name=name, decoder=GroupDecoder(dataclasses.replace(group, generator=knobs),
                                                   weights),
             **defaults)

@@ -378,28 +378,32 @@ class Generator(_DecodeGraph):
         super().__init__(ff, max_length)
         self.batch_size = batch_size or self._cm.input_tensors[0].dims[0]
         self.device = self._cm.device
-        # executable telemetry (config.exec_telemetry) of one decode step
-        self.exec_telemetry = None
+        # the program audit (config.audit_programs) and the executable
+        # telemetry (config.exec_telemetry) of one decode step: one call
+        self.audit_report = self.exec_telemetry = None
+        self._audit_decode_step(ff.config)
+
+    def _audit_decode_step(self, cfg) -> None:
+        """One decode step at offset 0 on a fresh cache (the model's own
+        state untouched), recorded for the audit and measured for the
+        telemetry; without the audit, its peak is held against the
+        resident bytes it needs (the params it reads and the cache)."""
+        from ..analysis.program_audit import audit_call, audit_mode
         from ..obs.exec_telemetry import telemetry_mode
 
-        if telemetry_mode(ff.config) == "on":
-            self.exec_telemetry = self._decode_step_telemetry(ff.config)
-
-    def _decode_step_telemetry(self, cfg) -> Dict:
-        """One decode step at offset 0 on a fresh cache, its peak against
-        the resident bytes it needs (the params it reads and the cache)."""
-        from ..obs.exec_telemetry import collect_one
-
+        if audit_mode(cfg) == "off" and telemetry_mode(cfg) == "off":
+            return
         params = self._exec_params()
         cache = self.init_cache()
         tokens = torch.zeros((self.batch_size, 1), dtype=torch.int32, device=self.device)
         static = sum(t.numel() * t.element_size()
                      for ws in params.values() for t in ws.values())
         static += sum(t.numel() * t.element_size() for kv in cache.values() for t in kv)
-        return collect_one("serving.decode_step",
-                           lambda: self._step(params, tokens, cache, 0), self.device,
-                           config=cfg, static_peak=static,
-                           allow=getattr(cfg, "exec_mem_allow", None))
+        self.audit_report, self.exec_telemetry, _ = audit_call(
+            "serving.decode_step", self._step, (params, tokens, cache, 0), config=cfg,
+            device=self.device, source="serving", static_peak=static)
+        if self.audit_report is not None:
+            self.audit_report.handle(audit_mode(cfg))
 
     # ---- cache ------------------------------------------------------------
     def init_cache(self) -> Cache:
@@ -591,6 +595,34 @@ class PagedDecoder(_DecodeGraph):
         self.kv_quant_report: Optional[KVQuantReport] = None
         if self.kv_dtype != "float32" and calibrate:
             self._calibrate_kv_quant(kv_divergence_budget)
+        # the program audit and the executable telemetry of one decode step
+        self.audit_report = self.exec_telemetry = None
+        self._audit_decode_step(ff.config)
+
+    def _audit_decode_step(self, cfg) -> None:
+        """One decode step of every slot over a scratch two-block pool
+        (block tables all on the null block, lengths 0), recorded for the
+        audit and measured for the telemetry; the decoder's own pool and
+        counters are untouched."""
+        from ..analysis.program_audit import audit_call, audit_mode
+        from ..obs.exec_telemetry import telemetry_mode
+
+        if audit_mode(cfg) == "off" and telemetry_mode(cfg) == "off":
+            return
+        pool, self.pool = self.pool, self._new_pool(2)
+        try:
+            slots, mb = self.decode_slots, self.max_blocks_per_request
+            args = (self._exec_params(),
+                    torch.zeros((slots, 1), dtype=torch.int64, device=self.device),
+                    torch.zeros((slots, mb), dtype=torch.int64, device=self.device),
+                    torch.zeros((slots,), dtype=torch.int64, device=self.device))
+            self.audit_report, self.exec_telemetry, _ = audit_call(
+                "serving.paged_decode_step", self._decode_step, args, config=cfg,
+                device=self.device, source="serving")
+        finally:
+            self.pool = pool
+        if self.audit_report is not None:
+            self.audit_report.handle(audit_mode(cfg))
 
     def _new_pool(self, num_blocks: int) -> PagedKVPool:
         return PagedKVPool(

@@ -657,12 +657,12 @@ class ContinuousBatchingScheduler:
                     if req.temperature > 0:
                         q = _temp_softmax(dlogits[i], req.temperature)
                         if qdists[i] is None:
-                            qdists[i] = []
+                            qdists[i] = []  # hotpath: lock-ok (round-local list, never shared)
                         qdists[i].append(q)
-                        nxt[i] = int(req.rng.choice(q.shape[-1], p=q))
+                        nxt[i] = int(req.rng.choice(q.shape[-1], p=q))  # hotpath: lock-ok (round-local array)
                     else:
-                        nxt[i] = int(dlogits[i].argmax(-1))
-                proposals[:, j] = nxt
+                        nxt[i] = int(dlogits[i].argmax(-1))  # hotpath: lock-ok (round-local array)
+                proposals[:, j] = nxt  # hotpath: lock-ok (round-local array)
                 cur = nxt
             window = np.concatenate([base_tokens[:, None], proposals], axis=1)
             vlogits = _DECODE_RETRY.call(self.decoder.verify, window, tables, seq_lens)

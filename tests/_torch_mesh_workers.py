@@ -127,7 +127,8 @@ def verbs(ff, relu, batch: int, h: int, axis: str):
 
 
 def train(rank: int, world: int, model: str, mesh_shape, shape: dict, kw: dict, params,
-          batches, loss: str, compute_dtype=None, rng=None) -> dict:
+          batches, loss: str, compute_dtype=None, rng=None,
+          validate_pcg: str = "error") -> dict:
     """The model over ``mesh_shape`` from ``params``: one ``train_step`` per
     global batch (this rank's rows through ``set_batch``); the losses and
     the whole params after (every rank gathers, rank 0 returns them)."""
@@ -136,7 +137,7 @@ def train(rank: int, world: int, model: str, mesh_shape, shape: dict, kw: dict, 
 
     batch = batches[0][-1].shape[0]
     ff = FFModel(FFConfig(batch_size=batch, device="cpu", mesh_shape=mesh_shape,
-                          compute_dtype=compute_dtype))
+                          compute_dtype=compute_dtype, validate_pcg=validate_pcg))
     build(ff, model, batch, shape, **kw)
     ff.compile(SGDOptimizer(lr=0.01), getattr(LossType, loss))
     load_numpy_params(ff, params)
@@ -556,3 +557,88 @@ def tp_generate(rank: int, world: int, weights, prompt, new: int) -> dict:
     heads = {op.name: gen.local_heads(op) for op in gen._attn_ops}
     last = gen.prefill(prompt)[0].numpy()
     return dict(last=last, tokens=gen.generate(prompt, new), heads=heads)
+
+
+def pipe_audit(rank: int, world: int, mode: str, shape: dict, x, y) -> dict:
+    """The Transformer over {pipe: 2} on the single-call engine with the
+    program audit ``mode``: one train_step; the loss, the whole params
+    after it, and the first call's audit report."""
+    from flexflow_tpu_torch import FFConfig, FFModel, LossType, SGDOptimizer
+    from flexflow_tpu_torch.parallel.pipeline import PipelineConfig
+
+    from flexflow_tpu_torch.parallel import collectives as C
+
+    batch = x.shape[0]
+    ff = FFModel(FFConfig(batch_size=batch, device="cpu", mesh_shape={"pipe": 2},
+                          audit_programs=mode))
+    build(ff, "transformer", batch, shape)
+    C.reset_stats()
+    ff.compile(SGDOptimizer(lr=0.01), LossType.MEAN_SQUARED_ERROR_AVG_REDUCE,
+               pipeline=PipelineConfig(num_stages=2, num_microbatches=4, schedule="1f1b",
+                                       engine="compiled"))
+    compile_calls = C.stats()["calls"]
+    pm = ff.pipelined
+    C.reset_stats()
+    loss = float(pm.train_step(None, [x], y)[0])
+    step_calls = C.stats()["calls"]
+    rep = pm.audit_report
+    return dict(loss=loss, params=ff.numpy_params(), engine=pm.engine_name,
+                compile_calls=compile_calls, step_calls=step_calls,
+                compile_programs=sorted((ff.audit_profile or {}).get("programs", {})),
+                programs=None if rep is None else dict(rep.programs),
+                codes=None if rep is None else rep.codes())
+
+
+def pipe_audit_fault(rank: int, world: int, fault: str, shape: dict, x, y) -> dict:
+    """The engine of :func:`pipe_audit` under ``audit_programs="error"``
+    with a seeded fault in its first (recorded) step: ``"mismatch"``
+    makes stage 1 note one collective more than stage 0 (recorded, not
+    issued); ``"raise"`` makes the step raise on every stage before any
+    collective. What the first train_step raised, and how many times the
+    step ran."""
+    from flexflow_tpu_torch import FFConfig, FFModel, LossType, SGDOptimizer
+    from flexflow_tpu_torch.parallel import collectives as C
+    from flexflow_tpu_torch.parallel.pipeline import PipelineConfig
+
+    batch = x.shape[0]
+    ff = FFModel(FFConfig(batch_size=batch, device="cpu", mesh_shape={"pipe": 2}))
+    build(ff, "transformer", batch, shape)
+    ff.compile(SGDOptimizer(lr=0.01), LossType.MEAN_SQUARED_ERROR_AVG_REDUCE,
+               pipeline=PipelineConfig(num_stages=2, num_microbatches=4, schedule="1f1b",
+                                       engine="compiled"))
+    pm = ff.pipelined
+    real, runs = pm._train_step, []
+
+    def seeded(*a):
+        runs.append(1)
+        if fault == "raise":
+            raise RuntimeError("seeded step fault")
+        if pm.stage == 1:
+            C._count(0, "all_reduce", pm.pipe)
+        return real(*a)
+
+    pm._train_step = seeded
+    try:
+        pm.train_step(None, [x], y)
+        raised = msg = None
+    except Exception as e:  # noqa: BLE001 — returned to the test
+        raised, msg = type(e).__name__, str(e)
+    rep = pm.audit_report
+    return dict(raised=raised, msg=msg, runs=len(runs),
+                codes=None if rep is None else rep.codes())
+
+
+def fused_unpipe(rank: int, world: int) -> dict:
+    """A chain of weightless unary ops over {pipe: 2}: two layers before
+    fusion, one after; the compile falls back un-piped and the PCG gate
+    reports it (PCG011, a warning)."""
+    from flexflow_tpu_torch import FFConfig, FFModel, LossType, SGDOptimizer
+
+    ff = FFModel(FFConfig(batch_size=4, device="cpu", mesh_shape={"pipe": 2},
+                          perform_fusion=True, audit_programs="off"))
+    x = ff.create_tensor((4, 8), name="input")
+    ff.exp(ff.relu(x, inplace=False, name="r"), name="e")
+    ff.compile(SGDOptimizer(lr=0.01), LossType.MEAN_SQUARED_ERROR_AVG_REDUCE)
+    rep = ff.pcg_report
+    return dict(codes=rep.codes(), severities=[f.severity for f in rep.findings],
+                messages=[f.message for f in rep.findings], pipelined=ff.pipelined is not None)

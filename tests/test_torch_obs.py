@@ -194,7 +194,10 @@ def test_obs_codes_in_catalog_equal_jax():
     from flexflow_tpu.analysis import CODE_CATALOG as JCAT
     from flexflow_tpu_torch.analysis import CODE_CATALOG
 
-    assert set(CODE_CATALOG) == {"OBS001", "OBS002", "OBS003"}
+    # the whole catalog since the port's static analysis (every code the
+    # JAX package has, the AUD/HOT002/OBS002 texts reworded for the port)
+    assert set(CODE_CATALOG) == set(JCAT)
+    assert {"OBS001", "OBS002", "OBS003"} <= set(CODE_CATALOG)
     assert CODE_CATALOG["OBS001"] == JCAT["OBS001"]
     assert CODE_CATALOG["OBS003"] == JCAT["OBS003"]
 

@@ -11,8 +11,9 @@ the fingerprint reads ``torch.cuda``; on one device the port's compiled
 model has no mesh, so its records carry no ``mesh`` block (JAX's say
 ``{"data": 1}``); executable telemetry is one measured step
 (``FlopCounterMode`` flops, the card's peak bytes, ``null`` on the CPU)
-instead of XLA's analyses; compile records carry no ``audit`` block (the
-program audit is ROADMAP A11)."""
+instead of XLA's analyses; the compile record's ``audit`` block (the
+port's program audit, on by default) adds the recorded calls'
+``record_s``."""
 
 import functools
 import json
@@ -231,8 +232,12 @@ def test_compile_record_equals_jax():
     j = jledger.load_runs(str(d / "jax"), kind="compile")[0]
     t = ledger.load_runs(str(d / "port"), kind="compile")[0]
     assert j["mesh"] == {"data": 1} and "mesh" not in t  # one device: no mesh
-    assert "audit" not in t
-    assert _strip(t) == _strip(j, "mesh", "audit")
+    # the port's compile runs the program audit by default (the JAX side
+    # compiles with it off here, for speed): its block names the programs
+    assert "audit" not in j
+    assert t["audit"]["programs"] == ["eval_step", "train_step"]
+    assert t["audit"]["errors"] == 0 and t["audit"]["record_s"] > 0
+    assert _strip(t, "audit") == _strip(j, "mesh", "audit")
     assert _cohort_less_machine(t) == _cohort_less_machine(j)[:3] + [[]] + \
         _cohort_less_machine(j)[4:]
 
@@ -252,7 +257,8 @@ def test_compile_record_with_search_equals_jax():
     for k in ("search_time_s", "est_memory"):
         js.pop(k, None), ts.pop(k, None)
     assert ts == js
-    assert _strip(t, "search") == _strip(j, "mesh", "audit", "search")
+    assert t["audit"]["programs"] == ["eval_step", "train_step"]
+    assert _strip(t, "search", "audit") == _strip(j, "mesh", "audit", "search")
 
 
 def test_fit_record_equals_jax():

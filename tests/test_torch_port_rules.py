@@ -57,6 +57,12 @@ REQUIRED = ("flexflow_tpu_torch.obs", "flexflow_tpu_torch.obs.metrics",
             "flexflow_tpu_torch.search.graph_xfer", "flexflow_tpu_torch.search.mcmc",
             "flexflow_tpu_torch.search.cache", "flexflow_tpu_torch.search.rule_interpreter",
             "flexflow_tpu_torch.analysis", "flexflow_tpu_torch.analysis.findings",
+            "flexflow_tpu_torch.analysis.pragmas", "flexflow_tpu_torch.analysis.pcg_check",
+            "flexflow_tpu_torch.analysis.strategy_lint",
+            "flexflow_tpu_torch.analysis.concurrency_check",
+            "flexflow_tpu_torch.analysis.hotpath_lint",
+            "flexflow_tpu_torch.analysis.knobflow_check",
+            "flexflow_tpu_torch.analysis.program_audit",
             "flexflow_tpu_torch.obs.ledger", "flexflow_tpu_torch.obs.watchdog",
             "flexflow_tpu_torch.obs.exec_telemetry", "flexflow_tpu_torch.obs.divergence",
             "flexflow_tpu_torch.obs.attribution", "flexflow_tpu_torch.obs.advisor",
@@ -99,6 +105,35 @@ def test_source_imports_no_jax():
             offenders += [f"{name}:{node.lineno} imports {n}"
                           for n in found if _is_forbidden(n)]
     assert len(sources) > 20 and not offenders, offenders
+
+
+ANALYSIS = ("pragmas", "findings", "pcg_check", "strategy_lint", "concurrency_check",
+            "hotpath_lint", "knobflow_check", "program_audit")
+
+
+@pytest.mark.parametrize("name", ANALYSIS)
+def test_analysis_modules_are_the_ports_own(name):
+    """Each static-analysis module lives in the port and imports neither
+    JAX nor the JAX package, not even its pure-AST modules; the gate
+    tools beside it are the port's own too."""
+    path = PORT / "analysis" / f"{name}.py"
+    tree = ast.parse(path.read_text(), filename=str(path))
+    found = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    found += [n.module or "" for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom) and n.level == 0]
+    assert not [n for n in found if _is_forbidden(n)], found
+
+
+@pytest.mark.parametrize("tool", ["torch_pcg_lint", "torch_program_audit",
+                                  "torch_concurrency_lint", "torch_knob_lint"])
+def test_gate_tools_import_no_jax(tool):
+    path = PORT.parent / "tools" / f"{tool}.py"
+    tree = ast.parse(path.read_text(), filename=str(path))
+    found = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    found += [n.module or "" for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom) and n.level == 0]
+    assert "flexflow_tpu_torch.analysis" in " ".join(found)
+    assert not [n for n in found if _is_forbidden(n)], found
 
 
 def test_ffmodel_without_device_cpu_raises_without_a_card():

@@ -190,9 +190,12 @@ def test_changed_world_size_misses(tmp_path, monkeypatch):
 
 def test_cached_plan_that_does_not_build_is_a_miss(tmp_path, capsys):
     """A schema-valid entry whose strategies do not build (fc1 mapping the
-    model axis onto both its kernel's dims) prints a line and re-searches;
-    the re-search overwrites the entry."""
-    cfg = _cfg(tmp_path)
+    model axis onto both its kernel's dims) fails the PCG validation of
+    the rehydrated plan: under validate_pcg="error" (the default) the
+    coded error raises; under "warn" it prints the finding and a line and
+    re-searches, and the re-search overwrites the entry; under "off" the
+    entry must still build, and one that does not is a miss as well."""
+    cfg = _cfg(tmp_path, validate_pcg="warn")
     ff = _build(cfg)
     _search(ff)
     path = os.path.join(cfg.search_cache_dir, os.listdir(cfg.search_cache_dir)[0])
@@ -200,12 +203,28 @@ def test_cached_plan_that_does_not_build_is_a_miss(tmp_path, capsys):
     bad = {"in": "model", "out": "model"}
     doc["result"]["strategies"] = {"fc1": bad}
     json.dump(doc, open(path, "w"))
+    from flexflow_tpu_torch.analysis import PCGValidationError
+
+    strict = _build(_cfg(tmp_path))
+    with pytest.raises(PCGValidationError, match="fc1"):
+        _search(strict)
     cost_model_mod.MEASURE_CALLS = 0
     strat = _search(ff)
-    assert "does not build" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert "[pcg] PCG0" in out and "failed PCG validation" in out
     assert ff.search_profile["cache"] == "miss" and cost_model_mod.MEASURE_CALLS > 0
     assert strat.get("fc1") != bad
     assert json.load(open(path))["result"]["strategies"].get("fc1") != bad
+    doc = json.load(open(path))
+    doc["result"]["strategies"] = {"fc1": bad}
+    json.dump(doc, open(path, "w"))
+    off = _build(_cfg(tmp_path, validate_pcg="off"))
+    cost_model_mod.MEASURE_CALLS = 0
+    strat = _search(off)
+    out = capsys.readouterr().out
+    assert "does not build" in out and "[pcg]" not in out
+    assert off.search_profile["cache"] == "miss" and cost_model_mod.MEASURE_CALLS > 0
+    assert strat.get("fc1") != bad
 
 
 def _pipe_model(tmp_path):
