@@ -62,8 +62,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    16-token blocks, max_length 1024), with no kernel launched while
    serving, one decode dispatch a step, and every answer's greedy tokens
    held against its full causal forward (6 flash launches each) by the
-   margin rule; the same traffic speculatively (spec_k 3, draft "self:2")
-   and with an int8 pool, each held to the plain run's tokens up to a
+   margin rule; its first 16 requests speculatively (spec_k 3, draft
+   "self:2") and with an int8 pool, each held to the plain run's tokens up to a
    first parting where the plain run's margin is within the bound;
    tokens/s, TTFT and decode step ms (p50, p99), prefill dispatches, pool
    high water and bytes, peak memory;
@@ -176,7 +176,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    relaunched and resumed with params bitwise equal to the uninterrupted
    cohort's (their digests), then one process resuming the killed
    cohort's checkpoints through restore_elastic; (h) the Transformer of
-   (4) over {model: 2} from a repository entry with its tensor-parallel
+   (4) at 6 layers over {model: 2} from a repository entry with its tensor-parallel
    strategies, two ranks of a rank group on this card, f32 and bf16: 32
    requests against the one-device instance with the same params (the
    serving bounds), K1 launches by rank at (8*8, 512, 64), req/s; GPT at
@@ -223,7 +223,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    published, one serving ledger record, each answer held to one full
    causal forward (K1); (q) the train.stall site past a watchdog armed at
    2 s (the black box: thread stacks, the tracer's tail), then (g)'s job
-   at (14)'s depth as a supervised 2-rank cohort with cohort_obs, rank 1 hung: its dumps,
+   at 2 layers as a supervised 2-rank cohort with cohort_obs, rank 1 hung: its dumps,
    the merged ledger (each run id once), the cohort report; (r) a rule
    file in the reference's schema (a Linear+ReLU fusion, a parallel-Linear
    merge) through the search: a json: rewrite wins on an MLP, which trains
@@ -241,12 +241,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
    each with its decode-step audit. The audit's recorded calls count
    their launches on the recording, so every earlier phase's exact
    launch counts exclude them;
-20. the kernels line, one JSON object;
-21. the last line: {"ok": true, "device": {...}}.
+20. the frontends and the C API (A12) and the class-sharded cross-entropy
+   (C9): (w) a plain torch.nn Transformer written here (seq 512, hidden
+   1024, 16 heads, 12 layers, nn.MultiheadAttention(batch_first=True),
+   LayerNorm, Linear, GELU) imported by PyTorchModel, its weights copied
+   card to card by copy_weights, 64 requests served through
+   InferenceEngine in float32 and bfloat16 (12 K1 launches a dispatch),
+   held to the module's own eager forward (f32 1e-4; bf16 twice the plain
+   bf16 path's distance from plain f32); (x) the import fit 3 steps in
+   f32 (12 launches of each of K1-K3 a step) held to the same steps with
+   K1-K3's plain versions; (y) a Keras Sequential CNN fit 2 epochs on
+   datasets.mnist's seeded sample with History and EarlyStopping; (z)
+   examples/c/mlp_train.c built against the port's C API library and run
+   as its own process on the card; (aa) one epoch through the C++ loader
+   held to the Python loader batch for batch, and the import's task
+   graph transitively reduced; (ab) the two-dense MLP whose head shards
+   its classes over {model: 2}, sparse and dense CE, 2 gloo ranks (run in
+   14.'s 2-rank group) held to one rank. 14.'s 2- and 4-rank groups also
+   run 15.'s and 17. (m)'s rank jobs;
+21. the kernels line, one JSON object;
+22. the last line: {"ok": true, "device": {...}}.
 
-Imports torch, numpy and flexflow_tpu_torch only. ``--phase analysis``
-runs the device, build and analysis phases alone, ``--phase mesh`` the
-device and build phases and 14.-19.; neither prints a result line.
+Imports torch, numpy and flexflow_tpu_torch only (never transformers).
+``--phase analysis`` runs the device, build and analysis phases alone,
+``--phase frontends`` the device, build and frontends phases (with a
+2-rank group of its own for (ab)), ``--phase mesh`` the device and build
+phases and 14.-19.; none prints a result line.
 """
 
 from __future__ import annotations
@@ -355,6 +375,10 @@ GEN_TOL = {"float32": 1e-4, "bfloat16": SERVE_TOL["bfloat16"]}
 # PagedDecoder for 8 decode steps against the dense Generator; the
 # speculative run drafts 3 tokens a round with the target's first 2 blocks
 PAGED_REQUESTS, PAGED_WAVE = 32, 4
+# the speculative and int8 runs serve the first half of the traffic (each
+# held to the plain run's answers to the same requests): at random weights
+# speculation accepts ~2 % of its drafts, so it is the slowest run
+PAGED_VARIANT_REQUESTS = 16
 PAGED_PROMPT, PAGED_NEW = (16, 512), (16, 128)
 PAGED_SLOTS, PAGED_BLOCK = 8, 16
 PAGED_TF_REQUESTS, PAGED_TF_STEPS = 4, 8
@@ -1806,9 +1830,9 @@ def phase_gpt_paged_serving(compute_dtype: str, card: str) -> dict:
     -> GenerationInstance -> ContinuousBatchingScheduler -> PagedDecoder ->
     PagedKVPool: the teacher-forced check against the dense Generator, the
     traffic with every answer's greedy tokens held to one full causal
-    forward (the flash kernel), then the same traffic speculatively and
-    with an int8 pool, each held to the plain run's tokens by the margin
-    rule. Returns the phase's row."""
+    forward (the flash kernel), then its first PAGED_VARIANT_REQUESTS
+    requests speculatively and with an int8 pool, each held to the plain
+    run's tokens by the margin rule. Returns the phase's row."""
     from flexflow_tpu_torch import kernels, load_numpy_params
 
     ff, n_attn = gpt_model(compute_dtype, training=False)
@@ -1839,22 +1863,24 @@ def phase_gpt_paged_serving(compute_dtype: str, card: str) -> dict:
         checked += decided.size
     bounds = [tol * m[2] for m in margins]
 
-    spec = serve_paged(ff, traffic, spec_k=PAGED_SPEC_K, draft_ff=PAGED_DRAFT)
+    nv = PAGED_VARIANT_REQUESTS
+    spec = serve_paged(ff, traffic[:nv], spec_k=PAGED_SPEC_K, draft_ff=PAGED_DRAFT)
     sp = spec["stats"]["spec"]
     check(sp["rounds"] == spec["stats"]["decode_dispatches"] and sp["k"] == PAGED_SPEC_K
-          and sp["emitted"] == spec["generated"] - len(traffic),
+          and sp["emitted"] == spec["generated"] - nv,
           f"{what}: spec rounds {sp['rounds']}, decode dispatches "
           f"{spec['stats']['decode_dispatches']}, emitted {sp['emitted']}")
-    spec_parted, spec_worst = first_divergences(spec["outs"], plain["outs"], margins, bounds)
+    spec_parted, spec_worst = first_divergences(spec["outs"], plain["outs"][:nv], margins[:nv],
+                                                bounds[:nv])
 
-    q = serve_paged(ff, traffic, kv_dtype="int8")
+    q = serve_paged(ff, traffic[:nv], kv_dtype="int8")
     q_dtype, q_div = q["decoder"].kv_dtype, q["decoder"].kv_divergence
     check(q_div is not None and np.isfinite(q_div), f"{what}: int8 kv_divergence {q_div}")
     # int8: tokens decided by more than twice the calibration divergence
     # must agree; after a KVQ001 fallback the pool is the plain run's and
     # the margin rule's bound stands
-    q_bounds = [2 * q_div] * len(bounds) if q_dtype == "int8" else bounds
-    q_parted, q_worst = first_divergences(q["outs"], plain["outs"], margins, q_bounds)
+    q_bounds = [2 * q_div] * nv if q_dtype == "int8" else bounds[:nv]
+    q_parted, q_worst = first_divergences(q["outs"], plain["outs"][:nv], margins[:nv], q_bounds)
 
     def run_row(r):
         st = r["stats"]
@@ -1875,12 +1901,13 @@ def phase_gpt_paged_serving(compute_dtype: str, card: str) -> dict:
                teacher_forced_rel_err=tf_err, full_forward_launches=fwd_launches,
                greedy_checked=decided_n, greedy_positions=checked,
                plain=run_row(plain),
-               spec=dict(run_row(spec), k=PAGED_SPEC_K, draft=PAGED_DRAFT,
+               spec=dict(run_row(spec), requests=nv, k=PAGED_SPEC_K, draft=PAGED_DRAFT,
                          accept_rate=sp["accept_rate"],
                          tokens_per_dispatch=sp["tokens_per_dispatch"], rounds=sp["rounds"],
                          draft_dispatches=sp["draft_dispatches"], parted=spec_parted,
                          worst_parting_margin_share=spec_worst),
-               int8=dict(run_row(q), kv_dtype_after_calibration=q_dtype, kv_divergence=q_div,
+               int8=dict(run_row(q), requests=nv, kv_dtype_after_calibration=q_dtype,
+                         kv_divergence=q_div,
                          kv_divergence_budget=q["decoder"].kv_divergence_budget,
                          parted=q_parted, worst_parting_margin_share=q_worst))
     p, s, r8 = row["plain"], row["spec"], row["int8"]
@@ -1897,13 +1924,14 @@ def phase_gpt_paged_serving(compute_dtype: str, card: str) -> dict:
           f"forward's argmax (flash launches {fwd_launches['flash_attention_fwd']}) at all "
           f"{decided_n} of {checked} decided positions [{card}]", flush=True)
     print(f"gpt paged serving {compute_dtype} speculative (k {PAGED_SPEC_K}, draft "
-          f"{PAGED_DRAFT}): {s['tokens_per_s']:.1f} tokens/s, acceptance {s['accept_rate']:.4f}, "
+          f"{PAGED_DRAFT}, the first {nv} requests): {s['tokens_per_s']:.1f} tokens/s, acceptance {s['accept_rate']:.4f}, "
           f"{s['tokens_per_dispatch']:.3f} tokens a slot a verify, {s['rounds']} rounds = "
           f"decode dispatches, {s['draft_dispatches']} draft dispatches, decode round "
           f"{s['decode_step_ms_p50']:.3f} ms p50, {s['decode_step_ms_p99']:.3f} ms p99; "
           f"{spec_parted} answers part from the plain run, each where undecided [{card}]",
           flush=True)
-    print(f"gpt paged serving {compute_dtype} int8: kv_dtype {q_dtype} after calibration, "
+    print(f"gpt paged serving {compute_dtype} int8 (the first {nv} requests): kv_dtype "
+          f"{q_dtype} after calibration, "
           f"kv_divergence {q_div:.4g} (budget {r8['kv_divergence_budget']}), "
           f"{r8['tokens_per_s']:.1f} tokens/s, decode step {r8['decode_step_ms_p50']:.3f} ms "
           f"p50, {r8['decode_step_ms_p99']:.3f} ms p99, pool "
@@ -3949,13 +3977,30 @@ def stash_tree(tree: dict) -> str:
     return str(path)
 
 
-def read_stashed_tree(path: str) -> dict:
+def read_stashed_tree(path) -> dict:
+    if isinstance(path, dict):  # read back already (load_stashed)
+        return path
     tree: dict = {}
     with np.load(path) as z:
         for key in z.files:
             op, w = key.split("/")
             tree.setdefault(op, {})[w] = z[key]
     return tree
+
+
+def load_stashed(value):
+    """Rank results with each tree a rank stashed read back into memory and
+    its file removed: the results of a merged rank group outlive the
+    phases that clear TREE_DIR."""
+    if isinstance(value, str) and value.startswith(str(TREE_DIR)) and os.path.exists(value):
+        tree = read_stashed_tree(value)
+        os.unlink(value)
+        return tree
+    if isinstance(value, dict):
+        return {k: load_stashed(v) for k, v in value.items()}
+    if isinstance(value, list):
+        return [load_stashed(v) for v in value]
+    return value
 
 
 def par_worker(rank: int, world: int, jobs: list) -> list:
@@ -3965,7 +4010,8 @@ def par_worker(rank: int, world: int, jobs: list) -> list:
            "fit": lambda opts, kw: par_fit(opts, **kw),
            "ep": lambda opts, kw: ep_fit(opts, **kw),
            "mesh": lambda opts, kw: mesh_fit(opts, **kw),
-           "tp_gen": lambda opts, kw: tp_generate_job(opts, **kw)}
+           "tp_gen": lambda opts, kw: tp_generate_job(opts, **kw),
+           "class_ce": lambda opts, kw: ce_fit(opts, **kw)}
     for kind, opts, kw in jobs:
         t0 = time.perf_counter()
         out.append(run[kind](opts, kw))
@@ -4063,7 +4109,7 @@ def par_check(name: str, ranks: list, ref: dict, start: dict, card: str,
     return row
 
 
-def phase_parallel(card: str) -> dict:
+def phase_parallel(card: str, extra2: list = (), extra4: list = ()) -> tuple:
     """(a) the reference Transformer at full width and PAR_LAYERS layers on
     {data: 2} and (b) on {data: 2, model: 2} with tp_axis "model", both
     dtypes, 8 samples per
@@ -4071,7 +4117,9 @@ def phase_parallel(card: str) -> dict:
     rank has a card); (c) {data: 2, seq: 2} at PAR_SEQ_LAYERS layers, ring
     and a2a, float32; every run held to the one-rank run of the same
     global batches on the card; then ring_all_reduce against
-    psum_all_reduce on 64 MB."""
+    psum_all_reduce on 64 MB. ``extra2``/``extra4``: later phases' rank
+    jobs, run in the same 2- and 4-rank groups (a group's start-up costs
+    16-21 s); their results come back per rank, stashed trees read back."""
     from flexflow_tpu_torch.parallel.distributed import spawn
 
     t0 = time.perf_counter()
@@ -4081,13 +4129,16 @@ def phase_parallel(card: str) -> dict:
     free_device()
     two = spawn(par_worker, 2, [("fit", full, dict(compute_dtype=dt, mesh_shape={"data": 2}))
                                 for dt in ("float32", "bfloat16")]
-                + [("collectives", full, {})])
+                + [("collectives", full, {})] + list(extra2))
     four = spawn(par_worker, 4,
                  [("fit", full, dict(compute_dtype=dt, mesh_shape={"data": 2, "model": 2},
                                      tp="model")) for dt in ("float32", "bfloat16")]
                  + [("fit", short, dict(compute_dtype="float32",
                                         mesh_shape={"data": 2, "seq": 2}, seq_axis="seq",
-                                        seq_mode=mode)) for mode in ("ring", "a2a")])
+                                        seq_mode=mode)) for mode in ("ring", "a2a")]
+                 + list(extra4))
+    extras = (load_stashed([r[3:] for r in two]), load_stashed([r[4:] for r in four]))
+    two, four = [r[:3] for r in two], [r[:4] for r in four]
     start = refs["float32"]["start"]
     first16, first32 = (as_tensors(refs[dt]["first"]) for dt in ("bfloat16", "float32"))
     floor = update_err(first16, first32, as_tensors(start))[0]
@@ -4123,8 +4174,9 @@ def phase_parallel(card: str) -> dict:
     out = dict(rows=rows, collectives=coll_row, launches=launches,
                seconds=time.perf_counter() - t0)
     print("parallel_json " + json.dumps(out), flush=True)
-    # the one-rank runs and the bf16 bound, for phase_parallel_b
-    return out, dict(refs=refs, bf16=bf16)
+    # the one-rank runs and the bf16 bound, for phase_parallel_b; the
+    # later phases' rank results
+    return out, dict(refs=refs, bf16=bf16), extras
 
 
 # ---- phase_parallel_b: expert parallelism, ZeRO-1 and the pipeline (A7b)
@@ -4421,7 +4473,32 @@ def pipe_check(name: str, ranks: list, ref: dict, start: dict, card: str,
     return row
 
 
-def phase_parallel_b(card: str, par: dict) -> dict:
+def parallel_b_jobs() -> tuple:
+    """phase_parallel_b's rank jobs: (the 2-rank group's, the 4-rank
+    group's), run in phase_parallel's groups."""
+    from flexflow_tpu_torch.models.moe import MoeConfig
+
+    opts, full, piped = dict(device=DEVICE), par_opts(), par_opts(PAR_LAYERS)
+    ep_jobs = lambda mesh: [  # noqa: E731
+        ("ep", opts, dict(compute_dtype=dt, mesh_shape=mesh)) for dt in ("float32", "bfloat16")
+    ] + [("ep", opts, dict(compute_dtype="float32", mesh_shape=mesh, alpha=EP_DROP_ALPHA))]
+    pipe = lambda sched, inter, engine: dict(num_stages=2, num_microbatches=4,  # noqa: E731
+                                             schedule=sched, interleave=inter, engine=engine)
+    two = (ep_jobs({"data": 2})
+           + [("ep", opts, dict(compute_dtype="float32", mesh_shape={"data": 2},
+                                alpha=EP_DROP_ALPHA, stacked=False, num_exp=MoeConfig().num_exp))]
+           + [("fit", full, dict(compute_dtype="float32", mesh_shape={"data": 2},
+                                 adam=True, zero=z)) for z in (True, False)]
+           + [("fit", piped, dict(compute_dtype=dt, mesh_shape={"pipe": 2},
+                                  pipeline=pipe(sched, inter, engine)))
+              for sched, inter, engine, dt in PIPE_RUNS])
+    four = (ep_jobs({"data": 4})
+            + [("fit", piped, dict(compute_dtype="float32", mesh_shape={"pipe": 2, "data": 2},
+                                   pipeline=pipe("1f1b", 1, "compiled")))])
+    return two, four
+
+
+def phase_parallel_b(card: str, par: dict, two: list, four: list) -> dict:
     """(d) expert parallelism: the stacked MoE (8 experts over ``data``) on
     {data: 2} and {data: 4}, f32 and bf16 at alpha 4.0 (no drops) held to
     the one-rank run, f32 at alpha 2.0 (per-shard drops) checked to train,
@@ -4432,14 +4509,14 @@ def phase_parallel_b(card: str, par: dict) -> dict:
     full width on {pipe: 2} (gpipe host; 1f1b and interleaved single-call;
     1f1b single-call bf16) and {pipe: 2, data: 2} (1f1b single-call), at
     PAR_LAYERS layers, held to phase_parallel's one-rank runs. The ranks
-    share this card over gloo."""
+    share this card over gloo. ``two``/``four``: the rank results of
+    :func:`parallel_b_jobs`, run in phase_parallel's groups."""
     from flexflow_tpu_torch.models.moe import MoeConfig
-    from flexflow_tpu_torch.parallel.distributed import spawn
 
     t0 = time.perf_counter()
     # the pipeline at phase_parallel's depth (its one-rank runs); ZeRO-1
     # at TransformerConfig()'s
-    opts, full, piped = dict(device=DEVICE), par_opts(), par_opts(PAR_LAYERS)
+    opts = dict(device=DEVICE)
     refs = {dt: ep_fit(opts, dt) for dt in ("float32", "bfloat16")}
     n_branch = MoeConfig().num_exp
     refs["n-branch"] = ep_fit(opts, "float32", alpha=EP_DROP_ALPHA, stacked=False,
@@ -4457,25 +4534,6 @@ def phase_parallel_b(card: str, par: dict) -> dict:
           f"the unchanged params' reading {control:.3g}")
     free_device()
     print(f"phases: parallel_b one-rank runs at {time.perf_counter() - t0:.1f} s", flush=True)
-    ep_jobs = lambda mesh: [  # noqa: E731
-        ("ep", opts, dict(compute_dtype=dt, mesh_shape=mesh)) for dt in ("float32", "bfloat16")
-    ] + [("ep", opts, dict(compute_dtype="float32", mesh_shape=mesh, alpha=EP_DROP_ALPHA))]
-    pipe = lambda sched, inter, engine: dict(num_stages=2, num_microbatches=4,  # noqa: E731
-                                             schedule=sched, interleave=inter, engine=engine)
-    two = spawn(par_worker, 2, ep_jobs({"data": 2})
-                + [("ep", opts, dict(compute_dtype="float32", mesh_shape={"data": 2},
-                                     alpha=EP_DROP_ALPHA, stacked=False,
-                                     num_exp=n_branch))]
-                + [("fit", full, dict(compute_dtype="float32", mesh_shape={"data": 2},
-                                      adam=True, zero=z)) for z in (True, False)]
-                + [("fit", piped, dict(compute_dtype=dt, mesh_shape={"pipe": 2},
-                                      pipeline=pipe(sched, inter, engine)))
-                   for sched, inter, engine, dt in PIPE_RUNS])
-    print(f"phases: parallel_b 2 ranks at {time.perf_counter() - t0:.1f} s", flush=True)
-    four = spawn(par_worker, 4, ep_jobs({"data": 4})
-                 + [("fit", piped, dict(compute_dtype="float32", mesh_shape={"pipe": 2, "data": 2},
-                                       pipeline=pipe("1f1b", 1, "compiled")))])
-    print(f"phases: parallel_b 4 ranks at {time.perf_counter() - t0:.1f} s", flush=True)
     rows = []
     for world, runs in ((2, two), (4, four)):
         for i, dt in enumerate(("float32", "bfloat16")):
@@ -4517,7 +4575,7 @@ LAUNCH_LAYERS = 2
 LAUNCH_KILL_STEP, LAUNCH_HANG_STEP, LAUNCH_HANG_S = 4, 3, 10.0
 LAUNCH_DIR = pathlib.Path(".ffcache") / "smoke_launch"
 # (h): requests through the {model: 2} instance; GPT generation over it
-MESH_REQUESTS = 32
+MESH_REQUESTS, MESH_LAYERS = 32, PAR_LAYERS
 MESH_GEN_PROMPTS, MESH_GEN_PROMPT, MESH_GEN_NEW = 4, 64, 32
 # (i), (j): SGD steps held to one rank; the stem's image
 MESH_STEPS, MESH_RESNET_BATCH, STEM_BATCH, STEM_PX = 3, 64, 16, 224
@@ -4662,13 +4720,21 @@ def par_launch(card: str) -> dict:
     return row
 
 
-def mesh_transformer(ff, bs: int) -> None:
-    """(h)'s builder, importable by the rank group: the Transformer
-    phase_serving serves; the repository entry carries the strategies and
-    the compute dtype."""
-    from flexflow_tpu_torch.models.transformer import TransformerConfig, build_transformer
+def mesh_config():
+    """(h)'s Transformer: TransformerConfig()'s widths at MESH_LAYERS layers
+    (its checks, answers against the one-device instance and K1 launches
+    by rank, do not depend on depth)."""
+    from flexflow_tpu_torch.models.transformer import TransformerConfig
 
-    build_transformer(ff, bs, TransformerConfig())
+    return TransformerConfig(num_layers=MESH_LAYERS)
+
+
+def mesh_transformer(ff, bs: int) -> None:
+    """(h)'s builder, importable by the rank group; the repository entry
+    carries the strategies and the compute dtype."""
+    from flexflow_tpu_torch.models.transformer import build_transformer
+
+    build_transformer(ff, bs, mesh_config())
 
 
 def mesh_gpt(ff, bs: int) -> None:
@@ -4683,10 +4749,10 @@ def tp_strategies() -> dict:
     """The Transformer's tensor-parallel strategies by layer name (what
     ``tp_axis="model"`` sets), for a repository entry."""
     from flexflow_tpu_torch import FFConfig, FFModel
-    from flexflow_tpu_torch.models.transformer import TransformerConfig, build_transformer
+    from flexflow_tpu_torch.models.transformer import build_transformer
 
     ff = FFModel(FFConfig(batch_size=BATCH, device="cpu"))
-    build_transformer(ff, BATCH, TransformerConfig(), tp_axis="model")
+    build_transformer(ff, BATCH, mesh_config(), tp_axis="model")
     return {l.name: l.attrs["strategy"] for l in ff.layers if l.attrs.get("strategy")}
 
 
@@ -5234,15 +5300,30 @@ def search_mesh_check(name: str, ranks: list, ref: dict, start: dict, card: str,
     return row
 
 
-def phase_search(card: str, par: dict) -> dict:
+def search_jobs() -> tuple:
+    """(m)'s rank jobs: (the 2-rank group's, the 4-rank group's), run in
+    phase_parallel's groups."""
+    full = par_opts(PAR_LAYERS)
+    searched = dict(search_budget=1, profiling=True)
+    four = [("fit", full, dict(compute_dtype="float32", mesh_shape={"data": 2, "model": 2},
+                               config=dict(searched,
+                                           search_adoption_margin=PINNED_ADOPTION_MARGIN))),
+            ("fit", full, dict(compute_dtype="float32",
+                               config=dict(searched, playoff_steps=SEARCH_PLAYOFF_STEPS)))]
+    two = [("fit", full, dict(compute_dtype="float32", mesh_shape={"pipe": 2},
+                              config=dict(pipeline_schedule="auto", profiling=True)))]
+    return two, four
+
+
+def phase_search(card: str, par: dict, two: list, four: list) -> dict:
     """(k) calibration; (l) the search on one rank, f32 and bf16; (m) the
     Transformer at PAR_LAYERS layers on 4 ranks: a search pinned to
     {data: 2, model: 2}, an unpinned search over the 4 ranks with a
     SEARCH_PLAYOFF_STEPS-step playoff, and {pipe: 2} with schedule="auto"
     on 2 ranks, each held to phase_parallel's one-rank f32 run. The ranks
-    share this card over gloo."""
+    share this card over gloo. ``two``/``four``: (m)'s rank results
+    (:func:`search_jobs`), run in phase_parallel's groups."""
     from flexflow_tpu_torch import native_bridge
-    from flexflow_tpu_torch.parallel.distributed import spawn
 
     t0 = time.perf_counter()
     lib, seconds = native_bridge.build_sim(), time.perf_counter() - t0
@@ -5254,18 +5335,6 @@ def phase_search(card: str, par: dict) -> dict:
     shutil.rmtree(tmp, ignore_errors=True)
     one = [search_one_rank(dt, card, tmp / dt) for dt in ("float32", "bfloat16")]
     print(f"phases: search (l) at {time.perf_counter() - t0:.1f} s", flush=True)
-    full = par_opts(PAR_LAYERS)
-    searched = dict(search_budget=1, profiling=True)
-    four = spawn(par_worker, 4, [
-        ("fit", full, dict(compute_dtype="float32", mesh_shape={"data": 2, "model": 2},
-                           config=dict(searched,
-                                       search_adoption_margin=PINNED_ADOPTION_MARGIN))),
-        ("fit", full, dict(compute_dtype="float32",
-                           config=dict(searched, playoff_steps=SEARCH_PLAYOFF_STEPS)))])
-    two = spawn(par_worker, 2, [
-        ("fit", full, dict(compute_dtype="float32", mesh_shape={"pipe": 2},
-                           config=dict(pipeline_schedule="auto", profiling=True)))])
-    print(f"phases: search (m) ranks at {time.perf_counter() - t0:.1f} s", flush=True)
     ref, start = par["refs"]["float32"], par["refs"]["float32"]["start"]
     pinned = search_mesh_check("(m) searched, pinned {data: 2, model: 2} float32",
                                [r[0] for r in four], ref, start, card)
@@ -5344,7 +5413,9 @@ OBS_STALL_S, OBS_WATCHDOG_S = 4.0, 2.0
 # of its epoch, where the loop's watched section is open (it opens at an
 # epoch's second step)
 OBS_HANG_S, OBS_COHORT_WATCHDOG_S, OBS_HANG_STEP, OBS_COHORT_EPOCHS = 8.0, 3.0, 4, 3
-OBS_COHORT_JOB = "chip_smoke:launch_job"  # the Transformer at PAR_LAYERS layers
+# the Transformer at LAUNCH_LAYERS layers, as (g)'s cohorts: the checks
+# (dumps, the merged ledger, skew) do not depend on depth
+OBS_COHORT_JOB = "chip_smoke:launch_job_short"
 # (r): the rewritten graph trains OBS_RULE_STEPS steps within this share
 # of each param's largest |value| of the unrewritten one (f32, summed in
 # another order where the merged GEMM replaces two)
@@ -5755,7 +5826,7 @@ def obs_stall(card: str) -> dict:
           f"{OBS_WATCHDOG_S:g} s -> {stall_row['dump']} (fit.loop silent "
           f"{stall_row['stalled_s']:.2f} s, {stall_row['threads']} thread stacks, "
           f"{stall_row['trace_tail']} trace events); cohort of 2 ranks (the Transformer at "
-          f"full width, {PAR_LAYERS} layers, cohort_obs on, watchdog {OBS_COHORT_WATCHDOG_S:g} "
+          f"full width, {LAUNCH_LAYERS} layers, cohort_obs on, watchdog {OBS_COHORT_WATCHDOG_S:g} "
           f"s), rank 1 hung at step {OBS_HANG_STEP} -> {row['events']} with dumps "
           f"{row['hung_dumps']}, relaunched; ledger merged {lrep['merged']} records (each "
           f"run id once, a second merge adds {lrep['remerged']}), {len(fits)} fit records in "
@@ -5925,6 +5996,468 @@ def check_spans(events: list, n: int, validate) -> None:
     check(len(tracks) == n, f"tracer: {len(tracks)} request span trees for {n} requests")
 
 
+# ---- phase_frontends: the torch.fx importer, Keras, the C API, the native
+# loader and graph algorithms (A12), and the class-sharded cross-entropy (C9)
+FRONT_HIDDEN, FRONT_LAYERS, FRONT_FF = 1024, 12, 4096  # TransformerConfig()'s widths, depth
+FRONT_TRAIN_STEPS = 3
+KERAS_SAMPLES, KERAS_BATCH, KERAS_EPOCHS = 2048, 64, 2
+CE_BATCH, CE_STEPS, CE_IN, CE_HIDDEN, CE_CLASSES = 64, 3, 784, 512, 10
+CE_LOSSES = ("SPARSE_CATEGORICAL_CROSSENTROPY", "CATEGORICAL_CROSSENTROPY")
+FRONT_DIR = pathlib.Path(".ffcache") / "smoke_frontends"
+
+
+class SmokeBlock(torch.nn.Module):
+    """One post-LN Transformer layer written as a user would write it."""
+
+    def __init__(self, hidden: int, heads: int, ff: int):
+        super().__init__()
+        self.attn = torch.nn.MultiheadAttention(hidden, heads, batch_first=True)
+        self.norm1 = torch.nn.LayerNorm(hidden)
+        self.fc1 = torch.nn.Linear(hidden, ff)
+        self.act = torch.nn.GELU()
+        self.fc2 = torch.nn.Linear(ff, hidden)
+        self.norm2 = torch.nn.LayerNorm(hidden)
+
+    def forward(self, x):
+        a, _ = self.attn(x, x, x, need_weights=False)
+        h = self.norm1(x + a)
+        return self.norm2(h + self.fc2(self.act(self.fc1(h))))
+
+
+class SmokeTransformer(torch.nn.Module):
+    """A plain torch.nn Transformer at the reference widths (hidden 1024,
+    16 heads, FRONT_LAYERS layers) with a regression head, as the
+    reference Transformer ends."""
+
+    def __init__(self, hidden: int = 0, heads: int = HEADS, layers: int = 0, ff: int = 0):
+        super().__init__()
+        hidden, layers, ff = hidden or FRONT_HIDDEN, layers or FRONT_LAYERS, ff or FRONT_FF
+        self.layers = torch.nn.ModuleList([SmokeBlock(hidden, heads, ff) for _ in range(layers)])
+        self.head = torch.nn.Linear(hidden, 1)
+
+    def forward(self, x):
+        for layer in self.layers:
+            x = layer(x)
+        return self.head(x)
+
+
+def front_import(module, compute_dtype: str, training: bool):
+    """The module imported through PyTorchModel, compiled and its weights
+    copied (card to card). Returns (ff, the PyTorchModel)."""
+    from flexflow_tpu_torch import (CompMode, FFConfig, FFModel, LossType, MetricsType,
+                                    SGDOptimizer)
+    from flexflow_tpu_torch.torch_frontend import PyTorchModel, copy_weights
+
+    mode = CompMode.TRAINING if training else CompMode.INFERENCE
+    ff = FFModel(FFConfig(batch_size=BATCH, computation_mode=mode, compute_dtype=compute_dtype,
+                          seed=SEED, device=DEVICE))
+    x = ff.create_tensor((BATCH, SEQ, FRONT_HIDDEN), name="x")
+    pm = PyTorchModel(module)
+    (out,) = pm.apply(ff, [x])
+    if training:
+        ff.compile(SGDOptimizer(lr=0.01), LossType.MEAN_SQUARED_ERROR_AVG_REDUCE,
+                   metrics=[MetricsType.MEAN_SQUARED_ERROR], logits_tensor=out)
+    else:
+        ff.compile(logits_tensor=out)
+    copy_weights(ff, module, pm.module_paths)
+    n_attn = sum(op.op_type.name == "MULTIHEAD_ATTENTION" for op in ff.compiled.ops)
+    check(n_attn == FRONT_LAYERS, f"import: {n_attn} attention ops, want {FRONT_LAYERS}")
+    return ff, pm
+
+
+def front_serve(module, xs: np.ndarray, ref: np.ndarray, compute_dtype: str, card: str,
+                plain32: np.ndarray = None) -> tuple:
+    """(w) the import served: REQUESTS requests through InferenceEngine,
+    launches read around them; the answers against the module's own
+    forward. Returns (row, the plain path's answers)."""
+    from flexflow_tpu_torch import kernels
+    from flexflow_tpu_torch.serving.engine import InferenceEngine
+
+    t0 = time.perf_counter()
+    ff, _ = front_import(module, compute_dtype, training=False)
+    cm = ff.compiled
+    compile_s = time.perf_counter() - t0
+    engine = InferenceEngine()
+    inst = engine.register_ffmodel(ff, "imported")
+    try:
+        engine.infer("imported", [xs[0]], timeout=600)  # warm-up
+        torch.cuda.synchronize()
+        d0 = inst.dispatches
+        kernels.reset_launch_counts()
+        t1 = time.perf_counter()
+        answers = [f.result(600) for f in [engine.infer_async("imported", [x]) for x in xs]]
+        wall = time.perf_counter() - t1
+        counts = kernels.launch_counts()
+    finally:
+        engine.stop()
+    dispatches = inst.dispatches - d0
+    launches = counts["flash_attention_fwd"]
+    check(launches == FRONT_LAYERS * dispatches and all(
+        v == 0 for k, v in counts.items() if k != "flash_attention_fwd"),
+        f"(w) {compute_dtype}: launches {counts} for {dispatches} dispatches "
+        f"(want {FRONT_LAYERS} flash forwards a dispatch)")
+    got = np.stack(answers)
+    plain = np.concatenate([
+        cm.forward_fn(cm.params, torch.from_numpy(xs[i:i + BATCH]).to(cm.device),
+                      plain_kernels=True).float().cpu().numpy()
+        for i in range(0, len(xs), BATCH)])
+    scale = float(np.abs(ref).max())
+    err = float(np.abs(got - ref).max()) / scale
+    if plain32 is None:
+        floor, tol = None, SERVE_TOL["float32"]
+    else:
+        floor = float(np.abs(plain - plain32).max()) / scale
+        tol = BF16_FLOOR_FACTOR * floor
+    check(bool(np.isfinite(got).all()) and got.shape == ref.shape and err <= tol,
+          f"(w) {compute_dtype}: served answers vs the module's own forward {err:.3g} of the "
+          f"largest answer > {tol:.3g}")
+    row = dict(compute_dtype=compute_dtype, requests=len(xs), dispatches=dispatches,
+               launches=launches, rel_err_vs_module=err, tolerance=tol, bf16_floor=floor,
+               requests_per_s=len(xs) / wall, compile_and_copy_s=compile_s, card=card)
+    print(f"frontends (w) {compute_dtype}: torch.nn Transformer ({FRONT_LAYERS} layers, hidden "
+          f"{FRONT_HIDDEN}, {HEADS} heads, seq {SEQ}) imported by PyTorchModel in {compile_s:.1f} s with "
+          f"copy_weights; {len(xs)} requests in {dispatches} dispatches, {launches} flash "
+          f"launches, {row['requests_per_s']:.1f} req/s; answers vs the module's own forward "
+          f"{err:.3g} of the largest (tol {tol:.3g}"
+          f"{'' if floor is None else f', twice the plain bf16 path vs plain f32 {floor:.3g}'})"
+          f" [{card}]", flush=True)
+    del ff, cm, inst, engine
+    free_device()
+    return row, plain
+
+
+def front_train(module, card: str) -> tuple:
+    """(x) the import trained FRONT_TRAIN_STEPS fit steps in f32, launches
+    read around fit, held to the same graph's steps with K1-K3 replaced by
+    their plain versions. Returns (row, the trained model)."""
+    from flexflow_tpu_torch import kernels
+
+    ff, _ = front_import(module, "float32", training=True)
+    cm = ff.compiled
+    start = {op: {w: t.detach().clone() for w, t in ws.items()} for op, ws in cm.params.items()}
+    rng = np.random.default_rng(SEED + 60)
+    n = FRONT_TRAIN_STEPS * BATCH
+    x = rng.standard_normal((n, SEQ, FRONT_HIDDEN), dtype=np.float32)
+    y = rng.standard_normal((n, SEQ, 1), dtype=np.float32)
+    # the loss at the start params, on each path: before an update the two
+    # part only by the kernels' rounding
+    xb, yb = (torch.from_numpy(a[:BATCH]).to(cm.device) for a in (x, y))
+    start_loss = {p: cm.eval_step(cm.params, xb, yb, plain_kernels=p)[0].item()
+                  for p in (False, True)}
+    loss_err = abs(start_loss[False] - start_loss[True]) / abs(start_loss[True])
+    check(loss_err <= LOSS_TOL["float32"],
+          f"(x) the start loss {start_loss[False]:.8g} vs plain {start_loss[True]:.8g}")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    pm = ff.fit(x, y, epochs=1, shuffle=False, verbose=False)[0]
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    want = {k: FRONT_LAYERS * FRONT_TRAIN_STEPS if k in kernels.FLASH_KERNELS else 0
+            for k in kernels.KERNELS}
+    check(launches == want, f"(x) fit launched {launches}, want {want}")
+    kern = {op: {w: t.detach().clone() for w, t in ws.items()} for op, ws in cm.params.items()}
+    with torch.no_grad():
+        for op, ws in cm.params.items():
+            for w, t in ws.items():
+                t.copy_(start[op][w])
+    cm.opt_state = cm.optimizer.init_state(cm.params)
+    losses = []
+    for i in range(FRONT_TRAIN_STEPS):
+        xb, yb = (torch.from_numpy(a[i * BATCH:(i + 1) * BATCH]).to(cm.device) for a in (x, y))
+        cm.params, cm.opt_state, loss, _ = cm.train_step(cm.params, cm.opt_state, None, xb, yb,
+                                                         plain_kernels=True)
+        losses.append(loss.item())
+    # the params are held, as phase_training holds them: later steps' losses
+    # carry the gradients' rounding (up to GRAD_TOL of a layer's largest
+    # gradient), so the epoch's mean loss is recorded beside the plain one
+    err, worst = layer_err(kern, cm.params, start)
+    # fit's summed squares per sample over SEQ positions: each step's loss
+    mse = pm.mse_loss / (pm.train_all * SEQ)
+    plain_mse = float(np.mean(losses))
+    check(np.isfinite(mse) and err <= GRAD_TOL,
+          f"(x) fit vs plain: params {err:.3g} of the layer's largest update ({worst}), "
+          f"mse {mse:.6g} vs {plain_mse:.6g}")
+    row = dict(steps=FRONT_TRAIN_STEPS, launches=launches, fit_s=fit_s,
+               start_loss=start_loss[False], start_loss_plain=start_loss[True],
+               start_loss_rel_err=loss_err, update_rel_err_vs_plain=err, worst=worst,
+               tolerance=GRAD_TOL, fit_mse=mse, plain_mse=plain_mse, plain_losses=losses,
+               card=card)
+    print(f"frontends (x) float32: start loss {start_loss[False]:.8g} vs plain "
+          f"{start_loss[True]:.8g} ({loss_err:.3g}, tol {LOSS_TOL['float32']}); the import fit "
+          f"{FRONT_TRAIN_STEPS} steps in {fit_s:.2f} s, launches {launches}; params vs the plain "
+          f"kernels' steps {err:.3g} of the layer's largest update (worst {worst}; tol "
+          f"{GRAD_TOL}); the epoch's mean loss {mse:.6g} vs plain {plain_mse:.6g} "
+          f"(recorded) [{card}]", flush=True)
+    del start, kern
+    return row, ff
+
+
+def front_keras(card: str) -> dict:
+    """(y) a Keras Sequential CNN on datasets.mnist's seeded sample, fit
+    KERAS_EPOCHS epochs with History and EarlyStopping, on the card."""
+    from flexflow_tpu_torch import keras as K
+
+    saved = os.environ.get("FLEXFLOW_DATASETS_DIR")
+    os.environ["FLEXFLOW_DATASETS_DIR"] = str(FRONT_DIR / "no_cache")  # the seeded sample
+    try:
+        (xt, yt), (xe, ye) = K.datasets.mnist.load_data()
+    finally:
+        if saved is None:
+            os.environ.pop("FLEXFLOW_DATASETS_DIR", None)
+        else:
+            os.environ["FLEXFLOW_DATASETS_DIR"] = saved
+    x = (xt[:KERAS_SAMPLES] / 255.0).astype(np.float32).reshape(-1, 1, 28, 28)
+    y = yt[:KERAS_SAMPLES].astype(np.int32).reshape(-1, 1)
+    xv = (xe[:512] / 255.0).astype(np.float32).reshape(-1, 1, 28, 28)
+    yv = ye[:512].astype(np.int32).reshape(-1, 1)
+    model = K.Sequential([K.Conv2D(16, 3, padding="same", activation="relu", name="conv1"),
+                          K.MaxPooling2D(2, name="pool1"),
+                          K.Conv2D(32, 3, padding="same", activation="relu", name="conv2"),
+                          K.MaxPooling2D(2, name="pool2"), K.Flatten(name="flat"),
+                          K.Dense(10, name="logits")])
+    model.compile(optimizer=K.Adam(learning_rate=0.003), loss="sparse_categorical_crossentropy",
+                  metrics=["accuracy", "sparse_categorical_crossentropy"], device=DEVICE)
+    hist, stop = K.History(), K.EarlyStopping(monitor="loss", patience=0)
+    t0 = time.perf_counter()
+    model.fit(x, y, epochs=KERAS_EPOCHS, batch_size=KERAS_BATCH, callbacks=[hist, stop])
+    fit_s = time.perf_counter() - t0
+    ev = model.evaluate(xv, yv, batch_size=KERAS_BATCH)
+    acc = hist.history["accuracy"]
+    check(model.ffmodel.config.device == DEVICE and len(acc) >= 1
+          and all(np.isfinite(hist.history["loss"])) and ev.accuracy > 0.5,
+          f"(y) keras: history {hist.history}, eval accuracy {ev.accuracy}")
+    row = dict(samples=KERAS_SAMPLES, epochs=hist.epochs, history=hist.history,
+               stopped_early=bool(model.stop_training), eval_accuracy=ev.accuracy, fit_s=fit_s,
+               card=card)
+    print(f"frontends (y) keras Sequential CNN on the mnist sample ({KERAS_SAMPLES} rows, batch "
+          f"{KERAS_BATCH}): epochs {hist.epochs}, accuracy {[f'{a:.4f}' for a in acc]}, loss "
+          f"{[f'{v:.4f}' for v in hist.history['loss']]}, early stop "
+          f"{row['stopped_early']}, eval accuracy {ev.accuracy:.4f}, fit {fit_s:.2f} s "
+          f"[{card}]", flush=True)
+    del model
+    free_device()
+    return row, (x, y)
+
+
+def front_capi_start() -> dict:
+    """(z) the C API: the port's library built from the checkout,
+    examples/c/mlp_train.c compiled against it and started in a process of
+    its own (on the card); :func:`front_capi_finish` waits for it."""
+    import sysconfig
+
+    from flexflow_tpu_torch import native_bridge
+
+    if not os.path.exists(os.path.join(sysconfig.get_paths()["include"], "Python.h")):
+        return dict(skipped="this interpreter has no Python.h")
+    t0 = time.perf_counter()
+    lib = native_bridge.build_capi()
+    FRONT_DIR.mkdir(parents=True, exist_ok=True)
+    exe = FRONT_DIR.resolve() / "mlp_train"
+    root = pathlib.Path(__file__).resolve().parent
+    subprocess.run(["gcc", str(root / "examples" / "c" / "mlp_train.c"),
+                    f"-I{root / 'native' / 'include'}", str(lib), f"-Wl,-rpath,{lib.parent}",
+                    "-o", str(exe)], check=True, capture_output=True, timeout=120)
+    env = dict(os.environ, PYTHONPATH=str(root), FLEXFLOW_TPU_DEVICE=DEVICE,
+               FLEXFLOW_TPU_LEDGER_DIR=str(FRONT_DIR / "ledger"))
+    proc = subprocess.Popen([str(exe)], env=env, cwd=str(FRONT_DIR), stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return dict(proc=proc, t0=t0, build_s=time.perf_counter() - t0, lib=str(lib))
+
+
+def front_capi_finish(run: dict, card: str) -> dict:
+    if "skipped" in run:
+        print(f"frontends (z) C API skipped: {run['skipped']}", flush=True)
+        return run
+    proc = run["proc"]
+    try:
+        out, err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    words = out.split()
+    ok = proc.returncode == 0 and len(words) >= 4 and words[0] == "ACCURACY"
+    check(ok and float(words[1]) > 0.5 and float(words[3]) > 0,
+          f"(z) the C program: rc {proc.returncode}, stdout {out!r}, stderr {err[-2000:]!r}")
+    row = dict(accuracy=float(words[1]), loss=float(words[3]), build_s=run["build_s"],
+               wall_s=time.perf_counter() - run["t0"], card=card)
+    print(f"frontends (z) C API: examples/c/mlp_train.c built against {run['lib']} "
+          f"({run['build_s']:.1f} s with the library), run on the card as its own process: "
+          f"ACCURACY {row['accuracy']:.4f} LOSS {row['loss']:.4f}, {row['wall_s']:.1f} s from "
+          f"the build's start [{card}]", flush=True)
+    return row
+
+
+def front_native(data: tuple, ff_graph, card: str) -> dict:
+    """(aa) one epoch of the mnist sample through the C++ loader, held to
+    the Python loader batch for batch; one transitive reduction of the
+    imported Transformer's task graph."""
+    from flexflow_tpu_torch.runtime.dataloader import DataLoaderGroup, SingleDataLoader
+
+    x, y = data
+    saved = os.environ.get("FLEXFLOW_TPU_NATIVE")
+    epochs = {}
+    try:
+        for mode in ("auto", "off"):
+            os.environ["FLEXFLOW_TPU_NATIVE"] = mode
+            g = DataLoaderGroup([SingleDataLoader(a, KERAS_BATCH, torch.device("cpu"))
+                                 for a in (x, y)], seed=SEED, shuffle=True)
+            check(g.native == (mode == "auto"), f"(aa) loader mode {mode}: native {g.native}")
+            g.reset()
+            t0 = time.perf_counter()
+            epochs[mode] = [g.next_batch_host() for _ in range(g.num_batches)]
+            epochs[mode + "_ms"] = (time.perf_counter() - t0) * 1e3 / g.num_batches
+        FRONT_DIR.mkdir(parents=True, exist_ok=True)
+        graphs = {}
+        for mode in ("auto", "off"):
+            os.environ["FLEXFLOW_TPU_NATIVE"] = mode
+            path = FRONT_DIR / f"task_graph_{mode}.json"
+            ff_graph.export_task_graph(str(path), fmt="json")
+            graphs[mode] = json.loads(path.read_text())
+    finally:
+        if saved is None:
+            os.environ.pop("FLEXFLOW_TPU_NATIVE", None)
+        else:
+            os.environ["FLEXFLOW_TPU_NATIVE"] = saved
+    same = len(epochs["auto"]) == len(epochs["off"]) and all(
+        np.array_equal(a, b) for u, v in zip(epochs["auto"], epochs["off"]) for a, b in zip(u, v))
+    reduced, full = len(graphs["auto"]["edges"]), len(graphs["off"]["edges"])
+    check(same and 0 < reduced < full and graphs["auto"]["tasks"] == graphs["off"]["tasks"],
+          f"(aa) native loader equal {same}; task graph edges {reduced} of {full}")
+    row = dict(batches=len(epochs["auto"]), equal=same, native_ms_per_batch=epochs["auto_ms"],
+               python_ms_per_batch=epochs["off_ms"], tasks=len(graphs["auto"]["tasks"]),
+               edges=full, reduced_edges=reduced, card=card)
+    print(f"frontends (aa) native loader: {row['batches']} batches of {KERAS_BATCH} equal to the "
+          f"Python loader's bit for bit, {row['native_ms_per_batch']:.3f} vs "
+          f"{row['python_ms_per_batch']:.3f} host ms a batch; task graph of the import "
+          f"{row['tasks']} tasks, transitive reduction {full} -> {reduced} edges [{card}]",
+          flush=True)
+    return row
+
+
+def ce_data(loss: str):
+    """The class-sharded MLP's params and batches (C9), from the seed."""
+    rng = np.random.default_rng(SEED + 70)
+    params = {"hidden": {"kernel": (rng.standard_normal((CE_IN, CE_HIDDEN)) / np.sqrt(CE_IN)),
+                         "bias": np.zeros(CE_HIDDEN)},
+              "head": {"kernel": (rng.standard_normal((CE_HIDDEN, CE_CLASSES))
+                                  / np.sqrt(CE_HIDDEN)),
+                       "bias": np.zeros(CE_CLASSES)}}
+    params = {op: {w: a.astype(np.float32) for w, a in ws.items()} for op, ws in params.items()}
+    n = CE_BATCH * CE_STEPS
+    x = rng.uniform(0, 1, (n, CE_IN)).astype(np.float32)
+    ids = rng.integers(0, CE_CLASSES, n)
+    y = (ids.reshape(-1, 1).astype(np.int32) if loss.startswith("SPARSE")
+         else np.eye(CE_CLASSES, dtype=np.float32)[ids])
+    return params, x, y
+
+
+def ce_fit(opts: dict, loss: str, mesh_shape=None) -> dict:
+    """(ab) the two-dense MLP whose head shards its classes over "model"
+    (mesh_shape {model: 2}) or not (one rank): CE_STEPS fit steps and an
+    eval from ce_data; the whole params and PerfMetrics."""
+    from flexflow_tpu_torch import (FFConfig, FFModel, LossType, MetricsType, SGDOptimizer,
+                                    load_numpy_params)
+    from flexflow_tpu_torch.ffconst import ActiMode
+
+    params, x, y = ce_data(loss)
+    ff = FFModel(FFConfig(batch_size=CE_BATCH, seed=SEED, device=opts["device"],
+                          mesh_shape=mesh_shape))
+    t = ff.create_tensor((CE_BATCH, CE_IN), name="input")
+    t = ff.dense(t, CE_HIDDEN, ActiMode.RELU, name="hidden")
+    ff.dense(t, CE_CLASSES, name="head", strategy={"out": "model"} if mesh_shape else None)
+    ce = (MetricsType.SPARSE_CATEGORICAL_CROSSENTROPY if loss.startswith("SPARSE")
+          else MetricsType.CATEGORICAL_CROSSENTROPY)
+    ff.compile(SGDOptimizer(lr=0.05), getattr(LossType, loss), metrics=[MetricsType.ACCURACY, ce])
+    load_numpy_params(ff, params)
+    fit = ff.fit(x, y, epochs=1, shuffle=False, verbose=False)[0]
+    ev = ff.eval(x, y, verbose=False)
+    pm = {k: dict(train_all=p.train_all, train_correct=p.train_correct,
+                  ce=p.cce_loss + p.sparse_cce_loss) for k, p in (("fit", fit), ("eval", ev))}
+    return dict(params=ff.numpy_params(), metrics=pm, mesh=mesh_shape)
+
+
+def ce_jobs() -> list:
+    """(ab)'s rank jobs, for a 2-rank group."""
+    return [("class_ce", dict(device=DEVICE), dict(loss=loss, mesh_shape={"model": 2}))
+            for loss in CE_LOSSES]
+
+
+def front_class_ce(ranks: list, card: str) -> dict:
+    """(ab) each loss's 2 ranks held to the one-rank run: params by the
+    layer rule (each layer's largest update, 3 f32 ulps off, as
+    phase_parallel holds f32), PerfMetrics' counts exactly, the CE sums
+    to 1e-5."""
+    rows = []
+    for i, loss in enumerate(CE_LOSSES):
+        one = ce_fit(dict(device=DEVICE), loss)
+        start = as_tensors(ce_data(loss)[0])
+        for r, got in enumerate(run[i] for run in ranks):
+            err, worst = layer_err(as_tensors(got["params"]), as_tensors(one["params"]), start,
+                                   ulps=3)
+            for k in ("fit", "eval"):
+                g, w = got["metrics"][k], one["metrics"][k]
+                check((g["train_all"], g["train_correct"]) == (w["train_all"], w["train_correct"])
+                      and abs(g["ce"] - w["ce"]) <= 1e-5 * abs(w["ce"]),
+                      f"(ab) {loss} rank {r} {k}: {g} vs one rank {w}")
+            check(err <= 1e-3, f"(ab) {loss} rank {r}: params {err:.3g} of the layer's "
+                               f"largest update ({worst})")
+            rows.append(dict(loss=loss, rank=r, update_rel_err=err, worst=worst,
+                             metrics=got["metrics"], one_rank=one["metrics"], card=card))
+        print(f"frontends (ab) {loss}: head classes over {{model: 2}}, 2 gloo ranks on the card "
+              f"held to one rank: params {max(x['update_rel_err'] for x in rows[-2:]):.3g} of "
+              f"the layer's largest update, fit {one['metrics']['fit']} [{card}]", flush=True)
+    return dict(rows=rows)
+
+
+def phase_frontends(card: str, ce_ranks: list = None) -> dict:
+    """(w) a plain torch.nn Transformer at the reference widths imported by
+    PyTorchModel and served in f32 and bf16 (K1), (x) trained (K1-K3),
+    (y) a Keras CNN, (z) the C API program, (aa) the native loader and
+    the task graph's transitive reduction, (ab) the class-sharded
+    cross-entropy's 2-rank runs (``ce_ranks``: their results from a group
+    spawned earlier; None spawns one)."""
+    from flexflow_tpu_torch.parallel.distributed import spawn
+
+    t0 = time.perf_counter()
+    shutil.rmtree(FRONT_DIR, ignore_errors=True)
+    torch.manual_seed(SEED)
+    module = SmokeTransformer().to(DEVICE).eval()
+    rng = np.random.default_rng(SEED + 61)
+    xs = rng.standard_normal((REQUESTS, SEQ, FRONT_HIDDEN), dtype=np.float32)
+    with torch.no_grad():
+        ref = np.concatenate([module(torch.from_numpy(xs[i:i + BATCH]).to(DEVICE)).cpu().numpy()
+                              for i in range(0, REQUESTS, BATCH)])
+    row32, plain32 = front_serve(module, xs, ref, "float32", card)
+    row16, _ = front_serve(module, xs, ref, "bfloat16", card, plain32)
+    capi = front_capi_start()
+    try:
+        train, ff_graph = front_train(module, card)
+        keras, data = front_keras(card)
+        native = front_native(data, ff_graph, card)
+        del ff_graph, module
+        free_device()
+        capi = front_capi_finish(capi, card)
+    finally:  # a failed check stops the C program too
+        if "proc" in capi and capi["proc"].poll() is None:
+            capi["proc"].kill()
+            capi["proc"].communicate()
+    if ce_ranks is None:
+        ce_ranks = spawn(par_worker, 2, ce_jobs())
+    ce = front_class_ce(ce_ranks, card)
+    shutil.rmtree(FRONT_DIR, ignore_errors=True)
+    launches = {k: train["launches"][k] + (row32["launches"] + row16["launches"]
+                                           if k == "flash_attention_fwd" else 0)
+                for k in FLASH_NAMES}
+    out = dict(serving=[row32, row16], training=train, keras=keras, capi=capi, native=native,
+               class_ce=ce, launches=launches, seconds=time.perf_counter() - t0)
+    print("frontends_json " + json.dumps(out, default=str), flush=True)
+    print(f"phases: frontends took {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def _kernel_entry(name: str, source: str, replaces: str, rows: list, launches: int,
                   **extra) -> dict:
     """One entry of the kernels line, its numbers from the f32 non-causal
@@ -6003,14 +6536,11 @@ def audit_row(ff, step_ms: float) -> dict:
 
 
 def steady_audit(ff) -> dict:
-    """The compile's recorded train_step pays the first call's warm-up:
-    record it again, and time the same call unrecorded, for the audit's
-    steady cost beside one step."""
-    from flexflow_tpu_torch.analysis.program_audit import audit_spec
-
+    """The audit's cost beside one step: the gates-on compile's own
+    recording of train_step (its first call, warm-up included; not
+    recorded again) and the same call timed unrecorded."""
     spec = next(s for s in ff.compiled.audit_exec if s.name == "train_step")
-    rep = audit_spec(spec)
-    st = rep.programs["train_step"]
+    st = ff.audit_report.programs["train_step"]
     args = spec.make_args()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -6020,7 +6550,7 @@ def steady_audit(ff) -> dict:
     del args
     return {"record_ms": round(st["record_s"] * 1e3, 3), "walk_ms": round(st["walk_s"] * 1e3, 3),
             "step_ms": round(step_ms, 3), "record_over_step": round(st["record_s"] * 1e3 / step_ms, 3),
-            "ops_by_site": st["ops_by_site"]}
+            "ops_by_site": st.get("ops_by_site")}
 
 
 def gated_fit(build, compute_dtype: str, gates: bool, x, y, loss, optimizer, batch: int):
@@ -6143,6 +6673,36 @@ def phase_analysis(card: str) -> dict:
     return out
 
 
+def run_mesh_phases(card: str, t0: float) -> tuple:
+    """The mesh phases and the analysis phase. One 2-rank and one 4-rank
+    group run phase_parallel's jobs with phase_parallel_b's, search (m)'s
+    and the frontends' (ab): four group start-ups fewer."""
+    b2, b4 = parallel_b_jobs()
+    s2, s4 = search_jobs()
+    ce = ce_jobs()
+    par, par_refs, (x2, x4) = phase_parallel(card, b2 + s2 + ce, b4 + s4)
+    n2, n4 = len(b2), len(b4)
+    phase_done("parallel", t0)
+    free_device()
+    par_b = phase_parallel_b(card, par_refs, [r[:n2] for r in x2], [r[:n4] for r in x4])
+    phase_done("parallel_b", t0)
+    free_device()
+    par_c = phase_parallel_c(card)
+    phase_done("parallel_c", t0)
+    free_device()
+    search = phase_search(card, par_refs, [r[n2:n2 + len(s2)] for r in x2],
+                          [r[n4:] for r in x4])
+    del par_refs
+    phase_done("search", t0)
+    free_device()
+    obs = phase_obs(card)
+    phase_done("obs", t0)
+    free_device()
+    phase_analysis(card)
+    phase_done("analysis", t0)
+    return par, par_b, par_c, search, obs, [r[n2 + len(s2):] for r in x2]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -6154,13 +6714,12 @@ def main() -> int:
         phase_analysis(card)
         print(f"phases: analysis alone done at {time.perf_counter() - t0:.0f} s", flush=True)
         return 0
+    if sys.argv[1:] == ["--phase", "frontends"]:
+        phase_frontends(card)
+        print(f"phases: frontends alone done at {time.perf_counter() - t0:.0f} s", flush=True)
+        return 0
     if sys.argv[1:] == ["--phase", "mesh"]:
-        _, par_refs = phase_parallel(card)
-        for phase in (lambda: phase_parallel_b(card, par_refs), lambda: phase_parallel_c(card),
-                      lambda: phase_search(card, par_refs), lambda: phase_obs(card),
-                      lambda: phase_analysis(card)):
-            free_device()
-            phase()
+        run_mesh_phases(card, t0)
         print(f"phases: mesh to analysis done at {time.perf_counter() - t0:.0f} s", flush=True)
         return 0
     kern = phase_kernels()
@@ -6205,24 +6764,10 @@ def main() -> int:
     rob = phase_training_robustness(card)
     phase_done("training robustness", t0)
     free_device()
-    par, par_refs = phase_parallel(card)
-    phase_done("parallel", t0)
+    par, par_b, par_c, search, obs, ce_ranks = run_mesh_phases(card, t0)
     free_device()
-    par_b = phase_parallel_b(card, par_refs)
-    phase_done("parallel_b", t0)
-    free_device()
-    par_c = phase_parallel_c(card)
-    phase_done("parallel_c", t0)
-    free_device()
-    search = phase_search(card, par_refs)
-    del par_refs
-    phase_done("search", t0)
-    free_device()
-    obs = phase_obs(card)
-    phase_done("obs", t0)
-    free_device()
-    phase_analysis(card)
-    phase_done("analysis", t0)
+    front = phase_frontends(card, ce_ranks)
+    phase_done("frontends", t0)
     train_launches = {name: sum(r["fit_launches"][name] for r in train)
                       for name in train[0]["fit_launches"]}
     # GPT's path: its fits and the full-sequence forwards of its dense and
@@ -6246,8 +6791,10 @@ def main() -> int:
                       + par_b["flash_launches"]["flash_attention_fwd"]
                       + par_c["flash_launches"]["flash_attention_fwd"]
                       + search["flash_launches"]["flash_attention_fwd"]
-                      + obs["flash_launches"]["flash_attention_fwd"],
+                      + obs["flash_launches"]["flash_attention_fwd"]
+                      + front["launches"]["flash_attention_fwd"],
                       obs_launches=obs["flash_launches"]["flash_attention_fwd"],
+                      frontends_launches=front["launches"]["flash_attention_fwd"],
                       parallel_launches=par["launches"]["flash_attention_fwd"],
                       search_launches=search["flash_launches"]["flash_attention_fwd"],
                       parallel_b_launches=par_b["flash_launches"]["flash_attention_fwd"],
@@ -6280,8 +6827,10 @@ def main() -> int:
                       + par_b["flash_launches"]["flash_attention_bwd_dq"]
                       + par_c["flash_launches"]["flash_attention_bwd_dq"]
                       + search["flash_launches"]["flash_attention_bwd_dq"]
-                      + obs["flash_launches"]["flash_attention_bwd_dq"],
+                      + obs["flash_launches"]["flash_attention_bwd_dq"]
+                      + front["launches"]["flash_attention_bwd_dq"],
                       obs_launches=obs["flash_launches"]["flash_attention_bwd_dq"],
+                      frontends_launches=front["launches"]["flash_attention_bwd_dq"],
                       parallel_launches=par["launches"]["flash_attention_bwd_dq"],
                       search_launches=search["flash_launches"]["flash_attention_bwd_dq"],
                       parallel_b_launches=par_b["flash_launches"]["flash_attention_bwd_dq"],
@@ -6308,8 +6857,10 @@ def main() -> int:
                       + par_b["flash_launches"]["flash_attention_bwd_dkv"]
                       + par_c["flash_launches"]["flash_attention_bwd_dkv"]
                       + search["flash_launches"]["flash_attention_bwd_dkv"]
-                      + obs["flash_launches"]["flash_attention_bwd_dkv"],
+                      + obs["flash_launches"]["flash_attention_bwd_dkv"]
+                      + front["launches"]["flash_attention_bwd_dkv"],
                       obs_launches=obs["flash_launches"]["flash_attention_bwd_dkv"],
+                      frontends_launches=front["launches"]["flash_attention_bwd_dkv"],
                       parallel_launches=par["launches"]["flash_attention_bwd_dkv"],
                       search_launches=search["flash_launches"]["flash_attention_bwd_dkv"],
                       parallel_b_launches=par_b["flash_launches"]["flash_attention_bwd_dkv"],

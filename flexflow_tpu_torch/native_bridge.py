@@ -1,23 +1,31 @@
-"""ctypes bindings to the native batcher and the native simulator.
+"""ctypes bindings to the native runtime pieces, and the build of the C API.
 
-PyTorch counterpart of ``flexflow_tpu/native_bridge.py``'s batcher
-(:class:`NativeBatcher`, the ``fftpu_batcher_*`` signatures) and its
-simulator entry points (:func:`sim_taskgraph`, the event replay of
-``native/src/sim_engine.cc``; :func:`route_transfers`, the torus router
-of ``native/src/network_sim.cc``). The reference builds the whole native
-library with ``native/Makefile`` into the JAX package's tree; the port
-builds two libraries at first use, the batcher from ``batcher.cc`` and
-the simulator from ``sim_engine.cc`` and ``network_sim.cc``, each with
-``g++ -O3 -fPIC -std=c++17 -pthread -shared`` into ``_native_build/``
-beside this file (listed in ``.gitignore``). A library's name carries a
-hash of its sources, the header and the flags, and the build runs behind
-an ``flock``, so concurrent processes build it once and an unchanged tree
+PyTorch counterpart of ``flexflow_tpu/native_bridge.py``: the batcher
+(:class:`NativeBatcher`, the ``fftpu_batcher_*`` signatures), the
+simulator's entry points (:func:`sim_taskgraph`, the event replay of
+``native/src/sim_engine.cc``; :func:`route_transfers`, the torus router of
+``native/src/network_sim.cc``), the graph algorithms
+(:func:`toposort`, :func:`dominators`, :func:`transitive_reduction`,
+``native/src/graph_algos.cc``) and the threaded loader
+(:class:`NativeLoader`, ``native/src/dataloader.cc``). The reference
+builds the whole native library with ``native/Makefile`` into the JAX
+package's tree; the port builds four libraries at first use from the same
+unchanged sources: the batcher, the simulator, the runtime (graph
+algorithms and loader) and the C model-building API (:func:`build_capi`,
+from ``native/model_capi.cc`` beside this file, which embeds CPython and
+drives :mod:`flexflow_tpu_torch.capi_host`). Each is built with ``g++
+-O3 -fPIC -std=c++17 -pthread -shared`` into ``_native_build/`` beside
+this file (listed in ``.gitignore``). A library's name carries a hash of
+its sources, the header and the flags, and the build runs behind an
+``flock``, so concurrent processes build it once and an unchanged tree
 loads the library it built before.
 
-There is no quiet fallback: a failed build raises with the compiler's
-output. The pure-Python batcher, replay and router serve only when the
-caller chose them with ``FLEXFLOW_TPU_NATIVE=off`` (``serving/engine.py``
-``_make_batcher``, ``sim/simulator.py``, ``sim/network.py``).
+There is no quiet fallback: a failed build or load raises with the
+compiler's output. The pure-Python batcher, replay, router and loader
+serve only when the caller chose them with ``FLEXFLOW_TPU_NATIVE=off``
+(``serving/engine.py`` ``_make_batcher``, ``sim/simulator.py``,
+``sim/network.py``, ``runtime/dataloader.py``); the task-graph export then
+keeps every edge, as the reference does without its library.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sysconfig
 import threading
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -38,6 +47,9 @@ _REPO = Path(__file__).resolve().parents[1]
 BATCHER_SRC = _REPO / "native" / "src" / "batcher.cc"
 SIM_SRCS = (_REPO / "native" / "src" / "sim_engine.cc",
             _REPO / "native" / "src" / "network_sim.cc")
+RUNTIME_SRCS = (_REPO / "native" / "src" / "graph_algos.cc",
+                _REPO / "native" / "src" / "dataloader.cc")
+CAPI_SRC = Path(__file__).with_name("native") / "model_capi.cc"
 NATIVE_INCLUDE = _REPO / "native" / "include"
 BUILD_DIR = Path(__file__).with_name("_native_build")
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-pthread", "-shared")
@@ -45,6 +57,7 @@ CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-pthread", "-shared")
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _sim_lib: Optional[ctypes.CDLL] = None
+_runtime_lib: Optional[ctypes.CDLL] = None
 
 
 def native_disabled() -> bool:
@@ -53,19 +66,20 @@ def native_disabled() -> bool:
     return os.environ.get("FLEXFLOW_TPU_NATIVE", "auto") == "off"
 
 
-def _so_path(stem: str, srcs: Sequence[Path]) -> Path:
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+def _so_path(stem: str, srcs: Sequence[Path], link: Sequence[str] = ()) -> Path:
+    h = hashlib.sha256(" ".join(CXX_FLAGS + tuple(link)).encode())
     for src in srcs:
         h.update(src.read_bytes())
     h.update((NATIVE_INCLUDE / "flexflow_tpu_c.h").read_bytes())
     return BUILD_DIR / f"libfftpu_{stem}_{h.hexdigest()[:16]}.so"
 
 
-def _build_so(stem: str, srcs: Sequence[Path], what: str) -> Path:
+def _build_so(stem: str, srcs: Sequence[Path], what: str, link: Sequence[str] = ()) -> Path:
+    """``link``: flags after the sources (include dirs, libraries)."""
     for src in srcs:
         if not src.is_file():
             raise RuntimeError(f"native {what} source {src} is missing")
-    out = _so_path(stem, srcs)
+    out = _so_path(stem, srcs, link)
     if out.exists():
         return out
     cxx = shutil.which("g++")
@@ -80,8 +94,8 @@ def _build_so(stem: str, srcs: Sequence[Path], what: str) -> Path:
             if out.exists():  # a peer built it while this process waited
                 return out
             tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-            cmd = [cxx, *CXX_FLAGS, f"-I{NATIVE_INCLUDE}", "-o", str(tmp),
-                   *map(str, srcs)]
+            cmd = [cxx, *CXX_FLAGS, f"-I{NATIVE_INCLUDE}", f"-Wl,-soname,{out.name}",
+                   "-o", str(tmp), *map(str, srcs), *link]
             proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
             if proc.returncode != 0:
                 tmp.unlink(missing_ok=True)
@@ -156,6 +170,183 @@ def load_sim_library() -> ctypes.CDLL:
                 ctypes.c_double, ctypes.c_double, f64p, i32p]
             _sim_lib = lib
         return _sim_lib
+
+
+# ---------------------------------------------- graph algorithms and loader
+def runtime_library_path() -> Path:
+    return _so_path("runtime", RUNTIME_SRCS)
+
+
+def build_runtime() -> Path:
+    """Compile the graph algorithms and the loader unless this tree's
+    library exists already; raises on a failed build."""
+    return _build_so("runtime", RUNTIME_SRCS, "runtime")
+
+
+def load_runtime_library() -> ctypes.CDLL:
+    global _runtime_lib
+    with _lock:
+        if _runtime_lib is None:
+            lib = ctypes.CDLL(str(build_runtime()))
+            i32p = ctypes.POINTER(ctypes.c_int32)
+            lib.fftpu_toposort.restype = ctypes.c_int
+            lib.fftpu_toposort.argtypes = [ctypes.c_int32, ctypes.c_int32, i32p, i32p, i32p]
+            lib.fftpu_dominators.restype = ctypes.c_int
+            lib.fftpu_dominators.argtypes = [ctypes.c_int32, ctypes.c_int32, i32p, i32p,
+                                             ctypes.c_int32, i32p]
+            lib.fftpu_transitive_reduction.restype = ctypes.c_int32
+            lib.fftpu_transitive_reduction.argtypes = [
+                ctypes.c_int32, ctypes.c_int32, i32p, i32p, ctypes.POINTER(ctypes.c_uint8)]
+            lib.fftpu_loader_create.restype = ctypes.c_void_p
+            lib.fftpu_loader_create.argtypes = [
+                ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
+                ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int64),
+                ctypes.c_int32, ctypes.c_uint64, ctypes.c_int32]
+            lib.fftpu_loader_destroy.restype = None
+            lib.fftpu_loader_destroy.argtypes = [ctypes.c_void_p]
+            lib.fftpu_loader_num_batches.restype = ctypes.c_int64
+            lib.fftpu_loader_num_batches.argtypes = [ctypes.c_void_p]
+            lib.fftpu_loader_reset.restype = None
+            lib.fftpu_loader_reset.argtypes = [ctypes.c_void_p, ctypes.c_int32]
+            lib.fftpu_loader_reset_with_perm.restype = None
+            lib.fftpu_loader_reset_with_perm.argtypes = [ctypes.c_void_p,
+                                                         ctypes.POINTER(ctypes.c_int64)]
+            lib.fftpu_loader_next.restype = ctypes.c_int64
+            lib.fftpu_loader_next.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)]
+            _runtime_lib = lib
+        return _runtime_lib
+
+
+def _edge_arrays(edges: Sequence[Tuple[int, int]]):
+    return _i32([e[0] for e in edges]), _i32([e[1] for e in edges])
+
+
+def toposort(n: int, edges: Sequence[Tuple[int, int]]) -> List[int]:
+    """A topological order of ``n`` nodes (``fftpu_toposort``)."""
+    lib = load_runtime_library()
+    es, ed = _edge_arrays(edges)
+    out = np.zeros(n, np.int32)
+    if lib.fftpu_toposort(n, len(edges), _i32p(es), _i32p(ed), _i32p(out)) != 0:
+        raise ValueError("graph has a cycle")
+    return out.tolist()
+
+
+def dominators(n: int, edges: Sequence[Tuple[int, int]], root: int) -> List[int]:
+    """Immediate dominator per node (the root maps to itself, an
+    unreachable node to -1)."""
+    lib = load_runtime_library()
+    es, ed = _edge_arrays(edges)
+    out = np.zeros(n, np.int32)
+    if lib.fftpu_dominators(n, len(edges), _i32p(es), _i32p(ed), root, _i32p(out)) != 0:
+        raise ValueError("invalid dominator input")
+    return out.tolist()
+
+
+def transitive_reduction(n: int, edges: Sequence[Tuple[int, int]]) -> List[Tuple[int, int]]:
+    """The edges no longer path implies, in their given order."""
+    lib = load_runtime_library()
+    es, ed = _edge_arrays(edges)
+    kept = np.zeros(len(edges), np.uint8)
+    if lib.fftpu_transitive_reduction(n, len(edges), _i32p(es), _i32p(ed),
+                                      kept.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))) < 0:
+        raise ValueError("graph has a cycle")
+    return [e for e, k in zip(edges, kept) if k]
+
+
+class NativeLoader:
+    """Threaded gather and prefetch over host numpy datasets in C++
+    (reference: SingleDataLoader, src/dataloader/dataloader.cc): the
+    library assembles batch b+1 on its own thread while batch b is used.
+
+    Each shuffle's permutation is drawn in Python from
+    ``np.random.default_rng(seed)`` and pushed to the library
+    (``fftpu_loader_reset_with_perm``), so its batches are bit for bit
+    the Python loader's. One consumer at a time: ``runtime/dataloader.py``'s
+    Prefetcher drives ``next_batch`` from its worker thread, which joins
+    before the loader is reset or closed."""
+
+    def __init__(self, arrays: Sequence[np.ndarray], batch_size: int,
+                 shuffle: bool = False, seed: int = 0):
+        # C-contiguous copies the library reads for the loader's lifetime
+        self._arrays = [np.ascontiguousarray(a) for a in arrays]
+        n = self._arrays[0].shape[0]
+        if any(a.shape[0] != n for a in self._arrays):
+            raise ValueError("all arrays must have the same sample count")
+        if n < batch_size:
+            raise ValueError(f"{n} samples hold no whole batch of {batch_size}")
+        self._lib = load_runtime_library()
+        self.batch_size = int(batch_size)
+        self.num_samples = n
+        self.shuffle = shuffle
+        self._rng = np.random.default_rng(seed)
+        self._row_bytes = [a.nbytes // n for a in self._arrays]
+        datas = (ctypes.c_void_p * len(self._arrays))(
+            *[a.ctypes.data_as(ctypes.c_void_p).value for a in self._arrays])
+        rb = (ctypes.c_int64 * len(self._arrays))(*self._row_bytes)
+        # no shuffle in the library: the first reshuffling reset pushes one
+        self._h = self._lib.fftpu_loader_create(n, self.batch_size, len(self._arrays),
+                                                datas, rb, 0, seed, 1)
+        if not self._h:
+            raise RuntimeError("fftpu_loader_create failed")
+
+    @property
+    def num_batches(self) -> int:
+        return int(self._lib.fftpu_loader_num_batches(self._h))
+
+    @property
+    def batch_nbytes(self) -> int:
+        """Host bytes one batch gathers across all arrays."""
+        return sum(self._row_bytes) * self.batch_size
+
+    def reset(self, reshuffle: bool = True) -> None:
+        if self.shuffle and reshuffle:
+            perm = np.ascontiguousarray(self._rng.permutation(self.num_samples), dtype=np.int64)
+            self._lib.fftpu_loader_reset_with_perm(
+                self._h, perm.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
+        else:
+            self._lib.fftpu_loader_reset(self._h, 0)
+
+    def next_batch(self) -> Optional[List[np.ndarray]]:
+        """The next batch, one fresh array per input (the library copies
+        into them), or None at the epoch's end."""
+        outs = [np.empty((self.batch_size,) + a.shape[1:], a.dtype) for a in self._arrays]
+        ptrs = (ctypes.c_void_p * len(outs))(
+            *[o.ctypes.data_as(ctypes.c_void_p).value for o in outs])
+        if self._lib.fftpu_loader_next(self._h, ptrs) < 0:
+            return None
+        return outs
+
+    def close(self) -> None:
+        h, self._h = getattr(self, "_h", None), None  # concurrency: race-ok (one consumer, joined before close)
+        if h:
+            self._lib.fftpu_loader_destroy(h)
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
+
+
+# ------------------------------------------------------------ the C API
+def _python_link() -> Tuple[str, ...]:
+    """Compile and link flags for a library that embeds this interpreter."""
+    libdir = sysconfig.get_config_var("LIBDIR")
+    return (f"-I{sysconfig.get_paths()['include']}", f"-L{libdir}", f"-Wl,-rpath,{libdir}",
+            f"-lpython{sysconfig.get_config_var('LDVERSION')}")
+
+
+def capi_library_path() -> Path:
+    return _so_path("capi", (CAPI_SRC,), _python_link())
+
+
+def build_capi() -> Path:
+    """Compile the C model-building API (``native/model_capi.cc``, the
+    ABI of ``native/include/flexflow_tpu_c.h``) against this interpreter's
+    ``Python.h`` and ``libpython`` unless this tree's library exists
+    already; raises on a failed build. Link a C program to the returned
+    path (its directory as the rpath)."""
+    return _build_so("capi", (CAPI_SRC,), "C API", _python_link())
 
 
 # every native simulator call, by entry point: the tests and the card run
@@ -295,6 +486,8 @@ class NativeBatcher:
             pass
 
 
-__all__ = ["NativeBatcher", "SIM_CALLS", "build", "build_sim", "library_path", "load_library",
-           "load_sim_library", "native_disabled", "route_transfers", "sim_library_path",
-           "sim_taskgraph"]
+__all__ = ["NativeBatcher", "NativeLoader", "SIM_CALLS", "build", "build_capi",
+           "build_runtime", "build_sim", "capi_library_path", "dominators", "library_path",
+           "load_library", "load_runtime_library", "load_sim_library", "native_disabled",
+           "route_transfers", "runtime_library_path", "sim_library_path", "sim_taskgraph",
+           "toposort", "transitive_reduction"]

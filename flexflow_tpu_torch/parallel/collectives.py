@@ -117,12 +117,28 @@ def _back(t: torch.Tensor, buf: torch.Tensor, staged_in: int, kind: str,
 
 
 # ------------------------------------------------------------ primitives
-def all_reduce_sum(t: torch.Tensor, group: Group) -> torch.Tensor:
-    """The sum of ``t`` over the group's ranks (a new tensor)."""
+def _all_reduce(t: torch.Tensor, group: Group, op) -> torch.Tensor:
     buf = _host(group, t, copy=True)
     n_in = buf.numel() * buf.element_size() if buf.device != t.device else 0
-    dist.all_reduce(buf, group=group.pg)
+    dist.all_reduce(buf, op=op, group=group.pg)
     return _back(t, buf, n_in, "all_reduce", group)
+
+
+def all_reduce_sum(t: torch.Tensor, group: Group) -> torch.Tensor:
+    """The sum of ``t`` over the group's ranks (a new tensor)."""
+    return _all_reduce(t, group, dist.ReduceOp.SUM)
+
+
+def all_reduce_max(t: torch.Tensor, group: Group) -> torch.Tensor:
+    """The elementwise max of ``t`` over the group's ranks (no gradient:
+    a class-parallel log-softmax's row max, an argmax's best value)."""
+    return _all_reduce(t, group, dist.ReduceOp.MAX)
+
+
+def all_reduce_min(t: torch.Tensor, group: Group) -> torch.Tensor:
+    """The elementwise min of ``t`` over the group's ranks (no gradient:
+    a class-parallel argmax's lowest index among the tied ranks)."""
+    return _all_reduce(t, group, dist.ReduceOp.MIN)
 
 
 def all_gather(t: torch.Tensor, group: Group, dim: int) -> torch.Tensor:

@@ -36,8 +36,11 @@ under each layer's strategy, every rank draws each weight whole from the
 seed and keeps its block, and the forward hands each op its inputs in the
 layout its ``propagate`` asked for (``ops/parallel_ops.reshard``). Each
 rank's loss is its share of the global mean (its local sum over the
-global count), so the step's loss is the sum over the ranks the logits
-are sharded over, and a weight's gradient is all-reduced, one flat buffer
+global count), so the step's loss is the sum over the ranks the logits'
+rows are sharded over. Logits whose class dim is sharded take the loss
+and the metrics class-parallel (``runtime/loss.py`` ``ClassShard``): the
+ranks of the class axis hold the whole rows' loss. A weight's gradient is
+all-reduced, one flat buffer
 a set of axes, over the axes its op's output is sharded on and the weight
 is not (``data``, ``seq``). The metrics' sums are all-reduced the same
 way. An expert weight sharded over the axis that also shards the batch
@@ -80,7 +83,7 @@ from ..core.tensor import Tensor
 from ..ffconst import CompMode, DataType, LossType, MetricsType, OpType
 from ..ops.parallel_ops import reshard
 from ..parallel import collectives as C
-from .loss import compute_loss
+from .loss import ClassShard, compute_loss
 from .metrics import compute_batch_metrics
 from .optimizer import Optimizer
 
@@ -473,16 +476,20 @@ def compile_model(
     # over the global count; gradients and metric sums are all-reduced
     logits_layout = layouts[logits_id]
     weight_layouts = {op.name: op.weight_shapes for op in ops}
-    loss_group = reduce_plan = None
+    loss_group = reduce_plan = shard = None
     if mesh is not None:
-        if (loss_type in (LossType.SPARSE_CATEGORICAL_CROSSENTROPY,
-                          LossType.CATEGORICAL_CROSSENTROPY)
-                and logits_layout.dims[-1].is_partitioned):
-            raise NotImplementedError(
-                f"the {loss_type.name} loss reads the class dim whole; the logits shard "
-                f"it over {logits_layout.dims[-1].axis!r}: combine it first")
-        if logits_layout.partition_axes:
-            loss_group = mesh.group(logits_layout.partition_axes)
+        # rows cut over a mesh axis hold other samples: their losses and
+        # metric sums add over loss_group. A cut class dim holds one row's
+        # classes: its ranks reduce every class sum (shard) and hold the
+        # same loss.
+        row_axes = logits_layout.partition_axes
+        cls = logits_layout.dims[-1]
+        if cls.is_partitioned:
+            shard = ClassShard(mesh.group([cls.axis]),
+                               mesh.coords[cls.axis] * (cls.size // cls.degree), cls.size)
+            row_axes = tuple(a for a in row_axes if a != cls.axis)
+        if row_axes:
+            loss_group = mesh.group(row_axes)
         reduce_plan = {}
         for op in ops:
             out_axes = set(op.output_shapes[0].partition_axes) if op.output_shapes else set()
@@ -624,7 +631,7 @@ def compile_model(
         with torch.enable_grad():
             logits, aux = run(leaves, xs, plain_kernels, training=True, rng=rng,
                               state_updates=state_updates, seq_length=seq_length)
-            loss = loss_share(compute_loss(loss_type, logits, y, from_logits, mask_pad), y)
+            loss = loss_share(compute_loss(loss_type, logits, y, from_logits, mask_pad, shard), y)
             for a in aux:
                 loss = loss + a
             if regularize:
@@ -667,7 +674,7 @@ def compile_model(
                                          None if rng is None else int(rng) * accum + i,
                                          upd, seq_length, regularize=True)
             bmi = compute_batch_metrics(metrics, loss_type, lgi, label_block(mb[n_inputs]),
-                                        from_logits, mask_pad)
+                                        from_logits, mask_pad, shard)
             if grads is None:
                 loss_sum, grads, bm, upd_sum = li, gi, bmi, upd
                 continue
@@ -687,7 +694,7 @@ def compile_model(
             loss, logits, grads = value_and_grad(params, batch, plain_kernels, rng,
                                                  updates, seq_length, regularize=True)
             bm = compute_batch_metrics(metrics, loss_type, logits, label_block(batch[n_inputs]),
-                                       from_logits, mask_pad)
+                                       from_logits, mask_pad, shard)
         else:
             loss, grads, bm, updates = accumulated(params, batch, plain_kernels, rng,
                                                    seq_length)
@@ -728,9 +735,9 @@ def compile_model(
             logits = run(params, batch[:n_inputs], plain_kernels, training=False,
                          seq_length=seq_length)[0]
             loss = global_loss(loss_share(
-                compute_loss(loss_type, logits, y, from_logits, mask_pad), y))
+                compute_loss(loss_type, logits, y, from_logits, mask_pad, shard), y))
             bm = sync_metrics(compute_batch_metrics(metrics, loss_type, logits, y,
-                                                    from_logits, mask_pad))
+                                                    from_logits, mask_pad, shard))
             return loss, whole(logits), bm
 
     training = (comp_mode is CompMode.TRAINING and optimizer is not None

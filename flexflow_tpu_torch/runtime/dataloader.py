@@ -16,7 +16,14 @@ super-batches for ``train_k_steps`` (``steps_per_dispatch``); the consumer
 copies them to the card. Batch order is the serial loader's at any depth.
 Under a mesh each rank's loader keeps its rows of every global batch
 (``rows``), so the shuffle, the batch boundaries and the Prefetcher's
-order are every rank's alike. The C++ native loader is not ported.
+order are every rank's alike.
+
+A group of fixed-row batches over at least one whole batch gathers them
+in C++ (:class:`~flexflow_tpu_torch.native_bridge.NativeLoader`, a thread
+of its own one batch ahead), as the JAX package wires its native loader;
+the permutation is drawn here and pushed to it, so its batches are the
+Python loader's bit for bit. A failed build or load raises;
+``FLEXFLOW_TPU_NATIVE=off`` chooses the Python loader.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from typing import Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import native_bridge
 from .buckets import PackingSpec, build_epoch_plan, plan_token_stats
 from .faults import TransientFault
 from .faults import active as _faults_active
@@ -131,6 +139,20 @@ class DataLoaderGroup:
         self._row_cursor = 0
         self._pack_perm: Optional[np.ndarray] = None
         self.epoch_token_stats: Tuple[int, int] = (0, 0)
+        # packed batches vary in shape, a dataset short of one batch wraps
+        # within it, and object arrays hold references a byte copy must
+        # not duplicate: those stay with the Python gather
+        self._native = None
+        if (packing is None and not native_bridge.native_disabled()
+                and loaders[0].num_samples >= loaders[0].batch_size
+                and not any(l.data.dtype.hasobject for l in loaders)):
+            self._native = native_bridge.NativeLoader(
+                [l.data for l in loaders], loaders[0].batch_size, shuffle=shuffle, seed=seed)
+
+    @property
+    def native(self) -> bool:
+        """Whether the C++ loader gathers this group's batches."""
+        return self._native is not None
 
     @property
     def num_batches(self) -> int:
@@ -147,6 +169,9 @@ class DataLoaderGroup:
         return sum(l.batch_nbytes for l in self.loaders)
 
     def reset(self, reshuffle: bool = True) -> None:
+        if self._native is not None:
+            self._native.reset(reshuffle)
+            return
         for l in self.loaders:
             l.reset()
         if self.shuffle and reshuffle:
@@ -216,6 +241,12 @@ class DataLoaderGroup:
         """One batch per loader, on the host."""
         if self.packing is not None:
             return self._next_packed_host()
+        if self._native is not None:
+            rows = self._native.next_batch()
+            if rows is None:  # past the epoch's batches: wrap, as the Python loader does
+                self._native.reset(reshuffle=False)
+                rows = self._native.next_batch()
+            return [r[l.rows] for r, l in zip(rows, self.loaders)]
         return [l.next_batch_host() for l in self.loaders]
 
     def assemble_host(self, k: int) -> List[np.ndarray]:

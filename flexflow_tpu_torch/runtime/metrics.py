@@ -4,7 +4,11 @@ PyTorch counterpart of ``flexflow_tpu/runtime/metrics.py``: per-batch
 metrics computed on the device from the final op's output, accumulated on
 the device across an epoch and read back once at its end
 (:meth:`PerfMetrics.flush`). ``mask_padding`` drops ``-1`` positions out of
-the token-level sparse metrics, as the loss does.
+the token-level sparse metrics, as the loss does. Over class-sharded
+logits (a :class:`~flexflow_tpu_torch.runtime.loss.ClassShard`) every sum
+over the classes is the whole row's, and the accuracy's argmax is the
+whole row's with ``torch.argmax``'s rule (the first maximum, a NaN
+before any number).
 """
 
 from __future__ import annotations
@@ -15,7 +19,9 @@ from typing import Dict, List, Optional
 import torch
 
 from ..ffconst import LossType, MetricsType
-from .loss import log_probs, masked_token_log_probs, pick_log_prob
+from ..parallel import collectives as C
+from .loss import (ClassShard, class_sum, log_probs, masked_token_log_probs, pick_log_prob,
+                   sharded_label_log_probs, sharded_row_cce)
 
 _SUMS = ("cce_loss", "sparse_cce_loss", "mse_loss", "rmse_loss", "mae_loss")
 
@@ -88,16 +94,74 @@ class PerfMetrics:
         return "  ".join(parts)
 
 
+def class_argmax(x: torch.Tensor, shard: Optional[ClassShard]) -> torch.Tensor:
+    """``torch.argmax(x, -1)`` of the whole row: over a class shard, each
+    rank's first maximum and its global index, the best value (a NaN
+    first) max-reduced, then the lowest index among the ranks holding it."""
+    if shard is None:
+        return torch.argmax(x, dim=-1)
+    loc = torch.argmax(x, dim=-1)
+    v = x.gather(-1, loc[..., None])[..., 0]
+    nan = torch.isnan(v)
+    best = C.all_reduce_max(torch.stack([nan.to(v.dtype),
+                                         torch.where(nan, -torch.inf, v)]), shard.group)
+    gidx = loc + shard.offset
+    none = torch.full_like(gidx, shard.size)
+    mine = torch.where(best[0] > 0, nan, ~nan & (v == best[1]))
+    return C.all_reduce_min(torch.where(mine, gidx, none), shard.group)
+
+
+def _sharded_batch_metrics(metrics: List[MetricsType], sparse: bool, logits: torch.Tensor,
+                           labels: torch.Tensor, from_logits: bool, mask_padding: bool,
+                           shard: ClassShard) -> Dict[str, torch.Tensor]:
+    """:func:`compute_batch_metrics` over class-sharded logits: the whole
+    rows' sums on every rank of the class group."""
+    if sparse:
+        lab = labels.reshape(logits.shape[:-1]) if logits.dim() >= 3 \
+            else labels.reshape(labels.shape[0], -1)[:, 0]
+        valid = lab >= 0 if mask_padding and logits.dim() >= 3 \
+            else torch.ones_like(lab, dtype=torch.bool)
+        out: Dict[str, torch.Tensor] = {"count": valid.sum()}
+        if MetricsType.ACCURACY in metrics:
+            pred = class_argmax(logits, shard)
+            out["correct"] = torch.sum(valid & (pred == lab.to(pred.dtype)))
+        if MetricsType.SPARSE_CATEGORICAL_CROSSENTROPY in metrics:
+            ll, in_range = sharded_label_log_probs(
+                logits, torch.where(valid, lab, torch.zeros_like(lab)), from_logits, shard)
+            ll = torch.where(in_range, ll, torch.nan)
+            out["sparse_cce_loss"] = -torch.sum(torch.where(valid, ll, torch.zeros_like(ll)))
+        return out
+    out = {"count": torch.tensor(logits.shape[0], device=logits.device)}
+    if MetricsType.ACCURACY in metrics:
+        out["correct"] = torch.sum(class_argmax(logits, shard) == class_argmax(labels, shard))
+    if MetricsType.CATEGORICAL_CROSSENTROPY in metrics:
+        out["cce_loss"] = torch.sum(sharded_row_cce(logits, labels, from_logits, shard))
+    sq = class_sum((logits - labels) ** 2, shard) if (
+        MetricsType.MEAN_SQUARED_ERROR in metrics
+        or MetricsType.ROOT_MEAN_SQUARED_ERROR in metrics) else None
+    if MetricsType.MEAN_SQUARED_ERROR in metrics:
+        out["mse_loss"] = torch.sum(sq)
+    if MetricsType.ROOT_MEAN_SQUARED_ERROR in metrics:
+        out["rmse_loss"] = torch.sum(torch.sqrt(sq / shard.size))
+    if MetricsType.MEAN_ABSOLUTE_ERROR in metrics:
+        out["mae_loss"] = torch.sum(class_sum(torch.abs(logits - labels), shard))
+    return out
+
+
 def compute_batch_metrics(metrics: List[MetricsType], loss_type: LossType,
                           logits: torch.Tensor, labels: torch.Tensor,
                           from_logits: bool = False,
-                          mask_padding: bool = False) -> Dict[str, torch.Tensor]:
-    """Per-batch metric sums, as device tensors. ``from_logits`` and
-    ``mask_padding`` mirror
+                          mask_padding: bool = False,
+                          shard: Optional[ClassShard] = None) -> Dict[str, torch.Tensor]:
+    """Per-batch metric sums, as device tensors. ``from_logits``,
+    ``mask_padding`` and ``shard`` mirror
     :func:`~flexflow_tpu_torch.runtime.loss.compute_loss`: masked, ``-1``
     positions drop out of the count, the correct count and the CE sum,
     each summed per row first."""
     sparse = loss_type is LossType.SPARSE_CATEGORICAL_CROSSENTROPY
+    if shard is not None:
+        return _sharded_batch_metrics(metrics, sparse, logits, labels, from_logits,
+                                      mask_padding, shard)
     if sparse and logits.dim() >= 3 and mask_padding:
         lab = labels.reshape(logits.shape[:-1])
         valid = lab >= 0

@@ -330,7 +330,12 @@ def export_computation_graph(ffmodel, path: str,
 def export_task_graph(ffmodel, path: str, fmt: str = "dot") -> None:
     """reference: --taskgraph → export_strategy_task_graph_file
     (model.cc:3666): the simulator's task graph with simulated start
-    times, as dot or (``fmt="json"``) JSON with the search's counters."""
+    times, as dot or (``fmt="json"``) JSON with the search's counters; its
+    edges transitively reduced by the native graph library
+    (``native_bridge.transitive_reduction``), all kept under
+    ``FLEXFLOW_TPU_NATIVE=off``, as the JAX package keeps them without
+    its library."""
+    from .. import native_bridge
     from ..obs.divergence import _machine
     from ..sim import OpCostModel, Simulator
 
@@ -341,6 +346,8 @@ def export_task_graph(ffmodel, path: str, fmt: str = "dot") -> None:
     total = sim.simulate_runtime(cm.ops)
     tasks = sim.last_tasks()
     edges = [(d, i) for i, t in enumerate(tasks) for d in t.deps]
+    if not native_bridge.native_disabled():
+        edges = native_bridge.transitive_reduction(len(tasks), edges)
     if fmt == "json":
         payload = {
             "total_time_s": total,

@@ -52,7 +52,9 @@ batch (a group's ranks do).
 
 Each worker's batch in hand is a watched section of the stall watchdog
 (``serving.<model>.<idx>``, ``config.watchdog``), and ``stop()`` appends
-one serving ledger record. Not ported: ONNX registration (ROADMAP A12).
+one serving ledger record. An ONNX file registers through
+:meth:`ModelInstance.from_onnx`, :meth:`InferenceEngine.register_onnx` and
+:meth:`InferenceEngine.register_onnx_instances` (``onnx_frontend``).
 """
 
 from __future__ import annotations
@@ -185,6 +187,27 @@ class ModelInstance:
         self.input_shapes = [(t.name, tuple(t.dims[1:])) for t in self._cm.input_tensors]
         # forward dispatches so far (one per served batch)
         self.dispatches = 0
+
+    @classmethod
+    def from_onnx(cls, onnx_path: str, config=None, name: str = "model") -> "ModelInstance":
+        """Load and compile an ONNX graph for inference, its initializers
+        bound (reference: the Triton backend's own ONNX parser,
+        triton/src/onnx_parser.cc; here the framework's ONNX frontend
+        serves both paths). Structural rewrites are off: a merged layer has
+        no mapping for the imported arrays. ``config`` is copied."""
+        from ..config import FFConfig
+        from ..ffconst import CompMode
+        from ..onnx_frontend import ONNXModel
+        from ..runtime.model import FFModel
+
+        config = dataclasses.replace(config or FFConfig(computation_mode=CompMode.INFERENCE),
+                                     enable_graph_rewrites=False)
+        ff = FFModel(config)
+        onnx_model = ONNXModel(onnx_path)
+        onnx_model.apply(ff, onnx_model.input_tensors(ff, config.batch_size))
+        ff.compile(optimizer=None, loss_type=None, metrics=[])
+        onnx_model.copy_weights(ff)
+        return cls(ff, name=name)
 
     def spec_signature(self) -> tuple:
         from .group import spec_signature
@@ -437,9 +460,32 @@ class InferenceEngine:
         self.register(inst)
         return inst
 
+    def register_onnx(self, onnx_path: str, name: str = "model",
+                      config=None) -> ModelInstance:
+        inst = ModelInstance.from_onnx(onnx_path, config=config, name=name)
+        self.register(inst)
+        return inst
+
+    def register_onnx_instances(self, onnx_path: str, name: str, devices,
+                                batch_size=None) -> List:
+        """One instance of an ONNX model on each placement of ``devices``
+        (as :meth:`register_built_instances`), every one with the file's
+        initializers: bound once on the CPU, then handed on in op order."""
+        from ..config import FFConfig
+        from ..ffconst import CompMode
+        from ..onnx_frontend.model import ONNXBuilder
+        from .group import weights_by_order
+
+        bs = int(batch_size or FFConfig.batch_size)
+        bound = ModelInstance.from_onnx(onnx_path, config=FFConfig(
+            batch_size=bs, computation_mode=CompMode.INFERENCE, device="cpu"))
+        return self.register_built_instances(
+            ONNXBuilder(onnx_path), name=name, devices=devices, batch_size=bs,
+            config={"enable_graph_rewrites": False}, weights=weights_by_order(bound._ff))
+
     def register_built_instances(self, build, name: str, devices,
                                  batch_size: int = 8, strategies=None,
-                                 config=None) -> List:
+                                 config=None, weights=None) -> List:
         """One instance of a builder-defined model on each placement of
         ``devices``: a device (or its name), compiled here, or a
         :class:`~flexflow_tpu_torch.serving.placement.MeshPlacement`, a
@@ -449,7 +495,8 @@ class InferenceEngine:
         the graph; ``strategies`` (the per-model strategy dict) shard it
         over a placement's mesh; ``config``: further ``FFConfig`` fields.
         Every instance gets instance 0's weights, paired by op order
-        (fresh builds get other op names and other init draws)."""
+        (fresh builds get other op names and other init draws), or
+        ``weights`` (whole, in op order) when given."""
         from ..config import FFConfig
         from ..ffconst import CompMode
         from ..runtime.model import FFModel
@@ -457,7 +504,6 @@ class InferenceEngine:
         from .placement import MeshPlacement
 
         out: List = []
-        weights = None
         with self._mu:
             used = frozenset().union(*(i.devices for i in self._models.get(name, [])))
         for dev in devices:

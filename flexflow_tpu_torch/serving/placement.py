@@ -32,8 +32,9 @@ makes a causal LM, its ``_GEN_KNOBS`` keys over the config's ``serving_*``
 defaults; with a ``mesh_shape`` it runs over a rank group too. A builder
 that wants another compute dtype sets ``ff.config.compute_dtype`` itself
 (compile reads it); over a mesh the entry's ``"config"`` dict gives the
-ranks' further ``FFConfig`` fields. An ``"onnx"`` entry raises
-``NotImplementedError`` (ROADMAP A12).
+ranks' further ``FFConfig`` fields. An ``"onnx": path`` entry serves that
+file's graph with its initializers (``onnx_frontend``), on devices or over
+a mesh, as a builder's entry does.
 """
 
 from __future__ import annotations
@@ -106,10 +107,6 @@ def load_repository(engine, path: str,
     for name, m in spec.get("models", {}).items():
         n = int(m.get("instances", 1))
         mesh_shape = {k: int(v) for k, v in (m.get("mesh_shape") or {"data": 1}).items()}
-        if "onnx" in m:
-            raise NotImplementedError(
-                f"model {name!r}: ONNX repository entries wait for the port's "
-                f"ONNX frontend (ROADMAP A12)")
         if m.get("generator"):
             if n != 1:
                 raise ValueError(
@@ -126,6 +123,11 @@ def load_repository(engine, path: str,
             continue
         placement = instance_meshes(n, mesh_shape, devices, offset)
         offset += n * _per(mesh_shape)
+        if "onnx" in m:
+            engine.register_onnx_instances(m["onnx"], name=name, devices=placement,
+                                           batch_size=m.get("batch_size"))
+            placed[name] = n
+            continue
         if name not in builders:
             raise ValueError(
                 f"model {name!r} has no 'onnx' path and no builder was "

@@ -642,3 +642,74 @@ def fused_unpipe(rank: int, world: int) -> dict:
     rep = ff.pcg_report
     return dict(codes=rep.codes(), severities=[f.severity for f in rep.findings],
                 messages=[f.message for f in rep.findings], pipelined=ff.pipelined is not None)
+
+
+def class_ce_graph(ff, relu, batch: int, axis="model"):
+    """The two-dense MLP whose head shards its 10 classes over ``axis``
+    (``None``: unsharded), for either package (``relu``: that package's
+    ``ActiMode.RELU``)."""
+    x = ff.create_tensor((batch, 16), name="input")
+    h = ff.dense(x, 32, relu, name="hidden")
+    return x, ff.dense(h, 10, name="head", strategy={"out": axis} if axis else None)
+
+
+def class_ce(rank: int, world: int, mesh_shape, loss: str, params, batches, probe) -> dict:
+    """The class-sharded MLP over ``mesh_shape`` from ``params``: the whole
+    gradients of one grad_step on the first batch, the losses of one
+    train_step per batch, the whole params after, one epoch of ``fit``
+    over the batches and an eval of ``probe`` (labels past the classes
+    included), each PerfMetrics as a dict."""
+    from flexflow_tpu_torch import (FFConfig, FFModel, LossType, MetricsType, SGDOptimizer,
+                                    load_numpy_params)
+    from flexflow_tpu_torch.ffconst import ActiMode
+
+    batch = batches[0][0].shape[0]
+    ff = FFModel(FFConfig(batch_size=batch, device="cpu", mesh_shape=mesh_shape))
+    class_ce_graph(ff, ActiMode.RELU, batch, "model" if mesh_shape else None)
+    ff.compile(SGDOptimizer(lr=0.1), getattr(LossType, loss),
+               metrics=[MetricsType.ACCURACY, class_ce_metric(MetricsType, loss)])
+    load_numpy_params(ff, params)
+    cm = ff.compiled
+    ff.set_batch([batches[0][0]], batches[0][1])
+    grads = whole_tree(cm, cm.grad_step(cm.params, None, *ff._cur_batch))
+    losses = []
+    for x, y in batches:
+        ff.set_batch([x], y)
+        cm.params, cm.opt_state, l, _ = cm.train_step(cm.params, cm.opt_state, None,
+                                                      *ff._cur_batch)
+        losses.append(float(l))
+    after = ff.numpy_params()
+    xs = np.concatenate([b[0] for b in batches])
+    ys = np.concatenate([b[1] for b in batches])
+    fit = ff.fit(xs, ys, epochs=1, shuffle=False, verbose=False)[-1]
+    ev = ff.eval(probe[0], probe[1], verbose=False)
+    return dict(grads=grads, losses=losses, params=after, metrics=class_ce_sums(fit, ev))
+
+
+def class_ce_metric(metrics_type, loss: str):
+    """The loss's own metric, in either package's ``MetricsType``."""
+    return {"SPARSE_CATEGORICAL_CROSSENTROPY": metrics_type.SPARSE_CATEGORICAL_CROSSENTROPY,
+            "CATEGORICAL_CROSSENTROPY": metrics_type.CATEGORICAL_CROSSENTROPY,
+            "MEAN_SQUARED_ERROR_AVG_REDUCE": metrics_type.MEAN_SQUARED_ERROR}[loss]
+
+
+def class_ce_sums(fit, ev) -> dict:
+    """The PerfMetrics fields the class-sharded runs compare, of a fit
+    epoch and an eval, from either package."""
+    return {k: dict(train_all=p.train_all, train_correct=p.train_correct, cce_loss=p.cce_loss,
+                    sparse_cce_loss=p.sparse_cce_loss, mse_loss=p.mse_loss)
+            for k, p in (("fit", fit), ("eval", ev))}
+
+
+def class_argmax(rank: int, world: int, x) -> list:
+    """``runtime.metrics.class_argmax`` of (rows, classes) ``x`` cut over
+    the classes on a 1-D mesh ``{"model": world}``."""
+    from flexflow_tpu_torch.core.machine import make_mesh
+    from flexflow_tpu_torch.runtime.loss import ClassShard
+    from flexflow_tpu_torch.runtime.metrics import class_argmax as argmax
+
+    mesh = make_mesh({"model": world})
+    per = x.shape[1] // world
+    shard = ClassShard(mesh.group(["model"]), rank * per, x.shape[1])
+    block = torch.from_numpy(np.ascontiguousarray(x[:, rank * per:(rank + 1) * per]))
+    return argmax(block, shard).tolist()

@@ -537,7 +537,7 @@ def test_repository_builder_sets_the_compute_dtype(tmp_path):
 
 @pytest.mark.parametrize("entry,err,match", [
     ({"instances": 1, "mesh_shape": {"data": 2}}, ValueError, "need 2 devices"),
-    ({"instances": 1, "onnx": "/nonexistent/model.onnx"}, NotImplementedError, "A12"),
+    ({"instances": 1, "onnx": "/nonexistent/model.onnx"}, ImportError, "onnx"),
     ({"instances": 3, "strategies": {"dense_1": {"out": "model"}}}, ValueError, "need 3 devices"),
     ({"instances": 2}, ValueError, "need 2 devices"),
     ({"instances": 2, "generator": True}, ValueError, "instances must be 1"),
