@@ -131,7 +131,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    run's, the checkpoint's bytes and save ms, and both torn-write targets
    falling back to the previous step;
 14. the device mesh: the same Transformer (TransformerConfig()'s widths at
-   6 layers, 8 samples a data rank, SGD 0.01, MSE) through FFModel.compile
+   4 layers (PAR_LAYERS), 8 samples a data rank, SGD 0.01, MSE) through FFModel.compile
    over a mesh_shape ->
    fit, in float32 and bfloat16, on (a) {data: 2} (2 ranks) and (b)
    {data: 2, model: 2} with tp_axis "model" (4 ranks), the ranks spawned
@@ -158,7 +158,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the shapes; (e) the Transformer of (14) with Adam on {data: 2}, ZeRO-1
    on and off: params after 3 steps held to the ZeRO-off run, each run's
    optimizer-state bytes a rank (ratio about 1/2); (f) the same
-   Transformer at (14)'s 6 layers through compile(pipeline=...) on
+   Transformer at (14)'s 4 layers through compile(pipeline=...) on
    {pipe: 2}: gpipe on the
    host engine, 1f1b and interleaved (V 2) on the single-call engine,
    f32, and 1f1b single-call in bf16; on {pipe: 2, data: 2} 1f1b
@@ -176,7 +176,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    relaunched and resumed with params bitwise equal to the uninterrupted
    cohort's (their digests), then one process resuming the killed
    cohort's checkpoints through restore_elastic; (h) the Transformer of
-   (4) at 6 layers over {model: 2} from a repository entry with its tensor-parallel
+   (4) at 4 layers over {model: 2} from a repository entry with its tensor-parallel
    strategies, two ranks of a rank group on this card, f32 and bf16: 32
    requests against the one-device instance with the same params (the
    serving bounds), K1 launches by rank at (8*8, 512, 64), req/s; GPT at
@@ -259,11 +259,33 @@ Phases, each of which fails the run (non-zero exit, no result line):
    its classes over {model: 2}, sparse and dense CE, 2 gloo ranks (run in
    14.'s 2-rank group) held to one rank. 14.'s 2- and 4-rank groups also
    run 15.'s and 17. (m)'s rank jobs;
-21. the kernels line, one JSON object;
-22. the last line: {"ok": true, "device": {...}}.
+21. (run right after the training phase, while the profiler's state is
+   fresh) the compiled step programs (C6, ``runtime/graphs.py``): each step
+   of a one-device model is a CUDA graph, captured at its key's second
+   call and replayed, so every phase above runs captured steps and holds
+   them against its plain path (which stays eager). This phase holds the
+   graphs against the eager steps: TransformerConfig() at batch 8 in
+   float32 and bfloat16, GPT at GPTConfig() in bfloat16 and the MoE model
+   in float32, 5 train steps eager and 5 through the capture cache from
+   one start (params within 1e-3 of each layer's largest update, losses
+   within 1e-4 in float32), step ms by CUDA events (median of 20) and host
+   ms a call eager and captured, each graph's capture seconds and pool
+   bytes, the eval step's loss captured against eager, the tally's K1-K5
+   launches of one replay equal to the profiler's kernel rows;
+   ModelInstance.infer eager and captured (req/s, answers within the
+   serving bounds); the dense Generator's and a PagedDecoder's greedy
+   tokens captured equal to the eager decoders', tokens/s each, and a
+   paged verify step's; every graph of the phase (train, eval, forward,
+   the Generator's prefill and decode, the paged prefill, decode and
+   verify) holds as many K1-K5 kernel nodes, read from the graph's own
+   DOT print, as the tally adds at each of its replays; a dropout mask
+   drawn eagerly and in a replay from one key, equal bit for bit;
+22. the kernels line, one JSON object;
+23. the last line: {"ok": true, "device": {...}}.
 
 Imports torch, numpy and flexflow_tpu_torch only (never transformers).
 ``--phase analysis`` runs the device, build and analysis phases alone,
+``--phase graphs`` the device, build and graphs phases,
 ``--phase frontends`` the device, build and frontends phases (with a
 2-rank group of its own for (ab)), ``--phase mesh`` the device and build
 phases and 14.-19.; none prints a result line.
@@ -1590,7 +1612,8 @@ def phase_gpt_generation(compute_dtype: str, card: str, full_f32: np.ndarray = N
     prompts = np.random.default_rng(SEED + 9).integers(
         0, vocab, size=(GPT_BATCH, GEN_PROMPT), dtype=np.int32)
     what = f"GPT generation {compute_dtype}"
-    step = gen._step
+    # the block step as generate calls it (a replay of its captured graph)
+    step = gen._block
     records = []  # (offset, block length, ms, last position's logits on the host)
 
     def recording_step(params, tokens, cache, offset):
@@ -1603,7 +1626,7 @@ def phase_gpt_generation(compute_dtype: str, card: str, full_f32: np.ndarray = N
         return out
 
     gen.generate(prompts, 4)  # warm-up
-    gen._step = recording_step
+    gen._block = recording_step
     torch.cuda.synchronize()
     gc.collect()
     torch.cuda.reset_peak_memory_stats()
@@ -3579,6 +3602,9 @@ def rob_guard_resume(card: str) -> dict:
 
     class Guard(TrainingGuard):
         def recover(self, model, verbose=True):
+            # replayed updates bump the version too: the restore's own bump
+            # is read across it
+            before = cm.params_version
             ok = super().recover(model, verbose)
             snap_equal = all(torch.equal(cm.params[op][w].cpu(), t)
                              for op, ws in self._snap[0].items() for w, t in ws.items())
@@ -3586,7 +3612,7 @@ def rob_guard_resume(card: str) -> dict:
                 prompt)[0]
             at_restore.append(dict(params_are_snapshot=snap_equal,
                                    old_vs_fresh=(old - fresh).abs().max().item(),
-                                   version=cm.params_version))
+                                   version_before=before, version=cm.params_version))
             return ok
 
     guard = Guard(max_restores=2)
@@ -3600,7 +3626,8 @@ def rob_guard_resume(card: str) -> dict:
     rep = guard.report()
     final_ce = hist[-1].sparse_cce_loss / max(1, hist[-1].train_all)
     check(rep["restores"] == 1 and len(at_restore) == 1 and at_restore[0]["params_are_snapshot"]
-          and at_restore[0]["old_vs_fresh"] == 0.0 and at_restore[0]["version"] == version0 + 1
+          and at_restore[0]["old_vs_fresh"] == 0.0
+          and at_restore[0]["version"] == at_restore[0]["version_before"] + 1
           and ff.optimizer.alpha == lr0 * guard.lr_backoff and np.isfinite(final_ce)
           and reg.counter("faults.train.nan_loss").value == fired0 + 1,
           f"{what}: guard report {rep}, at the restore {at_restore}, alpha "
@@ -3611,8 +3638,9 @@ def rob_guard_resume(card: str) -> dict:
           f"events {[(e['kind'], e.get('scope'), e['step']) for e in rep['events']]}, alpha "
           f"{lr0} -> {ff.optimizer.alpha}, params at the restore equal the snapshot "
           f"{at_restore[0]['params_are_snapshot']}, the earlier Generator vs a fresh one "
-          f"{at_restore[0]['old_vs_fresh']} (params version {version0} -> "
-          f"{at_restore[0]['version']}), final CE {final_ce:.4f} [{card}]", flush=True)
+          f"{at_restore[0]['old_vs_fresh']} (params version {version0} at the start, "
+          f"{at_restore[0]['version_before']} -> {at_restore[0]['version']} across the "
+          f"restore), final CE {final_ce:.4f} [{card}]", flush=True)
     del gen, ff, cm, guard, Guard
     configure_faults(FFConfig(device=DEVICE))
     free_device()
@@ -3756,10 +3784,11 @@ def phase_training_robustness(card: str) -> dict:
 PAR_BATCH = 8  # samples per data rank, as bench.py trains the Transformer
 PAR_STEPS, PAR_TIMED = 3, 4  # fit steps held to the one-rank run; timed steps
 PAR_SEQ_LAYERS = 2  # (c)'s depth
-# (a), (b) and the pipeline's depth, cut from TransformerConfig()'s 12 so
-# the script stays near half its time limit (the widths stay); ZeRO-1's
-# run keeps the 12
-PAR_LAYERS = 6
+# (a), (b), the pipeline's, (h)'s and search (m)'s depth, cut from
+# TransformerConfig()'s 12 so the script stays inside its time limit (the
+# widths stay): 6 until the compiled step programs' phase (21.) came, 4
+# since; ZeRO-1's run keeps the 12
+PAR_LAYERS = 4
 PAR_F32_TOL = 1e-3  # of each layer's largest update, the training phases' form
 # bf16 runs are held after one step, before their rounding compounds; the
 # bound must stay under this share of what params left at their start read
@@ -6702,6 +6731,376 @@ def run_mesh_phases(card: str, t0: float) -> tuple:
     phase_done("analysis", t0)
     return par, par_b, par_c, search, obs, [r[n2 + len(s2):] for r in x2]
 
+GRAPH_STEPS = 5  # eager and captured train steps compared from one start
+GRAPH_NEW = 64  # greedy tokens a decode comparison generates
+VERIFY_WIDTH = 3  # tokens a slot of the paged verify step
+
+
+def reset_in_place(cm, tree: dict) -> None:
+    """The params back to ``tree`` and the optimizer state to zero, both in
+    place: a captured step keeps reading the same storage."""
+    with torch.no_grad():
+        for op, ws in tree.items():
+            for w, t in ws.items():
+                cm.params[op][w].copy_(t)
+        for t in _leaves(cm.opt_state):
+            t.zero_()
+
+
+def _leaves(tree) -> list:
+    from flexflow_tpu_torch.runtime.graphs import tensor_leaves
+
+    return tensor_leaves(tree)
+
+
+def step_and_host_ms(step, n: int = TIMED_STEPS) -> tuple:
+    """(median step ms by CUDA events, median host ms a call) over ``n``
+    calls of ``step``, each from an idle card, after two warm calls."""
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    dev, host = [], []
+    for _ in range(n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        step()
+        host.append((time.perf_counter() - t0) * 1e3)
+        end.record()
+        end.synchronize()
+        dev.append(start.elapsed_time(end))
+    return float(np.median(dev)), float(np.median(host))
+
+
+def hold_graph_nodes(what: str, graphs) -> list:
+    """Every graph of a capture cache (captured after
+    ``keep_graphs_for_print``): the launches the tally adds at each of its
+    replays against the kernel nodes read from the graph itself, held
+    equal, by kernel. Returns one row a graph."""
+    from flexflow_tpu_torch.kernels import KERNELS
+
+    rows = []
+    for g in graphs.kernel_nodes():
+        tally = {k: g["launches_per_replay"].get(k, 0) for k in KERNELS}
+        nodes = {k: g["nodes"][k] for k in KERNELS}
+        check(g["nodes"]["nodes"] > 0, f"{what} {g['kind']}: no node read from the graph's "
+              f"print {g['nodes']}")
+        check(tally == nodes, f"{what} {g['kind']}: the tally adds {tally} a replay, the "
+              f"graph holds {nodes} kernel nodes ({g['nodes']['kernel_nodes']} of "
+              f"{g['nodes']['nodes']} nodes are kernels)")
+        rows.append(dict(what=what, kind=g["kind"], launches_per_replay=tally,
+                         nodes=g["nodes"]["nodes"], kernel_nodes=g["nodes"]["kernel_nodes"]))
+    return rows
+
+
+def replay_rows(step, what: str, graph_kernel_nodes: int, sessions: int = 3) -> dict:
+    """One replay of ``step`` under the profiler: the tally's launches and
+    the profiler's kernel rows, held equal, by kernel. A session whose
+    rows fall short of the tally is tried again, up to ``sessions``, and
+    each session's count of every kernel row the profiler saw is kept
+    beside ``graph_kernel_nodes``, the kernel nodes of the replayed graph:
+    a short session that also saw fewer kernels in all than the graph holds
+    lost records of the graph's kernels at large, not of the port's alone.
+    The rows never exceed the tally."""
+    from flexflow_tpu_torch import kernels
+    from torch.profiler import ProfilerActivity
+
+    seen = []
+    for _ in range(sessions):
+        torch.cuda.synchronize()
+        before = kernels.launch_counts()
+        events, _ = device_events(step, 1, (ProfilerActivity.CUDA,))
+        after = kernels.launch_counts()
+        tally = {k: after[k] - before[k] for k in after}
+        rows = {k: sum(1 for e in events if test(e.name))
+                for k, test in kernels.KERNEL_SYMBOLS.items()}
+        every = sum(1 for e in events if not e.name.startswith(("Memcpy", "Memset")))
+        check(all(rows[k] <= tally[k] for k in rows),
+              f"{what}: the profiler saw more kernel rows {rows} than the tally {tally}")
+        seen.append(dict(rows=rows, kernel_rows=every))
+        if rows == tally:
+            return dict(rows, sessions=seen, graph_kernel_nodes=graph_kernel_nodes)
+    raise SmokeFailure(f"{what}: one replay's tally {tally} vs the profiler's kernel rows "
+                       f"in {sessions} sessions {seen}; the graph holds "
+                       f"{graph_kernel_nodes} kernel nodes")
+
+
+def graphs_train(what: str, ff, batches: list, card: str, f32: bool) -> dict:
+    """GRAPH_STEPS train steps eager (``cm.eager``) and through the capture
+    cache from one start, held together; step and host ms of each; the
+    train graph's capture seconds and bytes; one replay's launches against
+    the profiler."""
+    from flexflow_tpu_torch import kernels
+
+    cm = ff.compiled
+    check(cm.capture.get("captured") is True, f"{what}: not captured: {cm.capture}")
+    start = device_copy(cm.params)
+    runs = {}
+    for mode in ("eager", "captured"):
+        reset_in_place(cm, start)
+        step = cm.eager["train_step"] if mode == "eager" else cm.train_step
+        losses = []
+        kernels.reset_launch_counts()
+        for i in range(GRAPH_STEPS):
+            cm.params, cm.opt_state, loss, _ = step(cm.params, cm.opt_state, i + 1,
+                                                    *batches[i % len(batches)])
+            losses.append(loss.item())
+        runs[mode] = (losses, device_copy(cm.params), kernels.launch_counts())
+    (le, pe, ne), (lg, pg, ng) = runs["eager"], runs["captured"]
+    check(ne == ng, f"{what}: launches eager {ne} vs captured {ng}")
+    loss_err = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(lg, le))
+    check(all(np.isfinite(le + lg)), f"{what}: non-finite losses {le} {lg}")
+    if f32:
+        check(loss_err <= 1e-4, f"{what}: captured losses {lg} vs eager {le}: "
+              f"{loss_err:.3g} > 1e-4")
+    upd_err, upd_worst = layer_err(pg, pe, start, ulps=3)
+    check(upd_err <= GRAD_TOL, f"{what}: params after {GRAPH_STEPS} steps captured vs "
+          f"eager {upd_err:.3g} of the largest update of {upd_worst}'s layer > {GRAD_TOL}")
+    del start, pe, pg
+    b0 = batches[0]
+
+    def eager_step():
+        cm.params, cm.opt_state, _, _ = cm.eager["train_step"](cm.params, cm.opt_state, 7,
+                                                               *b0)
+
+    def graph_step():
+        cm.params, cm.opt_state, _, _ = cm.train_step(cm.params, cm.opt_state, 7, *b0)
+
+    eager_ms, eager_host = step_and_host_ms(eager_step)
+    graph_ms, graph_host = step_and_host_ms(graph_step)
+    # the eval step: eager against three calls through the cache (warm-up,
+    # capture, replay)
+    want = cm.eager["eval_step"](cm.params, *b0)
+    for _ in range(3):
+        got = cm.eval_step(cm.params, *b0)
+    ev, gv = (float(v[0] if isinstance(v, tuple) else v) for v in (want, got))
+    check(abs(gv - ev) <= (1e-4 if f32 else 2e-2) * max(abs(ev), 1e-30),
+          f"{what}: captured eval loss {gv} vs eager {ev}")
+    nodes = hold_graph_nodes(what, cm.graphs)
+    train_nodes = [n for n in nodes if n["kind"] == "train_step"]
+    rows = replay_rows(graph_step, what, train_nodes[0]["kernel_nodes"])
+    sessions = rows.pop("sessions")
+    graph_kernels = rows.pop("graph_kernel_nodes")
+    stats = cm.graphs.stats()
+    train = [g for g in stats["graphs"] if g["kind"] == "train_step"]
+    check(len(train) == 1 and train[0]["replays"] >= GRAPH_STEPS + TIMED_STEPS,
+          f"{what}: train graphs {train}")
+    row = dict(what=what, losses_eager=le, losses_captured=lg, loss_rel_err=loss_err,
+               params_err_of_largest_update=upd_err, params_worst=upd_worst,
+               step_ms_eager=eager_ms, step_ms_captured=graph_ms,
+               host_ms_eager=eager_host, host_ms_captured=graph_host,
+               capture_s=train[0]["capture_s"], graph_bytes=train[0]["bytes"],
+               pool_bytes=stats["bytes"], launches_per_replay=rows,
+               profiler_sessions=sessions, graph_kernel_nodes=graph_kernels,
+               graph_nodes=nodes, eval_loss_eager=ev, eval_loss_captured=gv, launches=ng)
+    print(f"graphs {what}: {GRAPH_STEPS} steps captured vs eager: losses {loss_err:.3g} "
+          f"apart, params {upd_err:.3g} of the largest update ({upd_worst}); step "
+          f"{eager_ms:.2f} ms eager, {graph_ms:.2f} ms captured (median of {TIMED_STEPS}); "
+          f"host {eager_host:.2f} ms vs {graph_host:.3f} ms a call; capture "
+          f"{row['capture_s']:.3f} s, {row['graph_bytes'] / 2 ** 20:.1f} MiB; eval loss "
+          f"{gv:.6g} captured, {ev:.6g} eager; one replay "
+          f"{ {k: v for k, v in rows.items() if v} } launches = profiler rows (sessions "
+          f"{sessions}; the graph's kernel nodes {graph_kernels}); every graph's tally = "
+          f"its kernel nodes: {[(n['kind'], n['kernel_nodes']) for n in nodes]} [{card}]",
+          flush=True)
+    return row
+
+
+def graphs_serve(what: str, ff, xs: np.ndarray, dtype: str, card: str) -> dict:
+    """ModelInstance.infer over the batches of ``xs``, eager (the eager
+    forward) and captured: req/s each, the captured answers held to the
+    eager ones within the serving bound."""
+    from flexflow_tpu_torch.serving.engine import ModelInstance
+
+    cm = ff.compiled
+    inst = ModelInstance(ff, "graphs")
+    bs = inst.batch_size
+    out, rps = {}, {}
+    captured = cm.forward_fn
+    for mode in ("eager", "captured"):
+        cm.forward_fn = cm.eager["forward_fn"] if mode == "eager" else captured
+        try:
+            inst.infer([xs[:bs]])
+            inst.infer([xs[:bs]])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = [inst.infer([xs[i:i + bs]])[0] for i in range(0, len(xs), bs)]
+            rps[mode] = len(xs) / (time.perf_counter() - t0)
+        finally:
+            cm.forward_fn = captured
+        out[mode] = np.concatenate(got)
+    err = float(np.abs(out["captured"] - out["eager"]).max()
+                / max(float(np.abs(out["eager"]).max()), 1e-30))
+    check(err <= SERVE_TOL[dtype], f"{what}: served answers captured vs eager {err:.3g} "
+          f"> {SERVE_TOL[dtype]}")
+    print(f"graphs {what} serving: {len(xs)} requests through ModelInstance.infer, "
+          f"{rps['eager']:.1f} req/s eager, {rps['captured']:.1f} captured; answers "
+          f"{err:.3g} apart [{card}]", flush=True)
+    return dict(req_s_eager=rps["eager"], req_s_captured=rps["captured"],
+                answers_rel_err=err)
+
+
+def graphs_decode(ff, card: str) -> dict:
+    """GPT's dense Generator and a PagedDecoder, captured and eager (a
+    decoder whose capture cache is off): greedy tokens equal, tokens/s."""
+    from flexflow_tpu_torch.serving import Generator
+    from flexflow_tpu_torch.serving.generation import PagedDecoder
+
+    vocab = gpt_config().vocab_size
+    prompts = np.random.default_rng(SEED + 40).integers(
+        0, vocab, size=(GPT_BATCH, GEN_PROMPT), dtype=np.int32)
+    dense, tps = {}, {}
+    for mode in ("captured", "eager"):
+        gen = Generator(ff, max_length=GEN_PROMPT + GRAPH_NEW)
+        if mode == "eager":
+            gen._graphs = None
+        for _ in range(2):  # the prefill's and the decode step's warm-up and capture
+            gen.generate(prompts, 4)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dense[mode] = gen.generate(prompts, GRAPH_NEW)
+        tps[f"dense_{mode}"] = GPT_BATCH * GRAPH_NEW / (time.perf_counter() - t0)
+        if mode == "captured":
+            nodes = hold_graph_nodes("GPT Generator", gen._graphs)
+        del gen
+    check(np.array_equal(dense["captured"], dense["eager"]),
+          f"GPT dense decode: captured tokens differ from the eager decoder's at "
+          f"{int((dense['captured'] != dense['eager']).sum())} places")
+    paged, verify = {}, {}
+    span = GEN_PROMPT + GRAPH_NEW + VERIFY_WIDTH
+    for mode in ("captured", "eager"):
+        dec = PagedDecoder(ff, span, decode_slots=GPT_BATCH, block_size=PAGED_BLOCK)
+        if mode == "eager":
+            dec._graphs = None
+        tables = np.stack([dec.pool.try_admit(span)
+                           for _ in range(GPT_BATCH)]).astype(np.int64)
+        for _ in range(2):  # the prefill's warm-up, then its capture and replay
+            rows = dec.prefill_many(list(prompts), list(tables))
+        toks = [rows.argmax(-1)]
+        lens = np.full(GPT_BATCH, GEN_PROMPT, np.int64)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(GRAPH_NEW - 1):
+            logits = dec.decode(toks[-1], tables, lens)
+            lens += 1
+            toks.append(logits.argmax(-1))
+        tps[f"paged_{mode}"] = GPT_BATCH * (GRAPH_NEW - 1) / (time.perf_counter() - t0)
+        paged[mode] = np.stack(toks, axis=1)
+        # a verify step of VERIFY_WIDTH tokens a slot, twice (its warm-up,
+        # then its capture and replay)
+        drafts = np.repeat(toks[-1][:, None], VERIFY_WIDTH, axis=1)
+        for _ in range(2):
+            verify[mode] = dec.verify(drafts, tables, lens).argmax(-1)
+        if mode == "captured":
+            pstats = dec.graph_stats()
+            nodes += hold_graph_nodes("GPT PagedDecoder", dec._graphs)
+        del dec
+    check(np.array_equal(paged["captured"], paged["eager"]),
+          f"GPT paged decode: captured tokens differ from the eager decoder's at "
+          f"{int((paged['captured'] != paged['eager']).sum())} places")
+    check(np.array_equal(verify["captured"], verify["eager"]),
+          "GPT paged verify: captured greedy tokens differ from the eager decoder's")
+    kinds = [n["kind"] for n in nodes]
+    check(kinds.count("generator.step") >= 2  # its prefill and decode shapes
+          and {"paged.prefill", "paged.decode", "paged.verify"} <= set(kinds),
+          f"GPT decode: graphs held against their nodes {kinds}")
+    decode = [g for g in pstats["graphs"] if g["kind"] == "paged.decode"]
+    print(f"graphs GPT decode: {GPT_BATCH} prompts of {GEN_PROMPT} + {GRAPH_NEW} greedy "
+          f"tokens, dense {tps['dense_eager']:.0f} tokens/s eager, "
+          f"{tps['dense_captured']:.0f} captured; paged (decode steps) "
+          f"{tps['paged_eager']:.0f} eager, {tps['paged_captured']:.0f} captured; tokens "
+          f"equal; paged decode graph {decode[0]['capture_s']:.3f} s, "
+          f"{decode[0]['bytes'] / 2 ** 20:.1f} MiB; verify tokens equal; every graph's "
+          f"tally = its kernel nodes: {[(n['kind'], n['kernel_nodes']) for n in nodes]} "
+          f"[{card}]", flush=True)
+    return dict(tokens_per_s=tps, paged_decode_capture_s=decode[0]["capture_s"],
+                paged_decode_graph_bytes=decode[0]["bytes"], graph_nodes=nodes)
+
+
+def graphs_dropout(card: str) -> dict:
+    """A dropout mask over the Transformer's attention probabilities
+    (B, H, S, S), drawn eagerly and in a replayed graph from one key."""
+    from flexflow_tpu_torch.core.op import LowerCtx
+    from flexflow_tpu_torch.ops.dropout import drop
+    from flexflow_tpu_torch.runtime.graphs import StepGraphs, graph_key
+
+    x = torch.ones((BATCH, HEADS, SEQ, SEQ), device=DEVICE)
+    graphs = StepGraphs(torch.device(DEVICE), "dropout")
+
+    def fn(key):
+        return drop(x, 0.1, LowerCtx(rng=key, seed=SEED), "attn_drop")
+
+    key = graph_key("dropout", (1,))
+    graphs.run(key, fn, (3,))
+    other = graphs.run(key, fn, (3,))
+    replayed = graphs.run(key, fn, (11,))
+    eager = fn(11)
+    check(torch.equal(replayed, eager), "dropout: a replay's mask differs from the eager "
+          "draw of the same key")
+    check(not torch.equal(replayed, other), "dropout: two keys drew one mask")
+    kept = float((replayed > 0).float().mean())
+    n = x.numel()
+    check(abs(kept - 0.9) <= 5 * np.sqrt(0.09 / n), f"dropout: kept share {kept}")
+    print(f"graphs dropout: a (B, H, S, S) = {tuple(x.shape)} mask replayed equals the "
+          f"eager draw of its key bit for bit, another key another mask; kept "
+          f"{kept:.5f} of 0.9 [{card}]", flush=True)
+    return dict(kept_share=kept, equal=True)
+
+
+def phase_graphs(card: str) -> dict:
+    """The compiled step programs (docstring, 21.)."""
+    from flexflow_tpu_torch import load_numpy_params
+
+    from flexflow_tpu_torch.runtime.graphs import keep_graphs_for_print
+
+    t0 = time.perf_counter()
+    keep_graphs_for_print()  # every graph below is held against its own nodes
+    out = {"card": card, "train": [], "serve": [], "nodes": []}
+    rng = np.random.default_rng(SEED + 30)
+    x = rng.standard_normal(size=(TIMED_STEPS * 2 + BATCH, SEQ, 1024), dtype=np.float32)
+    y = rng.standard_normal(size=(BATCH * GRAPH_STEPS, SEQ, 1024), dtype=np.float32)
+    for dtype in ("float32", "bfloat16"):
+        ff = transformer_model(dtype, audit_programs="off", validate_pcg="off")
+        load_numpy_params(ff, random_params(ff, SEED + 31))
+        # small steps from the random params: the deep layers' updates
+        # stay within reach of the comparison
+        ff.optimizer.lr = 1e-4
+        batches = [tuple(torch.from_numpy(a[i * BATCH:(i + 1) * BATCH]).to(DEVICE)
+                         for a in (x, y)) for i in range(GRAPH_STEPS)]
+        out["train"].append(graphs_train(f"transformer {dtype}", ff, batches, card,
+                                         dtype == "float32"))
+        out["serve"].append(graphs_serve(f"transformer {dtype}", ff,
+                                         x[:TIMED_STEPS * 2 + BATCH], dtype, card))
+        out["nodes"] += [n for n in hold_graph_nodes(f"transformer {dtype}", ff.compiled.graphs)
+                         if n["kind"] == "forward_fn"]
+        del ff, batches
+        free_device()
+    ff, _ = gpt_model("bfloat16", training=True)
+    load_numpy_params(ff, gpt_params(ff, SEED + 32))
+    tok, pos, lab = gpt_data(SEED + 33, GPT_BATCH * GRAPH_STEPS)
+    batches = [tuple(torch.from_numpy(a[i * GPT_BATCH:(i + 1) * GPT_BATCH]).to(DEVICE)
+                     for a in (tok, pos, lab)) for i in range(GRAPH_STEPS)]
+    out["train"].append(graphs_train("gpt bfloat16", ff, batches, card, False))
+    del batches
+    load_numpy_params(ff, gpt_params(ff, SEED + 32))
+    out["decode"] = graphs_decode(ff, card)
+    del ff
+    free_device()
+    ff = moe_model("float32", training=True)
+    mx, my = moe_data(SEED + 34, MOE_BATCH * GRAPH_STEPS)
+    batches = [tuple(torch.from_numpy(a[i * MOE_BATCH:(i + 1) * MOE_BATCH]).to(DEVICE)
+                     for a in (mx, my)) for i in range(GRAPH_STEPS)]
+    out["train"].append(graphs_train("moe float32", ff, batches, card, True))
+    del ff, batches
+    free_device()
+    out["dropout"] = graphs_dropout(card)
+    out["seconds"] = time.perf_counter() - t0
+    out["launches"] = {k: sum(r["launches"][k] for r in out["train"])
+                       for k in out["train"][0]["launches"]}
+    print("graphs_json " + json.dumps(out), flush=True)
+    print(f"phases: graphs took {out['seconds']:.1f} s", flush=True)
+    return out
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -6713,6 +7112,10 @@ def main() -> int:
     if sys.argv[1:] == ["--phase", "analysis"]:
         phase_analysis(card)
         print(f"phases: analysis alone done at {time.perf_counter() - t0:.0f} s", flush=True)
+        return 0
+    if sys.argv[1:] == ["--phase", "graphs"]:
+        phase_graphs(card)
+        print(f"phases: graphs alone done at {time.perf_counter() - t0:.0f} s", flush=True)
         return 0
     if sys.argv[1:] == ["--phase", "frontends"]:
         phase_frontends(card)
@@ -6735,6 +7138,11 @@ def main() -> int:
     train = [row32, row16]
     del ref
     print(f"phases: training done at {time.perf_counter() - t0:.0f} s", flush=True)
+    # early: late in the run the profiler has been seen to drop a graph's
+    # kernel records, which its cross-check of the tally reads
+    free_device()
+    graphs = phase_graphs(card)
+    phase_done("graphs", t0)
     gpt32, ref = phase_gpt_training("float32", card)
     gpt16, _ = phase_gpt_training("bfloat16", card, ref)
     gpt_train = [gpt32, gpt16]
@@ -6885,6 +7293,10 @@ def main() -> int:
         entries.append(_moe_entry(name, moe_src, f"flexflow_tpu/kernels/moe_kernels.py:{line}",
                                   moe_kern[name], serving, training,
                                   par_b["moe_launches"][name]))
+    # the compiled step programs' eager and captured steps (21.)
+    for e in entries:
+        e["graphs_launches"] = graphs["launches"][e["name"]]
+        e["launches"] += e["graphs_launches"]
     check(all(e["launches"] > 0 for e in entries),
           f"a kernel never launched on its path: {[(e['name'], e['launches']) for e in entries]}")
     print(json.dumps({"kernels": entries}), flush=True)

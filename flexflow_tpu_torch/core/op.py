@@ -9,14 +9,18 @@ output and weight layouts, as the JAX package's does, and also records in
 layout differs, the compiler inserts the transition (a slice or an
 all-gather), where the JAX package leaves the resharding to GSPMD. Under
 a mesh each rank's forward sees its local blocks. Random draws (dropout)
-come from an explicit ``torch.Generator`` per op and step
-(:meth:`LowerCtx.generator`), where the JAX package folds the op's index
-into the step's PRNG key.
+come from a counter-based hash of (seed, step key, op name, element
+index) computed on the device (:meth:`LowerCtx.uniform`), where the JAX
+package folds the op's index into the step's PRNG key: the step key may be
+a device tensor, so a step captured into a CUDA graph draws each replay's
+masks from the key the replay was given, and an eager call and a replay
+with the same key draw the same mask bit for bit.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import zlib
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Type
 
@@ -53,10 +57,11 @@ class LowerCtx:
     # load-balancing term); the compiler passes a list and adds them to
     # the training loss. None: the caller does not collect them
     aux_losses: Optional[list] = None
-    # the step's random key (``train_step``'s ``rng``, an int) and the
+    # the step's random key (``train_step``'s ``rng``: an int, or a 0-d
+    # int64 tensor on the device, which a captured step reads) and the
     # config's seed. Without a key the attention op drops nothing, as the
     # JAX package's does, and a training Dropout op raises
-    rng: Optional[int] = None
+    rng: Optional[Any] = None
     seed: int = 0
     # non-trainable state the training forward writes (BatchNorm's running
     # statistics): {(op_name, weight_name): new value}. ``train_step``
@@ -67,16 +72,70 @@ class LowerCtx:
     # declare (BatchMatmul's a/b_seq_length_dim); -1 truncates nothing
     seq_length: int = -1
 
-    def generator(self, op_name: str, device: torch.device) -> torch.Generator:
-        """A fresh ``torch.Generator`` on ``device`` for one op's draws in
-        this step, seeded from the config's seed, the step's key and the
-        op's name: the same (seed, step, op) always draws the same mask."""
+    def uniform(self, op_name: str, shape: Sequence[int],
+                device: torch.device) -> torch.Tensor:
+        """U[0, 1) f32 draws of ``shape`` on ``device`` for one op in this
+        step: a hash of (the config's seed, the step's key, the op's name,
+        each element's index), so the same (seed, step, op) always draws
+        the same values, on any device and inside a captured graph."""
         if self.rng is None:
             raise ValueError(f"{op_name}: a random draw needs the step's rng key")
-        gen = torch.Generator(device=device)
-        gen.manual_seed((self.seed * 1_000_003 + int(self.rng) * 7919
-                         + zlib.crc32(op_name.encode())) % (1 << 63))
-        return gen
+        return hash_uniform(self.seed, self.rng, op_name, shape, device)
+
+
+_MASK32 = 0xFFFFFFFF
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """An integer finalizer over uint32 values held in int64 (multipliers
+    below 2^31, so no product leaves the int64 range)."""
+    x = x ^ (x >> 16)
+    x = (x * 0x7FEB352D) & _MASK32
+    x = x ^ (x >> 15)
+    x = (x * 0x1B873593) & _MASK32
+    return x ^ (x >> 16)
+
+
+def _int32(v: Any) -> Any:
+    """A uint32 value (an int or an int64 tensor) as the int32 with its bits."""
+    return ((v + (1 << 31)) & _MASK32) - (1 << 31)
+
+
+# the draws' two multipliers, as int32 (products wrap mod 2^32, as two's
+# complement arithmetic does on both devices)
+_C1, _C2 = _int32(0x7FEB352D), _int32(0x846CA68B)
+# draws a chunk: each chunk of a larger mask draws from its own offset
+_CHUNK = 1 << 30
+
+
+def hash_uniform(seed: int, key: Any, op_name: str, shape: Sequence[int],
+                 device: torch.device) -> torch.Tensor:
+    """The draws :meth:`LowerCtx.uniform` makes: ``key`` an int or a 0-d
+    integer tensor (read on the device, never on the host). The stream's
+    32-bit offset is a full mix of (seed, key, op). Each element's draw
+    mixes its index XOR that offset in int32 (multiply, xor-shift,
+    multiply) and keeps the top 24 bits: nine elementwise passes over
+    4-byte values, in place."""
+    base = (int(seed) * 1_000_003 + zlib.crc32(op_name.encode())) % (1 << 40)
+    if isinstance(key, torch.Tensor):
+        k = key.to(device=device, dtype=torch.int64)
+    else:
+        k = torch.full((), int(key), dtype=torch.int64, device=device)
+    k = k * 7919 + base
+    offset = _mix32(_mix32((k & _MASK32) ^ _mix32(((k >> 32) & _MASK32) ^ 0x5BD1E995)))
+    n = math.prod(shape)
+    out = torch.empty(n, dtype=torch.float32, device=device)
+    half = torch.full((), 0.5, dtype=torch.float32, device=device)
+    for c, lo in enumerate(range(0, n, _CHUNK)):
+        m = min(_CHUNK, n - lo)
+        s = offset if c == 0 else _mix32(offset ^ c)
+        x = torch.arange(m, dtype=torch.int32, device=device)
+        x.bitwise_xor_(_int32(s).to(torch.int32)).mul_(_C1)
+        x.bitwise_xor_((x >> 15).bitwise_and_(0x1FFFF)).mul_(_C2)
+        # the top 24 bits, signed: (x >> 8) in [-2^23, 2^23), so the draw
+        # 0.5 + (x >> 8) / 2^24 is exact in f32 and lies in [0, 1)
+        torch.add(half, x.bitwise_right_shift_(8), alpha=1.0 / (1 << 24), out=out[lo:lo + m])
+    return out.reshape(tuple(shape))
 
 
 class Op:

@@ -288,6 +288,11 @@ def attribute_fit(ffmodel, tolerance: float = DEFAULT_TOLERANCE,
         "divergence_outliers": _divergence_outliers(top_rows, k),
         "pipelined": ffmodel.pipelined is not None,
     }
+    if (fp.get("graphs") or {}).get("replays"):
+        # captured steps: the fit.step span covers one graph replay a
+        # step (its inputs' copies and the launch), so host dispatch and
+        # the device's time stay apart
+        rec["dispatch_unit"] = "graph replay"
     reg = metrics_registry()
     reg.counter("attribution.reports").inc()
     reg.gauge("attribution.reconciliation_error").set(err)

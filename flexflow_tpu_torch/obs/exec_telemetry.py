@@ -180,7 +180,9 @@ def collect_compiled_model(ffmodel, *, config=None,
                            audit_report=None) -> Dict:
     """Telemetry for the compiled model's step: ``grad_step`` (forward
     and backward on a synthetic batch; the params and optimizer state
-    stay as they are) when it trains, else ``forward``. With
+    stay as they are) when it trains, else ``forward``, each its eager
+    function (``cm.eager``: a replayed graph shows the counters no op).
+    With
     ``audit_report`` (the compile's program audit) the measured call is
     also the audit's recording of that program: one call serves both
     gates, and its static peak is the OBS002 estimate."""
@@ -203,13 +205,13 @@ def collect_compiled_model(ffmodel, *, config=None,
         name = "grad_step"
 
         def step():
-            return cm.grad_step(cm.params, 0, *xs, y)
+            return cm.eager["grad_step"](cm.params, 0, *xs, y)
     else:
         name = "forward"
 
         def step():
             with torch.no_grad():
-                return cm.forward_fn(cm.params, *xs)
+                return cm.eager["forward_fn"](cm.params, *xs)
     if audit_report is None:
         return collect_one(name, step, cm.device, config=config,
                            static_peak=static_peak_bytes(ffmodel), allow=allow)

@@ -215,8 +215,8 @@ class MultiHeadAttention(Op):
             u = None
             if rate > 0.0:
                 layout = self._mask_layout()
-                u = torch.rand(layout.sizes, generator=ctx.generator(self.name, qh.device),
-                               device=qh.device)[mesh.local_slices(layout)[:2]]
+                u = ctx.uniform(self.name, layout.sizes,
+                                qh.device)[mesh.local_slices(layout)[:2]]
             sp = ulysses_attention if self.seq_mode == "a2a" else ring_attention
             ctxv = sp(qh, kh, vh, mesh, self.seq_axis, causal=self.causal, scale=scale,
                       dropout_rate=rate, u=u)

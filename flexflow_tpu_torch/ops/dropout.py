@@ -2,8 +2,8 @@
 
 PyTorch counterpart of ``flexflow_tpu/ops/dropout.py``: while training,
 each element is kept with probability 1 - ``rate`` and scaled by 1 / keep,
-the mask drawn from the op's ``torch.Generator`` for the step
-(:meth:`~flexflow_tpu_torch.core.op.LowerCtx.generator`); in eval and
+the mask drawn from the step's key for the op on the device
+(:meth:`~flexflow_tpu_torch.core.op.LowerCtx.uniform`); in eval and
 inference, or at rate 0, the identity. The masks cannot match JAX's bit
 for bit: the two packages draw from different generators. Under a mesh a
 rank draws the mask of the whole tensor and keeps its block, so a sharded
@@ -25,12 +25,10 @@ def drop(x: torch.Tensor, rate: float, ctx: LowerCtx, op_name: str,
     ``layout``: the whole tensor's ``ParallelTensorShape`` when ``x`` is
     this rank's block of it under ``ctx.mesh``."""
     keep = 1.0 - rate
-    gen = ctx.generator(op_name, x.device)
     if ctx.mesh is not None and layout is not None:
-        u = torch.rand(layout.sizes, generator=gen,
-                       device=x.device)[ctx.mesh.local_slices(layout)]
+        u = ctx.uniform(op_name, layout.sizes, x.device)[ctx.mesh.local_slices(layout)]
     else:
-        u = torch.rand(x.shape, generator=gen, device=x.device)
+        u = ctx.uniform(op_name, x.shape, x.device)
     return torch.where(u < keep, x / keep, torch.zeros_like(x))
 
 

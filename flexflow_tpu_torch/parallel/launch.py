@@ -161,15 +161,18 @@ class _Heartbeat:
     every ``period_s``. The progress time moves whenever ``(iteration,
     checkpoint barrier polls)`` changes: a rank waiting at the manifest
     barrier for a slow peer is alive, a rank stuck inside a step is not.
-    ``armed`` turns true once the iteration moved twice in this process,
-    so neither a resume's restored iteration nor the first step's warm-up
-    reads as a hang. An orphaned worker (its supervisor died) exits. The
+    ``armed`` turns true once two steps ran in this process
+    (``get_steps``, fit's ``fit.steps`` counter), so neither a resume's
+    restored iteration nor the first step's warm-up reads as a hang. The
+    JAX package arms on the iteration's moves alone; steps short enough to
+    run several between two beats (a small job's foreach updates) would
+    then move it once and never arm. An orphaned worker (its supervisor died) exits. The
     loop runs on a thread it owns rather than a ``Thread`` subclass's
     ``run``, a name every ``subprocess.run`` call would also reach in the
     concurrency audit's call graph."""
 
-    def __init__(self, path: str, get_token, period_s: float = 0.15):
-        self._path, self._get, self._period = path, get_token, period_s
+    def __init__(self, path: str, get_token, get_steps, period_s: float = 0.15):
+        self._path, self._get, self._steps, self._period = path, get_token, get_steps, period_s
         self._halt = threading.Event()
         self._ppid0 = os.getppid()
         self._thread = threading.Thread(target=self._beat, name="ff-heartbeat", daemon=True)
@@ -178,7 +181,8 @@ class _Heartbeat:
         self._thread.start()
 
     def _beat(self):
-        last, moves, progress = None, 0, time.time()
+        last, progress = None, time.time()
+        steps0 = int(self._steps())
         while not self._halt.is_set():
             if os.getppid() != self._ppid0:
                 os._exit(42)
@@ -188,11 +192,10 @@ class _Heartbeat:
                 tok = (-1, -1)
             now = time.time()
             if tok != last:
-                if last is not None and tok[0] != last[0]:
-                    moves += 1
                 last, progress = tok, now
             try:
-                _atomic_json(self._path, {"iteration": tok[0], "armed": moves >= 2,
+                _atomic_json(self._path, {"iteration": tok[0],
+                                          "armed": int(self._steps()) - steps0 >= 2,
                                           "progress_unix_s": progress, "ts_unix_s": now})
             except OSError:
                 pass
@@ -242,8 +245,9 @@ def run_worker(ns) -> int:
         print(f"[launch worker {ns.rank}] ready barrier timed out; going on",
               file=sys.stderr, flush=True)
     polls = metrics_registry().counter("checkpoint.barrier_polls")
+    steps = metrics_registry().counter("fit.steps")
     hb = _Heartbeat(os.path.join(hb_dir, f"hb-{ns.rank}.json"),
-                    lambda: (ff.compiled.iteration, polls.value))
+                    lambda: (ff.compiled.iteration, polls.value), lambda: steps.value)
     hb.start()
     try:
         history = ff.fit(x, y, verbose=False, resume_from=ns.ckpt_dir)

@@ -162,6 +162,8 @@ def _check_like(live: Any, saved: Any, where: str = "state") -> None:
     """Raise ValueError unless ``saved`` has the live tree's structure,
     shapes and dtypes (checked before anything is copied)."""
     if isinstance(live, torch.Tensor):
+        if live.dim() == 0 and isinstance(saved, (int, float)) and not isinstance(saved, bool):
+            return  # a scalar kept on the host when the checkpoint was written (Adam's t)
         if not isinstance(saved, torch.Tensor):
             raise ValueError(f"{where}: not a tensor in the checkpoint")
         if tuple(saved.shape) != tuple(live.shape) or saved.dtype != live.dtype:

@@ -1,13 +1,18 @@
 """Compilation: lazy layer graph -> ops, params and the step functions.
 
 PyTorch counterpart of ``flexflow_tpu/runtime/compiler.py``. The JAX
-package traces one jitted program per step; PyTorch runs eagerly, so
-:func:`compile_model` builds the ops, draws the params on the configured
-device and returns plain functions over the op graph: ``forward_fn``
-(under ``torch.inference_mode()``), and with an optimizer and a loss
-``train_step``, ``train_k_steps``, ``eval_step`` and ``grad_step``, on the
-JAX package's signatures; each takes ``seq_length`` (default -1) into
-``LowerCtx.seq_length``. Gradients come from autograd through the op graph
+package traces one jitted program per step, donating the params and the
+optimizer state; :func:`compile_model` builds the ops, draws the params
+on the configured device and returns the step functions over the op
+graph: ``forward_fn`` (under ``torch.inference_mode()``), and with an
+optimizer and a loss ``train_step``, ``train_k_steps``, ``eval_step`` and
+``grad_step``, on the JAX package's signatures; each takes ``seq_length``
+(default -1) into ``LowerCtx.seq_length``. On one CUDA device each step
+is captured into a CUDA graph once per key and replayed, updating the
+params and the state in place (``runtime/graphs.py``); a mesh and the CPU
+run the steps eagerly (``graphs.capture_rule``, recorded on
+``CompiledModel.capture``). ``CompiledModel.eager`` keeps the eager
+functions, which the program audit records. Gradients come from autograd through the op graph
 (and through the kernels' ``torch.autograd.Function`` classes); the
 auxiliary losses that ops append to ``LowerCtx.aux_losses`` (the MoE
 balance term) and the ``kernel_regularizer`` penalties on the f32 master
@@ -85,6 +90,7 @@ from ..ops.parallel_ops import reshard
 from ..parallel import collectives as C
 from .loss import ClassShard, compute_loss
 from .metrics import compute_batch_metrics
+from .graphs import StepGraphs, capture_rule, graph_key, tensor_leaves
 from .optimizer import Optimizer
 
 Params = Dict[str, Dict[str, torch.Tensor]]
@@ -155,6 +161,15 @@ class CompiledModel:
     label_block: Optional[Callable] = None
     # the program audit's specs (analysis/program_audit.ExecutableSpec)
     audit_exec: List[Any] = dataclasses.field(default_factory=list)
+    # the eager step functions by name (forward_fn, eval_step, train_step,
+    # train_k_steps, grad_step): the program audit records them and a
+    # caller may hold the captured steps against them; fit and serving
+    # call the attributes above
+    eager: Dict[str, Callable] = dataclasses.field(default_factory=dict)
+    # the capture cache (runtime/graphs.StepGraphs) when the steps are
+    # captured, and capture_rule's answer: {"captured": bool, "reason": str}
+    graphs: Any = None
+    capture: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     def batch_rows(self, i: int) -> slice:
         """This rank's rows of a global batch of input ``i`` (the label
@@ -546,15 +561,17 @@ def compile_model(
                 out[op_name][w_name] = t
         return out
 
-    def apply_update(params: Params, grads: Params, opt_state):
+    def apply_update(params: Params, grads: Params, opt_state, hyper=None):
         """The optimizer step; under ZeRO-1 on this rank's slices, then the
-        updated slices all-gathered into the params."""
+        updated slices all-gathered into the params. ``hyper``: the
+        optimizer's device hyperparameters as filled for this step (None:
+        fill them now from its attributes)."""
+        if hyper is None:
+            hyper = optimizer.load_hyper(device)
         if not zero_dims:
-            return optimizer.update(params, grads, opt_state, wd_mask,
-                                    optimizer.hyperparams())
+            return optimizer.update(params, grads, opt_state, wd_mask, hyper)
         views = zero_slices(params)
-        _, opt_state = optimizer.update(views, zero_slices(grads), opt_state, wd_mask,
-                                        optimizer.hyperparams())
+        _, opt_state = optimizer.update(views, zero_slices(grads), opt_state, wd_mask, hyper)
         names = list(zero_dims)
         with torch.no_grad():
             whole = C.all_gather_coalesced([views[o][w] for o, w in names],
@@ -671,7 +688,7 @@ def compile_model(
         for i, mb in enumerate(micro):
             upd: dict = {}
             li, lgi, gi = value_and_grad(params, mb, plain_kernels,
-                                         None if rng is None else int(rng) * accum + i,
+                                         None if rng is None else rng * accum + i,
                                          upd, seq_length, regularize=True)
             bmi = compute_batch_metrics(metrics, loss_type, lgi, label_block(mb[n_inputs]),
                                         from_logits, mask_pad, shard)
@@ -688,7 +705,7 @@ def compile_model(
                 {k: v / accum for k, v in upd_sum.items()})
 
     def train_step(params: Params, opt_state, rng, *batch: torch.Tensor,
-                   plain_kernels: bool = False, seq_length: int = -1):
+                   plain_kernels: bool = False, seq_length: int = -1, hyper=None):
         if accum == 1:
             updates: dict = {}
             loss, logits, grads = value_and_grad(params, batch, plain_kernels, rng,
@@ -700,7 +717,7 @@ def compile_model(
                                                    seq_length)
         if mesh is not None:
             grads, bm, loss = sync_grads(grads), sync_metrics(bm), global_loss(loss)
-        params, opt_state = apply_update(params, grads, opt_state)
+        params, opt_state = apply_update(params, grads, opt_state, hyper)
         # non-trainable state (BatchNorm's running statistics), written after
         # the optimizer update in the master dtype, outside autograd
         with torch.no_grad():
@@ -708,24 +725,26 @@ def compile_model(
                 params[op_name][w_name].copy_(v.detach())
         return params, opt_state, loss, bm
 
-    def train_k_steps(params: Params, opt_state, rngs, *stacked: torch.Tensor,
-                      plain_kernels: bool = False, seq_length: int = -1,
-                      fold_from: Optional[dict] = None):
-        """``len(rngs)`` train_steps over the super-batches' leading dim in
-        one host call: a plain loop, so it equals as many serial
-        train_steps bit for bit. The metrics fold on the device in step
-        order onto ``fold_from`` (fit passes its epoch's running sums, so
-        the epoch totals equal the serial loop's too); the losses come
-        back stacked (k,)."""
-        losses, folded = [], fold_from
-        for i, r in enumerate(rngs):
-            params, opt_state, loss, bm = train_step(
-                params, opt_state, r, *(s[i] for s in stacked),
-                plain_kernels=plain_kernels, seq_length=seq_length)
-            losses.append(loss)
-            folded = dict(bm) if folded is None else {
-                **folded, **{k: folded[k] + v if k in folded else v for k, v in bm.items()}}
-        return params, opt_state, torch.stack(losses), folded
+    def k_steps(step: Callable[..., tuple]):
+        def train_k_steps(params: Params, opt_state, rngs, *stacked: torch.Tensor,
+                          plain_kernels: bool = False, seq_length: int = -1,
+                          fold_from: Optional[dict] = None):
+            """``len(rngs)`` train_steps over the super-batches' leading dim
+            in one host call: a plain loop (k replays when captured), so it
+            equals as many serial train_steps bit for bit. The metrics fold
+            on the device in step order onto ``fold_from`` (fit passes its
+            epoch's running sums, so the epoch totals equal the serial
+            loop's too); the losses come back stacked (k,)."""
+            losses, folded = [], fold_from
+            for i, r in enumerate(rngs):
+                params, opt_state, loss, bm = step(
+                    params, opt_state, r, *(s[i] for s in stacked),
+                    plain_kernels=plain_kernels, seq_length=seq_length)
+                losses.append(loss)
+                folded = dict(bm) if folded is None else {
+                    **folded, **{k: folded[k] + v if k in folded else v for k, v in bm.items()}}
+            return params, opt_state, torch.stack(losses), folded
+        return train_k_steps
 
     def eval_step(params: Params, *batch: torch.Tensor,
                   plain_kernels: bool = False, seq_length: int = -1):
@@ -742,22 +761,110 @@ def compile_model(
 
     training = (comp_mode is CompMode.TRAINING and optimizer is not None
                 and loss_type is not None)
+    eager = {"forward_fn": forward_fn}
+    if loss_type is not None:
+        eager["eval_step"] = eval_step
+    if training:
+        eager.update(train_step=train_step, train_k_steps=k_steps(train_step),
+                     grad_step=grad_step)
+    captured, reason = capture_rule(device, mesh)
+    graphs = StepGraphs(device, "compiled model") if captured else None
+    # a replayed update bumps no tensor's version: the model's params
+    # version tells derived caches (the serving bf16 cast) instead
+    steps = _graphed_steps(graphs, eager, optimizer if training else None, device, cdt,
+                           lambda: cm.bump_params_version()) if captured else dict(eager)
+    if captured and training:
+        steps["train_k_steps"] = k_steps(steps["train_step"])
     cm = CompiledModel(
         config=config, device=device, ops=ops, input_tensors=list(input_tensors),
-        logits_tensor=logits_tensor, params=params, forward_fn=forward_fn,
+        logits_tensor=logits_tensor, params=params, forward_fn=steps["forward_fn"],
         label_tensor=_label_tensor(loss_type, logits_tensor) if loss_type else None,
         loss_type=loss_type, metrics=metrics, optimizer=optimizer,
         opt_state=optimizer.init_state(zero_slices(params)) if training else None,
         wd_mask=wd_mask, update_fn=apply_update if training else None,
         zero_dims=zero_dims, loss_share=loss_share, sync_grads=sync_grads,
         label_block=label_block,
-        train_step=train_step if training else None,
-        train_k_steps=train_k_steps if training else None,
-        eval_step=eval_step if loss_type is not None else None,
-        grad_step=grad_step if training else None,
-        from_logits=from_logits, mesh=mesh, layouts=layouts)
+        train_step=steps.get("train_step"), train_k_steps=steps.get("train_k_steps"),
+        eval_step=steps.get("eval_step"), grad_step=steps.get("grad_step"),
+        from_logits=from_logits, mesh=mesh, layouts=layouts,
+        eager=eager, graphs=graphs, capture={"captured": captured, "reason": reason})
     cm.audit_exec = _audit_specs(cm)
     return cm
+
+
+def _graphed_steps(graphs: StepGraphs, eager: Dict[str, Callable], optimizer,
+                   device: torch.device, cdt: Optional[torch.dtype],
+                   bump: Callable[[], None]) -> Dict[str, Callable]:
+    """The step functions of a captured model: each call goes through
+    ``graphs`` at its key (the step kind, the inputs' shapes and dtypes,
+    ``seq_length``, the compute dtype), reading and updating the params
+    and the optimizer state in place; ``plain_kernels=True`` calls the
+    eager function. Every replayed update bumps the model's params
+    version (a replay bumps no tensor's ``_version``, which derived caches
+    read)."""
+    dtype = str(cdt or torch.float32)
+    out: Dict[str, Callable] = {}
+
+    def key(kind, args, seq_length):
+        return graph_key(kind, args, seq_length=seq_length, plain_kernels=False,
+                         compute_dtype=dtype)
+
+    if "train_step" in eager:
+        eager_train = eager["train_step"]
+
+        def train_step(params, opt_state, rng, *batch, plain_kernels=False, seq_length=-1):
+            if plain_kernels:
+                return eager_train(params, opt_state, rng, *batch, plain_kernels=True,
+                                   seq_length=seq_length)
+            hyper = optimizer.load_hyper(device)
+
+            def body(rng_t, *b):
+                _, _, loss, bm = eager_train(params, opt_state, rng_t, *b,
+                                             seq_length=seq_length, hyper=hyper)
+                return loss, bm
+
+            args = (rng, *batch)
+            loss, bm = graphs.run(key("train_step", args, seq_length), body, args,
+                                  tensor_leaves(params, opt_state, hyper), after_replay=bump)
+            return params, opt_state, loss, bm
+
+        eager_grad = eager["grad_step"]
+
+        def grad_step(params, rng, *batch, plain_kernels=False, seq_length=-1):
+            if plain_kernels:
+                return eager_grad(params, rng, *batch, plain_kernels=True,
+                                  seq_length=seq_length)
+            args = (rng, *batch)
+            return graphs.run(key("grad_step", args, seq_length),
+                              lambda rng_t, *b: eager_grad(params, rng_t, *b,
+                                                           seq_length=seq_length),
+                              args, tensor_leaves(params))
+
+        out.update(train_step=train_step, grad_step=grad_step)
+
+    if "eval_step" in eager:
+        eager_eval = eager["eval_step"]
+
+        def eval_step(params, *batch, plain_kernels=False, seq_length=-1):
+            if plain_kernels:
+                return eager_eval(params, *batch, plain_kernels=True, seq_length=seq_length)
+            return graphs.run(key("eval_step", batch, seq_length),
+                              lambda *b: eager_eval(params, *b, seq_length=seq_length),
+                              batch, tensor_leaves(params))
+
+        out["eval_step"] = eval_step
+
+    eager_forward = eager["forward_fn"]
+
+    def forward_fn(params, *xs, plain_kernels=False, seq_length=-1):
+        if plain_kernels:
+            return eager_forward(params, *xs, plain_kernels=True, seq_length=seq_length)
+        return graphs.run(key("forward_fn", xs, seq_length),
+                          lambda *b: eager_forward(params, *b, seq_length=seq_length),
+                          xs, tensor_leaves(params))
+
+    out["forward_fn"] = forward_fn
+    return out
 
 
 def _clone_tree(tree):
@@ -775,7 +882,8 @@ def _audit_specs(cm: CompiledModel) -> list:
     """The step programs the program audit records (module docstring):
     each spec builds fresh arguments when the audit runs, so nothing is
     held between compile and the audit, and the recorded call touches
-    none of the model's own params, optimizer state or counters."""
+    none of the model's own params, optimizer state or counters. The audit
+    records one real eager call of each (``cm.eager``), captured or not."""
     from ..analysis.program_audit import ExecutableSpec
 
     n_inputs = len(cm.input_tensors)
@@ -794,21 +902,21 @@ def _audit_specs(cm: CompiledModel) -> list:
     specs = []
     if cm.train_step is not None:
         specs.append(ExecutableSpec(
-            "train_step", cm.train_step, donated=(0, 1),
+            "train_step", cm.eager["train_step"], donated=(0, 1),
             make_args=lambda: (_clone_tree(cm.params), _clone_tree(cm.opt_state), 0,
                                *zero_batch())))
         k = max(1, int(cm.config.steps_per_dispatch))
         if k > 1:
             specs.append(ExecutableSpec(
-                "train_k_steps", cm.train_k_steps, donated=(0, 1),
+                "train_k_steps", cm.eager["train_k_steps"], donated=(0, 1),
                 make_args=lambda: (_clone_tree(cm.params), _clone_tree(cm.opt_state),
                                    [0] * k, *zero_batch((k,)))))
     if cm.eval_step is not None:
-        specs.append(ExecutableSpec("eval_step", cm.eval_step,
+        specs.append(ExecutableSpec("eval_step", cm.eager["eval_step"],
                                     make_args=lambda: (cm.params, *zero_batch())))
     else:
         specs.append(ExecutableSpec(
-            "forward", cm.forward_fn,
+            "forward", cm.eager["forward_fn"],
             make_args=lambda: (cm.params, *zero_batch()[:n_inputs])))
     return specs
 

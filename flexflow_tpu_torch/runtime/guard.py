@@ -40,6 +40,10 @@ def load_into(live: Any, host: Any) -> Any:
     identity, device and dtype; other leaves are replaced); returns the
     live tree. The structures must match."""
     if isinstance(live, torch.Tensor):
+        if live.dim() == 0 and isinstance(host, (int, float)):
+            with torch.no_grad():
+                live.fill_(host)  # a scalar a checkpoint kept on the host
+            return live
         if tuple(live.shape) != tuple(host.shape):
             raise ValueError(f"shape {tuple(host.shape)} vs live {tuple(live.shape)}")
         with torch.no_grad():

@@ -131,7 +131,7 @@ def _sharded_batch_metrics(metrics: List[MetricsType], sparse: bool, logits: tor
             ll = torch.where(in_range, ll, torch.nan)
             out["sparse_cce_loss"] = -torch.sum(torch.where(valid, ll, torch.zeros_like(ll)))
         return out
-    out = {"count": torch.tensor(logits.shape[0], device=logits.device)}
+    out = {"count": torch.full((), logits.shape[0], dtype=torch.int64, device=logits.device)}
     if MetricsType.ACCURACY in metrics:
         out["correct"] = torch.sum(class_argmax(logits, shard) == class_argmax(labels, shard))
     if MetricsType.CATEGORICAL_CROSSENTROPY in metrics:
@@ -179,7 +179,7 @@ def compute_batch_metrics(metrics: List[MetricsType], loss_type: LossType,
         logits = logits.reshape(-1, logits.shape[-1])
         labels = labels.reshape(-1, 1)
     out: Dict[str, torch.Tensor] = {
-        "count": torch.tensor(logits.shape[0], device=logits.device)}
+        "count": torch.full((), logits.shape[0], dtype=torch.int64, device=logits.device)}
     if MetricsType.ACCURACY in metrics:
         pred = torch.argmax(logits, dim=-1)
         if sparse:

@@ -36,7 +36,13 @@ lands in ``fit_profile``; the fit's tail adds divergence
 (``config.divergence``), attribution and advice (``fit_profile
 ["attribution"]``, ``["advice"]``), the cost corpus, one ledger record and
 the cohort export (``obs/``), and the stall watchdog watches the loop
-(``config.watchdog``).
+(``config.watchdog``). On one CUDA device the steps ``fit``, ``eval``,
+``forward`` and ``backward`` call replay CUDA graphs
+(``runtime/graphs.py``): each batch is copied into the step's static
+inputs, a bucketed shape has a graph of its own, a replayed update bumps
+``params_version``, and a guard rollback or a resume restores the params
+in place, so the graphs read them; ``fit_profile["graphs"]`` reports the
+captures and replays.
 
 Over a mesh (``FFConfig.mesh_shape``, one process per rank, see
 ``core/machine.py``) ``compile`` takes ``strategies=`` and the layers'
@@ -1762,6 +1768,9 @@ class FFModel:
                 print(f"epoch {epoch}: loss {lv:.4f}  {pm.report(cm.metrics)}", flush=True)
             history.append(pm)
         self.fit_profile = self._step_loop_profile(epoch_records, depth, max_inflight, k)
+        if cm.graphs is not None:
+            # the captured step programs: graphs, captures, replays, bytes
+            self.fit_profile["graphs"] = cm.graphs.stats()
         if dyn:
             self.fit_profile["buckets"] = self._buckets_profile(
                 group, bucket_missed, tok_valid, tok_total)
@@ -2036,3 +2045,6 @@ def load_numpy_params(ff: FFModel,
                 if cm.mesh is not None:
                     arr = arr[cm.mesh.local_slices(cm.weight_layout(op_name, w_name))]
                 cur.copy_(torch.tensor(arr))
+    # in place, so captured steps keep reading the same storage; derived
+    # caches (the serving bf16 cast) follow the version
+    cm.bump_params_version()

@@ -6,11 +6,14 @@ step walks the compiled model's op graph: every op runs its ordinary
 self-attention, which writes the block's K and V into a cache and attends
 over it, masking unwritten and future slots by position to -1e30 (where
 ``exp`` gives exactly 0). Shapes stay static, as the reference keeps them
-for its compiled steps, so a later graph capture can take the steps. The
-cached attention is plain torch ops, as it is XLA and not Pallas in the
-reference. Sampling (greedy or temperature) happens on the host between
-steps, through :func:`sample_next_token`. Two cache layouts share the
-graph walk:
+for its compiled steps, and on one CUDA device each step is a CUDA graph
+per shape (``runtime/graphs.py``): the dense block step (its offset a
+replay input, its cache written in place, the reference's donated
+``cache``) and the paged prefill, decode and verify steps over the
+decoder's pool. The cached attention is plain torch ops, as it is XLA and
+not Pallas in the reference. Sampling (greedy or temperature) happens on
+the host between steps, through :func:`sample_next_token`. Two cache
+layouts share the graph walk:
 
 * :class:`Generator`: the dense rectangle, ``(B, max_length, H, D)`` per
   attention op, one fixed batch decoded in lockstep;
@@ -56,6 +59,7 @@ from ..obs.metrics import metrics_registry
 from ..ops.parallel_ops import reshard
 from ..parallel import collectives as C
 from ..runtime.compiler import _resolve_compute_dtype
+from ..runtime.graphs import StepGraphs, graph_key, tensor_leaves
 from .kv_cache import NULL_BLOCK, PagedKVPool
 
 Cache = Dict[str, Tuple[torch.Tensor, torch.Tensor]]
@@ -84,20 +88,21 @@ def _out_proj(op, weights, ctxv: torch.Tensor, mesh=None) -> torch.Tensor:
 
 
 def _attn_with_cache(op, weights, x: torch.Tensor, kcache: torch.Tensor,
-                     vcache: torch.Tensor, offset: int, mesh=None) -> torch.Tensor:
+                     vcache: torch.Tensor, offset, mesh=None) -> torch.Tensor:
     """Causal self-attention of a (B, S_blk, E) block over [cache ∪ block].
 
     The block's K and V are written into the (B, max_length, H, D) caches
-    at ``offset``, the absolute position of its first token, in place.
+    at ``offset`` (an int, or a 0-d int64 device tensor, which a captured
+    step reads), the absolute position of its first token, in place.
     Scores span the whole cache; slots after each query's position (future
     or unwritten) are masked to -1e30, where ``exp`` gives exactly 0."""
     qh, kh, vh = _qkv(op, weights, x)
     s_blk = x.shape[1]
-    kcache[:, offset:offset + s_blk] = kh
-    vcache[:, offset:offset + s_blk] = vh
+    qpos = offset + torch.arange(s_blk, device=x.device)
+    kcache.index_copy_(1, qpos, kh.to(kcache.dtype))
+    vcache.index_copy_(1, qpos, vh.to(vcache.dtype))
     scale = 1.0 / math.sqrt(op.head_dim)
     scores = torch.einsum("bqhd,bkhd->bhqk", qh, kcache) * scale
-    qpos = offset + torch.arange(s_blk, device=x.device)
     kpos = torch.arange(kcache.shape[1], device=x.device)
     scores = scores.masked_fill(kpos[None, :] > qpos[:, None], NEG_INF)
     probs = torch.softmax(scores, dim=-1)
@@ -234,11 +239,13 @@ class _ExecParamsCache:
     one cast per params version, not one per token).
 
     Keyed on the compiled model's ``params_version`` (bumped by a guard
-    rollback and a checkpoint restore), every leaf's identity (weak
-    references: a replaced params tree stays collectable) and its in-place
-    version counter, so replacing the tree, swapping one weight, an
-    optimizer step and ``load_numpy_params`` (which update in place) all
-    re-derive the cast."""
+    rollback, a checkpoint restore, ``load_numpy_params`` and every
+    replayed training step), every leaf's identity (weak references: a
+    replaced params tree stays collectable) and its in-place version
+    counter, so replacing the tree, swapping one weight, an optimizer step
+    and ``load_numpy_params`` (which update in place) all re-derive the
+    cast. A re-derived cast of the same tree is written into the cast
+    tensors in place, so a captured decode step keeps reading them."""
 
     __slots__ = ("_key", "_cast")
 
@@ -258,9 +265,19 @@ class _ExecParamsCache:
                 and all(ref() is t and ver == t._version
                         for (ref, ver), t in zip(self._key[1], leaves))):
             return self._cast
+        same_tree = (self._cast is not None and len(self._key[1]) == len(leaves)
+                     and all(ref() is t for (ref, _), t in zip(self._key[1], leaves)))
         with torch.no_grad():
-            self._cast = {op: {w: t.to(compute_dtype) if t.is_floating_point() else t
-                               for w, t in ws.items()} for op, ws in params.items()}
+            if same_tree:
+                for op, ws in params.items():
+                    for w, t in ws.items():
+                        if t.is_floating_point():
+                            self._cast[op][w].copy_(t)
+                # a new tree a version, over the same storage
+                self._cast = {op: dict(ws) for op, ws in self._cast.items()}
+            else:
+                self._cast = {op: {w: t.to(compute_dtype) if t.is_floating_point() else t
+                                   for w, t in ws.items()} for op, ws in params.items()}
         self._key = (params_version, tuple((weakref.ref(t), t._version) for t in leaves))
         return self._cast
 
@@ -305,6 +322,24 @@ class _DecodeGraph:
                         f"max_length {self.max_length} exceeds the position "
                         f"embedding capacity {cap} ({op.name})")
         self._params_cache = _ExecParamsCache()
+        # the decoder's captured steps (runtime/graphs.py): a model whose
+        # compile captures its steps (one CUDA device) captures these too,
+        # over this decoder's caches
+        self._graphs = (StepGraphs(cm.device, type(self).__name__)
+                        if cm.graphs is not None else None)
+
+    def _run(self, kind: str, fn, args, bound) -> torch.Tensor:
+        """``fn(*args)``: through the decoder's capture cache at (kind, the
+        args' shapes) when the model is captured, else eagerly; ``bound``:
+        the tensors ``fn`` reads and writes in place (params, caches)."""
+        if self._graphs is None:
+            dev = [a.to(self.device) if isinstance(a, torch.Tensor) else a for a in args]
+            return fn(*dev)
+        return self._graphs.run(graph_key(kind, args), fn, args, tensor_leaves(*bound))
+
+    def graph_stats(self) -> Optional[dict]:
+        """The capture cache's report (None when the steps run eagerly)."""
+        return None if self._graphs is None else self._graphs.stats()
 
     def _compute_dtype(self) -> Optional[torch.dtype]:
         return _resolve_compute_dtype(self._cm.config.compute_dtype)
@@ -378,6 +413,10 @@ class Generator(_DecodeGraph):
         super().__init__(ff, max_length)
         self.batch_size = batch_size or self._cm.input_tensors[0].dims[0]
         self.device = self._cm.device
+        # the cache generate() decodes in, kept across calls (its slots
+        # are masked by position until written), so the captured steps
+        # keep reading one storage
+        self._gen_cache: Optional[Cache] = None
         # the program audit (config.audit_programs) and the executable
         # telemetry (config.exec_telemetry) of one decode step: one call
         self.audit_report = self.exec_telemetry = None
@@ -420,12 +459,13 @@ class Generator(_DecodeGraph):
 
     # ---- one block step (prefill: S = prompt, decode: S = 1) -------------
     def _step(self, params, tokens: torch.Tensor, cache: Cache,
-              offset: int) -> torch.Tensor:
+              offset) -> torch.Tensor:
         """Logits (B, S_blk, vocab) f32 of one block at absolute position
-        ``offset``; writes the block's K/V into ``cache`` in place."""
+        ``offset`` (an int or a 0-d int64 device tensor); writes the
+        block's K/V into ``cache`` in place."""
         b, s_blk = tokens.shape
-        positions = (offset + torch.arange(s_blk, dtype=torch.int32, device=self.device)
-                     ).expand(b, s_blk)
+        positions = (offset + torch.arange(s_blk, device=self.device)
+                     ).to(torch.int32).expand(b, s_blk)
         acts = {self._token_id.tensor_id: tokens, self._pos_id.tensor_id: positions}
 
         def attn(op, p, x):
@@ -438,6 +478,14 @@ class Generator(_DecodeGraph):
     def _tokens(self, ids: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(ids, np.int32)).to(self.device)
 
+    def _block(self, params, tokens: torch.Tensor, cache: Cache, offset: int) -> torch.Tensor:
+        """:meth:`_step` through the capture cache: one graph a block shape
+        (the (B, 1) decode step, each prefill shape) and a cache, the
+        offset a replay input."""
+        return self._run("generator.step",
+                         lambda tok, off: self._step(params, tok, cache, off),
+                         (tokens, int(offset)), (params, cache))
+
     # ---- public API --------------------------------------------------------
     def prefill(self, prompt_ids: np.ndarray, cache: Optional[Cache] = None,
                 offset: int = 0) -> Tuple[torch.Tensor, Cache, int]:
@@ -446,6 +494,23 @@ class Generator(_DecodeGraph):
         Partial batches are padded with zero rows, whose logits are junk.
         Returns (last-token logits (B, vocab) f32 on the model's device,
         cache, end position)."""
+        if cache is None:
+            if offset != 0:
+                raise ValueError(
+                    "offset > 0 needs the cache from the previous round "
+                    "(a fresh cache has no K/V for positions < offset)")
+            cache = self.init_cache()
+        elif offset == 0:
+            raise ValueError(
+                "continuing with an existing cache requires the offset the "
+                "previous round ended at (offset=0 would overwrite it)")
+        logits, end = self._prefill_rows(prompt_ids, cache, offset)
+        return logits, cache, end
+
+    def _prefill_rows(self, prompt_ids: np.ndarray, cache: Cache,
+                      offset: int = 0) -> Tuple[torch.Tensor, int]:
+        """The prompt block at ``offset`` into ``cache``, its rows padded
+        to the batch width: (last-token logits (B, vocab), end position)."""
         prompt_ids = np.asarray(prompt_ids, np.int32)
         b = prompt_ids.shape[0]
         if b > self.batch_size:
@@ -460,18 +525,8 @@ class Generator(_DecodeGraph):
             raise ValueError(
                 f"offset {offset} + prompt {prompt_ids.shape[1]} exceeds "
                 f"max_length {self.max_length}")
-        if cache is None:
-            if offset != 0:
-                raise ValueError(
-                    "offset > 0 needs the cache from the previous round "
-                    "(a fresh cache has no K/V for positions < offset)")
-            cache = self.init_cache()
-        elif offset == 0:
-            raise ValueError(
-                "continuing with an existing cache requires the offset the "
-                "previous round ended at (offset=0 would overwrite it)")
-        logits = self._step(self._exec_params(), self._tokens(prompt_ids), cache, offset)
-        return logits[:, -1, :], cache, end
+        logits = self._block(self._exec_params(), self._tokens(prompt_ids), cache, offset)
+        return logits[:, -1, :], end
 
     def generate(self, prompt_ids: np.ndarray, max_new_tokens: int,
                  temperature: float = 0.0, seed: Union[int, Sequence[int]] = 0,
@@ -495,7 +550,10 @@ class Generator(_DecodeGraph):
             if len(seed) != b:
                 raise ValueError(f"per-row seeds: got {len(seed)} for {b} rows")
             rngs = [np.random.default_rng(int(s)) for s in seed]
-        logits, cache, pos = self.prefill(prompt_ids)
+        if self._gen_cache is None:
+            self._gen_cache = self.init_cache()
+        cache = self._gen_cache
+        logits, pos = self._prefill_rows(prompt_ids, cache)
         exec_params = self._exec_params()
         out = [prompt_ids]
         done = np.zeros(b, bool)
@@ -511,7 +569,7 @@ class Generator(_DecodeGraph):
                 break  # the last token is sampled: skip the unused step
             step_tokens = np.zeros((self.batch_size, 1), np.int32)
             step_tokens[:b, 0] = nxt
-            logits = self._step(exec_params, self._tokens(step_tokens), cache, pos)[:, -1, :]
+            logits = self._block(exec_params, self._tokens(step_tokens), cache, pos)[:, -1, :]
             pos += 1
         return np.concatenate(out, axis=1)
 
@@ -635,6 +693,18 @@ class PagedDecoder(_DecodeGraph):
     def _ids(self, a) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(self.device)
 
+    def _host_ids(self, a) -> torch.Tensor:
+        """Host ids as a CPU int64 tensor: the step copies them to the
+        device (into the captured step's input buffers)."""
+        return torch.from_numpy(np.ascontiguousarray(a, np.int64))
+
+    def _graphed(self, kind: str, step, tokens, tables, lens) -> torch.Tensor:
+        """``step(params, tokens, tables, lens)`` through the capture cache:
+        one graph a step kind and shape over this decoder's pool."""
+        params = self._exec_params()
+        return self._run(kind, lambda *a: step(params, *a), (tokens, tables, lens),
+                         (params, self.pool.kv))
+
     # ---- steps ---------------------------------------------------------------
     def _verify_step(self, params, tokens: torch.Tensor, tables: torch.Tensor,
                      seq_lens: torch.Tensor) -> torch.Tensor:
@@ -737,8 +807,8 @@ class PagedDecoder(_DecodeGraph):
         if (bucket, width) not in self._prefill_shapes:
             self._prefill_shapes.add((bucket, width))
             metrics_registry().counter("serving.prefill_bucket_compiles").inc()
-        logits = self._prefill_step(self._exec_params(), self._ids(toks), self._ids(tabs),
-                                    self._ids(lengths))
+        logits = self._graphed("paged.prefill", self._prefill_step, self._host_ids(toks),
+                               self._host_ids(tabs), self._host_ids(lengths))
         rows = torch.arange(len(arrs), device=self.device)
         return logits[rows, self._ids(lens) - 1].cpu().numpy()
 
@@ -748,8 +818,9 @@ class PagedDecoder(_DecodeGraph):
         active). Returns (slots, vocab) f32 logits."""
         self.decode_steps += 1
         self.decode_dispatches += 1
-        logits = self._decode_step(self._exec_params(), self._ids(tokens)[:, None],
-                                   self._ids(tables), self._ids(seq_lens))
+        logits = self._graphed("paged.decode", self._decode_step,
+                               self._host_ids(np.asarray(tokens)[:, None]),
+                               self._host_ids(tables), self._host_ids(seq_lens))
         return logits.cpu().numpy()
 
     def verify(self, tokens: np.ndarray, tables: np.ndarray,
@@ -760,8 +831,8 @@ class PagedDecoder(_DecodeGraph):
         f32 logits."""
         self.decode_steps += 1
         self.decode_dispatches += 1
-        logits = self._verify_step(self._exec_params(), self._ids(tokens),
-                                   self._ids(tables), self._ids(seq_lens))
+        logits = self._graphed("paged.verify", self._verify_step, self._host_ids(tokens),
+                               self._host_ids(tables), self._host_ids(seq_lens))
         return logits.cpu().numpy()
 
     # ---- the quantized pool's gate (KVQ001) -----------------------------------

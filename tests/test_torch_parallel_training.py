@@ -20,6 +20,7 @@ same allowance as ``test_torch_training.py``)."""
 import functools
 
 import numpy as np
+import pytest
 
 import jax
 
@@ -37,6 +38,7 @@ from flexflow_tpu_torch.parallel.distributed import spawn
 
 import _torch_mesh_workers as workers
 from _torch_ledger import _ledger_in_tmp  # noqa: F401  (records under tmp)
+from _torch_shared import run_once
 
 BATCH, STEPS = 8, 3
 SHAPE = dict(hidden_size=64, embedding_size=64, num_heads=4, num_layers=2, sequence_length=16)
@@ -169,8 +171,9 @@ def _close_params(got, want, start):
             np.testing.assert_allclose(got[op][w], a, rtol=TOL, atol=atol, err_msg=f"{op}.{w}")
 
 
-# one process group a test: a module fixture would spawn again on every
-# xdist worker that runs one of its tests
+# one process group a test (the tensor-parallel cases share theirs
+# through run_once: a module fixture would spawn again on every xdist
+# worker that runs one of them)
 def test_data_parallel_matches_jax_and_one_rank_and_fit_takes_each_ranks_rows():
     """{data: 2}: three steps against JAX and one rank; then fit
     (shuffled, Prefetcher depth 2) and eval: each rank takes its rows of
@@ -179,7 +182,7 @@ def test_data_parallel_matches_jax_and_one_rank_and_fit_takes_each_ranks_rows():
     x, y = _fit_data()
     params = _case("transformer")[0]
     runs = spawn_runs(["transformer-data2"], 2, [("fit", ({"data": 2}, SHAPE, params, x, y, 2))])
-    check_run("transformer-data2", runs["transformer-data2"])
+    check_run("transformer-data2", lambda: runs["transformer-data2"])
     one = workers.fit(0, 1, None, SHAPE, params, x, y, 2)
     for r in runs[0]:
         assert r["train_all"] == one["train_all"] == 4 * BATCH
@@ -194,30 +197,34 @@ TP_RUNS = ("transformer-data2-model2", "gpt-data2-model2", "mlp_l1l2-data2-model
            "verbs-data2-model2")
 
 
-def test_tensor_parallel_matches_jax_and_one_rank():
+@pytest.mark.parametrize("name", TP_RUNS)
+def test_tensor_parallel_matches_jax_and_one_rank(name, tmp_path_factory):
     """{data: 2, model: 2}: the Transformer and GPT with tp_axis, a
     tensor-parallel MLP whose kernels carry penalties (a sharded kernel's
     penalty is the sum of its blocks'), and repartition, combine,
     replicate and reduction between two dense layers (the losses carry
     the values through the verbs, the params the gradients back through
-    them; in the JAX package the verbs only move the data)."""
-    runs = spawn_runs(list(TP_RUNS), 4)
-    for name in TP_RUNS:
-        check_run(name, runs[name])
+    them; in the JAX package the verbs only move the data). One process
+    group of 4 for every case of the run."""
+    check_run(name, lambda: run_once(tmp_path_factory, "parallel_tp_ranks",
+                                     lambda: spawn_runs(list(TP_RUNS), 4))[name])
 
 
-def check_run(name, ranks):
+def check_run(name, get_ranks):
+    """The run's JAX and one-rank references, then ``get_ranks()``, every
+    rank's record, held to both."""
     model, mesh_shape, kw, loss = RUNS[name]
     params, batches = _case(model)
-    assert len(ranks) == int(np.prod(list(mesh_shape.values())))
-    assert {r["backend"] for r in ranks} == {"gloo"}
-    losses = ranks[0]["losses"]
-    assert all(r["losses"] == losses for r in ranks)  # every rank reports the global loss
     # the one-rank reference runs the graph on a mesh without its axes:
     # the verbs' "model" is PCG007 there, so its PCG gate is off
     one = workers.train(0, 1, model, None, _shape(model), kw, params, batches, loss,
                         validate_pcg="off")
     jlosses, jparams = _jax_run(name)
+    ranks = get_ranks()
+    assert len(ranks) == int(np.prod(list(mesh_shape.values())))
+    assert {r["backend"] for r in ranks} == {"gloo"}
+    losses = ranks[0]["losses"]
+    assert all(r["losses"] == losses for r in ranks)  # every rank reports the global loss
     np.testing.assert_allclose(losses, one["losses"], rtol=TOL)
     np.testing.assert_allclose(losses, jlosses, rtol=TOL)
     _close_params(ranks[0]["params"], one["params"], params)

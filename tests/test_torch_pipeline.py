@@ -287,11 +287,13 @@ def _auto_rank(rank, world, mesh_shape, config):
             [r["schedule"] for r in ff._pipe_schedule_records])
 
 
-def test_compiled_envelope_and_auto_schedule():
+@pytest.mark.parametrize("mesh_shape", [{"pipe": 2}, {"pipe": 2, "data": 2}],
+                         ids=["pipe2", "pipe2-data2"])
+def test_compiled_envelope_and_auto_schedule(mesh_shape):
     """The single-call engine's envelope reasons equal the JAX package's;
     ``schedule="auto"`` compiles with the schedule the JAX package picks
     on {pipe: 2} and {pipe: 2, data: 2} (both price on the cpu-host
-    machine over the same device count)."""
+    machine over the same device count), one mesh a case."""
     class _Mesh:
         def __init__(self, shape):
             self.shape = shape
@@ -304,19 +306,18 @@ def test_compiled_envelope_and_auto_schedule():
             jm = jmake_mesh(shape, jax.devices()[:n])
             assert compiled_engine_unsupported(_Mesh(shape), cfg, batch_size=6) == \
                 jcompiled_engine_unsupported(jm, jcfg, batch_size=6)
-    for mesh_shape in ({"pipe": 2}, {"pipe": 2, "data": 2}):
-        n = int(np.prod(list(mesh_shape.values())))
-        got = spawn(_auto_rank, n, mesh_shape, {})
-        jff = JFFModel(JFFConfig(batch_size=BATCH, ledger="off", audit_programs="off",
-                                 attribution="off"))
-        _jbuild(jff, "transformer")
-        jff.compile(loss_type=JLossType.MEAN_SQUARED_ERROR_AVG_REDUCE,
-                    mesh=jmake_mesh(mesh_shape, jax.devices()[:n]),
-                    pipeline=JPipelineConfig(num_stages=2, schedule="auto"))
-        jcfg = jff.pipelined.cfg
-        assert all(g == got[0] for g in got)
-        assert got[0][:2] == (jcfg.schedule, jcfg.interleave), (got[0], jcfg)
-        assert got[0][3] == [r["schedule"] for r in jff._pipe_schedule_records]
+    n = int(np.prod(list(mesh_shape.values())))
+    jff = JFFModel(JFFConfig(batch_size=BATCH, ledger="off", audit_programs="off",
+                             attribution="off"))
+    _jbuild(jff, "transformer")
+    jff.compile(loss_type=JLossType.MEAN_SQUARED_ERROR_AVG_REDUCE,
+                mesh=jmake_mesh(mesh_shape, jax.devices()[:n]),
+                pipeline=JPipelineConfig(num_stages=2, schedule="auto"))
+    jcfg = jff.pipelined.cfg
+    got = spawn(_auto_rank, n, mesh_shape, {})
+    assert all(g == got[0] for g in got)
+    assert got[0][:2] == (jcfg.schedule, jcfg.interleave), (got[0], jcfg)
+    assert got[0][3] == [r["schedule"] for r in jff._pipe_schedule_records]
     assert FFConfig().pipeline_schedule == "auto" and FFConfig().pipeline_interleave == 2
     cfg = FFConfig.parse_args(["--pipeline-schedule", "1f1b", "--pipeline-interleave", "3",
                                "--pipeline-remat"])

@@ -835,7 +835,9 @@ def _ranks_timed_pipe_fit(rank, world, timed_steps, x, y):
     st = ff.pipelined.stage_opt_state
     moments = {k: {f"{op}.{w}": t.numpy().copy() for op, ws in st[k].items()
                    for w, t in ws.items()} for k in ("m", "v")}
-    return dict(params=ff.numpy_params(), moments=moments, t=st["t"])
+    # Adam's step count is a 0-d tensor of the state: a number crosses the
+    # process boundary
+    return dict(params=ff.numpy_params(), moments=moments, t=float(st["t"]))
 
 
 def test_playoff_timing_restores_pipeline_zero_state():

@@ -1,6 +1,8 @@
 """Sharded tables, spatial and channel-sharded convolution, global batch
 statistics and bucketed batches over a mesh: the port's ranks spawned over
-gloo on the CPU (one process group of 2 for the file), each run held to
+gloo on the CPU (one process group of 2 for the run, whichever xdist
+worker asks first; each case's JAX and one-rank runs go first, in its own
+worker), each run held to
 the JAX package compiled over the same mesh on as many host devices, and
 to the one-rank port.
 
@@ -25,6 +27,7 @@ of squares, gradients summed over ranks): 1e-5 of the largest |value|, and
 the params besides 2^-4 of the largest update of their tensor."""
 
 import numpy as np
+import pytest
 
 import jax
 
@@ -45,6 +48,7 @@ from flexflow_tpu_torch.parallel.distributed import spawn
 
 import _torch_mesh_workers as workers
 from _torch_ledger import _ledger_in_tmp  # noqa: F401  (records under tmp)
+from _torch_shared import run_once
 
 BATCH, STEPS = 8, 2
 TOL, UPDATE_TOL = 1e-5, 2 ** -4
@@ -234,25 +238,44 @@ def _jax_bucket_fit():
             for op, ws in jff.compiled.params.items()}, jff.fit_profile["buckets"]
 
 
-# one process group for the file: a module fixture would spawn again on
-# every xdist worker that runs one of its tests
-def test_sharded_tables_convolution_statistics_and_buckets_match_jax():
-    ranks = spawn(workers.jobs, 2, _todo())
-    names = list(RUNS)
-    for i, name in enumerate(names):
-        _check_run(name, [r[i] for r in ranks])
-    for j, name in enumerate(FORWARDS, start=len(names)):
-        _check_forward(name, [r[j] for r in ranks])
-    _check_buckets([r[-1] for r in ranks])
+CASES = list(RUNS) + [f"forward:{n}" for n in FORWARDS] + ["buckets"]
 
 
-def _check_run(name, ranks):
-    kind, mesh_shape, strategies, loss = RUNS[name]
+def _ranks(tmp_path_factory):
+    """The rank group's results for every case: one process group of 2
+    for the whole run, started by whichever worker needs it first."""
+    return run_once(tmp_path_factory, "sharded_ops_ranks",
+                    lambda: spawn(workers.jobs, 2, _todo()))
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_sharded_tables_convolution_statistics_and_buckets_match_jax(case, tmp_path_factory):
+    """Each case's JAX run and one-rank port run, then the ranks' results
+    for it (the index of the case in ``_todo``)."""
+    i = CASES.index(case)
+    if case in RUNS:
+        _check_run(case, _run_refs(case), lambda: [r[i] for r in _ranks(tmp_path_factory)])
+    elif case.startswith("forward:"):
+        name = case.split(":", 1)[1]
+        _check_forward(name, _forward_refs(name),
+                       lambda: [r[i] for r in _ranks(tmp_path_factory)])
+    else:
+        _check_buckets(_jax_bucket_fit(), lambda: [r[i] for r in _ranks(tmp_path_factory)])
+
+
+def _run_refs(name):
+    kind, _, _, loss = RUNS[name]
     params, batches = _case(name)
+    one = workers.sharded_ops(0, 1, kind, None, None, params, batches, loss)
+    return params, one, _jax_run(name)
+
+
+def _check_run(name, refs, get_ranks):
+    _, _, strategies, _ = RUNS[name]
+    params, one, (jlosses, jparams, jspecs) = refs
+    ranks = get_ranks()
     losses = ranks[0]["losses"]
     assert all(r["losses"] == losses for r in ranks), name  # the global loss on every rank
-    one = workers.sharded_ops(0, 1, kind, None, None, params, batches, loss)
-    jlosses, jparams, jspecs = _jax_run(name)
     np.testing.assert_allclose(losses, one["losses"], rtol=TOL, err_msg=name)
     np.testing.assert_allclose(losses, jlosses, rtol=TOL, err_msg=name)
     _close(ranks[0]["params"], one["params"], params)
@@ -262,15 +285,20 @@ def _check_run(name, ranks):
         assert ranks[0]["specs"][op] == jspecs[op], (name, op)
 
 
-def _check_forward(name, ranks):
+def _forward_refs(name):
     kind, strategies = FORWARDS[name]
     params, xs = _forward_case(name)
     jff = _jax_model(kind, {"model": 2}, strategies, None)
     cm = _jax_load(jff, params)
     want = np.asarray(cm.forward_fn(cm.params, *xs))
     one = workers.sharded_ops(0, 1, kind, None, None, params, None, None, xs)["forward"]
+    return want, one
+
+
+def _check_forward(name, refs, get_ranks):
+    want, one = refs
     assert np.isnan(want).any() and not np.isnan(want).all()  # some ids fall off the table
-    for r in ranks:
+    for r in get_ranks():
         np.testing.assert_array_equal(np.isnan(r["forward"]), np.isnan(want))
         np.testing.assert_allclose(r["forward"], want, rtol=TOL,
                                    atol=TOL * float(np.nanmax(np.abs(want))))
@@ -278,9 +306,10 @@ def _check_forward(name, ranks):
                                    atol=TOL * float(np.nanmax(np.abs(want))))
 
 
-def _check_buckets(ranks):
+def _check_buckets(refs, get_ranks):
     params = _bucket_case()[0]
-    jparams, jbuckets = _jax_bucket_fit()
+    jparams, jbuckets = refs
+    ranks = get_ranks()
     for r in ranks:
         # the JAX package's plan at quantum 2: every packed batch splits
         for key in ("ladder", "padded_token_fraction", "new_compiles"):

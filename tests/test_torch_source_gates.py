@@ -23,6 +23,7 @@ import time
 
 import pytest
 from _torch_ledger import _ledger_in_tmp  # noqa: F401  (records under tmp)
+from _torch_shared import run_once
 
 from flexflow_tpu.analysis import concurrency_check as jccy
 from flexflow_tpu.analysis import hotpath_lint as jhot
@@ -107,8 +108,7 @@ def test_fixture_findings_equal_the_jax_checkers(modname, name, monkeypatch, tmp
 
 
 # ------------------------------------------------- the port's own tree
-@pytest.fixture(scope="module")
-def port_scans():
+def _scan_port():
     t0 = time.perf_counter()
     out = {"hotpath": thot.lint_paths([PORT]),
            "concurrency": tccy.check_package([PORT]),
@@ -116,6 +116,13 @@ def port_scans():
                                           extra_read_paths=tknb.default_extra_paths(PORT))}
     out["seconds"] = time.perf_counter() - t0
     return out
+
+
+@pytest.fixture(scope="module")
+def port_scans(tmp_path_factory):
+    """The three gates over the port's tree, walked once for the run
+    (whichever xdist worker asks first) and shared by every test here."""
+    return run_once(tmp_path_factory, "port_scans", _scan_port)
 
 
 def test_port_tree_is_hotpath_clean(port_scans):
@@ -310,20 +317,29 @@ def test_heartbeat_owns_its_thread_and_stops(tmp_path):
     """CCY003 at parallel/launch.py: the heartbeat subclassed Thread, so
     every ``subprocess.run`` in the package resolved to its ``run`` and
     its event wait read as held under native_bridge's build lock. It now
-    runs on a thread it owns; start and stop still write and join."""
+    runs on a thread it owns; start and stop still write and join. It arms
+    once two steps ran after it started (the steps counter), not before."""
     from flexflow_tpu_torch.parallel.launch import _Heartbeat
 
     path = tmp_path / "hb.json"
-    hb = _Heartbeat(str(path), lambda: (3, 0), period_s=0.01)
+    steps = [5]
+    hb = _Heartbeat(str(path), lambda: (3, 0), lambda: steps[0], period_s=0.01)
     assert not isinstance(hb, threading.Thread)
     hb.start()
     for _ in range(200):
         if path.exists():
             break
         time.sleep(0.01)
+    assert '"armed": false' in path.read_text()
+    steps[0] += 2
+    for _ in range(200):
+        if '"armed": true' in path.read_text():
+            break
+        time.sleep(0.01)
     hb.stop()
     assert path.exists() and not hb._thread.is_alive()
-    assert '"iteration": 3' in path.read_text()
+    text = path.read_text()
+    assert '"iteration": 3' in text and '"armed": true' in text
 
 
 # ------------------------------------------------------------ the tools
