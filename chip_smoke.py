@@ -144,8 +144,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    model's update error in 2-norm within twice the one-rank bf16 run's
    distance from one-rank f32, a bound that must stay under half the
    reading of params left at their start (1); (c) {data: 2, seq: 2} at 2
-   layers, ring and a2a, float32, held as f32; ring_all_reduce against
-   psum_all_reduce on 64 MB;
+   layers, ring and a2a, float32, held as f32; each mesh step's gradient
+   buckets, all-reduced while the backward runs: on every rank the same
+   buckets in the same order, every one but the last issued before
+   autograd.grad returned, printed with the exposed sync and the warm step
+   (medians); beside (a)'s warm steps the simulator's estimate of the plan
+   on SharedCardMachineModel with and without the overlap credit, the
+   credited f32 one within CALIB_RATIO of the measured step;
+   ring_all_reduce against psum_all_reduce on 64 MB;
 15. expert parallelism, ZeRO-1 and the pipeline (A7b), the ranks on this
    card over gloo: (d) build_moe_mnist(stacked=True, expert_axis="data")
    with 8 experts (MoeConfig()'s other widths), batch 64, SGD 0.1, on
@@ -202,11 +208,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    estimate beside the measured step, 3 fit steps bitwise equal to a
    compile without search, a recompile hitting the cache with no
    cost-model query; (m) (14)'s Transformer on 4 ranks: a search pinned
-   to {data: 2, model: 2}, an unpinned search over the 4 ranks with a
+   to {data: 2, model: 2} (a sharded plan, or a plain one measured faster
+   than (b)'s tensor-parallel step), an unpinned search over the 4 ranks with a
    3-step playoff against data parallelism (the faster kept), and
    {pipe: 2} with schedule="auto", each held to (14)'s one-rank f32 run
-   with K1-K3 launches on every rank; the native simulator built from
-   the checkout and its replay used;
+   with K1-K3 launches on every rank; the MLP workload (build_mlp's
+   widths, batch 16) searched pinned to {data: 2, model: 2}, which must
+   adopt a sharded plan, held to its one-rank run; each searched plan's
+   estimate within CALIB_RATIO of its measured step; the native simulator
+   built from the checkout and its replay used;
 18. observability and the GraphXfer rule schema (A10, A8b): (n)
    TransformerConfig() at batch 8, float32 and bfloat16, two epochs of 4
    steps with the tracer, divergence, executable telemetry, the cost
@@ -3808,33 +3818,49 @@ def par_opts(layers: int = 0) -> dict:
                 seq=cfg.sequence_length, layers=layers or cfg.num_layers)
 
 
+def mlp_opts() -> dict:
+    """(m)'s second model: the MLP workload at build_mlp's widths (1024
+    in, four ReLU layers of 2048, 10 classes), trained with sparse
+    categorical cross-entropy on the same global batch."""
+    return dict(device=DEVICE, model="mlp", in_dim=1024, classes=10)
+
+
 def par_model(opts: dict, compute_dtype: str, mesh_shape, tp=None, seq_axis=None,
               seq_mode: str = "ring", adam: bool = False, zero: bool = False,
               pipeline: dict = None, config: dict = None):
-    """The Transformer over ``mesh_shape``: SGD (lr 0.01), or Adam with
-    ``adam`` (ZeRO-1 with ``zero``); ``pipeline``: PipelineConfig's
-    fields; ``config``: more FFConfig fields (the search's)."""
+    """The Transformer (or, with ``opts["model"]`` "mlp", the MLP) over
+    ``mesh_shape``: SGD (lr 0.01), or Adam with ``adam`` (ZeRO-1 with
+    ``zero``); ``pipeline``: PipelineConfig's fields; ``config``: more
+    FFConfig fields (the search's)."""
     from flexflow_tpu_torch import AdamOptimizer, FFConfig, FFModel, LossType, SGDOptimizer
+    from flexflow_tpu_torch.models.mlp import build_mlp
     from flexflow_tpu_torch.models.transformer import TransformerConfig, build_transformer
     from flexflow_tpu_torch.parallel.pipeline import PipelineConfig
 
     data = (mesh_shape or {}).get("data", 1)
     batch = PAR_BATCH * max(data, 2)  # the one-rank run takes the global batch
-    cfg = TransformerConfig(hidden_size=opts["hidden"], embedding_size=opts["hidden"],
-                            num_heads=opts["heads"], num_layers=opts["layers"],
-                            sequence_length=opts["seq"])
     ff = FFModel(FFConfig(batch_size=batch, compute_dtype=compute_dtype, seed=SEED,
                           device=opts["device"], mesh_shape=mesh_shape, zero_optimizer=zero,
                           **(config or {})))
-    build_transformer(ff, batch, cfg, tp_axis=tp, seq_axis=seq_axis, seq_mode=seq_mode)
+    loss = LossType.MEAN_SQUARED_ERROR_AVG_REDUCE
+    if opts.get("model") == "mlp":
+        build_mlp(ff, batch, in_dim=opts["in_dim"], num_classes=opts["classes"])
+        loss = LossType.SPARSE_CATEGORICAL_CROSSENTROPY
+    else:
+        cfg = TransformerConfig(hidden_size=opts["hidden"], embedding_size=opts["hidden"],
+                                num_heads=opts["heads"], num_layers=opts["layers"],
+                                sequence_length=opts["seq"])
+        build_transformer(ff, batch, cfg, tp_axis=tp, seq_axis=seq_axis, seq_mode=seq_mode)
     ff.compile(optimizer=AdamOptimizer(alpha=1e-4) if adam else SGDOptimizer(lr=0.01),
-               loss_type=LossType.MEAN_SQUARED_ERROR_AVG_REDUCE,
-               pipeline=PipelineConfig(**pipeline) if pipeline else None)
+               loss_type=loss, pipeline=PipelineConfig(**pipeline) if pipeline else None)
     return ff
 
 
 def par_data(opts: dict, n: int):
     rng = np.random.default_rng(SEED + 15)
+    if opts.get("model") == "mlp":
+        x = rng.standard_normal(size=(n, opts["in_dim"]), dtype=np.float32)
+        return x, rng.integers(0, opts["classes"], size=(n, 1)).astype(np.int32)
     x = rng.standard_normal(size=(n, opts["seq"], opts["hidden"]), dtype=np.float32)
     y = rng.standard_normal(size=(n, opts["seq"], 1), dtype=np.float32)
     return x, y
@@ -3903,7 +3929,7 @@ def par_fit(opts: dict, compute_dtype: str, mesh_shape=None, **kw) -> dict:
         rows = batch // cm.mesh.degree("data")
         elem = torch.empty((), dtype=getattr(torch, compute_dtype)).element_size()
         acts = (4 * opts["layers"] - 1) * rows * opts["seq"] * opts["hidden"] * elem
-    ms = []
+    ms, exposed = [], []
     collectives.reset_stats()
     if opts["device"] == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -3919,7 +3945,24 @@ def par_fit(opts: dict, compute_dtype: str, mesh_shape=None, **kw) -> dict:
         loss.item()
         par_sync(opts["device"])
         ms.append((time.perf_counter() - t0) * 1e3)
+        if pm is None and cm.last_sync:
+            exposed.append(cm.last_sync["exposed_ms"])
     st = collectives.stats()
+    # the gradient buckets of the last timed step (phase 14) and, on
+    # {data: 2}, the simulator's estimate of this plan's step on the shared
+    # card, with and without the overlap credit
+    sync = None
+    if exposed:
+        sync = dict(buckets=cm.last_sync["buckets"],
+                    exposed_ms_median=float(np.median(exposed[1:])))
+        if cm.mesh.shape == {"data": 2}:
+            from flexflow_tpu_torch.sim import OpCostModel, SharedCardMachineModel, Simulator
+            from flexflow_tpu_torch.sim.machine_model import h100_chip
+
+            machine = SharedCardMachineModel(h100_chip(compute_dtype), cm.mesh.size)
+            sync.update({f"est_ms_{'credit' if o else 'no_credit'}": Simulator(
+                machine, OpCostModel(machine), overlap_grad_sync=o).simulate_runtime(cm.ops) * 1e3
+                for o in (True, False)})
     local = sorted(shapes)
     extra = {}
     if pm is not None:
@@ -3953,7 +3996,7 @@ def par_fit(opts: dict, compute_dtype: str, mesh_shape=None, **kw) -> dict:
     return dict(rank=rank, backend=distributed.backend(), **extra,
                 mesh=dict(cm.mesh.shape) if cm.mesh is not None else None,
                 local_attention_shapes=[list(t) for t in local], launches=launches,
-                step_ms=ms, step_ms_median=float(np.median(ms[1:])),
+                step_ms=ms, step_ms_median=float(np.median(ms[1:])), sync=sync,
                 host_bytes_per_step=st["staged_bytes"] / PAR_TIMED,
                 shape_host_bytes_per_step=(None if cm.mesh is None or kw.get("seq_axis")
                                            or pm is not None or kw.get("config")
@@ -4135,6 +4178,33 @@ def par_check(name: str, ranks: list, ref: dict, start: dict, card: str,
           f"through the host{counted} in {r0['collectives_per_step']:.0f} collectives; params "
           f"after {after} {err:.3g} {what} from the one-rank run (worst {worst}; bound "
           f"{bound:.3g}) [{card}]", flush=True)
+    syncs = [r.get("sync") for r in ranks]
+    if syncs[0] is not None:
+        row["sync"] = syncs
+        order = [(b["axes"], b["bytes"], b["index"]) for b in syncs[0]["buckets"]]
+        for r, sy in zip(ranks, syncs):
+            got = [(b["axes"], b["bytes"], b["index"]) for b in sy["buckets"]]
+            early = sum(b["before_return"] for b in sy["buckets"])
+            check(got == order, f"{name}: rank {r['rank']} issued buckets {got}, rank 0 {order}")
+            check(all(b["before_return"] for b in sy["buckets"][:-1]),
+                  f"{name}: rank {r['rank']} issued a bucket before the last after the "
+                  f"backward returned: {sy['buckets']}")
+            print(f"parallel {name} gradient sync, rank {r['rank']}: {len(got)} buckets ("
+                  + ", ".join(f"{'+'.join(a)} {n / 2 ** 20:.1f} MiB" for a, n, _ in got)
+                  + f"), {early} issued before the backward returned; exposed sync "
+                  f"{sy['exposed_ms_median']:.1f} ms, warm step {r['step_ms_median']:.1f} ms "
+                  f"(medians of {PAR_TIMED - 1}) [{card}]", flush=True)
+        est = syncs[0].get("est_ms_credit")
+        if est is not None:
+            measured = r0["step_ms_median"]
+            print(f"parallel {name} simulator: SharedCardMachineModel estimate {est:.1f} ms "
+                  f"with the overlap credit, {syncs[0]['est_ms_no_credit']:.1f} ms without, "
+                  f"beside the measured warm step {measured:.1f} ms (est/measured "
+                  f"{est / measured:.3f}) [{card}]", flush=True)
+            if bf16 is None:
+                check(1.0 / CALIB_RATIO <= est / measured <= CALIB_RATIO,
+                      f"{name}: the credited estimate {est:.1f} ms vs the measured step "
+                      f"{measured:.1f} ms, outside x{CALIB_RATIO}")
     return row
 
 
@@ -4203,9 +4273,11 @@ def phase_parallel(card: str, extra2: list = (), extra4: list = ()) -> tuple:
     out = dict(rows=rows, collectives=coll_row, launches=launches,
                seconds=time.perf_counter() - t0)
     print("parallel_json " + json.dumps(out), flush=True)
-    # the one-rank runs and the bf16 bound, for phase_parallel_b; the
-    # later phases' rank results
-    return out, dict(refs=refs, bf16=bf16), extras
+    # the one-rank runs and the bf16 bound, for phase_parallel_b; (b)'s f32
+    # tensor-parallel step, for search (m); the later phases' rank results
+    tp_step_ms = next(r["step_ms_median"] for r in rows
+                      if r["name"] == "(b) {data: 2, model: 2} float32")
+    return out, dict(refs=refs, bf16=bf16, tp_step_ms=tp_step_ms), extras
 
 
 # ---- phase_parallel_b: expert parallelism, ZeRO-1 and the pipeline (A7b)
@@ -5319,10 +5391,12 @@ def search_one_rank(compute_dtype: str, card: str, tmp: pathlib.Path) -> dict:
 
 
 def search_mesh_check(name: str, ranks: list, ref: dict, start: dict, card: str,
-                      pipe: bool = False) -> dict:
-    """(m): one searched run held to phase_parallel's one-rank run (the
-    f32 bound of (14), or (f)'s through pipe_check), with its plan."""
-    row = (pipe_check if pipe else par_check)(name, ranks, ref, start, card)
+                      pipe: bool = False, flash: bool = True) -> dict:
+    """(m): one searched run held to its one-rank run (the f32 bound of
+    (14), or (f)'s through pipe_check), with its plan. ``flash``: the
+    model launches K1-K3 (the Transformer)."""
+    row = (pipe_check(name, ranks, ref, start, card) if pipe
+           else par_check(name, ranks, ref, start, card, flash=flash))
     r0 = ranks[0]
     row.update(search=r0["search"], playoff=r0["playoff"], strategies=r0["strategies"],
                schedule_records=r0["schedule_records"])
@@ -5338,7 +5412,11 @@ def search_jobs() -> tuple:
                                config=dict(searched,
                                            search_adoption_margin=PINNED_ADOPTION_MARGIN))),
             ("fit", full, dict(compute_dtype="float32",
-                               config=dict(searched, playoff_steps=SEARCH_PLAYOFF_STEPS)))]
+                               config=dict(searched, playoff_steps=SEARCH_PLAYOFF_STEPS))),
+            ("fit", mlp_opts(), dict(compute_dtype="float32",
+                                     mesh_shape={"data": 2, "model": 2},
+                                     config=dict(searched,
+                                                 search_adoption_margin=PINNED_ADOPTION_MARGIN)))]
     two = [("fit", full, dict(compute_dtype="float32", mesh_shape={"pipe": 2},
                               config=dict(pipeline_schedule="auto", profiling=True)))]
     return two, four
@@ -5370,7 +5448,24 @@ def phase_search(card: str, par: dict, two: list, four: list) -> dict:
     p = pinned["search"]
     check(p["mesh_shape"] == {"data": 2, "model": 2} and p["cache"] == "off",
           f"(m) pinned search {p}")
-    check(bool(pinned["strategies"]), f"(m) the pinned search kept the plain plan: {p}")
+    # the Transformer's plan on the pinned mesh is the search's verdict; a
+    # plain one (no sharded plan beats data parallelism on this card's
+    # staging) is held to the card against (b)'s tensor-parallel plan on
+    # the same mesh and batch
+    check(bool(pinned["strategies"]) or pinned["step_ms_median"] < par["tp_step_ms"],
+          f"(m) the pinned search kept the plain plan, {pinned['step_ms_median']:.1f} ms a "
+          f"step, not faster than (b)'s tensor-parallel {par['tp_step_ms']:.1f} ms: {p}")
+    print(f"search (m) pinned {{data: 2, model: 2}} Transformer: plan "
+          f"{pinned['strategies'] or 'plain'}, {pinned['step_ms_median']:.1f} ms a step beside "
+          f"(b)'s tensor-parallel {par['tp_step_ms']:.1f} ms [{card}]", flush=True)
+    # the MLP's weights outweigh its activations: the pinned search must
+    # adopt a sharded plan, which runs on the 4 ranks, held to its one-rank run
+    mlp_ref = par_fit(mlp_opts(), "float32")
+    mlp = search_mesh_check("(m) searched, pinned {data: 2, model: 2} MLP float32",
+                            [r[2] for r in four], mlp_ref, mlp_ref["start"], card, flash=False)
+    pm = mlp["search"]
+    check(pm["mesh_shape"] == {"data": 2, "model": 2} and bool(mlp["strategies"]),
+          f"(m) the pinned MLP search kept the plain plan: {pm} {mlp['strategies']}")
     unpinned_ranks = [r[1] for r in four]
     u = unpinned_ranks[0]
     upipe = (u["mesh"] or {}).get("pipe", 1) > 1
@@ -5391,6 +5486,7 @@ def phase_search(card: str, par: dict, two: list, four: list) -> dict:
                     if r["schedule"] == auto["schedule"])
     # each searched plan's estimate beside its measured step
     ests = [("pinned", p["est_step_time"] * 1e3, pinned["step_ms_median"]),
+            ("pinned MLP", pm["est_step_time"] * 1e3, mlp["step_ms_median"]),
             ("unpinned (its playoff time)", unpinned["search"]["est_step_time"] * 1e3,
              po["searched_ms"]),
             ("{pipe: 2} auto", auto_est * 1e3, auto["step_ms_median"])]
@@ -5400,7 +5496,9 @@ def phase_search(card: str, par: dict, two: list, four: list) -> dict:
               f"x{CALIB_RATIO}")
     print(f"search (m) pinned {{data: 2, model: 2}}: plan {pinned['strategies'] or 'plain'}, "
           f"est {p['est_step_time'] * 1e3:.3f} ms vs measured "
-          f"{pinned['step_ms_median']:.1f} ms; unpinned: mesh "
+          f"{pinned['step_ms_median']:.1f} ms; MLP plan {mlp['strategies']}, est "
+          f"{pm['est_step_time'] * 1e3:.3f} ms vs measured {mlp['step_ms_median']:.1f} ms "
+          f"(one rank {mlp_ref['step_ms_median']:.1f}); unpinned: mesh "
           f"{unpinned['search']['mesh_shape']}, plan {unpinned['strategies'] or 'plain'}, "
           f"schedule {unpinned['search'].get('pipe_schedule')}, est "
           f"{unpinned['search']['est_step_time'] * 1e3:.3f} ms; playoff searched "
@@ -5411,7 +5509,7 @@ def phase_search(card: str, par: dict, two: list, four: list) -> dict:
           f"{auto['step_ms_median']:.1f} ms; est/measured "
           + ", ".join(f"{what} {est / measured:.3f}" for what, est, measured in ests)
           + f" (bound x{CALIB_RATIO}) [{card}]", flush=True)
-    rows = [pinned, unpinned, auto]
+    rows = [pinned, unpinned, auto, mlp]
     launches = {k: sum(r["launches"][k] for r in one)
                 + sum(lr[k] for row in rows for lr in row["launches_per_rank"])
                 for k in FLASH_NAMES}

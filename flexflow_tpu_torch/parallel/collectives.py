@@ -5,10 +5,17 @@ the only module of the port that calls a ``torch.distributed``
 collective. Each function takes a rank's local block; a ``Group``
 (``core/machine.py``) names the ranks it runs among.
 
-On a ``gloo`` group a CUDA tensor goes through a host buffer: copied to
-the host, reduced or moved there, copied back. The bytes copied each way
+On a ``gloo`` group a CUDA tensor goes through a pinned host buffer:
+copied to the host, reduced or moved there, copied back. The bytes copied each way
 are counted (:func:`stats`), so a run can say what its ranks moved
-through the host. A collective observer (:func:`set_observer`) sees each
+through the host. An all-reduce is staged by gloo's own CUDA work: a
+non-blocking copy into pinned host memory on a side stream that waits on
+the caller's stream, the host reduction on gloo's worker thread, and a
+non-blocking copy back that the caller's stream is ordered after. The
+coalesced form (:func:`all_reduce_coalesced_async`, the mesh step's
+gradient buckets) returns at once with a handle, so the calling thread
+never waits for the card until the handle's ``wait``. A collective
+observer (:func:`set_observer`) sees each
 collective first, with its kind, its group's ranks, its partner table
 for a shift or a point-to-point exchange and its staged bytes, and says
 whether it counts in :func:`stats`: the program audit installs one that
@@ -97,13 +104,22 @@ def _staged(group: Group, t: torch.Tensor) -> bool:
     return t.is_cuda and dist.get_backend(group.pg) == "gloo"
 
 
-def _host(group: Group, t: torch.Tensor, copy: bool = False) -> torch.Tensor:
-    """The buffer a collective runs on: a host copy on a gloo group, else
-    ``t`` made contiguous (a copy when the collective writes in place)."""
+def _host(group: Group, t: torch.Tensor) -> torch.Tensor:
+    """The buffer a collective runs on: a copy in pinned host memory on a
+    gloo group (the copies to and from the card then run at the link's
+    rate, as gloo's own CUDA staging of an all-reduce does), else ``t``
+    made contiguous."""
     if _staged(group, t):
-        return t.detach().cpu()  # audit: callback-ok (a gloo group stages a CUDA tensor through the host by design, counted in stats(); NCCL groups do not)
-    return t.detach().clone(memory_format=torch.contiguous_format) if copy \
-        else t.detach().contiguous()
+        buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        buf.copy_(t.detach())  # audit: callback-ok (a gloo group stages a CUDA tensor through the host by design, counted in stats(); NCCL groups do not)
+        return buf
+    return t.detach().contiguous()
+
+
+def _like(buf: torch.Tensor) -> torch.Tensor:
+    """An empty buffer like ``buf``, pinned where ``buf`` is."""
+    return torch.empty(buf.shape, dtype=buf.dtype, device=buf.device,
+                       pin_memory=buf.is_pinned())
 
 
 def _back(t: torch.Tensor, buf: torch.Tensor, staged_in: int, kind: str,
@@ -118,10 +134,13 @@ def _back(t: torch.Tensor, buf: torch.Tensor, staged_in: int, kind: str,
 
 # ------------------------------------------------------------ primitives
 def _all_reduce(t: torch.Tensor, group: Group, op) -> torch.Tensor:
-    buf = _host(group, t, copy=True)
-    n_in = buf.numel() * buf.element_size() if buf.device != t.device else 0
+    # in place on a copy; on gloo a CUDA buffer goes through gloo's own CUDA
+    # staging, as all_reduce_coalesced_async's (module docstring)
+    buf = t.detach().clone(memory_format=torch.contiguous_format)
     dist.all_reduce(buf, op=op, group=group.pg)
-    return _back(t, buf, n_in, "all_reduce", group)
+    _count(2 * buf.numel() * buf.element_size() if _staged(group, buf) else 0,
+           "all_reduce", group)
+    return buf
 
 
 def all_reduce_sum(t: torch.Tensor, group: Group) -> torch.Tensor:
@@ -145,7 +164,7 @@ def all_gather(t: torch.Tensor, group: Group, dim: int) -> torch.Tensor:
     """The ranks' blocks of ``t`` concatenated along ``dim`` in rank order."""
     buf = _host(group, t)
     n_in = buf.numel() * buf.element_size() if buf.device != t.device else 0
-    parts = [torch.empty_like(buf) for _ in range(group.size)]
+    parts = [_like(buf) for _ in range(group.size)]
     dist.all_gather(parts, buf, group=group.pg)
     return _back(t, torch.cat(parts, dim=dim), n_in, "all_gather", group)
 
@@ -160,7 +179,7 @@ def all_gather_coalesced(tensors: Sequence[torch.Tensor], group: Group,
     flat = torch.cat([t.reshape(-1) for t in tensors])
     buf = _host(group, flat)
     n_in = buf.numel() * buf.element_size() if buf.device != flat.device else 0
-    parts = [torch.empty_like(buf) for _ in range(group.size)]
+    parts = [_like(buf) for _ in range(group.size)]
     dist.all_gather(parts, buf, group=group.pg)
     sizes = [t.numel() for t in tensors]
     pieces = [p.split(sizes) for p in _back(flat, torch.cat(parts), n_in, "all_gather",
@@ -174,7 +193,7 @@ def _all_to_all_dim0(t: torch.Tensor, group: Group) -> torch.Tensor:
     result came from rank ``j``."""
     buf = _host(group, t)
     n_in = buf.numel() * buf.element_size() if buf.device != t.device else 0
-    out = torch.empty_like(buf)
+    out = _like(buf)
     dist.all_to_all_single(out, buf, group=group.pg)
     return _back(t, out, n_in, "all_to_all", group)
 
@@ -184,7 +203,7 @@ def _shift(t: torch.Tensor, group: Group, step: int) -> torch.Tensor:
     from the rank ``step`` places back."""
     buf = _host(group, t)
     n_in = buf.numel() * buf.element_size() if buf.device != t.device else 0
-    out = torch.empty_like(buf)
+    out = _like(buf)
     n = group.size
     to = group.ranks[(group.index + step) % n]
     frm = group.ranks[(group.index - step) % n]
@@ -195,18 +214,66 @@ def _shift(t: torch.Tensor, group: Group, step: int) -> torch.Tensor:
     return _back(t, out, n_in, "shift", group, [(i, (i + step) % n) for i in range(n)])
 
 
-def all_reduce_coalesced(tensors: Sequence[torch.Tensor], group: Group) -> List[torch.Tensor]:
-    """The sums of several tensors over the group in one collective: one
-    flat buffer (per dtype), as DDP's buckets."""
-    out: List[torch.Tensor] = list(tensors)
+class PendingAllReduce:
+    """A coalesced all-reduce in flight (:func:`all_reduce_coalesced_async`):
+    :meth:`wait` gives the sums."""
+
+    def __init__(self, tensors: Sequence[torch.Tensor], group: Group, what: str,
+                 parts: List[tuple]):
+        self.shapes = [t.shape for t in tensors]
+        self.group, self.what = group, what
+        self._parts = parts  # (indices, flat buffer, work) a dtype
+
+    def wait(self) -> List[torch.Tensor]:
+        """The sums, in the tensors' order, on their device. On the card the
+        caller's stream waits for the copy back (a gloo group's), or for
+        NCCL's stream; the host waits for the reduction itself."""
+        out: List[Optional[torch.Tensor]] = [None] * len(self.shapes)
+        for idx, flat, work in self._parts:
+            try:
+                work.wait()
+            except RuntimeError as e:
+                raise RuntimeError(f"{self.what}: the all-reduce over axes {self.group.axes} "
+                                   f"(ranks {self.group.ranks}) failed: {e}") from e
+            for i, part in zip(idx, flat.split([math.prod(self.shapes[i]) for i in idx])):
+                out[i] = part.view(self.shapes[i])
+        return out
+
+
+def all_reduce_coalesced_async(tensors: Sequence[torch.Tensor], group: Group,
+                               what: str = "all_reduce_coalesced") -> PendingAllReduce:
+    """Start the sums of several tensors over the group, one flat buffer (and
+    one collective) a dtype, and return at once. On a gloo group a CUDA
+    buffer is staged by gloo's own CUDA work (module docstring): the copy
+    to pinned host memory waits on the caller's stream through an event,
+    not a drain, the host all-reduce starts on gloo's worker thread once
+    that copy has landed, and :meth:`PendingAllReduce.wait` orders the
+    caller's stream after the copy back; its bytes each way count in
+    :func:`stats`. On NCCL the device buffer goes as it is. Collectives on
+    one group are matched across ranks by the order they are issued in,
+    so every rank must issue in the same order. A failure to issue or to
+    finish raises, naming ``what`` and the group."""
     by_dtype: Dict[torch.dtype, List[int]] = {}
     for i, t in enumerate(tensors):
         by_dtype.setdefault(t.dtype, []).append(i)
+    parts = []
     for idx in by_dtype.values():
-        flat = all_reduce_sum(torch.cat([tensors[i].reshape(-1) for i in idx]), group)
-        for i, part in zip(idx, flat.split([tensors[i].numel() for i in idx])):
-            out[i] = part.view(tensors[i].shape)
-    return out
+        flat = torch.cat([tensors[i].detach().reshape(-1) for i in idx])
+        staged = 2 * flat.numel() * flat.element_size() if _staged(group, flat) else 0
+        try:
+            work = dist.all_reduce(flat, group=group.pg, async_op=True)
+        except RuntimeError as e:
+            raise RuntimeError(f"{what}: the all-reduce over axes {group.axes} "
+                               f"(ranks {group.ranks}) failed to issue: {e}") from e
+        _count(staged, "all_reduce", group)
+        parts.append((idx, flat, work))
+    return PendingAllReduce(tensors, group, what, parts)
+
+
+def all_reduce_coalesced(tensors: Sequence[torch.Tensor], group: Group) -> List[torch.Tensor]:
+    """The sums of several tensors over the group, one flat buffer (and one
+    collective) a dtype, waited for: :func:`all_reduce_coalesced_async`."""
+    return all_reduce_coalesced_async(tensors, group).wait()
 
 
 def all_gather_objects(obj) -> list:
@@ -243,7 +310,8 @@ def send_recv(group: Group, sends: Sequence[tuple], recvs: Sequence[tuple]
     outs = []
     for peer, tag, numel, dtype, device in recvs:
         on_host = device.type == "cuda" and dist.get_backend(group.pg) == "gloo"
-        buf = torch.empty(numel, dtype=dtype, device="cpu" if on_host else device)
+        buf = (torch.empty(numel, dtype=dtype, pin_memory=True) if on_host
+               else torch.empty(numel, dtype=dtype, device=device))
         ops.append(dist.P2POp(dist.irecv, buf, group.ranks[peer], group.pg, tag))
         outs.append((buf, device))
     if ops:

@@ -45,12 +45,30 @@ global count), so the step's loss is the sum over the ranks the logits'
 rows are sharded over. Logits whose class dim is sharded take the loss
 and the metrics class-parallel (``runtime/loss.py`` ``ClassShard``): the
 ranks of the class axis hold the whole rows' loss. A weight's gradient is
-all-reduced, one flat buffer
-a set of axes, over the axes its op's output is sharded on and the weight
+all-reduced over the axes its op's output is sharded on and the weight
 is not (``data``, ``seq``). The metrics' sums are all-reduced the same
 way. An expert weight sharded over the axis that also shards the batch
 is all-reduced over neither: each rank owns its experts, whose gradients
 the all-to-all's backward brings in from every rank's tokens.
+
+``train_step`` and ``grad_step`` all-reduce the gradients while the
+backward runs, as XLA's latency-hiding scheduler overlaps the psum
+inside the JAX package's jitted step: ``parallel/grad_buckets.py`` cuts
+the weights of each set of axes, in reverse op order, into buckets of
+``GRAD_BUCKET_BYTES``; a hook on each gradient leaf stages its gradient,
+and a bucket is issued (``collectives.all_reduce_coalesced_async``) once
+all its gradients exist and every bucket before it has been issued, so
+every rank issues the same sequence on each group, interleaved with the
+backward's own collectives in the autograd engine's order. A weight the
+loss does not reach joins its bucket as zeros once ``autograd.grad``
+returns. The step waits on the buckets just before the optimizer update;
+``CompiledModel.last_sync`` records the last wait. Under accumulation
+only the last microbatch's backward issues buckets, each gradient
+joining the earlier microbatches' sum and divided by K first, so the sum
+keeps its order. With two ranks each sum has two addends, so the results
+equal an all-reduce after the backward bit for bit. The pipeline engines
+sync after their schedule through ``CompiledModel.sync_grads``, one flat
+buffer a set of axes.
 
 ``config.zero_optimizer`` over a data axis above 1 is ZeRO-1, as the JAX
 package lays it out: each optimizer-state array is sharded over ``data``
@@ -74,6 +92,8 @@ shapes (this rank's rows under a mesh).
 from __future__ import annotations
 
 import dataclasses
+import functools
+import time
 import zlib
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -88,12 +108,73 @@ from ..core.tensor import Tensor
 from ..ffconst import CompMode, DataType, LossType, MetricsType, OpType
 from ..ops.parallel_ops import reshard
 from ..parallel import collectives as C
+from ..parallel.grad_buckets import plan_grad_buckets, sync_axes
 from .loss import ClassShard, compute_loss
 from .metrics import compute_batch_metrics
 from .graphs import StepGraphs, capture_rule, graph_key, tensor_leaves
 from .optimizer import Optimizer
 
 Params = Dict[str, Dict[str, torch.Tensor]]
+
+
+class _GradSync:
+    """One backward's gradient all-reduce, bucket by bucket (module
+    docstring). ``buckets``: ``plan_grad_buckets``' list, keys (axes,
+    dtype); ``acc``: the earlier microbatches' gradient sum, which each
+    gradient joins before it is divided by ``k`` and staged."""
+
+    def __init__(self, buckets: List[tuple], mesh: Mesh, leaves: Params,
+                 acc: Optional[Params], k: int):
+        self.buckets, self.mesh, self.acc, self.k = buckets, mesh, acc, k
+        self.got: List[Dict[Tuple[str, str], torch.Tensor]] = [{} for _ in buckets]
+        self.pending: List[Any] = []
+        self.before: List[bool] = []  # issued before autograd.grad returned
+        self.t_return: Optional[float] = None
+        for b, (_, names, _) in enumerate(buckets):
+            for name in names:
+                leaves[name[0]][name[1]].register_hook(functools.partial(self._ready, b, name))
+
+    def _final(self, name: Tuple[str, str], g: torch.Tensor) -> torch.Tensor:
+        return g if self.acc is None else (self.acc[name[0]][name[1]] + g) / self.k
+
+    def _ready(self, b: int, name: Tuple[str, str], g: torch.Tensor) -> None:
+        self.got[b][name] = self._final(name, g)
+        # in bucket order: a ready bucket waits for the ones before it
+        while (len(self.pending) < len(self.buckets)
+               and len(self.got[len(self.pending)]) == len(self.buckets[len(self.pending)][1])):
+            i = len(self.pending)
+            (axes, _), names, _ = self.buckets[i]
+            self.pending.append(C.all_reduce_coalesced_async(
+                [self.got[i][n] for n in names], self.mesh.group(axes),
+                f"gradient bucket {i} of {len(self.buckets)}"))
+            self.before.append(self.t_return is None)
+
+    def returned(self, grads: Params) -> None:
+        """``autograd.grad`` has returned ``grads`` (zeros where the loss
+        does not reach): the weights whose hook never ran join their
+        buckets, and every bucket left is issued."""
+        self.t_return = time.perf_counter()
+        for b, (_, names, _) in enumerate(self.buckets):
+            for name in names:
+                if name not in self.got[b]:
+                    self._ready(b, name, grads[name[0]][name[1]])
+
+    def wait(self, grads: Params, record: Dict[str, Any]) -> Params:
+        """``grads`` with every bucket's sums in place, the others joined to
+        ``acc`` as the buckets' were; ``record`` becomes this sync's."""
+        synced = {name for _, names, _ in self.buckets for name in names}
+        out = {op: {w: g if (op, w) in synced else self._final((op, w), g)
+                    for w, g in ws.items()} for op, ws in grads.items()}
+        for (_, names, _), p in zip(self.buckets, self.pending):
+            for (o, w), s in zip(names, p.wait()):
+                out[o][w] = s
+        record.clear()
+        record.update(
+            buckets=[dict(axes=list(axes), bytes=nbytes, index=i, before_return=before)
+                     for i, (((axes, _), _, nbytes), before)
+                     in enumerate(zip(self.buckets, self.before))],
+            exposed_ms=(time.perf_counter() - self.t_return) * 1e3)
+        return out
 
 
 @dataclasses.dataclass
@@ -159,6 +240,12 @@ class CompiledModel:
     loss_share: Optional[Callable] = None
     sync_grads: Optional[Callable] = None
     label_block: Optional[Callable] = None
+    # the last mesh step's gradient sync (module docstring): ``buckets``,
+    # each {axes, bytes, index (the issue order), before_return (issued
+    # before autograd.grad returned)}, and ``exposed_ms``, host ms from
+    # the backward's return to the last bucket's completion; empty until
+    # a mesh step has synced
+    last_sync: Dict[str, Any] = dataclasses.field(default_factory=dict)
     # the program audit's specs (analysis/program_audit.ExecutableSpec)
     audit_exec: List[Any] = dataclasses.field(default_factory=list)
     # the eager step functions by name (forward_fn, eval_step, train_step,
@@ -507,12 +594,10 @@ def compile_model(
             loss_group = mesh.group(row_axes)
         reduce_plan = {}
         for op in ops:
-            out_axes = set(op.output_shapes[0].partition_axes) if op.output_shapes else set()
-            for w_name, ws in op.weight_shapes.items():
-                axes = tuple(a for a in mesh.axis_names
-                             if a in out_axes and a not in ws.partition_axes)
-                if axes:
-                    reduce_plan.setdefault(axes, []).append((op.name, w_name))
+            for w_name, axes in sync_axes(op).items():
+                reduce_plan.setdefault(axes, []).append((op.name, w_name))
+    grad_buckets = plan_grad_buckets(ops) if reduce_plan else []
+    last_sync: Dict[str, Any] = {}
 
     def sync_grads(grads: Params) -> Params:
         """All-reduce each weight's gradient over its plan's axes, one flat
@@ -609,15 +694,18 @@ def compile_model(
 
     def run(params: Params, xs, plain_kernels: bool, training: bool,
             rng: Optional[int] = None, state_updates: Optional[dict] = None,
-            seq_length: int = -1) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+            seq_length: int = -1, micro: bool = False
+            ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         """(f32 logits, the auxiliary losses in f32): loss and metrics are
         f32 whatever the compute dtype. Under a mesh, this rank's block of
-        the logits."""
-        # packed (bucketed) batches come in many row counts and widths:
-        # their blocks are not the compiled layout's
+        the logits. ``micro``: the batch is one of K microbatches."""
+        # packed (bucketed) batches come in many row counts and widths, and
+        # microbatches in 1/K of the rows: their blocks are not the
+        # compiled layout's
         acts, aux = _forward_graph(ops, layouts, mesh, params, dict(zip(input_ids, xs)), cdt,
                                    plain_kernels, training, rng, config.seed,
-                                   state_updates, seq_length, check_shapes=not mask_pad)
+                                   state_updates, seq_length,
+                                   check_shapes=not (mask_pad or micro))
         return acts[logits_id].float(), [a.float() for a in aux]
 
     def whole(logits: torch.Tensor) -> torch.Tensor:
@@ -634,20 +722,29 @@ def compile_model(
 
     def value_and_grad(params: Params, batch, plain_kernels: bool, rng,
                        state_updates: Optional[dict] = None, seq_length: int = -1,
-                       regularize: bool = False):
-        """(loss, logits, grads) of one batch; the loss includes the
+                       regularize: bool = False, sync: bool = False,
+                       acc: Optional[Params] = None, micro: bool = False):
+        """(loss, logits, grads, sync) of one batch; the loss includes the
         auxiliary losses (the training loss only, as in the JAX package's
         train and grad steps) and, with ``regularize`` (train_step), each
         ``kernel_regularizer``'s penalty on the f32 master kernel; the
-        grads are f32 trees like ``params``. ``state_updates`` collects
-        the forward's new state."""
+        grads are this rank's, f32 trees like ``params``. ``state_updates``
+        collects the forward's new state. With ``sync`` over a mesh whose
+        weights need a gradient all-reduce, the buckets are issued while
+        the backward runs and ``sync`` is their :class:`_GradSync`
+        (``wait`` gives the synced tree; ``acc``: the earlier microbatches'
+        gradient sum, each gradient joining it before it is divided by K),
+        else None. ``micro``: the batch is one of K microbatches."""
         xs, y = batch[:n_inputs], label_block(batch[n_inputs])
         leaves = {op: {w: t.detach().requires_grad_(True) for w, t in ws.items()}
                   for op, ws in params.items()}
         flat = [t for ws in leaves.values() for t in ws.values()]
+        gsync = (_GradSync(grad_buckets, mesh, leaves, acc, accum)
+                 if sync and grad_buckets else None)
         with torch.enable_grad():
             logits, aux = run(leaves, xs, plain_kernels, training=True, rng=rng,
-                              state_updates=state_updates, seq_length=seq_length)
+                              state_updates=state_updates, seq_length=seq_length,
+                              micro=micro)
             loss = loss_share(compute_loss(loss_type, logits, y, from_logits, mask_pad, shard), y)
             for a in aux:
                 loss = loss + a
@@ -658,7 +755,9 @@ def compile_model(
         gs = iter(torch.autograd.grad(loss, flat, allow_unused=True))
         grads = {op: {w: _or_zeros(next(gs), t) for w, t in ws.items()}
                  for op, ws in leaves.items()}
-        return loss.detach(), logits.detach(), grads
+        if gsync is not None:
+            gsync.returned(grads)
+        return loss.detach(), logits.detach(), grads, gsync
 
     def penalty_share(op_name: str, reg, kernel: torch.Tensor) -> torch.Tensor:
         """A regularizer's penalty: on a sharded kernel the blocks' partial
@@ -673,50 +772,63 @@ def compile_model(
 
     def grad_step(params: Params, rng, *batch: torch.Tensor,
                   plain_kernels: bool = False, seq_length: int = -1) -> Params:
-        return sync_grads(value_and_grad(params, batch, plain_kernels, rng,
-                                         seq_length=seq_length)[2])
+        _, _, grads, gsync = value_and_grad(params, batch, plain_kernels, rng,
+                                            seq_length=seq_length, sync=True)
+        return grads if gsync is None else gsync.wait(grads, last_sync)
 
     def accumulated(params: Params, batch, plain_kernels: bool, rng, seq_length: int):
-        """(loss, grads, batch metrics, state updates) of one batch as K
-        microbatches: sums in microbatch order, the gradients, the loss and
-        the state divided by K."""
+        """(loss, grads, batch metrics, state updates, sync) of one batch as
+        K microbatches: sums in microbatch order, the gradients, the loss
+        and the state divided by K. Over a mesh the last microbatch's
+        backward issues the buckets (``sync``, its :class:`_GradSync`; the
+        grads are then its own, to be joined in ``sync.wait``)."""
         n = batch[n_inputs].shape[0]
         if n % accum:
             raise ValueError(f"batch {n} not divisible by grad_accum_steps {accum}")
         micro = list(zip(*(b.chunk(accum) for b in batch)))
-        loss_sum = grads = bm = upd_sum = None
+        loss_sum = grads = bm = upd_sum = gsync = None
         for i, mb in enumerate(micro):
             upd: dict = {}
-            li, lgi, gi = value_and_grad(params, mb, plain_kernels,
-                                         None if rng is None else rng * accum + i,
-                                         upd, seq_length, regularize=True)
+            last = i == accum - 1
+            li, lgi, gi, gsync = value_and_grad(params, mb, plain_kernels,
+                                                None if rng is None else rng * accum + i,
+                                                upd, seq_length, regularize=True,
+                                                sync=last, acc=grads if last else None,
+                                                micro=True)
             bmi = compute_batch_metrics(metrics, loss_type, lgi, label_block(mb[n_inputs]),
                                         from_logits, mask_pad, shard)
             if grads is None:
                 loss_sum, grads, bm, upd_sum = li, gi, bmi, upd
                 continue
             loss_sum = loss_sum + li
-            grads = {op: {w: g + gi[op][w] for w, g in ws.items()}
-                     for op, ws in grads.items()}
             bm = {k: bm[k] + v for k, v in bmi.items()}
             upd_sum = {k: upd_sum[k] + v for k, v in upd.items()}
-        grads = {op: {w: g / accum for w, g in ws.items()} for op, ws in grads.items()}
+            if gsync is not None:
+                grads = gi
+                continue
+            grads = {op: {w: g + gi[op][w] for w, g in ws.items()}
+                     for op, ws in grads.items()}
+        if gsync is None:
+            grads = {op: {w: g / accum for w, g in ws.items()} for op, ws in grads.items()}
         return (loss_sum / accum, grads, bm,
-                {k: v / accum for k, v in upd_sum.items()})
+                {k: v / accum for k, v in upd_sum.items()}, gsync)
 
     def train_step(params: Params, opt_state, rng, *batch: torch.Tensor,
                    plain_kernels: bool = False, seq_length: int = -1, hyper=None):
         if accum == 1:
             updates: dict = {}
-            loss, logits, grads = value_and_grad(params, batch, plain_kernels, rng,
-                                                 updates, seq_length, regularize=True)
+            loss, logits, grads, gsync = value_and_grad(params, batch, plain_kernels, rng,
+                                                        updates, seq_length, regularize=True,
+                                                        sync=True)
             bm = compute_batch_metrics(metrics, loss_type, logits, label_block(batch[n_inputs]),
                                        from_logits, mask_pad, shard)
         else:
-            loss, grads, bm, updates = accumulated(params, batch, plain_kernels, rng,
-                                                   seq_length)
+            loss, grads, bm, updates, gsync = accumulated(params, batch, plain_kernels, rng,
+                                                          seq_length)
         if mesh is not None:
-            grads, bm, loss = sync_grads(grads), sync_metrics(bm), global_loss(loss)
+            bm, loss = sync_metrics(bm), global_loss(loss)
+        if gsync is not None:
+            grads = gsync.wait(grads, last_sync)
         params, opt_state = apply_update(params, grads, opt_state, hyper)
         # non-trainable state (BatchNorm's running statistics), written after
         # the optimizer update in the master dtype, outside autograd
@@ -783,7 +895,7 @@ def compile_model(
         opt_state=optimizer.init_state(zero_slices(params)) if training else None,
         wd_mask=wd_mask, update_fn=apply_update if training else None,
         zero_dims=zero_dims, loss_share=loss_share, sync_grads=sync_grads,
-        label_block=label_block,
+        label_block=label_block, last_sync=last_sync,
         train_step=steps.get("train_step"), train_k_steps=steps.get("train_k_steps"),
         eval_step=steps.get("eval_step"), grad_step=steps.get("grad_step"),
         from_logits=from_logits, mesh=mesh, layouts=layouts,

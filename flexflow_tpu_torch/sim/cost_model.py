@@ -15,11 +15,13 @@ are memoized by (op type, attrs, full sharding signature):
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+import math
+from typing import Dict, List, Optional, Tuple
 
 from ..ffconst import DataType, OpType
 from ..core.op import Op
 from ..core.parallel_tensor import ParallelTensorShape
+from ..parallel import grad_buckets
 from .machine_model import MachineModel
 
 
@@ -113,8 +115,9 @@ MEASURE_CALLS = 0
 # cost-model fingerprint folded into the strategy-cache key
 # (search/cache.py): bump it whenever the pricing here or in
 # sim/simulator.py changes, so plans selected under the old model
-# re-search. 3 is the JAX package's version the port's pricing equals.
-COST_MODEL_VERSION = 3
+# re-search. 3 is the JAX package's version; 4 prices the port's
+# gradient sync on a shared card one latency a bucket.
+COST_MODEL_VERSION = 4
 
 
 class OpCostModel:
@@ -282,18 +285,16 @@ class OpCostModel:
         # allreduce per weight, optimizer_kernel.cu:88)
         sync = 0.0
         axis_sizes = _axis_sizes_from(op)
-        out_axes = set(op.output_shapes[0].partition_axes) if op.output_shapes else set()
-        for ps in op.weight_shapes.values():
+        port_axes = grad_buckets.sync_axes(op)
+        for w_name, ps in op.weight_shapes.items():
             sharded_axes = {d.axis for d in ps.dims if d.is_partitioned}
             wb = _pshape_local_bytes(ps)
             if getattr(self.machine, "port_grad_sync", False):
-                # the port's step (runtime/compiler.py sync_grads): over
-                # the axes that partition the op's output and not the
-                # weight (a replicated computation's gradients already
-                # agree), every weight in one coalesced all-reduce
-                deg = 1
-                for a in out_axes - sharded_axes:
-                    deg *= axis_sizes.get(a, 1)
+                # the port's step (runtime/compiler.py): over the axes of
+                # parallel/grad_buckets.py's rule, the weight's bytes in a
+                # bucketed all-reduce whose calls grad_sync_latency
+                # prices, one latency a bucket
+                deg = math.prod(axis_sizes.get(a, 1) for a in port_axes.get(w_name, ()))
                 sync += self.machine.coalesced_allreduce_time(wb, deg)
             elif self.machine.combine_sync_axes():
                 # shared host: ONE allreduce over the COMBINED replica
@@ -317,6 +318,22 @@ class OpCostModel:
                     if d > 1 and a not in sharded_axes:
                         sync += self.machine.allreduce_time(wb, d, a)
         return CostMetrics(fwd, bwd, sync, in_bytes, out_bytes, w_bytes)
+
+    def grad_sync_latency(self, ops: List[Op]) -> float:
+        """Seconds of the calls of the port's gradient sync over ``ops``
+        (a machine with ``port_grad_sync``; 0 elsewhere, where each
+        weight's price holds its own): one all-reduce latency a bucket,
+        the buckets the step cuts (``parallel/grad_buckets.py``). One pass
+        over the weights, as a memo key of them would be."""
+        if not getattr(self.machine, "port_grad_sync", False):
+            return 0.0
+        degree = {}
+        for op in ops:
+            sizes = _axis_sizes_from(op)
+            for axes in grad_buckets.sync_axes(op).values():
+                degree[axes] = math.prod(sizes.get(a, 1) for a in axes)
+        return sum(self.machine.allreduce_latency(degree[axes])
+                   for (axes, _), _, _ in grad_buckets.plan_grad_buckets(ops))
 
 
 def _axis_sizes_from(op: Op) -> Dict[str, int]:

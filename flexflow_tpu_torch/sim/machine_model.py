@@ -57,15 +57,16 @@ class ChipSpec:
 _H100_F32_FIT = dict(mxu_efficiency=0.6864, hbm_efficiency=0.9984, step_overhead=4.311e-3)
 _H100_BF16_FIT = dict(mxu_efficiency=0.09464, hbm_efficiency=0.1377, step_overhead=5.513e-3)
 # gloo's all-reduce among ranks that share one card, staged through the
-# host: (ranks on the card, ranks in each all-reduce) -> (payload bytes a
+# host by gloo's CUDA work (pinned buffers, parallel/collectives.py):
+# (ranks on the card, ranks in each all-reduce) -> (payload bytes a
 # second, fixed seconds of one call), every group of the card's ranks
 # all-reducing at once; sim/calibrate.py ``measure_staging_rate`` on the
-# same card (1 and 64 MiB; two-rank readings part by up to 30 % between
-# machines: 0.43-0.63 GB/s)
+# same card (1 and 64 MiB). Readings part between machines: through
+# pageable host copies the two-rank rate read 0.43-0.66 GB/s
 SHARED_CARD_STAGING: Dict[Tuple[int, int], Tuple[float, float]] = {
-    (2, 2): (4.2556e8, 9.474e-4),
-    (4, 2): (3.5425e8, 1.9238e-3),
-    (4, 4): (2.8716e8, 6.0857e-3),
+    (2, 2): (9.6692e8, 2.2774e-3),
+    (4, 2): (7.9121e8, 3.1641e-3),
+    (4, 4): (5.3693e8, 9.4766e-3),
 }
 
 CHIP_PRESETS: Dict[str, ChipSpec] = {
@@ -305,8 +306,11 @@ class SharedCardMachineModel(SimpleMachineModel):
     def gather_inefficiency(self) -> float:
         return 1.0
 
-    # the port's step all-reduces gradients as runtime/compiler.py
-    # sync_grads does (OpCostModel reads this)
+    # the port's step all-reduces its gradients as runtime/compiler.py's
+    # mesh step does, bucket by bucket while the backward runs: a
+    # weight's bytes (coalesced_allreduce_time) and one latency a bucket
+    # (OpCostModel.grad_sync_latency); the simulator's overlap credit
+    # (simulator.effective_task_runtime) prices the overlap
     port_grad_sync = True
 
     def _staging_at(self, degree: int) -> Tuple[float, float]:
@@ -328,9 +332,15 @@ class SharedCardMachineModel(SimpleMachineModel):
 
     def coalesced_allreduce_time(self, payload: float, degree: int) -> float:
         """``payload``'s share of a coalesced all-reduce (one flat buffer
-        for many tensors, as the port's gradient sync): its bytes, the
-        call's latency paid once a step for all of them and left out."""
+        for many tensors, as a bucket of the port's gradient sync): its
+        bytes; the call's latency is the bucket's
+        (:meth:`allreduce_latency`)."""
         return payload * self._staging_at(degree)[0] if degree > 1 else 0.0
+
+    def allreduce_latency(self, degree: int) -> float:
+        """The fixed seconds of one all-reduce call over groups of
+        ``degree`` of this card's ranks."""
+        return self._staging_at(degree)[1] if degree > 1 else 0.0
 
     def allreduce_time(self, bytes_per_device, degree, axis=""):
         return self.staged_allreduce_time(bytes_per_device, degree)

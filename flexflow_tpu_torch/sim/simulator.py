@@ -315,7 +315,8 @@ class Simulator:
                                      (idx,)))
             bwd_out[oi] = out
         # gradient sync + update: sync needs every op's backward done
-        sync = sum(self.cost_model.measure(op).sync_time for op in ops)
+        sync = (sum(self.cost_model.measure(op).sync_time for op in ops)
+                + self.cost_model.grad_sync_latency(ops))
         sync_deps = tuple(sorted(set(bwd_out.values())))
         tasks.append(SimTask("grad_sync", "comm", sync, sync_deps))
         tasks.append(SimTask("update", "update", 0.0, (len(tasks) - 1,)))

@@ -9,6 +9,7 @@ test files hold them against the JAX package in the test process.
 
 from __future__ import annotations
 
+import functools
 import sys
 
 import numpy as np
@@ -104,6 +105,8 @@ def build(ff, model: str, batch: int, shape: dict, **kw):
         return x, ff.dense(t, 1, name="head", kernel_regularizer=reg)
     if model == "verbs":
         return verbs(ff, ActiMode.RELU, batch, shape["hidden_size"], kw.get("tp_axis", "model"))
+    if model == "unused_mlp":
+        return unused_mlp(ff, batch, shape)
     # "dropout": attention dropout over the sequence strategy, then a Dropout op
     x = ff.create_tensor((batch, shape["sequence_length"], shape["hidden_size"]), name="input")
     strategy = {"seq": kw["seq_axis"], "seq_mode": kw.get("seq_mode", "ring")} \
@@ -713,3 +716,93 @@ def class_argmax(rank: int, world: int, x) -> list:
     shard = ClassShard(mesh.group(["model"]), rank * per, x.shape[1])
     block = torch.from_numpy(np.ascontiguousarray(x[:, rank * per:(rank + 1) * per]))
     return argmax(block, shard).tolist()
+
+
+# ------------------------------------------------- the bucketed gradient sync
+def grad_overlap(rank: int, world: int, model: str, mesh_shape, shape: dict, kw: dict, params,
+                 batches, loss: str, variant: str, bucket_bytes: int) -> dict:
+    """``model`` over ``mesh_shape`` at ``bucket_bytes`` a gradient bucket,
+    trained one ``train_step`` a global batch (``variant``: "sgd",
+    "accum2" with grad_accum_steps 2, "zero_adam" with ZeRO-1 and Adam,
+    "grad_step": ``grad_step`` then the manual update), beside a second
+    compile stepped the same way whose gradients are all-reduced after the
+    backward: ``compiler._GradSync`` stood in for by :class:`_AfterBackward`.
+    The whole params of both after every step, the losses and each step's
+    ``last_sync`` record."""
+    from flexflow_tpu_torch import (AdamOptimizer, FFConfig, FFModel, LossType, SGDOptimizer,
+                                    load_numpy_params)
+    from flexflow_tpu_torch.parallel import grad_buckets
+    from flexflow_tpu_torch.runtime import compiler
+
+    grad_buckets.GRAD_BUCKET_BYTES = bucket_bytes
+    batch = batches[0][-1].shape[0]
+    accum = 2 if variant == "accum2" else 1
+
+    def compiled():
+        ff = FFModel(FFConfig(batch_size=batch, device="cpu", mesh_shape=mesh_shape,
+                              grad_accum_steps=accum, zero_optimizer=variant == "zero_adam"))
+        build(ff, model, batch, shape, **kw)
+        ff.compile(AdamOptimizer(alpha=0.01) if variant == "zero_adam" else SGDOptimizer(lr=0.01),
+                   getattr(LossType, loss))
+        load_numpy_params(ff, params)
+        return ff
+
+    def step(ff, losses: list) -> None:
+        cm = ff.compiled
+        if variant == "grad_step":
+            grads = cm.grad_step(cm.params, None, *ff._cur_batch)
+            cm.params, cm.opt_state = cm.update_fn(cm.params, grads, cm.opt_state)
+            return
+        cm.params, cm.opt_state, l, _ = cm.train_step(cm.params, cm.opt_state, None,
+                                                      *ff._cur_batch)
+        losses.append(float(l))
+
+    ff, ref = compiled(), compiled()
+    bucketed = compiler._GradSync
+    losses, records, got, want = [], [], [], []
+    for b in batches:
+        ff.set_batch(list(b[:-1]), b[-1])
+        step(ff, losses)
+        records.append(dict(ff.compiled.last_sync))
+        got.append(ff.numpy_params())
+        ref.set_batch(list(b[:-1]), b[-1])
+        compiler._GradSync = functools.partial(_AfterBackward, ref.compiled.sync_grads)
+        try:
+            step(ref, [])
+        finally:
+            compiler._GradSync = bucketed
+        want.append(ref.numpy_params())
+    return dict(losses=losses, records=records, got=got if rank == 0 else None,
+                want=want if rank == 0 else None, rank=rank)
+
+
+class _AfterBackward:
+    """``compiler._GradSync``'s stand-in for the reference compile: the
+    gradient all-reduce as it ran before the buckets, after the backward.
+    No hooks; ``wait`` joins each gradient to the earlier microbatches'
+    sum and divides by K, then all-reduces the whole tree through
+    ``sync_grads``, one flat buffer a set of axes."""
+
+    def __init__(self, sync_grads, buckets, mesh, leaves, acc, k):
+        self.sync_grads, self.acc, self.k = sync_grads, acc, k
+
+    def returned(self, grads) -> None:
+        pass
+
+    def wait(self, grads, record):
+        if self.acc is not None:
+            grads = {o: {w: (self.acc[o][w] + g) / self.k for w, g in ws.items()}
+                     for o, ws in grads.items()}
+        return self.sync_grads(grads)
+
+
+def unused_mlp(ff, batch: int, shape: dict):
+    """An MLP with a dense layer the loss does not read: its gradients are
+    zeros, synced with the rest."""
+    from flexflow_tpu_torch.ffconst import ActiMode
+
+    h = shape["hidden_size"]
+    x = ff.create_tensor((batch, h), name="input")
+    ff.dense(x, h, name="unused")
+    t = ff.dense(x, 2 * h, ActiMode.RELU, name="up")
+    return x, ff.dense(t, 1, name="head")

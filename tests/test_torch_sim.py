@@ -749,9 +749,10 @@ def test_shared_card_model_prices_staged_collectives():
 
 def test_shared_card_prices_the_ports_gradient_sync():
     """On a shared card the gradient sync is priced as the port's step
-    runs it (runtime/compiler.py sync_grads): over the axes that partition
-    the op's output and not the weight, in one coalesced all-reduce (no
-    latency a weight). A data-parallel MLP on {data: 2, model: 2} syncs
+    runs it (runtime/compiler.py's mesh step): over the axes that
+    partition the op's output and not the weight, in bucketed all-reduces
+    (no latency a weight: one a bucket, priced over the step, the next
+    test). A data-parallel MLP on {data: 2, model: 2} syncs
     over data only (its model-axis replicas computed the same gradient);
     JAX's rule, which cpu-host keeps, prices the combined degree 4 a
     weight, latency included. fc1 sharded {"out": "model"} syncs its half
@@ -772,6 +773,32 @@ def test_shared_card_prices_the_ports_gradient_sync():
     m1 = tsim.SharedCardMachineModel(tsim.CHIP_PRESETS["h100"], 4, staging=staging)
     rep = next(o for o in _mlp_ops(_ns("port"), {"model": 4}) if o.name == "fc1")
     assert tsim.OpCostModel(m1).measure(rep).sync_time == 0.0
+
+
+def test_shared_card_prices_one_latency_a_gradient_bucket(monkeypatch):
+    """The port's mesh step issues one all-reduce a gradient bucket, cut by
+    parallel/grad_buckets.py: the simulator's grad_sync task
+    on a shared card is the weights' bytes at the staging rate plus one
+    latency a bucket. The {data: 2} MLP's gradients in backward order:
+    fc2's kernel (8 KiB) and bias (64 B), fc1's kernel (32 KiB) and bias
+    (512 B): one bucket at DDP's 25 MiB, three at 8 KiB (fc2.kernel |
+    fc2.bias, fc1.kernel | fc1.bias), four at one byte. A machine whose
+    weights price their own calls adds none."""
+    from flexflow_tpu_torch.parallel import grad_buckets
+
+    m = tsim.SharedCardMachineModel(tsim.CHIP_PRESETS["h100"], 2, staging={(2, 2): (1e9, 2e-3)})
+    cm = tsim.OpCostModel(m)
+    ops = _mlp_ops(_ns("port"), {"data": 2})
+    payload = (64 * 128 + 128 + 128 * 16 + 16) * 4
+    for size, n in ((25 << 20, 1), (8 << 10, 3), (1, 4)):
+        monkeypatch.setattr(grad_buckets, "GRAD_BUCKET_BYTES", size)
+        assert cm.grad_sync_latency(ops) == pytest.approx(n * 2e-3, rel=1e-12)
+        for overlap in (False, True):
+            sim = tsim.Simulator(m, cm, overlap_grad_sync=overlap)
+            task = next(t for t in sim.build_task_graph(ops) if t.name == "grad_sync")
+            assert task.run_time == pytest.approx(payload / 1e9 + n * 2e-3, rel=1e-12)
+    plain = tsim.OpCostModel(tsim.SimpleMachineModel(tsim.CHIP_PRESETS["h100"], 2))
+    assert plain.grad_sync_latency(ops) == 0.0
 
 
 def test_measure_staging_rate_over_layouts():
